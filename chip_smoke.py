@@ -1,0 +1,659 @@
+#!/usr/bin/env python3
+"""Chip smoke of superllama_tpu_torch, the PyTorch / CUDA port: drives the
+port's serving path on one NVIDIA GPU and holds every kernel to its plain
+PyTorch version.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+ 1. device: torch's name and capability, nvidia-smi's name and power limit;
+ 2. build: nvcc of every kernel source in superllama_tpu_torch/csrc;
+ 3. kernels against their plain versions at Llama-3-8B shapes;
+ 4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
+    server answers 8 concurrent completions and one streamed one; the launch
+    counters show the path went through every kernel;
+ 5. full-width parity: one 8B forward with the kernels and again with the
+    plain versions;
+ 6. times: decode tok/s, time to first token, and each kernel's time beside
+    its plain version, a library call and its bound;
+ 7. profile: where one engine decode step's time goes (torch.profiler).
+The line before the last is the kernels' JSON record, the last line
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import threading
+import time
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+SEED = 0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nmse(got, ref) -> float:
+    g, r = got.double(), ref.double()
+    return float(((g - r) ** 2).mean() / (r ** 2).mean().clamp_min(1e-300))
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ------------------------------------------------------------ 1. device
+
+
+def phase_device(torch) -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unavailable"
+    info = {"phase": "device", "name": torch.cuda.get_device_name(0),
+            "capability": list(torch.cuda.get_device_capability(0)),
+            "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+    emit(info)
+    return info
+
+
+# ------------------------------------------------------------ 2. build
+
+
+def phase_build() -> None:
+    from superllama_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    dt = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    regs = {}
+    for name, log in logs.items():
+        with open(os.path.join(OUT_DIR, f"ptxas_{name}.txt"), "w") as f:
+            f.write(log)
+        used = [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "Used" in ln]
+        regs[name] = used
+    emit({"phase": "build", "seconds": dt, "sources": list(_build.SOURCES),
+          "ptxas_used": regs})
+
+
+# ------------------------------------------------------------ 3. kernels
+
+
+def rand_weight(torch, kind: str, N: int, K: int, seed: int):
+    """A random weight of the given format, generated on the card."""
+    from superllama_tpu_torch.gguf.constants import GGMLType
+    from superllama_tpu_torch.models.synthetic import rand_q4k
+    from superllama_tpu_torch.ops.qtensor import QTensor
+
+    dev = torch.device("cuda")
+    if kind == "Q4_K":
+        return rand_q4k(f"w{seed}", N, K, seed, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1000 + seed)
+    ri = lambda lo, hi, shape, dt: torch.randint(lo, hi, shape, generator=g,
+                                                 device=dev, dtype=dt)
+    if kind == "Q6_K":
+        d = torch.rand((K // 256, N), generator=g, device=dev) / (16.0 * 32 * math.sqrt(K))
+        return QTensor(ri(0, 256, (K // 2, N), torch.uint8), None, None, 16, 32,
+                       True, K, N, GGMLType.Q6_K, sc=ri(-32, 33, (K // 16, N), torch.int8),
+                       d=d, hi=ri(0, 256, (K // 4, N), torch.uint8), hi_bits=2, sb=16)
+    scales = torch.rand((K // 32, N), generator=g, device=dev) / (64.0 * math.sqrt(K))
+    return QTensor(ri(-127, 128, (K, N), torch.int8), scales, None, 32, 0, False,
+                   K, N, GGMLType.Q8_0)
+
+
+KN_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+# (M, K, N) grid of tests/test_backend_ops.py plus the 3- and 13-row qmv
+# instantiations
+EDGE_SHAPES = [(1, 512, 64), (5, 512, 128), (128, 512, 64), (16, 1024, 96),
+               (1, 768, 64), (8, 768, 128), (2, 544, 128), (33, 544, 64),
+               (47, 1024, 96), (8, 512, 640), (3, 512, 64), (13, 768, 96)]
+# (T, S, G, swa, softcap, sinks, q8): the FA_CELLS of tests/test_backend_ops.py
+FA_EDGE_CELLS = ([(T, S, G, 0, 0.0, False, False)
+                  for T, S in ((1, 256), (8, 256), (64, 64), (100, 131)) for G in (1, 4)]
+                 + [(T, S, 4, swa, cap, sk, q8) for T, S in ((1, 256), (64, 128))
+                    for swa, cap, sk, q8 in ((32, 0.0, False, False), (0, 30.0, False, False),
+                                             (0, 0.0, True, False), (0, 0.0, False, True),
+                                             (32, 0.0, True, True))])
+
+
+def fa_inputs(torch, B=1, T=32, S=2048, n_past=500, H=32, Hkv=8, D=128,
+              dtype="bf16", q8=False, sinks=False, lens=None, seed=0):
+    """Cache layout inputs: slots [0, n_past + len) occupied in order, the
+    rest empty (-1); query rows at positions n_past..n_past+len-1, padding
+    rows (beyond each row's len) at -1."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = torch.randn((B, T, H, D), generator=g, device=dev).to(dt)
+    k = torch.randn((B, Hkv, S, D), generator=g, device=dev)
+    v = torch.randn((B, Hkv, S, D), generator=g, device=dev)
+    lens = lens or [T] * B
+    q_pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+    kv_pos = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+    for b, n in enumerate(lens):
+        q_pos[b, :n] = torch.arange(n_past, n_past + n, device=dev)
+        kv_pos[b, :n_past + n] = torch.arange(n_past + n, device=dev)
+    kw = {}
+    if q8:
+        ks = k.abs().amax(-1) / 127.0
+        vs = v.abs().amax(-1) / 127.0
+        k = torch.round(k / ks[..., None]).to(torch.int8)
+        v = torch.round(v / vs[..., None]).to(torch.int8)
+        kw = {"k_scale": ks, "v_scale": vs}
+    else:
+        k, v = k.to(dt), v.to(dt)
+    if sinks:
+        kw["sinks"] = torch.randn((H,), generator=g, device=dev)
+    return (q, k, v, q_pos, kv_pos), kw
+
+
+def phase_kernels(torch) -> list:
+    from superllama_tpu_torch.ops.flash_attention import (flash_attention,
+                                                          flash_attention_plain)
+    from superllama_tpu_torch.ops.qmatmul import qmm, qmm_plain, qmv, qmv_plain
+
+    # parity phases compare full-precision f32 products: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    # bf16 outputs: kernel and plain version sum the same exact terms in
+    # another order, so the f32 sums differ in the last bits and a few
+    # outputs round to the neighbouring bf16 value (relative step 2^-8).
+    # fa in bf16, and with Q8_0 K/V in any type, also rounds p to bf16
+    # before P.V: the kernel rounds p relative to each tile's running max,
+    # the plain version relative to the row's final max, a relative 2^-9
+    # difference on every probability. Those cases sit closest to the bf16
+    # limit (NMSE up to 4.8e-6 on an H100) and are held to it all the same
+    TOL = {bf16: 1e-5, f32: 1e-9}
+    rows = []
+
+    def record(kernel, case, got, ref, dtype, mask=None, p_bf16=False):
+        g, r = got.float(), ref.float()
+        if mask is not None:
+            g, r = g[mask], r[mask]
+        err = float((g - r).abs().max())
+        e = nmse(g, r)
+        tol = TOL[bf16] if p_bf16 else TOL[dtype]
+        ok = bool(torch.isfinite(got.float()).all()) and e < tol
+        rows.append({"kernel": kernel, "case": case, "max_abs_err": err,
+                     "nmse": e, "tol": tol, "ok": ok})
+        check(ok, f"{kernel} {case}: nmse {e:g} (tol {tol:g}), max err {err:g}")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    seed = 0
+    mv_cases = [("Q4_K", M, K, N, bf16) for M in (1, 8, 16) for K, N in KN_8B]
+    mv_cases += [("Q6_K", 8, 4096, 14336, bf16), ("Q8_0", 8, 4096, 14336, bf16),
+                 ("Q4_K", 8, 4096, 14336, f32)]
+    mm_cases = [("Q4_K", M, K, N, bf16) for M in (17, 32) for K, N in KN_8B]
+    mm_cases += [("Q6_K", 32, 4096, 14336, bf16), ("Q8_0", 32, 4096, 14336, bf16),
+                 ("Q4_K", 32, 4096, 4096, f32)]
+    # the edges at small shapes, in f32: every row-count instantiation of
+    # qmv, partial column tiles, K of 17 groups, qmm row tiles past 32
+    for kind in ("Q4_K", "Q6_K", "Q8_0"):
+        for M, K, N in EDGE_SHAPES:
+            if K % (32 if kind == "Q8_0" else 256):
+                continue
+            if M <= 16:
+                mv_cases.append((kind, M, K, N, f32))
+            mm_cases.append((kind, M, K, N, f32))
+    weights = {}
+    for kernel, cases, fn, plain in (("qmv", mv_cases, qmv, qmv_plain),
+                                     ("qmm", mm_cases, qmm, qmm_plain)):
+        for kind, M, K, N, dt in cases:
+            key = (kind, K, N)
+            if key not in weights:
+                seed += 1
+                weights[key] = rand_weight(torch, kind, N, K, seed)
+            qt = weights[key]
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            got = fn(x, qt, dt)
+            ref = plain(x, qt, dt)
+            torch.cuda.synchronize()
+            record(kernel, f"{kind} M={M} K={K} N={N} {str(dt)[6:]}", got, ref, dt)
+    weights.clear()
+
+    fa_cases = [("T=32 bf16", dict(T=32)), ("T=128 bf16", dict(T=128)),
+                ("T=32 f32", dict(T=32, dtype="f32")),
+                ("T=128 q8_0 kv", dict(T=128, q8=True)),
+                ("T=128 swa=256", dict(T=128, swa=256)),
+                ("T=32 softcap=50", dict(T=32, softcap=50.0)),
+                ("T=128 sinks", dict(T=128, sinks=True)),
+                ("B=8 T=128 mixed lens", dict(B=8, T=128, n_past=0,
+                                              lens=[100, 32] * 4))]
+    for T, S, G, swa, cap, sinks, q8 in FA_EDGE_CELLS:
+        fa_cases.append((f"f32 T={T} S={S} G={G} swa={swa} softcap={cap} sinks={sinks} q8={q8}",
+                         dict(B=2, T=T, S=S, n_past=max(S - T - 3, 0), H=2 * G, Hkv=2,
+                              D=64, dtype="f32", q8=q8, sinks=sinks, swa=swa, softcap=cap)))
+    fa_cases.append(("f32 T=40 S=64 G=2 D=16", dict(T=40, S=64, n_past=0, H=4, Hkv=2, D=16,
+                                                     dtype="f32")))
+    for i, (case, kw) in enumerate(fa_cases):
+        kw = dict(kw)
+        swa, cap = kw.pop("swa", 0), kw.pop("softcap", 0.0)
+        args, extra = fa_inputs(torch, seed=100 + i, **kw)
+        got = flash_attention(*args, swa_window=swa, logit_softcap=cap, **extra)
+        ref = flash_attention_plain(*args, swa_window=swa, logit_softcap=cap, **extra)
+        torch.cuda.synchronize()
+        record("fa", case, got, ref, args[0].dtype, mask=args[3] >= 0,
+               p_bf16=kw.get("q8", False))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "kernel_checks.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    worst = {}
+    for r in rows:
+        w = worst.get(r["kernel"])
+        if w is None or r["nmse"] / r["tol"] > w["nmse"] / w["tol"]:
+            worst[r["kernel"]] = r
+    emit({"phase": "kernels", "n_checks": len(rows), "all_ok": all(r["ok"] for r in rows),
+          "closest_to_tolerance": worst})
+    return rows
+
+
+# ------------------------------------------------------------ 4. serving
+
+
+def counters():
+    from superllama_tpu_torch.ops import flash_attention as fa_mod
+    from superllama_tpu_torch.ops import qmatmul as qm_mod
+
+    return {"qmv": qm_mod.qmv, "qmm": qm_mod.qmm, "fa": fa_mod.flash_attention}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def build_model(torch):
+    from superllama_tpu_torch.models.loader import LoadedModel
+    from superllama_tpu_torch.models.synthetic import (llama3_8b_hparams,
+                                                       synthetic_qparams_device)
+
+    hp = llama3_8b_hparams()
+    t0 = time.perf_counter()
+    params = synthetic_qparams_device(hp, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    qbytes = sum(w.nbytes for layer in params["layers"] for w in layer.values()
+                 if hasattr(w, "planes")) + params["output"].nbytes
+    emit({"phase": "model", "arch": hp.arch, "n_layer": hp.n_layer,
+          "n_embd": hp.n_embd, "n_vocab": hp.n_vocab, "q4k_weight_bytes": qbytes,
+          "seconds": time.perf_counter() - t0})
+    return LoadedModel(hp, params, tokenizer=None, metadata={},
+                       name="synthetic-llama3-8b-q4_k")
+
+
+def token_prompts(n_vocab: int, lens, seed: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, n_vocab, n).tolist() for n in lens]
+
+
+def http(port: int, path: str, body: dict, timeout: float = 600.0):
+    import urllib.request
+
+    r = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                               data=json.dumps(body).encode(), method="POST",
+                               headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(r, timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def in_one_wave(engine, submit_all, n: int) -> None:
+    """Hold the engine between steps while n requests arrive, so they are
+    admitted together and prefill in one wave: the same batch every time,
+    hence the same arithmetic for the same prompts."""
+    with engine._step_lock:
+        submit_all()
+        deadline = time.time() + 120
+        while engine._queue.qsize() < n:
+            check(time.time() < deadline, "requests did not reach the engine")
+            time.sleep(0.01)
+
+
+def engine_wave(engine, prompts, max_tokens: int) -> list[dict]:
+    from superllama_tpu_torch.runtime.engine import GenRequest
+
+    reqs = []
+    in_one_wave(engine, lambda: reqs.extend(
+        engine.submit(GenRequest(prompt_ids=p, max_tokens=max_tokens,
+                                 sampling={"greedy": True}, stop_eog=False))
+        for p in prompts), len(prompts))
+    return [r.result(timeout=600) for r in reqs]
+
+
+def phase_serving(torch, model) -> dict:
+    from superllama_tpu_torch.server.http import Server, ServerApp
+
+    app = ServerApp(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16,
+                    model_name=model.name, device="cuda")
+    srv = Server(app, host="127.0.0.1", port=0)
+    srv.start()
+    eng = app.engine
+    try:
+        prompts = token_prompts(model.hparams.n_vocab, [32, 100] * 4, SEED + 1)
+        body = lambda p, **kw: {"prompt": p, "max_tokens": 64, "temperature": 0,
+                                "return_tokens": True, **kw}
+        results: list = [None] * len(prompts)
+
+        def send(i):
+            results[i] = http(srv.port, "/v1/completions", body(prompts[i]))
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+        reset_counts()
+        t0 = time.perf_counter()
+        in_one_wave(eng, lambda: [t.start() for t in threads], len(prompts))
+        for t in threads:
+            t.join(timeout=900)
+        t_batch = time.perf_counter() - t0
+        stream_prompt = token_prompts(model.hparams.n_vocab, [32], SEED + 2)[0]
+        status, raw = http(srv.port, "/v1/completions", body(stream_prompt, stream=True))
+        counts = read_counts()
+
+        served = []
+        for i, (st, data) in enumerate(results):
+            out = json.loads(data)
+            ch = out["choices"][0]
+            check(st == 200, f"request {i}: HTTP {st}")
+            check(ch["finish_reason"] == "length", f"request {i}: {ch['finish_reason']}")
+            check(out["usage"]["completion_tokens"] == 64, f"request {i}: usage {out['usage']}")
+            served.append(ch["tokens"])
+        events = [ln[6:] for ln in raw.decode().split("\n") if ln.startswith("data: ")]
+        check(status == 200 and events[-1] == "[DONE]", "stream did not end with [DONE]")
+        chunks = [json.loads(e) for e in events[:-1]]
+        final = chunks[-1]
+        streamed = [c["choices"][0]["token"] for c in chunks[:-1]]
+        check(final["choices"][0]["finish_reason"] == "length", f"stream: {final}")
+        check(final["usage"]["completion_tokens"] == 64 and len(streamed) == 64,
+              f"stream: {len(streamed)} tokens, usage {final['usage']}")
+        for name, n in counts.items():
+            check(n > 0, f"the serving path never launched the {name} kernel")
+
+        # the same prompts straight through the engine, batched the same way
+        direct = [r["tokens"] for r in engine_wave(eng, prompts, 64)]
+        check(direct == served, "served tokens differ from the engine's for the same wave")
+        alone = eng.generate(stream_prompt, max_tokens=64, sampling={"greedy": True},
+                             stop_eog=False)["tokens"]
+        check(alone == streamed, "streamed tokens differ from engine.generate")
+        info = {"phase": "serving", "requests": len(prompts) + 1,
+                "batch_wall_s": t_batch, "launches": counts,
+                "served_equal_engine": True, "stream_equal_generate": True,
+                "ttft_s": [json.loads(d)["timings"]["ttft_s"] for _, d in results]}
+    finally:
+        srv.stop()
+    emit(info)
+    return counts
+
+
+# ------------------------------------------------------------ 5. parity
+
+
+def forward_run(torch, model, tokens_seq):
+    """Prefill tokens_seq[0] then decode the rest one by one on a fresh
+    cache; returns the logits of every step (f32)."""
+    from superllama_tpu_torch.models.llama import llama_forward
+    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
+
+    hp = model.hparams
+    cache = kv_cache_init(hp.n_layer, 1, 2048, hp.n_head_kv, hp.head_dim,
+                          dtype=torch.bfloat16, device="cuda")
+    out, p0 = [], 0
+    with torch.no_grad():
+        for toks in tokens_seq:
+            t = torch.tensor([toks], device="cuda")
+            pos = torch.arange(p0, p0 + len(toks), device="cuda", dtype=torch.int32)[None]
+            logits, _ = llama_forward(model.params, hp, t, pos, cache)
+            out.append(logits.float())
+            p0 += len(toks)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_parity(torch, model) -> None:
+    """One full-width forward (32-token prefill + 4 decode steps) with the
+    kernels and again with their plain versions on the same inputs."""
+    from superllama_tpu_torch.models import llama as llama_mod
+    from superllama_tpu_torch.ops import qmatmul as qm_mod
+    from superllama_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    seq = token_prompts(model.hparams.n_vocab, [32, 1, 1, 1, 1], SEED + 3)
+    got = forward_run(torch, model, seq)
+    saved = (qm_mod.qmv, qm_mod.qmm, llama_mod.flash_attention)
+    qm_mod.qmv, qm_mod.qmm, llama_mod.flash_attention = (
+        qm_mod.qmv_plain, qm_mod.qmm_plain, flash_attention_plain)
+    try:
+        ref = forward_run(torch, model, seq)
+    finally:
+        qm_mod.qmv, qm_mod.qmm, llama_mod.flash_attention = saved
+    steps = [{"step": i, "nmse": nmse(g, r), "max_abs_err": float((g - r).abs().max()),
+              "argmax_agree": float((g.argmax(-1) == r.argmax(-1)).float().mean())}
+             for i, (g, r) in enumerate(zip(got, ref))]
+    emit({"phase": "parity", "steps": steps})
+    # bf16 activations between layers: the kernels and the plain versions
+    # sum in other orders, a last-bit difference can round a bf16 activation
+    # or move an int8 activation code by one step, and that compounds over
+    # 32 layers; logits stay within NMSE 1e-3 of each other
+    for s in steps:
+        check(s["nmse"] < 1e-3, f"full-width parity step {s['step']}: nmse {s['nmse']:g}")
+
+
+# ------------------------------------------------------------ 6. times
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 3) -> float:
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_matmul_kernels(torch) -> dict:
+    """qmv and qmm at the 8B decode / 32-token prefill shape of ffn_gate/up
+    (K 4096, N 14336, Q4_K). Weights rotate over copies that together exceed
+    the 50 MB L2, so each launch reads its weight from device memory, as a
+    decode step does."""
+    from superllama_tpu_torch.ops.qmatmul import qmm, qmm_plain, qmv, qmv_plain
+    from superllama_tpu_torch.ops.qtensor import dequant_qtensor
+
+    K, N = 4096, 14336
+    copies = [rand_weight(torch, "Q4_K", N, K, 50 + i) for i in range(6)]
+    dense = [dequant_qtensor(w, torch.bfloat16) for w in copies[:2]]
+    out = {}
+    for name, M, fn, plain, kind in (("qmv", 8, qmv, qmv_plain, "int8"),
+                                     ("qmm", 32, qmm, qmm_plain, "bf16")):
+        x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
+        ms = cuda_ms(torch, lambda i: fn(x, copies[i % len(copies)], torch.bfloat16), 60)
+        plain_ms = cuda_ms(torch, lambda i: plain(x, copies[i % len(copies)], torch.bfloat16), 5, 1)
+        lib_ms = cuda_ms(torch, lambda i: torch.matmul(x, dense[i % 2]), 60)
+        nbytes = copies[0].nbytes + x.numel() * 2 + M * N * 2
+        b, by = bound(nbytes, 2.0 * M * K * N, kind)
+        out[name] = {"shape": f"Q4_K M={M} K={K} N={N} bf16", "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b,
+                     "bound_by": by, "bytes": nbytes, "ops": 2.0 * M * K * N}
+    return out
+
+
+def time_fa(torch) -> dict:
+    """fa at the serving wave's shape: 8 rows of 100 or 32 prompt tokens in
+    a 128-token bucket over a 2048-slot cache. Work and bytes count only the
+    visible (causal, occupied) part, as the kernel skips the rest."""
+    import torch.nn.functional as F
+
+    from superllama_tpu_torch.ops.flash_attention import (flash_attention,
+                                                          flash_attention_plain)
+
+    lens = [100, 32] * 4
+    (q, k, v, q_pos, kv_pos), _ = fa_inputs(torch, B=8, T=128, n_past=0, lens=lens, seed=7)
+    B, T, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    ms = cuda_ms(torch, lambda i: flash_attention(q, k, v, q_pos, kv_pos), 50)
+    plain_ms = cuda_ms(torch, lambda i: flash_attention_plain(q, k, v, q_pos, kv_pos), 5, 1)
+    mask = ((kv_pos[:, None, None, :] >= 0) & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
+    qt = q.transpose(1, 2)
+    lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=mask, enable_gqa=True), 50)
+    pairs = sum(n * (n + 1) // 2 for n in lens) * H          # visible (row, slot) pairs
+    ops = 2.0 * (D + D) * pairs
+    visible_slots = sum(lens)
+    nbytes = (2 * visible_slots * Hkv * D * 2 + sum(lens) * H * D * 2 * 2
+              + (B * T + B * S) * 4)
+    b, by = bound(nbytes, ops, "bf16")
+    return {"fa": {"shape": f"B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} bf16 lens={lens}",
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b, "bound_by": by, "bytes": nbytes, "ops": ops}}
+
+
+def time_serving(torch, model) -> dict:
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda")
+    p32, p100 = token_prompts(model.hparams.n_vocab, [32, 100], SEED + 4)
+    eng.generate(p32, max_tokens=16, sampling={"greedy": True}, stop_eog=False)  # warm
+    r1 = eng.generate(p32, max_tokens=128, sampling={"greedy": True}, stop_eog=False)
+    r100 = eng.generate(p100, max_tokens=8, sampling={"greedy": True}, stop_eog=False)
+    eng.start()
+    try:
+        t0 = time.perf_counter()
+        rs = engine_wave(eng, token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 5), 128)
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    # launches of one lone 32-token prefill chunk, then of one decode step
+    reset_counts()
+    eng.generate(p32, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
+    per_chunk = read_counts()
+    eng.block_size = 1
+    reset_counts()
+    eng.generate(p32, max_tokens=2, sampling={"greedy": True}, stop_eog=False)
+    per_step = {k: n - per_chunk[k] for k, n in read_counts().items()}
+    return {
+        "decode_tok_s_b1": (r1["n_generated"] - 1) / (r1["total_s"] - r1["ttft_s"]),
+        "decode_tok_s_b8": sum(r["n_generated"] - 1 for r in rs)
+        / (max(r["total_s"] for r in rs) - max(r["ttft_s"] for r in rs)),
+        "ttft_ms_prompt32": r1["ttft_s"] * 1e3, "ttft_ms_prompt100": r100["ttft_s"] * 1e3,
+        "batch8_wall_s": wall, "launches_per_prefill_chunk_32": per_chunk,
+        "launches_per_decode_step": per_step,
+    }
+
+
+def phase_times(torch, model, smi_line: str) -> dict:
+    serving = time_serving(torch, model)
+    kernels = {**time_matmul_kernels(torch), **time_fa(torch)}
+    emit({"phase": "times", "card": smi_line, "serving": serving, "kernels": kernels})
+    return kernels
+
+
+def phase_profile(torch, model) -> None:
+    """Where a decode step's time goes: torch.profiler over
+    one block of 8 greedy decode steps with 8 active rows; the full table
+    goes to chiprun_out/profile_decode.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from superllama_tpu_torch.runtime.engine import Engine, GenRequest
+
+    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda")
+    for p in token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 6):
+        eng.submit(GenRequest(prompt_ids=p, max_tokens=64, sampling={"greedy": True},
+                              stop_eog=False))
+    eng.step()                      # admit, prefill wave, first decode block
+    eng.step()                      # warm decode block
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # device-side rows (kernels, copies) carry no CPU time; operator rows
+    # repeat their kernels' device time, so they are left out of the sums
+    dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+           if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    device_ms = sum(t for _, t, _ in dev)
+    n_kernels = sum(c for _, _, c in dev)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profile_decode.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+    top = sorted(dev, key=lambda r: -r[1])[:12]
+    emit({"phase": "profile", "what": "one engine step = 8 greedy decode steps, 8 rows",
+          "wall_ms": wall_ms, "device_ms": device_ms,
+          "device_idle_share": 1.0 - device_ms / wall_ms, "device_ops": n_kernels,
+          "cuda_launch_calls": launches,
+          "top": [{"name": k[:80], "ms": t, "count": c} for k, t, c in top]})
+
+
+# ------------------------------------------------------------ main
+
+KERNELS = [
+    ("qmv", "superllama_tpu_torch/csrc/qmv.cu", "superllama_tpu/ops/qmatmul.py:235"),
+    ("qmm", "superllama_tpu_torch/csrc/qmm.cu", "superllama_tpu/ops/qmatmul.py:94"),
+    ("fa", "superllama_tpu_torch/csrc/fa.cu", "superllama_tpu/ops/flash_attention.py:36"),
+]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device; the chip smoke runs on a GPU", file=sys.stderr)
+        return 2
+    try:
+        import superllama_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"error: superllama_tpu_torch not importable ({e}); run from "
+              f"the repo root", file=sys.stderr)
+        return 2
+    info = phase_device(torch)
+    phase_build()
+    checks = phase_kernels(torch)
+    model = build_model(torch)
+    counts = phase_serving(torch, model)
+    phase_parity(torch, model)
+    times = phase_times(torch, model, info["nvidia_smi"])
+    phase_profile(torch, model)
+    record = []
+    for name, source, replaces in KERNELS:
+        t = times[name]
+        record.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[name],
+            "max_abs_err": max(c["max_abs_err"] for c in checks if c["kernel"] == name),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(info["nvidia_smi"])
+    emit({"kernels": record})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"],
+                                 "count": info["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,113 @@
+"""Command-line entry points of the port: ``run`` (generate text from a
+prompt) and ``serve`` (the OpenAI-compatible HTTP server), with the flag
+names of the JAX package's CLI for what exists.
+
+Usage:  python -m superllama_tpu_torch <run|serve> -m model.gguf [options]
+
+Both run on the GPU unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+_KV_DTYPES = ("bfloat16", "float32")
+
+
+def _add_model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-m", "--model", required=True, help="GGUF model path")
+    p.add_argument("-c", "--ctx-size", type=int, default=2048, help="context window size")
+    p.add_argument("--keep-quantized", action="store_true",
+                   help="keep Q8_0/Q4_K/Q6_K weights packed for the quantized kernels")
+    p.add_argument("--kv-dtype", default="bfloat16", choices=_KV_DTYPES,
+                   help="KV cache dtype")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+
+def _load(args):
+    import torch
+
+    from .models import load_model
+
+    t0 = time.perf_counter()
+    model = load_model(args.model, keep_quantized=args.keep_quantized,
+                       device=args.device)
+    print(f"loaded {args.model} [{model.hparams.arch}] on {args.device} "
+          f"in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+    return model, getattr(torch, args.kv_dtype)
+
+
+def cmd_run(args) -> int:
+    from .runtime.engine import Engine, GenRequest
+
+    model, kvd = _load(args)
+    tok = model.tokenizer
+    if tok is None:
+        print("error: the model has no tokenizer", file=sys.stderr)
+        return 2
+    ids = tok.encode(args.prompt, add_special=True, parse_special=True)
+    sampling = ({"greedy": True} if args.temp <= 0 else
+                {"temp": args.temp, "top_k": args.top_k, "top_p": args.top_p,
+                 "min_p": args.min_p, "seed": args.seed})
+    eng = Engine(model, n_slots=1, n_ctx=args.ctx_size, kv_dtype=kvd,
+                 device=args.device)
+    req = GenRequest(
+        prompt_ids=ids, max_tokens=args.n_predict, sampling=sampling,
+        stream=(lambda t, piece: print(piece, end="", flush=True))
+        if args.stream else None)
+    eng.submit(req)
+    eng.run_until_drained()
+    res = req.result()
+    print() if args.stream else print(res["text"])
+    print(f"[{res['n_generated']} tokens, ttft {res['ttft_s'] * 1e3:.0f} ms, "
+          f"{res['n_generated'] / max(res['total_s'] - res['ttft_s'], 1e-9):.1f} tok/s]",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from .server.http import Server, ServerApp
+
+    model, kvd = _load(args)
+    app = ServerApp(model, n_slots=args.slots, n_ctx=args.ctx_size, kv_dtype=kvd,
+                    device=args.device)
+    srv = Server(app, host=args.host, port=args.port)
+    srv.start()
+    print(f"listening on http://{args.host}:{srv.port}", file=sys.stderr)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="superllama_tpu_torch", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("run", help="generate text")
+    _add_model_args(p)
+    p.add_argument("-p", "--prompt", required=True)
+    p.add_argument("-n", "--n-predict", type=int, default=128, help="tokens to generate")
+    p.add_argument("--temp", type=float, default=0.8, help="temperature (<=0 → greedy)")
+    p.add_argument("--top-k", type=int, default=40)
+    p.add_argument("--top-p", type=float, default=0.95)
+    p.add_argument("--min-p", type=float, default=0.05)
+    p.add_argument("-s", "--seed", type=int, default=0, help="RNG seed")
+    p.add_argument("--stream", action="store_true")
+    p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("serve", help="HTTP server")
+    _add_model_args(p)
+    p.add_argument("--host", default="127.0.0.1", help="bind address")
+    p.add_argument("--port", type=int, default=8080, help="bind port")
+    p.add_argument("-np", "--slots", "--parallel", type=int, default=4,
+                   help="concurrent generation slots")
+    p.set_defaults(fn=cmd_serve)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)

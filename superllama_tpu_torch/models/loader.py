@@ -1,0 +1,110 @@
+"""GGUF → device params loader for the llama family.
+
+Counterpart of the JAX package's ``models/loader.py::load_model`` (llama
+branch): reads tensors by name, keeps repackable 2-D matmul weights packed as
+QTensors when asked (or dequantizes them), transposes matmul weights to
+(in, out) so the forward uses ``x @ w``, and places every tensor on the
+device once.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..gguf import GGUFReader
+from ..ops.qtensor import REPACKABLE, repack
+from .hparams import HParams, hparams_from_gguf
+from .registry import get_forward
+
+
+@dataclass
+class LoadedModel:
+    hparams: HParams
+    params: dict[str, Any]
+    tokenizer: Any
+    metadata: dict[str, Any]
+    name: str = ""
+
+
+def _get(reader: GGUFReader, name: str, dtype: torch.dtype, device,
+         transpose: bool = True, keep_quantized: bool = False):
+    ti = reader.tensors.get(name)
+    if ti is None:
+        return None
+    if (keep_quantized and transpose and len(ti.ne) == 2
+            and ti.ggml_type in REPACKABLE):
+        return repack(ti.raw(), ti.ggml_type, ti.shape, device=device)
+    arr = ti.astype_f32()
+    if transpose and arr.ndim == 2:
+        arr = arr.T                       # (out, in) → (in, out)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
+
+
+def load_model(path: str, dtype: torch.dtype = torch.float32,
+               keep_quantized: bool = False, device=None) -> LoadedModel:
+    """Load a llama-family GGUF: hparams + tokenizer + params on ``device``
+    (default CUDA).
+
+    keep_quantized=True keeps Q8_0 / Q4_K / Q6_K matmul weights packed as
+    QTensors for the quantized kernels; other tensors are dequantized to
+    ``dtype``."""
+    dev = resolve_device(device)
+    reader = GGUFReader(path)
+    try:
+        if int(reader.metadata.get("split.count", 1) or 1) > 1:
+            raise NotImplementedError("split GGUF files are not ported yet")
+        hp = hparams_from_gguf(reader)
+        get_forward(hp.arch)              # raises for unported architectures
+        tok = None
+        if "tokenizer.ggml.tokens" in reader.metadata:
+            from ..tokenizer import Tokenizer, vocab_from_gguf
+
+            tok = Tokenizer(vocab_from_gguf(reader))
+
+        def g(name, t=True):
+            return _get(reader, name, dtype, dev, t, keep_quantized)
+
+        params: dict[str, Any] = {
+            "token_embd": g("token_embd.weight", t=False),    # (V, E) lookup
+            "output_norm": g("output_norm.weight", t=False),
+            "output": g("output.weight"),                      # None → tied
+            "output_b": g("output.bias", t=False),
+            "rope_freqs": g("rope_freqs.weight", t=False),     # llama3 factors
+            "layers": [],
+        }
+        for il in range(hp.n_layer):
+            p = f"blk.{il}."
+            if p + "attn_qkv.weight" in reader.tensors:
+                raise NotImplementedError("fused qkv tensors are not ported yet")
+            layer = {
+                "attn_norm": g(p + "attn_norm.weight", t=False),
+                "wq": g(p + "attn_q.weight"),
+                "wk": g(p + "attn_k.weight"),
+                "wv": g(p + "attn_v.weight"),
+                "wo": g(p + "attn_output.weight"),
+                "bq": g(p + "attn_q.bias", t=False),
+                "bk": g(p + "attn_k.bias", t=False),
+                "bv": g(p + "attn_v.bias", t=False),
+                "bo": g(p + "attn_output.bias", t=False),
+                "attn_q_norm": g(p + "attn_q_norm.weight", t=False),
+                "attn_k_norm": g(p + "attn_k_norm.weight", t=False),
+                "ffn_norm": g(p + "ffn_norm.weight", t=False),
+                "ffn_gate": g(p + "ffn_gate.weight"),
+                "ffn_up": g(p + "ffn_up.weight"),
+                "ffn_down": g(p + "ffn_down.weight"),
+                "ffn_gate_b": g(p + "ffn_gate.bias", t=False),
+                "ffn_up_b": g(p + "ffn_up.bias", t=False),
+                "ffn_down_b": g(p + "ffn_down.bias", t=False),
+                "attn_sinks": g(p + "attn_sinks.weight", t=False),
+            }
+            params["layers"].append({k: v for k, v in layer.items() if v is not None})
+        md = dict(reader.metadata)
+    finally:
+        reader.close()
+    return LoadedModel(hparams=hp, params=params, tokenizer=tok, metadata=md,
+                       name=md.get("general.name", ""))

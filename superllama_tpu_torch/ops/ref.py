@@ -1,0 +1,241 @@
+"""Plain PyTorch reference ops.
+
+The numerical semantics of the port, counterpart of the JAX package's
+``ops/jnp_ref.py``: the models call these directly, and the kernels are held
+against them. Reductions run in f32.
+
+ - rms_norm: ggml_rms_norm
+ - rope: ggml_rope_ext NORM/NEOX modes incl. YaRN
+ - attention: ggml_flash_attn_ext semantics with an f32 softmax
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# ----------------------------------------------------------------- norms
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor | None,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm; weight=None → non-parametric."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * weight.to(torch.float32)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- rope
+
+ROPE_TYPE_NONE = -1
+ROPE_TYPE_NORM = 0     # rotate adjacent pairs (2i, 2i+1): llama-style GGUF layout
+ROPE_TYPE_NEOX = 2     # rotate split halves (i, i + n/2)
+
+
+def rope_frequencies(
+    head_dim: int,
+    n_rot: int,
+    freq_base: float = 10000.0,
+    freq_scale: float = 1.0,
+    *,
+    ext_factor: float = 0.0,
+    attn_factor: float = 1.0,
+    beta_fast: float = 32.0,
+    beta_slow: float = 1.0,
+    orig_ctx: int = 0,
+    device=None,
+) -> tuple[torch.Tensor, float]:
+    """Per-dimension inverse frequencies + magnitude scale, incl. YaRN ramp.
+
+    Returns (inv_freq[n_rot//2] f32, mscale). Linear scaling is freq_scale < 1
+    with ext_factor == 0."""
+    dims = torch.arange(0, n_rot, 2, dtype=torch.float32, device=device)
+    theta = torch.pow(torch.tensor(freq_base, dtype=torch.float32,
+                                   device=device), -dims / n_rot)
+    if ext_factor == 0.0:
+        return theta * freq_scale, attn_factor
+
+    def corr_dim(n_orig_ctx, beta):
+        return n_rot * math.log(n_orig_ctx / (beta * 2 * math.pi)) / (2 * math.log(freq_base))
+
+    low = max(0.0, math.floor(corr_dim(orig_ctx, beta_fast)))
+    high = min(n_rot - 1.0, math.ceil(corr_dim(orig_ctx, beta_slow)))
+    ramp = torch.clamp((dims / 2.0 - low / 2.0) / max((high - low) / 2.0, 1e-3),
+                       0.0, 1.0)
+    ramp = 1.0 - ramp
+    theta_interp = theta * freq_scale
+    theta_mix = theta_interp * (1.0 - ramp * ext_factor) + theta * (ramp * ext_factor)
+    mscale = (attn_factor * (1.0 + 0.1 * math.log(1.0 / freq_scale))
+              if freq_scale < 1.0 else attn_factor)
+    return theta_mix, mscale
+
+
+def apply_rope(
+    x: torch.Tensor,         # (..., T, H, D)
+    pos: torch.Tensor,       # (..., T)
+    inv_freq: torch.Tensor,  # (n_rot//2,)
+    rope_type: int = ROPE_TYPE_NORM,
+    mscale: float = 1.0,
+) -> torch.Tensor:
+    """Rotary position embedding over the first n_rot dims of each head."""
+    n_rot = inv_freq.shape[0] * 2
+    d = x.shape[-1]
+    angles = pos[..., None].to(torch.float32) * inv_freq     # (..., T, n_rot/2)
+    cos = (torch.cos(angles) * mscale)[..., None, :]         # (..., T, 1, n_rot/2)
+    sin = (torch.sin(angles) * mscale)[..., None, :]
+    xf = x.to(torch.float32)
+    rot, rest = xf[..., :n_rot], xf[..., n_rot:]
+    if rope_type == ROPE_TYPE_NEOX:
+        x1, x2 = rot[..., : n_rot // 2], rot[..., n_rot // 2:]
+        out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    else:  # NORM: adjacent pairs
+        x1 = rot[..., 0::2]
+        x2 = rot[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                          dim=-1).reshape(rot.shape)
+    if d > n_rot:
+        out = torch.cat([out, rest], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- attention
+
+
+def attention_ref(
+    q: torch.Tensor,        # (B, T, H, D)
+    k: torch.Tensor,        # (B, H_kv, S, D): KV-cache layout
+    v: torch.Tensor,        # (B, H_kv, S, Dv)
+    mask: torch.Tensor,     # (B, 1, T, S) additive, -inf for masked
+    scale: float | None = None,
+    logit_softcap: float = 0.0,
+    sinks: torch.Tensor | None = None,  # (H,) per-head sink logit
+) -> torch.Tensor:
+    """Scaled-dot-product attention with GQA broadcast, f32 softmax.
+
+    ``sinks`` is a learned per-head logit that joins the softmax
+    normalization but contributes no value."""
+    B, T, H, D = q.shape
+    H_kv = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    rep = H // H_kv
+    qf = q.to(torch.float32).transpose(1, 2)                         # (B,H,T,D)
+    kf = torch.repeat_interleave(k.to(torch.float32), rep, dim=1)    # (B,H,S,D)
+    vf = torch.repeat_interleave(v.to(torch.float32), rep, dim=1)
+    logits = torch.einsum("bhtd,bhsd->bhts", qf, kf) * scale
+    if logit_softcap > 0.0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    logits = logits + mask.to(torch.float32)
+    if sinks is not None:
+        sink = sinks.to(torch.float32).reshape(1, H, 1, 1)
+        m = torch.maximum(torch.amax(logits, dim=-1, keepdim=True), sink)
+        p = torch.exp(logits - m)
+        probs = p / (torch.sum(p, dim=-1, keepdim=True) + torch.exp(sink - m))
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhts,bhsd->bhtd", probs, vf)                  # (B,H,T,Dv)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention_gqa(
+    q: torch.Tensor,        # (B, T, H, D)
+    k: torch.Tensor,        # (B, H_kv, S, D)
+    v: torch.Tensor,        # (B, H_kv, S, Dv)
+    mask: torch.Tensor,     # (B, 1, T, S) additive
+    scale: float | None = None,
+    logit_softcap: float = 0.0,
+    sinks: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Grouped-query attention without repeating K/V to H heads: dots in the
+    stored dtype with f32 accumulation, f32 softmax."""
+    B, T, H, D = q.shape
+    H_kv, S = k.shape[1], k.shape[2]
+    G = H // H_kv
+    Dv = v.shape[3]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qg = (q.reshape(B, T, H_kv, G, D).permute(0, 2, 3, 1, 4)
+          .reshape(B, H_kv, G * T, D))
+    # products of stored-dtype values are exact in f32: an f32 matmul is the
+    # stored-dtype dot with f32 accumulation
+    logits = torch.matmul(qg.to(torch.float32),
+                          k.to(torch.float32).transpose(2, 3)) * scale
+    if logit_softcap > 0.0:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    mrow = torch.broadcast_to(mask.to(torch.float32),
+                              (B, G, T, S)).reshape(B, 1, G * T, S)
+    logits = logits + mrow
+    if sinks is not None:
+        sink = torch.broadcast_to(
+            sinks.to(torch.float32).reshape(H_kv, G, 1), (H_kv, G, T)
+        ).reshape(1, H_kv, G * T, 1)
+        m = torch.maximum(torch.amax(logits, dim=-1, keepdim=True), sink)
+        p = torch.exp(logits - m)
+        probs = p / (torch.sum(p, dim=-1, keepdim=True) + torch.exp(sink - m))
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return (out.reshape(B, H_kv, G, T, Dv).permute(0, 3, 1, 2, 4)
+            .reshape(B, T, H, Dv).to(q.dtype))
+
+
+# ----------------------------------------------------------------- activations
+
+
+def silu(x):
+    xf = x.to(torch.float32)
+    return (xf * torch.sigmoid(xf)).to(x.dtype)
+
+
+def gelu(x):
+    xf = x.to(torch.float32)
+    return (0.5 * xf * (1.0 + torch.tanh(0.7978845608028654 * (xf + 0.044715 * xf ** 3)))).to(x.dtype)
+
+
+def gelu_erf(x):
+    xf = x.to(torch.float32)
+    return (0.5 * xf * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
+
+
+def relu(x):
+    return torch.clamp(x, min=0)
+
+
+def relu_sq(x):
+    r = torch.clamp(x, min=0)
+    return r * r
+
+
+def swiglu(gate, up):
+    return silu(gate) * up
+
+
+def geglu(gate, up):
+    return gelu(gate) * up
+
+
+# gated (gate, up) -> act; "gelu"/"gelu_tanh" name the tanh approximation
+GLU_FNS = {
+    "silu": swiglu,
+    "gelu": geglu,
+    "gelu_tanh": geglu,
+    "gelu_erf": lambda g, u: gelu_erf(g) * u,
+    "relu": lambda g, u: relu(g) * u,
+    "relu2": lambda g, u: relu_sq(g) * u,
+}
+
+
+# ----------------------------------------------------------------- softmax
+
+
+def softmax_ext(x: torch.Tensor, mask: torch.Tensor | None = None,
+                scale: float = 1.0) -> torch.Tensor:
+    """ggml_soft_max_ext semantics (scale + optional additive mask), f32."""
+    xf = x.to(torch.float32) * scale
+    if mask is not None:
+        xf = xf + mask.to(torch.float32)
+    return torch.softmax(xf, dim=-1).to(x.dtype)

@@ -1,0 +1,86 @@
+"""Inference context: a model, its forward function and one KV cache.
+
+Counterpart of the JAX package's ``runtime/context.py::Context``. The JAX
+context jit-compiles its step and donates the functional cache; here the
+forward runs eagerly and updates the cache in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.loader import LoadedModel
+from ..models.registry import get_forward
+from .kv_cache import kv_cache_init
+
+
+def model_device(model: LoadedModel) -> torch.device:
+    return model.params["token_embd"].device
+
+
+def check_model_device(model: LoadedModel, device: torch.device) -> None:
+    have = model_device(model)
+    if have.type != device.type:
+        raise ValueError(f"model weights are on {have}, but {device} was asked "
+                         f"for; load the model with device={str(device)!r}")
+
+
+class Context:
+    def __init__(self, model: LoadedModel, n_batch: int = 1, n_ctx: int = 2048,
+                 kv_dtype: torch.dtype | None = None, device=None):
+        self.device = resolve_device(device)
+        check_model_device(model, self.device)
+        self.model = model
+        self.hp = model.hparams
+        self.n_batch = n_batch
+        self.n_ctx = n_ctx
+        self.kv_dtype = kv_dtype or model.params["token_embd"].dtype
+        self._fwd = get_forward(self.hp.arch)
+        self.cache = self.new_cache()
+
+    def new_cache(self):
+        hp = self.hp
+        return kv_cache_init(hp.n_layer, self.n_batch, self.n_ctx, hp.n_head_kv,
+                             hp.head_dim, hp.head_dim_v, dtype=self.kv_dtype,
+                             device=self.device)
+
+    @torch.no_grad()
+    def forward(self, tokens, pos=None) -> torch.Tensor:
+        """Run one step over (B, T) tokens; returns logits (B, T, V)."""
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                                 device=self.device)
+        if tokens.ndim == 1:
+            tokens = tokens[None, :]
+        B, T = tokens.shape
+        max_cursor = int(self.cache.cursor.max())
+        if max_cursor + T > self.n_ctx:
+            raise ValueError(f"KV cache overflow: {max_cursor}+{T} > n_ctx={self.n_ctx}")
+        if pos is None:
+            pos = self.cache.cursor[:B, None] + torch.arange(
+                T, dtype=torch.int32, device=self.device)[None, :]
+        else:
+            pos = torch.as_tensor(np.asarray(pos), dtype=torch.int32,
+                                  device=self.device)
+            if pos.ndim == 1:
+                pos = pos[None, :]
+        logits, self.cache = self._fwd(self.model.params, self.hp, tokens, pos,
+                                       self.cache)
+        return logits
+
+    def greedy_generate(self, prompt_ids: list[int], n_gen: int,
+                        stop_eog: bool = True) -> list[int]:
+        """Prefill + greedy decode loop."""
+        v = self.model.tokenizer.vocab if self.model.tokenizer else None
+        logits = self.forward(np.asarray(prompt_ids, np.int64))
+        out = list(prompt_ids)
+        last = int(torch.argmax(logits[0, -1]))
+        out.append(last)
+        for _ in range(n_gen - 1):
+            if stop_eog and v is not None and v.is_eog(last):
+                break
+            logits = self.forward(np.asarray([last], np.int64))
+            last = int(torch.argmax(logits[0, -1]))
+            out.append(last)
+        return out

@@ -1,0 +1,98 @@
+"""Shared fixtures of the port's parity tests (no tests of its own): a tiny
+llama GGUF written offline from a seeded HF model, with a hand-built
+byte-level BPE vocab (256 byte tokens + BOS/EOS + 2 spares)."""
+
+import numpy as np
+import torch
+
+from superllama_tpu.gguf import GGMLType
+from superllama_tpu.tools.convert_hf import convert_state_dict
+
+N_VOCAB = 260
+BOS, EOS = 256, 257
+
+
+def _bytes_to_unicode() -> dict[int, str]:
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def byte_vocab_fields() -> dict:
+    b2u = _bytes_to_unicode()
+    return {
+        "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.pre": "default",
+        "tokenizer.ggml.tokens": [b2u[b] for b in range(256)]
+        + ["<|bos|>", "<|eos|>", "<|spare0|>", "<|spare1|>"],
+        "tokenizer.ggml.token_type": [1] * 256 + [3] * 4,
+        "tokenizer.ggml.merges": [],
+        "tokenizer.ggml.bos_token_id": BOS, "tokenizer.ggml.eos_token_id": EOS,
+        "tokenizer.ggml.add_bos_token": True,
+    }
+
+
+def write_tiny_llama(directory, types=(GGMLType.F32,), seed=0) -> dict:
+    """Write the tiny llama (hidden 256, so Q4_K blocks fit) in each GGML
+    type; returns {type: path}."""
+    from transformers import LlamaConfig, LlamaForCausalLM
+
+    torch.manual_seed(seed)
+    cfg = LlamaConfig(
+        vocab_size=N_VOCAB, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256, rms_norm_eps=1e-6, rope_theta=10000.0,
+        tie_word_embeddings=False, architectures=["LlamaForCausalLM"])
+    hf = LlamaForCausalLM(cfg).eval()
+    sd = {k: v.detach().numpy() for k, v in hf.state_dict().items()}
+    paths = {}
+    for t in types:
+        path = str(directory / f"tiny_{t.name}.gguf")
+        convert_state_dict(path, cfg, sd, t, tokenizer_fields=byte_vocab_fields())
+        paths[t] = path
+    return paths
+
+
+def prompt(n: int, seed: int = 0) -> list[int]:
+    return [BOS] + np.random.default_rng(seed).integers(0, 256, n - 1).tolist()
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so a wrapper takes its CUDA
+    branch on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def cuda_typed(t: torch.Tensor) -> torch.Tensor:
+    return torch.Tensor._make_subclass(_CudaTyped, t)
+
+
+def failing_build(monkeypatch) -> type:
+    """Make every kernel build fail and every plain version unreachable;
+    returns the exception type a wrapper must then raise."""
+    from superllama_tpu_torch.ops import _build
+    from superllama_tpu_torch.ops import flash_attention as fa_mod
+    from superllama_tpu_torch.ops import qmatmul as qm_mod
+
+    class BuildFailed(RuntimeError):
+        pass
+
+    def fail(*a, **k):
+        raise BuildFailed("no nvcc")
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(_build, "load", fail)
+    for mod, name in ((qm_mod, "qmv_plain"), (qm_mod, "qmm_plain"),
+                      (fa_mod, "flash_attention_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    return BuildFailed
