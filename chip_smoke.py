@@ -8,14 +8,18 @@ PyTorch version.
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
  2. build: nvcc of every kernel source in superllama_tpu_torch/csrc;
- 3. kernels against their plain versions at Llama-3-8B shapes;
+ 3. kernels against their plain versions at Llama-3-8B shapes (qmv, qmm,
+    fa, fd in its f/q8/q4 modes, paged);
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
     server answers 8 concurrent completions and one streamed one; the launch
-    counters show the path went through every kernel;
+    counters show the path went through every kernel. Then the same with a
+    Q8_0 KV cache (fd decode), and with the paged KV cache (an ample pool,
+    then a pool of about half the wave's pages that must spill to host);
  5. full-width parity: one 8B forward with the kernels and again with the
-    plain versions;
- 6. times: decode tok/s, time to first token, and each kernel's time beside
-    its plain version, a library call and its bound;
+    plain versions; decode through fd against the materialized path on Q8_0
+    and Q4_0 caches; the paged cache against the dense one;
+ 6. times: decode tok/s, time to first token (bf16, Q8_0, paged), and each
+    kernel's time beside its plain version, a library call and its bound;
  7. profile: where one engine decode step's time goes (torch.profiler).
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -160,6 +164,127 @@ def fa_inputs(torch, B=1, T=32, S=2048, n_past=500, H=32, Hkv=8, D=128,
     return (q, k, v, q_pos, kv_pos), kw
 
 
+# (T, S, G, kv, swa, softcap, sinks): the FD_CELLS of tests/test_backend_ops.py
+FD_EDGE_CELLS = ([(1, S, G, kv, 0, 0.0, False) for S in (256, 1000, 2048) for G in (1, 4)
+                  for kv in ("f", "q8", "q4")]
+                 + [(1, 512, 4, "f", 64, 0.0, False), (1, 512, 4, "q8", 0, 30.0, False),
+                    (1, 512, 4, "f", 0, 0.0, True), (8, 512, 4, "q8", 0, 0.0, False),
+                    (2, 512, 2, "q4", 64, 0.0, True)])
+
+
+def fd_inputs(torch, B=8, T=1, S=2048, H=32, Hkv=8, D=128, kv="f", dtype="bf16",
+              sinks=False, n_past=None, seed=0):
+    """Decode inputs: a cache of S slots with the last few empty, query rows
+    at the newest positions; K/V float in q's type, or Q8_0 / Q4_0 codes
+    and scales from the port's quantizers."""
+    from superllama_tpu_torch.runtime.kv_cache import q4_quantize_rows, q8_quantize_rows
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q = torch.randn((B, T, H, D), generator=g, device=dev).to(dt)
+    k = torch.randn((B, Hkv, S, D), generator=g, device=dev)
+    v = torch.randn((B, Hkv, S, D), generator=g, device=dev)
+    n_past = S - T - 3 if n_past is None else n_past
+    q_pos = (torch.arange(T, dtype=torch.int32, device=dev)[None] + n_past).expand(B, T)
+    slot = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    kv_pos = torch.where(slot < n_past + T, slot, -1).expand(B, S)
+    kw = {}
+    if kv == "f":
+        k, v = k.to(dt), v.to(dt)
+    else:
+        quantize = q8_quantize_rows if kv == "q8" else q4_quantize_rows
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize(k), quantize(v)
+    if sinks:
+        kw["sinks"] = torch.randn((H,), generator=g, device=dev)
+    return (q, k, v, q_pos.contiguous(), kv_pos.contiguous()), kw
+
+
+def paged_inputs(torch, B=8, T=1, H=32, Hkv=8, D=128, P=256, MAXP=8, dtype="bf16",
+                 lens=None, absent=(), seed=0):
+    """A shuffled pool of B*MAXP+1 pages (page 0 = NULL) holding each row's
+    first lens[b] positions; ``absent`` (row, logical page) entries are -1.
+    Query rows at each row's newest T positions."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    N = B * MAXP + 1
+    lens = lens or [P * MAXP] * B
+    kp = torch.randn((N, Hkv, P, D), generator=g, device=dev).to(dt)
+    vp = torch.randn((N, Hkv, P, D), generator=g, device=dev).to(dt)
+    order = iter((torch.randperm(N - 1, generator=torch.Generator().manual_seed(seed)) + 1)
+                 .tolist())
+    table = torch.full((B, MAXP), -1, dtype=torch.int32)
+    page_pos = torch.full((N, P), -1, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        for lg in range(-(-n // P)):
+            if (b, lg) in absent:
+                continue
+            pg = next(order)
+            table[b, lg] = pg
+            cnt = min(P, n - lg * P)
+            page_pos[pg, :cnt] = torch.arange(lg * P, lg * P + cnt)
+    q = torch.randn((B, T, H, D), generator=g, device=dev).to(dt)
+    q_pos = torch.stack([torch.arange(n - T, n, dtype=torch.int32) for n in lens])
+    return (q, kp, vp, q_pos.to(dev), page_pos.to(dev), table.to(dev))
+
+
+def check_decode_kernels(torch, record) -> None:
+    """fd (f/q8/q4 at the 8B decode shapes, the FD_CELLS grid in f32, a
+    split-chunk combine) and paged (8 rows, 256-token pages, absent pages,
+    SWA, sinks, softcap) against their plain versions, each result passed
+    to record(kernel, case, got, ref, dtype, mask=None, p_bf16=False)."""
+    from superllama_tpu_torch.ops.flash_attention import (flash_decode_attention,
+                                                          flash_decode_plain)
+    from superllama_tpu_torch.ops.paged_attention import (paged_flash_attention,
+                                                          paged_flash_attention_plain)
+
+    f32 = torch.float32
+    fd_cases = [(f"{kv} T={T} S={S} bf16", dict(T=T, S=S, kv=kv), {})
+                for kv in ("f", "q8", "q4") for T in (1, 8) for S in (2048, 1000)]
+    fd_cases += [("q8 T=8 S=2048 sinks bf16", dict(T=8, kv="q8", sinks=True), {}),
+                 ("f T=1 S=2048 swa=512 bf16", dict(kv="f"), {"swa_window": 512}),
+                 ("f T=1 S=2048 block_s=256 f32", dict(kv="f", dtype="f32"), {"block_s": 256}),
+                 ("q8 T=1 S=2048 block_s=256 bf16", dict(kv="q8"), {"block_s": 256})]
+    for T, S, G, kv, swa, cap, sk in FD_EDGE_CELLS:
+        fd_cases.append((f"f32 T={T} S={S} G={G} {kv} swa={swa} softcap={cap} sinks={sk}",
+                         dict(B=2, T=T, S=S, H=2 * G, Hkv=2, D=64, kv=kv, dtype="f32",
+                              sinks=sk), {"swa_window": swa, "logit_softcap": cap}))
+    for i, (case, kw, opts) in enumerate(fd_cases):
+        args, extra = fd_inputs(torch, seed=300 + i, **kw)
+        got = flash_decode_attention(*args, **extra, **opts)
+        ref = flash_decode_plain(*args, **extra, **opts)
+        torch.cuda.synchronize()
+        record("fd", case, got, ref, args[0].dtype, p_bf16=kw["kv"] != "f")
+    # block_s 2048 against 256: one chunk against eight, combined
+    args, _ = fd_inputs(torch, kv="f", dtype="f32", seed=399)
+    one = flash_decode_attention(*args, block_s=2048)
+    eight = flash_decode_attention(*args, block_s=256)
+    torch.cuda.synchronize()
+    record("fd", "f32 combine: block_s 256 vs 2048", eight, one, f32)
+
+    lens = [2048, 1900, 1500, 1025, 700, 300, 2000, 1]
+    absent = {(1, 2), (3, 0), (6, 7)}
+    paged_cases = [("bf16 T=1", dict(), {}), ("f32 T=1", dict(dtype="f32"), {}),
+                   ("bf16 T=1 lens+absent", dict(lens=lens, absent=absent), {}),
+                   ("f32 T=8 lens+absent swa=300 sinks", dict(T=8, dtype="f32", lens=lens,
+                                                             absent=absent), {"swa_window": 300,
+                                                                              "sinks": True}),
+                   ("bf16 T=8 sinks", dict(T=8), {"sinks": True}),
+                   ("f32 T=64 softcap=30", dict(T=64, dtype="f32", lens=[1024] * 8),
+                    {"logit_softcap": 30.0})]
+    for i, (case, kw, opts) in enumerate(paged_cases):
+        args = paged_inputs(torch, seed=500 + i, **kw)
+        if opts.pop("sinks", False):
+            opts["sinks"] = torch.randn((args[0].shape[2],), device="cuda")
+        got = paged_flash_attention(*args, **opts)
+        ref = paged_flash_attention_plain(*args, **opts)
+        torch.cuda.synchronize()
+        record("paged", case, got, ref, args[0].dtype, mask=args[3] >= 0)
+
+
 def phase_kernels(torch) -> list:
     from superllama_tpu_torch.ops.flash_attention import (flash_attention,
                                                           flash_attention_plain)
@@ -177,6 +302,10 @@ def phase_kernels(torch) -> list:
     # the plain version relative to the row's final max, a relative 2^-9
     # difference on every probability. Those cases sit closest to the bf16
     # limit (NMSE up to 4.8e-6 on an H100) and are held to it all the same
+    # fd in q8 and q4 modes: exp differs by an ulp between the kernel and
+    # torch, which can move one int8 p code (q8) or one bf16 rounding of p
+    # (q4) by a step, about 1/127 resp. 2^-8 of one term; those modes are
+    # held to the bf16 limit in any query type
     TOL = {bf16: 1e-5, f32: 1e-9}
     rows = []
 
@@ -249,6 +378,8 @@ def phase_kernels(torch) -> list:
         torch.cuda.synchronize()
         record("fa", case, got, ref, args[0].dtype, mask=args[3] >= 0,
                p_bf16=kw.get("q8", False))
+
+    check_decode_kernels(torch, record)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "kernel_checks.json"), "w") as f:
         json.dump(rows, f, indent=1)
@@ -267,9 +398,11 @@ def phase_kernels(torch) -> list:
 
 def counters():
     from superllama_tpu_torch.ops import flash_attention as fa_mod
+    from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
 
-    return {"qmv": qm_mod.qmv, "qmm": qm_mod.qmm, "fa": fa_mod.flash_attention}
+    return {"qmv": qm_mod.qmv, "qmm": qm_mod.qmm, "fa": fa_mod.flash_attention,
+            "fd": fa_mod.flash_decode_attention, "paged": pa_mod.paged_flash_attention}
 
 
 def reset_counts() -> None:
@@ -339,16 +472,20 @@ def engine_wave(engine, prompts, max_tokens: int) -> list[dict]:
     return [r.result(timeout=600) for r in reqs]
 
 
-def phase_serving(torch, model) -> dict:
+def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, list]:
+    """8 concurrent completions and one streamed one over HTTP; the served
+    tokens must equal the engine's own wave of the same prompts, and every
+    kernel in ``expect`` must have launched. Returns (launch counts, served
+    tokens)."""
     from superllama_tpu_torch.server.http import Server, ServerApp
 
-    app = ServerApp(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16,
-                    model_name=model.name, device="cuda")
+    app = ServerApp(model, n_slots=8, n_ctx=2048, model_name=model.name, device="cuda",
+                    **app_kw)
     srv = Server(app, host="127.0.0.1", port=0)
     srv.start()
     eng = app.engine
     try:
-        prompts = token_prompts(model.hparams.n_vocab, [32, 100] * 4, SEED + 1)
+        prompts = token_prompts(model.hparams.n_vocab, lens, SEED + 1)
         body = lambda p, **kw: {"prompt": p, "max_tokens": 64, "temperature": 0,
                                 "return_tokens": True, **kw}
         results: list = [None] * len(prompts)
@@ -371,57 +508,127 @@ def phase_serving(torch, model) -> dict:
         for i, (st, data) in enumerate(results):
             out = json.loads(data)
             ch = out["choices"][0]
-            check(st == 200, f"request {i}: HTTP {st}")
-            check(ch["finish_reason"] == "length", f"request {i}: {ch['finish_reason']}")
-            check(out["usage"]["completion_tokens"] == 64, f"request {i}: usage {out['usage']}")
+            check(st == 200, f"{label} request {i}: HTTP {st}")
+            check(ch["finish_reason"] == "length", f"{label} request {i}: {ch['finish_reason']}")
+            check(out["usage"]["completion_tokens"] == 64,
+                  f"{label} request {i}: usage {out['usage']}")
             served.append(ch["tokens"])
         events = [ln[6:] for ln in raw.decode().split("\n") if ln.startswith("data: ")]
-        check(status == 200 and events[-1] == "[DONE]", "stream did not end with [DONE]")
+        check(status == 200 and events[-1] == "[DONE]", f"{label}: stream did not end with [DONE]")
         chunks = [json.loads(e) for e in events[:-1]]
         final = chunks[-1]
         streamed = [c["choices"][0]["token"] for c in chunks[:-1]]
-        check(final["choices"][0]["finish_reason"] == "length", f"stream: {final}")
+        check(final["choices"][0]["finish_reason"] == "length", f"{label} stream: {final}")
         check(final["usage"]["completion_tokens"] == 64 and len(streamed) == 64,
-              f"stream: {len(streamed)} tokens, usage {final['usage']}")
-        for name, n in counts.items():
-            check(n > 0, f"the serving path never launched the {name} kernel")
+              f"{label} stream: {len(streamed)} tokens, usage {final['usage']}")
+        for name in expect:
+            check(counts[name] > 0, f"the {label} serving path never launched the {name} kernel")
 
         # the same prompts straight through the engine, batched the same way
         direct = [r["tokens"] for r in engine_wave(eng, prompts, 64)]
-        check(direct == served, "served tokens differ from the engine's for the same wave")
+        check(direct == served, f"{label}: served tokens differ from the engine's for the same wave")
         alone = eng.generate(stream_prompt, max_tokens=64, sampling={"greedy": True},
                              stop_eog=False)["tokens"]
-        check(alone == streamed, "streamed tokens differ from engine.generate")
-        info = {"phase": "serving", "requests": len(prompts) + 1,
+        check(alone == streamed, f"{label}: streamed tokens differ from engine.generate")
+        info = {"phase": "serving", "kv": label, "requests": len(prompts) + 1,
                 "batch_wall_s": t_batch, "launches": counts,
                 "served_equal_engine": True, "stream_equal_generate": True,
                 "ttft_s": [json.loads(d)["timings"]["ttft_s"] for _, d in results]}
+        if eng.paged:
+            info["paged_stats"] = dict(eng.pkv.stats)
     finally:
         srv.stop()
     emit(info)
+    return counts, served
+
+
+def phase_serving(torch, model) -> dict:
+    counts, _ = serve_wave(torch, model, "bf16", [32, 100] * 4, ("qmv", "qmm", "fa"),
+                           kv_dtype=torch.bfloat16)
+    return counts
+
+
+def phase_serving_q8(torch, model) -> dict:
+    """The bf16 phase's wave on a Q8_0 cache: prefill feeds codes to fa,
+    every decode step runs fd."""
+    counts, _ = serve_wave(torch, model, "q8_0", [32, 100] * 4, ("qmv", "qmm", "fa", "fd"),
+                           kv_dtype="q8_0")
+    return counts
+
+
+# Prompts of one 32-token prefill bucket under either page size, with
+# lengths that are multiples of the 8-token decode block: a block that does
+# not fit its page's tail opens a new page and leaves a gap, which regroups
+# positions into the paged kernel's 64-slot tiles (as the TPU kernel's
+# 4-page chunks), changing sums and bf16 roundings. With these lengths the
+# 64- and 256-token pages lay every position out in the same tile.
+PAGED_LENS = [32, 24] * 4
+
+
+def phase_serving_paged(torch, model) -> dict:
+    """The paged cache: a wave with 256-token pages and an ample pool, then
+    the same prompts with 64-token pages and a pool of 8 pages (+ NULL)
+    against the 16 the wave needs, so pages spill to host and come back;
+    its tokens must equal the ample pool's."""
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    counts, served = serve_wave(torch, model, "paged", PAGED_LENS, ("qmv", "paged"),
+                                kv_dtype=torch.bfloat16, paged=True, page_size=256)
+    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda",
+                 paged=True, page_size=64, n_pages=9)
+    eng.start()
+    try:
+        prompts = token_prompts(model.hparams.n_vocab, PAGED_LENS, SEED + 1)
+        spilled = [r["tokens"] for r in engine_wave(eng, prompts, 64)]
+    finally:
+        eng.stop()
+    stats = dict(eng.pkv.stats)
+    emit({"phase": "serving", "kv": "paged, 64-token pages, 8-page pool",
+          "paged_stats": stats, "equal_ample_pool": spilled == served})
+    check(spilled == served, "the spilling paged run's tokens differ from the ample pool's")
+    check(stats["evictions"] > 0 and stats["restores"] > 0, f"no spill: {stats}")
     return counts
 
 
 # ------------------------------------------------------------ 5. parity
 
 
-def forward_run(torch, model, tokens_seq):
+def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None):
     """Prefill tokens_seq[0] then decode the rest one by one on a fresh
-    cache; returns the logits of every step (f32)."""
+    cache (dense of kv_dtype, default bf16, or paged bf16 with 256-token
+    pages), with ``extra`` set in hparams.extra meanwhile; returns the
+    logits of every step (f32)."""
     from superllama_tpu_torch.models.llama import llama_forward
     from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
+    from superllama_tpu_torch.runtime.paged_kv import PagedKVManager, paged_cache_init
 
     hp = model.hparams
-    cache = kv_cache_init(hp.n_layer, 1, 2048, hp.n_head_kv, hp.head_dim,
-                          dtype=torch.bfloat16, device="cuda")
+    mgr = None
+    if paged:
+        mgr = PagedKVManager(paged_cache_init(hp.n_layer, 9, 256, 1, 8, hp.n_head_kv,
+                                              hp.head_dim, dtype=torch.bfloat16,
+                                              device="cuda"))
+        cache = mgr.cache
+    else:
+        cache = kv_cache_init(hp.n_layer, 1, 2048, hp.n_head_kv, hp.head_dim,
+                              dtype=kv_dtype or torch.bfloat16, device="cuda")
+    hp.extra.update(extra or {})
     out, p0 = [], 0
-    with torch.no_grad():
-        for toks in tokens_seq:
-            t = torch.tensor([toks], device="cuda")
-            pos = torch.arange(p0, p0 + len(toks), device="cuda", dtype=torch.int32)[None]
-            logits, _ = llama_forward(model.params, hp, t, pos, cache)
-            out.append(logits.float())
-            p0 += len(toks)
+    try:
+        with torch.no_grad():
+            for toks in tokens_seq:
+                t = torch.tensor([toks], device="cuda")
+                pos = torch.arange(p0, p0 + len(toks), device="cuda", dtype=torch.int32)[None]
+                if mgr is not None:
+                    mgr.plan_step({0: len(toks)})
+                logits, _ = llama_forward(model.params, hp, t, pos, cache)
+                if mgr is not None:
+                    mgr.finish_step()
+                out.append(logits.float())
+                p0 += len(toks)
+    finally:
+        for key in extra or {}:
+            hp.extra.pop(key, None)
     torch.cuda.synchronize()
     return out
 
@@ -442,9 +649,7 @@ def phase_parity(torch, model) -> None:
         ref = forward_run(torch, model, seq)
     finally:
         qm_mod.qmv, qm_mod.qmm, llama_mod.flash_attention = saved
-    steps = [{"step": i, "nmse": nmse(g, r), "max_abs_err": float((g - r).abs().max()),
-              "argmax_agree": float((g.argmax(-1) == r.argmax(-1)).float().mean())}
-             for i, (g, r) in enumerate(zip(got, ref))]
+    steps = compare_steps(got, ref)
     emit({"phase": "parity", "steps": steps})
     # bf16 activations between layers: the kernels and the plain versions
     # sum in other orders, a last-bit difference can round a bf16 activation
@@ -452,6 +657,37 @@ def phase_parity(torch, model) -> None:
     # 32 layers; logits stay within NMSE 1e-3 of each other
     for s in steps:
         check(s["nmse"] < 1e-3, f"full-width parity step {s['step']}: nmse {s['nmse']:g}")
+
+
+def compare_steps(got, ref) -> list:
+    return [{"step": i, "nmse": nmse(g, r), "max_abs_err": float((g - r).abs().max()),
+             "argmax_agree": float((g.argmax(-1) == r.argmax(-1)).float().mean())}
+            for i, (g, r) in enumerate(zip(got, ref))]
+
+
+def phase_cache_parity(torch, model) -> None:
+    """The tests/test_kv_quant.py decode check at 8B width: 1 prefill + 5
+    decode steps through fd against the materialized path, on a Q8_0 cache
+    and on a Q4_0 cache with flash_decode_float (the path of fd's q4 mode);
+    then the paged cache against the dense one. Limit: logits NMSE 1e-3,
+    as in phase 5 (bf16 activations compound last-bit differences over 32
+    layers)."""
+    seq = token_prompts(model.hparams.n_vocab, [32, 1, 1, 1, 1, 1], SEED + 7)
+    runs = {
+        "q8_0 fd vs materialized": (
+            forward_run(torch, model, seq, "q8_0"),
+            forward_run(torch, model, seq, "q8_0", extra={"flash_decode_off": True})),
+        "q4_0 fd (flash_decode_float) vs materialized": (
+            forward_run(torch, model, seq, "q4_0", extra={"flash_decode_float": True}),
+            forward_run(torch, model, seq, "q4_0")),
+        "paged bf16 vs dense bf16": (
+            forward_run(torch, model, seq, paged=True), forward_run(torch, model, seq)),
+    }
+    for what, (got, ref) in runs.items():
+        steps = compare_steps(got, ref)
+        emit({"phase": "cache_parity", "what": what, "steps": steps})
+        for st in steps:
+            check(st["nmse"] < 1e-3, f"{what} step {st['step']}: nmse {st['nmse']:g}")
 
 
 # ------------------------------------------------------------ 6. times
@@ -531,10 +767,109 @@ def time_fa(torch) -> dict:
                    "bound_ms": b, "bound_by": by, "bytes": nbytes, "ops": ops}}
 
 
-def time_serving(torch, model) -> dict:
+def time_fd(torch) -> dict:
+    """fd in each mode at the 8B decode shape (B 8, T 1, S 2048, 32/8 heads,
+    D 128, bf16 q), beside its plain version and SDPA over the same float or
+    already dequantized cache (the yardstick leaves the dequant out)."""
+    import torch.nn.functional as F
+
+    from superllama_tpu_torch.ops.flash_attention import (flash_decode_attention,
+                                                          flash_decode_plain)
+    from superllama_tpu_torch.runtime.kv_cache import q4_dequant
+
+    out = {}
+    for kv in ("f", "q8", "q4"):
+        args, extra = fd_inputs(torch, kv=kv, seed=700)
+        q, k, v, q_pos, kv_pos = args
+        B, T, H, D = q.shape
+        Hkv, S = k.shape[1], k.shape[2]
+        ms = cuda_ms(torch, lambda i: flash_decode_attention(*args, **extra), 100)
+        plain_ms = cuda_ms(torch, lambda i: flash_decode_plain(*args, **extra), 5, 1)
+        if kv == "q8":
+            kd = (k.float() * extra["k_scale"][..., None]).to(torch.bfloat16)
+            vd = (v.float() * extra["v_scale"][..., None]).to(torch.bfloat16)
+        elif kv == "q4":
+            kd = q4_dequant(k, extra["k_scale"], torch.bfloat16)
+            vd = q4_dequant(v, extra["v_scale"], torch.bfloat16)
+        else:
+            kd, vd = k, v
+        mask = ((kv_pos[:, None, None, :] >= 0)
+                & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
+        qt = q.transpose(1, 2)
+        lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask, enable_gqa=True), 100)
+        # each input read once (q, K/V codes and scales, positions), the
+        # output written once
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, *extra.values()))
+        nbytes += q.numel() * q.element_size()
+        visible = int((kv_pos[0] >= 0).sum())
+        ops = 2.0 * 2 * D * B * H * T * visible
+        b, by = bound(nbytes, ops, "int8" if kv == "q8" else "bf16")
+        out[f"fd_{kv}"] = {"shape": f"{kv} B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} bf16 q",
+                           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": b, "bound_by": by, "bytes": nbytes, "ops": ops}
+    return out
+
+
+def time_paged(torch) -> dict:
+    """paged at the decode shape: 8 rows of 2048 positions in 256-token
+    pages (MAXP 8) of a shuffled bf16 pool, 32/8 heads, D 128; SDPA over
+    the equivalent dense K/V as the yardstick (the gather left out)."""
+    import torch.nn.functional as F
+
+    from superllama_tpu_torch.ops.paged_attention import (paged_flash_attention,
+                                                          paged_flash_attention_plain)
+
+    args = paged_inputs(torch, seed=800)
+    q, kp, vp, q_pos, page_pos, table = args
+    B, T, H, D = q.shape
+    Hkv, P = kp.shape[1], kp.shape[2]
+    ms = cuda_ms(torch, lambda i: paged_flash_attention(*args), 100)
+    plain_ms = cuda_ms(torch, lambda i: paged_flash_attention_plain(*args), 5, 1)
+    tbl = table.long().clamp(min=0)
+    kd = kp[tbl].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D)
+    vd = vp[tbl].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D)
+    kv_pos = page_pos[tbl].reshape(B, -1)
+    mask = ((kv_pos[:, None, None, :] >= 0)
+            & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
+    lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kd, vd, attn_mask=mask, enable_gqa=True), 100)
+    pages = int((table >= 0).sum())
+    nbytes = (pages * (2 * Hkv * P * D * 2 + P * 4) + table.numel() * 4
+              + 2 * q.numel() * 2 + q_pos.numel() * 4)
+    ops = 2.0 * 2 * D * H * T * int((kv_pos >= 0).sum())
+    b, by = bound(nbytes, ops, "bf16")
+    return {"paged": {"shape": f"B={B} T={T} P={P} MAXP={table.shape[1]} H={H} Hkv={Hkv} "
+                               f"D={D} bf16", "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": b, "bound_by": by,
+                      "bytes": nbytes, "ops": ops}}
+
+
+def time_decode_attention(torch) -> dict:
+    """The plain decode attention of a bf16 cache (attention_gqa and
+    attention_ref, which llama_forward picks between by the JAX package's
+    TPU-tuned test) against fd in f mode, at B 1 and B 8, T 1, S 2048."""
+    from superllama_tpu_torch.ops import ref as ops
+    from superllama_tpu_torch.ops.flash_attention import flash_decode_attention
+    from superllama_tpu_torch.runtime.kv_cache import causal_mask
+
+    out = {}
+    for B in (1, 8):
+        args, _ = fd_inputs(torch, B=B, kv="f", seed=900 + B)
+        q, k, v, q_pos, kv_pos = args
+        mask = causal_mask(kv_pos, q_pos)
+        out[f"B={B}"] = {
+            "attention_gqa_ms": cuda_ms(torch, lambda i: ops.attention_gqa(q, k, v, mask), 50),
+            "attention_ref_ms": cuda_ms(torch, lambda i: ops.attention_ref(q, k, v, mask), 50),
+            "fd_f_ms": cuda_ms(torch, lambda i: flash_decode_attention(*args), 50)}
+    return out
+
+
+def time_serving(torch, model, **engine_kw) -> dict:
     from superllama_tpu_torch.runtime.engine import Engine
 
-    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda")
+    engine_kw.setdefault("kv_dtype", torch.bfloat16)
+    eng = Engine(model, n_slots=8, n_ctx=2048, device="cuda", **engine_kw)
     p32, p100 = token_prompts(model.hparams.n_vocab, [32, 100], SEED + 4)
     eng.generate(p32, max_tokens=16, sampling={"greedy": True}, stop_eog=False)  # warm
     r1 = eng.generate(p32, max_tokens=128, sampling={"greedy": True}, stop_eog=False)
@@ -565,9 +900,13 @@ def time_serving(torch, model) -> dict:
 
 
 def phase_times(torch, model, smi_line: str) -> dict:
-    serving = time_serving(torch, model)
-    kernels = {**time_matmul_kernels(torch), **time_fa(torch)}
-    emit({"phase": "times", "card": smi_line, "serving": serving, "kernels": kernels})
+    serving = {"bf16": time_serving(torch, model),
+               "q8_0": time_serving(torch, model, kv_dtype="q8_0"),
+               "paged": time_serving(torch, model, paged=True, page_size=256)}
+    kernels = {**time_matmul_kernels(torch), **time_fa(torch), **time_fd(torch),
+               **time_paged(torch)}
+    emit({"phase": "times", "card": smi_line, "serving": serving, "kernels": kernels,
+          "decode_attention": time_decode_attention(torch)})
     return kernels
 
 
@@ -612,10 +951,15 @@ def phase_profile(torch, model) -> None:
 
 # ------------------------------------------------------------ main
 
+# (name, source, the TPU kernel it replaces, the timing entry of its record)
 KERNELS = [
-    ("qmv", "superllama_tpu_torch/csrc/qmv.cu", "superllama_tpu/ops/qmatmul.py:235"),
-    ("qmm", "superllama_tpu_torch/csrc/qmm.cu", "superllama_tpu/ops/qmatmul.py:94"),
-    ("fa", "superllama_tpu_torch/csrc/fa.cu", "superllama_tpu/ops/flash_attention.py:36"),
+    ("qmv", "superllama_tpu_torch/csrc/qmv.cu", "superllama_tpu/ops/qmatmul.py:235", "qmv"),
+    ("qmm", "superllama_tpu_torch/csrc/qmm.cu", "superllama_tpu/ops/qmatmul.py:94", "qmm"),
+    ("fa", "superllama_tpu_torch/csrc/fa.cu", "superllama_tpu/ops/flash_attention.py:36", "fa"),
+    ("fd", "superllama_tpu_torch/csrc/fd.cu", "superllama_tpu/ops/flash_attention.py:326",
+     "fd_q8"),
+    ("paged", "superllama_tpu_torch/csrc/paged.cu",
+     "superllama_tpu/ops/paged_attention.py:138", "paged"),
 ]
 
 
@@ -635,13 +979,17 @@ def main() -> int:
     phase_build()
     checks = phase_kernels(torch)
     model = build_model(torch)
+    # each kernel's launches come from the serving run of its own path
     counts = phase_serving(torch, model)
+    counts["fd"] = phase_serving_q8(torch, model)["fd"]
+    counts["paged"] = phase_serving_paged(torch, model)["paged"]
     phase_parity(torch, model)
+    phase_cache_parity(torch, model)
     times = phase_times(torch, model, info["nvidia_smi"])
     phase_profile(torch, model)
     record = []
-    for name, source, replaces in KERNELS:
-        t = times[name]
+    for name, source, replaces, timing in KERNELS:
+        t = times[timing]
         record.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name],

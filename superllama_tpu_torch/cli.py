@@ -13,7 +13,7 @@ import argparse
 import sys
 import time
 
-_KV_DTYPES = ("bfloat16", "float32")
+_KV_DTYPES = ("bfloat16", "float32", "q8_0", "q4_0")
 
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
@@ -36,7 +36,8 @@ def _load(args):
                        device=args.device)
     print(f"loaded {args.model} [{model.hparams.arch}] on {args.device} "
           f"in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
-    return model, getattr(torch, args.kv_dtype)
+    kvd = args.kv_dtype
+    return model, getattr(torch, kvd) if kvd in ("bfloat16", "float32") else kvd
 
 
 def cmd_run(args) -> int:
@@ -72,7 +73,8 @@ def cmd_serve(args) -> int:
 
     model, kvd = _load(args)
     app = ServerApp(model, n_slots=args.slots, n_ctx=args.ctx_size, kv_dtype=kvd,
-                    device=args.device)
+                    device=args.device, paged=args.paged_kv,
+                    page_size=args.kv_page_size, n_pages=args.kv_pages)
     srv = Server(app, host=args.host, port=args.port)
     srv.start()
     print(f"listening on http://{args.host}:{srv.port}", file=sys.stderr)
@@ -107,6 +109,11 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, default=8080, help="bind port")
     p.add_argument("-np", "--slots", "--parallel", type=int, default=4,
                    help="concurrent generation slots")
+    p.add_argument("--paged-kv", action="store_true",
+                   help="serve with the paged KV cache (device⇄host spill)")
+    p.add_argument("--kv-page-size", type=int, default=256, help="tokens per KV page")
+    p.add_argument("--kv-pages", type=int, default=None,
+                   help="device-resident page pool size (default: slots*ctx/page + 1)")
     p.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)

@@ -1,8 +1,10 @@
-"""Parameters of the JAX package → parameters of the port.
+"""Parameters and caches of the JAX package → those of the port.
 
 ``params_from_jax`` turns the JAX package's parameter tree, with its arrays
 given as numpy arrays, into the port's: the same function computed by both
-packages, which the parity tests rely on. This module reads plain attributes
+packages, which the parity tests rely on. ``kv_cache_from_jax`` and
+``paged_cache_from_jax`` carry a cache across the same way, so both packages
+can start from one mid-generation state. This module reads plain attributes
 and numpy arrays only; it imports nothing of JAX.
 """
 
@@ -15,6 +17,8 @@ from .device import resolve_device
 from .gguf.constants import GGMLType
 from .models.hparams import HParams
 from .ops.qtensor import QTensor
+from .runtime.kv_cache import KVCache
+from .runtime.paged_kv import PagedKVCache
 
 _QT_META = ("group", "offset", "nibble", "K", "N", "hi_bits", "sb")
 
@@ -55,3 +59,32 @@ def params_from_jax(params_np, hp: HParams, device=None):
         return _tensor(v, dev)
 
     return conv(params_np)
+
+
+def kv_cache_from_jax(cache_np, device=None) -> KVCache:
+    """A JAX ``KVCache`` (float, Q8_0 or Q4_0; fields as numpy arrays) →
+    the port's, with the spare slot added at index max_seq (empty: codes and
+    scales 0, position -1)."""
+    dev = resolve_device(device)
+
+    def spare(a, fill):
+        a = np.asarray(a)
+        axis = 1 if a.ndim == 2 else 3        # pos (B, S); k/v/scales (L, B, H, S, ...)
+        pad = [(0, 0)] * a.ndim
+        pad[axis] = (0, 1)
+        return _tensor(np.pad(a, pad, constant_values=fill), dev)
+
+    quant = getattr(cache_np, "k_scale", None) is not None
+    return KVCache(
+        k=spare(cache_np.k, 0), v=spare(cache_np.v, 0), pos=spare(cache_np.pos, -1),
+        cursor=_tensor(cache_np.cursor, dev),
+        k_scale=spare(cache_np.k_scale, 0) if quant else None,
+        v_scale=spare(cache_np.v_scale, 0) if quant else None)
+
+
+def paged_cache_from_jax(cache_np, device=None) -> PagedKVCache:
+    """A JAX ``PagedKVCache`` (fields as numpy arrays) → the port's."""
+    dev = resolve_device(device)
+    return PagedKVCache(**{name: _tensor(getattr(cache_np, name), dev)
+                           for name in ("k_pages", "v_pages", "page_pos", "table",
+                                        "cur_page", "cur_off")})

@@ -4,9 +4,20 @@ qwen3 dense models).
 Counterpart of the JAX package's ``models/llama.py::llama_forward`` for the
 dense path: RMSNorm, RoPE, grouped-query attention over the KV cache,
 SwiGLU FFN, output head. Weights are plain tensors (in, out) or QTensors;
-matmuls dispatch through ``qmatmul``; prefill attention (T ≥ 32 on the GPU)
-runs the flash-attention kernel, decode attention the plain grouped-query
-path. The KV cache is updated in place.
+matmuls dispatch through ``qmatmul``. Attention follows the JAX routing:
+
+ - paged cache (``PagedKVCache``): every step, prefill chunk or decode, runs
+   the paged flash-attention kernel over the page tables;
+ - prefill-sized steps on the GPU (T ≥ 32) run the flash-attention kernel,
+   fed Q8_0 codes and scales straight from a Q8_0 cache (a Q4_0 cache is
+   dequantized first);
+ - decode-sized steps (T·G ≤ 32) on the GPU, or with ``hp.extra
+   ["flash_decode"]``, run the split-KV decode kernel on a Q8_0 cache, and
+   on a float or Q4_0 cache when ``hp.extra["flash_decode_float"]`` is set;
+   ``hp.extra["flash_decode_off"]`` turns it off;
+ - everything else takes the plain grouped-query path over the
+   (dequantized) cache.
+The KV cache is updated in place.
 
 Not ported yet (they raise NotImplementedError): MoE, ALiBi, LayerNorm
 models, llama4 / chameleon / deci extras, M-RoPE, custom attention masks.
@@ -17,11 +28,13 @@ from __future__ import annotations
 import torch
 
 from ..ops import ref as ops
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_decode_attention
+from ..ops.paged_attention import paged_flash_attention
 from ..ops.qmatmul import qmatmul
 from ..ops.qtensor import QTensor
-from ..runtime.kv_cache import (KVCache, causal_mask, kv_advance,
+from ..runtime.kv_cache import (KVCache, causal_mask, kv_advance, kv_layer,
                                 kv_update_layer, kv_write_slots)
+from ..runtime.paged_kv import PagedKVCache, paged_advance, paged_update_layer
 from .hparams import ROPE_SCALING_YARN, HParams
 
 
@@ -107,44 +120,57 @@ def llama_forward(
     hp: HParams,
     tokens: torch.Tensor,     # (B, T) int
     pos: torch.Tensor,        # (B, T) int32; -1 marks padding
-    cache: KVCache,
+    cache: KVCache | PagedKVCache,
     flash: bool | None = None,
     s_window: int | None = None,
     attn_mask: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, KVCache]:
+) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """One forward step (prefill or decode). Returns (logits (B, T, V), cache);
     the cache is updated in place.
 
     ``s_window``: cap on how many cache slots attention reads (the engine's
-    decode-length bucketing); every valid slot index must be below it.
+    decode-length bucketing); every valid slot index must be below it. Dense
+    caches only.
 
     ``flash=None`` selects the flash-attention kernel for prefill-sized
-    steps on the GPU (T ≥ 32); decode attention takes the plain grouped-query
-    path."""
+    steps on the GPU (T ≥ 32); see the module docstring for the rest."""
     if attn_mask is not None:
         raise NotImplementedError("custom attention masks are not ported yet")
     _check_supported(params, hp)
     B, T = tokens.shape
+    on_gpu = tokens.device.type == "cuda"
     if flash is None:
-        flash = tokens.device.type == "cuda" and T >= 32
+        flash = on_gpu and T >= 32
     H, Hkv, D, Dv = hp.n_head, hp.n_head_kv, hp.head_dim, hp.head_dim_v
     pos = pos.to(torch.int32)
+    paged = isinstance(cache, PagedKVCache)
+    # split-KV decode kernel: decode-sized steps on a Q8_0 cache, and on any
+    # other dense cache when flash_decode_float asks for it
+    fdec = (not flash and not paged
+            and not hp.extra.get("flash_decode_off")
+            and (on_gpu or bool(hp.extra.get("flash_decode")))
+            and T * (H // Hkv) <= 32
+            and ((cache.quantized and not cache.q4)
+                 or bool(hp.extra.get("flash_decode_float"))))
 
     inv_freq, mscale, inv_freq_swa, mscale_swa = rope_setup(params, hp, tokens.device)
     kq_scale = hp.f_attn_scale if hp.f_attn_scale > 0.0 else 1.0 / (D ** 0.5)
     safe_pos = torch.clamp(pos, min=0)
     x = params["token_embd"][tokens.to(torch.int64)] * hp.f_embedding_scale
 
-    slots = kv_write_slots(cache, T)
-    kv_advance(cache, slots, pos)
-    S = cache.max_seq
-    if s_window is not None and s_window >= S:
-        s_window = None
-    Sw = s_window or S
-    wpos = cache.positions(Sw)
-    if not flash:
-        mask_full = causal_mask(wpos, pos)
-        mask_swa = causal_mask(wpos, pos, hp.swa_window) if hp.swa_window else mask_full
+    if paged:
+        pslots, poffs = paged_advance(cache, pos)
+    else:
+        slots = kv_write_slots(cache, T)
+        kv_advance(cache, slots, pos)
+        S = cache.max_seq
+        if s_window is not None and s_window >= S:
+            s_window = None
+        Sw = s_window or S
+        wpos = cache.positions(Sw)
+        if not flash and not fdec:
+            mask_full = causal_mask(wpos, pos)
+            mask_swa = causal_mask(wpos, pos, hp.swa_window) if hp.swa_window else mask_full
 
     for il, layer in enumerate(params["layers"]):
         h = _norm(x, layer, "attn_norm", hp)
@@ -183,21 +209,31 @@ def llama_forward(
             k = ops.apply_rope(k, safe_pos, f, hp.rope_type, ms)
 
         sinks = layer.get("attn_sinks")
-        kv_update_layer(cache, il, slots, k, v)
-        ck, cv = cache.layer(il, Sw)
-        if flash:
-            attn = flash_attention(q, ck, cv, pos, wpos, scale=kq_scale,
-                                   swa_window=swa,
-                                   logit_softcap=hp.attn_logit_softcap,
-                                   sinks=sinks)
+        akw = dict(scale=kq_scale, swa_window=swa, logit_softcap=hp.attn_logit_softcap,
+                   sinks=sinks)
+        if paged:
+            paged_update_layer(cache, il, pslots, poffs, k, v)
+            attn = paged_flash_attention(q, cache.k_pages[il], cache.v_pages[il], pos,
+                                         cache.page_pos, cache.table, **akw)
         else:
-            # grouped-query path when K/V traffic dominates (long context or
-            # multi-row batches), the repeat-KV reference otherwise
-            attn_fn = (ops.attention_gqa if (ck.shape[2] >= 1024 or B >= 2)
-                       else ops.attention_ref)
-            attn = attn_fn(q, ck, cv, mask_swa if swa else mask_full,
-                           scale=kq_scale, logit_softcap=hp.attn_logit_softcap,
-                           sinks=sinks)
+            kv_update_layer(cache, il, slots, k, v)
+            if fdec or (flash and cache.quantized and not cache.q4):
+                ck, cv, ks, vs = cache.layer(il, Sw)   # codes and scales as stored
+            else:
+                (ck, cv), ks, vs = kv_layer(cache, il, k.dtype, Sw), None, None
+            if fdec:
+                attn = flash_decode_attention(q, ck, cv, pos, wpos, k_scale=ks,
+                                              v_scale=vs, **akw)
+            elif flash:
+                attn = flash_attention(q, ck, cv, pos, wpos, k_scale=ks, v_scale=vs,
+                                       **akw)
+            else:
+                # grouped-query path when K/V traffic dominates (long context
+                # or multi-row batches), the repeat-KV reference otherwise
+                attn_fn = (ops.attention_gqa if (ck.shape[2] >= 1024 or B >= 2)
+                           else ops.attention_ref)
+                attn = attn_fn(q, ck, cv, mask_swa if swa else mask_full, scale=kq_scale,
+                               logit_softcap=hp.attn_logit_softcap, sinks=sinks)
         attn = mm(attn.reshape(B, T, H * Dv), layer["wo"])
         if "bo" in layer:
             attn = attn + layer["bo"]

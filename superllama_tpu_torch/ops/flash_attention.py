@@ -9,6 +9,13 @@ layout: q (B, T, H, D), k/v (B, Hkv, S, D).
 On CUDA tensors ``flash_attention`` launches the hand-written kernel of
 ``csrc/fa.cu``; on CPU tensors it runs ``flash_attention_plain``. Launches
 are counted in ``flash_attention.launches``.
+
+``flash_decode_attention`` is the decode-shape counterpart (the JAX
+package's split-KV ``flash_decode_attention``): float, Q8_0 or Q4_0 K/V,
+split across the cache in ``block_s`` chunks whose partial softmax states are
+combined at the end. CUDA tensors run ``csrc/fd.cu``, CPU tensors
+``flash_decode_plain``; launches are counted in
+``flash_decode_attention.launches``.
 """
 
 from __future__ import annotations
@@ -18,13 +25,19 @@ import math
 
 import torch
 
+from ..runtime.kv_cache import q4_dequant
 from . import _build
+from .ref import quant_scale
 
 _NEG = 1e9  # per-unit positional penalty; violations are >= 1 position apart
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _L, _L, _L, _L,
              _P, _P, _L, _L, _P, _P, _L, _P, _F, _I, _F, _P, _P]
+_FD_ARGTYPES = [_I] * 9 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _L, _L, _L, _L,
+                           _P, _P, _L, _P, _F, _I, _F, _P, _P, _P]
+_FD_MODES = {"f": 0, "q8": 1, "q4": 2}
+FD_BLOCK_S = 2048   # default cache slots per chunk, as in the JAX package
 
 
 def _positional_penalty(q_pos: torch.Tensor, kv_pos: torch.Tensor, G: int,
@@ -134,3 +147,183 @@ def flash_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
 
 
 flash_attention.launches = 0
+
+
+# ----------------------------------------------------------- decode (split-KV)
+
+
+def _fd_mode(k_scale) -> str:
+    if k_scale is None:
+        return "f"
+    return "q4" if k_scale.ndim == 4 else "q8"
+
+
+def flash_decode_plain(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
+                       logit_softcap=0.0, sinks=None, k_scale=None, v_scale=None,
+                       block_s=None) -> torch.Tensor:
+    """Plain version of the fd kernel: the same chunks, roundings and
+    combine, one chunk at a time."""
+    B, T, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    mode = _fd_mode(k_scale)
+    Dv = v.shape[3] * (2 if mode == "q4" else 1)
+    G = H // Hkv
+    TG = T * G
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    qg = q.reshape(B, T, Hkv, G, D).permute(0, 2, 1, 3, 4).reshape(B, Hkv, TG, D)
+    if mode == "q8":
+        qf = qg.to(f32)
+        qs, inv = quant_scale(torch.amax(torch.abs(qf), dim=-1, keepdim=True), 127.0)
+        qd = torch.round(qf * inv).to(f64)
+        qsc = qs * scale
+    elif mode == "q4":
+        qd = qg.to(bf16).to(f32)
+    else:
+        qd = qg.to(bf16 if q.dtype == bf16 else f32).to(f32)
+    q_pos = q_pos.to(torch.int32)
+    qpf = torch.repeat_interleave(q_pos, G, dim=1).to(f32)[:, None, :, None]
+    big = 1 << 30
+    qmax = q_pos.amax(dim=1)
+    qmin = torch.where(q_pos < 0, big, q_pos).amin(dim=1)
+    sink = None
+    if sinks is not None:
+        sink = (sinks.to(f32).reshape(1, Hkv, 1, G).expand(B, Hkv, T, G)
+                .reshape(B, Hkv, TG, 1))
+    def q4_operand(codes, scales):   # bf16((c - 8) · bf16(scale)), held in f32
+        return q4_dequant(codes, scales.to(bf16).to(f32), bf16).to(f32)
+
+    bs = min(S, block_s or FD_BLOCK_S)
+    parts = []
+    for s0 in range(0, S, bs):
+        sl = slice(s0, min(S, s0 + bs))
+        kp = kv_pos[:, sl].to(torch.int32)
+        vis = torch.where(kp < 0, big, kp).amin(dim=1) <= qmax
+        if swa_window > 0:
+            vis &= torch.where(kp < 0, -big, kp).amax(dim=1) > qmin - swa_window
+        kc, vc = k[:, :, sl], v[:, :, sl]
+        if mode == "q8":
+            ks, vs = k_scale[:, :, sl].to(f32), v_scale[:, :, sl].to(f32)
+            ii = torch.matmul(qd, kc.to(f64).transpose(2, 3)).to(f32)
+            logits = ii * qsc * ks[:, :, None, :]
+        elif mode == "q4":
+            kd = q4_operand(kc, k_scale[:, :, sl])
+            logits = torch.matmul(qd, kd.transpose(2, 3)) * scale
+        else:
+            kd = kc.to(bf16 if q.dtype == bf16 else f32).to(f32)
+            logits = torch.matmul(qd, kd.transpose(2, 3)) * scale
+        if logit_softcap > 0.0:
+            logits = logit_softcap * torch.tanh(logits / logit_softcap)
+        kpf = kp.to(f32)[:, None, None, :]
+        pen = torch.clamp(qpf - kpf, max=0.0) + torch.clamp(kpf, max=0.0)
+        if swa_window > 0:
+            pen = pen + torch.clamp(kpf - qpf + float(swa_window) - 1.0, max=0.0)
+        logits = logits + pen * _NEG
+        m = torch.amax(logits, dim=-1, keepdim=True)
+        if sink is not None:
+            m = torch.maximum(m, sink)
+        p = torch.exp(logits - m)
+        l = torch.sum(p, dim=-1, keepdim=True)
+        if mode == "q8":
+            pv = p * vs[:, :, None, :]
+            ps, inv = quant_scale(torch.amax(torch.abs(pv), dim=-1, keepdim=True), 127.0)
+            p8 = torch.round(pv * inv).to(f64)
+            acc = torch.matmul(p8, vc.to(f64)).to(f32) * ps
+        elif mode == "q4":
+            vd = q4_operand(vc, v_scale[:, :, sl])
+            acc = torch.matmul(p.to(bf16).to(f32), vd)
+        else:
+            acc = torch.matmul(p.to(v.dtype).to(f32), vc.to(f32))
+        seen = vis[:, None, None, None]
+        parts.append((torch.where(seen, m, torch.full_like(m, -1e30)),
+                      torch.where(seen, l, torch.zeros_like(l)),
+                      torch.where(seen, acc, torch.zeros_like(acc))))
+    M = sink if sink is not None else torch.full((B, Hkv, TG, 1), -1e30, dtype=f32,
+                                                 device=q.device)
+    for m, _, _ in parts:
+        M = torch.maximum(M, m)
+    l = torch.exp(sink - M) if sink is not None else torch.zeros_like(M)
+    acc = torch.zeros((B, Hkv, TG, Dv), dtype=f32, device=q.device)
+    for m, lc, ac in parts:
+        e = torch.exp(m - M)
+        l = l + lc * e
+        acc = acc + ac * e
+    out = acc / torch.clamp(l, min=1e-30)
+    return (out.reshape(B, Hkv, T, G, Dv).permute(0, 2, 1, 3, 4)
+            .reshape(B, T, H, Dv).to(q.dtype))
+
+
+def flash_decode_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
+                           logit_softcap=0.0, sinks=None, k_scale=None,
+                           v_scale=None, block_s=None) -> torch.Tensor:
+    """q (B,T,H,D); k/v (B,Hkv,S,D) float, int8 (Q8_0) or uint8 (Q4_0,
+    S × D/2 packed bytes); q_pos (B,T) int32 (−1 = padding row); kv_pos
+    (B,S) int32 (−1 = empty slot); k_scale/v_scale (B,Hkv,S) for Q8_0 or
+    (B,Hkv,S,D/32) for Q4_0; block_s: cache slots per chunk (default 2048).
+    Returns (B,T,H,Dv) in q's type; rows with q_pos < 0 are undefined."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, q_pos, kv_pos, scale, swa_window,
+                                  logit_softcap, sinks, k_scale, v_scale, block_s)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_attention runs on cuda or cpu tensors, not {q.device}")
+    B, T, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    mode = _fd_mode(k_scale)
+    Dv = v.shape[3] * (2 if mode == "q4" else 1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
+    want = {"q8": torch.int8, "q4": torch.uint8}.get(mode)
+    kind = 0
+    if want is None:
+        kind = {torch.float32: 0, torch.bfloat16: 1}.get(k.dtype)
+        if kind is None or v.dtype != k.dtype:
+            raise TypeError(f"unsupported float K/V types {k.dtype}/{v.dtype}")
+    elif k.dtype != want or v.dtype != want or v_scale is None:
+        raise TypeError(f"{mode} K/V need {want} codes and both scales")
+    if H % Hkv or D > 256 or Dv > 256 or (mode == "q4" and (D % 32 or Dv % 32)):
+        raise ValueError(f"unsupported decode shape H={H} Hkv={Hkv} D={D} Dv={Dv}")
+    for t in (k, v):
+        if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+            raise ValueError("K/V rows must be contiguous")
+    if kv_pos.stride(-1) != 1:
+        raise ValueError("kv_pos rows must be contiguous")
+    if mode != "f":
+        for t in (k_scale, v_scale):
+            if t.dtype != torch.float32 or t.stride(-1) != 1 or (
+                    mode == "q4" and t.stride(-2) != t.shape[-1]):
+                raise ValueError("K/V scales must be f32 with contiguous slots")
+    lib = _build.load("fd")
+    fn = lib.slt_fd
+    if fn.argtypes is None:
+        fn.argtypes = _FD_ARGTYPES
+        fn.restype = ctypes.c_int
+    q = q.contiguous()
+    q_pos = q_pos.to(torch.int32).contiguous()
+    kv_pos = kv_pos.to(torch.int32)
+    if sinks is not None:
+        sinks = sinks.to(torch.float32).contiguous()
+    bs = min(S, block_s or FD_BLOCK_S)
+    n_s = -(-S // bs)
+    part = torch.empty((B, Hkv, n_s, T * (H // Hkv), Dv + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
+    quant = mode != "f"
+    err = fn(B, T, H, Hkv, S, D, Dv, bs, _FD_MODES[mode],
+             q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(), kind,
+             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+             k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
+             k_scale.stride(0) if quant else 0, k_scale.stride(1) if quant else 0,
+             v_scale.stride(0) if quant else 0, v_scale.stride(1) if quant else 0,
+             q_pos.data_ptr(), kv_pos.data_ptr(), kv_pos.stride(0),
+             sinks.data_ptr() if sinks is not None else None,
+             float(scale), int(swa_window), float(logit_softcap),
+             part.data_ptr(), out.data_ptr(), _build.stream_ptr(q.device))
+    _build.check(err, "fd")
+    flash_decode_attention.launches += 1
+    return out
+
+
+flash_decode_attention.launches = 0

@@ -102,6 +102,15 @@ def apply_rope(
     return out.to(x.dtype)
 
 
+def quant_scale(amax: torch.Tensor, top: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(amax / top, top / amax or 0 where amax is 0) by true division, as the
+    JAX package computes a quantizer's scale and its inverse: torch turns
+    ``scalar / tensor`` into a multiplication by a reciprocal, and on CUDA a
+    division by a Python scalar too, which moves a code by one now and then."""
+    t = torch.full_like(amax, top)
+    return amax / t, torch.where(amax > 0, t / amax, torch.zeros_like(amax))
+
+
 # ----------------------------------------------------------------- attention
 
 

@@ -1,4 +1,4 @@
-"""Continuous-batching inference engine over a dense KV cache.
+"""Continuous-batching inference engine over a dense or paged KV cache.
 
 Counterpart of the JAX package's ``runtime/engine.py::Engine`` (the
 reference server's update_slots semantics):
@@ -12,13 +12,22 @@ reference server's update_slots semantics):
  - sampling: a host ``SamplerChain`` per slot; when every generating slot is
    greedy, a block of ``block_size`` forward + argmax steps runs on the
    device and the host rolls back the overshoot past a stop with
-   ``kv_truncate_rows``.
+   ``kv_truncate_rows``;
+ - the dense cache is f32/bf16, or Q8_0 / Q4_0 (``kv_dtype="q8_0"`` /
+   ``"q4_0"``);
+ - paged mode (``paged=True``): a page pool with host spill
+   (``PagedKVManager``). Admission frees the slot's pages; prompts prefill
+   one chunk of at most ``page_size`` tokens per step, one slot at a time,
+   the other rows riding on the NULL page; decode picks the slots whose
+   pages fit the pool (round robin, the rest wait while their pages spill)
+   and runs host-sampled steps or greedy blocks rolled back with
+   ``PagedKVManager.rollback``.
 
 Thread model: ``submit`` enqueues; one engine thread (``start``) or the
 caller (``run_until_drained``) owns the device. The cache is updated in
 place.
 
-Not ported yet: paged KV, speculative and lookup decoding, context shift,
+Not ported yet: speculative and lookup decoding, context shift,
 grammars, prompt-prefix reuse, slot save/restore and the device sampler
 chain; non-greedy requests take the host-sampled step decode.
 """
@@ -29,6 +38,7 @@ import queue
 import threading
 import time
 import uuid
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Callable, Optional
@@ -41,6 +51,7 @@ from ..models.loader import LoadedModel
 from ..models.registry import get_forward
 from .context import check_model_device
 from .kv_cache import KVCache, kv_cache_init, kv_insert_row, kv_truncate_rows
+from .paged_kv import PagedKVManager, paged_cache_init
 from .sampling import SamplerChain, make_chain
 
 PREFILL_BUCKETS = (32, 128, 512, 1024, 2048)
@@ -94,12 +105,14 @@ class _Slot:
 
 
 class Engine:
-    """Continuous-batching engine on one device (default CUDA)."""
+    """Continuous-batching engine on one device (default CUDA). kv_dtype is a
+    float torch dtype, or "q8_0" / "q4_0" for a quantized dense cache."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
-                 kv_dtype: torch.dtype = torch.bfloat16,
+                 kv_dtype: torch.dtype | str = torch.bfloat16,
                  prefill_buckets=PREFILL_BUCKETS, block_size: int = 8,
-                 device=None):
+                 device=None, paged: bool = False, page_size: int = 256,
+                 n_pages: int | None = None, max_pages_per_seq: int | None = None):
         self.device = resolve_device(device)
         check_model_device(model, self.device)
         self.model = model
@@ -110,7 +123,21 @@ class Engine:
         self._fwd = get_forward(self.hp.arch)
         self.kv_dtype = kv_dtype
         self.block_size = max(1, int(block_size))
-        self.cache = self._new_cache(n_slots)
+        self.paged = bool(paged)
+        if self.paged:
+            hp = self.hp
+            self.page_size = int(page_size)
+            mpps = max_pages_per_seq or -(-n_ctx // self.page_size)
+            self.pkv = PagedKVManager(paged_cache_init(
+                hp.n_layer, n_pages or (n_slots * mpps + 1), self.page_size, n_slots,
+                mpps, hp.n_head_kv, hp.head_dim, hp.head_dim_v, dtype=kv_dtype,
+                device=self.device))
+            # a decode block plans its pages up front: it must fit one page
+            self.block_size = min(self.block_size, self.page_size)
+            self.cache = None
+            self._paged_rr = 0         # round-robin admission cursor
+        else:
+            self.cache = self._new_cache(n_slots)
         self.slots = [_Slot(i) for i in range(n_slots)]
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
         # serializes step() against callers that must see a quiet engine
@@ -263,6 +290,10 @@ class Engine:
         slot.prefill_off = 0
         slot.scratch = None
         slot.prefill_P = self._bucket(len(ids))
+        if self.paged:     # no prefix reuse yet: the slot's pages go back
+            self.pkv.free_seq(slot.idx)
+            slot.in_place = True
+            slot.prefill_P = min(slot.prefill_P, self.page_size)
         slot.sampler = make_chain(**req.sampling) if req.sampling else make_chain(greedy=True)
         for t in ids[-64:]:
             slot.sampler.ctx.recent_tokens.append(t)
@@ -273,6 +304,16 @@ class Engine:
         if not loading:
             return False
         finals: list[tuple[_Slot, torch.Tensor, int, int]] = []  # (slot, logits, row, col)
+        if self.paged:
+            for slot in loading:
+                try:
+                    finals += self._paged_prefill_chunk(slot)
+                except (ValueError, RuntimeError) as e:  # pool exhausted etc.
+                    slot.req._result["error"] = str(e)
+                    slot.req._done.set()
+                    slot.state, slot.req, slot.pending = SlotState.IDLE, None, []
+                    self.pkv.free_seq(slot.idx)
+            loading = []
         # slots midway through a scratch prefill must stay on the scratch
         # path: their chunks live only in slot.scratch
         batch = [s for s in loading if s.in_place or s.prefill_off == 0]
@@ -344,6 +385,14 @@ class Engine:
         active = [s for s in self.slots if s.state == SlotState.GENERATING]
         if not active:
             return False
+        if self.paged:
+            if (self.block_size > 1
+                    and all(self._greedy_cfg(s.req.sampling) for s in active)
+                    and all(s.n_past + self.block_size + 1 <= self.n_ctx for s in active)):
+                self._paged_block_decode_step(active)
+            else:
+                self._paged_decode_step(active)
+            return True
         if (self.block_size > 1
                 and all(self._greedy_cfg(s.req.sampling) for s in active)
                 and all(s.n_past + 2 * self.block_size + 1 <= self.n_ctx for s in active)):
@@ -373,19 +422,7 @@ class Engine:
             tok0[s.idx, 0] = s.generated[-1]
             pos0[s.idx, 0] = s.n_past
         win = self._s_bucket(max(s.n_past for s in active) + 2 * nb + 1)
-        tok = torch.as_tensor(tok0).to(self.device)
-        pos = torch.as_tensor(pos0).to(self.device)
-        live = pos[:, 0] >= 0
-        steps = []
-        for _ in range(nb):
-            logits, _ = self._fwd(self.model.params, self.hp, tok, pos,
-                                  self.cache, s_window=win)
-            nxt = torch.argmax(logits[:, -1], dim=-1)
-            nxt = torch.where(live, nxt, tok[:, 0])
-            pos = torch.where(live[:, None], pos + 1, pos)
-            tok = nxt[:, None]
-            steps.append(nxt)
-        toks = torch.stack(steps, dim=1).cpu().numpy()      # (n_slots, nb)
+        toks = self._greedy_steps(tok0, pos0, self.cache, win)
         keep = self._keep_vector()
         overshoot = False
         for s in active:
@@ -394,6 +431,113 @@ class Engine:
             keep[s.idx] = s.n_past
         if overshoot:
             kv_truncate_rows(self.cache, torch.from_numpy(keep))
+
+    def _greedy_steps(self, tok0: np.ndarray, pos0: np.ndarray, cache,
+                      win: int | None) -> np.ndarray:
+        """block_size forward + argmax steps on the device from (n_slots, 1)
+        tokens and positions; rows with pos < 0 ride along unchanged.
+        Returns the (n_slots, block_size) tokens."""
+        tok = torch.as_tensor(tok0).to(self.device)
+        pos = torch.as_tensor(pos0).to(self.device)
+        live = pos[:, 0] >= 0
+        steps = []
+        for _ in range(self.block_size):
+            logits, _ = self._fwd(self.model.params, self.hp, tok, pos, cache,
+                                  s_window=win)
+            nxt = torch.where(live, torch.argmax(logits[:, -1], dim=-1), tok[:, 0])
+            pos = torch.where(live[:, None], pos + 1, pos)
+            tok = nxt[:, None]
+            steps.append(nxt)
+        return torch.stack(steps, dim=1).cpu().numpy()
+
+    # ------------------------------------------------------------ paged mode
+
+    @contextmanager
+    def _paged_hold(self, slots: list[_Slot]):
+        """Make each slot's pages resident and pin them for one step (a later
+        slot's restore must not spill an earlier slot's pages)."""
+        try:
+            for s in slots:
+                self.pkv.ensure_resident(s.idx)
+                self.pkv.pin(s.idx, True)
+            yield
+        finally:
+            for s in slots:
+                self.pkv.pin(s.idx, False)
+
+    def _paged_prefill_chunk(self, slot: _Slot) -> list:
+        """One prompt chunk (≤ page_size tokens) into the slot's page chain;
+        the other rows ride along on the NULL page. Returns the finals entry
+        of a slot whose prompt is done."""
+        P = slot.prefill_P
+        chunk = slot.pending[:P]
+        with self._paged_hold([slot]):
+            self.pkv.plan_step({slot.idx: len(chunk)})
+            tok = np.zeros((self.n_slots, P), np.int64)
+            pos = np.full((self.n_slots, P), -1, np.int32)
+            tok[slot.idx, : len(chunk)] = chunk
+            pos[slot.idx, : len(chunk)] = np.arange(slot.prefill_off,
+                                                    slot.prefill_off + len(chunk))
+            logits = self._forward(tok, pos, self.pkv.cache)
+            self.pkv.finish_step()
+        slot.pending = slot.pending[len(chunk):]
+        slot.prefill_off += len(chunk)
+        return [] if slot.pending else [(slot, logits, slot.idx, len(chunk) - 1)]
+
+    def _paged_pick(self, active: list[_Slot]) -> list[_Slot]:
+        """Swap-scheduling admission: the slots whose page chains fit the
+        pool this step, in round-robin order; the rest wait, their pages
+        spilling to host as the picked ones allocate."""
+        cap = self.pkv.n_pool_pages
+        k = self._paged_rr % len(active)
+        self._paged_rr += 1
+        picked, used = [], 0
+        for s in active[k:] + active[:k]:
+            need = self.pkv.seq_pages(s.idx) + 1     # +1: a new open page
+            if used + need <= cap:
+                picked.append(s)
+                used += need
+        if not picked:
+            raise RuntimeError(f"page pool too small for any sequence (cap {cap} pages)")
+        return picked
+
+    def _paged_decode_step(self, active: list[_Slot]) -> None:
+        """One host-sampled decode token for every picked slot."""
+        picked = self._paged_pick(active)
+        tokens = np.zeros((self.n_slots, 1), np.int64)
+        pos = np.full((self.n_slots, 1), -1, np.int32)
+        for s in picked:
+            tokens[s.idx, 0] = s.generated[-1]
+            pos[s.idx, 0] = s.n_past
+        with self._paged_hold(picked):
+            self.pkv.plan_step({s.idx: 1 for s in picked})
+            logits = self._forward(tokens, pos, self.pkv.cache)
+            self.pkv.finish_step()
+        logits_np = logits[:, 0].float().cpu().numpy()
+        for s in picked:
+            s.n_past += 1
+            self._emit(s, s.sampler.sample(logits_np[s.idx]))
+
+    def _paged_block_decode_step(self, active: list[_Slot]) -> None:
+        """A greedy decode block on the paged cache: the block's pages are
+        planned up front (one page per row), and a row that stops inside
+        the block rolls back to its accepted tokens."""
+        picked = self._paged_pick(active)
+        nb = self.block_size
+        tok0 = np.zeros((self.n_slots, 1), np.int64)
+        pos0 = np.full((self.n_slots, 1), -1, np.int32)
+        for s in picked:
+            tok0[s.idx, 0] = s.generated[-1]
+            pos0[s.idx, 0] = s.n_past
+        saved = {s.idx: self.pkv.save_cursor(s.idx) for s in picked}
+        with self._paged_hold(picked):
+            self.pkv.plan_step({s.idx: nb for s in picked})
+            toks = self._greedy_steps(tok0, pos0, self.pkv.cache, None)
+            self.pkv.finish_step()
+        for s in picked:
+            accepted = self._consume_row(s, toks[s.idx])
+            if accepted < nb:
+                self.pkv.rollback(s.idx, saved[s.idx], accepted, nb)
 
     def _consume_row(self, s: _Slot, row: np.ndarray) -> int:
         """Accept a slot's block tokens until it stops; returns the count."""

@@ -1,8 +1,12 @@
-"""Float KV cache (f32 / bf16) with positional masking.
+"""KV cache (f32 / bf16, Q8_0 or Q4_0) with positional masking.
 
 Counterpart of the JAX package's ``runtime/kv_cache.py``: a fixed-shape ring
 of (k, v, pos) tensors; causal masking derives from the stored per-slot
 positions, so mixed prefill/decode batches need no host bookkeeping.
+Quantized caches hold codes in k/v and f32 scales beside them: Q8_0 int8
+codes with one scale per (layer, row, head, slot); Q4_0 nibble-packed uint8
+codes (byte j holds element 2j in the low nibble, 2j+1 in the high one) with
+one scale per 32-group. Codes and scales are bit-equal to the JAX package's.
 
 Unlike the JAX cache, which is a functional pytree donated to each jitted
 step, this one is updated IN PLACE: ``kv_update_layer``, ``kv_advance`` and
@@ -19,6 +23,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.ref import quant_scale
+
 
 @dataclass
 class KVCache:
@@ -26,36 +32,113 @@ class KVCache:
     v: torch.Tensor        # (n_layer, B, H_kv, S + 1, Dv)
     pos: torch.Tensor      # (B, S + 1) int32; -1 = empty slot
     cursor: torch.Tensor   # (B,) int32 next write slot
+    # Q8_0: (n_layer, B, H_kv, S + 1); Q4_0: (n_layer, B, H_kv, S + 1, D / 32)
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @property
     def max_seq(self) -> int:
         return self.k.shape[3] - 1
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    @property
+    def q4(self) -> bool:
+        """Q4_0 nibble-packed codes (per-32-group scales carry a trailing
+        dim that Q8_0's per-row scales lack)."""
+        return self.k_scale is not None and self.k_scale.ndim == self.k.ndim
 
     def positions(self, n: int | None = None) -> torch.Tensor:
         """(B, n) slot positions of the first n slots (all by default)."""
         return self.pos[:, : (n or self.max_seq)]
 
     def layer(self, il: int, n: int | None = None):
-        """(k, v) views of layer il over the first n slots: (B, H_kv, n, D)."""
+        """(k, v, k_scale, v_scale) views of layer il over the first n slots:
+        k (B, H_kv, n, D) (Q4_0: D / 2 bytes); the scales are None for a
+        float cache."""
         n = n or self.max_seq
-        return self.k[il][:, :, :n], self.v[il][:, :, :n]
+        ks = vs = None
+        if self.quantized:
+            ks, vs = self.k_scale[il][:, :, :n], self.v_scale[il][:, :, :n]
+        return self.k[il][:, :, :n], self.v[il][:, :, :n], ks, vs
 
 
 def kv_cache_init(n_layer: int, batch: int, max_seq: int, n_head_kv: int,
                   head_dim: int, head_dim_v: int | None = None,
                   dtype=torch.bfloat16, device="cpu") -> KVCache:
-    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
-        raise NotImplementedError(
-            f"KV cache type {dtype!r}: the port keeps f32/bf16 caches; "
-            "quantized caches come in a later slice")
+    """dtype: a float torch dtype, or "q8_0" (int8 codes, per-row scale) /
+    "q4_0" (nibble-packed codes, per-32-group scale)."""
     head_dim_v = head_dim_v if head_dim_v is not None else head_dim
     sh = (n_layer, batch, n_head_kv, max_seq + 1)
+    pos = torch.full((batch, max_seq + 1), -1, dtype=torch.int32, device=device)
+    cursor = torch.zeros((batch,), dtype=torch.int32, device=device)
+    f32 = torch.float32
+    if dtype == "q4_0":
+        if head_dim % 32 or head_dim_v % 32:
+            raise ValueError("q4_0 KV needs head dims divisible by 32")
+        return KVCache(
+            k=torch.zeros((*sh, head_dim // 2), dtype=torch.uint8, device=device),
+            v=torch.zeros((*sh, head_dim_v // 2), dtype=torch.uint8, device=device),
+            pos=pos, cursor=cursor,
+            k_scale=torch.zeros((*sh, head_dim // 32), dtype=f32, device=device),
+            v_scale=torch.zeros((*sh, head_dim_v // 32), dtype=f32, device=device))
+    if dtype == "q8_0":
+        return KVCache(
+            k=torch.zeros((*sh, head_dim), dtype=torch.int8, device=device),
+            v=torch.zeros((*sh, head_dim_v), dtype=torch.int8, device=device),
+            pos=pos, cursor=cursor,
+            k_scale=torch.zeros(sh, dtype=f32, device=device),
+            v_scale=torch.zeros(sh, dtype=f32, device=device))
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"KV cache type {dtype!r}: a float dtype, 'q8_0' or 'q4_0'")
     return KVCache(
         k=torch.zeros((*sh, head_dim), dtype=dtype, device=device),
         v=torch.zeros((*sh, head_dim_v), dtype=dtype, device=device),
-        pos=torch.full((batch, max_seq + 1), -1, dtype=torch.int32, device=device),
-        cursor=torch.zeros((batch,), dtype=torch.int32, device=device),
-    )
+        pos=pos, cursor=cursor)
+
+
+def q8_quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., D) float → (int8 codes, f32 per-row scale): Q8_0 semantics,
+    round half to even as in the JAX package."""
+    xf = x.to(torch.float32)
+    scale, inv = quant_scale(torch.amax(torch.abs(xf), dim=-1), 127.0)
+    return torch.round(xf * inv[..., None]).to(torch.int8), scale
+
+
+def q4_quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., D) float → (uint8 nibble-packed codes (..., D/2), f32
+    per-32-group scales (..., D/32)): Q4_0 semantics (symmetric, amax/7,
+    codes clipped to ±7 then offset by 8)."""
+    D = x.shape[-1]
+    xf = x.to(torch.float32).reshape(*x.shape[:-1], D // 32, 32)
+    scale, inv = quant_scale(torch.amax(torch.abs(xf), dim=-1), 7.0)
+    q = torch.clamp(torch.round(xf * inv[..., None]), -7, 7).to(torch.int32) + 8
+    q = q.reshape(*x.shape[:-1], D)
+    return (q[..., 0::2] | (q[..., 1::2] << 4)).to(torch.uint8), scale
+
+
+def q4_dequant(codes: torch.Tensor, scales: torch.Tensor,
+               dtype=torch.float32) -> torch.Tensor:
+    """Inverse of q4_quantize_rows."""
+    c = codes.to(torch.int32)
+    D = codes.shape[-1] * 2
+    q = torch.stack([(c & 0xF) - 8, (c >> 4) - 8], dim=-1)
+    g = q.reshape(*codes.shape[:-1], D // 32, 32).to(torch.float32)
+    return (g * scales[..., None]).reshape(*codes.shape[:-1], D).to(dtype)
+
+
+def kv_layer(cache: KVCache, il: int, dtype=torch.float32, n: int | None = None):
+    """K/V of layer il over the first n slots, dequantized when the cache is
+    quantized (float caches are returned as stored)."""
+    ck, cv, ks, vs = cache.layer(il, n)
+    if cache.q4:
+        return q4_dequant(ck, ks, dtype), q4_dequant(cv, vs, dtype)
+    if cache.quantized:
+        return ((ck.to(torch.float32) * ks[..., None]).to(dtype),
+                (cv.to(torch.float32) * vs[..., None]).to(dtype))
+    return ck, cv
 
 
 def kv_write_slots(cache: KVCache, n_new: int) -> torch.Tensor:
@@ -72,9 +155,17 @@ def _in_cache(cache: KVCache, slots: torch.Tensor) -> torch.Tensor:
 def kv_update_layer(cache: KVCache, layer: int, slots: torch.Tensor,
                     k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache:
     """Write (B, T, H_kv, D) new keys/values at the given (B, T) slots of one
-    layer, in place."""
+    layer, in place; a quantized cache stores their codes and scales."""
     idx = _in_cache(cache, slots)
     b_idx = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    if cache.quantized:
+        quantize = q4_quantize_rows if cache.q4 else q8_quantize_rows
+        for codes, scales, new in ((cache.k, cache.k_scale, k_new),
+                                   (cache.v, cache.v_scale, v_new)):
+            c, s = quantize(new)
+            codes[layer][b_idx, :, idx] = c
+            scales[layer][b_idx, :, idx] = s
+        return cache
     cache.k[layer][b_idx, :, idx] = k_new.to(cache.k.dtype)
     cache.v[layer][b_idx, :, idx] = v_new.to(cache.v.dtype)
     return cache
@@ -122,9 +213,12 @@ def kv_truncate_rows(cache: KVCache, keep: torch.Tensor) -> KVCache:
 
 def kv_insert_row(big: KVCache, small: KVCache, row: int, n_valid: int) -> KVCache:
     """Copy a one-row cache (a prefill scratch) into row ``row`` of ``big``,
-    in place; the row's cursor becomes n_valid."""
+    in place, with its scales; the row's cursor becomes n_valid."""
     big.k[:, row] = small.k[:, 0]
     big.v[:, row] = small.v[:, 0]
+    if big.quantized:
+        big.k_scale[:, row] = small.k_scale[:, 0]
+        big.v_scale[:, row] = small.v_scale[:, 0]
     big.pos[row] = small.pos[0]
     big.cursor[row] = n_valid
     return big

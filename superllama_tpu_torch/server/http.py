@@ -31,12 +31,14 @@ class ServerApp:
     """Wires model + engine; transport-agnostic request handlers."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
-                 kv_dtype: torch.dtype | None = None, model_name: str | None = None,
-                 device=None):
+                 kv_dtype: torch.dtype | str | None = None, model_name: str | None = None,
+                 device=None, paged: bool = False, page_size: int = 256,
+                 n_pages: int | None = None):
         self.model = model
         self.model_name = model_name or model.name or "model"
         self.engine = Engine(model, n_slots=n_slots, n_ctx=n_ctx,
-                             kv_dtype=kv_dtype or torch.bfloat16, device=device)
+                             kv_dtype=kv_dtype or torch.bfloat16, device=device,
+                             paged=paged, page_size=page_size, n_pages=n_pages)
         self.chat_template = template_for_model(model)
         self.t_start = time.time()
 

@@ -75,11 +75,23 @@ def cuda_typed(t: torch.Tensor) -> torch.Tensor:
     return torch.Tensor._make_subclass(_CudaTyped, t)
 
 
+def xla_exact(fn, *args):
+    """fn(*args) jitted with XLA's excess precision off: on the CPU, XLA
+    otherwise drops f32→bf16→f32 round trips, so the JAX package's bf16
+    roundings (Q4_0 dequant, bf16 probabilities) would not happen as
+    written."""
+    import jax
+
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
 def failing_build(monkeypatch) -> type:
     """Make every kernel build fail and every plain version unreachable;
     returns the exception type a wrapper must then raise."""
     from superllama_tpu_torch.ops import _build
     from superllama_tpu_torch.ops import flash_attention as fa_mod
+    from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
 
     class BuildFailed(RuntimeError):
@@ -93,6 +105,8 @@ def failing_build(monkeypatch) -> type:
 
     monkeypatch.setattr(_build, "load", fail)
     for mod, name in ((qm_mod, "qmv_plain"), (qm_mod, "qmm_plain"),
-                      (fa_mod, "flash_attention_plain")):
+                      (fa_mod, "flash_attention_plain"), (fa_mod, "flash_decode_plain"),
+                      (pa_mod, "paged_flash_attention_plain"),
+                      (pa_mod, "flash_attention_plain")):
         monkeypatch.setattr(mod, name, plain)
     return BuildFailed

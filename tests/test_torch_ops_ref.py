@@ -121,7 +121,7 @@ def test_kv_cache_ops_match_jax():
     np.testing.assert_array_equal(tc.positions().numpy(), np.asarray(jc.pos))
     np.testing.assert_array_equal(tc.cursor.numpy(), np.asarray(jc.cursor))
     for il in range(L):
-        k, v = tc.layer(il)
+        k, v, _, _ = tc.layer(il)
         np.testing.assert_array_equal(k.numpy(), np.asarray(jc.k[il]))
         np.testing.assert_array_equal(v.numpy(), np.asarray(jc.v[il]))
     keep = np.array([5, 0, 3], np.int32)
