@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
  2. build: nvcc of every kernel source in superllama_tpu_torch/csrc;
  3. kernels against their plain versions at Llama-3-8B shapes (qmv, qmm,
-    fa, fd in its f/q8/q4 modes, paged);
+    fa, fd in its f/q8/q4 modes, paged, the four qmv-probe variants, which
+    are also held against qmv);
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
     server answers 8 concurrent completions and one streamed one; the launch
     counters show the path went through every kernel. Then the same with a
@@ -20,7 +21,11 @@ Phases, each printing one JSON line:
     and Q4_0 caches; the paged cache against the dense one;
  6. times: decode tok/s, time to first token (bf16, Q8_0, paged), and each
     kernel's time beside its plain version, a library call and its bound;
- 7. profile: where one engine decode step's time goes (torch.profiler).
+ 7. profile: where one engine decode step's time goes (torch.profiler);
+ 8. tools: the measurement tools' path (the qmv probe at two 8B shapes,
+    ops_bench at its default shapes, flash_decode_probe, a short llama-bench
+    on the 8B model) with its own launch counts, then each probe variant's
+    time beside its plain version, a library call, qmv and its bound.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 """
@@ -285,6 +290,37 @@ def check_decode_kernels(torch, record) -> None:
         record("paged", case, got, ref, args[0].dtype, mask=args[3] >= 0)
 
 
+# (M, K, N) of the probe checks: ffn_gate/up, ffn_down, wq/wo at one row,
+# wk/wv, and an N that is not a multiple of the TPU's 512-column tile
+PROBE_SHAPES = [(8, 4096, 14336), (8, 14336, 4096), (1, 4096, 4096), (8, 4096, 1024),
+                (3, 4096, 1000)]
+
+
+def check_probe_kernels(torch, record) -> None:
+    """The four qmv-probe variants against their plain versions and against
+    qmv on the same x (f32 and bf16 activations), in f32: the integer group
+    dots are exact and both sides quantize x alike, so only the f32 sums'
+    order (and qmv's association ig·(sx·s) against (ig·s)·sx) differs:
+    NMSE < 1e-10."""
+    from superllama_tpu_torch.ops.qmatmul import qmv
+    from superllama_tpu_torch.tools.qmv_probe import VARIANTS, qmv_variant, qmv_variant_plain
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    for i, (M, K, N) in enumerate(PROBE_SHAPES):
+        qt = rand_weight(torch, "Q4_K", N, K, 600 + i)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            mv = qmv(x, qt, torch.float32)
+            for v in VARIANTS:
+                got = qmv_variant(x, qt, v)
+                ref = qmv_variant_plain(x, qt, v)
+                torch.cuda.synchronize()
+                case = f"M={M} K={K} N={N} x {str(dt)[6:]}"
+                record(f"qmv_probe_{v}", f"{case} vs plain", got, ref, torch.float32, tol=1e-10)
+                record(f"qmv_probe_{v}", f"{case} vs qmv", got, mv, torch.float32, tol=1e-10)
+
+
 def phase_kernels(torch) -> list:
     from superllama_tpu_torch.ops.flash_attention import (flash_attention,
                                                           flash_attention_plain)
@@ -309,13 +345,14 @@ def phase_kernels(torch) -> list:
     TOL = {bf16: 1e-5, f32: 1e-9}
     rows = []
 
-    def record(kernel, case, got, ref, dtype, mask=None, p_bf16=False):
+    def record(kernel, case, got, ref, dtype, mask=None, p_bf16=False, tol=None):
         g, r = got.float(), ref.float()
         if mask is not None:
             g, r = g[mask], r[mask]
         err = float((g - r).abs().max())
         e = nmse(g, r)
-        tol = TOL[bf16] if p_bf16 else TOL[dtype]
+        if tol is None:
+            tol = TOL[bf16] if p_bf16 else TOL[dtype]
         ok = bool(torch.isfinite(got.float()).all()) and e < tol
         rows.append({"kernel": kernel, "case": case, "max_abs_err": err,
                      "nmse": e, "tol": tol, "ok": ok})
@@ -380,6 +417,7 @@ def phase_kernels(torch) -> list:
                p_bf16=kw.get("q8", False))
 
     check_decode_kernels(torch, record)
+    check_probe_kernels(torch, record)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "kernel_checks.json"), "w") as f:
         json.dump(rows, f, indent=1)
@@ -406,12 +444,20 @@ def counters():
 
 
 def reset_counts() -> None:
+    from superllama_tpu_torch.tools.qmv_probe import qmv_variant
+
     for fn in counters().values():
         fn.launches = 0
+    for v in qmv_variant.launches:
+        qmv_variant.launches[v] = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counters().items()}
+    from superllama_tpu_torch.tools.qmv_probe import qmv_variant
+
+    counts = {name: fn.launches for name, fn in counters().items()}
+    counts.update({f"qmv_probe_{v}": n for v, n in qmv_variant.launches.items()})
+    return counts
 
 
 def build_model(torch):
@@ -949,6 +995,102 @@ def phase_profile(torch, model) -> None:
           "top": [{"name": k[:80], "ms": t, "count": c} for k, t, c in top]})
 
 
+# ------------------------------------------------------------ 8. tools
+
+
+def phase_tools(torch, model) -> dict:
+    """The measurement tools' path, as a user runs them: qmv_probe at
+    ffn_gate/up's (N 14336, K 4096) and at (4096, 4096), ops_bench at its
+    default shapes (written to chiprun_out/ops_perf.json),
+    flash_decode_probe, and llama-bench (pp 32, tg 16) on the 8B model. The
+    launch counts are set to 0 just before and read just after."""
+    from dataclasses import asdict
+
+    from superllama_tpu_torch.tools import flash_decode_probe, llama_bench, ops_bench, qmv_probe
+
+    reset_counts()
+    t0 = time.perf_counter()
+    probe = [qmv_probe.run(N, K, device="cuda")["qmv_probe"] for N, K in ((14336, 4096),
+                                                                           (4096, 4096))]
+    ops_bench.run(device="cuda", out=os.path.join(OUT_DIR, "ops_perf.json"))
+    cells = flash_decode_probe.probe(device="cuda")
+    bench = llama_bench.run_bench(model, pp=(32,), tg=(16,), reps=2, n_ctx=2048)
+    print(llama_bench.format_markdown(bench), flush=True)
+    counts = read_counts()
+    emit({"phase": "tools", "seconds": time.perf_counter() - t0, "launches": counts,
+          "qmv_probe": probe, "decode_cells": len(cells),
+          "llama_bench": [asdict(r) for r in bench]})
+    for name, n in counts.items():
+        check(n > 0, f"the tools' path never launched the {name} kernel")
+    return counts
+
+
+def graph_ms(torch, fn, n: int, replays: int = 3) -> float:
+    """Device ms per call of fn(i), i < n, captured once in a CUDA graph and
+    replayed: the reading holds no host launch cost."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(n):
+            fn(i)
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * n)
+
+
+def time_probe(torch, smi_line: str) -> dict:
+    """Each probe variant at M 8 on (K 4096, N 14336) and (4096, 4096), bf16
+    x, weights rotating over copies that exceed the 50 MB L2: ``ms`` the
+    whole call with its torch prep (as every kernel's ms here, eager),
+    ``graph_ms`` the same replayed from a CUDA graph, ``kernel_ms`` the
+    kernel alone on prepared activations from a CUDA graph; beside them the
+    plain version, ``torch.matmul`` of bf16 x with the dequantized bf16
+    weight, and qmv (eager and from a graph). The bound counts the weight
+    planes, int8 x, f32 sx/xs and the f32 output once."""
+    from superllama_tpu_torch.ops.qmatmul import qmv
+    from superllama_tpu_torch.ops.qtensor import dequant_qtensor
+    from superllama_tpu_torch.tools.qmv_probe import (VARIANTS, launch_variant, prep_acts,
+                                                      qmv_variant, qmv_variant_plain)
+
+    out = {}
+    M = 8
+    t0 = time.perf_counter()
+    for K, N in ((4096, 14336), (4096, 4096)):
+        n_copies = max(6, -(-120_000_000 // (K * N * 9 // 16)))
+        copies = [rand_weight(torch, "Q4_K", N, K, 700 + i) for i in range(n_copies)]
+        dense = [dequant_qtensor(w, torch.bfloat16) for w in copies[:2]]
+        x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
+        w = lambda i: copies[i % n_copies]
+        lib_ms = cuda_ms(torch, lambda i: torch.matmul(x, dense[i % 2]), 60)
+        shape = {"qmv_ms": cuda_ms(torch, lambda i: qmv(x, w(i), torch.float32), 60),
+                 "qmv_graph_ms": graph_ms(torch, lambda i: qmv(x, w(i), torch.float32), 48)}
+        G = K // 32
+        nbytes = copies[0].nbytes + M * K + 2 * M * G * 4 + M * N * 4
+        b, by = bound(nbytes, 2.0 * M * K * N, "int8")
+        for v in VARIANTS:
+            acts = prep_acts(x, v)
+            out[f"qmv_probe_{v} N={N}"] = {
+                "shape": f"Q4_K M={M} K={K} N={N} bf16 x, f32 out",
+                "ms": cuda_ms(torch, lambda i: qmv_variant(x, w(i), v), 60),
+                "graph_ms": graph_ms(torch, lambda i: qmv_variant(x, w(i), v), 48),
+                "kernel_ms": graph_ms(torch, lambda i: launch_variant(acts, w(i), v), 48),
+                "plain_ms": cuda_ms(torch, lambda i: qmv_variant_plain(x, w(i), v), 3, 1),
+                "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "bytes": nbytes,
+                **shape}
+        del copies, dense
+    emit({"phase": "probe_times", "card": smi_line, "seconds": time.perf_counter() - t0,
+          "kernels": out})
+    return out
+
+
 # ------------------------------------------------------------ main
 
 # (name, source, the TPU kernel it replaces, the timing entry of its record)
@@ -960,7 +1102,9 @@ KERNELS = [
      "fd_q8"),
     ("paged", "superllama_tpu_torch/csrc/paged.cu",
      "superllama_tpu/ops/paged_attention.py:138", "paged"),
-]
+] + [(f"qmv_probe_{v}", "superllama_tpu_torch/csrc/qmv_probe.cu",
+      f"superllama_tpu/tools/qmv_probe.py:{line}", f"qmv_probe_{v} N=14336")
+     for v, line in (("v1", 53), ("v2", 64), ("v3", 91), ("v4", 78))]
 
 
 def main() -> int:
@@ -987,6 +1131,10 @@ def main() -> int:
     phase_cache_parity(torch, model)
     times = phase_times(torch, model, info["nvidia_smi"])
     phase_profile(torch, model)
+    # the probe kernels' launches come from the tools' path
+    tool_counts = phase_tools(torch, model)
+    counts.update({name: n for name, n in tool_counts.items() if name.startswith("qmv_probe")})
+    times.update(time_probe(torch, info["nvidia_smi"]))
     record = []
     for name, source, replaces, timing in KERNELS:
         t = times[timing]

@@ -1,10 +1,11 @@
 """Command-line entry points of the port: ``run`` (generate text from a
-prompt) and ``serve`` (the OpenAI-compatible HTTP server), with the flag
-names of the JAX package's CLI for what exists.
+prompt), ``serve`` (the OpenAI-compatible HTTP server) and ``llama-bench``
+(the pp/tg perf matrix), with the flag names of the JAX package's CLI for
+what exists.
 
-Usage:  python -m superllama_tpu_torch <run|serve> -m model.gguf [options]
+Usage:  python -m superllama_tpu_torch <run|serve|llama-bench> -m model.gguf [options]
 
-Both run on the GPU unless ``--device cpu`` is given.
+All run on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -86,6 +87,21 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_llama_bench(args) -> int:
+    """Perf matrix (tools/llama-bench counterpart)."""
+    from .tools.llama_bench import FORMATTERS, run_bench
+
+    model, kvd = _load(args)
+    res = run_bench(
+        model,
+        pp=[int(x) for x in args.n_prompt.split(",") if int(x) > 0],
+        tg=[int(x) for x in args.n_gen.split(",") if int(x) > 0],
+        depths=[int(x) for x in args.depth.split(",")],
+        reps=args.reps, n_ctx=args.ctx_size, kv_dtype=kvd)
+    print(FORMATTERS[args.output](res))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="superllama_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -115,6 +131,15 @@ def main(argv=None) -> int:
     p.add_argument("--kv-pages", type=int, default=None,
                    help="device-resident page pool size (default: slots*ctx/page + 1)")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("llama-bench", help="perf matrix (pp/tg × depth × reps)")
+    _add_model_args(p)
+    p.add_argument("-p", "--n-prompt", default="512", help="prompt lengths, comma-separated")
+    p.add_argument("-n", "--n-gen", default="128", help="decode lengths, comma-separated")
+    p.add_argument("-d", "--depth", default="0", help="context depths, comma-separated")
+    p.add_argument("-r", "--reps", type=int, default=3, help="timed repetitions")
+    p.add_argument("-o", "--output", default="md", choices=["md", "json", "jsonl", "csv"])
+    p.set_defaults(fn=cmd_llama_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -26,6 +26,7 @@ import torch
 from ..gguf.constants import GGMLType
 from . import _build
 from .qtensor import QTensor, dequant_qtensor, qt_codes, qt_scales_adds
+from .ref import quant_scale
 
 # weight formats the kernels decode (csrc FMT ids)
 _FMT = {GGMLType.Q8_0: 0, GGMLType.Q4_K: 1, GGMLType.Q6_K: 2}
@@ -76,9 +77,8 @@ def quantize_acts(x2: torch.Tensor, gs: int):
     sums xs (M, K/gs): inv = 127/amax, round half to even."""
     M, K = x2.shape
     g = x2.reshape(M, K // gs, gs).to(torch.float32)
-    amax = torch.amax(torch.abs(g), dim=-1)
-    sx = amax / 127.0
-    inv = torch.where(amax > 0, 127.0 / amax, torch.zeros_like(amax))
+    # true divisions, as the qmv kernel's quantizer and the JAX package do
+    sx, inv = quant_scale(torch.amax(torch.abs(g), dim=-1), 127.0)
     xq = torch.round(g * inv[..., None]).to(torch.int8)
     xsum = xq.to(torch.float32).sum(dim=-1) * sx
     return xq.reshape(M, K), sx, xsum

@@ -46,6 +46,10 @@ class Context:
                              hp.head_dim, hp.head_dim_v, dtype=self.kv_dtype,
                              device=self.device)
 
+    def reset(self) -> None:
+        """Start over on an empty cache."""
+        self.cache = self.new_cache()
+
     @torch.no_grad()
     def forward(self, tokens, pos=None) -> torch.Tensor:
         """Run one step over (B, T) tokens; returns logits (B, T, V)."""

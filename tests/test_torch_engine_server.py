@@ -223,6 +223,8 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.server.http, superllama_tpu_torch.runtime.context\n"
         "import superllama_tpu_torch.models.synthetic, superllama_tpu_torch.tokenizer\n"
         "import superllama_tpu_torch.ops.paged_attention, superllama_tpu_torch.runtime.paged_kv\n"
+        "import superllama_tpu_torch.tools.ops_bench, superllama_tpu_torch.tools.qmv_probe\n"
+        "import superllama_tpu_torch.tools.flash_decode_probe, superllama_tpu_torch.tools.llama_bench\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -93,6 +93,7 @@ def failing_build(monkeypatch) -> type:
     from superllama_tpu_torch.ops import flash_attention as fa_mod
     from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
+    from superllama_tpu_torch.tools import qmv_probe as probe_mod
 
     class BuildFailed(RuntimeError):
         pass
@@ -107,6 +108,7 @@ def failing_build(monkeypatch) -> type:
     for mod, name in ((qm_mod, "qmv_plain"), (qm_mod, "qmm_plain"),
                       (fa_mod, "flash_attention_plain"), (fa_mod, "flash_decode_plain"),
                       (pa_mod, "paged_flash_attention_plain"),
-                      (pa_mod, "flash_attention_plain")):
+                      (pa_mod, "flash_attention_plain"),
+                      (probe_mod, "qmv_variant_plain")):
         monkeypatch.setattr(mod, name, plain)
     return BuildFailed
