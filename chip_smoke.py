@@ -3,7 +3,8 @@
 port's serving path on one NVIDIA GPU and holds every kernel to its plain
 PyTorch version.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase (the chip check)
+    python3 chip_smoke.py --kernel-times  # device, build, the kernel rows of phase 6
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -20,8 +21,11 @@ Phases, each printing one JSON line:
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one;
  6. times: decode tok/s, time to first token (bf16, Q8_0, paged), and each
-    kernel's time beside its plain version, a library call and its bound;
- 7. profile: where one engine decode step's time goes (torch.profiler);
+    kernel's time beside its plain version, a library call and its bound,
+    kernel and library both read from a CUDA graph over inputs rotated past
+    the L2 (the eager reading beside it);
+ 7. profile: where one engine decode step's time goes on each cache
+    (torch.profiler), the decode-attention kernels and cache writes apart;
  8. tools: the measurement tools' path (the qmv probe at two 8B shapes,
     ops_bench at its default shapes, flash_decode_probe, a short llama-bench
     on the 8B model) with its own launch counts, then each probe variant's
@@ -207,10 +211,12 @@ def fd_inputs(torch, B=8, T=1, S=2048, H=32, Hkv=8, D=128, kv="f", dtype="bf16",
 
 
 def paged_inputs(torch, B=8, T=1, H=32, Hkv=8, D=128, P=256, MAXP=8, dtype="bf16",
-                 lens=None, absent=(), seed=0):
+                 lens=None, absent=(), gap=0, seed=0):
     """A shuffled pool of B*MAXP+1 pages (page 0 = NULL) holding each row's
-    first lens[b] positions; ``absent`` (row, logical page) entries are -1.
-    Query rows at each row's newest T positions."""
+    first lens[b] positions; ``absent`` (row, logical page) entries are -1;
+    ``gap`` > 0 leaves the last gap slots of every page empty (the gaps of
+    closed pages), positions going on in the next page. Query rows at each
+    row's newest T positions."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -223,14 +229,15 @@ def paged_inputs(torch, B=8, T=1, H=32, Hkv=8, D=128, P=256, MAXP=8, dtype="bf16
                  .tolist())
     table = torch.full((B, MAXP), -1, dtype=torch.int32)
     page_pos = torch.full((N, P), -1, dtype=torch.int32)
+    per = P - gap
     for b, n in enumerate(lens):
-        for lg in range(-(-n // P)):
+        for lg in range(-(-n // per)):
             if (b, lg) in absent:
                 continue
             pg = next(order)
             table[b, lg] = pg
-            cnt = min(P, n - lg * P)
-            page_pos[pg, :cnt] = torch.arange(lg * P, lg * P + cnt)
+            cnt = min(per, n - lg * per)
+            page_pos[pg, :cnt] = torch.arange(lg * per, lg * per + cnt)
     q = torch.randn((B, T, H, D), generator=g, device=dev).to(dt)
     q_pos = torch.stack([torch.arange(n - T, n, dtype=torch.int32) for n in lens])
     return (q, kp, vp, q_pos.to(dev), page_pos.to(dev), table.to(dev))
@@ -257,11 +264,24 @@ def check_decode_kernels(torch, record) -> None:
         fd_cases.append((f"f32 T={T} S={S} G={G} {kv} swa={swa} softcap={cap} sinks={sk}",
                          dict(B=2, T=T, S=S, H=2 * G, Hkv=2, D=64, kv=kv, dtype="f32",
                               sinks=sk), {"swa_window": swa, "logit_softcap": cap}))
+    # the cluster geometry's edges: one batch row, two chunks (the combine
+    # kernel runs), a partial cluster, G 8 (64/8 heads)
+    fd_cases += [(f"{kv} B=1 S={S} bf16", dict(B=1, S=S, kv=kv), {})
+                 for kv in ("f", "q8", "q4") for S in (2048, 4096)]
+    fd_cases += [(f"{kv} T=1 S={S} bf16", dict(S=S, kv=kv), {})
+                 for kv in ("f", "q8", "q4") for S in (4096, 1000)]
+    fd_cases += [(f"{kv} G=8 T={T} bf16", dict(T=T, H=64, kv=kv), {})
+                 for kv in ("f", "q8", "q4") for T in (1, 4)]
+    fd_cases += [("q8 T=1 S=4096 block_s=256 sinks bf16", dict(S=4096, kv="q8", sinks=True),
+                  {"block_s": 256}),
+                 ("f T=1 S=2048 swa=100 f32", dict(kv="f", dtype="f32"), {"swa_window": 100})]
     for i, (case, kw, opts) in enumerate(fd_cases):
         args, extra = fd_inputs(torch, seed=300 + i, **kw)
         got = flash_decode_attention(*args, **extra, **opts)
+        again = flash_decode_attention(*args, **extra, **opts)
         ref = flash_decode_plain(*args, **extra, **opts)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"fd {case}: two calls differ")
         record("fd", case, got, ref, args[0].dtype, p_bf16=kw["kv"] != "f")
     # block_s 2048 against 256: one chunk against eight, combined
     args, _ = fd_inputs(torch, kv="f", dtype="f32", seed=399)
@@ -280,13 +300,33 @@ def check_decode_kernels(torch, record) -> None:
                    ("bf16 T=8 sinks", dict(T=8), {"sinks": True}),
                    ("f32 T=64 softcap=30", dict(T=64, dtype="f32", lens=[1024] * 8),
                     {"logit_softcap": 30.0})]
+    # the decode kernel's geometry: B 1, small pages, G 8, either side of
+    # the prefill path (T*G 32 and 36), gaps left by closed pages, a row
+    # longer than one pass
+    paged_cases += [("bf16 B=1 T=1", dict(B=1), {}),
+                    ("bf16 T=1 P=16 MAXP=128", dict(P=16, MAXP=128), {}),
+                    ("bf16 T=1 P=64 MAXP=32 lens+absent", dict(P=64, MAXP=32, lens=lens,
+                                                                absent=absent), {}),
+                    ("f32 T=1 P=16 MAXP=64 swa=200 sinks", dict(P=16, MAXP=64, dtype="f32"),
+                     {"swa_window": 200, "sinks": True}),
+                    ("bf16 G=8 T=1", dict(H=64), {}),
+                    ("bf16 G=8 T=4", dict(H=64, T=4), {}),
+                    ("bf16 T=8 (T*G 32, decode path)", dict(T=8), {}),
+                    ("bf16 T=9 (T*G 36, prefill path)", dict(T=9), {}),
+                    ("f32 T=8 (T*G 32) softcap=30", dict(T=8, dtype="f32"),
+                     {"logit_softcap": 30.0}),
+                    ("bf16 T=1 P=64 gaps", dict(P=64, MAXP=40, gap=12, lens=[2000] * 8), {}),
+                    ("bf16 T=4 P=16 gaps lens", dict(P=16, MAXP=190, gap=5, lens=lens), {}),
+                    ("bf16 B=2 T=1 MAXP=128 (two passes)", dict(B=2, MAXP=128), {})]
     for i, (case, kw, opts) in enumerate(paged_cases):
         args = paged_inputs(torch, seed=500 + i, **kw)
         if opts.pop("sinks", False):
             opts["sinks"] = torch.randn((args[0].shape[2],), device="cuda")
         got = paged_flash_attention(*args, **opts)
+        again = paged_flash_attention(*args, **opts)
         ref = paged_flash_attention_plain(*args, **opts)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"paged {case}: two calls differ")
         record("paged", case, got, ref, args[0].dtype, mask=args[3] >= 0)
 
 
@@ -757,11 +797,41 @@ def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+ROTATE_BYTES = 120e6   # inputs rotated per reading: well past the 50 MB L2
+
+
+def n_copies(nbytes: float, least: int = 2) -> int:
+    """Copies of an input set of nbytes that together exceed ROTATE_BYTES."""
+    return max(least, math.ceil(ROTATE_BYTES / nbytes))
+
+
+def kernel_reading(torch, shape: str, call, plain, lib, n: int, nbytes: float, ops: float,
+                   kind: str) -> dict:
+    """One kernel's times at one shape. call(i), lib(i) rotate over copies of
+    their inputs (n calls a reading, the copies together past the L2), so
+    each call reads from device memory as a decode step does. ``ms`` and
+    ``library_ms`` are device time per call from a CUDA graph of n calls
+    (no host launch cost), ``ms_eager`` / ``library_ms_eager`` the same
+    calls launched one by one (CUDA events around 2n calls), ``plain_ms``
+    the plain version, eager. A reading above the bound (share > 1) is a
+    mis-measurement and fails the run."""
+    ms = graph_ms(torch, call, n)
+    lib_ms = graph_ms(torch, lib, n)
+    b, by = bound(nbytes, ops, kind)
+    row = {"shape": shape, "ms": ms, "ms_eager": cuda_ms(torch, call, 2 * n),
+           "plain_ms": cuda_ms(torch, plain, 3, 1), "library_ms": lib_ms,
+           "library_ms_eager": cuda_ms(torch, lib, 2 * n), "bound_ms": b, "bound_by": by,
+           "bytes": nbytes, "ops": ops, "gbps": nbytes / ms / 1e6,
+           "share_of_bound": b / ms, "library_factor": ms / lib_ms, "rotated_copies": n}
+    check(row["share_of_bound"] <= 1.0,
+          f"{shape}: {ms:g} ms is below the {b:g} ms bound: a mis-measurement")
+    return row
+
+
 def time_matmul_kernels(torch) -> dict:
     """qmv and qmm at the 8B decode / 32-token prefill shape of ffn_gate/up
-    (K 4096, N 14336, Q4_K). Weights rotate over copies that together exceed
-    the 50 MB L2, so each launch reads its weight from device memory, as a
-    decode step does."""
+    (K 4096, N 14336, Q4_K), beside torch.matmul on the dequantized bf16
+    weight; both sides rotate over weight copies past the L2."""
     from superllama_tpu_torch.ops.qmatmul import qmm, qmm_plain, qmv, qmv_plain
     from superllama_tpu_torch.ops.qtensor import dequant_qtensor
 
@@ -772,14 +842,12 @@ def time_matmul_kernels(torch) -> dict:
     for name, M, fn, plain, kind in (("qmv", 8, qmv, qmv_plain, "int8"),
                                      ("qmm", 32, qmm, qmm_plain, "bf16")):
         x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
-        ms = cuda_ms(torch, lambda i: fn(x, copies[i % len(copies)], torch.bfloat16), 60)
-        plain_ms = cuda_ms(torch, lambda i: plain(x, copies[i % len(copies)], torch.bfloat16), 5, 1)
-        lib_ms = cuda_ms(torch, lambda i: torch.matmul(x, dense[i % 2]), 60)
         nbytes = copies[0].nbytes + x.numel() * 2 + M * N * 2
-        b, by = bound(nbytes, 2.0 * M * K * N, kind)
-        out[name] = {"shape": f"Q4_K M={M} K={K} N={N} bf16", "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b,
-                     "bound_by": by, "bytes": nbytes, "ops": 2.0 * M * K * N}
+        out[name] = kernel_reading(
+            torch, f"Q4_K M={M} K={K} N={N} bf16",
+            lambda i: fn(x, copies[i % len(copies)], torch.bfloat16),
+            lambda i: plain(x, copies[i % len(copies)], torch.bfloat16),
+            lambda i: torch.matmul(x, dense[i % 2]), 12, nbytes, 2.0 * M * K * N, kind)
     return out
 
 
@@ -793,24 +861,24 @@ def time_fa(torch) -> dict:
                                                           flash_attention_plain)
 
     lens = [100, 32] * 4
-    (q, k, v, q_pos, kv_pos), _ = fa_inputs(torch, B=8, T=128, n_past=0, lens=lens, seed=7)
+    sets = [fa_inputs(torch, B=8, T=128, n_past=0, lens=lens, seed=7 + i)[0] for i in range(2)]
+    q, k, v, q_pos, kv_pos = sets[0]
     B, T, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
-    ms = cuda_ms(torch, lambda i: flash_attention(q, k, v, q_pos, kv_pos), 50)
-    plain_ms = cuda_ms(torch, lambda i: flash_attention_plain(q, k, v, q_pos, kv_pos), 5, 1)
     mask = ((kv_pos[:, None, None, :] >= 0) & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
-    qt = q.transpose(1, 2)
-    lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qt, k, v, attn_mask=mask, enable_gqa=True), 50)
     pairs = sum(n * (n + 1) // 2 for n in lens) * H          # visible (row, slot) pairs
     ops = 2.0 * (D + D) * pairs
     visible_slots = sum(lens)
     nbytes = (2 * visible_slots * Hkv * D * 2 + sum(lens) * H * D * 2 * 2
               + (B * T + B * S) * 4)
-    b, by = bound(nbytes, ops, "bf16")
-    return {"fa": {"shape": f"B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} bf16 lens={lens}",
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b, "bound_by": by, "bytes": nbytes, "ops": ops}}
+    row = kernel_reading(
+        torch, f"B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} bf16 lens={lens}",
+        lambda i: flash_attention(*sets[i % 2]),
+        lambda i: flash_attention_plain(*sets[i % 2]),
+        lambda i: F.scaled_dot_product_attention(
+            sets[i % 2][0].transpose(1, 2), sets[i % 2][1], sets[i % 2][2], attn_mask=mask,
+            enable_gqa=True), 8, nbytes, ops, "bf16")
+    return {"fa": row}
 
 
 def time_fd(torch) -> dict:
@@ -829,31 +897,35 @@ def time_fd(torch) -> dict:
         q, k, v, q_pos, kv_pos = args
         B, T, H, D = q.shape
         Hkv, S = k.shape[1], k.shape[2]
-        ms = cuda_ms(torch, lambda i: flash_decode_attention(*args, **extra), 100)
-        plain_ms = cuda_ms(torch, lambda i: flash_decode_plain(*args, **extra), 5, 1)
-        if kv == "q8":
-            kd = (k.float() * extra["k_scale"][..., None]).to(torch.bfloat16)
-            vd = (v.float() * extra["v_scale"][..., None]).to(torch.bfloat16)
-        elif kv == "q4":
-            kd = q4_dequant(k, extra["k_scale"], torch.bfloat16)
-            vd = q4_dequant(v, extra["v_scale"], torch.bfloat16)
-        else:
-            kd, vd = k, v
-        mask = ((kv_pos[:, None, None, :] >= 0)
-                & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
-        qt = q.transpose(1, 2)
-        lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-            qt, kd, vd, attn_mask=mask, enable_gqa=True), 100)
         # each input read once (q, K/V codes and scales, positions), the
         # output written once
         nbytes = sum(t.numel() * t.element_size() for t in (*args, *extra.values()))
         nbytes += q.numel() * q.element_size()
+        n = n_copies(nbytes)
+        sets = [(args, extra)] + [fd_inputs(torch, kv=kv, seed=700 + i) for i in range(1, n)]
+        dense = []
+        for a, e in sets[:2]:
+            if kv == "q8":
+                dense.append(((a[1].float() * e["k_scale"][..., None]).to(torch.bfloat16),
+                              (a[2].float() * e["v_scale"][..., None]).to(torch.bfloat16)))
+            elif kv == "q4":
+                dense.append((q4_dequant(a[1], e["k_scale"], torch.bfloat16),
+                              q4_dequant(a[2], e["v_scale"], torch.bfloat16)))
+            else:
+                dense.append((a[1], a[2]))
+        mask = ((kv_pos[:, None, None, :] >= 0)
+                & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
+        qt = q.transpose(1, 2)
         visible = int((kv_pos[0] >= 0).sum())
         ops = 2.0 * 2 * D * B * H * T * visible
-        b, by = bound(nbytes, ops, "int8" if kv == "q8" else "bf16")
-        out[f"fd_{kv}"] = {"shape": f"{kv} B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} bf16 q",
-                           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                           "bound_ms": b, "bound_by": by, "bytes": nbytes, "ops": ops}
+        out[f"fd_{kv}"] = kernel_reading(
+            torch, f"{kv} B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} bf16 q",
+            lambda i: flash_decode_attention(*sets[i % n][0], **sets[i % n][1]),
+            lambda i: flash_decode_plain(*sets[i % n][0], **sets[i % n][1]),
+            lambda i: F.scaled_dot_product_attention(
+                qt, dense[i % 2][0], dense[i % 2][1], attn_mask=mask, enable_gqa=True),
+            max(n, 8), nbytes, ops, "int8" if kv == "q8" else "bf16")
+        del sets, dense
     return out
 
 
@@ -866,29 +938,30 @@ def time_paged(torch) -> dict:
     from superllama_tpu_torch.ops.paged_attention import (paged_flash_attention,
                                                           paged_flash_attention_plain)
 
-    args = paged_inputs(torch, seed=800)
-    q, kp, vp, q_pos, page_pos, table = args
+    sets = [paged_inputs(torch, seed=800 + i) for i in range(2)]
+    q, kp, vp, q_pos, page_pos, table = sets[0]
     B, T, H, D = q.shape
     Hkv, P = kp.shape[1], kp.shape[2]
-    ms = cuda_ms(torch, lambda i: paged_flash_attention(*args), 100)
-    plain_ms = cuda_ms(torch, lambda i: paged_flash_attention_plain(*args), 5, 1)
-    tbl = table.long().clamp(min=0)
-    kd = kp[tbl].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D)
-    vd = vp[tbl].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D)
-    kv_pos = page_pos[tbl].reshape(B, -1)
+    dense = []
+    for s in sets:
+        tbl = s[5].long().clamp(min=0)
+        dense.append((s[1][tbl].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D),
+                      s[2][tbl].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D)))
+    kv_pos = page_pos[table.long().clamp(min=0)].reshape(B, -1)
     mask = ((kv_pos[:, None, None, :] >= 0)
             & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
-    lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-        q.transpose(1, 2), kd, vd, attn_mask=mask, enable_gqa=True), 100)
     pages = int((table >= 0).sum())
     nbytes = (pages * (2 * Hkv * P * D * 2 + P * 4) + table.numel() * 4
               + 2 * q.numel() * 2 + q_pos.numel() * 4)
     ops = 2.0 * 2 * D * H * T * int((kv_pos >= 0).sum())
-    b, by = bound(nbytes, ops, "bf16")
-    return {"paged": {"shape": f"B={B} T={T} P={P} MAXP={table.shape[1]} H={H} Hkv={Hkv} "
-                               f"D={D} bf16", "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": b, "bound_by": by,
-                      "bytes": nbytes, "ops": ops}}
+    row = kernel_reading(
+        torch, f"B={B} T={T} P={P} MAXP={table.shape[1]} H={H} Hkv={Hkv} D={D} bf16",
+        lambda i: paged_flash_attention(*sets[i % 2]),
+        lambda i: paged_flash_attention_plain(*sets[i % 2]),
+        lambda i: F.scaled_dot_product_attention(
+            q.transpose(1, 2), dense[i % 2][0], dense[i % 2][1], attn_mask=mask,
+            enable_gqa=True), 8, nbytes, ops, "bf16")
+    return {"paged": row}
 
 
 def time_decode_attention(torch) -> dict:
@@ -956,43 +1029,84 @@ def phase_times(torch, model, smi_line: str) -> dict:
     return kernels
 
 
-def phase_profile(torch, model) -> None:
-    """Where a decode step's time goes: torch.profiler over
-    one block of 8 greedy decode steps with 8 active rows; the full table
-    goes to chiprun_out/profile_decode.txt."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_block(torch, model, label: str, **engine_kw) -> dict:
+    """torch.profiler over one engine step (a block of 8 greedy decode
+    steps, 8 active rows at a depth of about 40-100 positions) on one cache;
+    the cache writes run under a "kv_write" range, so their device time (the
+    quantize-on-write ops on a Q8_0 cache) reads apart from the rest."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from superllama_tpu_torch.models import llama as llama_mod
     from superllama_tpu_torch.runtime.engine import Engine, GenRequest
 
-    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda")
+    engine_kw.setdefault("kv_dtype", torch.bfloat16)
+    eng = Engine(model, n_slots=8, n_ctx=2048, device="cuda", **engine_kw)
     for p in token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 6):
         eng.submit(GenRequest(prompt_ids=p, max_tokens=64, sampling={"greedy": True},
                               stop_eog=False))
     eng.step()                      # admit, prefill wave, first decode block
     eng.step()                      # warm decode block
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    writers = {name: getattr(llama_mod, name) for name in ("kv_update_layer",
+                                                           "paged_update_layer")}
+
+    def ranged(fn):
+        def run(*a, **k):
+            with record_function("kv_write"):
+                return fn(*a, **k)
+        return run
+
+    for name, fn in writers.items():
+        setattr(llama_mod, name, ranged(fn))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in writers.items():
+            setattr(llama_mod, name, fn)
     events = prof.key_averages()
     # device-side rows (kernels, copies) carry no CPU time; operator rows
     # repeat their kernels' device time, so they are left out of the sums
+    # (the kv_write range's own device row spans its kernels and the gaps
+    # between them, so it is left out too; its CPU row sums its kernels)
     dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
-           if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+           if e.self_device_time_total > 0 and e.self_cpu_time_total == 0
+           and e.key != "kv_write"]
     device_ms = sum(t for _, t, _ in dev)
-    n_kernels = sum(c for _, _, c in dev)
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile_decode.txt"), "w") as f:
+    attn = [(k, t, n) for k, t, n in dev
+            if any(s in k for s in ("decode_kernel", "fd_combine", "paged_kernel"))]
+    kv_write = [e for e in events if e.key == "kv_write" and e.self_cpu_time_total > 0]
+    with open(os.path.join(OUT_DIR, f"profile_decode_{label}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
     top = sorted(dev, key=lambda r: -r[1])[:12]
-    emit({"phase": "profile", "what": "one engine step = 8 greedy decode steps, 8 rows",
-          "wall_ms": wall_ms, "device_ms": device_ms,
-          "device_idle_share": 1.0 - device_ms / wall_ms, "device_ops": n_kernels,
-          "cuda_launch_calls": launches,
-          "top": [{"name": k[:80], "ms": t, "count": c} for k, t, c in top]})
+    return {"cache": label, "wall_ms": wall_ms, "device_ms": device_ms,
+            "device_idle_share": 1.0 - device_ms / wall_ms,
+            "device_ops": sum(c for _, _, c in dev),
+            "cuda_launch_calls": sum(e.count for e in events if e.key == "cudaLaunchKernel"),
+            "decode_attention_kernels": [{"name": k[:80], "ms": t, "count": n}
+                                         for k, t, n in attn],
+            "decode_attention_ms": sum(t for _, t, _ in attn),
+            "kv_write_device_ms": sum(e.device_time_total for e in kv_write) / 1e3,
+            "kv_write_calls": sum(e.count for e in kv_write),
+            "top": [{"name": k[:80], "ms": t, "count": c} for k, t, c in top]}
+
+
+def phase_profile(torch, model) -> None:
+    """Where a decode step's time goes, on the bf16, Q8_0 and paged caches:
+    one block of 8 greedy decode steps with 8 active rows each, tables in
+    chiprun_out/profile_decode_<cache>.txt."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for label, kw in (("bf16", {}), ("q8_0", {"kv_dtype": "q8_0"}),
+                      ("paged", {"paged": True, "page_size": 256})):
+        rec = profile_block(torch, model, label, **kw)
+        emit({"phase": "profile", "what": "one engine step = 8 greedy decode steps, 8 rows",
+              **rec})
+        if label != "bf16":
+            check(rec["decode_attention_ms"] > 0,
+                  f"the {label} decode step ran no decode-attention kernel")
 
 
 # ------------------------------------------------------------ 8. tools
@@ -1121,6 +1235,12 @@ def main() -> int:
         return 2
     info = phase_device(torch)
     phase_build()
+    if "--kernel-times" in sys.argv[1:]:
+        # the timed kernel rows alone, for comparing two trees in one call
+        emit({"phase": "kernel_times", "card": info["nvidia_smi"],
+              "kernels": {**time_matmul_kernels(torch), **time_fa(torch), **time_fd(torch),
+                          **time_paged(torch)}})
+        return 0
     checks = phase_kernels(torch)
     model = build_model(torch)
     # each kernel's launches come from the serving run of its own path

@@ -4,36 +4,47 @@
 // (superllama_tpu/ops/paged_attention.py:138, wrapper paged_flash_attention).
 // K/V live in a pool of pages (N, Hkv, P, D) shared by every sequence; row
 // b's logical page lg sits in pool page table[b, lg], and an absent entry
-// (-1) reads page 0, the NULL page, whose positions are all -1. One block
-// per (tile of query rows, kv head, batch row) walks the row's table in
-// tiles of 64 cache slots with an f32 online softmax, as fa does over a
-// dense cache:
+// (-1) reads page 0, the NULL page, whose positions are all -1. Semantics:
 //  - the G query heads of one kv head share each K/V tile (GQA);
 //  - masking is fa's positional -1e9 penalty from the page positions;
-//  - sinks start the running max at the sink with denominator 1; softcap;
+//  - sinks enter the max and the denominator (exp(sink - m)); softcap;
 //  - QK^T in bf16 (K rounded) when q is bf16, else f32; p is rounded to V's
 //    type before P.V; out = acc / max(l, 1e-30);
-//  - a tile that no row of the block can see is skipped before K/V are
-//    read, so absent pages, empty page tails and the SWA-hidden past cost
-//    only their positions. A block of padding rows only gives 0, as the TPU
-//    kernel does.
-// The TPU kernel takes pages four at a time with a running max per chunk;
-// tiles of 64 slots change only the f32 summation order and where p is
-// rounded.
+//  - a tile that no query row can see is skipped before K/V are read, so
+//    absent pages, empty page tails and the SWA-hidden past cost only their
+//    positions. A block of padding rows only gives 0, as the TPU kernel does.
+//
+// Two paths, one launch per call either way:
+//  - decode shapes (T*G <= 32, every decode step): decode_common.cuh's
+//    cluster kernel. One cluster of cl = min(8, tiles in the row) blocks per
+//    (kv head, batch row) divides the row's MAXP * P slots, nb a block
+//    (ceil(MAXP * P / cl) rounded up to whole 8 KB tiles: 32 slots in bf16
+//    at D 128); each tile comes in by one bulk copy per page it touches
+//    (a 256-token page is 8 such tiles). The cluster takes each row's max
+//    over the whole row before p, as the plain version does; a block whose
+//    share exceeds its logits buffer (nbmax slots: 2048 at T*G 4) runs
+//    passes with a running max. 512 blocks at B 8, 64 at B 1 for 2048 slots.
+//  - prefill shapes (T*G > 32: the page-chunked prefill, a lone 32-token
+//    chunk): paged_kernel below, one block per (tile of 64 query rows, kv
+//    head, batch row) walking the table in 64-slot tiles with an f32 online
+//    softmax; its p is rounded relative to each tile's running max (the TPU
+//    kernel takes pages four at a time with a running max per chunk).
 //
 // What bounds it on the H100: bytes at decode shapes (K and V of the
 // occupied pages, 67.1 MB in bf16 at B 8, 2048 slots, 8 kv heads, D 128:
-// 0.020 ms at 3.35 TB/s). This simple version loads each tile into shared
-// memory with plain loads and dots on the CUDA cores; asynchronous copies of
-// whole pages and tensor cores are later work.
+// 0.020 ms at 3.35 TB/s); decode_common.cuh says how the decode path keeps
+// bytes in flight. The prefill path dots on the CUDA cores from shared
+// memory; tensor cores there are later work.
 //
 // The host changes tables and page positions between steps with ordinary
 // (stream-ordered) copies before this launch.
 //
 // Layout: q (B,T,H,D) contiguous; k_pages (N,Hkv,P,D), v_pages (N,Hkv,P,Dv)
-// with rows contiguous and caller-given page/head strides; page_pos (N,P)
-// int32 contiguous; table (B,MAXP) int32 contiguous; out (B,T,H,Dv) in q's
-// type.
+// with rows contiguous and caller-given page/head strides (16-byte rows and
+// strides on the decode path); page_pos (N,P) int32 contiguous; table
+// (B,MAXP) int32 contiguous; out (B,T,H,Dv) in q's type.
+
+#include "decode_common.cuh"
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -229,8 +240,11 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
 
 // kv_kind: 0 f32, 1 bf16. k_sp/k_sh/v_sp/v_sh are element strides of a page
 // and a head in the pools. Dv in {16, 32, 64, 128}, D <= 256, H / Hkv <= 64.
-// Returns the cudaError_t.
+// T*G <= 32 takes the cluster kernel with the wrapper's plan (R query rows,
+// cl blocks a cluster, nb slots a block, ts slots a tile, nbmax slots a
+// pass), larger T*G paged_kernel. Returns the cudaError_t.
 extern "C" int slt_paged(int B, int T, int H, int Hkv, int P, int MAXP, int D, int Dv,
+                         int R, int cl, int nb, int ts, int nbmax,
                          const void* q, int q_bf16, const void* k, const void* v, int kv_kind,
                          long k_sp, long k_sh, long v_sp, long v_sh,
                          const void* q_pos, const void* page_pos, const void* table,
@@ -238,6 +252,22 @@ extern "C" int slt_paged(int B, int T, int H, int Hkv, int P, int MAXP, int D, i
                          void* out, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
+  if (T * G <= 32) {
+    const int es = kv_kind == KV_F32 ? 4 : 2;
+    decode::Args d{};
+    d.B = B; d.T = T; d.H = H; d.Hkv = Hkv; d.D = D; d.Dv = Dv; d.G = G; d.TG = T * G;
+    d.R = R; d.n_rt = (T * G + R - 1) / R; d.cl = cl; d.nb = nb; d.ts = ts; d.nbmax = nbmax;
+    d.npass = (nb + nbmax - 1) / nbmax; d.n_s = 1; d.bs = MAXP * P; d.S = MAXP * P;
+    d.q = q; d.q_bf16 = q_bf16; d.q_pos = (const int*)q_pos;
+    d.k = k; d.v = v; d.k_sb = k_sp; d.k_sh = k_sh; d.v_sb = v_sp; d.v_sh = v_sh;
+    d.krow = D * es; d.vrow = Dv * es;
+    d.page_pos = (const int*)page_pos; d.table = (const int*)table; d.P = P; d.MAXP = MAXP;
+    d.sinks = (const float*)sinks; d.scale = scale; d.swa = swa; d.softcap = softcap;
+    d.out = out;
+    const cudaError_t e = kv_kind == KV_F32 ? decode::launch<decode::KIND_F32, true>(d, st)
+                                            : decode::launch<decode::KIND_BF16, true>(d, st);
+    return (int)e;
+  }
   Args a{B, T, H, Hkv, P, MAXP, D, Dv, G, ROWS / G, q, q_bf16, k, v, kv_kind,
          k_sp, k_sh, v_sp, v_sh, (const int*)q_pos, (const int*)page_pos,
          (const int*)table, (const float*)sinks, scale, swa, softcap, out};

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -34,10 +35,61 @@ _NEG = 1e9  # per-unit positional penalty; violations are >= 1 position apart
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _L, _L, _L, _L,
              _P, _P, _L, _L, _P, _P, _L, _P, _F, _I, _F, _P, _P]
-_FD_ARGTYPES = [_I] * 9 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _L, _L, _L, _L,
-                           _P, _P, _L, _P, _F, _I, _F, _P, _P, _P]
+_FD_ARGTYPES = [_I] * 14 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _L, _L, _L, _L,
+                            _P, _P, _L, _P, _F, _I, _F, _P, _P, _P]
 _FD_MODES = {"f": 0, "q8": 1, "q4": 2}
 FD_BLOCK_S = 2048   # default cache slots per chunk, as in the JAX package
+
+# geometry of the decode kernel of csrc/decode_common.cuh
+_STAGE_BYTES = 8192    # one stage of a block's ring of K/V tiles
+_LOGIT_FLOATS = 8192   # logits a block holds in one pass: rows x slots
+_CLUSTER = 8           # blocks a cluster at most (the portable size)
+_ROWS = 32             # query rows a block at most
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """How the decode kernel cuts one call: n_s chunks of bs slots, each
+    taken by a cluster of cl blocks per (row tile of R query rows, kv head,
+    batch row); block ``rank`` of a cluster owns nb slots of its chunk, in
+    tiles of ts slots, npass passes of at most nbmax slots."""
+
+    R: int
+    n_rt: int
+    cl: int
+    nb: int
+    ts: int
+    nbmax: int
+    npass: int
+    n_s: int
+    bs: int
+
+
+def decode_plan(S: int, bs: int, TG: int, krow: int, vrow: int) -> DecodePlan:
+    """Geometry of the decode kernel for a cache of S slots cut into chunks
+    of bs, T*G query rows per kv head and K/V rows of krow/vrow bytes: tiles
+    of one 8 KB ring stage, 8 blocks a cluster whenever a chunk holds 8
+    tiles (B 8 at S 2048: 512 blocks; B 1: 64), each block's share of the
+    chunk a whole number of tiles."""
+    R = min(TG, _ROWS)
+    ts = max(1, _STAGE_BYTES // max(krow, vrow))
+    per = -(-bs // _CLUSTER)
+    nb = -(-per // ts) * ts
+    cl = -(-bs // nb)
+    nbmax = max(ts, (_LOGIT_FLOATS // R) // ts * ts)
+    return DecodePlan(R=R, n_rt=-(-TG // R), cl=cl, nb=nb, ts=ts, nbmax=nbmax,
+                      npass=-(-nb // nbmax), n_s=-(-S // bs), bs=bs)
+
+
+def check_bulk_copyable(*tensors) -> None:
+    """The decode kernel copies cache rows in bulk: rows, batch/page and
+    head strides and base addresses must be multiples of 16 bytes."""
+    for t in tensors:
+        es = t.element_size()
+        if ((t.shape[-1] * es) % 16 or t.data_ptr() % 16
+                or any((t.stride(i) * es) % 16 for i in range(t.ndim - 1))):
+            raise ValueError("decode attention needs K/V rows, strides and base "
+                             "addresses in multiples of 16 bytes")
 
 
 def _positional_penalty(q_pos: torch.Tensor, kv_pos: torch.Tensor, G: int,
@@ -254,6 +306,14 @@ def flash_decode_plain(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
             .reshape(B, T, H, Dv).to(q.dtype))
 
 
+def fd_plan(q, k, v, block_s=None) -> DecodePlan:
+    """The decode kernel's geometry for one flash_decode_attention call."""
+    T, H = q.shape[1], q.shape[2]
+    Hkv, S = k.shape[1], k.shape[2]
+    return decode_plan(S, min(S, block_s or FD_BLOCK_S), T * (H // Hkv),
+                       k.shape[3] * k.element_size(), v.shape[3] * v.element_size())
+
+
 def flash_decode_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
                            logit_softcap=0.0, sinks=None, k_scale=None,
                            v_scale=None, block_s=None) -> torch.Tensor:
@@ -295,6 +355,11 @@ def flash_decode_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
             if t.dtype != torch.float32 or t.stride(-1) != 1 or (
                     mode == "q4" and t.stride(-2) != t.shape[-1]):
                 raise ValueError("K/V scales must be f32 with contiguous slots")
+    check_bulk_copyable(k, v)
+    plan = fd_plan(q, k, v, block_s)
+    if plan.npass > 1:
+        raise ValueError(f"block_s {plan.bs} is too long for {plan.R} query rows: a "
+                         f"chunk's logits must fit one pass of the decode kernel")
     lib = _build.load("fd")
     fn = lib.slt_fd
     if fn.argtypes is None:
@@ -305,13 +370,14 @@ def flash_decode_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
     kv_pos = kv_pos.to(torch.int32)
     if sinks is not None:
         sinks = sinks.to(torch.float32).contiguous()
-    bs = min(S, block_s or FD_BLOCK_S)
-    n_s = -(-S // bs)
-    part = torch.empty((B, Hkv, n_s, T * (H // Hkv), Dv + 2), dtype=torch.float32,
-                       device=q.device)
+    part = None
+    if plan.n_s > 1:
+        part = torch.empty((B, Hkv, plan.n_s, T * (H // Hkv), Dv + 2), dtype=torch.float32,
+                           device=q.device)
     out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
     quant = mode != "f"
-    err = fn(B, T, H, Hkv, S, D, Dv, bs, _FD_MODES[mode],
+    err = fn(B, T, H, Hkv, S, D, Dv, plan.bs, _FD_MODES[mode],
+             plan.R, plan.cl, plan.nb, plan.ts, plan.nbmax,
              q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(), kind,
              k.stride(0), k.stride(1), v.stride(0), v.stride(1),
              k_scale.data_ptr() if quant else None, v_scale.data_ptr() if quant else None,
@@ -320,7 +386,8 @@ def flash_decode_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
              q_pos.data_ptr(), kv_pos.data_ptr(), kv_pos.stride(0),
              sinks.data_ptr() if sinks is not None else None,
              float(scale), int(swa_window), float(logit_softcap),
-             part.data_ptr(), out.data_ptr(), _build.stream_ptr(q.device))
+             part.data_ptr() if part is not None else None, out.data_ptr(),
+             _build.stream_ptr(q.device))
     _build.check(err, "fd")
     flash_decode_attention.launches += 1
     return out

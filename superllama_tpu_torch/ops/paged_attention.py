@@ -8,8 +8,10 @@ arithmetically. Masking, sinks, softcap and the dot types are those of
 ``flash_attention``.
 
 On CUDA tensors ``paged_flash_attention`` launches the hand-written kernel of
-``csrc/paged.cu``; on CPU tensors it runs ``paged_flash_attention_plain``.
-Launches are counted in ``paged_flash_attention.launches``.
+``csrc/paged.cu`` (the decode cluster kernel at T·G ≤ 32, with the geometry
+of ``paged_plan``; the tiled prefill kernel above that); on CPU tensors it
+runs ``paged_flash_attention_plain``. Launches of either are counted in
+``paged_flash_attention.launches``.
 """
 
 from __future__ import annotations
@@ -20,11 +22,26 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import flash_attention_plain
+from .flash_attention import (DecodePlan, check_bulk_copyable, decode_plan,
+                              flash_attention_plain)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
-_ARGTYPES = [_I] * 8 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _P, _P, _F, _I, _F,
-                        _P, _P]
+_ARGTYPES = [_I] * 13 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _P, _P, _F, _I, _F,
+                         _P, _P]
+DECODE_ROWS = 32   # T·G up to which a call takes the decode cluster kernel
+
+
+def paged_plan(q, k_pages, v_pages, page_table) -> DecodePlan | None:
+    """The decode kernel's geometry for a call at T·G ≤ 32 (one chunk: the
+    row's MAXP·P slots, divided among a cluster's blocks), None for the
+    prefill path."""
+    T, H = q.shape[1], q.shape[2]
+    Hkv, P = k_pages.shape[1], k_pages.shape[2]
+    if T * (H // Hkv) > DECODE_ROWS:
+        return None
+    S = page_table.shape[1] * P
+    return decode_plan(S, S, T * (H // Hkv), k_pages.shape[3] * k_pages.element_size(),
+                       v_pages.shape[3] * v_pages.element_size())
 
 
 def paged_flash_attention_plain(q, k_pages, v_pages, q_pos, page_pos, page_table,
@@ -70,6 +87,11 @@ def paged_flash_attention(q, k_pages, v_pages, q_pos, page_pos, page_table,
     for t, width in ((k_pages, D), (v_pages, Dv)):
         if t.stride(-1) != 1 or t.stride(-2) != width:
             raise ValueError("page rows must be contiguous")
+    plan = paged_plan(q, k_pages, v_pages, page_table)
+    geo = (0, 0, 0, 0, 0)
+    if plan is not None:
+        check_bulk_copyable(k_pages, v_pages)
+        geo = (plan.R, plan.cl, plan.nb, plan.ts, plan.nbmax)
     lib = _build.load("paged")
     fn = lib.slt_paged
     if fn.argtypes is None:
@@ -82,7 +104,7 @@ def paged_flash_attention(q, k_pages, v_pages, q_pos, page_pos, page_table,
     if sinks is not None:
         sinks = sinks.to(torch.float32).contiguous()
     out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
-    err = fn(B, T, H, Hkv, P, MAXP, D, Dv, q.data_ptr(), int(q.dtype == torch.bfloat16),
+    err = fn(B, T, H, Hkv, P, MAXP, D, Dv, *geo, q.data_ptr(), int(q.dtype == torch.bfloat16),
              k_pages.data_ptr(), v_pages.data_ptr(), kind,
              k_pages.stride(0), k_pages.stride(1), v_pages.stride(0), v_pages.stride(1),
              q_pos.data_ptr(), page_pos.data_ptr(), page_table.data_ptr(),
