@@ -4,14 +4,18 @@ port's serving path on one NVIDIA GPU and holds every kernel to its plain
 PyTorch version.
 
     python3 chip_smoke.py                 # every phase (the chip check)
-    python3 chip_smoke.py --kernel-times  # device, build, the kernel rows of phase 6
+    python3 chip_smoke.py --kernel-times  # device, build, the kernel rows of phase 6,
+                                          # the lone prompt chunk's profile of phase 7
+    python3 chip_smoke.py --checks        # device, build, the kernel checks of phase 3
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
  2. build: nvcc of every kernel source in superllama_tpu_torch/csrc;
  3. kernels against their plain versions at Llama-3-8B shapes (qmv, qmm,
     fa, fd in its f/q8/q4 modes, paged, the four qmv-probe variants, which
-    are also held against qmv);
+    are also held against qmv), at head sizes 80, 96, 100 and 256, and fd
+    with chunks of two passes; qmm and the decode kernels called twice and
+    held bit-equal;
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
     server answers 8 concurrent completions and one streamed one; the launch
     counters show the path went through every kernel. Then the same with a
@@ -21,10 +25,12 @@ Phases, each printing one JSON line:
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one;
  6. times: decode tok/s, time to first token (bf16, Q8_0, paged), and each
-    kernel's time beside its plain version, a library call and its bound,
+    kernel's time beside its plain version, a library call and its bound
+    (qmm at every (K, N) of a lone prompt chunk),
     kernel and library both read from a CUDA graph over inputs rotated past
     the L2 (the eager reading beside it);
- 7. profile: where one engine decode step's time goes on each cache
+ 7. profile: where a lone 32-token prompt chunk's time goes (bf16 cache)
+    and where one engine decode step's time goes on each cache
     (torch.profiler), the decode-attention kernels and cache writes apart;
  8. tools: the measurement tools' path (the qmv probe at two 8B shapes,
     ops_bench at its default shapes, flash_decode_probe, a short llama-bench
@@ -127,6 +133,13 @@ def rand_weight(torch, kind: str, N: int, K: int, seed: int):
 
 
 KN_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+# launches of each (K, N) in a lone prompt chunk of the 8B model: wq+wo, wk+wv,
+# gate+up, down per layer (32 layers), the output head once
+CHUNK_LAUNCHES = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
+                  (14336, 4096): 32, (4096, 128256): 1}
+# head sizes the JAX kernels take and the first port refused (Llama-style
+# 80, 96, 256; OpenLLaMA-3B's 100: 3200 over 32 heads)
+HEAD_SIZES = (80, 96, 100, 256)
 # (M, K, N) grid of tests/test_backend_ops.py plus the 3- and 13-row qmv
 # instantiations
 EDGE_SHAPES = [(1, 512, 64), (5, 512, 128), (128, 512, 64), (16, 1024, 96),
@@ -275,6 +288,23 @@ def check_decode_kernels(torch, record) -> None:
     fd_cases += [("q8 T=1 S=4096 block_s=256 sinks bf16", dict(S=4096, kv="q8", sinks=True),
                   {"block_s": 256}),
                  ("f T=1 S=2048 swa=100 f32", dict(kv="f", dtype="f32"), {"swa_window": 100})]
+    # head sizes outside 16/32/64/128 (D 100: 100-byte Q8_0 and 200-byte bf16
+    # rows, the word-copy path), and T*G 32 with block_s 4096 (two passes
+    # through the logits workspace)
+    fd_cases += [(f"{kv} D={D} T=2 S=1000 {dt}", dict(B=2, T=2, S=1000, D=D, kv=kv, dtype=dt,
+                                                       sinks=True), {})
+                 for D in HEAD_SIZES for kv in ("f", "q8") for dt in ("bf16", "f32")]
+    fd_cases += [(f"q4 D={D} T=2 S=1000 bf16", dict(B=2, T=2, S=1000, D=D, kv="q4"), {})
+                 for D in (96, 256)]
+    # rows that are not 4-byte multiples take the byte copies: Q8_0 at D 50,
+    # bf16 at D 51 (102-byte rows, 13 output groups of 4 columns, the last part)
+    fd_cases += [("q8 D=50 T=2 S=1000 bf16", dict(B=2, T=2, S=1000, D=50, kv="q8"), {}),
+                 ("f D=51 T=2 S=1000 bf16", dict(B=2, T=2, S=1000, D=51, kv="f"), {})]
+    fd_cases += [(f"{kv} T=8 (T*G 32) S=4096 block_s=4096 bf16", dict(B=2, T=8, S=4096, kv=kv),
+                  {"block_s": 4096}) for kv in ("f", "q8", "q4")]
+    fd_cases += [("q8 T=8 S=6000 block_s=4096 sinks swa=3000 bf16",
+                  dict(B=2, T=8, S=6000, kv="q8", sinks=True),
+                  {"block_s": 4096, "swa_window": 3000})]
     for i, (case, kw, opts) in enumerate(fd_cases):
         args, extra = fd_inputs(torch, seed=300 + i, **kw)
         got = flash_decode_attention(*args, **extra, **opts)
@@ -318,6 +348,13 @@ def check_decode_kernels(torch, record) -> None:
                     ("bf16 T=1 P=64 gaps", dict(P=64, MAXP=40, gap=12, lens=[2000] * 8), {}),
                     ("bf16 T=4 P=16 gaps lens", dict(P=16, MAXP=190, gap=5, lens=lens), {}),
                     ("bf16 B=2 T=1 MAXP=128 (two passes)", dict(B=2, MAXP=128), {})]
+    # head sizes outside 16/32/64/128, on both paths, 64- and 256-token pages
+    paged_cases += [(f"{dt} D={D} T={T} P={P}", dict(B=2, T=T, D=D, P=P, MAXP=2048 // P // 4,
+                                                      dtype=dt, lens=[500, 371]), {})
+                    for D in HEAD_SIZES for T in (1, 9) for P in (64, 256)
+                    for dt in ("bf16", "f32")]
+    paged_cases += [(f"bf16 D=51 T={T} P=64 (byte copies)",
+                     dict(B=2, T=T, D=51, P=64, MAXP=8, lens=[500, 371]), {}) for T in (1, 9)]
     for i, (case, kw, opts) in enumerate(paged_cases):
         args = paged_inputs(torch, seed=500 + i, **kw)
         if opts.pop("sinks", False):
@@ -396,7 +433,14 @@ def phase_kernels(torch) -> list:
         ok = bool(torch.isfinite(got.float()).all()) and e < tol
         rows.append({"kernel": kernel, "case": case, "max_abs_err": err,
                      "nmse": e, "tol": tol, "ok": ok})
+        if not ok:
+            dump()
         check(ok, f"{kernel} {case}: nmse {e:g} (tol {tol:g}), max err {err:g}")
+
+    def dump():
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "kernel_checks.json"), "w") as f:
+            json.dump(rows, f, indent=1)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -404,7 +448,7 @@ def phase_kernels(torch) -> list:
     mv_cases = [("Q4_K", M, K, N, bf16) for M in (1, 8, 16) for K, N in KN_8B]
     mv_cases += [("Q6_K", 8, 4096, 14336, bf16), ("Q8_0", 8, 4096, 14336, bf16),
                  ("Q4_K", 8, 4096, 14336, f32)]
-    mm_cases = [("Q4_K", M, K, N, bf16) for M in (17, 32) for K, N in KN_8B]
+    mm_cases = [("Q4_K", M, K, N, bf16) for M in (1, 8, 17, 24, 32) for K, N in KN_8B]
     mm_cases += [("Q6_K", 32, 4096, 14336, bf16), ("Q8_0", 32, 4096, 14336, bf16),
                  ("Q4_K", 32, 4096, 4096, f32)]
     # the edges at small shapes, in f32: every row-count instantiation of
@@ -415,7 +459,8 @@ def phase_kernels(torch) -> list:
                 continue
             if M <= 16:
                 mv_cases.append((kind, M, K, N, f32))
-            mm_cases.append((kind, M, K, N, f32))
+            # qmm: the CUDA-core kernel (f32 x) and the tensor-core one (bf16)
+            mm_cases += [(kind, M, K, N, f32), (kind, M, K, N, bf16)]
     weights = {}
     for kernel, cases, fn, plain in (("qmv", mv_cases, qmv, qmv_plain),
                                      ("qmm", mm_cases, qmm, qmm_plain)):
@@ -428,8 +473,13 @@ def phase_kernels(torch) -> list:
             x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
             got = fn(x, qt, dt)
             ref = plain(x, qt, dt)
+            case = f"{kind} M={M} K={K} N={N} {str(dt)[6:]}"
+            if kernel == "qmm":   # a fixed summation order: two calls, the same bits
+                again = fn(x, qt, dt)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"qmm {case}: two calls differ")
             torch.cuda.synchronize()
-            record(kernel, f"{kind} M={M} K={K} N={N} {str(dt)[6:]}", got, ref, dt)
+            record(kernel, case, got, ref, dt)
     weights.clear()
 
     fa_cases = [("T=32 bf16", dict(T=32)), ("T=128 bf16", dict(T=128)),
@@ -446,6 +496,11 @@ def phase_kernels(torch) -> list:
                               D=64, dtype="f32", q8=q8, sinks=sinks, swa=swa, softcap=cap)))
     fa_cases.append(("f32 T=40 S=64 G=2 D=16", dict(T=40, S=64, n_past=0, H=4, Hkv=2, D=16,
                                                      dtype="f32")))
+    # head sizes outside 16/32/64/128: Dv padded to the next instantiation
+    fa_cases += [(f"D={D} T=48 S=512 {name}", dict(B=2, T=48, S=512, n_past=300, D=D, **kw))
+                 for D in HEAD_SIZES
+                 for name, kw in (("bf16", {}), ("f32", {"dtype": "f32"}),
+                                  ("q8_0 kv", {"q8": True}))]
     for i, (case, kw) in enumerate(fa_cases):
         kw = dict(kw)
         swa, cap = kw.pop("swa", 0), kw.pop("softcap", 0.0)
@@ -456,11 +511,11 @@ def phase_kernels(torch) -> list:
         record("fa", case, got, ref, args[0].dtype, mask=args[3] >= 0,
                p_bf16=kw.get("q8", False))
 
-    check_decode_kernels(torch, record)
-    check_probe_kernels(torch, record)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "kernel_checks.json"), "w") as f:
-        json.dump(rows, f, indent=1)
+    try:
+        check_decode_kernels(torch, record)
+        check_probe_kernels(torch, record)
+    finally:
+        dump()
     worst = {}
     for r in rows:
         w = worst.get(r["kernel"])
@@ -829,26 +884,45 @@ def kernel_reading(torch, shape: str, call, plain, lib, n: int, nbytes: float, o
 
 
 def time_matmul_kernels(torch) -> dict:
-    """qmv and qmm at the 8B decode / 32-token prefill shape of ffn_gate/up
-    (K 4096, N 14336, Q4_K), beside torch.matmul on the dequantized bf16
-    weight; both sides rotate over weight copies past the L2."""
+    """qmv at the 8B decode shape of ffn_gate/up (M 8, K 4096, N 14336,
+    Q4_K), and qmm at every (K, N) of a lone 32-token prompt chunk (M 32),
+    each beside torch.matmul on the dequantized bf16 weight; both sides
+    rotate over weight copies past the L2. ``qmm`` is the gate/up row; each
+    qmm row carries its launches in a lone chunk."""
     from superllama_tpu_torch.ops.qmatmul import qmm, qmm_plain, qmv, qmv_plain
     from superllama_tpu_torch.ops.qtensor import dequant_qtensor
 
-    K, N = 4096, 14336
-    copies = [rand_weight(torch, "Q4_K", N, K, 50 + i) for i in range(6)]
-    dense = [dequant_qtensor(w, torch.bfloat16) for w in copies[:2]]
     out = {}
-    for name, M, fn, plain, kind in (("qmv", 8, qmv, qmv_plain, "int8"),
-                                     ("qmm", 32, qmm, qmm_plain, "bf16")):
+    cases = [("qmv", 8, 4096, 14336, qmv, qmv_plain, "int8")]
+    cases += [(f"qmm K={K} N={N}", 32, K, N, qmm, qmm_plain, "bf16") for K, N in KN_8B]
+    for name, M, K, N, fn, plain, kind in cases:
+        first = rand_weight(torch, "Q4_K", N, K, 50)
+        copies = [first] + [rand_weight(torch, "Q4_K", N, K, 50 + i)
+                            for i in range(1, n_copies(first.nbytes, 6 if N < 10**5 else 2))]
+        dense = [dequant_qtensor(copies[i % len(copies)], torch.bfloat16)
+                 for i in range(n_copies(K * N * 2))]
         x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
-        nbytes = copies[0].nbytes + x.numel() * 2 + M * N * 2
+        nbytes = first.nbytes + x.numel() * 2 + M * N * 2
         out[name] = kernel_reading(
             torch, f"Q4_K M={M} K={K} N={N} bf16",
             lambda i: fn(x, copies[i % len(copies)], torch.bfloat16),
             lambda i: plain(x, copies[i % len(copies)], torch.bfloat16),
-            lambda i: torch.matmul(x, dense[i % 2]), 12, nbytes, 2.0 * M * K * N, kind)
+            lambda i: torch.matmul(x, dense[i % len(dense)]),
+            max(12, len(copies), len(dense)), nbytes, 2.0 * M * K * N, kind)
+        if fn is qmm:
+            out[name]["launches_per_chunk"] = CHUNK_LAUNCHES[(K, N)]
+        del copies, dense
+    out["qmm"] = out["qmm K=4096 N=14336"]
     return out
+
+
+def qmm_chunk(kernels: dict) -> dict:
+    """qmm's device time in a lone 32-token chunk of the 8B model, from the
+    graph readings at each (K, N) times its launches, beside the bound's."""
+    rows = [kernels[f"qmm K={K} N={N}"] for K, N in KN_8B]
+    return {"ms": sum(r["ms"] * r["launches_per_chunk"] for r in rows),
+            "library_ms": sum(r["library_ms"] * r["launches_per_chunk"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] * r["launches_per_chunk"] for r in rows)}
 
 
 def time_fa(torch) -> dict:
@@ -1025,6 +1099,7 @@ def phase_times(torch, model, smi_line: str) -> dict:
     kernels = {**time_matmul_kernels(torch), **time_fa(torch), **time_fd(torch),
                **time_paged(torch)}
     emit({"phase": "times", "card": smi_line, "serving": serving, "kernels": kernels,
+          "qmm_per_chunk": qmm_chunk(kernels),
           "decode_attention": time_decode_attention(torch)})
     return kernels
 
@@ -1068,13 +1143,7 @@ def profile_block(torch, model, label: str, **engine_kw) -> dict:
         for name, fn in writers.items():
             setattr(llama_mod, name, fn)
     events = prof.key_averages()
-    # device-side rows (kernels, copies) carry no CPU time; operator rows
-    # repeat their kernels' device time, so they are left out of the sums
-    # (the kv_write range's own device row spans its kernels and the gaps
-    # between them, so it is left out too; its CPU row sums its kernels)
-    dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
-           if e.self_device_time_total > 0 and e.self_cpu_time_total == 0
-           and e.key != "kv_write"]
+    dev = device_rows(events)
     device_ms = sum(t for _, t, _ in dev)
     attn = [(k, t, n) for k, t, n in dev
             if any(s in k for s in ("decode_kernel", "fd_combine", "paged_kernel"))]
@@ -1094,11 +1163,62 @@ def profile_block(torch, model, label: str, **engine_kw) -> dict:
             "top": [{"name": k[:80], "ms": t, "count": c} for k, t, c in top]}
 
 
+def device_rows(events) -> list:
+    """(name, device ms, count) of the device-side rows of a profile:
+    kernels and copies carry no CPU time; operator rows repeat their
+    kernels' device time, so they are left out of the sums (the kv_write
+    range's own device row spans its kernels and the gaps between them, so
+    it is left out too; its CPU row sums its kernels)."""
+    return [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+            if e.self_device_time_total > 0 and e.self_cpu_time_total == 0
+            and e.key != "kv_write"]
+
+
+def profile_chunk(torch, model) -> dict:
+    """torch.profiler over one lone 32-token prompt chunk on the bf16 cache
+    (engine.generate of one token, warmed once): wall ms, device ms, idle
+    share and device ms by kernel; the table goes to
+    chiprun_out/profile_chunk_bf16.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda")
+    p32 = token_prompts(model.hparams.n_vocab, [32], SEED + 4)[0]
+    run = lambda: eng.generate(p32, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = device_rows(events)
+    device_ms = sum(t for _, t, _ in dev)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profile_chunk_bf16.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+    qmm_rows = [(k, t, n) for k, t, n in dev if "qmm" in k]
+    rec = {"phase": "profile", "what": "one lone 32-token prompt chunk, bf16 cache",
+           "wall_ms": wall_ms, "device_ms": device_ms,
+           "device_idle_share": 1.0 - device_ms / wall_ms,
+           "device_ops": sum(c for _, _, c in dev),
+           "qmm_ms": sum(t for _, t, _ in qmm_rows),
+           "qmm_kernels": [{"name": k[:80], "ms": t, "count": n} for k, t, n in qmm_rows],
+           "by_kernel": [{"name": k[:80], "ms": t, "count": c}
+                         for k, t, c in sorted(dev, key=lambda r: -r[1])[:15]]}
+    emit(rec)
+    check(rec["qmm_ms"] > 0, "the lone prompt chunk ran no qmm kernel")
+    return rec
+
+
 def phase_profile(torch, model) -> None:
     """Where a decode step's time goes, on the bf16, Q8_0 and paged caches:
     one block of 8 greedy decode steps with 8 active rows each, tables in
     chiprun_out/profile_decode_<cache>.txt."""
     os.makedirs(OUT_DIR, exist_ok=True)
+    profile_chunk(torch, model)
     for label, kw in (("bf16", {}), ("q8_0", {"kv_dtype": "q8_0"}),
                       ("paged", {"paged": True, "page_size": 256})):
         rec = profile_block(torch, model, label, **kw)
@@ -1236,10 +1356,17 @@ def main() -> int:
     info = phase_device(torch)
     phase_build()
     if "--kernel-times" in sys.argv[1:]:
-        # the timed kernel rows alone, for comparing two trees in one call
-        emit({"phase": "kernel_times", "card": info["nvidia_smi"],
-              "kernels": {**time_matmul_kernels(torch), **time_fa(torch), **time_fd(torch),
-                          **time_paged(torch)}})
+        # the timed kernel rows and the lone chunk's profile alone, for
+        # comparing two trees in one call
+        kernels = {**time_matmul_kernels(torch), **time_fa(torch), **time_fd(torch),
+                   **time_paged(torch)}
+        emit({"phase": "kernel_times", "card": info["nvidia_smi"], "kernels": kernels,
+              "qmm_per_chunk": qmm_chunk(kernels)})
+        profile_chunk(torch, build_model(torch))
+        return 0
+    if "--checks" in sys.argv[1:]:
+        # the kernels against their plain versions alone
+        phase_kernels(torch)
         return 0
     checks = phase_kernels(torch)
     model = build_model(torch)

@@ -35,12 +35,18 @@
 //    the output itself (fd at n_s = 1, paged), or the chunk's (m, l, acc)
 //    for fd_combine (fd at n_s > 1). No float atomics: every reduction runs
 //    in a fixed order and two runs give the same bits.
-//  - A row of the batch sees a block's slots only through that chunk, so
-//    when a block's share exceeds what its logits buffer holds (long paged
-//    rows) it runs several passes, each with its own cluster max, and
-//    rescales its sums between them (the running max of the TPU kernel's
-//    chunks). fd always runs one pass: the wrapper refuses a block_s whose
-//    chunk would need two.
+//  - When a block's share of its chunk exceeds what its logits buffer holds
+//    (8,192 floats: rows x slots), it runs several passes. paged (its
+//    chunk is a whole page-table row) takes each pass's K then V with its
+//    own cluster max and rescales its sums between passes (the running max
+//    of the TPU kernel's chunks). fd, whose q8 quantization and bf16
+//    rounding of p need the whole chunk's max first, takes the K tiles of
+//    every pass and leaves their logits in a global workspace (the
+//    wrapper's, R x nb floats a block, mostly L2-resident), exchanges the
+//    chunk's max (and pmax) once, then reloads each pass's logits and takes
+//    its V tiles: the same p as in one pass, at the cost of writing and
+//    reading the logits once more. block_s 2048 (the forward's) is one pass
+//    at every T*G <= 32.
 // Arithmetic (128 threads, 5 blocks an SM): where the dot's operands are
 // bf16 or int8 values (bf16 q, q4's bf16 dequant, q8's codes) QK^T and P.V
 // run on the tensor cores with mma.sync (m16n8k16 bf16 -> f32, m16n8k32
@@ -53,10 +59,21 @@
 // masks them. A row that sees no slot of the cache at all has an undefined
 // output (its chunk's max then comes from skipped tiles).
 //
-// Layout of a cache row: krow / vrow bytes, a multiple of 16; cache and
-// page bases and strides 16-byte aligned (the wrapper checks).
+// Layout of a cache row: krow / vrow bytes, any length (head sizes up to
+// 256). In shared memory every row sits at a 16-byte stride, its tail zero,
+// and q at the K row's padded width, so the dots read whole 16-byte units.
+// The copy mode is the wrapper's (copy_mode in ops/flash_attention.py):
+// bulk copies when rows, strides and bases are 16-byte multiples (every
+// head size divisible by 8 in bf16, 16 in Q8_0); otherwise the warp that
+// issues copies moves the rows itself, 4-byte cp.async when they are 4-byte
+// multiples (D 100: 100-byte Q8_0 and 200-byte bf16 rows), bytes when not.
+// A second copy path rather than one bulk copy of padded tiles: a tile's
+// rows are not 16-byte aligned in the cache, and the compute wants each
+// row aligned in shared memory; the odd sizes are not the main path.
 
 #pragma once
+
+#include "ptx.cuh"
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -68,6 +85,7 @@
 namespace decode {
 
 namespace cg = cooperative_groups;
+using namespace ptx;
 
 constexpr int NT = 128;                 // threads per block
 constexpr int NW = NT / 32;
@@ -90,26 +108,38 @@ struct Args {
   const int* page_pos; const int* table; int P, MAXP;   // paged
   const float* sinks; float scale; int swa; float softcap;
   float* part; void* out;
+  int copy;                     // COPY_BULK, COPY_WORDS or COPY_BYTES (the wrapper's copy_mode)
+  float* ws;                    // fd at npass > 1: each block's logits, R x nb floats
 };
 
+enum { COPY_BULK = 0, COPY_WORDS = 1, COPY_BYTES = 2 };
+
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// elements of a 16-byte unit of a K row; q rows are held at the K row's
+// padded width, ceil(krow / 16) units, so every unit load stays aligned
+__host__ __device__ inline int q_stride(const Args& a, int kind) {
+  const int epu = kind == KIND_F32 ? 4 : kind == KIND_BF16 ? 8 : kind == KIND_Q4 ? 32 : 16;
+  return (int)(align16((size_t)a.krow) / 16) * epu;
+}
 
 // byte offsets of the shared-memory regions (host and device agree)
 struct Layout {
   size_t ring, stage, mbar, qf, qc, lg, lgs, kp, aux, pages, tiles, rows, part, total;
 };
 
-__host__ __device__ inline Layout layout(const Args& a, int kind) {
+// dq: q's row stride (q_stride; the plain D where rows are 16-byte multiples)
+__host__ __device__ inline Layout layout(const Args& a, int kind, int dq) {
   Layout L;
   const int ns = a.nb < a.nbmax ? a.nb : a.nbmax;     // slots of one pass
   const int row = a.krow > a.vrow ? a.krow : a.vrow;
-  L.stage = align16((size_t)a.ts * row);
+  L.stage = (size_t)a.ts * align16((size_t)row);   // rows at 16-byte strides
   size_t o = 0;
   L.ring = o; o += NST * L.stage;
   L.mbar = o; o += 2 * NST * 8;
   const size_t r16 = (size_t)(a.R + 15) / 16 * 16;   // rows of the mma A operand
-  L.qf = o; o = align16(o + (size_t)a.R * a.D * 4);
-  L.qc = o; o = align16(o + (kind == KIND_Q8 ? r16 * a.D : r16 * a.D * 2));
+  L.qf = o; o = align16(o + (size_t)a.R * dq * 4);
+  L.qc = o; o = align16(o + (kind == KIND_Q8 ? r16 * dq : r16 * dq * 2));
   L.lgs = ns + 1;
   L.lg = o; o = align16(o + (size_t)a.R * L.lgs * 4);
   L.kp = o; o = align16(o + (size_t)ns * 4);
@@ -141,46 +171,36 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// the copy path of rows that are not 16-byte multiples: the 32 lanes of a
+// warp copy n rows of `row` bytes (contiguous from src) into shared rows of
+// rst = align16(row) bytes, zero-filling each row's tail, so the compute
+// reads the same 16-byte-aligned units as after a bulk copy. COPY_WORDS:
+// 4-byte cp.async (rows, strides and bases multiples of 4), each lane's
+// copies completing on bar through cp.async.mbarrier.arrive (which raises
+// the barrier's pending count as it is issued, so the phase cannot complete
+// before them); COPY_BYTES: byte loads and stores, visible to the barrier's
+// waiters through the arrive that follows the warp's __syncwarp.
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const unsigned char* src, int n,
+                                          int row, int rst, int mode, int lane) {
+  if (mode == COPY_WORDS) {
+    const int wpr = rst / 4;
+    for (int w = lane; w < n * wpr; w += 32) {
+      const int r = w / wpr, c = (w - r * wpr) * 4;
+      const bool in = c < row;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst + r * rst + c)),
+                   "l"(src + (in ? (long)r * row + c : 0)), "r"(in ? 4 : 0)
+                   : "memory");
+    }
+  } else {
+    for (int i = lane; i < n * rst; i += 32) {
+      const int r = i / rst, c = i - r * rst;
+      dst[r * rst + c] = c < row ? __ldg(src + (long)r * row + c) : (unsigned char)0;
+    }
+  }
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// bytes (a multiple of 16) from global src to shared dst, both 16-byte
-// aligned, completed on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
 __device__ __forceinline__ void unpack_bf16x2(uint32_t w, float& lo, float& hi) {
@@ -188,25 +208,12 @@ __device__ __forceinline__ void unpack_bf16x2(uint32_t w, float& lo, float& hi) 
   hi = __uint_as_float(w & 0xffff0000u);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
   return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) | ((uint32_t)(c & 0xff) << 16) |
          ((uint32_t)(d & 0xff) << 24);
 }
 
-// d += a * b on the tensor cores: m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// d += a * b on the tensor cores: m16n8k32 s8 -> s32 (bf16: ptx::mma_bf16)
 __device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
@@ -225,11 +232,14 @@ struct KUnits {
   static constexpr int UPL = KIND == KIND_Q8 ? 2 : 32 / EPU;   // units a lane holds at most
 };
 
-template <int KIND, bool PAGED>
+// GEN: the general instantiation, with the row copy path and fd's
+// multi-pass chunks; the main path's (bulk-copyable rows, one pass a
+// chunk) is compiled without them, so they cost its registers nothing
+template <int KIND, bool PAGED, bool GEN>
 __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Layout L = layout(a, KIND);
+  const Layout L = layout(a, KIND, GEN ? q_stride(a, KIND) : a.D);
   unsigned char* ring = smem + L.ring;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.mbar);
   uint64_t* empty = full + NST;
@@ -273,7 +283,14 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
   const bool k_round = KIND == KIND_F32 && a.q_bf16;
   const bool p_bf16 = KIND == KIND_Q4 || KIND == KIND_BF16;
   const int nq = D / 32, nvq = Dv / 32;   // q4 scale groups of a K / V row
-  const int UK = a.krow / 16;             // 16-byte units of a K row
+  // rows, q's row stride and the output groups of 4 columns, padded in
+  // the general instantiation; the main path's rows are 16-byte multiples,
+  // where they equal the plain values (kept as parameters, not registers)
+  const int UK = GEN ? (a.krow + 15) / 16 : a.krow / 16;   // 16-byte units of a K row
+  const int kst = GEN ? (int)align16(a.krow) : a.krow;     // shared row strides
+  const int vst = GEN ? (int)align16(a.vrow) : a.vrow;
+  const int Dq = GEN ? q_stride(a, KIND) : D;              // zero past D
+  const int Dv4 = GEN ? (Dv + 3) / 4 : Dv / 4;
 
   if (tid == 0) {
     for (int i = 0; i < NST; ++i) { mbar_init(&full[i], 1); mbar_init(&empty[i], NW); }
@@ -300,13 +317,13 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
     lrun[r] = 0.f;
   }
   // query rows (t, g) of this tile as the dot operand
-  for (int i0 = 0; i0 < R * D; i0 += 4 * NT) {
+  for (int i0 = 0; i0 < R * Dq; i0 += 4 * NT) {
     float val[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int i = i0 + k * NT + tid, r = i / D, d = i % D;
+      const int i = i0 + k * NT + tid, r = i / Dq, d = i % Dq;
       val[k] = 0.f;
-      if (i < R * D && r < nr) {
+      if (i < R * Dq && r < nr && d < D) {
         const int rg = r0 + r;
         const long qi = (((long)b * a.T + rg / G) * a.H + hk * G + rg % G) * D + d;
         val[k] = a.q_bf16
@@ -317,26 +334,26 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      if (i0 + k * NT + tid < R * D) qf[i0 + k * NT + tid] = val[k];
+      if (i0 + k * NT + tid < R * Dq) qf[i0 + k * NT + tid] = val[k];
   }
   __syncthreads();
   if constexpr (KIND == KIND_Q8) {
     // q per row to int8: amax / 127, round half to even
     for (int r = warp; r < R; r += NW) {
       float am = 0.f;
-      for (int d = lane; d < D; d += 32) am = fmaxf(am, fabsf(qf[r * D + d]));
+      for (int d = lane; d < D; d += 32) am = fmaxf(am, fabsf(qf[r * Dq + d]));
       am = warp_max(am);
       const float inv = am > 0.f ? 127.f / am : 0.f;
-      for (int d = lane; d < D; d += 32) qc[r * D + d] = (int8_t)rintf(qf[r * D + d] * inv);
+      for (int d = lane; d < Dq; d += 32) qc[r * Dq + d] = (int8_t)rintf(qf[r * Dq + d] * inv);
       if (lane == 0) qs_s[r] = (am / 127.f) * a.scale;
     }
   }
   // the tensor cores' A operand: 16-row tiles of q, rows past nr zero
   const int r16 = (R + 15) / 16 * 16;
   if constexpr (KIND == KIND_Q8) {
-    for (int i = R * D + tid; i < r16 * D; i += NT) qc[i] = 0;
+    for (int i = R * Dq + tid; i < r16 * Dq; i += NT) qc[i] = 0;
   } else {
-    for (int i = tid; i < r16 * D; i += NT) qb[i] = __float2bfloat16_rn(i < R * D ? qf[i] : 0.f);
+    for (int i = tid; i < r16 * Dq; i += NT) qb[i] = __float2bfloat16_rn(i < R * Dq ? qf[i] : 0.f);
   }
   // tensor cores where the dot's operands are bf16 or int8 values
   const bool mma_k = (KIND == KIND_Q8 ? D % 32 == 0 : D % 16 == 0) &&
@@ -349,24 +366,24 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
   using Acc = typename std::conditional<KIND == KIND_Q8, int, float>::type;
   Acc* acc_s = reinterpret_cast<Acc*>(part_s);
   for (int i = tid; i < R * (Dv + 1); i += NT) acc_s[i] = 0;
-  const int ngrp = nr * (Dv / 4);   // output groups of 4 columns
+  const int ngrp = nr * Dv4;   // output groups of 4 columns (the last may be part past Dv)
 
   // the tensor cores' A fragments of q (16 rows from m0, head dims kk..)
   constexpr int KSTEP = KIND == KIND_Q8 ? 32 : 16;
   constexpr int AQ = 128 / KSTEP;
   auto afrag = [&](int m0, int kk, uint32_t* af) {
     if constexpr (KIND == KIND_Q8) {
-      const int8_t* qa = qc + (m0 + (lane >> 2)) * D + kk + (lane & 3) * 4;
+      const int8_t* qa = qc + (m0 + (lane >> 2)) * Dq + kk + (lane & 3) * 4;
       af[0] = *reinterpret_cast<const uint32_t*>(qa);
-      af[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * D);
+      af[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * Dq);
       af[2] = *reinterpret_cast<const uint32_t*>(qa + 16);
-      af[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * D + 16);
+      af[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * Dq + 16);
     } else {
-      const __nv_bfloat16* qa = qb + (m0 + (lane >> 2)) * D + kk + (lane & 3) * 2;
+      const __nv_bfloat16* qa = qb + (m0 + (lane >> 2)) * Dq + kk + (lane & 3) * 2;
       af[0] = *reinterpret_cast<const uint32_t*>(qa);
-      af[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * D);
+      af[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * Dq);
       af[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-      af[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * D + 8);
+      af[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * Dq + 8);
     }
   };
   // stale rows of a part-filled stage meet zero p in P.V: keep them finite
@@ -374,10 +391,23 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
     reinterpret_cast<uint4*>(ring)[i] = make_uint4(0u, 0u, 0u, 0u);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 
+  // fd with a chunk longer than one pass (spill): iterations 0..npass-1
+  // take the passes' K tiles and leave their logits in the block's part of
+  // a.ws (R x nb floats, mostly L2-resident); one exchange then gives the
+  // chunk's row max, and in q8 its pmax, over all of them; iterations
+  // npass..2npass-1 reload each pass's logits, form p against that max and
+  // take its V tiles. p is then the plain version's, as in one pass. Every
+  // other call (paged's long rows included) takes K then V in each pass,
+  // with a running max between passes.
+  const bool spill = GEN && !PAGED && a.npass > 1;
+  float* wsb = spill ? a.ws + (((long)b * a.Hkv + hk) * gridDim.x + blockIdx.x) * (long)R * a.nb
+                     : nullptr;
   int g = 0;   // tiles through the ring so far
-  for (int pass = 0; pass < a.npass; ++pass) {
+  for (int it = 0; it < (spill ? 2 : 1) * a.npass; ++it) {
+    const int pass = spill && it >= a.npass ? it - a.npass : it;
+    const bool do_k = !spill || it < a.npass, do_v = !spill || it >= a.npass;
     const int plo = min(lo + pass * a.nbmax, hi), phi = min(plo + a.nbmax, hi);
-    const int np = phi - plo, pp = pass & 1;
+    const int np = phi - plo, pp = it & 1;
     const int ntile = (np + a.ts - 1) / a.ts;
     __syncthreads();   // the previous pass is done with lg, kp_s, aux, tl
     int lp0 = 0;
@@ -390,7 +420,14 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
       }
     }
     for (int t = tid; t < ntile; t += NT) tl[t] = 0;
-    for (int i = tid; i < R * lgs; i += NT) lg[i] = NEG;
+    if (do_k) {
+      for (int i = tid; i < R * lgs; i += NT) lg[i] = NEG;
+    } else {   // spill: this pass's logits back from the workspace
+      for (int i = tid; i < R * lgs; i += NT) {
+        const int r = i / lgs, j = i - r * lgs;
+        lg[i] = r >= nr || j >= np ? NEG : wsb[(long)r * a.nb + (plo - lo) + j];
+      }
+    }
     __syncthreads();
     // slot positions (and scales) of the pass: every load of a slot is
     // issued before its stores, so they are in flight together
@@ -436,36 +473,64 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
     }
     __syncthreads();
     const int ntl = misc[2];
-    const int g0 = g, gend = g + 2 * ntl;
+    const int nk = do_k ? ntl : 0, nv = do_v ? ntl : 0;
+    const int g0 = g, gend = g + nk + nv;
 
-    // thread 0: fill the stage of ring tile gs (this pass's K tiles, then its
-    // V tiles) once every warp is done with the stage's previous tile
+    // warp 0: fill the stage of ring tile gs (this iteration's K tiles, then
+    // its V tiles) once every warp is done with the stage's previous tile.
+    // Rows at 16-byte multiples go in by lane 0's bulk copies (one per
+    // contiguous run); other rows by the warp's copy_rows into rows padded
+    // to 16 bytes.
     auto issue = [&](int gs) {
       const int st = gs % NST, use = gs / NST;
       if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
       const int qi = gs - g0;
-      const bool isv = qi >= ntl;
-      const int t = tl[isv ? qi - ntl : qi];
+      const bool isv = qi >= nk;
+      const int t = tl[isv ? qi - nk : qi];
       const int s0 = plo + t * a.ts, s1 = min(s0 + a.ts, phi);
       const int row = isv ? a.vrow : a.krow;
       unsigned char* dst = ring + st * L.stage;
-      mbar_expect_tx(&full[st], (uint32_t)((s1 - s0) * row));
+      if (!GEN || a.copy == COPY_BULK) {   // thread 0 alone
+        mbar_expect_tx(&full[st], (uint32_t)((s1 - s0) * row));
+        if (PAGED) {
+          const unsigned char* base = isv ? vbase : kbase;
+          const long pstride = (isv ? a.v_sb : a.k_sb) * es;
+          for (int s = s0; s < s1;) {
+            const int off = s % a.P, len = min(a.P - off, s1 - s);
+            const long pg = pg_s[s / a.P - lp0];
+            bulk_copy(dst + (long)(s - s0) * row, base + pg * pstride + (long)off * row,
+                      (uint32_t)(len * row), &full[st]);
+            s += len;
+          }
+        } else {
+          bulk_copy(dst, (isv ? vbase : kbase) + (long)s0 * row, (uint32_t)((s1 - s0) * row),
+                    &full[st]);
+        }
+        return;
+      }
+      // the whole of warp 0: rows padded to rst bytes in shared memory
+      const int rst = isv ? vst : kst;
       if (PAGED) {
         const unsigned char* base = isv ? vbase : kbase;
         const long pstride = (isv ? a.v_sb : a.k_sb) * es;
         for (int s = s0; s < s1;) {
           const int off = s % a.P, len = min(a.P - off, s1 - s);
           const long pg = pg_s[s / a.P - lp0];
-          bulk_copy(dst + (long)(s - s0) * row, base + pg * pstride + (long)off * row,
-                    (uint32_t)(len * row), &full[st]);
+          copy_rows(dst + (long)(s - s0) * rst, base + pg * pstride + (long)off * row, len, row,
+                    rst, a.copy, lane);
           s += len;
         }
       } else {
-        bulk_copy(dst, (isv ? vbase : kbase) + (long)s0 * row, (uint32_t)((s1 - s0) * row),
-                  &full[st]);
+        copy_rows(dst, (isv ? vbase : kbase) + (long)s0 * row, s1 - s0, row, rst, a.copy, lane);
       }
+      if (a.copy == COPY_WORDS) cp_async_arrive(&full[st]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[st]);
     };
-    if (tid == 0)
+    // the issuing thread: lane 0 of warp 0 for bulk copies, warp 0 otherwise
+    // (evaluated where used: a bool kept across the loops costs the main path a register)
+    auto issuer = [&] { return GEN && a.copy != COPY_BULK ? warp == 0 : tid == 0; };
+    if (issuer())
       for (int gs = g0; gs < min(g0 + NST, gend); ++gs) issue(gs);
 
     // QK^T: logits of the visible tiles into lg
@@ -474,7 +539,7 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
 #pragma unroll
     for (int s = 0; s < AQ; ++s)
       if (mma_k && s * KSTEP < D && D <= 128) afrag(0, s * KSTEP, aq[s]);
-    for (int qi = 0; qi < ntl; ++qi) {
+    for (int qi = 0; qi < nk; ++qi) {
       const int gs = g0 + qi, st = gs % NST;
       mbar_wait(&full[st], (gs / NST) & 1);
       __syncwarp();   // converged for mma.sync
@@ -485,7 +550,7 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
         // the raw dots go to lg, the row pass scales and masks them
         for (int n0 = warp * 8; n0 < cnt; n0 += NW * 8) {
           const int nb_ = min(n0 + (lane >> 2), cnt - 1);   // this lane's K row
-          const unsigned char* kr = buf + (size_t)nb_ * a.krow;
+          const unsigned char* kr = buf + (size_t)nb_ * kst;
           // B fragment of K row nb_ at head dims d0.. (KSTEP apart)
           auto bfrag = [&](int d0, uint32_t* b) {
             if constexpr (KIND == KIND_Q8) {
@@ -548,7 +613,7 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
         for (int k = 0; k < KU::UPL; ++k) {
           const int un = sub + 8 * k;
           u[k] = act && un < UK
-                     ? *reinterpret_cast<const uint4*>(buf + (size_t)j * a.krow + un * 16)
+                     ? *reinterpret_cast<const uint4*>(buf + (size_t)j * kst + un * 16)
                      : make_uint4(0u, 0u, 0u, 0u);
         }
         // the lane's K elements as the dot operand (not for q8: int8 codes)
@@ -590,13 +655,13 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
                 if (rc + rr < nr) {
                   const int r = rc + rr;
                   if constexpr (KIND == KIND_Q8) {
-                    const int4 qw = *reinterpret_cast<const int4*>(qc + r * D + un * 16);
+                    const int4 qw = *reinterpret_cast<const int4*>(qc + r * Dq + un * 16);
                     idot[rr] = __dp4a((int)u[k].x, qw.x, idot[rr]);
                     idot[rr] = __dp4a((int)u[k].y, qw.y, idot[rr]);
                     idot[rr] = __dp4a((int)u[k].z, qw.z, idot[rr]);
                     idot[rr] = __dp4a((int)u[k].w, qw.w, idot[rr]);
                   } else {
-                    const float4* qv = reinterpret_cast<const float4*>(qf + r * D + un * KU::EPU);
+                    const float4* qv = reinterpret_cast<const float4*>(qf + r * Dq + un * KU::EPU);
 #pragma unroll
                     for (int i = 0; i < KU::EPU / 4; ++i) {
                       const float4 qq = qv[i];
@@ -629,19 +694,23 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[st]);
-      if (tid == 0 && gs + NST < gend) issue(gs + NST);
+      if (issuer() && gs + NST < gend) issue(gs + NST);
     }
 
     // the chunk's row max over the cluster (and the sink), then p
     __syncthreads();
-    for (int r = warp; r < R; r += NW) {
+    for (int r = warp; r < R && do_k; r += NW) {
       float mx = -1e30f;
       if (r < nr) {
         // logits from the raw dots: scale, softcap, the positional penalty
         const float qpf = (float)qp_s[r], sr = KIND == KIND_Q8 ? qs_s[r] : a.scale;
+        float* wr = spill ? wsb + (long)r * a.nb + (plo - lo) : nullptr;
         for (int j = lane; j < np; j += 32) {
           const float v = lg[r * lgs + j];
-          if (v == NEG) continue;   // a tile no row sees
+          if (v == NEG) {   // a tile no row sees
+            if (spill) wr[j] = NEG;
+            continue;
+          }
           float x = KIND == KIND_Q8 ? v * sr * aux[j] : v * sr;
           if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
           const float kpf = (float)kp_s[j];
@@ -649,62 +718,122 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
           if (a.swa > 0) pen += fminf(0.f, kpf - qpf + (float)a.swa - 1.f);
           x = x + pen * 1e9f;
           lg[r * lgs + j] = x;
+          if (spill) wr[j] = x;
           mx = fmaxf(mx, x);
         }
       }
       mx = warp_max(mx);
-      if (lane == 0) xmax[pp * R + r] = mx;
+      // spill: the block's max over its passes so far, exchanged after the last
+      if (lane == 0) xmax[spill ? r : pp * R + r] = spill && pass > 0 ? fmaxf(xmax[r], mx) : mx;
     }
-    cluster.sync();
-    for (int r = tid; r < nr; r += NT) {
-      float M = -1e30f;
-      for (int k = 0; k < a.cl; ++k) M = fmaxf(M, cluster.map_shared_rank(xmax, k)[pp * R + r]);
-      if (a.sinks != nullptr) M = fmaxf(M, a.sinks[hk * G + (r0 + r) % G]);
-      const float mn = fmaxf(mrun[r], M);
-      alpha[r] = expf(mrun[r] - mn);
-      mrun[r] = mn;
-    }
-    __syncthreads();
-    for (int r = warp; r < nr; r += NW) {
-      const float M = mrun[r];
-      float sum = 0.f, pm = 0.f;
-      for (int j = lane; j < np; j += 32) {
-        const float p = expf(lg[r * lgs + j] - M);
-        lg[r * lgs + j] = p;
-        sum += p;
-        if (KIND == KIND_Q8) pm = fmaxf(pm, fabsf(p * aux[ns + j]));
+    if (spill) {
+      if (it == a.npass - 1) {
+        // the chunk's row max, then the sums of p (and q8's pmax) over every
+        // pass's logits; each block's own logits come back from a.ws
+        cluster.sync();
+        for (int r = tid; r < nr; r += NT) {
+          float M = -1e30f;
+          for (int k = 0; k < a.cl; ++k) M = fmaxf(M, cluster.map_shared_rank(xmax, k)[r]);
+          if (a.sinks != nullptr) M = fmaxf(M, a.sinks[hk * G + (r0 + r) % G]);
+          mrun[r] = M;
+        }
+        __syncthreads();
+        for (int r = warp; r < nr; r += NW) {
+          const float M = mrun[r];
+          float sum = 0.f, pm = 0.f;
+          for (int j = lane; j < hi - lo; j += 32) {
+            const float p = expf(wsb[(long)r * a.nb + j] - M);
+            sum += p;
+            if constexpr (KIND == KIND_Q8)
+              pm = fmaxf(pm, fabsf(p * __ldg(a.v_scale + (long)b * a.vs_sb + (long)hk * a.vs_sh +
+                                            lo + j)));
+          }
+          sum = warp_sum(sum);
+          if (lane == 0) lrun[r] = sum;
+          if constexpr (KIND == KIND_Q8) {
+            pm = warp_max(pm);
+            if (lane == 0) xpm[r] = pm;
+          }
+        }
+        if constexpr (KIND == KIND_Q8) {
+          cluster.sync();
+          for (int r = tid; r < nr; r += NT) {
+            float pm = 0.f;
+            for (int k = 0; k < a.cl; ++k) pm = fmaxf(pm, cluster.map_shared_rank(xpm, k)[r]);
+            pmx[r] = pm;
+          }
+        }
       }
-      sum = warp_sum(sum);
-      if constexpr (KIND == KIND_Q8) {
-        pm = warp_max(pm);
-        if (lane == 0) xpm[pp * R + r] = pm;
-      } else if (p_bf16) {
-        for (int j = lane; j < np; j += 32) lg[r * lgs + j] = bf16r(lg[r * lgs + j]);
+      if (!do_v) {
+        g = gend;
+        continue;
       }
-      if (lane == 0) lrun[r] = lrun[r] * alpha[r] + sum;
-    }
-    if constexpr (KIND == KIND_Q8) {
-      // p * vs to int8 per row over the whole chunk: pmax / 127
+      // p of this pass against the chunk's max, rounded or quantized as in
+      // one pass; the sums above already hold it
+      __syncthreads();
+      for (int r = warp; r < nr; r += NW) {
+        const float M = mrun[r];
+        const float inv = KIND == KIND_Q8 && pmx[r] > 0.f ? 127.f / pmx[r] : 0.f;
+        for (int j = lane; j < np; j += 32) {
+          const float p = expf(lg[r * lgs + j] - M);
+          if constexpr (KIND == KIND_Q8) lgi[r * lgs + j] = __float2int_rn(rintf(p * aux[ns + j] * inv));
+          else lg[r * lgs + j] = p_bf16 ? bf16r(p) : p;
+        }
+      }
+      __syncthreads();
+    } else {
       cluster.sync();
       for (int r = tid; r < nr; r += NT) {
-        float pm = 0.f;
-        for (int k = 0; k < a.cl; ++k) pm = fmaxf(pm, cluster.map_shared_rank(xpm, k)[pp * R + r]);
-        pmx[r] = pm;
+        float M = -1e30f;
+        for (int k = 0; k < a.cl; ++k) M = fmaxf(M, cluster.map_shared_rank(xmax, k)[pp * R + r]);
+        if (a.sinks != nullptr) M = fmaxf(M, a.sinks[hk * G + (r0 + r) % G]);
+        const float mn = fmaxf(mrun[r], M);
+        alpha[r] = expf(mrun[r] - mn);
+        mrun[r] = mn;
       }
       __syncthreads();
       for (int r = warp; r < nr; r += NW) {
-        const float inv = pmx[r] > 0.f ? 127.f / pmx[r] : 0.f;
-        for (int j = lane; j < np; j += 32)
-          lgi[r * lgs + j] = __float2int_rn(rintf(lg[r * lgs + j] * aux[ns + j] * inv));
+        const float M = mrun[r];
+        float sum = 0.f, pm = 0.f;
+        for (int j = lane; j < np; j += 32) {
+          const float p = expf(lg[r * lgs + j] - M);
+          lg[r * lgs + j] = p;
+          sum += p;
+          if (KIND == KIND_Q8) pm = fmaxf(pm, fabsf(p * aux[ns + j]));
+        }
+        sum = warp_sum(sum);
+        if constexpr (KIND == KIND_Q8) {
+          pm = warp_max(pm);
+          if (lane == 0) xpm[pp * R + r] = pm;
+        } else if (p_bf16) {
+          for (int j = lane; j < np; j += 32) lg[r * lgs + j] = bf16r(lg[r * lgs + j]);
+        }
+        if (lane == 0) lrun[r] = lrun[r] * alpha[r] + sum;
       }
-    }
-    __syncthreads();
-    if constexpr (KIND != KIND_Q8) {
-      for (int gi = tid; gi < ngrp; gi += NT) {
-        const int r = gi / (Dv / 4);
-        float* o = part_s + r * (Dv + 1) + 1 + 4 * (gi % (Dv / 4));
+      if constexpr (KIND == KIND_Q8) {
+        // p * vs to int8 per row over the whole chunk: pmax / 127
+        cluster.sync();
+        for (int r = tid; r < nr; r += NT) {
+          float pm = 0.f;
+          for (int k = 0; k < a.cl; ++k) pm = fmaxf(pm, cluster.map_shared_rank(xpm, k)[pp * R + r]);
+          pmx[r] = pm;
+        }
+        __syncthreads();
+        for (int r = warp; r < nr; r += NW) {
+          const float inv = pmx[r] > 0.f ? 127.f / pmx[r] : 0.f;
+          for (int j = lane; j < np; j += 32)
+            lgi[r * lgs + j] = __float2int_rn(rintf(lg[r * lgs + j] * aux[ns + j] * inv));
+        }
+      }
+      __syncthreads();
+      if constexpr (KIND != KIND_Q8) {
+        for (int gi = tid; gi < ngrp; gi += NT) {
+          const int r = gi / Dv4, c0 = 4 * (gi % Dv4);
+          float* o = part_s + r * (Dv + 1) + 1 + c0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[e] *= alpha[r];
+          for (int e = 0; e < 4; ++e)
+            if (!GEN || c0 + e < Dv) o[e] *= alpha[r];
+        }
       }
     }
 
@@ -714,12 +843,12 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) accv[i][e] = 0;
-    for (int qi = ntl; qi < 2 * ntl; ++qi) {
+    for (int qi = nk; qi < nk + nv; ++qi) {
       const int gs = g0 + qi, st = gs % NST;
       mbar_wait(&full[st], (gs / NST) & 1);
       __syncwarp();
       const unsigned char* buf = ring + st * L.stage;
-      const int s0 = plo + tl[qi - ntl] * a.ts, cnt = min(a.ts, phi - s0), jb = s0 - plo;
+      const int s0 = plo + tl[qi - nk] * a.ts, cnt = min(a.ts, phi - s0), jb = s0 - plo;
       if (mma_v) {
         // A = p (16 query rows x slots), B = V (slots x 8 columns): warp w
         // takes column tiles w, w + 4, ...; slots past cnt count as 0
@@ -745,7 +874,7 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
           if constexpr (KIND == KIND_BF16) {
             // two column tiles a time: ldmatrix.trans of 16 V rows gives B
             const int q8r = lane & 7, mi = lane >> 3;
-            const unsigned char* vrow = buf + (size_t)(ks + q8r + 8 * (mi & 1)) * a.vrow;
+            const unsigned char* vrow = buf + (size_t)(ks + q8r + 8 * (mi & 1)) * vst;
 #pragma unroll
             for (int i = 0; i < 8; i += 2) {
               const int nn = warp + NW * i;
@@ -774,12 +903,12 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
                   int v[4];
 #pragma unroll
                   for (int e = 0; e < 4; ++e)
-                    v[e] = j + e < cnt ? (int)reinterpret_cast<const int8_t*>(buf)[(size_t)(j + e) * a.vrow + c] : 0;
+                    v[e] = j + e < cnt ? (int)reinterpret_cast<const int8_t*>(buf)[(size_t)(j + e) * vst + c] : 0;
                   b[h] = pack_s8(v[0], v[1], v[2], v[3]);
                 } else if constexpr (KIND == KIND_BF16) {
                   const int j = ks + 2 * t4 + 8 * h;
-                  const uint32_t v0 = j < cnt ? *reinterpret_cast<const uint16_t*>(buf + (size_t)j * a.vrow + 2 * c) : 0u;
-                  const uint32_t v1 = j + 1 < cnt ? *reinterpret_cast<const uint16_t*>(buf + (size_t)(j + 1) * a.vrow + 2 * c) : 0u;
+                  const uint32_t v0 = j < cnt ? *reinterpret_cast<const uint16_t*>(buf + (size_t)j * vst + 2 * c) : 0u;
+                  const uint32_t v1 = j + 1 < cnt ? *reinterpret_cast<const uint16_t*>(buf + (size_t)(j + 1) * vst + 2 * c) : 0u;
                   b[h] = v0 | (v1 << 16);
                 } else {   // q4: column c is nibble c & 1 of byte c / 2
                   const int j = ks + 2 * t4 + 8 * h;
@@ -788,7 +917,7 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
                   for (int e = 0; e < 2; ++e) {
                     v[e] = 0.f;
                     if (j + e < cnt) {
-                      const uint32_t byte = buf[(size_t)(j + e) * a.vrow + (c >> 1)];
+                      const uint32_t byte = buf[(size_t)(j + e) * vst + (c >> 1)];
                       const int code = (int)((c & 1) ? byte >> 4 : byte & 15u) - 8;
                       v[e] = (float)code * aux[(jb + j + e) * (nq + nvq) + nq + (c >> 5)];
                     }
@@ -804,13 +933,13 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
       } else
       for (int gi = tid; gi < ngrp; gi += NT) {
         {
-          const int r = gi / (Dv / 4), cg4 = gi % (Dv / 4);
+          const int r = gi / Dv4, cg4 = gi % Dv4;
           const float* pr = lg + r * lgs + jb;
           const int* pri = lgi + r * lgs + jb;
           Acc t[4] = {0, 0, 0, 0};
 #pragma unroll 8
           for (int j = 0; j < cnt; ++j) {
-            const unsigned char* vr = buf + (size_t)j * a.vrow;
+            const unsigned char* vr = buf + (size_t)j * vst;
             if constexpr (KIND == KIND_F32) {
               const float4 vv = *reinterpret_cast<const float4*>(vr + cg4 * 16);
               const float p = pr[j];
@@ -847,12 +976,13 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
           }
           Acc* o = acc_s + r * (Dv + 1) + 1 + 4 * cg4;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) o[e] += t[e];
+          for (int e = 0; e < 4; ++e)
+            if (!GEN || 4 * cg4 + e < Dv) o[e] += t[e];   // columns past Dv read the zero tail
         }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[st]);
-      if (tid == 0 && gs + NST < gend) issue(gs + NST);
+      if (issuer() && gs + NST < gend) issue(gs + NST);
     }
     if (mma_v) {
       __syncthreads();   // the rescale above ran on other threads
@@ -905,17 +1035,11 @@ __global__ void __launch_bounds__(NT, 5) decode_kernel(Args a) {
 
 constexpr size_t SMEM_LIMIT = 227 * 1024;
 
-// one launch of a cluster of a.cl blocks per (chunk, row tile), kv head and
-// batch row; returns the cudaError_t of the launch
-template <int KIND, bool PAGED>
-cudaError_t launch(const Args& a, cudaStream_t st) {
-  const size_t smem = layout(a, KIND).total;
-  if (smem > SMEM_LIMIT || a.cl < 1 || a.cl > 8 || a.R > 32 || a.Dv % 4 ||
-      a.Dv > 256)
-    return cudaErrorInvalidValue;
+template <int KIND, bool PAGED, bool GEN>
+cudaError_t launch_kernel(const Args& a, size_t smem, cudaStream_t st) {
   static size_t smem_set = 0;   // the attribute is set once per size, never under capture
   if (smem > smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(decode_kernel<KIND, PAGED>,
+    cudaError_t e = cudaFuncSetAttribute(decode_kernel<KIND, PAGED, GEN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     smem_set = smem;
@@ -932,9 +1056,23 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, decode_kernel<KIND, PAGED>, a);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, decode_kernel<KIND, PAGED, GEN>, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// one launch of a cluster of a.cl blocks per (chunk, row tile), kv head and
+// batch row, the general instantiation only where the rows or the passes
+// need it; returns the cudaError_t of the launch
+template <int KIND, bool PAGED>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  const size_t smem = layout(a, KIND, q_stride(a, KIND)).total;
+  if (smem > SMEM_LIMIT || a.cl < 1 || a.cl > 8 || a.R > 32 || a.D > 256 || a.Dv > 256 ||
+      (!PAGED && a.npass > 1 && a.ws == nullptr))
+    return cudaErrorInvalidValue;
+  if (a.copy != COPY_BULK || (!PAGED && a.npass > 1))
+    return launch_kernel<KIND, PAGED, true>(a, smem, st);
+  return launch_kernel<KIND, PAGED, false>(a, smem, st);
 }
 
 }  // namespace decode

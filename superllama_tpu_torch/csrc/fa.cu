@@ -27,6 +27,10 @@
 // exact for valid rows: a fully masked tile contributes exp(-1e9) = 0.
 // Tensor-core tiles are later work.
 //
+// Head sizes: any D <= 256; Dv <= 256, instantiated at 16, 32, 64, 96,
+// 128, 192 and 256 columns and padded up to the next of them (the padding
+// lanes read zero V and write nothing, so the unpadded part is exact).
+//
 // Layout: q (B,T,H,D) contiguous; k (B,Hkv,S,D), v (B,Hkv,S,Dv) with rows
 // contiguous and caller-given batch/head strides; out (B,T,H,Dv) in q's type.
 
@@ -70,8 +74,9 @@ __global__ void __launch_bounds__(TPB) fa_kernel(Args a) {
   const int D = a.D, Dv = a.Dv, G = a.G;
   float* Qs = smem;                      // ROWS x (D+1)
   float* Ks = Qs + ROWS * (D + 1);       // BS x (D+1)
-  float* Vs = Ks + BS * (D + 1);         // BS x Dv
-  float* Ps = Vs + BS * Dv;              // ROWS x (BS+1)
+  constexpr int DVP = 4 * DV4;           // Dv padded to the instantiation
+  float* Vs = Ks + BS * (D + 1);         // BS x DVP, zero past Dv
+  float* Ps = Vs + BS * DVP;             // ROWS x (BS+1)
   int* kp_s = reinterpret_cast<int*>(Ps + ROWS * (BS + 1));   // BS
   int* qlim = kp_s + BS;                 // [max q_pos, min q_pos] of the block
 
@@ -130,15 +135,15 @@ __global__ void __launch_bounds__(TPB) fa_kernel(Args a) {
       }
       Ks[j * (D + 1) + dd] = val;
     }
-    for (int i = tid; i < BS * Dv; i += TPB) {
-      const int j = i / Dv, dd = i % Dv, s = s0 + j;
+    for (int i = tid; i < BS * DVP; i += TPB) {
+      const int j = i / DVP, dd = i % DVP, s = s0 + j;
       float val = 0.f;
-      if (s < a.S) {
+      if (s < a.S && dd < Dv) {
         val = load_kv(a.v, a.kv_kind, vb + (long)s * Dv + dd,
                       a.kv_kind == KV_Q8 ? a.v_scale[sb + s] : 0.f);
         if (a.kv_kind == KV_Q8) val = bf16_round(val);
       }
-      Vs[j * Dv + dd] = val;
+      Vs[j * DVP + dd] = val;
     }
     __syncthreads();
 
@@ -187,7 +192,7 @@ __global__ void __launch_bounds__(TPB) fa_kernel(Args a) {
     for (int i = 0; i < DV4; ++i) tsum[i] = 0.f;
     for (int j = 0; j < BS; ++j) {
       const float p = prow[j];
-      const float* vrow = Vs + j * Dv + l4;
+      const float* vrow = Vs + j * DVP + l4;
 #pragma unroll
       for (int i = 0; i < DV4; ++i) tsum[i] = fmaf(p, vrow[4 * i], tsum[i]);
     }
@@ -201,6 +206,7 @@ __global__ void __launch_bounds__(TPB) fa_kernel(Args a) {
   const long o = (((long)b * a.T + t) * a.H + h) * Dv + l4;
 #pragma unroll
   for (int i = 0; i < DV4; ++i) {
+    if (l4 + 4 * i >= Dv) break;   // padding lanes write nothing
     const float val = acc[i] / denom;
     if (a.q_bf16) reinterpret_cast<__nv_bfloat16*>(a.out)[o + 4 * i] = __float2bfloat16_rn(val);
     else reinterpret_cast<float*>(a.out)[o + 4 * i] = val;
@@ -210,7 +216,7 @@ __global__ void __launch_bounds__(TPB) fa_kernel(Args a) {
 template <int DV4>
 cudaError_t launch(const Args& a, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)ROWS * (a.D + 1) + (size_t)BS * (a.D + 1) +
-                                       (size_t)BS * a.Dv + (size_t)ROWS * (BS + 1)) +
+                                       (size_t)BS * 4 * DV4 + (size_t)ROWS * (BS + 1)) +
                       sizeof(int) * (BS + 2);
   cudaError_t e = cudaFuncSetAttribute(fa_kernel<DV4>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -223,8 +229,8 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
 }  // namespace
 
 // kv_kind: 0 f32, 1 bf16, 2 int8 codes with per-row f32 scales (Q8_0).
-// k_sb/k_sh/v_sb/v_sh/s_sb/s_sh/kvpos_sb are element strides. Dv in
-// {16, 32, 64, 128}, D <= 256, H / Hkv <= 64. Returns the cudaError_t.
+// k_sb/k_sh/v_sb/v_sh/s_sb/s_sh/kvpos_sb are element strides. D <= 256,
+// Dv <= 256, H / Hkv <= 64. Returns the cudaError_t.
 extern "C" int slt_fa(int B, int T, int H, int Hkv, int S, int D, int Dv,
                       const void* q, int q_bf16, const void* k, const void* v, int kv_kind,
                       long k_sb, long k_sh, long v_sb, long v_sh,
@@ -239,12 +245,16 @@ extern "C" int slt_fa(int B, int T, int H, int Hkv, int S, int D, int Dv,
          (const int*)q_pos, (const int*)kv_pos, kvpos_sb, (const float*)sinks,
          scale, swa, softcap, out};
   cudaError_t e;
-  switch (Dv) {
-    case 16: e = launch<4>(a, st); break;
-    case 32: e = launch<8>(a, st); break;
-    case 64: e = launch<16>(a, st); break;
-    case 128: e = launch<32>(a, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
+  // Dv padded up to the next instantiated width (padding lanes read zero V
+  // and write nothing, so the result on the unpadded part is unchanged)
+  if (D > 256 || D < 1 || Dv < 1) e = cudaErrorInvalidValue;
+  else if (Dv <= 16) e = launch<4>(a, st);
+  else if (Dv <= 32) e = launch<8>(a, st);
+  else if (Dv <= 64) e = launch<16>(a, st);
+  else if (Dv <= 96) e = launch<24>(a, st);
+  else if (Dv <= 128) e = launch<32>(a, st);
+  else if (Dv <= 192) e = launch<48>(a, st);
+  else if (Dv <= 256) e = launch<64>(a, st);
+  else e = cudaErrorInvalidValue;
   return (int)e;
 }

@@ -40,7 +40,7 @@
 //
 // Layout: q (B,T,H,D) contiguous; k (B,Hkv,S,Dk), v (B,Hkv,S,Dvk) rows
 // contiguous with caller-given batch/head strides (Dk = D, or D/2 bytes in
-// q4; 16-byte rows and strides); scales (B,Hkv,S) in q8 or (B,Hkv,S,D/32)
+// q4; any row length, see decode_common.cuh); scales (B,Hkv,S) in q8 or (B,Hkv,S,D/32)
 // in q4 with contiguous slots; part (B,Hkv,n_s,T*G,Dv+2) f32 scratch when
 // n_s > 1; out (B,T,H,Dv) in q's type.
 
@@ -79,8 +79,10 @@ __global__ void fd_combine(Args a) {
 // mode: 0 f (kv_kind 0 f32 / 1 bf16), 1 q8, 2 q4. Strides are in elements of
 // the tensor's type (bytes for the int8/uint8 codes). The plan (R query rows
 // a tile, cl blocks a cluster, nb slots a block, ts slots a tile, nbmax
-// slots a pass) comes from the wrapper; part holds B*Hkv*n_s*T*G*(Dv+2)
-// floats when n_s = ceil(S / bs) > 1. Returns the cudaError_t of the launches.
+// slots a pass, npass passes) comes from the wrapper, as does the copy
+// mode of the cache rows; ws holds B*Hkv*n_s*n_rt*cl*R*nb floats when
+// npass > 1, part B*Hkv*n_s*T*G*(Dv+2) when n_s = ceil(S / bs) > 1.
+// Returns the cudaError_t of the launches.
 extern "C" int slt_fd(int B, int T, int H, int Hkv, int S, int D, int Dv, int bs, int mode,
                       int R, int cl, int nb, int ts, int nbmax,
                       const void* q, int q_bf16, const void* k, const void* v, int kv_kind,
@@ -89,7 +91,7 @@ extern "C" int slt_fd(int B, int T, int H, int Hkv, int S, int D, int Dv, int bs
                       long ks_sb, long ks_sh, long vs_sb, long vs_sh,
                       const void* q_pos, const void* kv_pos, long kvpos_sb,
                       const void* sinks, float scale, int swa, float softcap,
-                      void* part, void* out, void* stream) {
+                      int npass, int copy, void* ws, void* part, void* out, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int G = H / Hkv, TG = T * G;
   const int kind = mode == 1 ? decode::KIND_Q8 : mode == 2 ? decode::KIND_Q4
@@ -98,7 +100,7 @@ extern "C" int slt_fd(int B, int T, int H, int Hkv, int S, int D, int Dv, int bs
   Args a{};
   a.B = B; a.T = T; a.H = H; a.Hkv = Hkv; a.D = D; a.Dv = Dv; a.G = G; a.TG = TG;
   a.R = R; a.n_rt = (TG + R - 1) / R; a.cl = cl; a.nb = nb; a.ts = ts; a.nbmax = nbmax;
-  a.npass = 1; a.n_s = (S + bs - 1) / bs; a.bs = bs; a.S = S;
+  a.npass = npass; a.n_s = (S + bs - 1) / bs; a.bs = bs; a.S = S;
   a.q = q; a.q_bf16 = q_bf16; a.q_pos = (const int*)q_pos;
   a.k = k; a.v = v; a.k_sb = k_sb; a.k_sh = k_sh; a.v_sb = v_sb; a.v_sh = v_sh;
   a.krow = kind == decode::KIND_Q4 ? D / 2 : D * es;
@@ -107,8 +109,7 @@ extern "C" int slt_fd(int B, int T, int H, int Hkv, int S, int D, int Dv, int bs
   a.ks_sb = ks_sb; a.ks_sh = ks_sh; a.vs_sb = vs_sb; a.vs_sh = vs_sh;
   a.kv_pos = (const int*)kv_pos; a.kvpos_sb = kvpos_sb;
   a.sinks = (const float*)sinks; a.scale = scale; a.swa = swa; a.softcap = softcap;
-  a.part = (float*)part; a.out = out;
-  if (nb > nbmax) return (int)cudaErrorInvalidValue;   // a chunk is one pass
+  a.part = (float*)part; a.out = out; a.copy = copy; a.ws = (float*)ws;
   cudaError_t e;
   switch (kind) {
     case decode::KIND_F32: e = decode::launch<decode::KIND_F32, false>(a, st); break;

@@ -39,9 +39,12 @@
 // The host changes tables and page positions between steps with ordinary
 // (stream-ordered) copies before this launch.
 //
+// Head sizes: any D <= 256; Dv <= 256, instantiated at 16, 32, 64, 96,
+// 128, 192 and 256 columns and padded up to the next of them (the padding
+// lanes read zero V and write nothing, so the unpadded part is exact).
+//
 // Layout: q (B,T,H,D) contiguous; k_pages (N,Hkv,P,D), v_pages (N,Hkv,P,Dv)
-// with rows contiguous and caller-given page/head strides (16-byte rows and
-// strides on the decode path); page_pos (N,P) int32 contiguous; table
+// with rows contiguous and caller-given page/head strides; page_pos (N,P) int32 contiguous; table
 // (B,MAXP) int32 contiguous; out (B,T,H,Dv) in q's type.
 
 #include "decode_common.cuh"
@@ -84,8 +87,9 @@ __global__ void __launch_bounds__(TPB) paged_kernel(Args a) {
   const int D = a.D, Dv = a.Dv, G = a.G, P = a.P;
   float* Qs = smem;                      // ROWS x (D+1)
   float* Ks = Qs + ROWS * (D + 1);       // BS x (D+1)
-  float* Vs = Ks + BS * (D + 1);         // BS x Dv
-  float* Ps = Vs + BS * Dv;              // ROWS x (BS+1)
+  constexpr int DVP = 4 * DV4;           // Dv padded to the instantiation
+  float* Vs = Ks + BS * (D + 1);         // BS x DVP, zero past Dv
+  float* Ps = Vs + BS * DVP;             // ROWS x (BS+1)
   int* kp_s = reinterpret_cast<int*>(Ps + ROWS * (BS + 1));   // BS positions
   int* pg_s = kp_s + BS;                 // BS pool pages
   int* qlim = pg_s + BS;                 // [max q_pos, min q_pos] of the block
@@ -149,9 +153,9 @@ __global__ void __launch_bounds__(TPB) paged_kernel(Args a) {
       }
       Ks[j * (D + 1) + dd] = val;
     }
-    for (int i = tid; i < BS * Dv; i += TPB) {
-      const int j = i / Dv, dd = i % Dv, s = s0 + j;
-      Vs[j * Dv + dd] = s < S ? load_kv(a.v, a.kv_kind, (long)pg_s[j] * a.v_sp +
+    for (int i = tid; i < BS * DVP; i += TPB) {
+      const int j = i / DVP, dd = i % DVP, s = s0 + j;
+      Vs[j * DVP + dd] = s < S && dd < Dv ? load_kv(a.v, a.kv_kind, (long)pg_s[j] * a.v_sp +
                                                             (long)hk * a.v_sh +
                                                             (long)(s % P) * Dv + dd)
                               : 0.f;
@@ -203,7 +207,7 @@ __global__ void __launch_bounds__(TPB) paged_kernel(Args a) {
     for (int i = 0; i < DV4; ++i) tsum[i] = 0.f;
     for (int j = 0; j < BS; ++j) {
       const float p = prow[j];
-      const float* vrow = Vs + j * Dv + l4;
+      const float* vrow = Vs + j * DVP + l4;
 #pragma unroll
       for (int i = 0; i < DV4; ++i) tsum[i] = fmaf(p, vrow[4 * i], tsum[i]);
     }
@@ -217,6 +221,7 @@ __global__ void __launch_bounds__(TPB) paged_kernel(Args a) {
   const long o = (((long)b * a.T + t) * a.H + h) * Dv + l4;
 #pragma unroll
   for (int i = 0; i < DV4; ++i) {
+    if (l4 + 4 * i >= Dv) break;   // padding lanes write nothing
     const float val = acc[i] / denom;
     if (a.q_bf16) reinterpret_cast<__nv_bfloat16*>(a.out)[o + 4 * i] = __float2bfloat16_rn(val);
     else reinterpret_cast<float*>(a.out)[o + 4 * i] = val;
@@ -226,7 +231,7 @@ __global__ void __launch_bounds__(TPB) paged_kernel(Args a) {
 template <int DV4>
 cudaError_t launch(const Args& a, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)ROWS * (a.D + 1) + (size_t)BS * (a.D + 1) +
-                                       (size_t)BS * a.Dv + (size_t)ROWS * (BS + 1)) +
+                                       (size_t)BS * 4 * DV4 + (size_t)ROWS * (BS + 1)) +
                       sizeof(int) * (2 * BS + 2);
   cudaError_t e = cudaFuncSetAttribute(paged_kernel<DV4>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -239,12 +244,13 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
 }  // namespace
 
 // kv_kind: 0 f32, 1 bf16. k_sp/k_sh/v_sp/v_sh are element strides of a page
-// and a head in the pools. Dv in {16, 32, 64, 128}, D <= 256, H / Hkv <= 64.
+// and a head in the pools. D <= 256, Dv <= 256, H / Hkv <= 64; copy is the
+// decode path's copy mode of the page rows (decode_common.cuh).
 // T*G <= 32 takes the cluster kernel with the wrapper's plan (R query rows,
 // cl blocks a cluster, nb slots a block, ts slots a tile, nbmax slots a
 // pass), larger T*G paged_kernel. Returns the cudaError_t.
 extern "C" int slt_paged(int B, int T, int H, int Hkv, int P, int MAXP, int D, int Dv,
-                         int R, int cl, int nb, int ts, int nbmax,
+                         int R, int cl, int nb, int ts, int nbmax, int copy,
                          const void* q, int q_bf16, const void* k, const void* v, int kv_kind,
                          long k_sp, long k_sh, long v_sp, long v_sh,
                          const void* q_pos, const void* page_pos, const void* table,
@@ -260,7 +266,7 @@ extern "C" int slt_paged(int B, int T, int H, int Hkv, int P, int MAXP, int D, i
     d.npass = (nb + nbmax - 1) / nbmax; d.n_s = 1; d.bs = MAXP * P; d.S = MAXP * P;
     d.q = q; d.q_bf16 = q_bf16; d.q_pos = (const int*)q_pos;
     d.k = k; d.v = v; d.k_sb = k_sp; d.k_sh = k_sh; d.v_sb = v_sp; d.v_sh = v_sh;
-    d.krow = D * es; d.vrow = Dv * es;
+    d.krow = D * es; d.vrow = Dv * es; d.copy = copy;
     d.page_pos = (const int*)page_pos; d.table = (const int*)table; d.P = P; d.MAXP = MAXP;
     d.sinks = (const float*)sinks; d.scale = scale; d.swa = swa; d.softcap = softcap;
     d.out = out;
@@ -272,12 +278,16 @@ extern "C" int slt_paged(int B, int T, int H, int Hkv, int P, int MAXP, int D, i
          k_sp, k_sh, v_sp, v_sh, (const int*)q_pos, (const int*)page_pos,
          (const int*)table, (const float*)sinks, scale, swa, softcap, out};
   cudaError_t e;
-  switch (Dv) {
-    case 16: e = launch<4>(a, st); break;
-    case 32: e = launch<8>(a, st); break;
-    case 64: e = launch<16>(a, st); break;
-    case 128: e = launch<32>(a, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
+  // Dv padded up to the next instantiated width (padding lanes read zero V
+  // and write nothing, so the result on the unpadded part is unchanged)
+  if (D > 256 || D < 1 || Dv < 1) e = cudaErrorInvalidValue;
+  else if (Dv <= 16) e = launch<4>(a, st);
+  else if (Dv <= 32) e = launch<8>(a, st);
+  else if (Dv <= 64) e = launch<16>(a, st);
+  else if (Dv <= 96) e = launch<24>(a, st);
+  else if (Dv <= 128) e = launch<32>(a, st);
+  else if (Dv <= 192) e = launch<48>(a, st);
+  else if (Dv <= 256) e = launch<64>(a, st);
+  else e = cudaErrorInvalidValue;
   return (int)e;
 }

@@ -2,23 +2,68 @@
 // or any M when forced).
 //
 // Replaces the TPU kernel _qmm_kernel (superllama_tpu/ops/qmatmul.py:94,
-// launched by _qmatmul_2d). Codes stay packed in device memory; each weight
-// tile is dequantized per group into shared memory,
-//   w = (code - offset) * s + a      (s, a from the f32 planes or d*sc, -dmin*mn)
-// rounded to the compute type (bf16 when x is bf16, else f32), and multiplied
-// into an f32 accumulator. Output in the requested type.
+// launched by _qmatmul_2d). Codes stay packed in device memory and each
+// weight element is dequantized as the plain version does,
+//   w = bf16(fadd_rn(fmul_rn(code - offset, s), a))
+// with s = d * sc (Q4_K, Q6_K) or the f32 scale plane (Q8_0) and a =
+// -(dmin * mn) (Q4_K only), then multiplied with f32 accumulation. The
+// products of bf16 operands are exact in f32, so only the order of the f32
+// sums differs from qmm_plain.
 //
-// What bounds it on the H100: at M = 32 the product does 64 flops per weight
-// element against 0.56-1.06 bytes read, so it sits near the card's balance
-// point; this simple version runs the product on the CUDA cores (f32 FMA on
-// bf16-exact operands), which makes it compute-bound well above the memory
-// bound. The design keeps what the TPU kernel keeps out of device memory (the
-// dequantized weight lives only in shared memory); tensor-core wgmma tiles
-// are later work. Edges: rows >= M read x = 0, columns >= N read w = 0 and
-// are not stored; K is a multiple of the 32-element group, so no k-tile is
-// partial.
+// Which dtype takes which path:
+//  - bf16 x (the main path: every matmul of a lone <= 32-token prompt chunk)
+//    with N a multiple of 16: qmm_tc_kernel, the tensor-core kernel below;
+//  - f32 x (no TF32: the plain version's f32 products are exact), or N not
+//    a multiple of 16: qmm_kernel, the CUDA-core kernel of the first port
+//    (f32 FMA on operands rounded to the compute type).
+//
+// What bounds it on the H100, and what qmm_tc_kernel does about it. At M 32
+// the product is 64 flops per weight element against 0.56 bytes (Q4_K):
+// under the tensor cores' balance point, so bytes (0.0108 ms at K 4096,
+// N 14336) and the integer unpack, about five ALU operations per element
+// (also ~0.01 ms there), set the pace; the CUDA cores' f32 rate would not
+// (56 us). So:
+//  - mma.sync m16n8k16 bf16 -> f32. A block covers 32 rows (two m16
+//    fragments; one when M <= 16) by 128 columns, so at M <= 32 every weight
+//    element is dequantized exactly once on the card. 8 consumer warps: 4
+//    column warps of 32 columns x 2 k warps, each taking two of a k-tile's
+//    four 32-groups; the two k warps' sums are added in a fixed order at
+//    the end.
+//  - Dequantized straight into the B fragments' registers, never into
+//    shared memory: a lane owns 4 adjacent columns (one per n8 fragment; the
+//    output columns follow that permutation) and rows 2t, 2t+1, 2t+8, 2t+9
+//    of a group's 16 packed-code rows, so one 32-bit shared load gives 4
+//    columns of a k pair and the low nibbles are k-step 0 of the group, the
+//    high nibbles k-step 1, in the natural k order (x's A fragments come by
+//    plain ldmatrix). Nibbles by mask, code to float by __byte_perm into the
+//    exponent of 2^23 and one exact subtraction (no I2F), cvt.rn.bf16x2 to
+//    pack; for Q4_K the code's product with s is one exact fma (deq). Each
+//    group's d/dmin/sc/mn (Q4_K), d/sc/hi (Q6_K) or scales
+//    (Q8_0) are read once per column and lane, not per element.
+//  - The packed planes and x stream through a ring of NST stages (4; 3 for
+//    Q8_0) of one 128-deep k-tile: a producer warp fills a stage with
+//    16-byte cp.async copies (36 a lane for a Q4_K tile), completed on
+//    the stage's `full` mbarrier through cp.async.mbarrier.arrive, once every
+//    consumer warp has arrived on its `empty` mbarrier. No block-wide
+//    barrier sits in the loop; up to NST tiles are in flight. Each lane
+//    keeps one 16-byte column of each plane and steps down its rows by
+//    pointer increments: the producer's instructions a tile set the pace
+//    at first (K 4096, N 14336 on an H100 80GB HBM3 at 700 W: one
+//    cp.async.bulk per plane row, 106 copies of 128-256 bytes a tile, read
+//    0.112 ms; cp.async with divisions in the address math 0.086 ms;
+//    without them 0.037 ms).
+//  - Enough blocks at every shape: where N alone gives too few, the K range
+//    is split (qmm_plan in ops/qmatmul.py, a function of (K, N) only, so a
+//    row's sums never depend on M); the splits' f32 partials are added in
+//    split order by one qmm_reduce launch. No float atomics: two runs give
+//    the same bits.
+// Edges: rows >= M and columns >= N hold stale shared memory, which reaches
+// only their own (unstored) outputs; a Q8_0 k-tile past K is cut to whole
+// 32-groups and the warps skip the groups beyond it.
 //
 // Weight formats (FMT): 0 = Q8_0, 1 = Q4_K compact, 2 = Q6_K compact.
+
+#include "ptx.cuh"
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -133,6 +178,340 @@ __global__ void __launch_bounds__(TPB) qmm_kernel(Args a) {
 
 }  // namespace
 
+// ------------------------------------------------- the tensor-core kernel
+
+namespace tc {
+
+using namespace ptx;
+
+constexpr int BM = 32, BN = 128, BK = 128;   // block tile, k-tile
+constexpr int NCW = 8;                       // consumer warps: 4 column x 2 k
+constexpr int NT = (NCW + 1) * 32;           // and the producer warp
+constexpr int XROW = BK * 2 + 16;            // bytes of an x row in shared memory
+constexpr int CROW = BN + 16;                // bytes of a code-plane row
+
+struct Args {
+  int M, K, N, per;                          // per: k-tiles a split
+  const __nv_bfloat16* x;
+  const uint8_t* codes; const uint8_t* hi; const float* scales;
+  const uint8_t* sc; const uint8_t* mn; const float* d; const float* dmin;
+  float* part; void* out; int out_bf16;
+};
+
+// byte offsets inside one ring stage (all multiples of 16)
+template <int FMT>
+struct Stage {
+  static constexpr int CODE_ROWS = FMT == 0 ? BK : BK / 2;
+  static constexpr int HI_ROWS = FMT == 2 ? BK / 4 : 0;
+  static constexpr int SC_ROWS = FMT == 0 ? 0 : FMT == 1 ? BK / 32 : BK / 16;
+  static constexpr int MN_ROWS = FMT == 1 ? BK / 32 : 0;
+  static constexpr int X = 0;
+  static constexpr int CODES = X + BM * XROW;
+  static constexpr int HI = CODES + CODE_ROWS * CROW;
+  static constexpr int SC = HI + HI_ROWS * CROW;
+  static constexpr int MN = SC + SC_ROWS * BN;
+  static constexpr int D = MN + MN_ROWS * BN;
+  static constexpr int DMIN = D + (FMT == 0 ? 0 : BN * 4);
+  static constexpr int SCL = DMIN + (FMT == 1 ? BN * 4 : 0);
+  static constexpr int BYTES = SCL + (FMT == 0 ? BK / 32 * BN * 4 : 0);
+  static constexpr int NST = FMT == 0 ? 3 : 4;
+  static constexpr int SMEM = NST * BYTES + 2 * NST * 8;
+};
+
+// 16 bytes global -> shared (both 16-byte aligned), through L2 only
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// arrive on bar once this thread's cp.async copies so far have landed (the
+// barrier counts these arrivals: 32, one a producer lane)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// code byte j of nib (values < 256), dequantized: f = 2^23 + byte is
+// exact in f32. Q8_0 / Q6_K: one exact subtraction gives byte - bias, then
+// fmul_rn by s. Q4_K (no bias): fma_rn(f, s, c) with c = -2^23 s (exact: a
+// power-of-two multiple) rounds f s + c = byte s once, so it is fmul_rn(byte,
+// s) in one instruction; then fadd_rn of a.
+template <int FMT>
+__device__ __forceinline__ float deq(uint32_t nib, int j, float s, float c, float a) {
+  constexpr float BIAS = FMT == 0 ? 8388608.f + 128.f : 8388608.f + 32.f;
+  const float f = __uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7440u + j));
+  if constexpr (FMT == 1) return __fadd_rn(__fmaf_rn(f, s, c), a);
+  return __fmul_rn(f - BIAS, s);
+}
+
+template <int FMT>
+__global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
+  using S = Stage<FMT>;
+  constexpr int NST = S::NST;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NST * S::BYTES);
+  uint64_t* empty = full + NST;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, split = blockIdx.z;
+  const int n_tiles = (a.K + BK - 1) / BK;
+  const int t0 = split * a.per, nt = min(t0 + a.per, n_tiles) - t0;
+  const int ncol = min(BN, a.N - n0), mrows = min(BM, a.M - m0);
+  if (tid == 0) {
+    for (int i = 0; i < NST; ++i) { mbar_init(&full[i], 32); mbar_init(&empty[i], NCW); }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NCW) {
+    // producer: the tile's rows of each plane in 16-byte cp.async chunks.
+    // Each lane keeps one chunk column of each plane and steps down its
+    // rows, so the loop is pointer increments (no divisions): byte planes
+    // 8 chunks a row, lane & 7, rows lane >> 3 + 4i; f32 planes 32 chunks a
+    // row, one a lane; x 16 chunks a row, lane & 15, rows lane >> 4 + 2i.
+    const long N = a.N;
+    const int cpr = ncol / 16;   // chunks of a byte-plane row in this column tile
+    const int q8 = lane & 7, r8 = lane >> 3, q16 = lane & 15, r16 = lane >> 4;
+    const bool c8 = q8 < cpr, c32 = lane < 4 * cpr;
+    for (int i = 0; i < nt; ++i) {
+      const int st = i % NST;
+      if (i >= NST) mbar_wait(&empty[st], (i / NST - 1) & 1);
+      const int k0 = (t0 + i) * BK, kv = min(BK, a.K - k0);   // kv: whole 32-groups
+      unsigned char* s = smem + st * S::BYTES;
+      if (q16 < kv / 8)
+        for (int r = r16; r < mrows; r += 2)
+          cp_async16(s + S::X + r * XROW + q16 * 16, a.x + (long)(m0 + r) * a.K + k0 + q16 * 8);
+      // n rows of a byte plane from row0, into shared rows of `stride` bytes
+      auto rows8 = [&](int off, int stride, const uint8_t* plane, long row0, int n) {
+        if (!c8) return;
+        const uint8_t* src = plane + (row0 + r8) * N + n0 + q8 * 16;
+        unsigned char* dst = s + off + r8 * stride + q8 * 16;
+        for (int r = r8; r < n; r += 4, src += 4 * N, dst += 4 * stride) cp_async16(dst, src);
+      };
+      // n rows of an f32 plane from row0
+      auto rows32 = [&](int off, const float* plane, long row0, int n) {
+        if (!c32) return;
+        for (int r = 0; r < n; ++r)
+          cp_async16(s + off + r * BN * 4 + lane * 16, plane + (row0 + r) * N + n0 + lane * 4);
+      };
+      if constexpr (FMT == 0) {
+        rows8(S::CODES, CROW, a.codes, k0, kv);
+        rows32(S::SCL, a.scales, k0 / 32, kv / 32);
+      } else {
+        rows8(S::CODES, CROW, a.codes, k0 / 2, kv / 2);
+        rows32(S::D, a.d, k0 / 256, 1);
+        if constexpr (FMT == 1) {
+          rows8(S::SC, BN, a.sc, k0 / 32, kv / 32);
+          rows8(S::MN, BN, a.mn, k0 / 32, kv / 32);
+          rows32(S::DMIN, a.dmin, k0 / 256, 1);
+        } else {
+          rows8(S::HI, CROW, a.hi, k0 / 4, kv / 4);
+          rows8(S::SC, BN, a.sc, k0 / 16, kv / 16);
+        }
+      }
+      cp_async_arrive_noinc(&full[st]);
+    }
+    return;
+  }
+
+  // consumers: lane (g, t) of column warp wn owns tile columns cb .. cb + 3,
+  // one in each n8 fragment j (fragment slot g <-> column cb + j)
+  const int wn = warp & 3, kw = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int cb = wn * 32 + 4 * g;
+  const bool two = mrows > 16;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % NST;
+    mbar_wait(&full[st], (i / NST) & 1);
+    __syncwarp();
+    const unsigned char* s = smem + st * S::BYTES;
+    const int ng = min(BK, a.K - (t0 + i) * BK) / 32;   // groups in this tile
+#pragma unroll
+    for (int gq = 0; gq < 2; ++gq) {
+      const int gi = kw * 2 + gq;
+      if (gi >= ng) break;   // a Q8_0 tile past K
+      // this lane's code words: rows 2t, 2t+1, 2t+8, 2t+9 of the group's 16
+      // packed rows (Q8_0: of each 16-row half, k-step h at rows 16h + ..)
+      const int crow = (FMT == 0 ? gi * 32 : gi * 16) + 2 * t;
+      const unsigned char* cw = s + S::CODES + crow * CROW + cb;
+      uint32_t w[2][4];
+#pragma unroll
+      for (int h = 0; h < (FMT == 0 ? 2 : 1); ++h) {
+        const unsigned char* c = cw + h * 16 * CROW;
+        w[h][0] = *reinterpret_cast<const uint32_t*>(c);
+        w[h][1] = *reinterpret_cast<const uint32_t*>(c + CROW);
+        w[h][2] = *reinterpret_cast<const uint32_t*>(c + 8 * CROW);
+        w[h][3] = *reinterpret_cast<const uint32_t*>(c + 9 * CROW);
+      }
+      // per-column scales of the group (of each 16-half for Q6_K)
+      float sc[2][4], cs[4] = {0.f, 0.f, 0.f, 0.f}, ad[4] = {0.f, 0.f, 0.f, 0.f};
+      uint32_t hw[2] = {0u, 0u};
+      if constexpr (FMT == 0) {
+        const float4 v = *reinterpret_cast<const float4*>(s + S::SCL + gi * BN * 4 + cb * 4);
+        sc[0][0] = sc[1][0] = v.x; sc[0][1] = sc[1][1] = v.y;
+        sc[0][2] = sc[1][2] = v.z; sc[0][3] = sc[1][3] = v.w;
+      } else {
+        const float4 dv = *reinterpret_cast<const float4*>(s + S::D + cb * 4);
+        const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
+        if constexpr (FMT == 1) {
+          const float4 mv = *reinterpret_cast<const float4*>(s + S::DMIN + cb * 4);
+          const float dm[4] = {mv.x, mv.y, mv.z, mv.w};
+          const uint32_t scw = *reinterpret_cast<const uint32_t*>(s + S::SC + gi * BN + cb);
+          const uint32_t mnw = *reinterpret_cast<const uint32_t*>(s + S::MN + gi * BN + cb);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sc[0][j] = sc[1][j] = __fmul_rn(dd[j], (float)((scw >> (8 * j)) & 255u));
+            cs[j] = -8388608.f * sc[0][j];
+            ad[j] = -__fmul_rn(dm[j], (float)((mnw >> (8 * j)) & 255u));
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t scw =
+                *reinterpret_cast<const uint32_t*>(s + S::SC + (2 * gi + h) * BN + cb);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              sc[h][j] = __fmul_rn(dd[j], (float)(int8_t)((scw >> (8 * j)) & 255u));
+          }
+          const unsigned char* hp = s + S::HI + (gi * 8 + 2 * t) * CROW + cb;
+          hw[0] = *reinterpret_cast<const uint32_t*>(hp);
+          hw[1] = *reinterpret_cast<const uint32_t*>(hp + CROW);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // the code bytes of k-step h: rows 2t, 2t+1 (b0) and 2t+8, 2t+9 (b1)
+        uint32_t nib[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if constexpr (FMT == 0) {
+            nib[q] = w[h][q] ^ 0x80808080u;   // int8 -> biased byte
+          } else {
+            nib[q] = (h ? w[0][q] >> 4 : w[0][q]) & 0x0F0F0F0Fu;
+            if constexpr (FMT == 2)   // element e's 2 high bits: hi row e % 8, field e / 8
+              nib[q] |= ((hw[q & 1] >> (4 * h + 2 * (q >> 1))) & 0x03030303u) << 4;
+          }
+        }
+        uint32_t bf[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bf[j][0] = pack_bf16(deq<FMT>(nib[0], j, sc[h][j], cs[j], ad[j]),
+                               deq<FMT>(nib[1], j, sc[h][j], cs[j], ad[j]));
+          bf[j][1] = pack_bf16(deq<FMT>(nib[2], j, sc[h][j], cs[j], ad[j]),
+                               deq<FMT>(nib[3], j, sc[h][j], cs[j], ad[j]));
+        }
+        const int kk = gi * 32 + h * 16 + (lane >> 4) * 8;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if (mi == 1 && !two) break;
+          uint32_t af[4];
+          const unsigned char* xa = s + S::X + (mi * 16 + (lane & 15)) * XROW + kk * 2;
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                       : "=r"(af[0]), "=r"(af[1]), "=r"(af[2]), "=r"(af[3])
+                       : "r"(smem_addr(xa)));
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_bf16(acc[mi][j], af, bf[j][0], bf[j][1]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // the two k warps' sums, added in order (the ring is free: every tile
+  // issued has been consumed)
+  asm volatile("bar.sync 1, %0;\n" ::"r"(NCW * 32) : "memory");
+  float* red = reinterpret_cast<float*>(smem) + (wn * 32 + lane) * 32;
+  if (kw == 1) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(mi * 4 + j) * 4 + e] = acc[mi][j][e];
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"r"(NCW * 32) : "memory");
+  if (kw == 1) return;
+  // lane (g, t) holds, for rows g and g + 8 of each m16 fragment, the 8
+  // adjacent columns 8t .. 8t + 7 of its warp's 32 (c0 of fragment j at
+  // 8t + j, c1 at 8t + 4 + j)
+  const int col = n0 + wn * 32 + 8 * t;
+  if (col >= a.N) return;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + mi * 16 + g + 8 * hr;
+      if (m >= a.M) continue;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = acc[mi][j][2 * hr] + red[(mi * 4 + j) * 4 + 2 * hr];
+        v[4 + j] = acc[mi][j][2 * hr + 1] + red[(mi * 4 + j) * 4 + 2 * hr + 1];
+      }
+      const long o = (long)m * a.N + col;
+      if (a.part != nullptr) {
+        float4* p = reinterpret_cast<float4*>(a.part + (long)split * a.M * a.N + o);
+        p[0] = make_float4(v[0], v[1], v[2], v[3]);
+        p[1] = make_float4(v[4], v[5], v[6], v[7]);
+      } else if (a.out_bf16) {
+        uint4 u = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                             pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+        *reinterpret_cast<uint4*>(reinterpret_cast<__nv_bfloat16*>(a.out) + o) = u;
+      } else {
+        float4* p = reinterpret_cast<float4*>(reinterpret_cast<float*>(a.out) + o);
+        p[0] = make_float4(v[0], v[1], v[2], v[3]);
+        p[1] = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+  }
+}
+
+// the splits' partials (n_split, M, N) added in split order; 4 outputs a thread
+__global__ void qmm_reduce(const float* part, int n_split, long MN, void* out, int out_bf16) {
+  const long i = ((long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= MN) return;
+  float4 acc = *reinterpret_cast<const float4*>(part + i);
+  for (int sp = 1; sp < n_split; ++sp) {
+    const float4 v = *reinterpret_cast<const float4*>(part + (long)sp * MN + i);
+    acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+  }
+  if (out_bf16) {
+    uint2 u = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+    *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(out) + i) = u;
+  } else {
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + i) = acc;
+  }
+}
+
+template <int FMT>
+cudaError_t launch(const Args& a, int n_split, cudaStream_t st) {
+  constexpr int smem = Stage<FMT>::SMEM;
+  static bool attr_set = false;   // set once, never under graph capture
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmm_tc_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, n_split);
+  qmm_tc_kernel<FMT><<<grid, NT, smem, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return e;
+  const long MN = (long)a.M * a.N;
+  qmm_reduce<<<(unsigned)((MN / 4 + 255) / 256), 256, 0, st>>>(a.part, n_split, MN, a.out,
+                                                               a.out_bf16);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // fmt: 0 Q8_0, 1 Q4_K, 2 Q6_K. x (M, K) f32 or bf16; out (M, N) f32 or bf16.
 // Returns the cudaError_t of the launch.
 extern "C" int slt_qmm(int fmt, int M, int K, int N, const void* x, int x_bf16,
@@ -148,4 +527,26 @@ extern "C" int slt_qmm(int fmt, int M, int K, int N, const void* x, int x_bf16,
   else if (fmt == 1) qmm_kernel<1><<<grid, TPB, 0, st>>>(a);
   else qmm_kernel<2><<<grid, TPB, 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core kernel for bf16 x, N a multiple of 16 and 16-byte aligned
+// planes: fmt as above; the K range is cut into n_split splits of per
+// 128-deep k-tiles (qmm_plan), part holds n_split * M * N f32 when
+// n_split > 1. Returns the cudaError_t of the launches.
+extern "C" int slt_qmm_tc(int fmt, int M, int K, int N, const void* x, const void* codes,
+                          const void* hi, const void* scales, const void* sc, const void* mn,
+                          const void* d, const void* dmin, int n_split, int per, void* part,
+                          void* out, int out_bf16, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (N % 16 || K % 32 || n_split < 1 || (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  tc::Args a{M, K, N, per, (const __nv_bfloat16*)x, (const uint8_t*)codes,
+             (const uint8_t*)hi, (const float*)scales, (const uint8_t*)sc,
+             (const uint8_t*)mn, (const float*)d, (const float*)dmin,
+             n_split > 1 ? (float*)part : nullptr, out, out_bf16};
+  cudaError_t e;
+  if (fmt == 0) e = tc::launch<0>(a, n_split, st);
+  else if (fmt == 1) e = tc::launch<1>(a, n_split, st);
+  else e = tc::launch<2>(a, n_split, st);
+  return (int)e;
 }

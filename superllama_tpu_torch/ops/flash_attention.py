@@ -36,7 +36,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _L, _L, _L, _L,
              _P, _P, _L, _L, _P, _P, _L, _P, _F, _I, _F, _P, _P]
 _FD_ARGTYPES = [_I] * 14 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _L, _L, _L, _L,
-                            _P, _P, _L, _P, _F, _I, _F, _P, _P, _P]
+                            _P, _P, _L, _P, _F, _I, _F, _I, _I, _P, _P, _P, _P]
 _FD_MODES = {"f": 0, "q8": 1, "q4": 2}
 FD_BLOCK_S = 2048   # default cache slots per chunk, as in the JAX package
 
@@ -52,7 +52,8 @@ class DecodePlan:
     """How the decode kernel cuts one call: n_s chunks of bs slots, each
     taken by a cluster of cl blocks per (row tile of R query rows, kv head,
     batch row); block ``rank`` of a cluster owns nb slots of its chunk, in
-    tiles of ts slots, npass passes of at most nbmax slots."""
+    tiles of ts slots, npass passes of at most nbmax slots (fd keeps the
+    logits of a multi-pass chunk in a workspace of R x nb floats a block)."""
 
     R: int
     n_rt: int
@@ -68,11 +69,15 @@ class DecodePlan:
 def decode_plan(S: int, bs: int, TG: int, krow: int, vrow: int) -> DecodePlan:
     """Geometry of the decode kernel for a cache of S slots cut into chunks
     of bs, T*G query rows per kv head and K/V rows of krow/vrow bytes: tiles
-    of one 8 KB ring stage, 8 blocks a cluster whenever a chunk holds 8
-    tiles (B 8 at S 2048: 512 blocks; B 1: 64), each block's share of the
-    chunk a whole number of tiles."""
+    of one 8 KB ring stage (rows held at 16-byte strides), 8 blocks a
+    cluster whenever a chunk holds 8 tiles (B 8 at S 2048: 512 blocks; B 1:
+    64), each block's share of the chunk a whole number of tiles. A tile of
+    16 slots or more is a whole number of 16 (P.V's bf16 ldmatrix reads V
+    16 rows at a time, up to the end of the stage)."""
     R = min(TG, _ROWS)
-    ts = max(1, _STAGE_BYTES // max(krow, vrow))
+    ts = max(1, _STAGE_BYTES // (-(-max(krow, vrow) // 16) * 16))
+    if ts >= 16:
+        ts -= ts % 16
     per = -(-bs // _CLUSTER)
     nb = -(-per // ts) * ts
     cl = -(-bs // nb)
@@ -81,15 +86,22 @@ def decode_plan(S: int, bs: int, TG: int, krow: int, vrow: int) -> DecodePlan:
                       npass=-(-nb // nbmax), n_s=-(-S // bs), bs=bs)
 
 
-def check_bulk_copyable(*tensors) -> None:
-    """The decode kernel copies cache rows in bulk: rows, batch/page and
-    head strides and base addresses must be multiples of 16 bytes."""
+COPY_BULK, COPY_WORDS, COPY_BYTES = 0, 1, 2   # decode_common.cuh's copy modes
+
+
+def copy_mode(*tensors) -> int:
+    """How the decode kernel copies these caches' rows into shared memory:
+    bulk copies when rows, batch/page and head strides and base addresses
+    are all multiples of 16 bytes, 4-byte cp.async when they are multiples
+    of 4 (a Q8_0 row of 100 codes), byte copies otherwise."""
+    sizes = []
     for t in tensors:
         es = t.element_size()
-        if ((t.shape[-1] * es) % 16 or t.data_ptr() % 16
-                or any((t.stride(i) * es) % 16 for i in range(t.ndim - 1))):
-            raise ValueError("decode attention needs K/V rows, strides and base "
-                             "addresses in multiples of 16 bytes")
+        sizes += [t.shape[-1] * es, t.data_ptr()]
+        sizes += [t.stride(i) * es for i in range(t.ndim - 1)]
+    if all(n % 16 == 0 for n in sizes):
+        return COPY_BULK
+    return COPY_WORDS if all(n % 4 == 0 for n in sizes) else COPY_BYTES
 
 
 def _positional_penalty(q_pos: torch.Tensor, kv_pos: torch.Tensor, G: int,
@@ -161,7 +173,7 @@ def flash_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
     if kind is None or v.dtype != k.dtype or (kind == 2) != quantized:
         raise TypeError(f"unsupported K/V types {k.dtype}/{v.dtype} "
                         f"(quantized={quantized})")
-    if H % Hkv or H // Hkv > 64 or D > 256 or Dv not in (16, 32, 64, 128):
+    if H % Hkv or H // Hkv > 64 or D > 256 or Dv > 256:
         raise ValueError(f"unsupported attention shape H={H} Hkv={Hkv} D={D} Dv={Dv}")
     for t, width in ((k, D), (v, Dv)):
         if t.stride(-1) != 1 or t.stride(-2) != width:
@@ -355,11 +367,7 @@ def flash_decode_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
             if t.dtype != torch.float32 or t.stride(-1) != 1 or (
                     mode == "q4" and t.stride(-2) != t.shape[-1]):
                 raise ValueError("K/V scales must be f32 with contiguous slots")
-    check_bulk_copyable(k, v)
     plan = fd_plan(q, k, v, block_s)
-    if plan.npass > 1:
-        raise ValueError(f"block_s {plan.bs} is too long for {plan.R} query rows: a "
-                         f"chunk's logits must fit one pass of the decode kernel")
     lib = _build.load("fd")
     fn = lib.slt_fd
     if fn.argtypes is None:
@@ -370,7 +378,10 @@ def flash_decode_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
     kv_pos = kv_pos.to(torch.int32)
     if sinks is not None:
         sinks = sinks.to(torch.float32).contiguous()
-    part = None
+    part = ws = None
+    if plan.npass > 1:   # the chunk's logits between its K and V passes
+        ws = torch.empty(B * Hkv * plan.n_s * plan.n_rt * plan.cl * plan.R * plan.nb,
+                         dtype=torch.float32, device=q.device)
     if plan.n_s > 1:
         part = torch.empty((B, Hkv, plan.n_s, T * (H // Hkv), Dv + 2), dtype=torch.float32,
                            device=q.device)
@@ -385,7 +396,8 @@ def flash_decode_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
              v_scale.stride(0) if quant else 0, v_scale.stride(1) if quant else 0,
              q_pos.data_ptr(), kv_pos.data_ptr(), kv_pos.stride(0),
              sinks.data_ptr() if sinks is not None else None,
-             float(scale), int(swa_window), float(logit_softcap),
+             float(scale), int(swa_window), float(logit_softcap), plan.npass,
+             copy_mode(k, v), ws.data_ptr() if ws is not None else None,
              part.data_ptr() if part is not None else None, out.data_ptr(),
              _build.stream_ptr(q.device))
     _build.check(err, "fd")

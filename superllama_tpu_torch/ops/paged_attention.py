@@ -22,11 +22,10 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import (DecodePlan, check_bulk_copyable, decode_plan,
-                              flash_attention_plain)
+from .flash_attention import DecodePlan, copy_mode, decode_plan, flash_attention_plain
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
-_ARGTYPES = [_I] * 13 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _P, _P, _F, _I, _F,
+_ARGTYPES = [_I] * 14 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _P, _P, _F, _I, _F,
                          _P, _P]
 DECODE_ROWS = 32   # T·G up to which a call takes the decode cluster kernel
 
@@ -82,16 +81,15 @@ def paged_flash_attention(q, k_pages, v_pages, q_pos, page_pos, page_table,
     kind = {torch.float32: 0, torch.bfloat16: 1}.get(k_pages.dtype)
     if kind is None or v_pages.dtype != k_pages.dtype:
         raise TypeError(f"unsupported page types {k_pages.dtype}/{v_pages.dtype}")
-    if H % Hkv or H // Hkv > 64 or D > 256 or Dv not in (16, 32, 64, 128):
+    if H % Hkv or H // Hkv > 64 or D > 256 or Dv > 256:
         raise ValueError(f"unsupported attention shape H={H} Hkv={Hkv} D={D} Dv={Dv}")
     for t, width in ((k_pages, D), (v_pages, Dv)):
         if t.stride(-1) != 1 or t.stride(-2) != width:
             raise ValueError("page rows must be contiguous")
     plan = paged_plan(q, k_pages, v_pages, page_table)
-    geo = (0, 0, 0, 0, 0)
+    geo = (0, 0, 0, 0, 0, 0)
     if plan is not None:
-        check_bulk_copyable(k_pages, v_pages)
-        geo = (plan.R, plan.cl, plan.nb, plan.ts, plan.nbmax)
+        geo = (plan.R, plan.cl, plan.nb, plan.ts, plan.nbmax, copy_mode(k_pages, v_pages))
     lib = _build.load("paged")
     fn = lib.slt_paged
     if fn.argtypes is None:

@@ -35,13 +35,16 @@ _QMV_COLS = 256                   # columns per qmv block (64 threads x 4)
 _QMV_SLICES = 4                   # k-slices per qmv block
 _QMV_TARGET_BLOCKS = 264          # two blocks per SM of the H100
 _QMV_MAX_ROWS = 16
+_QMM_BN = 128                     # columns per qmm tensor-core block
+_QMM_BK = 128                     # k-tile of the qmm tensor-core kernel
+_QMM_RESIDENT = 264               # blocks resident at once: two an SM of the H100
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 
 
-def _lib(name: str, argtypes) -> ctypes.CDLL:
+def _lib(name: str, argtypes, entry: str | None = None) -> ctypes.CDLL:
     lib = _build.load(name)
-    fn = getattr(lib, f"slt_{name}")
+    fn = getattr(lib, f"slt_{entry or name}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -171,8 +174,30 @@ def qmm_plain(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     return (x2.to(cdt).to(torch.float32) @ w).to(out_dtype)
 
 
+def qmm_plan(K: int, N: int) -> tuple[int, int]:
+    """(n_split, tiles_per_split) of the tensor-core qmm kernel's K split, in
+    k-tiles of 128 (a Q8_0 K's last tile may be shorter). N's column blocks
+    alone when they fill the resident slots (two blocks an SM); else the
+    split, up to one resident wave of blocks, whose waves times k-tiles a
+    block is least (the smallest such: each split adds M x N partials).
+    Depends on (K, N) only, so a row's sums do not depend on M."""
+    n_tiles = -(-K // _QMM_BK)
+    n_col_blocks = -(-N // _QMM_BN)
+
+    def rounds(split):
+        per = -(-n_tiles // split)
+        return -(-n_col_blocks * -(-n_tiles // per) // _QMM_RESIDENT) * per
+
+    most = min(n_tiles, -(-_QMM_RESIDENT // n_col_blocks))
+    split = min(range(1, most + 1), key=lambda sp: (rounds(sp), sp))
+    per = -(-n_tiles // split)
+    return -(-n_tiles // per), per
+
+
 def qmm(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
-    """Fused dequant + matmul. CUDA: the qmm kernel; CPU: ``qmm_plain``."""
+    """Fused dequant + matmul. CUDA: the qmm kernels (tensor cores for bf16
+    x and N a multiple of 16, else the CUDA-core kernel); CPU:
+    ``qmm_plain``."""
     if x2.device.type == "cpu":
         return qmm_plain(x2, qt, out_dtype)
     if x2.device.type != "cuda":
@@ -182,13 +207,28 @@ def qmm(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
         raise TypeError(f"qmm output must be f32 or bf16, got {out_dtype}")
     x2 = x2.contiguous()
     M, K = x2.shape
-    fn = _lib("qmm", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _P])
-    out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
-    err = fn(fmt, M, K, qt.N, x2.data_ptr(), int(x2.dtype == torch.bfloat16),
-             _ptr(qt.codes), _ptr(qt.hi), _ptr(qt.scales), _ptr(qt.sc),
-             _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin), out.data_ptr(),
-             int(out_dtype == torch.bfloat16), _build.stream_ptr(x2.device))
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    if x2.dtype == torch.bfloat16 and qt.N % 16 == 0:
+        fn = _lib("qmm", [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _P, _P, _I, _P], entry="qmm_tc")
+        out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
+        if x2.data_ptr() % 16:   # x rows go in by 16-byte copies
+            x2 = x2.clone()
+        n_split, per = qmm_plan(K, qt.N)
+        part = (torch.empty((n_split, M, qt.N), dtype=torch.float32, device=x2.device)
+                if n_split > 1 else None)
+        err = fn(fmt, M, K, qt.N, x2.data_ptr(), _ptr(qt.codes), _ptr(qt.hi),
+                 _ptr(qt.scales), _ptr(qt.sc), _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin),
+                 n_split, per, _ptr(part), out.data_ptr(), out_bf16,
+                 _build.stream_ptr(x2.device))
+    else:
+        fn = _lib("qmm", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _P])
+        out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
+        err = fn(fmt, M, K, qt.N, x2.data_ptr(), int(x2.dtype == torch.bfloat16),
+                 _ptr(qt.codes), _ptr(qt.hi), _ptr(qt.scales), _ptr(qt.sc),
+                 _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin), out.data_ptr(), out_bf16,
+                 _build.stream_ptr(x2.device))
     _build.check(err, "qmm")
     qmm.launches += 1
     return out

@@ -115,3 +115,13 @@ def test_cuda_tensor_never_takes_plain_path(monkeypatch):
         flash_attention(args.pop("q"), args.pop("k"), args.pop("v"),
                         args.pop("q_pos"), args.pop("kv_pos"), **args)
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("D", [80, 100])
+@pytest.mark.parametrize("q8", [False, True])
+def test_head_sizes_match_jax(D, q8):
+    """Head sizes the CUDA kernel pads (80, 100): the port's version against
+    the JAX kernel, as in the grid above."""
+    got, ref = _run_both(_inputs(40, 96, 4, True, q8, D=D), swa=24)
+    assert got.shape == ref.shape
+    assert _nmse(got, ref) < (2e-5 if q8 else 1e-9)

@@ -185,3 +185,20 @@ def test_cuda_tensor_never_takes_plain_path(monkeypatch, kv):
         flash_decode_attention(args.pop("q"), args.pop("k"), args.pop("v"),
                                args.pop("q_pos"), args.pop("kv_pos"), **args)
     assert flash_decode_attention.launches == before
+
+
+@pytest.mark.parametrize("D,kv", [(80, "f"), (100, "f"), (80, "q8"), (100, "q8"),
+                                  (96, "q4")])
+def test_head_sizes_match_jax(D, kv):
+    """Head sizes whose cache rows are not 16-byte multiples (Q8_0 at D 100:
+    100-byte rows) or not powers of two, against the JAX kernel."""
+    got, ref = _run_both(_inputs(2, 300, 4, kv, True, D=D, seed=D), block_s=128)
+    assert got.shape == ref.shape
+    assert _nmse(got, ref) < SPLIT_TOL[kv]
+
+
+def test_long_chunk_matches_jax():
+    """T*G 32 over one 1024-slot chunk (two passes of the decode kernel on the
+    card) against the JAX kernel at the same block_s."""
+    got, ref = _run_both(_inputs(8, 1024, 4, "q8", False, seed=11), block_s=1024)
+    assert _nmse(got, ref) < TOL["q8"]

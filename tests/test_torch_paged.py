@@ -89,6 +89,11 @@ CASES = {
                             seed=2, absent={(0, 1), (2, 0)}), dict(logit_softcap=20.0)),
     "bf16": (dict(B=2, T=8, H=8, Hkv=2, D=64, P=16, MAXP=4, n_valid=[60, 41], seed=3),
              dict(bf16=True)),
+    # head sizes the CUDA kernels pad (80) or copy by words (100 in bf16)
+    "d80_prefill": (dict(B=2, T=12, H=8, Hkv=2, D=80, P=16, MAXP=4, n_valid=[60, 41],
+                         seed=6), {}),
+    "d100_decode_bf16": (dict(B=2, T=1, H=8, Hkv=2, D=100, P=16, MAXP=4, n_valid=[60, 33],
+                              seed=7), dict(bf16=True)),
 }
 
 

@@ -26,7 +26,7 @@ from superllama_tpu.gguf.constants import GGML_TYPE_TRAITS
 from superllama_tpu.ops import qtensor as jqt
 from superllama_tpu.ops.qmatmul import _qmatmul_2d, _qmatmul_mv, _quantize_acts
 from superllama_tpu_torch.ops import qtensor as tqt
-from superllama_tpu_torch.ops.qmatmul import (qmatmul, qmatmul_ref, qmm, qmv,
+from superllama_tpu_torch.ops.qmatmul import (qmatmul, qmatmul_ref, qmm, qmm_plan, qmv,
                                               quantize_acts)
 
 TYPES = [GGMLType.Q8_0, GGMLType.Q4_K, GGMLType.Q6_K]
@@ -145,13 +145,14 @@ def test_cuda_tensor_never_takes_plain_path(monkeypatch):
     build_failed = failing_build(monkeypatch)
     _, _, tq = _weights(GGMLType.Q4_K, 64, 512)
     tq = dataclasses.replace(tq, **{n: cuda_typed(p) for n, p in tq.planes().items()})
-    x = cuda_typed(torch.zeros((4, 512)))
-    for name in ("qmv", "qmm"):
-        fn = getattr(qm_mod, name)
-        before = fn.launches
-        with pytest.raises(build_failed):
-            fn(x, tq, torch.float32)
-        assert fn.launches == before
+    for dt in (torch.float32, torch.bfloat16):   # qmm: CUDA-core and tensor-core kernels
+        x = cuda_typed(torch.zeros((4, 512), dtype=dt))
+        for name in ("qmv", "qmm"):
+            fn = getattr(qm_mod, name)
+            before = fn.launches
+            with pytest.raises(build_failed):
+                fn(x, tq, torch.float32)
+            assert fn.launches == before
 
 
 def test_non_cuda_device_raises():
@@ -162,3 +163,51 @@ def test_non_cuda_device_raises():
         qmv(x, tq, torch.float32)
     with pytest.raises(ValueError):
         qmm(x, tq, torch.float32)
+
+
+# (K, N) of a lone prompt chunk's matmuls at Llama-3-8B width: wq/wo, wk/wv,
+# ffn gate/up, ffn down, the output head
+KN_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+
+
+@pytest.mark.parametrize("K,N", KN_8B + [(512, 64), (544, 128), (768, 96), (1024, 640)])
+def test_qmm_plan_covers_every_k_tile_once(K, N):
+    """The tensor-core qmm kernel's splits take k-tiles of 128 (a Q8_0 K's
+    last one shorter): every tile belongs to exactly one split and no split
+    is empty."""
+    n_split, per = qmm_plan(K, N)
+    n_tiles = -(-K // 128)
+    seen = np.zeros(n_tiles, np.int64)
+    for sp in range(n_split):
+        tiles = range(sp * per, min((sp + 1) * per, n_tiles))
+        assert len(tiles) >= 1
+        seen[tiles.start:tiles.stop] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("K,N", KN_8B)
+def test_qmm_plan_fills_the_card(K, N):
+    """At every shape of a lone chunk the grid gives every SM of the H100's
+    132 at least one block (the head's 1,002 column blocks need no split),
+    and no other split within one resident wave (264 blocks, two an SM)
+    takes fewer rounds of k-tiles."""
+    n_split, per = qmm_plan(K, N)
+    n_col, n_tiles = -(-N // 128), -(-K // 128)
+    assert n_col * n_split >= 132
+    assert (n_split == 1) == (N == 128256)
+
+    def rounds(sp):
+        p = -(-n_tiles // sp)
+        return -(-n_col * -(-n_tiles // p) // 264) * p
+
+    assert -(-n_col * n_split // 264) * per == min(
+        rounds(sp) for sp in range(1, min(n_tiles, -(-264 // n_col)) + 1))
+
+
+def test_qmm_plan_is_a_function_of_k_and_n():
+    """The plan takes no row count, so a row's sums are the same in a 17- and
+    a 32-row call; it is the same for every format at one (K, N)."""
+    import inspect
+
+    assert list(inspect.signature(qmm_plan).parameters) == ["K", "N"]
+    assert qmm_plan(4096, 14336) == (2, 16)
