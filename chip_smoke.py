@@ -5,32 +5,40 @@ PyTorch version.
 
     python3 chip_smoke.py                 # every phase (the chip check)
     python3 chip_smoke.py --kernel-times  # device, build, the kernel rows of phase 6,
-                                          # the lone prompt chunk's profile of phase 7
+                                          # the lone prompt chunks' profiles of phase 7
     python3 chip_smoke.py --checks        # device, build, the kernel checks of phase 3
+    python3 chip_smoke.py --fa-times      # device, build, fa's rows of phase 6
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
  2. build: nvcc of every kernel source in superllama_tpu_torch/csrc;
  3. kernels against their plain versions at Llama-3-8B shapes (qmv, qmm,
-    fa, fd in its f/q8/q4 modes, paged, the four qmv-probe variants, which
-    are also held against qmv), at head sizes 80, 96, 100 and 256, and fd
-    with chunks of two passes; qmm and the decode kernels called twice and
-    held bit-equal;
+    fa's two kernels, fd in its f/q8/q4 modes, paged, the four qmv-probe
+    variants, which are also held against qmv), at head sizes 80, 96, 100
+    and 256, fd with chunks of two passes, fa at a 1024-token chunk and
+    over positions in no order with holes; qmm, fa's tensor-core kernel and
+    the decode kernels called twice and held bit-equal; each fa call checked
+    to take the kernel its q type asks for;
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
     server answers 8 concurrent completions and one streamed one; the launch
-    counters show the path went through every kernel. Then the same with a
-    Q8_0 KV cache (fd decode), and with the paged KV cache (an ample pool,
-    then a pool of about half the wave's pages that must spill to host);
+    counters show the path went through every kernel (fa only through its
+    tensor-core kernel). Then the same with a Q8_0 KV cache (fd decode),
+    with the paged KV cache (an ample pool, then a pool of about half the
+    wave's pages that must spill to host), and a short wave on an f32 cache
+    (fa's CUDA-core kernel);
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one;
- 6. times: decode tok/s, time to first token (bf16, Q8_0, paged), and each
-    kernel's time beside its plain version, a library call and its bound
-    (qmm at every (K, N) of a lone prompt chunk),
+ 6. times: decode tok/s, time to first token (bf16, Q8_0, paged; a
+    1000-token prompt on bf16), and each kernel's time beside its plain
+    version, a library call and its bound (qmm at every (K, N) of a lone
+    prompt chunk; fa at the serving wave, a lone 32-token chunk and a
+    1024-token chunk; paged's prefill path at a 256-token chunk),
     kernel and library both read from a CUDA graph over inputs rotated past
     the L2 (the eager reading beside it);
- 7. profile: where a lone 32-token prompt chunk's time goes (bf16 cache)
-    and where one engine decode step's time goes on each cache
+ 7. profile: where a lone 32-token and a lone 1000-token prompt chunk's
+    time goes (bf16 cache) and where one engine decode step's time goes on
+    each cache
     (torch.profiler), the decode-attention kernels and cache writes apart;
  8. tools: the measurement tools' path (the qmv probe at two 8B shapes,
     ops_bench at its default shapes, flash_decode_probe, a short llama-bench
@@ -155,10 +163,12 @@ FA_EDGE_CELLS = ([(T, S, G, 0, 0.0, False, False)
 
 
 def fa_inputs(torch, B=1, T=32, S=2048, n_past=500, H=32, Hkv=8, D=128,
-              dtype="bf16", q8=False, sinks=False, lens=None, seed=0):
+              dtype="bf16", q8=False, sinks=False, lens=None, scramble=False, seed=0):
     """Cache layout inputs: slots [0, n_past + len) occupied in order, the
     rest empty (-1); query rows at positions n_past..n_past+len-1, padding
-    rows (beyond each row's len) at -1."""
+    rows (beyond each row's len) at -1. ``scramble``: each row's positions
+    are scattered over all S slots in no order and one in eight of them is
+    dropped (-1), as after seq_rm or a slot copy."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -172,6 +182,12 @@ def fa_inputs(torch, B=1, T=32, S=2048, n_past=500, H=32, Hkv=8, D=128,
     for b, n in enumerate(lens):
         q_pos[b, :n] = torch.arange(n_past, n_past + n, device=dev)
         kv_pos[b, :n_past + n] = torch.arange(n_past + n, device=dev)
+    if scramble:
+        cpu = torch.Generator().manual_seed(seed)
+        for b in range(B):
+            row = kv_pos[b, torch.randperm(S, generator=cpu).to(dev)]
+            row[torch.randperm(S, generator=cpu)[:S // 8].to(dev)] = -1
+            kv_pos[b] = row
     kw = {}
     if q8:
         ks = k.abs().amax(-1) / 127.0
@@ -501,15 +517,55 @@ def phase_kernels(torch) -> list:
                  for D in HEAD_SIZES
                  for name, kw in (("bf16", {}), ("f32", {"dtype": "f32"}),
                                   ("q8_0 kv", {"q8": True}))]
+    # the tensor-core kernel's own cases: a long prompt chunk, positions in
+    # no order with holes (with and without a window), row tiles of padding
+    # only, G 1 / 4 / 8, D 256
+    fa_cases += [("T=1024 S=2048 bf16", dict(T=1024, n_past=0)),
+                 ("T=1024 S=2048 q8_0 kv", dict(T=1024, n_past=0, q8=True)),
+                 ("T=128 scrambled kv_pos", dict(B=2, T=128, n_past=900, scramble=True)),
+                 ("T=128 scrambled kv_pos swa=300", dict(B=2, T=128, n_past=900,
+                                                         scramble=True, swa=300)),
+                 ("T=128 q8_0 scrambled swa=300 sinks", dict(B=2, T=128, n_past=900, q8=True,
+                                                             scramble=True, swa=300,
+                                                             sinks=True)),
+                 ("B=3 T=128 padding-only row tiles", dict(B=3, T=128, n_past=40,
+                                                           lens=[8, 128, 50])),
+                 ("G=1 T=64 bf16", dict(T=64, H=8)), ("G=4 T=64 bf16", dict(T=64)),
+                 ("G=8 T=64 bf16", dict(T=64, H=64)),
+                 ("G=8 T=64 q8_0 kv softcap=30", dict(T=64, H=64, q8=True, softcap=30.0)),
+                 ("D=256 T=256 S=1024 bf16", dict(T=256, S=1024, n_past=300, D=256)),
+                 ("D=256 T=256 S=1024 q8_0 kv", dict(T=256, S=1024, n_past=300, D=256,
+                                                      q8=True))]
     for i, (case, kw) in enumerate(fa_cases):
         kw = dict(kw)
         swa, cap = kw.pop("swa", 0), kw.pop("softcap", 0.0)
         args, extra = fa_inputs(torch, seed=100 + i, **kw)
+        before = (flash_attention.launches, flash_attention.launches_tc)
         got = flash_attention(*args, swa_window=swa, logit_softcap=cap, **extra)
+        tc = flash_attention.launches_tc - before[1]
+        # bf16 q takes the tensor-core kernel, f32 q the CUDA-core one
+        check((tc, flash_attention.launches - before[0]) == ((1, 0) if args[0].dtype == bf16
+                                                             else (0, 1)),
+              f"fa {case}: {args[0].dtype} q took the wrong kernel")
+        if tc:   # a fixed summation order: two calls, the same bits
+            again = flash_attention(*args, swa_window=swa, logit_softcap=cap, **extra)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"fa {case}: two calls differ")
         ref = flash_attention_plain(*args, swa_window=swa, logit_softcap=cap, **extra)
         torch.cuda.synchronize()
-        record("fa", case, got, ref, args[0].dtype, mask=args[3] >= 0,
+        record("fa_tc" if tc else "fa", case, got, ref, args[0].dtype, mask=args[3] >= 0,
                p_bf16=kw.get("q8", False))
+    # bf16 q over an f32 cache (the JAX package's P.V in f32): the CUDA-core
+    # kernel
+    args, _ = fa_inputs(torch, T=128, dtype="f32", seed=199)
+    args = (args[0].to(bf16),) + args[1:]
+    before = (flash_attention.launches, flash_attention.launches_tc)
+    got = flash_attention(*args)
+    check((flash_attention.launches - before[0], flash_attention.launches_tc - before[1])
+          == (1, 0), "fa: bf16 q over f32 K/V did not take the CUDA-core kernel")
+    ref = flash_attention_plain(*args)
+    torch.cuda.synchronize()
+    record("fa", "T=128 bf16 q, f32 kv", got, ref, bf16, mask=args[3] >= 0)
 
     try:
         check_decode_kernels(torch, record)
@@ -529,20 +585,27 @@ def phase_kernels(torch) -> list:
 # ------------------------------------------------------------ 4. serving
 
 
-def counters():
+def counters() -> dict:
+    """kernel -> (wrapper, its count attribute): fa's wrapper counts its
+    CUDA-core kernel in ``launches`` and its tensor-core one in
+    ``launches_tc``."""
     from superllama_tpu_torch.ops import flash_attention as fa_mod
     from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
 
-    return {"qmv": qm_mod.qmv, "qmm": qm_mod.qmm, "fa": fa_mod.flash_attention,
-            "fd": fa_mod.flash_decode_attention, "paged": pa_mod.paged_flash_attention}
+    fa = fa_mod.flash_attention
+    return {"qmv": (qm_mod.qmv, "launches"), "qmm": (qm_mod.qmm, "launches"),
+            "fa": (fa, "launches"), "fa_tc": (fa, "launches_tc"),
+            "fd": (fa_mod.flash_decode_attention, "launches"),
+            "paged": (pa_mod.paged_flash_attention, "launches")}
 
 
 def reset_counts() -> None:
     from superllama_tpu_torch.tools.qmv_probe import qmv_variant
 
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        if hasattr(fn, attr):
+            setattr(fn, attr, 0)
     for v in qmv_variant.launches:
         qmv_variant.launches[v] = 0
 
@@ -550,7 +613,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     from superllama_tpu_torch.tools.qmv_probe import qmv_variant
 
-    counts = {name: fn.launches for name, fn in counters().items()}
+    # (an unpacked parent tree, read with --kernel-times, may predate a count)
+    counts = {name: getattr(fn, attr, 0) for name, (fn, attr) in counters().items()}
     counts.update({f"qmv_probe_{v}": n for v, n in qmv_variant.launches.items()})
     return counts
 
@@ -664,6 +728,9 @@ def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, 
               f"{label} stream: {len(streamed)} tokens, usage {final['usage']}")
         for name in expect:
             check(counts[name] > 0, f"the {label} serving path never launched the {name} kernel")
+        if "fa_tc" in expect:
+            check(counts["fa"] == 0, f"the {label} serving path launched the CUDA-core fa "
+                  f"kernel {counts['fa']} times")
 
         # the same prompts straight through the engine, batched the same way
         direct = [r["tokens"] for r in engine_wave(eng, prompts, 64)]
@@ -684,16 +751,39 @@ def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, 
 
 
 def phase_serving(torch, model) -> dict:
-    counts, _ = serve_wave(torch, model, "bf16", [32, 100] * 4, ("qmv", "qmm", "fa"),
+    counts, _ = serve_wave(torch, model, "bf16", [32, 100] * 4, ("qmv", "qmm", "fa_tc"),
                            kv_dtype=torch.bfloat16)
     return counts
 
 
 def phase_serving_q8(torch, model) -> dict:
-    """The bf16 phase's wave on a Q8_0 cache: prefill feeds codes to fa,
-    every decode step runs fd."""
-    counts, _ = serve_wave(torch, model, "q8_0", [32, 100] * 4, ("qmv", "qmm", "fa", "fd"),
-                           kv_dtype="q8_0")
+    """The bf16 phase's wave on a Q8_0 cache: prefill feeds codes to fa's
+    tensor-core kernel, every decode step runs fd."""
+    counts, _ = serve_wave(torch, model, "q8_0", [32, 100] * 4,
+                           ("qmv", "qmm", "fa_tc", "fd"), kv_dtype="q8_0")
+    return counts
+
+
+def phase_serving_f32(torch, model) -> dict:
+    """The same prompts on an f32 cache (``--kv-dtype float32``), straight
+    through the engine, 4 tokens each: bf16 q over f32 K/V is the JAX
+    package's P.V in f32, so prefill takes fa's CUDA-core kernel."""
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.float32, device="cuda")
+    eng.start()
+    try:
+        prompts = token_prompts(model.hparams.n_vocab, [32, 100] * 4, SEED + 1)
+        reset_counts()
+        rs = engine_wave(eng, prompts, 4)
+        counts = read_counts()
+    finally:
+        eng.stop()
+    emit({"phase": "serving", "kv": "float32 (engine)", "launches": counts,
+          "tokens": [len(r["tokens"]) for r in rs]})
+    check(all(len(r["tokens"]) == 4 for r in rs), "the f32-cache wave did not finish")
+    check(counts["fa"] > 0 and counts["fa_tc"] == 0,
+          f"the f32-cache prefill did not take fa's CUDA-core kernel: {counts}")
     return counts
 
 
@@ -925,34 +1015,81 @@ def qmm_chunk(kernels: dict) -> dict:
             "bound_ms": sum(r["bound_ms"] * r["launches_per_chunk"] for r in rows)}
 
 
-def time_fa(torch) -> dict:
-    """fa at the serving wave's shape: 8 rows of 100 or 32 prompt tokens in
-    a 128-token bucket over a 2048-slot cache. Work and bytes count only the
-    visible (causal, occupied) part, as the kernel skips the rest."""
+def after_weight_stream_ms(torch, call, n: int) -> float:
+    """Device ms of call(i) when each call follows a qmm call that streams
+    a 33 MB Q4_K weight (gate/up, M 32; four copies, past the L2), as
+    attention does in a prompt chunk: a graph of n (qmm, call) pairs less
+    a graph of the n qmm calls alone."""
+    from superllama_tpu_torch.ops.qmatmul import qmm
+
+    ws = [rand_weight(torch, "Q4_K", 14336, 4096, 60 + i) for i in range(4)]
+    x = torch.randn((32, 4096), device="cuda").to(torch.bfloat16)
+    mm = lambda i: qmm(x, ws[i % 4], torch.bfloat16)
+    both = graph_ms(torch, lambda i: (mm(i), call(i)), n)
+    return both - graph_ms(torch, mm, n)
+
+
+def fa_reading(torch, name: str, B: int, T: int, n_past: int, lens=None, kv="bf16",
+               after_stream=False) -> dict:
+    """fa at one prefill shape (S 2048, 32/8 heads, D 128, bf16 q) over a
+    bf16 or f32 cache, beside SDPA (bool mask, GQA) on the same K/V. Work
+    and bytes count only the visible (causal, occupied) part, as the kernel
+    skips the rest: each visible K/V row read once per kv head, q read and
+    the output written once, the positions. The copies rotated over hold
+    ROTATE_BYTES of those bytes together, so each call reads from device
+    memory."""
     import torch.nn.functional as F
 
     from superllama_tpu_torch.ops.flash_attention import (flash_attention,
                                                           flash_attention_plain)
 
-    lens = [100, 32] * 4
-    sets = [fa_inputs(torch, B=8, T=128, n_past=0, lens=lens, seed=7 + i)[0] for i in range(2)]
-    q, k, v, q_pos, kv_pos = sets[0]
-    B, T, H, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    mask = ((kv_pos[:, None, None, :] >= 0) & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
-    pairs = sum(n * (n + 1) // 2 for n in lens) * H          # visible (row, slot) pairs
+    lens = lens or [T] * B
+    S, H, Hkv, D = 2048, 32, 8, 128
+    dtype = "f32" if kv == "f32" else "bf16"
+    pairs = sum(n_past * n + n * (n + 1) // 2 for n in lens) * H   # visible (row, slot)
     ops = 2.0 * (D + D) * pairs
-    visible_slots = sum(lens)
-    nbytes = (2 * visible_slots * Hkv * D * 2 + sum(lens) * H * D * 2 * 2
-              + (B * T + B * S) * 4)
+    kv_bytes = 4 if kv == "f32" else 2
+    nbytes = (2 * sum(n_past + n for n in lens) * Hkv * D * kv_bytes
+              + sum(lens) * H * D * 2 * 2 + (B * T + B * S) * 4)
+    n = n_copies(nbytes)
+    sets = []
+    for i in range(n):
+        args = fa_inputs(torch, B=B, T=T, S=S, n_past=n_past, lens=lens, dtype=dtype,
+                         seed=7 + i)[0]
+        sets.append((args[0].to(torch.bfloat16),) + args[1:])
+    q_pos, kv_pos = sets[0][3], sets[0][4]
+    mask = ((kv_pos[:, None, None, :] >= 0) & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
+    lib_q = [s[0].transpose(1, 2).to(s[1].dtype) for s in sets]
     row = kernel_reading(
-        torch, f"B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} bf16 lens={lens}",
-        lambda i: flash_attention(*sets[i % 2]),
-        lambda i: flash_attention_plain(*sets[i % 2]),
-        lambda i: F.scaled_dot_product_attention(
-            sets[i % 2][0].transpose(1, 2), sets[i % 2][1], sets[i % 2][2], attn_mask=mask,
-            enable_gqa=True), 8, nbytes, ops, "bf16")
-    return {"fa": row}
+        torch, f"B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} n_past={n_past} lens={lens} "
+               f"bf16 q, {kv} kv",
+        lambda i: flash_attention(*sets[i % n]),
+        lambda i: flash_attention_plain(*sets[i % n]),
+        lambda i: F.scaled_dot_product_attention(lib_q[i % n], sets[i % n][1], sets[i % n][2],
+                                                 attn_mask=mask, enable_gqa=True),
+        max(8, n), nbytes, ops, "bf16")
+    if after_stream:
+        row["ms_after_weight_stream"] = after_weight_stream_ms(
+            torch, lambda i: flash_attention(*sets[i % n]), 32)
+    del sets, lib_q
+    return {name: row}
+
+
+def time_fa(torch) -> dict:
+    """fa's tensor-core kernel at the three prefill shapes of the main path:
+    (a) the serving wave, 8 rows of 100 or 32 prompt tokens in a 128-token
+    bucket; (b) a lone 32-token chunk, also right after a weight-streaming
+    qmm call as in the chunk; (c) a long prompt's 1024-token chunk, where
+    operations bound it; and the CUDA-core kernel at (a) over an f32 cache
+    (bf16 q). Each row carries its launches in its path."""
+    rows = {**fa_reading(torch, "fa_tc", 8, 128, 0, lens=[100, 32] * 4),
+            **fa_reading(torch, "fa_tc T=32", 1, 32, 0, after_stream=True),
+            **fa_reading(torch, "fa_tc T=1024", 1, 1024, 0),
+            **fa_reading(torch, "fa", 8, 128, 0, lens=[100, 32] * 4, kv="f32")}
+    for key, per in (("fa_tc", "wave"), ("fa_tc T=32", "chunk"), ("fa_tc T=1024", "chunk"),
+                     ("fa", "wave")):
+        rows[key][f"launches_per_{per}"] = 64 if per == "wave" else 32
+    return rows
 
 
 def time_fd(torch) -> dict:
@@ -1003,39 +1140,55 @@ def time_fd(torch) -> dict:
     return out
 
 
-def time_paged(torch) -> dict:
-    """paged at the decode shape: 8 rows of 2048 positions in 256-token
-    pages (MAXP 8) of a shuffled bf16 pool, 32/8 heads, D 128; SDPA over
-    the equivalent dense K/V as the yardstick (the gather left out)."""
+def paged_reading(torch, what: str, seed: int, **shape) -> dict:
+    """paged at one shape of paged_inputs (a shuffled bf16 pool, 32/8 heads,
+    D 128), beside SDPA over the gathered dense K/V (the gather left out);
+    copies rotated as in fa_reading. Work counts the visible (row, slot)
+    pairs; bytes the pages a call reads, the table, q and the output."""
     import torch.nn.functional as F
 
     from superllama_tpu_torch.ops.paged_attention import (paged_flash_attention,
                                                           paged_flash_attention_plain)
 
-    sets = [paged_inputs(torch, seed=800 + i) for i in range(2)]
-    q, kp, vp, q_pos, page_pos, table = sets[0]
+    first = paged_inputs(torch, seed=seed, **shape)
+    q, kp, vp, q_pos, page_pos, table = first
     B, T, H, D = q.shape
     Hkv, P = kp.shape[1], kp.shape[2]
+    pages = int((table >= 0).sum())
+    nbytes = (pages * (2 * Hkv * P * D * 2 + P * 4) + table.numel() * 4
+              + 2 * q.numel() * 2 + q_pos.numel() * 4)
+    kv_pos = page_pos[table.long().clamp(min=0)].reshape(B, -1)
+    mask = ((kv_pos[:, None, None, :] >= 0)
+            & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
+    ops = 2.0 * 2 * D * H * int(mask.sum())
+    n = n_copies(nbytes)
+    sets = [first] + [paged_inputs(torch, seed=seed + i, **shape) for i in range(1, n)]
     dense = []
     for s in sets:
         tbl = s[5].long().clamp(min=0)
         dense.append((s[1][tbl].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D),
                       s[2][tbl].permute(0, 2, 1, 3, 4).reshape(B, Hkv, -1, D)))
-    kv_pos = page_pos[table.long().clamp(min=0)].reshape(B, -1)
-    mask = ((kv_pos[:, None, None, :] >= 0)
-            & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
-    pages = int((table >= 0).sum())
-    nbytes = (pages * (2 * Hkv * P * D * 2 + P * 4) + table.numel() * 4
-              + 2 * q.numel() * 2 + q_pos.numel() * 4)
-    ops = 2.0 * 2 * D * H * T * int((kv_pos >= 0).sum())
     row = kernel_reading(
-        torch, f"B={B} T={T} P={P} MAXP={table.shape[1]} H={H} Hkv={Hkv} D={D} bf16",
-        lambda i: paged_flash_attention(*sets[i % 2]),
-        lambda i: paged_flash_attention_plain(*sets[i % 2]),
+        torch, f"B={B} T={T} {what} P={P} MAXP={table.shape[1]} H={H} Hkv={Hkv} D={D} bf16",
+        lambda i: paged_flash_attention(*sets[i % n]),
+        lambda i: paged_flash_attention_plain(*sets[i % n]),
         lambda i: F.scaled_dot_product_attention(
-            q.transpose(1, 2), dense[i % 2][0], dense[i % 2][1], attn_mask=mask,
-            enable_gqa=True), 8, nbytes, ops, "bf16")
-    return {"paged": row}
+            sets[i % n][0].transpose(1, 2), dense[i % n][0], dense[i % n][1], attn_mask=mask,
+            enable_gqa=True), max(8, n), nbytes, ops, "bf16")
+    del sets, dense
+    return row
+
+
+def time_paged(torch) -> dict:
+    """paged at the decode shape: 8 rows of 2048 positions in 256-token
+    pages (MAXP 8); and its prefill path (T*G > 32: paged_kernel) at a
+    prompt's fourth 256-token chunk: B 1, T 256 at positions 768-1023, four
+    pages, where operations bound it (3.76 GFLOP)."""
+    prefill = paged_reading(torch, "positions 768-1023", 850, B=1, T=256, MAXP=4,
+                            lens=[1024])
+    prefill["launches_per_chunk"] = 32
+    return {"paged": paged_reading(torch, "2048 positions", 800),
+            "paged prefill": prefill}
 
 
 def time_decode_attention(torch) -> dict:
@@ -1058,15 +1211,23 @@ def time_decode_attention(torch) -> dict:
     return out
 
 
-def time_serving(torch, model, **engine_kw) -> dict:
+def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
+    """Decode tok/s at B 1 and B 8 and TTFT at 32 and 100 prompt tokens;
+    with ``long_prompt`` also the TTFT of a 1000-token prompt (one
+    1024-token chunk, the second of two runs)."""
     from superllama_tpu_torch.runtime.engine import Engine
 
     engine_kw.setdefault("kv_dtype", torch.bfloat16)
     eng = Engine(model, n_slots=8, n_ctx=2048, device="cuda", **engine_kw)
-    p32, p100 = token_prompts(model.hparams.n_vocab, [32, 100], SEED + 4)
+    p32, p100, p1000 = token_prompts(model.hparams.n_vocab, [32, 100, 1000], SEED + 4)
     eng.generate(p32, max_tokens=16, sampling={"greedy": True}, stop_eog=False)  # warm
     r1 = eng.generate(p32, max_tokens=128, sampling={"greedy": True}, stop_eog=False)
     r100 = eng.generate(p100, max_tokens=8, sampling={"greedy": True}, stop_eog=False)
+    long = {}
+    if long_prompt:
+        ttft = [eng.generate(p1000, max_tokens=1, sampling={"greedy": True},
+                             stop_eog=False)["ttft_s"] * 1e3 for _ in range(2)]
+        long = {"ttft_ms_prompt1000": ttft[1], "ttft_ms_prompt1000_first": ttft[0]}
     eng.start()
     try:
         t0 = time.perf_counter()
@@ -1087,17 +1248,21 @@ def time_serving(torch, model, **engine_kw) -> dict:
         "decode_tok_s_b8": sum(r["n_generated"] - 1 for r in rs)
         / (max(r["total_s"] for r in rs) - max(r["ttft_s"] for r in rs)),
         "ttft_ms_prompt32": r1["ttft_s"] * 1e3, "ttft_ms_prompt100": r100["ttft_s"] * 1e3,
-        "batch8_wall_s": wall, "launches_per_prefill_chunk_32": per_chunk,
+        **long, "batch8_wall_s": wall, "launches_per_prefill_chunk_32": per_chunk,
         "launches_per_decode_step": per_step,
     }
 
 
+def kernel_times(torch) -> dict:
+    return {**time_matmul_kernels(torch), **time_fa(torch), **time_fd(torch),
+            **time_paged(torch)}
+
+
 def phase_times(torch, model, smi_line: str) -> dict:
-    serving = {"bf16": time_serving(torch, model),
+    serving = {"bf16": time_serving(torch, model, long_prompt=True),
                "q8_0": time_serving(torch, model, kv_dtype="q8_0"),
                "paged": time_serving(torch, model, paged=True, page_size=256)}
-    kernels = {**time_matmul_kernels(torch), **time_fa(torch), **time_fd(torch),
-               **time_paged(torch)}
+    kernels = kernel_times(torch)
     emit({"phase": "times", "card": smi_line, "serving": serving, "kernels": kernels,
           "qmm_per_chunk": qmm_chunk(kernels),
           "decode_attention": time_decode_attention(torch)})
@@ -1174,42 +1339,71 @@ def device_rows(events) -> list:
             and e.key != "kv_write"]
 
 
-def profile_chunk(torch, model) -> dict:
-    """torch.profiler over one lone 32-token prompt chunk on the bf16 cache
+def profile_chunk(torch, model, n: int = 32) -> dict:
+    """torch.profiler over one lone n-token prompt chunk on the bf16 cache
     (engine.generate of one token, warmed once): wall ms, device ms, idle
-    share and device ms by kernel; the table goes to
-    chiprun_out/profile_chunk_bf16.txt."""
-    from torch.profiler import ProfilerActivity, profile
+    share, device ms by kernel, fa's (the tensor-core kernel, every launch)
+    and, for a chunk above 32 tokens, the M > 32 matmul path's (the
+    llama forward's ``mm`` under a range: dequantize, then torch.matmul);
+    the table goes to chiprun_out/profile_chunk_bf16[_<n>].txt."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from superllama_tpu_torch.models import llama as llama_mod
     from superllama_tpu_torch.runtime.engine import Engine
 
     eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda")
-    p32 = token_prompts(model.hparams.n_vocab, [32], SEED + 4)[0]
-    run = lambda: eng.generate(p32, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
+    prompt = token_prompts(model.hparams.n_vocab, [n], SEED + 4)[-1]
+    run = lambda: eng.generate(prompt, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    mm = llama_mod.mm
+
+    def ranged(*a, **k):
+        with record_function("mm"):
+            return mm(*a, **k)
+
+    if n > 32:   # every matmul of the chunk takes the M > 32 path
+        llama_mod.mm = ranged
+    try:
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+    finally:
+        llama_mod.mm = mm
     events = prof.key_averages()
-    dev = device_rows(events)
+    dev = [r for r in device_rows(events) if r[0] != "mm"]
     device_ms = sum(t for _, t, _ in dev)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile_chunk_bf16.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"profile_chunk_bf16{'' if n == 32 else f'_{n}'}.txt"),
+              "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
-    qmm_rows = [(k, t, n) for k, t, n in dev if "qmm" in k]
-    rec = {"phase": "profile", "what": "one lone 32-token prompt chunk, bf16 cache",
+    qmm_rows = [(k, t, c) for k, t, c in dev if "qmm" in k]
+    fa_rows = [(k, t, c) for k, t, c in dev if "fa_tc_kernel" in k or "fa_kernel" in k]
+    mm_cpu = [e for e in events if e.key == "mm" and e.self_cpu_time_total > 0]
+    rec = {"phase": "profile", "what": f"one lone {n}-token prompt chunk, bf16 cache",
            "wall_ms": wall_ms, "device_ms": device_ms,
            "device_idle_share": 1.0 - device_ms / wall_ms,
            "device_ops": sum(c for _, _, c in dev),
            "qmm_ms": sum(t for _, t, _ in qmm_rows),
-           "qmm_kernels": [{"name": k[:80], "ms": t, "count": n} for k, t, n in qmm_rows],
+           "qmm_kernels": [{"name": k[:80], "ms": t, "count": c} for k, t, c in qmm_rows],
+           "fa_ms": sum(t for _, t, _ in fa_rows),
+           "fa_kernels": [{"name": k[:80], "ms": t, "count": c} for k, t, c in fa_rows],
+           "mm_ms": sum(e.device_time_total for e in mm_cpu) / 1e3,
+           "launches": {k: counts[k] for k in ("qmm", "fa", "fa_tc")},
            "by_kernel": [{"name": k[:80], "ms": t, "count": c}
                          for k, t, c in sorted(dev, key=lambda r: -r[1])[:15]]}
     emit(rec)
-    check(rec["qmm_ms"] > 0, "the lone prompt chunk ran no qmm kernel")
+    check(rec["fa_ms"] > 0, f"the lone {n}-token chunk ran no fa kernel")
+    if hasattr(llama_mod.flash_attention, "launches_tc"):
+        check(counts["fa_tc"] > 0 and counts["fa"] == 0,
+              f"the lone {n}-token chunk's fa launches did not all take the tensor-core "
+              f"kernel: {counts}")
+    if n <= 32:
+        check(rec["qmm_ms"] > 0, "the lone prompt chunk ran no qmm kernel")
     return rec
 
 
@@ -1219,6 +1413,7 @@ def phase_profile(torch, model) -> None:
     chiprun_out/profile_decode_<cache>.txt."""
     os.makedirs(OUT_DIR, exist_ok=True)
     profile_chunk(torch, model)
+    profile_chunk(torch, model, 1000)
     for label, kw in (("bf16", {}), ("q8_0", {"kv_dtype": "q8_0"}),
                       ("paged", {"paged": True, "page_size": 256})):
         rec = profile_block(torch, model, label, **kw)
@@ -1255,7 +1450,8 @@ def phase_tools(torch, model) -> dict:
           "qmv_probe": probe, "decode_cells": len(cells),
           "llama_bench": [asdict(r) for r in bench]})
     for name, n in counts.items():
-        check(n > 0, f"the tools' path never launched the {name} kernel")
+        # fa's CUDA-core kernel serves f32 q or K/V, which no tool sends
+        check(n > 0 or name == "fa", f"the tools' path never launched the {name} kernel")
     return counts
 
 
@@ -1332,6 +1528,8 @@ KERNELS = [
     ("qmv", "superllama_tpu_torch/csrc/qmv.cu", "superllama_tpu/ops/qmatmul.py:235", "qmv"),
     ("qmm", "superllama_tpu_torch/csrc/qmm.cu", "superllama_tpu/ops/qmatmul.py:94", "qmm"),
     ("fa", "superllama_tpu_torch/csrc/fa.cu", "superllama_tpu/ops/flash_attention.py:36", "fa"),
+    ("fa_tc", "superllama_tpu_torch/csrc/fa.cu", "superllama_tpu/ops/flash_attention.py:36",
+     "fa_tc"),
     ("fd", "superllama_tpu_torch/csrc/fd.cu", "superllama_tpu/ops/flash_attention.py:326",
      "fd_q8"),
     ("paged", "superllama_tpu_torch/csrc/paged.cu",
@@ -1358,11 +1556,16 @@ def main() -> int:
     if "--kernel-times" in sys.argv[1:]:
         # the timed kernel rows and the lone chunk's profile alone, for
         # comparing two trees in one call
-        kernels = {**time_matmul_kernels(torch), **time_fa(torch), **time_fd(torch),
-                   **time_paged(torch)}
+        kernels = kernel_times(torch)
         emit({"phase": "kernel_times", "card": info["nvidia_smi"], "kernels": kernels,
               "qmm_per_chunk": qmm_chunk(kernels)})
-        profile_chunk(torch, build_model(torch))
+        model = build_model(torch)
+        profile_chunk(torch, model)
+        profile_chunk(torch, model, 1000)
+        return 0
+    if "--fa-times" in sys.argv[1:]:
+        # fa's rows of phase 6 alone, for comparing versions of its kernels
+        emit({"phase": "fa_times", "card": info["nvidia_smi"], "kernels": time_fa(torch)})
         return 0
     if "--checks" in sys.argv[1:]:
         # the kernels against their plain versions alone
@@ -1374,6 +1577,7 @@ def main() -> int:
     counts = phase_serving(torch, model)
     counts["fd"] = phase_serving_q8(torch, model)["fd"]
     counts["paged"] = phase_serving_paged(torch, model)["paged"]
+    counts["fa"] = phase_serving_f32(torch, model)["fa"]
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     times = phase_times(torch, model, info["nvidia_smi"])

@@ -6,9 +6,12 @@ as additive −1e9-per-position penalties, logit softcap, attention sinks and
 optional Q8_0 K/V (int8 codes with per-row f32 scales). Inputs keep the JAX
 layout: q (B, T, H, D), k/v (B, Hkv, S, D).
 
-On CUDA tensors ``flash_attention`` launches the hand-written kernel of
-``csrc/fa.cu``; on CPU tensors it runs ``flash_attention_plain``. Launches
-are counted in ``flash_attention.launches``.
+On CUDA tensors ``flash_attention`` launches one of the two hand-written
+kernels of ``csrc/fa.cu`` that ``fa_plan`` picks: the tensor-core kernel
+for bf16 q over bf16 or Q8_0 K/V (counted in
+``flash_attention.launches_tc``), the CUDA-core kernel for f32 q or f32
+K/V (``flash_attention.launches``); on CPU tensors it runs
+``flash_attention_plain``.
 
 ``flash_decode_attention`` is the decode-shape counterpart (the JAX
 package's split-KV ``flash_decode_attention``): float, Q8_0 or Q4_0 K/V,
@@ -35,6 +38,8 @@ _NEG = 1e9  # per-unit positional penalty; violations are >= 1 position apart
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _ARGTYPES = [_I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _L, _L, _L, _L,
              _P, _P, _L, _L, _P, _P, _L, _P, _F, _I, _F, _P, _P]
+_TC_ARGTYPES = [_I] * 7 + [_P, _I, _P, _P, _I, _I, _L, _L, _L, _L, _P, _P, _L, _L, _P, _P, _L,
+                          _P, _F, _I, _F, _I, _I, _I, _P, _P]
 _FD_ARGTYPES = [_I] * 14 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _L, _L, _L, _L,
                             _P, _P, _L, _P, _F, _I, _F, _I, _I, _P, _P, _P, _P]
 _FD_MODES = {"f": 0, "q8": 1, "q4": 2}
@@ -102,6 +107,67 @@ def copy_mode(*tensors) -> int:
     if all(n % 16 == 0 for n in sizes):
         return COPY_BULK
     return COPY_WORDS if all(n % 4 == 0 for n in sizes) else COPY_BYTES
+
+
+# the prefill kernels of csrc/fa.cu
+FA_ROWS = 64            # query rows (t, g) a block, both kernels
+FA_STAGES = 3           # the tensor-core kernel's ring stages
+SMEM_MAX = 232448       # dynamic shared memory a block may take (H100)
+_FA_DV = (16, 32, 64, 96, 128, 192, 256)   # the CUDA-core kernel's Dv widths
+
+
+@dataclass(frozen=True)
+class FaPlan:
+    """How the prefill kernel takes one call: ``kernel`` "tc" (tensor cores)
+    or "cc" (CUDA cores); a block of ``rows`` query rows, ``bt`` tokens of
+    one kv head's G heads; tiles of ``bs`` cache slots through ``nst`` ring
+    stages; head sizes padded to ``dk`` / ``dv``; ``smem`` bytes of dynamic
+    shared memory; ``grid`` (row tiles, kv heads, batch rows)."""
+
+    kernel: str
+    rows: int
+    bt: int
+    bs: int
+    nst: int
+    dk: int
+    dv: int
+    smem: int
+    grid: tuple
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fa_plan(q, k, v) -> FaPlan:
+    """The prefill kernel and its geometry for one flash_attention call.
+    bf16 q over bf16 K/V or Q8_0 codes goes to the tensor-core kernel: D and
+    Dv padded to whole 16s, tiles of 64 slots (32 where either is above
+    128), and the shared memory of csrc/fa.cu's tc::make_layout. f32 q, or
+    f32 K/V (the JAX package's QK^T or P.V in f32), goes to the CUDA-core
+    kernel, its Dv padded to the next of 16, 32, 64, 96, 128, 192, 256."""
+    B, T, H, D = q.shape
+    Hkv, S, Dv = k.shape[1], k.shape[2], v.shape[3]
+    bt = FA_ROWS // (H // Hkv)
+    grid = (-(-T // bt), Hkv, B)
+    if q.dtype == torch.bfloat16 and k.dtype in (torch.bfloat16, torch.int8):
+        q8 = k.dtype == torch.int8
+        dk, dv = _up16(D), _up16(Dv)
+        bs = 32 if max(dk, dv) > 128 else 64
+        krow, vrow = 2 * dk + 16, 2 * dv + 16
+        if q8:   # codes at 16-byte multiples, K and V scales; the bf16 tiles
+            stage = bs * (dk + dv) + 12 * bs
+            extra = bs * (krow + vrow)
+        else:
+            stage = bs * (krow + vrow) + 4 * bs
+            extra = 0
+        if bs < FA_ROWS:   # Q's rows apart from the tiles
+            extra += FA_ROWS * krow
+        smem = FA_STAGES * stage + extra + _up16(4 * -(-S // bs))   # + the tile list
+        return FaPlan("tc", FA_ROWS, bt, bs, FA_STAGES, dk, dv, smem, grid)
+    dv = next(w for w in _FA_DV if w >= Dv)
+    smem = 4 * (2 * FA_ROWS * (D + 1) + FA_ROWS * dv + FA_ROWS * (FA_ROWS + 1)) + 4 * (FA_ROWS + 2)
+    return FaPlan("cc", FA_ROWS, bt, FA_ROWS, 1, D, dv, smem, grid)
 
 
 def _positional_penalty(q_pos: torch.Tensor, kv_pos: torch.Tensor, G: int,
@@ -189,28 +255,40 @@ def flash_attention(q, k, v, q_pos, kv_pos, scale=None, swa_window=0,
     vs = v_scale.to(torch.float32) if quantized else None
     if quantized and (ks.stride() != vs.stride() or ks.stride(-1) != 1):
         raise ValueError("k_scale/v_scale need matching strides with contiguous rows")
+    plan = fa_plan(q, k, v)
     lib = _build.load("fa")
+    out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
+    scales = (ks.data_ptr() if quantized else None, vs.data_ptr() if quantized else None,
+              ks.stride(0) if quantized else 0, ks.stride(1) if quantized else 0)
+    tail = (q_pos.data_ptr(), kv_pos.data_ptr(), kv_pos.stride(0),
+            sinks.data_ptr() if sinks is not None else None,
+            float(scale), int(swa_window), float(logit_softcap))
+    strides = (k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+    if plan.kernel == "tc":
+        fn = lib.slt_fa_tc
+        if fn.argtypes is None:
+            fn.argtypes = _TC_ARGTYPES
+            fn.restype = ctypes.c_int
+        err = fn(B, T, H, Hkv, S, D, Dv, q.data_ptr(), copy_mode(q), k.data_ptr(),
+                 v.data_ptr(), int(quantized), copy_mode(k, v), *strides, *scales, *tail,
+                 plan.bs, plan.grid[0], plan.smem, out.data_ptr(), _build.stream_ptr(q.device))
+        _build.check(err, "fa_tc")
+        flash_attention.launches_tc += 1
+        return out
     fn = lib.slt_fa
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
     err = fn(B, T, H, Hkv, S, D, Dv, q.data_ptr(), int(q.dtype == torch.bfloat16),
-             k.data_ptr(), v.data_ptr(), kind, k.stride(0), k.stride(1),
-             v.stride(0), v.stride(1),
-             ks.data_ptr() if quantized else None,
-             vs.data_ptr() if quantized else None,
-             ks.stride(0) if quantized else 0, ks.stride(1) if quantized else 0,
-             q_pos.data_ptr(), kv_pos.data_ptr(), kv_pos.stride(0),
-             sinks.data_ptr() if sinks is not None else None,
-             float(scale), int(swa_window), float(logit_softcap),
+             k.data_ptr(), v.data_ptr(), kind, *strides, *scales, *tail,
              out.data_ptr(), _build.stream_ptr(q.device))
     _build.check(err, "fa")
     flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0      # the CUDA-core kernel
+flash_attention.launches_tc = 0   # the tensor-core kernel
 
 
 # ----------------------------------------------------------- decode (split-KV)
