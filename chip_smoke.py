@@ -8,32 +8,36 @@ PyTorch version.
                                           # the lone prompt chunks' profiles of phase 7
     python3 chip_smoke.py --checks        # device, build, the kernel checks of phase 3
     python3 chip_smoke.py --fa-times      # device, build, fa's rows of phase 6
+    python3 chip_smoke.py --paged-times   # device, build, paged's rows of phase 6
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
  2. build: nvcc of every kernel source in superllama_tpu_torch/csrc;
  3. kernels against their plain versions at Llama-3-8B shapes (qmv, qmm,
-    fa's two kernels, fd in its f/q8/q4 modes, paged, the four qmv-probe
-    variants, which are also held against qmv), at head sizes 80, 96, 100
-    and 256, fd with chunks of two passes, fa at a 1024-token chunk and
-    over positions in no order with holes; qmm, fa's tensor-core kernel and
-    the decode kernels called twice and held bit-equal; each fa call checked
-    to take the kernel its q type asks for;
+    fa's two kernels, fd in its f/q8/q4 modes, paged's decode kernel and
+    its two prefill kernels, the four qmv-probe variants, which are also
+    held against qmv), at head sizes 80, 96, 100 and 256, fd with chunks of
+    two passes, fa at a 1024-token chunk, fa and paged over positions in no
+    order with holes, paged over pages smaller than a tile; qmm, the
+    tensor-core attention kernels and the decode kernels called twice and
+    held bit-equal; each fa and paged call checked to take the kernel its
+    types and shape ask for;
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
     server answers 8 concurrent completions and one streamed one; the launch
     counters show the path went through every kernel (fa only through its
     tensor-core kernel). Then the same with a Q8_0 KV cache (fd decode),
-    with the paged KV cache (an ample pool, then a pool of about half the
-    wave's pages that must spill to host), and a short wave on an f32 cache
-    (fa's CUDA-core kernel);
+    with the paged KV cache (prefill through paged's tensor-core kernel; an
+    ample pool, then a pool of about half the wave's pages that must spill
+    to host), and a short wave on an f32 cache (fa's CUDA-core kernel);
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one;
  6. times: decode tok/s, time to first token (bf16, Q8_0, paged; a
-    1000-token prompt on bf16), and each kernel's time beside its plain
-    version, a library call and its bound (qmm at every (K, N) of a lone
-    prompt chunk; fa at the serving wave, a lone 32-token chunk and a
-    1024-token chunk; paged's prefill path at a 256-token chunk),
+    1000-token prompt on bf16 and paged), and each kernel's time beside its
+    plain version, a library call and its bound (qmm at every (K, N) of a
+    lone prompt chunk; fa at the serving wave, a lone 32-token chunk and a
+    1024-token chunk; paged's prefill path at the serving chunk of a
+    100-token prompt and at a long prompt's 256-token chunk),
     kernel and library both read from a CUDA graph over inputs rotated past
     the L2 (the eager reading beside it);
  7. profile: where a lone 32-token and a lone 1000-token prompt chunk's
@@ -240,12 +244,16 @@ def fd_inputs(torch, B=8, T=1, S=2048, H=32, Hkv=8, D=128, kv="f", dtype="bf16",
 
 
 def paged_inputs(torch, B=8, T=1, H=32, Hkv=8, D=128, P=256, MAXP=8, dtype="bf16",
-                 lens=None, absent=(), gap=0, seed=0):
+                 lens=None, absent=(), gap=0, scramble=False, seed=0):
     """A shuffled pool of B*MAXP+1 pages (page 0 = NULL) holding each row's
     first lens[b] positions; ``absent`` (row, logical page) entries are -1;
     ``gap`` > 0 leaves the last gap slots of every page empty (the gaps of
     closed pages), positions going on in the next page. Query rows at each
-    row's newest T positions."""
+    row's newest min(T, n) positions, then padding (-1): a row shorter than
+    T is a prompt chunk shorter than its bucket, a row of length 0 padding
+    only over an empty table (the rows riding along in a page-chunked
+    prefill). ``scramble``: each row's positions scattered over its pages'
+    slots in no order, one in eight dropped (-1)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -267,8 +275,19 @@ def paged_inputs(torch, B=8, T=1, H=32, Hkv=8, D=128, P=256, MAXP=8, dtype="bf16
             table[b, lg] = pg
             cnt = min(per, n - lg * per)
             page_pos[pg, :cnt] = torch.arange(lg * per, lg * per + cnt)
+    if scramble:
+        cpu = torch.Generator().manual_seed(seed)
+        for b in range(B):
+            pgs = table[b][table[b] > 0].long()
+            vals = page_pos[pgs].reshape(-1)
+            vals = vals[torch.randperm(vals.numel(), generator=cpu)]
+            vals[torch.randperm(vals.numel(), generator=cpu)[:vals.numel() // 8]] = -1
+            page_pos[pgs] = vals.reshape(len(pgs), P)
     q = torch.randn((B, T, H, D), generator=g, device=dev).to(dt)
-    q_pos = torch.stack([torch.arange(n - T, n, dtype=torch.int32) for n in lens])
+    q_pos = torch.full((B, T), -1, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        m = min(T, n)
+        q_pos[b, :m] = torch.arange(n - m, n, dtype=torch.int32)
     return (q, kp, vp, q_pos.to(dev), page_pos.to(dev), table.to(dev))
 
 
@@ -371,16 +390,51 @@ def check_decode_kernels(torch, record) -> None:
                     for dt in ("bf16", "f32")]
     paged_cases += [(f"bf16 D=51 T={T} P=64 (byte copies)",
                      dict(B=2, T=T, D=51, P=64, MAXP=8, lens=[500, 371]), {}) for T in (1, 9)]
+    # the tensor-core prefill kernel's own cases: 16-token pages with gaps
+    # (tiles across pages), pages that are no whole number of tiles,
+    # positions in no order with holes (with a window and sinks), the
+    # serving chunk of a 100-token prompt (seven rows of padding only over
+    # empty tables), a long prompt's fourth chunk, a chunk too long for the
+    # cluster split, D 256, G 8
+    paged_cases += [("bf16 T=16 P=16 gaps lens (tiles across pages)",
+                     dict(T=16, P=16, MAXP=190, gap=5, lens=lens), {}),
+                    ("bf16 T=64 P=100 (pages no whole number of tiles)",
+                     dict(B=2, T=64, P=100, MAXP=12, lens=[1100, 640]), {}),
+                    ("bf16 T=64 P=64 scrambled positions",
+                     dict(B=2, T=64, P=64, MAXP=16, lens=[1000, 700], scramble=True), {}),
+                    ("bf16 T=64 P=64 scrambled positions swa=300 sinks",
+                     dict(B=2, T=64, P=64, MAXP=16, lens=[1000, 700], scramble=True),
+                     {"swa_window": 300, "sinks": True}),
+                    ("bf16 B=8 T=128 prompt 100, 7 padding rows (serving chunk)",
+                     dict(T=128, lens=[100] + [0] * 7), {}),
+                    ("bf16 B=1 T=256 positions 768-1023", dict(B=1, T=256, MAXP=4, lens=[1024]),
+                     {}),
+                    ("bf16 B=1 T=1024 positions 1024-2047 (no cluster split)",
+                     dict(B=1, T=1024, lens=[2048]), {}),
+                    ("bf16 D=256 T=64 P=64 softcap=30",
+                     dict(B=2, T=64, D=256, P=64, MAXP=16, lens=[900, 371]),
+                     {"logit_softcap": 30.0}),
+                    ("bf16 G=8 T=16", dict(H=64, T=16, lens=lens), {})]
+    bf16 = torch.bfloat16
     for i, (case, kw, opts) in enumerate(paged_cases):
         args = paged_inputs(torch, seed=500 + i, **kw)
         if opts.pop("sinks", False):
             opts["sinks"] = torch.randn((args[0].shape[2],), device="cuda")
+        q, kp = args[0], args[1]
+        before = (paged_flash_attention.launches, paged_flash_attention.launches_tc)
         got = paged_flash_attention(*args, **opts)
+        tc = paged_flash_attention.launches_tc - before[1]
+        # bf16 q over bf16 pages at T*G > 32 takes the tensor-core kernel,
+        # every other call the decode or the CUDA-core prefill kernel
+        want_tc = (q.shape[1] * (q.shape[2] // kp.shape[1]) > 32 and q.dtype == bf16
+                   and kp.dtype == bf16)
+        check((tc, paged_flash_attention.launches - before[0]) == ((1, 0) if want_tc else (0, 1)),
+              f"paged {case}: the call took the wrong kernel")
         again = paged_flash_attention(*args, **opts)
         ref = paged_flash_attention_plain(*args, **opts)
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"paged {case}: two calls differ")
-        record("paged", case, got, ref, args[0].dtype, mask=args[3] >= 0)
+        record("paged_tc" if tc else "paged", case, got, ref, q.dtype, mask=args[3] >= 0)
 
 
 # (M, K, N) of the probe checks: ffn_gate/up, ffn_down, wq/wo at one row,
@@ -586,9 +640,9 @@ def phase_kernels(torch) -> list:
 
 
 def counters() -> dict:
-    """kernel -> (wrapper, its count attribute): fa's wrapper counts its
-    CUDA-core kernel in ``launches`` and its tensor-core one in
-    ``launches_tc``."""
+    """kernel -> (wrapper, its count attribute): fa's and paged's wrappers
+    count their tensor-core kernels in ``launches_tc``, the others in
+    ``launches``."""
     from superllama_tpu_torch.ops import flash_attention as fa_mod
     from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
@@ -597,7 +651,8 @@ def counters() -> dict:
     return {"qmv": (qm_mod.qmv, "launches"), "qmm": (qm_mod.qmm, "launches"),
             "fa": (fa, "launches"), "fa_tc": (fa, "launches_tc"),
             "fd": (fa_mod.flash_decode_attention, "launches"),
-            "paged": (pa_mod.paged_flash_attention, "launches")}
+            "paged": (pa_mod.paged_flash_attention, "launches"),
+            "paged_tc": (pa_mod.paged_flash_attention, "launches_tc")}
 
 
 def reset_counts() -> None:
@@ -797,13 +852,15 @@ PAGED_LENS = [32, 24] * 4
 
 
 def phase_serving_paged(torch, model) -> dict:
-    """The paged cache: a wave with 256-token pages and an ample pool, then
-    the same prompts with 64-token pages and a pool of 8 pages (+ NULL)
-    against the 16 the wave needs, so pages spill to host and come back;
-    its tokens must equal the ample pool's."""
+    """The paged cache: a wave with 256-token pages and an ample pool (each
+    prompt chunk through paged's tensor-core prefill kernel, each decode
+    step through its decode kernel), then the same prompts with 64-token
+    pages and a pool of 8 pages (+ NULL) against the 16 the wave needs, so
+    pages spill to host and come back; its tokens must equal the ample
+    pool's."""
     from superllama_tpu_torch.runtime.engine import Engine
 
-    counts, served = serve_wave(torch, model, "paged", PAGED_LENS, ("qmv", "paged"),
+    counts, served = serve_wave(torch, model, "paged", PAGED_LENS, ("qmv", "paged", "paged_tc"),
                                 kv_dtype=torch.bfloat16, paged=True, page_size=256)
     eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda",
                  paged=True, page_size=64, n_pages=9)
@@ -1144,7 +1201,11 @@ def paged_reading(torch, what: str, seed: int, **shape) -> dict:
     """paged at one shape of paged_inputs (a shuffled bf16 pool, 32/8 heads,
     D 128), beside SDPA over the gathered dense K/V (the gather left out);
     copies rotated as in fa_reading. Work counts the visible (row, slot)
-    pairs; bytes the pages a call reads, the table, q and the output."""
+    pairs. Bytes count what the function needs: the K/V of the slots some
+    valid query of their row sees, the positions of the row's pages, the
+    table and q_pos, and q and the output of the valid rows only (a padding
+    row's q is never read and its output is undefined, though the kernel
+    writes zeros there)."""
     import torch.nn.functional as F
 
     from superllama_tpu_torch.ops.paged_attention import (paged_flash_attention,
@@ -1154,13 +1215,13 @@ def paged_reading(torch, what: str, seed: int, **shape) -> dict:
     q, kp, vp, q_pos, page_pos, table = first
     B, T, H, D = q.shape
     Hkv, P = kp.shape[1], kp.shape[2]
-    pages = int((table >= 0).sum())
-    nbytes = (pages * (2 * Hkv * P * D * 2 + P * 4) + table.numel() * 4
-              + 2 * q.numel() * 2 + q_pos.numel() * 4)
     kv_pos = page_pos[table.long().clamp(min=0)].reshape(B, -1)
     mask = ((kv_pos[:, None, None, :] >= 0)
             & (kv_pos[:, None, None, :] <= q_pos[:, None, :, None]))
     ops = 2.0 * 2 * D * H * int(mask.sum())
+    seen = int(mask.any(dim=2).sum())   # (row, slot) pairs some valid query sees
+    nbytes = (seen * 2 * Hkv * D * 2 + int((table >= 0).sum()) * P * 4 + table.numel() * 4
+              + q_pos.numel() * 4 + 2 * int((q_pos >= 0).sum()) * H * D * 2)
     n = n_copies(nbytes)
     sets = [first] + [paged_inputs(torch, seed=seed + i, **shape) for i in range(1, n)]
     dense = []
@@ -1181,14 +1242,28 @@ def paged_reading(torch, what: str, seed: int, **shape) -> dict:
 
 def time_paged(torch) -> dict:
     """paged at the decode shape: 8 rows of 2048 positions in 256-token
-    pages (MAXP 8); and its prefill path (T*G > 32: paged_kernel) at a
-    prompt's fourth 256-token chunk: B 1, T 256 at positions 768-1023, four
-    pages, where operations bound it (3.76 GFLOP)."""
-    prefill = paged_reading(torch, "positions 768-1023", 850, B=1, T=256, MAXP=4,
-                            lens=[1024])
-    prefill["launches_per_chunk"] = 32
-    return {"paged": paged_reading(torch, "2048 positions", 800),
-            "paged prefill": prefill}
+    pages (MAXP 8); and its prefill path (T*G > 32, bf16: the tensor-core
+    kernel) at (b) the serving chunk of a 100-token prompt (B 8 = n_slots,
+    T 128, row 0 at positions 0-99 in one page, rows 1-7 padding only over
+    empty tables, MAXP 8 = n_ctx 2048), where bytes bound it; (c) a
+    prompt's fourth 256-token chunk (B 1, T 256 at positions 768-1023, four
+    pages), where operations bound it (3.76 GFLOP); (d) that chunk as the
+    engine sends it, beside seven rows of padding (B 8, MAXP 8); and (e) a
+    call whose eight rows are all 100-token prompts (T 128), which the
+    engine never sends: the cluster split's cost where every row is valid."""
+    rows = {"paged": paged_reading(torch, "2048 positions", 800),
+            "paged prefill B=8": paged_reading(
+                torch, "prompt 100 in a 128-token bucket, 7 padding rows", 900, T=128,
+                lens=[100] + [0] * 7),
+            "paged prefill": paged_reading(torch, "positions 768-1023", 850, B=1, T=256,
+                                           MAXP=4, lens=[1024]),
+            "paged prefill B=8 T=256": paged_reading(
+                torch, "positions 768-1023, 7 padding rows", 870, T=256, lens=[1024] + [0] * 7),
+            "paged prefill B=8 all rows": paged_reading(
+                torch, "8 prompts of 100 in a 128-token bucket", 880, T=128, lens=[100] * 8)}
+    for key in ("paged prefill B=8", "paged prefill", "paged prefill B=8 T=256"):
+        rows[key]["launches_per_chunk"] = 32
+    return rows
 
 
 def time_decode_attention(torch) -> dict:
@@ -1213,8 +1288,9 @@ def time_decode_attention(torch) -> dict:
 
 def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
     """Decode tok/s at B 1 and B 8 and TTFT at 32 and 100 prompt tokens;
-    with ``long_prompt`` also the TTFT of a 1000-token prompt (one
-    1024-token chunk, the second of two runs)."""
+    with ``long_prompt`` also the TTFT of a 1000-token prompt (the second of
+    two runs: one 1024-token chunk on a dense cache, four 256-token chunks
+    on a paged one with 256-token pages)."""
     from superllama_tpu_torch.runtime.engine import Engine
 
     engine_kw.setdefault("kv_dtype", torch.bfloat16)
@@ -1261,7 +1337,8 @@ def kernel_times(torch) -> dict:
 def phase_times(torch, model, smi_line: str) -> dict:
     serving = {"bf16": time_serving(torch, model, long_prompt=True),
                "q8_0": time_serving(torch, model, kv_dtype="q8_0"),
-               "paged": time_serving(torch, model, paged=True, page_size=256)}
+               "paged": time_serving(torch, model, paged=True, page_size=256,
+                                     long_prompt=True)}
     kernels = kernel_times(torch)
     emit({"phase": "times", "card": smi_line, "serving": serving, "kernels": kernels,
           "qmm_per_chunk": qmm_chunk(kernels),
@@ -1339,22 +1416,28 @@ def device_rows(events) -> list:
             and e.key != "kv_write"]
 
 
-def profile_chunk(torch, model, n: int = 32) -> dict:
-    """torch.profiler over one lone n-token prompt chunk on the bf16 cache
-    (engine.generate of one token, warmed once): wall ms, device ms, idle
-    share, device ms by kernel, fa's (the tensor-core kernel, every launch)
-    and, for a chunk above 32 tokens, the M > 32 matmul path's (the
-    llama forward's ``mm`` under a range: dequantize, then torch.matmul);
-    the table goes to chiprun_out/profile_chunk_bf16[_<n>].txt."""
+def profile_chunk(torch, model, n: int = 32, paged: bool = False) -> dict:
+    """torch.profiler over one lone n-token prompt on the bf16 cache, dense
+    or (``paged``) in 256-token pages (engine.generate of one token, warmed
+    once): its prompt chunks' wall ms, device ms, idle share, device ms by
+    kernel, the attention kernels' (fa's or paged's, every launch) and,
+    for a chunk above 32 tokens, the M > 32 matmul path's (the llama
+    forward's ``mm`` under a range: dequantize, then torch.matmul); before
+    it the TTFT of one more unprofiled run. A paged engine takes the prompt
+    in 256-token chunks of its 8 slots' rows. The table goes to
+    chiprun_out/profile_chunk_bf16[_paged][_<n>].txt."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from superllama_tpu_torch.models import llama as llama_mod
+    from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.runtime.engine import Engine
 
-    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda")
+    kw = {"paged": True, "page_size": 256} if paged else {}
+    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda", **kw)
     prompt = token_prompts(model.hparams.n_vocab, [n], SEED + 4)[-1]
     run = lambda: eng.generate(prompt, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
     run()
+    ttft_ms = run()["ttft_s"] * 1e3
     torch.cuda.synchronize()
     mm = llama_mod.mm
 
@@ -1378,14 +1461,18 @@ def profile_chunk(torch, model, n: int = 32) -> dict:
     dev = [r for r in device_rows(events) if r[0] != "mm"]
     device_ms = sum(t for _, t, _ in dev)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, f"profile_chunk_bf16{'' if n == 32 else f'_{n}'}.txt"),
-              "w") as f:
+    label = f"{'_paged' if paged else ''}{'' if n == 32 else f'_{n}'}"
+    with open(os.path.join(OUT_DIR, f"profile_chunk_bf16{label}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
     qmm_rows = [(k, t, c) for k, t, c in dev if "qmm" in k]
-    fa_rows = [(k, t, c) for k, t, c in dev if "fa_tc_kernel" in k or "fa_kernel" in k]
+    # attention: fa's two kernels, paged's tensor-core kernel (an
+    # instantiation of fa_tc_kernel) and its CUDA-core one
+    fa_rows = [(k, t, c) for k, t, c in dev
+               if any(name in k for name in ("fa_tc_kernel", "fa_kernel", "paged_kernel"))]
     mm_cpu = [e for e in events if e.key == "mm" and e.self_cpu_time_total > 0]
-    rec = {"phase": "profile", "what": f"one lone {n}-token prompt chunk, bf16 cache",
-           "wall_ms": wall_ms, "device_ms": device_ms,
+    rec = {"phase": "profile",
+           "what": f"one lone {n}-token prompt, bf16 {'paged ' if paged else ''}cache",
+           "ttft_ms": ttft_ms, "wall_ms": wall_ms, "device_ms": device_ms,
            "device_idle_share": 1.0 - device_ms / wall_ms,
            "device_ops": sum(c for _, _, c in dev),
            "qmm_ms": sum(t for _, t, _ in qmm_rows),
@@ -1393,12 +1480,17 @@ def profile_chunk(torch, model, n: int = 32) -> dict:
            "fa_ms": sum(t for _, t, _ in fa_rows),
            "fa_kernels": [{"name": k[:80], "ms": t, "count": c} for k, t, c in fa_rows],
            "mm_ms": sum(e.device_time_total for e in mm_cpu) / 1e3,
-           "launches": {k: counts[k] for k in ("qmm", "fa", "fa_tc")},
+           "launches": {k: counts[k] for k in ("qmm", "fa", "fa_tc", "paged", "paged_tc")},
            "by_kernel": [{"name": k[:80], "ms": t, "count": c}
                          for k, t, c in sorted(dev, key=lambda r: -r[1])[:15]]}
     emit(rec)
-    check(rec["fa_ms"] > 0, f"the lone {n}-token chunk ran no fa kernel")
-    if hasattr(llama_mod.flash_attention, "launches_tc"):
+    check(rec["fa_ms"] > 0, f"the lone {n}-token chunk ran no attention kernel")
+    # (an unpacked parent tree, read with --kernel-times, may predate a count)
+    if paged and hasattr(pa_mod.paged_flash_attention, "launches_tc"):
+        check(counts["paged_tc"] > 0 and counts["paged"] == 0 and counts["fa_tc"] == 0,
+              f"the lone paged {n}-token prompt's attention launches did not all take paged's "
+              f"tensor-core kernel: {counts}")
+    elif not paged and hasattr(llama_mod.flash_attention, "launches_tc"):
         check(counts["fa_tc"] > 0 and counts["fa"] == 0,
               f"the lone {n}-token chunk's fa launches did not all take the tensor-core "
               f"kernel: {counts}")
@@ -1414,6 +1506,7 @@ def phase_profile(torch, model) -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     profile_chunk(torch, model)
     profile_chunk(torch, model, 1000)
+    profile_chunk(torch, model, 1000, paged=True)
     for label, kw in (("bf16", {}), ("q8_0", {"kv_dtype": "q8_0"}),
                       ("paged", {"paged": True, "page_size": 256})):
         rec = profile_block(torch, model, label, **kw)
@@ -1450,8 +1543,10 @@ def phase_tools(torch, model) -> dict:
           "qmv_probe": probe, "decode_cells": len(cells),
           "llama_bench": [asdict(r) for r in bench]})
     for name, n in counts.items():
-        # fa's CUDA-core kernel serves f32 q or K/V, which no tool sends
-        check(n > 0 or name == "fa", f"the tools' path never launched the {name} kernel")
+        # fa's CUDA-core kernel serves f32 q or K/V, and paged's tensor-core
+        # kernel a paged prefill chunk, neither of which a tool sends
+        check(n > 0 or name in ("fa", "paged_tc"),
+              f"the tools' path never launched the {name} kernel")
     return counts
 
 
@@ -1534,6 +1629,8 @@ KERNELS = [
      "fd_q8"),
     ("paged", "superllama_tpu_torch/csrc/paged.cu",
      "superllama_tpu/ops/paged_attention.py:138", "paged"),
+    ("paged_tc", "superllama_tpu_torch/csrc/paged.cu",
+     "superllama_tpu/ops/paged_attention.py:138", "paged prefill B=8"),
 ] + [(f"qmv_probe_{v}", "superllama_tpu_torch/csrc/qmv_probe.cu",
       f"superllama_tpu/tools/qmv_probe.py:{line}", f"qmv_probe_{v} N=14336")
      for v, line in (("v1", 53), ("v2", 64), ("v3", 91), ("v4", 78))]
@@ -1562,10 +1659,15 @@ def main() -> int:
         model = build_model(torch)
         profile_chunk(torch, model)
         profile_chunk(torch, model, 1000)
+        profile_chunk(torch, model, 1000, paged=True)
         return 0
     if "--fa-times" in sys.argv[1:]:
         # fa's rows of phase 6 alone, for comparing versions of its kernels
         emit({"phase": "fa_times", "card": info["nvidia_smi"], "kernels": time_fa(torch)})
+        return 0
+    if "--paged-times" in sys.argv[1:]:
+        # paged's rows of phase 6 alone (decode and four prefill shapes)
+        emit({"phase": "paged_times", "card": info["nvidia_smi"], "kernels": time_paged(torch)})
         return 0
     if "--checks" in sys.argv[1:]:
         # the kernels against their plain versions alone
@@ -1576,7 +1678,8 @@ def main() -> int:
     # each kernel's launches come from the serving run of its own path
     counts = phase_serving(torch, model)
     counts["fd"] = phase_serving_q8(torch, model)["fd"]
-    counts["paged"] = phase_serving_paged(torch, model)["paged"]
+    paged_counts = phase_serving_paged(torch, model)
+    counts["paged"], counts["paged_tc"] = paged_counts["paged"], paged_counts["paged_tc"]
     counts["fa"] = phase_serving_f32(torch, model)["fa"]
     phase_parity(torch, model)
     phase_cache_parity(torch, model)

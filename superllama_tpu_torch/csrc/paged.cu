@@ -14,7 +14,8 @@
 //    absent pages, empty page tails and the SWA-hidden past cost only their
 //    positions. A block of padding rows only gives 0, as the TPU kernel does.
 //
-// Two paths, one launch per call either way:
+// Three kernels, one launch per call, chosen by paged_plan
+// (ops/paged_attention.py):
 //  - decode shapes (T*G <= 32, every decode step): decode_common.cuh's
 //    cluster kernel. One cluster of cl = min(8, tiles in the row) blocks per
 //    (kv head, batch row) divides the row's MAXP * P slots, nb a block
@@ -24,30 +25,49 @@
 //    over the whole row before p, as the plain version does; a block whose
 //    share exceeds its logits buffer (nbmax slots: 2048 at T*G 4) runs
 //    passes with a running max. 512 blocks at B 8, 64 at B 1 for 2048 slots.
-//  - prefill shapes (T*G > 32: the page-chunked prefill, a lone 32-token
-//    chunk): paged_kernel below, one block per (tile of 64 query rows, kv
-//    head, batch row) walking the table in 64-slot tiles with an f32 online
-//    softmax; its p is rounded relative to each tile's running max (the TPU
-//    kernel takes pages four at a time with a running max per chunk).
+//  - prefill shapes (T*G > 32: every chunk of a page-chunked prefill), bf16
+//    q over bf16 pages: fa's tensor-core kernel (fa_tc.cuh) addressed
+//    through the page table (PAGED). Four warps over 64 query rows of one
+//    kv head, mma.sync for both products, a 3-stage cp.async ring of only
+//    the visible 64-slot tiles (32 above 128 columns), each copied in runs
+//    that stay inside one page; the row's table is staged in shared memory.
+//    A block of padding rows only (seven of the eight rows of a serving
+//    chunk ride along on the NULL page) writes zeros and leaves after
+//    reading q_pos.
+//  - prefill shapes with f32 q or f32 pages, where the TPU kernel runs QK^T
+//    or P.V in f32 and TF32 would not be exact enough: paged_kernel below,
+//    one block per (tile of 64 query rows, kv head, batch row) walking the
+//    table in 64-slot tiles with an f32 online softmax on the CUDA cores.
+// Both prefill kernels take 64-slot tiles aligned to the row's logical
+// slots and round p relative to each tile's running max (the TPU kernel
+// takes pages four at a time with a running max per chunk).
 //
 // What bounds it on the H100: bytes at decode shapes (K and V of the
 // occupied pages, 67.1 MB in bf16 at B 8, 2048 slots, 8 kv heads, D 128:
 // 0.020 ms at 3.35 TB/s); decode_common.cuh says how the decode path keeps
-// bytes in flight. The prefill path dots on the CUDA cores from shared
-// memory; tensor cores there are later work.
+// bytes in flight. At a serving chunk (B 8, T 128, one prompt of 100
+// tokens) bytes too: the prompt's page, q of its rows, the whole output,
+// 3.1 us; the tensor-core kernel's 448 padding blocks leave at once and 56
+// copy one or two tiles each. At a long prompt's 256-token chunk
+// operations (3.76 GFLOP visible, 3.8 us at 989 TFLOP/s); fa.cu says how
+// the tensor-core kernel keeps its products fed.
 //
 // The host changes tables and page positions between steps with ordinary
 // (stream-ordered) copies before this launch.
 //
-// Head sizes: any D <= 256; Dv <= 256, instantiated at 16, 32, 64, 96,
-// 128, 192 and 256 columns and padded up to the next of them (the padding
-// lanes read zero V and write nothing, so the unpadded part is exact).
+// Head sizes: any D <= 256; Dv <= 256. The tensor-core kernel pads both to
+// whole 16s (instantiated for widths up to 64, 128 and 256); paged_kernel
+// instantiates Dv at 16, 32, 64, 96, 128, 192 and 256 columns and pads up
+// to the next of them (the padding lanes read zero V and write nothing, so
+// the unpadded part is exact).
 //
 // Layout: q (B,T,H,D) contiguous; k_pages (N,Hkv,P,D), v_pages (N,Hkv,P,Dv)
-// with rows contiguous and caller-given page/head strides; page_pos (N,P) int32 contiguous; table
-// (B,MAXP) int32 contiguous; out (B,T,H,Dv) in q's type.
+// with rows contiguous and caller-given page/head strides; page_pos (N,P)
+// int32 contiguous; table (B,MAXP) int32 contiguous; out (B,T,H,Dv) in q's
+// type.
 
 #include "decode_common.cuh"
+#include "fa_tc.cuh"
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -248,7 +268,8 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
 // decode path's copy mode of the page rows (decode_common.cuh).
 // T*G <= 32 takes the cluster kernel with the wrapper's plan (R query rows,
 // cl blocks a cluster, nb slots a block, ts slots a tile, nbmax slots a
-// pass), larger T*G paged_kernel. Returns the cudaError_t.
+// pass), larger T*G paged_kernel (the wrapper sends bf16 q over bf16 pages
+// there to slt_paged_tc instead). Returns the cudaError_t.
 extern "C" int slt_paged(int B, int T, int H, int Hkv, int P, int MAXP, int D, int Dv,
                          int R, int cl, int nb, int ts, int nbmax, int copy,
                          const void* q, int q_bf16, const void* k, const void* v, int kv_kind,
@@ -289,5 +310,46 @@ extern "C" int slt_paged(int B, int T, int H, int Hkv, int P, int MAXP, int D, i
   else if (Dv <= 192) e = launch<48>(a, st);
   else if (Dv <= 256) e = launch<64>(a, st);
   else e = cudaErrorInvalidValue;
+  return (int)e;
+}
+
+// The tensor-core prefill kernel: bf16 q over bf16 pages. q_copy / kv_copy:
+// copy modes of q's rows and of the pools' rows (0 16-byte, 1 4-byte, 2
+// bytes; copy_mode in ops/flash_attention.py); k_sp/k_sh/v_sp/v_sh element
+// strides of a page and a head. bs, n_rt and smem are paged_plan's slots a
+// tile, row tiles and shared-memory bytes: a launch that disagrees with the
+// kernel's own layout is refused. split (1 or 2) blocks of a cluster share a
+// row tile's visible tiles. Returns the cudaError_t.
+extern "C" int slt_paged_tc(int B, int T, int H, int Hkv, int P, int MAXP, int D, int Dv,
+                            const void* q, int q_copy, const void* k, const void* v, int kv_copy,
+                            long k_sp, long k_sh, long v_sp, long v_sh, const void* q_pos,
+                            const void* page_pos, const void* table, const void* sinks,
+                            float scale, int swa, float softcap, int bs, int n_rt, int smem,
+                            int split, void* out, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || Hkv < 1 || H % Hkv || H / Hkv > tc::ROWS ||
+      P < 1 || MAXP < 1)
+    return (int)cudaErrorInvalidValue;
+  const int S = MAXP * P;
+  const tc::Layout L = tc::make_layout(D, Dv, S, false, MAXP);
+  const int G = H / Hkv, BT = tc::ROWS / G;
+  if (bs != L.bs || smem != L.bytes || n_rt != (T + BT - 1) / BT || (split != 1 && split != 2))
+    return (int)cudaErrorInvalidValue;
+  tc::Args a{B, T, H, Hkv, S, D, Dv, G, BT, n_rt, (S + L.bs - 1) / L.bs,
+             (const unsigned char*)q, q_copy, (const unsigned char*)k,
+             (const unsigned char*)v, kv_copy, k_sp, k_sh, v_sp, v_sh, nullptr, nullptr, 0, 0,
+             (const int*)q_pos, (const int*)page_pos, 0, (const float*)sinks, scale, swa,
+             softcap, (__nv_bfloat16*)out, L, (const int*)table, P, MAXP};
+  const int dm = tc::up16(D) > tc::up16(Dv) ? tc::up16(D) : tc::up16(Dv);
+  cudaError_t e;
+  if (dm <= 64)
+    e = split == 2 ? tc::launch<64, 64, false, true, 2>(a, st)
+                   : tc::launch<64, 64, false, true>(a, st);
+  else if (dm <= 128)
+    e = split == 2 ? tc::launch<128, 64, false, true, 2>(a, st)
+                   : tc::launch<128, 64, false, true>(a, st);
+  else
+    e = split == 2 ? tc::launch<256, 32, false, true, 2>(a, st)
+                   : tc::launch<256, 32, false, true>(a, st);
   return (int)e;
 }

@@ -98,6 +98,13 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {err}")
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card a CUDA device names."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream_ptr(device) -> int:
     import torch
 

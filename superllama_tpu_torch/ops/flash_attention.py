@@ -122,7 +122,8 @@ class FaPlan:
     or "cc" (CUDA cores); a block of ``rows`` query rows, ``bt`` tokens of
     one kv head's G heads; tiles of ``bs`` cache slots through ``nst`` ring
     stages; head sizes padded to ``dk`` / ``dv``; ``smem`` bytes of dynamic
-    shared memory; ``grid`` (row tiles, kv heads, batch rows)."""
+    shared memory; ``grid`` (row tiles × split, kv heads, batch rows);
+    ``split`` blocks of a cluster share a row tile's visible tiles."""
 
     kernel: str
     rows: int
@@ -133,25 +134,38 @@ class FaPlan:
     dv: int
     smem: int
     grid: tuple
+    split: int = 1
 
 
 def _up16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def fa_plan(q, k, v) -> FaPlan:
-    """The prefill kernel and its geometry for one flash_attention call.
+def prefill_plan(q_dtype, kv_dtype, B: int, T: int, H: int, Hkv: int, S: int, D: int,
+                 Dv: int, maxp: int = 0, sms: int = 0) -> FaPlan:
+    """The prefill kernel and its geometry for B rows of T tokens of H heads
+    over S cache slots a row of Hkv kv heads; ``maxp`` > 0: a page pool's
+    call, its rows' page tables of maxp pages (paged.cu's kernels), on a
+    card of ``sms`` streaming multiprocessors (0: no card, no split).
     bf16 q over bf16 K/V or Q8_0 codes goes to the tensor-core kernel: D and
     Dv padded to whole 16s, tiles of 64 slots (32 where either is above
-    128), and the shared memory of csrc/fa.cu's tc::make_layout. f32 q, or
-    f32 K/V (the JAX package's QK^T or P.V in f32), goes to the CUDA-core
-    kernel, its Dv padded to the next of 16, 32, 64, 96, 128, 192, 256."""
-    B, T, H, D = q.shape
-    Hkv, S, Dv = k.shape[1], k.shape[2], v.shape[3]
+    128), and the shared memory of csrc/fa_tc.cuh's tc::make_layout (a page
+    pool's block also holds its row's table). f32 q, or f32 K/V (the JAX
+    package's QK^T or P.V in f32), goes to the CUDA-core kernel, its Dv
+    padded to the next of 16, 32, 64, 96, 128, 192, 256 (paged_kernel also
+    stages a tile's pool pages).
+
+    A page pool's tensor-core grid is cut for a page-chunked prefill, where
+    one batch row of B is a prompt's chunk and the rest ride along as
+    padding: a cluster of two blocks shares each (row tile, kv head)'s
+    visible tiles when two blocks for each of one row's units still fit
+    one resident wave of the card's SMs (two blocks an SM up to 128
+    columns, one above). A call whose rows are all valid then runs twice
+    the blocks it needs."""
     bt = FA_ROWS // (H // Hkv)
     grid = (-(-T // bt), Hkv, B)
-    if q.dtype == torch.bfloat16 and k.dtype in (torch.bfloat16, torch.int8):
-        q8 = k.dtype == torch.int8
+    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
+        q8 = kv_dtype == torch.int8
         dk, dv = _up16(D), _up16(Dv)
         bs = 32 if max(dk, dv) > 128 else 64
         krow, vrow = 2 * dk + 16, 2 * dv + 16
@@ -163,11 +177,25 @@ def fa_plan(q, k, v) -> FaPlan:
             extra = 0
         if bs < FA_ROWS:   # Q's rows apart from the tiles
             extra += FA_ROWS * krow
-        smem = FA_STAGES * stage + extra + _up16(4 * -(-S // bs))   # + the tile list
-        return FaPlan("tc", FA_ROWS, bt, bs, FA_STAGES, dk, dv, smem, grid)
+        # + the tile list, + the row's page table
+        smem = FA_STAGES * stage + extra + _up16(4 * -(-S // bs)) + _up16(4 * maxp)
+        split = 1
+        if maxp and 2 * grid[0] * Hkv <= sms * (2 if max(dk, dv) <= 128 else 1):
+            split = 2
+            grid = (2 * grid[0], Hkv, B)
+        return FaPlan("tc", FA_ROWS, bt, bs, FA_STAGES, dk, dv, smem, grid, split)
     dv = next(w for w in _FA_DV if w >= Dv)
     smem = 4 * (2 * FA_ROWS * (D + 1) + FA_ROWS * dv + FA_ROWS * (FA_ROWS + 1)) + 4 * (FA_ROWS + 2)
+    if maxp:
+        smem += 4 * FA_ROWS
     return FaPlan("cc", FA_ROWS, bt, FA_ROWS, 1, D, dv, smem, grid)
+
+
+def fa_plan(q, k, v) -> FaPlan:
+    """The prefill kernel and its geometry for one flash_attention call
+    (``prefill_plan`` of its shapes and types)."""
+    B, T, H, D = q.shape
+    return prefill_plan(q.dtype, k.dtype, B, T, H, k.shape[1], k.shape[2], D, v.shape[3])
 
 
 def _positional_penalty(q_pos: torch.Tensor, kv_pos: torch.Tensor, G: int,

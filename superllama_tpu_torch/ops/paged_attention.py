@@ -8,10 +8,13 @@ arithmetically. Masking, sinks, softcap and the dot types are those of
 ``flash_attention``.
 
 On CUDA tensors ``paged_flash_attention`` launches the hand-written kernel of
-``csrc/paged.cu`` (the decode cluster kernel at T·G ≤ 32, with the geometry
-of ``paged_plan``; the tiled prefill kernel above that); on CPU tensors it
-runs ``paged_flash_attention_plain``. Launches of either are counted in
-``paged_flash_attention.launches``.
+``csrc/paged.cu`` that ``paged_plan`` picks: the decode cluster kernel at
+T·G ≤ 32; above that, fa's tensor-core kernel addressed through the page
+table for bf16 q over bf16 pages (counted in
+``paged_flash_attention.launches_tc``), the CUDA-core prefill kernel for f32
+q or f32 pages. The decode and CUDA-core launches are counted in
+``paged_flash_attention.launches``. On CPU tensors it runs
+``paged_flash_attention_plain``.
 """
 
 from __future__ import annotations
@@ -22,23 +25,34 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import DecodePlan, copy_mode, decode_plan, flash_attention_plain
+from .flash_attention import (DecodePlan, FaPlan, copy_mode, decode_plan,
+                              flash_attention_plain, prefill_plan)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _ARGTYPES = [_I] * 14 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _P, _P, _F, _I, _F,
                          _P, _P]
+_TC_ARGTYPES = [_I] * 8 + [_P, _I, _P, _P, _I, _L, _L, _L, _L, _P, _P, _P, _P, _F, _I, _F,
+                           _I, _I, _I, _I, _P, _P]
 DECODE_ROWS = 32   # T·G up to which a call takes the decode cluster kernel
 
 
-def paged_plan(q, k_pages, v_pages, page_table) -> DecodePlan | None:
-    """The decode kernel's geometry for a call at T·G ≤ 32 (one chunk: the
-    row's MAXP·P slots, divided among a cluster's blocks), None for the
-    prefill path."""
-    T, H = q.shape[1], q.shape[2]
+def paged_plan(q, k_pages, v_pages, page_table, sms=None) -> DecodePlan | FaPlan:
+    """The kernel and its geometry for one paged_flash_attention call. At
+    T·G ≤ 32 the decode kernel's (one chunk: the row's MAXP·P slots,
+    divided among a cluster's blocks); above, the prefill kernel's
+    (``prefill_plan`` over the row's MAXP·P logical slots: "tc" for bf16 q
+    over bf16 pages, "cc" for f32 q or f32 pages), its cluster split sized
+    to ``sms`` streaming multiprocessors: by default those of q's card, none
+    for CPU tensors."""
+    B, T, H, D = q.shape
     Hkv, P = k_pages.shape[1], k_pages.shape[2]
+    MAXP = page_table.shape[1]
+    S = MAXP * P
     if T * (H // Hkv) > DECODE_ROWS:
-        return None
-    S = page_table.shape[1] * P
+        if sms is None:
+            sms = _build.sm_count(q.device) if q.device.type == "cuda" else 0
+        return prefill_plan(q.dtype, k_pages.dtype, B, T, H, Hkv, S, D, v_pages.shape[3],
+                            maxp=MAXP, sms=sms)
     return decode_plan(S, S, T * (H // Hkv), k_pages.shape[3] * k_pages.element_size(),
                        v_pages.shape[3] * v_pages.element_size())
 
@@ -86,15 +100,8 @@ def paged_flash_attention(q, k_pages, v_pages, q_pos, page_pos, page_table,
     for t, width in ((k_pages, D), (v_pages, Dv)):
         if t.stride(-1) != 1 or t.stride(-2) != width:
             raise ValueError("page rows must be contiguous")
-    plan = paged_plan(q, k_pages, v_pages, page_table)
-    geo = (0, 0, 0, 0, 0, 0)
-    if plan is not None:
-        geo = (plan.R, plan.cl, plan.nb, plan.ts, plan.nbmax, copy_mode(k_pages, v_pages))
     lib = _build.load("paged")
-    fn = lib.slt_paged
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    plan = paged_plan(q, k_pages, v_pages, page_table)
     q = q.contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
     page_pos = page_pos.to(torch.int32).contiguous()
@@ -102,16 +109,36 @@ def paged_flash_attention(q, k_pages, v_pages, q_pos, page_pos, page_table,
     if sinks is not None:
         sinks = sinks.to(torch.float32).contiguous()
     out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
+    strides = (k_pages.stride(0), k_pages.stride(1), v_pages.stride(0), v_pages.stride(1))
+    tail = (q_pos.data_ptr(), page_pos.data_ptr(), page_table.data_ptr(),
+            sinks.data_ptr() if sinks is not None else None,
+            float(scale), int(swa_window), float(logit_softcap))
+    if isinstance(plan, FaPlan) and plan.kernel == "tc":
+        fn = lib.slt_paged_tc
+        if fn.argtypes is None:
+            fn.argtypes = _TC_ARGTYPES
+            fn.restype = ctypes.c_int
+        err = fn(B, T, H, Hkv, P, MAXP, D, Dv, q.data_ptr(), copy_mode(q),
+                 k_pages.data_ptr(), v_pages.data_ptr(), copy_mode(k_pages, v_pages), *strides,
+                 *tail, plan.bs, plan.grid[0] // plan.split, plan.smem, plan.split,
+                 out.data_ptr(), _build.stream_ptr(q.device))
+        _build.check(err, "paged_tc")
+        paged_flash_attention.launches_tc += 1
+        return out
+    geo = (0, 0, 0, 0, 0, 0)
+    if isinstance(plan, DecodePlan):
+        geo = (plan.R, plan.cl, plan.nb, plan.ts, plan.nbmax, copy_mode(k_pages, v_pages))
+    fn = lib.slt_paged
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
     err = fn(B, T, H, Hkv, P, MAXP, D, Dv, *geo, q.data_ptr(), int(q.dtype == torch.bfloat16),
-             k_pages.data_ptr(), v_pages.data_ptr(), kind,
-             k_pages.stride(0), k_pages.stride(1), v_pages.stride(0), v_pages.stride(1),
-             q_pos.data_ptr(), page_pos.data_ptr(), page_table.data_ptr(),
-             sinks.data_ptr() if sinks is not None else None,
-             float(scale), int(swa_window), float(logit_softcap),
+             k_pages.data_ptr(), v_pages.data_ptr(), kind, *strides, *tail,
              out.data_ptr(), _build.stream_ptr(q.device))
     _build.check(err, "paged")
     paged_flash_attention.launches += 1
     return out
 
 
-paged_flash_attention.launches = 0
+paged_flash_attention.launches = 0      # the decode and CUDA-core prefill kernels
+paged_flash_attention.launches_tc = 0   # the tensor-core prefill kernel

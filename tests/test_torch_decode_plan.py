@@ -29,8 +29,8 @@ import torch
 
 from superllama_tpu_torch.ops import flash_attention as fa_mod
 from superllama_tpu_torch.ops.flash_attention import (COPY_BULK, COPY_BYTES, COPY_WORDS,
-                                                      FD_BLOCK_S, copy_mode, decode_plan,
-                                                      fd_plan, flash_attention)
+                                                      FD_BLOCK_S, DecodePlan, copy_mode,
+                                                      decode_plan, fd_plan, flash_attention)
 from superllama_tpu_torch.ops.paged_attention import paged_flash_attention, paged_plan
 from test_torch_fixtures import cuda_typed, failing_build
 
@@ -186,7 +186,7 @@ def test_paged_path_by_rows(T, G, path):
     q = torch.zeros((1, T, HKV * G, D), dtype=torch.bfloat16)
     pages = torch.zeros((9, HKV, 64, D), dtype=torch.bfloat16)
     plan = paged_plan(q, pages, pages, torch.zeros((1, 8), dtype=torch.int32))
-    assert (plan is None) == (path == "prefill")
+    assert isinstance(plan, DecodePlan) == (path == "decode")
 
 
 @pytest.mark.parametrize("T", [1, 9])
