@@ -9,6 +9,8 @@ PyTorch version.
     python3 chip_smoke.py --checks        # device, build, the kernel checks of phase 3
     python3 chip_smoke.py --fa-times      # device, build, fa's rows of phase 6
     python3 chip_smoke.py --paged-times   # device, build, paged's rows of phase 6
+    python3 chip_smoke.py --qmv-times     # device, build, qmv's rows of phase 6 and
+                                          # a bf16 decode block's profile
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -18,10 +20,13 @@ Phases, each printing one JSON line:
     its two prefill kernels, the four qmv-probe variants, which are also
     held against qmv), at head sizes 80, 96, 100 and 256, fd with chunks of
     two passes, fa at a 1024-token chunk, fa and paged over positions in no
-    order with holes, paged over pages smaller than a tile; qmm, the
+    order with holes, paged over pages smaller than a tile; qmv, qmm, the
     tensor-core attention kernels and the decode kernels called twice and
-    held bit-equal; each fa and paged call checked to take the kernel its
-    types and shape ask for;
+    held bit-equal; qmv's row 0 of an M 8 and an M 16 call held bit-equal
+    to the row alone, one qmv call profiled to one device kernel, and
+    the residency qmv's grids assume checked on the card; each
+    fa and paged call checked to take the kernel its types and shape ask
+    for;
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
     server answers 8 concurrent completions and one streamed one; the launch
     counters show the path went through every kernel (fa only through its
@@ -34,8 +39,9 @@ Phases, each printing one JSON line:
     and Q4_0 caches; the paged cache against the dense one;
  6. times: decode tok/s, time to first token (bf16, Q8_0, paged; a
     1000-token prompt on bf16 and paged), and each kernel's time beside its
-    plain version, a library call and its bound (qmm at every (K, N) of a
-    lone prompt chunk; fa at the serving wave, a lone 32-token chunk and a
+    plain version, a library call and its bound (qmv at every (K, N) of a
+    decode step and their sum over a step; qmm at every (K, N) of a lone
+    prompt chunk; fa at the serving wave, a lone 32-token chunk and a
     1024-token chunk; paged's prefill path at the serving chunk of a
     100-token prompt and at a long prompt's 256-token chunk),
     kernel and library both read from a CUDA graph over inputs rotated past
@@ -43,11 +49,13 @@ Phases, each printing one JSON line:
  7. profile: where a lone 32-token and a lone 1000-token prompt chunk's
     time goes (bf16 cache) and where one engine decode step's time goes on
     each cache
-    (torch.profiler), the decode-attention kernels and cache writes apart;
+    (torch.profiler), qmv, the decode-attention kernels and cache writes
+    apart;
  8. tools: the measurement tools' path (the qmv probe at two 8B shapes,
     ops_bench at its default shapes, flash_decode_probe, a short llama-bench
     on the 8B model) with its own launch counts, then each probe variant's
-    time beside its plain version, a library call, qmv and its bound.
+    time (from a CUDA graph, weights past the L2) beside its plain version,
+    a library call, qmv and its bound.
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 """
@@ -468,6 +476,65 @@ def check_probe_kernels(torch, record) -> None:
                 record(f"qmv_probe_{v}", f"{case} vs qmv", got, mv, torch.float32, tol=1e-10)
 
 
+def check_qmv_plans(torch) -> None:
+    """qmv_plan counts rounds of resident blocks with a table of the H100's
+    cluster residency: at every (K, N) of a decode step and each format,
+    the card holds at least the blocks the plan assumes for its cluster
+    size (cudaOccupancyMaxActiveClusters), at 8 and at 16 rows, so no grid
+    takes more rounds than planned (a grid of at most that many blocks, one
+    round). Prints the card's count for each cluster size beside the
+    table."""
+    import ctypes
+
+    from superllama_tpu_torch.ops import _build
+    from superllama_tpu_torch.ops import qmatmul as qm
+
+    fn = _build.load("qmv").slt_qmv_resident
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    emit({"phase": "qmv_resident", "card": {cl: fn(1, 128, 8, cl) for cl in range(1, 9)},
+          "plan_assumes": qm._QMV_CLUSTER_RESIDENT})
+    for fmt in (0, 1, 2):
+        for K, N in KN_8B:
+            p = qm.qmv_plan(fmt, K, N)
+            per_sm = min(qm._QMV_BLOCKS_SM, qm._QMV_SM_SMEM // (p.smem + 1024))
+            assumed = qm._QMV_CLUSTER_RESIDENT[p.cl] * per_sm // qm._QMV_BLOCKS_SM
+            for rows in (8, 16):
+                r = fn(fmt, p.bn, rows, p.cl)
+                check(r >= assumed, f"qmv fmt {fmt} K={K} N={N} rows {rows}: {p} assumes "
+                      f"{assumed} blocks resident, the card holds {r}")
+
+
+def check_qmv_rows(torch) -> None:
+    """qmv's sums run in an order fixed by (fmt, K, N): at every (K, N) of
+    a decode step (Q4_K, bf16 x), row 0 of an M 8 and an M 16 call equals
+    the same row alone at M 1, bit for bit; and one call is one device
+    kernel under torch.profiler (no quantizer, no reduce kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from superllama_tpu_torch.ops.qmatmul import qmv
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 20)
+    bf16 = torch.bfloat16
+    for i, (K, N) in enumerate(KN_8B):
+        qt = rand_weight(torch, "Q4_K", N, K, 300 + i)
+        x = torch.randn((16, K), generator=gen, device="cuda").to(bf16)
+        alone = qmv(x[:1], qt, bf16)
+        for M in (8, 16):
+            got = qmv(x[:M], qt, bf16)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], alone[0]),
+                  f"qmv K={K} N={N}: row 0 of an M {M} call differs from the row alone")
+        if N == 14336:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                qmv(x[:8], qt, bf16)
+                torch.cuda.synchronize()
+            kernels = device_rows(prof.key_averages())
+            check(sum(c for _, _, c in kernels) == 1 and "qmv_kernel" in kernels[0][0],
+                  f"one qmv call ran these device ops: {kernels}")
+        del qt
+
+
 def phase_kernels(torch) -> list:
     from superllama_tpu_torch.ops.flash_attention import (flash_attention,
                                                           flash_attention_plain)
@@ -544,13 +611,15 @@ def phase_kernels(torch) -> list:
             got = fn(x, qt, dt)
             ref = plain(x, qt, dt)
             case = f"{kind} M={M} K={K} N={N} {str(dt)[6:]}"
-            if kernel == "qmm":   # a fixed summation order: two calls, the same bits
-                again = fn(x, qt, dt)
-                torch.cuda.synchronize()
-                check(torch.equal(got, again), f"qmm {case}: two calls differ")
+            # a fixed summation order: two calls, the same bits
+            again = fn(x, qt, dt)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{kernel} {case}: two calls differ")
             torch.cuda.synchronize()
             record(kernel, case, got, ref, dt)
     weights.clear()
+    check_qmv_rows(torch)
+    check_qmv_plans(torch)
 
     fa_cases = [("T=32 bf16", dict(T=32)), ("T=128 bf16", dict(T=128)),
                 ("T=32 f32", dict(T=32, dtype="f32")),
@@ -1030,35 +1099,67 @@ def kernel_reading(torch, shape: str, call, plain, lib, n: int, nbytes: float, o
     return row
 
 
-def time_matmul_kernels(torch) -> dict:
-    """qmv at the 8B decode shape of ffn_gate/up (M 8, K 4096, N 14336,
-    Q4_K), and qmm at every (K, N) of a lone 32-token prompt chunk (M 32),
-    each beside torch.matmul on the dequantized bf16 weight; both sides
-    rotate over weight copies past the L2. ``qmm`` is the gate/up row; each
-    qmm row carries its launches in a lone chunk."""
-    from superllama_tpu_torch.ops.qmatmul import qmm, qmm_plain, qmv, qmv_plain
+def matmul_reading(torch, fn, plain, kind: str, M: int, K: int, N: int, ops_kind: str,
+                   seed: int = 50) -> dict:
+    """fn (qmv or qmm) at (M, K, N) with bf16 x and output, beside
+    torch.matmul on the dequantized bf16 weight; both sides rotate over
+    weight copies past the L2. The bound counts the weight planes, x and
+    the output once."""
     from superllama_tpu_torch.ops.qtensor import dequant_qtensor
 
+    first = rand_weight(torch, kind, N, K, seed)
+    copies = [first] + [rand_weight(torch, kind, N, K, seed + i)
+                        for i in range(1, n_copies(first.nbytes, 6 if N < 10**5 else 2))]
+    dense = [dequant_qtensor(copies[i % len(copies)], torch.bfloat16)
+             for i in range(n_copies(K * N * 2))]
+    x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
+    nbytes = first.nbytes + x.numel() * 2 + M * N * 2
+    row = kernel_reading(
+        torch, f"{kind} M={M} K={K} N={N} bf16",
+        lambda i: fn(x, copies[i % len(copies)], torch.bfloat16),
+        lambda i: plain(x, copies[i % len(copies)], torch.bfloat16),
+        lambda i: torch.matmul(x, dense[i % len(dense)]),
+        max(12, len(copies), len(dense)), nbytes, 2.0 * M * K * N, ops_kind)
+    del copies, dense
+    return row
+
+
+def time_qmv(torch) -> dict:
+    """qmv at every (K, N) of a decode step at M 8 (the serving wave's 8
+    rows; ``qmv`` is gate/up's row), at gate/up and wk/wv at M 1, and a
+    Q6_K gate/up at M 8; each row carries its launches in a decode step.
+    ``qmv_step`` sums launches x ms over the step's five shapes at M 8
+    beside the same sum of bounds and of torch.matmul's times."""
+    from superllama_tpu_torch.ops.qmatmul import qmv, qmv_plain
+
     out = {}
-    cases = [("qmv", 8, 4096, 14336, qmv, qmv_plain, "int8")]
-    cases += [(f"qmm K={K} N={N}", 32, K, N, qmm, qmm_plain, "bf16") for K, N in KN_8B]
-    for name, M, K, N, fn, plain, kind in cases:
-        first = rand_weight(torch, "Q4_K", N, K, 50)
-        copies = [first] + [rand_weight(torch, "Q4_K", N, K, 50 + i)
-                            for i in range(1, n_copies(first.nbytes, 6 if N < 10**5 else 2))]
-        dense = [dequant_qtensor(copies[i % len(copies)], torch.bfloat16)
-                 for i in range(n_copies(K * N * 2))]
-        x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
-        nbytes = first.nbytes + x.numel() * 2 + M * N * 2
-        out[name] = kernel_reading(
-            torch, f"Q4_K M={M} K={K} N={N} bf16",
-            lambda i: fn(x, copies[i % len(copies)], torch.bfloat16),
-            lambda i: plain(x, copies[i % len(copies)], torch.bfloat16),
-            lambda i: torch.matmul(x, dense[i % len(dense)]),
-            max(12, len(copies), len(dense)), nbytes, 2.0 * M * K * N, kind)
-        if fn is qmm:
-            out[name]["launches_per_chunk"] = CHUNK_LAUNCHES[(K, N)]
-        del copies, dense
+    for K, N in KN_8B:
+        row = matmul_reading(torch, qmv, qmv_plain, "Q4_K", 8, K, N, "int8")
+        row["launches_per_step"] = CHUNK_LAUNCHES[(K, N)]
+        out[f"qmv K={K} N={N}"] = row
+    for name, kind, M, K, N in (("qmv M=1 K=4096 N=14336", "Q4_K", 1, 4096, 14336),
+                                ("qmv M=1 K=4096 N=1024", "Q4_K", 1, 4096, 1024),
+                                ("qmv Q6_K K=4096 N=14336", "Q6_K", 8, 4096, 14336)):
+        out[name] = matmul_reading(torch, qmv, qmv_plain, kind, M, K, N, "int8")
+        out[name]["launches_per_step"] = CHUNK_LAUNCHES[(K, N)] if kind == "Q4_K" else 0
+    rows = [out[f"qmv K={K} N={N}"] for K, N in KN_8B]
+    out["qmv_step"] = {key: sum(r[key] * r["launches_per_step"] for r in rows)
+                       for key in ("ms", "bound_ms", "library_ms")}
+    out["qmv"] = out["qmv K=4096 N=14336"]
+    return out
+
+
+def time_matmul_kernels(torch) -> dict:
+    """qmm at every (K, N) of a lone 32-token prompt chunk (M 32, Q4_K);
+    ``qmm`` is the gate/up row; each row carries its launches in a lone
+    chunk."""
+    from superllama_tpu_torch.ops.qmatmul import qmm, qmm_plain
+
+    out = {}
+    for K, N in KN_8B:
+        row = matmul_reading(torch, qmm, qmm_plain, "Q4_K", 32, K, N, "bf16")
+        row["launches_per_chunk"] = CHUNK_LAUNCHES[(K, N)]
+        out[f"qmm K={K} N={N}"] = row
     out["qmm"] = out["qmm K=4096 N=14336"]
     return out
 
@@ -1330,8 +1431,8 @@ def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
 
 
 def kernel_times(torch) -> dict:
-    return {**time_matmul_kernels(torch), **time_fa(torch), **time_fd(torch),
-            **time_paged(torch)}
+    return {**time_qmv(torch), **time_matmul_kernels(torch), **time_fa(torch),
+            **time_fd(torch), **time_paged(torch)}
 
 
 def phase_times(torch, model, smi_line: str) -> dict:
@@ -1341,7 +1442,7 @@ def phase_times(torch, model, smi_line: str) -> dict:
                                      long_prompt=True)}
     kernels = kernel_times(torch)
     emit({"phase": "times", "card": smi_line, "serving": serving, "kernels": kernels,
-          "qmm_per_chunk": qmm_chunk(kernels),
+          "qmm_per_chunk": qmm_chunk(kernels), "qmv_per_step": kernels["qmv_step"],
           "decode_attention": time_decode_attention(torch)})
     return kernels
 
@@ -1389,6 +1490,9 @@ def profile_block(torch, model, label: str, **engine_kw) -> dict:
     device_ms = sum(t for _, t, _ in dev)
     attn = [(k, t, n) for k, t, n in dev
             if any(s in k for s in ("decode_kernel", "fd_combine", "paged_kernel"))]
+    # qmv's kernels (a parent tree's quantizer and reduce kernels too)
+    qmv_rows = [(k, t, n) for k, t, n in dev if any(
+        s in k for s in ("qmv_kernel", "quantize_acts_kernel", "reduce_splits_kernel"))]
     kv_write = [e for e in events if e.key == "kv_write" and e.self_cpu_time_total > 0]
     with open(os.path.join(OUT_DIR, f"profile_decode_{label}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
@@ -1400,6 +1504,7 @@ def profile_block(torch, model, label: str, **engine_kw) -> dict:
             "decode_attention_kernels": [{"name": k[:80], "ms": t, "count": n}
                                          for k, t, n in attn],
             "decode_attention_ms": sum(t for _, t, _ in attn),
+            "qmv_ms": sum(t for _, t, _ in qmv_rows), "qmv_ops": sum(n for _, _, n in qmv_rows),
             "kv_write_device_ms": sum(e.device_time_total for e in kv_write) / 1e3,
             "kv_write_calls": sum(e.count for e in kv_write),
             "top": [{"name": k[:80], "ms": t, "count": c} for k, t, c in top]}
@@ -1574,12 +1679,13 @@ def graph_ms(torch, fn, n: int, replays: int = 3) -> float:
 def time_probe(torch, smi_line: str) -> dict:
     """Each probe variant at M 8 on (K 4096, N 14336) and (4096, 4096), bf16
     x, weights rotating over copies that exceed the 50 MB L2: ``ms`` the
-    whole call with its torch prep (as every kernel's ms here, eager),
-    ``graph_ms`` the same replayed from a CUDA graph, ``kernel_ms`` the
+    whole call with its torch prep replayed from a CUDA graph (as every
+    kernel's ms here; ``ms_eager`` launched one by one), ``kernel_ms`` the
     kernel alone on prepared activations from a CUDA graph; beside them the
     plain version, ``torch.matmul`` of bf16 x with the dequantized bf16
-    weight, and qmv (eager and from a graph). The bound counts the weight
-    planes, int8 x, f32 sx/xs and the f32 output once."""
+    weight (``library_ms`` from a graph over copies past the L2, eager
+    beside it), and qmv (eager and from a graph). The bound counts the
+    weight planes, int8 x, f32 sx/xs and the f32 output once."""
     from superllama_tpu_torch.ops.qmatmul import qmv
     from superllama_tpu_torch.ops.qtensor import dequant_qtensor
     from superllama_tpu_torch.tools.qmv_probe import (VARIANTS, launch_variant, prep_acts,
@@ -1591,10 +1697,11 @@ def time_probe(torch, smi_line: str) -> dict:
     for K, N in ((4096, 14336), (4096, 4096)):
         n_copies = max(6, -(-120_000_000 // (K * N * 9 // 16)))
         copies = [rand_weight(torch, "Q4_K", N, K, 700 + i) for i in range(n_copies)]
-        dense = [dequant_qtensor(w, torch.bfloat16) for w in copies[:2]]
+        dense = [dequant_qtensor(copies[i], torch.bfloat16) for i in range(4)]
         x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
         w = lambda i: copies[i % n_copies]
-        lib_ms = cuda_ms(torch, lambda i: torch.matmul(x, dense[i % 2]), 60)
+        lib = lambda i: torch.matmul(x, dense[i % 4])
+        lib_ms, lib_eager = graph_ms(torch, lib, 48), cuda_ms(torch, lib, 60)
         shape = {"qmv_ms": cuda_ms(torch, lambda i: qmv(x, w(i), torch.float32), 60),
                  "qmv_graph_ms": graph_ms(torch, lambda i: qmv(x, w(i), torch.float32), 48)}
         G = K // 32
@@ -1604,11 +1711,12 @@ def time_probe(torch, smi_line: str) -> dict:
             acts = prep_acts(x, v)
             out[f"qmv_probe_{v} N={N}"] = {
                 "shape": f"Q4_K M={M} K={K} N={N} bf16 x, f32 out",
-                "ms": cuda_ms(torch, lambda i: qmv_variant(x, w(i), v), 60),
-                "graph_ms": graph_ms(torch, lambda i: qmv_variant(x, w(i), v), 48),
+                "ms": graph_ms(torch, lambda i: qmv_variant(x, w(i), v), 48),
+                "ms_eager": cuda_ms(torch, lambda i: qmv_variant(x, w(i), v), 60),
                 "kernel_ms": graph_ms(torch, lambda i: launch_variant(acts, w(i), v), 48),
                 "plain_ms": cuda_ms(torch, lambda i: qmv_variant_plain(x, w(i), v), 3, 1),
-                "library_ms": lib_ms, "bound_ms": b, "bound_by": by, "bytes": nbytes,
+                "library_ms": lib_ms, "library_ms_eager": lib_eager, "bound_ms": b,
+                "bound_by": by, "bytes": nbytes,
                 **shape}
         del copies, dense
     emit({"phase": "probe_times", "card": smi_line, "seconds": time.perf_counter() - t0,
@@ -1664,6 +1772,13 @@ def main() -> int:
     if "--fa-times" in sys.argv[1:]:
         # fa's rows of phase 6 alone, for comparing versions of its kernels
         emit({"phase": "fa_times", "card": info["nvidia_smi"], "kernels": time_fa(torch)})
+        return 0
+    if "--qmv-times" in sys.argv[1:]:
+        # qmv's rows of phase 6 and a bf16 decode block's profile, for
+        # comparing versions of its kernel
+        emit({"phase": "qmv_times", "card": info["nvidia_smi"], "kernels": time_qmv(torch)})
+        emit({"phase": "profile", "what": "one engine step = 8 greedy decode steps, 8 rows",
+              **profile_block(torch, build_model(torch), "bf16")})
         return 0
     if "--paged-times" in sys.argv[1:]:
         # paged's rows of phase 6 alone (decode and four prefill shapes)

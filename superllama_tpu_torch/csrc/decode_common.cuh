@@ -208,22 +208,6 @@ __device__ __forceinline__ void unpack_bf16x2(uint32_t w, float& lo, float& hi) 
   hi = __uint_as_float(w & 0xffff0000u);
 }
 
-__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) | ((uint32_t)(c & 0xff) << 16) |
-         ((uint32_t)(d & 0xff) << 24);
-}
-
-// d += a * b on the tensor cores: m16n8k32 s8 -> s32 (bf16: ptx::mma_bf16)
-__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-
-
 // one query row's dot with the K row whose lane-held part is kf / ku:
 // elements d = (sub + 8k) * EPU + i of 16-byte unit k of this lane
 template <int KIND>

@@ -1,7 +1,7 @@
 // ptx.cuh: the PTX building blocks the port's Hopper kernels share
-// (decode_common.cuh, qmm.cu): shared-memory addresses, mbarriers, bulk
-// copies completed on an mbarrier, bf16 packing and the bf16 tensor-core
-// product.
+// (decode_common.cuh, qmm.cu, qmv.cu): shared-memory addresses, mbarriers,
+// bulk copies and cp.async copies completed on an mbarrier, bf16 and int8
+// packing, and the bf16 and int8 tensor-core products.
 
 #pragma once
 
@@ -53,6 +53,25 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// 16 bytes global -> shared (both 16-byte aligned), through L2 only
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// 4 bytes global -> shared (both 4-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// arrive on bar once this thread's cp.async copies so far have landed (the
+// barrier counts these arrivals: one a producer thread)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -65,6 +84,41 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) | ((uint32_t)(c & 0xff) << 16) |
+         ((uint32_t)(d & 0xff) << 24);
+}
+
+// d += a * b on the tensor cores: m16n8k32 s8 -> s32
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a * b + c on the tensor cores, c the same in every element:
+// m16n8k32 s8 -> s32
+__device__ __forceinline__ void mma_s8_c(int* d, const uint32_t* a, uint32_t b0, uint32_t b1,
+                                         int c) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%10,%10,%10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(c));
+}
+
+// d = a * b + c: m16n8k16 s8 -> s32
+__device__ __forceinline__ void mma_s8_k16_c(int* d, uint32_t a0, uint32_t a1, uint32_t b0,
+                                             int c) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%7,%7,%7,%7};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0), "r"(c));
 }
 
 }  // namespace ptx

@@ -218,19 +218,6 @@ struct Stage {
   static constexpr int SMEM = NST * BYTES + 2 * NST * 8;
 };
 
-// 16 bytes global -> shared (both 16-byte aligned), through L2 only
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-// arrive on bar once this thread's cp.async copies so far have landed (the
-// barrier counts these arrivals: 32, one a producer lane)
-__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
 // code byte j of nib (values < 256), dequantized: f = 2^23 + byte is
 // exact in f32. Q8_0 / Q6_K: one exact subtraction gives byte - bias, then
 // fmul_rn by s. Q4_K (no bias): fma_rn(f, s, c) with c = -2^23 s (exact: a

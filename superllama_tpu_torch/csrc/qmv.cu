@@ -1,310 +1,641 @@
-// qmv: int8-activation grouped GEMV over repacked quantized weights, M <= 16.
+// qmv: int8-activation grouped GEMV over repacked quantized weights, M <= 16
+// rows a launch: every matmul of a decode step.
 //
 // Replaces the TPU kernel _qmv_kernel (superllama_tpu/ops/qmatmul.py:235,
-// launched by _qmatmul_mv). It computes
+// launched by _qmatmul_mv). It computes, in the same association,
 //
-//   y[m,n] = sum_g sx[m,g]*s[g,n]*(sum_{k in g} xq[m,k]*q[k,n])
-//          + sum_g xs[m,g]*(a[g,n] - offset*s[g,n])
+//   y[m,n] = sum_g ig[m,g,n]*(sx[m,g]*s[g,n]) + sum_g xs[m,g]*c[g,n]
 //
-// with the activations quantized per weight group exactly as _quantize_acts
-// does (inv = 127/amax first, round half to even, xs = sum(xq)*sx). The group
-// dots are exact integer arithmetic (__dp4a on packed int8).
+// with ig the exact integer dot of a group's int8 activation codes with its
+// weight codes and c = a - offset*s, the activations quantized per weight
+// group exactly as quantize_acts (ops/qmatmul.py) and _quantize_acts do:
+// inv = 127/amax by true division, codes rintf(x*inv), xs = sum(codes)*sx.
 //
-// What bounds it on the H100: bytes. At decode every weight byte is read once
-// and used by M <= 16 rows, far below the card's ops-per-byte balance. The
-// design keeps the weight codes packed (0.5 B/weight for Q4_K nibbles) and
-// reads each (K, N) row coalesced: a thread owns 4 adjacent columns and loads
-// one 32-bit word per code row, so a warp reads 128 contiguous bytes. A
-// block of 256 threads is 4 k-slices x 64 column threads; the slices split the
-// block's K range and are summed through shared memory in a fixed order. When
-// N alone gives too few blocks, the grid also splits K and a second kernel
-// sums the f32 partials in split order. The split depends only on (K, N), so
-// a row's result does not depend on how many rows share the launch.
+// What bounds it on the H100: bytes. At decode each weight byte is read once
+// and used by M <= 16 rows (Q4_K: 0.59 bytes a weight, 16 int8 products a
+// byte at M 8), far under the card's ops-per-byte balance: gate/up of an 8B
+// model (K 4096, N 14336) needs 0.0105 ms at 3.35 TB/s. The design:
+//  - One launch a call. Each block quantizes the K range it owns of x's rows
+//    into shared memory itself (a thread a (row, 32-group): amax, codes
+//    rounded by adding 1.5 * 2^23, the code sum an exact integer), laid out
+//    as the B fragments of the tensor-core product.
+//    No quantizer kernel, no reduce kernel, no partials in device memory.
+//  - The group dots on the int8 tensor cores: mma.sync m16n8k32 s8 -> s32
+//    with the weights as A (16 columns) and x as B (8 rows; two fragments at
+//    M 9-16), so one product is one 32-group's exact dot for 16 columns x 8
+//    rows; Q6_K's 16-groups take m16n8k16. The codes need no dequantize:
+//    a lane reads code rows t, t+4, t+8, t+12 of its 4 columns (32-bit
+//    shared loads, conflict-free at a row stride of 32 mod 64 bytes) and a
+//    byte transpose gives one column's 4 codes a register; the low nibbles
+//    are elements t+4i, the high ones 16+t+4i, and x's codes are laid out
+//    in that k order. Each product is then scaled in f32 by sx*s and the
+//    group-sum correction added, per lane 4 columns x 2 rows a fragment.
+//  - The weight planes of a block's column tile stream through a ring of
+//    NST stages (3; 4 for Q4_K at 8 rows; 2 for Q6_K's larger tiles) of
+//    one superblock (Q8_0: 4-8 groups): a producer warp fills a stage with
+//    16-byte cp.async copies (4-byte ones when N is not a multiple of 16),
+//    pointer increments down each lane's column, completed on the stage's
+//    `full` mbarrier; the 8 consumer warps (column slabs x k warps) free it
+//    on `empty`. Up to 94 KB a block, two blocks an SM, are in flight.
+//  - A grid that fills the card at every decode shape: qmv_plan (in
+//    ops/qmatmul.py, a function of (fmt, K, N) only) picks the column tile
+//    (128, 64 or 32) and a thread block cluster of up to 8 blocks along K,
+//    counting rounds of the blocks the card holds at once for that cluster
+//    size (8 ranks fit 240 of 264 slots); the ranks' f32 sums are added in rank
+//    order through distributed shared memory, the k warps' in warp order
+//    before them. No atomics: every sum runs in a fixed order, so two calls
+//    give the same bits and a row's output does not depend on how many rows
+//    share the call. A block alone skips the cluster barriers.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py --qmv-times; PERF.md
+// section 6): at gate/up (K 4096, N 14336, M 8) the kernel reads 0.020 ms against
+// a 0.0105 ms bound; a copy without the weight copies reads 0.0157 and one
+// without the quantizer and the products 0.0159, so the copies and the
+// work on them each set about the same time and overlap only in part.
+// Edges: columns past N and rows past M compute on stale shared memory or
+// zero codes and are never stored.
 //
 // Weight formats (FMT): 0 = Q8_0 (int8 codes, f32 scale plane, gs 32),
 // 1 = Q4_K compact (nibbles, u8 sc/mn, f32 d/dmin per 256, gs 32),
 // 2 = Q6_K compact (nibbles + 2-bit hi plane, i8 sc, f32 d per 256, gs 16,
 // offset 32).
 
-#include <cuda_runtime.h>
+#include "ptx.cuh"
+
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TPB = 256;      // threads per block
-constexpr int KS = 4;         // k-slices per block
-constexpr int CT = TPB / KS;  // column threads per slice (4 columns each)
+namespace cg = cooperative_groups;
+using namespace ptx;
 
-__device__ __forceinline__ float load_x(const void* x, int bf16, long i) {
-  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(x)[i])
-              : reinterpret_cast<const float*>(x)[i];
-}
-
-// One thread per (row, group): int8 codes, scale and dequantized group sum.
-__global__ void quantize_acts_kernel(const void* __restrict__ x, int x_bf16, int M,
-                                     int K, int gs, int8_t* __restrict__ xq,
-                                     float* __restrict__ sx, float* __restrict__ xs) {
-  const int G = K / gs;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * G) return;
-  const long base = (long)(idx / G) * K + (long)(idx % G) * gs;
-  float amax = 0.f;
-  for (int i = 0; i < gs; ++i) amax = fmaxf(amax, fabsf(load_x(x, x_bf16, base + i)));
-  const float s = amax / 127.0f;
-  const float inv = amax > 0.f ? 127.0f / amax : 0.f;
-  int sum = 0;
-  for (int i = 0; i < gs; ++i) {
-    const int q = (int)rintf(__fmul_rn(load_x(x, x_bf16, base + i), inv));
-    xq[base + i] = (int8_t)q;
-    sum += q;
-  }
-  sx[idx] = s;
-  xs[idx] = __fmul_rn((float)sum, s);
-}
-
-// 4x4 byte transpose: rows r0..r3 hold 4 columns each; out[j] packs column j
-// of the four rows (row 0 in the low byte), the k-order __dp4a expects.
-__device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1, uint32_t r2,
-                                           uint32_t r3, int out[4]) {
-  const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r2, r3, 0x5140);
-  const uint32_t t2 = __byte_perm(r0, r1, 0x7362), t3 = __byte_perm(r2, r3, 0x7362);
-  out[0] = (int)__byte_perm(t0, t1, 0x5410);
-  out[1] = (int)__byte_perm(t0, t1, 0x7632);
-  out[2] = (int)__byte_perm(t2, t3, 0x5410);
-  out[3] = (int)__byte_perm(t2, t3, 0x7632);
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return __ldg(reinterpret_cast<const uint32_t*>(p));
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float f4(const float4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
+constexpr int NCW = 8;               // consumer warps
+constexpr int NTC = NCW * 32;        // consumer threads
+constexpr int NT = NTC + 32;         // and the producer warp
+constexpr int MAXR = 16;             // rows a launch
+constexpr uint32_t M4 = 0x0F0F0F0Fu;
 
 struct Args {
-  const int8_t* xq; const float* sx; const float* xs;
-  int M, K, N;
+  int M, K, N, per;                  // per: K units (superblocks; Q8_0 groups) a rank
+  const void* x; int x_bf16;
   const uint8_t* codes; const uint8_t* hi; const float* scales;
   const uint8_t* sc; const uint8_t* mn; const float* d; const float* dmin;
-  int units_per_split;  // 256-element superblocks (K-quants) or 32-groups (Q8_0)
-  float* part;          // (n_split, M, N) partial sums, or null
   void* out; int out_bf16;
+  int wide;                          // 16-byte copies, else 4-byte
 };
 
-// Accumulate one 32-element code group (packed words p[q][j]: quad q of
-// column j) against the activation words of every row.
-template <int MB>
-__device__ __forceinline__ void dot_rows(const Args& a, int k0, int g_lo, int g_hi,
-                                         const int p[8][4], const float s_lo[4],
-                                         const float s_hi[4], const float c_lo[4],
-                                         const float c_hi[4], bool corr,
-                                         float acc[MB][4]) {
-  const int G = a.K / (g_lo == g_hi ? 32 : 16);
-#pragma unroll
-  for (int m = 0; m < MB; ++m) {
-    if (m >= a.M) break;
-    const int4* xw = reinterpret_cast<const int4*>(a.xq + (long)m * a.K + k0);
-    const int4 x0 = __ldg(xw), x1 = __ldg(xw + 1);
-    const int xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-    const float sx_lo = __ldg(a.sx + (long)m * G + g_lo), sx_hi = __ldg(a.sx + (long)m * G + g_hi);
-    const float xs_lo = __ldg(a.xs + (long)m * G + g_lo), xs_hi = __ldg(a.xs + (long)m * G + g_hi);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int d_lo = 0, d_hi = 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) d_lo = __dp4a(p[q][j], xv[q], d_lo);
-#pragma unroll
-      for (int q = 4; q < 8; ++q) d_hi = __dp4a(p[q][j], xv[q], d_hi);
-      if (g_lo == g_hi) {   // one 32-group: one scale
-        acc[m][j] += (float)(d_lo + d_hi) * (sx_lo * s_lo[j]);
-        if (corr) acc[m][j] += xs_lo * c_lo[j];
-      } else {              // two 16-groups
-        acc[m][j] += (float)d_lo * (sx_lo * s_lo[j]);
-        acc[m][j] += (float)d_hi * (sx_hi * s_hi[j]);
-        if (corr) acc[m][j] += xs_lo * c_lo[j] + xs_hi * c_hi[j];
-      }
+// one instantiation's geometry: format, BN columns, NB n8 fragments of rows.
+// ops/qmatmul.py::_qmv_smem mirrors SMEM: change both together.
+template <int FMT, int BN, int NB>
+struct Geo {
+  static constexpr int NS = BN / 32;                        // column slabs
+  static constexpr int KW = NCW / NS;                       // k warps
+  static constexpr int GT = FMT == 0 ? (BN == 32 ? 8 : 4) : 8;   // 32-groups a tile
+  static constexpr int UPG = FMT == 0 ? 1 : 8;              // 32-groups a K unit
+  static constexpr int NST = FMT == 2 ? 2 : FMT == 1 && NB == 1 ? 4 : 3;   // ring stages
+  static constexpr int XG = FMT == 2 ? 32 : 64;             // 32-groups of x a chunk
+  static constexpr int QG = FMT == 2 ? 2 : 1;               // quantizer groups a 32-group
+  static constexpr int ROW = BN == 32 ? 32 : BN + 32;       // code / hi row stride
+  static constexpr int CODE_ROWS = FMT == 0 ? GT * 32 : GT * 16;
+  static constexpr int HI_ROWS = FMT == 2 ? GT * 8 : 0;
+  static constexpr int SC_ROWS = FMT == 1 ? GT : FMT == 2 ? 2 * GT : 0;
+  // byte offsets inside one ring stage (all multiples of 16)
+  static constexpr int HI = CODE_ROWS * ROW;
+  static constexpr int SC = HI + HI_ROWS * ROW;
+  static constexpr int MN = SC + SC_ROWS * BN;
+  static constexpr int D = MN + (FMT == 1 ? GT * BN : 0);
+  static constexpr int DMIN = D + (FMT == 0 ? 0 : BN * 4);
+  static constexpr int SCL = DMIN + (FMT == 1 ? BN * 4 : 0);
+  static constexpr int STAGE = SCL + (FMT == 0 ? GT * BN * 4 : 0);
+  // after the ring: x's codes as B fragments, then (sx, xs) pairs at
+  // (quantizer group, row)
+  static constexpr int XC = NST * STAGE;
+  static constexpr int SXS = XC + XG * NB * 256;
+  static constexpr int BAR = SXS + XG * QG * 8 * NB * 8;
+  static constexpr int SMEM = BAR + 2 * NST * 8;
+  // the end's sums reuse the ring and x: the k warps' (KW, 8 NB, BN) f32,
+  // then the block's (8 NB, BN)
+  static constexpr int PART = KW * 8 * NB * BN * 4;
+  static_assert(PART + 8 * NB * BN * 4 <= BAR, "the sums outgrow the ring");
+};
+
+__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 4x4 byte transpose: r[i] holds row i of 4 columns; out[j] packs column j
+// of the four rows (row 0 in the low byte)
+__device__ __forceinline__ void transpose4(const uint32_t r[4], uint32_t out[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+  out[0] = __byte_perm(t0, t1, 0x5410);
+  out[1] = __byte_perm(t0, t1, 0x7632);
+  out[2] = __byte_perm(t2, t3, 0x5410);
+  out[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// byte j of w as 2^23 + byte, an exact f32
+__device__ __forceinline__ float u8_biased(uint32_t w, int j) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u + j));
+}
+
+// the products start from 1.5 * 2^23's bit pattern, so each integer dot
+// |v| < 2^22 comes out as the bits of 1.5 * 2^23 + v: one exact subtraction
+// makes it an f32 (no conversion instruction)
+constexpr int MAGIC_BITS = 0x4B400000;
+__device__ __forceinline__ float i2f(int bits) { return __int_as_float(bits) - 12582912.f; }
+
+// ------------------------------------------------------------ the producer
+
+// n rows from src (row stride sstride) into dst (row stride dstride), of
+// which `valid` bytes a row (the ragged tile's columns) are copied; W is a
+// full tile row's bytes. Each lane keeps one chunk column and steps down its
+// rows by pointer increments.
+template <int W>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int dstride,
+                                          const unsigned char* src, long sstride, int n,
+                                          int valid, bool wide, int lane) {
+  if (wide) {
+    constexpr int CPR = W / 16;   // 16-byte chunks a row: 2 .. 32
+    constexpr int RPP = CPR >= 32 ? 1 : 32 / CPR;
+    const int q = CPR >= 32 ? lane : lane % CPR, r0 = CPR >= 32 ? 0 : lane / CPR;
+    if (q * 16 >= valid) return;
+    src += r0 * sstride + q * 16;
+    dst += r0 * dstride + q * 16;
+    for (int r = r0; r < n; r += RPP, src += RPP * sstride, dst += RPP * dstride)
+      cp_async16(dst, src);
+  } else {
+    constexpr int WPR = W / 4;    // 4-byte words a row: 8 .. 128
+    if constexpr (WPR >= 32) {
+      for (int r = 0; r < n; ++r, src += sstride, dst += dstride)
+        for (int q = lane; q * 4 < valid; q += 32) cp_async4(dst + q * 4, src + q * 4);
+    } else {
+      constexpr int RPP = 32 / WPR;
+      const int q = lane % WPR, r0 = lane / WPR;
+      if (q * 4 >= valid) return;
+      src += r0 * sstride + q * 4;
+      dst += r0 * dstride + q * 4;
+      for (int r = r0; r < n; r += RPP, src += RPP * sstride, dst += RPP * dstride)
+        cp_async4(dst, src);
     }
   }
 }
 
-template <int FMT, int MB>
-__global__ void __launch_bounds__(TPB) qmv_kernel(Args a) {
-  __shared__ float red[(KS - 1) * MB * 4 * CT];
-  const int ct = threadIdx.x % CT, ks = threadIdx.x / CT;
-  const int c0 = (blockIdx.x * CT + ct) * 4;
-  const bool valid = c0 < a.N;
+template <int FMT, int BN, int NB>
+__device__ __forceinline__ void produce(const Args& a, unsigned char* smem, uint64_t* full,
+                                        uint64_t* empty, int n0, int ncol, int g0, int g1,
+                                        int nt, int lane) {
+  using G = Geo<FMT, BN, NB>;
   const long N = a.N;
-  const int n_units = FMT == 0 ? a.K / 32 : a.K / 256;
-  const int u0 = blockIdx.y * a.units_per_split;
-  const int u1 = min(n_units, u0 + a.units_per_split);
+  const bool wide = a.wide;
+  // a plane's rows from row0 (esz-byte elements), at this tile's columns
+  auto plane = [&](const void* p, int esz, long row0) {
+    return reinterpret_cast<const unsigned char*>(p) + (row0 * N + n0) * esz;
+  };
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % G::NST;
+    if (i >= G::NST) mbar_wait(&empty[st], (i / G::NST - 1) & 1);
+    const int gt0 = g0 + i * G::GT, gn = min(G::GT, g1 - gt0);
+    unsigned char* s = smem + st * G::STAGE;
+    if constexpr (FMT == 0) {
+      copy_rows<BN>(s, G::ROW, plane(a.codes, 1, gt0 * 32L), N, gn * 32, ncol, wide, lane);
+      copy_rows<BN * 4>(s + G::SCL, BN * 4, plane(a.scales, 4, gt0), N * 4, gn, ncol * 4,
+                        wide, lane);
+    } else {
+      copy_rows<BN>(s, G::ROW, plane(a.codes, 1, gt0 * 16L), N, gn * 16, ncol, wide, lane);
+      copy_rows<BN * 4>(s + G::D, BN * 4, plane(a.d, 4, gt0 / 8), N * 4, 1, ncol * 4, wide,
+                        lane);
+      if constexpr (FMT == 1) {
+        copy_rows<BN>(s + G::SC, BN, plane(a.sc, 1, gt0), N, gn, ncol, wide, lane);
+        copy_rows<BN>(s + G::MN, BN, plane(a.mn, 1, gt0), N, gn, ncol, wide, lane);
+        copy_rows<BN * 4>(s + G::DMIN, BN * 4, plane(a.dmin, 4, gt0 / 8), N * 4, 1, ncol * 4,
+                          wide, lane);
+      } else {
+        copy_rows<BN>(s + G::HI, G::ROW, plane(a.hi, 1, gt0 * 8L), N, gn * 8, ncol, wide, lane);
+        copy_rows<BN>(s + G::SC, BN, plane(a.sc, 1, gt0 * 2L), N, gn * 2, ncol, wide, lane);
+      }
+    }
+    cp_async_arrive_noinc(&full[st]);
+  }
+}
 
-  float acc[MB][4];
-#pragma unroll
-  for (int m = 0; m < MB; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+// ------------------------------------------------------------ the quantizer
 
-  for (int u = u0 + ks; valid && u < u1; u += KS) {
-    if (FMT == 0) {
-      // Q8_0: 32 int8 code rows, f32 scale plane, no adds, offset 0
-      const int k0 = u * 32;
-      uint32_t w[32];
-#pragma unroll
-      for (int r = 0; r < 32; ++r) w[r] = ld32(a.codes + (k0 + r) * N + c0);
-      int p[8][4];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) transpose4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3], p[q]);
-      const float4 s4 = ld4(a.scales + (long)u * N + c0);
-      const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-      dot_rows<MB>(a, k0, u, u, p, s, s, s, s, false, acc);
-    } else if (FMT == 1) {
-      // Q4_K: per 32-group u8 sub-scale/min, f32 d/dmin per superblock
-      const float4 d4 = ld4(a.d + (long)u * N + c0), m4 = ld4(a.dmin + (long)u * N + c0);
-      for (int gi = 0; gi < 8; ++gi) {
-        const int g = u * 8 + gi, k0 = g * 32;
-        const uint32_t sc4 = ld32(a.sc + (long)g * N + c0), mn4 = ld32(a.mn + (long)g * N + c0);
-        float s[4], c[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[j] = f4(d4, j) * (float)((sc4 >> (8 * j)) & 0xFF);
-          c[j] = -(f4(m4, j) * (float)((mn4 >> (8 * j)) & 0xFF));
-        }
-        uint32_t w[16];
-#pragma unroll
-        for (int r = 0; r < 16; ++r) w[r] = ld32(a.codes + (long)(k0 / 2 + r) * N + c0);
-        int p[8][4];
+// x's rows m < 8 NB over the chunk's 32-groups [c0, c0 + cn) into shared
+// memory: int8 codes as B fragments (32-group grp, fragment m / 8, lane
+// (m % 8) * 4 + t, register h: elements 16 h + t + 4 i, i = 0..3, so a
+// (row, group)'s 8 words are contiguous), (sx, xs) at (quantizer group,
+// row). One thread a (row, 32-group), rows fastest; rows past M get zero
+// codes, sx and xs. The codes round by adding 1.5 * 2^23 (round half to
+// even, as rintf), their low bytes are the int8 codes and the sum of the
+// bit patterns less 1.5 * 2^23 each is the exact code sum.
+template <int FMT, int NB>
+__device__ __forceinline__ void quantize(const Args& a, uint32_t* xc, float2* sxs, int c0,
+                                         int cn, int tid) {
+  constexpr int R = 8 * NB;
+  constexpr int GS = FMT == 2 ? 16 : 32;   // elements a quantizer group
+  constexpr float MAGIC = 12582912.f;      // 1.5 * 2^23
+  for (int it = tid; it < R * cn; it += NTC) {
+    const int m = it % R, grp = it / R;
+    float v[32];
+    if (m < a.M) {
+      const long k = (long)m * a.K + (c0 + grp) * 32L;
+      if (a.x_bf16) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            reinterpret_cast<const __nv_bfloat16*>(a.x) + k);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          transpose4(w[4 * q] & 0x0F0F0F0F, w[4 * q + 1] & 0x0F0F0F0F,
-                     w[4 * q + 2] & 0x0F0F0F0F, w[4 * q + 3] & 0x0F0F0F0F, p[q]);
-          transpose4((w[4 * q] >> 4) & 0x0F0F0F0F, (w[4 * q + 1] >> 4) & 0x0F0F0F0F,
-                     (w[4 * q + 2] >> 4) & 0x0F0F0F0F, (w[4 * q + 3] >> 4) & 0x0F0F0F0F,
-                     p[4 + q]);
+          const uint4 w = __ldg(src + q);
+          const uint32_t ww[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            v[8 * q + 2 * e] = __uint_as_float(ww[e] << 16);
+            v[8 * q + 2 * e + 1] = __uint_as_float(ww[e] & 0xffff0000u);
+          }
         }
-        dot_rows<MB>(a, k0, g, g, p, s, s, c, c, true, acc);
-      }
-    } else {
-      // Q6_K: nibbles + 2-bit hi plane, signed i8 sub-scale per 16-group,
-      // codes offset by 32 (folded into the group-sum correction)
-      const float4 d4 = ld4(a.d + (long)u * N + c0);
-      for (int gi = 0; gi < 8; ++gi) {
-        const int k0 = u * 256 + gi * 32, g16 = k0 / 16;
-        const uint32_t sl = ld32(a.sc + (long)g16 * N + c0), sh = ld32(a.sc + (long)(g16 + 1) * N + c0);
-        float s_lo[4], s_hi[4], c_lo[4], c_hi[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s_lo[j] = f4(d4, j) * (float)(int8_t)((sl >> (8 * j)) & 0xFF);
-          s_hi[j] = f4(d4, j) * (float)(int8_t)((sh >> (8 * j)) & 0xFF);
-          c_lo[j] = -32.0f * s_lo[j];
-          c_hi[j] = -32.0f * s_hi[j];
-        }
-        uint32_t w[16], h[8];
-#pragma unroll
-        for (int r = 0; r < 16; ++r) w[r] = ld32(a.codes + (long)(k0 / 2 + r) * N + c0);
-#pragma unroll
-        for (int r = 0; r < 8; ++r) h[r] = ld32(a.hi + (long)(k0 / 4 + r) * N + c0);
-        int p[8][4];
+      } else {
+        const float4* src = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(a.x) + k);
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          uint32_t rows[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int e = 4 * q + i;                       // element of the 32-group
-            const uint32_t nib = q < 4 ? (w[e] & 0x0F0F0F0F) : ((w[e - 16] >> 4) & 0x0F0F0F0F);
-            const uint32_t hb = (h[e % 8] >> (2 * (e / 8))) & 0x03030303;
-            rows[i] = nib | (hb << 4);
-          }
-          transpose4(rows[0], rows[1], rows[2], rows[3], p[q]);
+          const float4 w = __ldg(src + q);
+          v[4 * q] = w.x; v[4 * q + 1] = w.y; v[4 * q + 2] = w.z; v[4 * q + 3] = w.w;
         }
-        dot_rows<MB>(a, k0, g16, g16 + 1, p, s_lo, s_hi, c_lo, c_hi, true, acc);
       }
-    }
-  }
-
-  // sum the k-slices in a fixed order: slice 0 + 1 + 2 + 3
-  if (ks > 0) {
-#pragma unroll
-    for (int m = 0; m < MB; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[(((ks - 1) * MB + m) * 4 + j) * CT + ct] = acc[m][j];
-  }
-  __syncthreads();
-  if (ks != 0 || !valid) return;
-  for (int m = 0; m < MB && m < a.M; ++m) {
-    float o[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v = acc[m][j];
-#pragma unroll
-      for (int s = 0; s < KS - 1; ++s) v += red[((s * MB + m) * 4 + j) * CT + ct];
-      o[j] = v;
-    }
-    if (a.part) {
-      float* dst = a.part + ((long)blockIdx.y * a.M + m) * N + c0;
-      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
-    } else if (a.out_bf16) {
-      __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(a.out) + (long)m * N + c0;
-      for (int j = 0; j < 4; ++j) dst[j] = __float2bfloat16_rn(o[j]);
     } else {
-      float* dst = reinterpret_cast<float*>(a.out) + (long)m * N + c0;
-      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) v[e] = 0.f;
     }
+    uint32_t b[32];
+#pragma unroll
+    for (int h0 = 0; h0 < 32; h0 += GS) {
+      float amax = 0.f;
+#pragma unroll
+      for (int e = h0; e < h0 + GS; ++e) amax = fmaxf(amax, fabsf(v[e]));
+      const float sx = amax / 127.0f;
+      const float inv = amax > 0.f ? 127.0f / amax : 0.f;
+      uint32_t sum = 0;
+#pragma unroll
+      for (int e = h0; e < h0 + GS; ++e) {
+        b[e] = __float_as_uint(__fadd_rn(__fmul_rn(v[e], inv), MAGIC));
+        sum += b[e];
+      }
+      sum -= (uint32_t)GS * 0x4B400000u;   // exact modulo 2^32
+      const int qg = FMT == 2 ? 2 * grp + h0 / 16 : grp;
+      sxs[qg * R + m] = make_float2(sx, __fmul_rn((float)(int)sum, sx));
+    }
+    uint32_t w[8];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = 16 * h + t;
+        w[2 * t + h] = __byte_perm(__byte_perm(b[e], b[e + 4], 0x0040),
+                                   __byte_perm(b[e + 8], b[e + 12], 0x0040), 0x5410);
+      }
+    uint4* dst = reinterpret_cast<uint4*>(xc + ((grp * NB + (m >> 3)) * 32 + (m & 7) * 4) * 2);
+    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
   }
 }
 
-// Sum the K-split partials in split order and cast to the output type.
-__global__ void reduce_splits_kernel(const float* __restrict__ part, int n_split, long MN,
-                                     void* out, int out_bf16) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float v = 0.f;
-  for (int s = 0; s < n_split; ++s) v += part[s * MN + i];
-  if (out_bf16) reinterpret_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
-  else reinterpret_cast<float*>(out)[i] = v;
+// ------------------------------------------------------------ the kernel
+
+template <int FMT, int BN, int NB>
+__global__ void __launch_bounds__(NT, 2) qmv_kernel(Args a) {
+  using G = Geo<FMT, BN, NB>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BAR);
+  uint64_t* empty = full + G::NST;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = blockIdx.x, cl = gridDim.x;       // the cluster spans grid x
+  const int n0 = blockIdx.y * BN, ncol = min(BN, a.N - n0);
+  const int n_units = FMT == 0 ? a.K / 32 : a.K / 256;
+  const int g0 = min(rank * a.per, n_units) * G::UPG;       // this block's 32-groups
+  const int g1 = min((rank + 1) * a.per, n_units) * G::UPG;
+  const int nt = (g1 - g0 + G::GT - 1) / G::GT;
+  if (tid == 0) {
+    for (int i = 0; i < G::NST; ++i) { mbar_init(&full[i], 32); mbar_init(&empty[i], NCW); }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // lane (g, t) of consumer warp (slab, kw) owns tile columns cw .. cw + 3
+  // (A rows g <-> cw + 2f, g + 8 <-> cw + 2f + 1 of fragment f) and rows
+  // 8 nb + 2t, 2t + 1 of x (the products' columns)
+  const int slab = warp % G::NS, kw = warp / G::NS, g = lane >> 2, t = lane & 3;
+  const int cw = slab * 32 + 4 * g;
+  float acc[NB][4][2];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[nb][j][0] = acc[nb][j][1] = 0.f;
+
+  if (warp == NCW) {
+    produce<FMT, BN, NB>(a, smem, full, empty, n0, ncol, g0, g1, nt, lane);
+  } else {
+    uint32_t* xc = reinterpret_cast<uint32_t*>(smem + G::XC);
+    float2* sxs = reinterpret_cast<float2*>(smem + G::SXS);
+    int i = 0;
+    for (int c0 = g0; c0 < g1; c0 += G::XG) {
+      const int cn = min(G::XG, g1 - c0);
+      if (c0 != g0) asm volatile("bar.sync 1, %0;\n" ::"r"(NTC) : "memory");
+      quantize<FMT, NB>(a, xc, sxs, c0, cn, tid);
+      asm volatile("bar.sync 1, %0;\n" ::"r"(NTC) : "memory");
+      for (; i < nt && g0 + i * G::GT < c0 + cn; ++i) {
+        const int st = i % G::NST;
+        mbar_wait(&full[st], (i / G::NST) & 1);
+        __syncwarp();
+        const unsigned char* s = smem + st * G::STAGE;
+        const int gt0 = g0 + i * G::GT, gn = min(G::GT, g1 - gt0);
+        // the superblock's d (and dmin), and -2^23 times them: fma(2^23 + b,
+        // d, -2^23 d) rounds b d once, so it is fmul_rn(d, b) (d is an f16
+        // value: no overflow)
+        float dv[4] = {0.f, 0.f, 0.f, 0.f}, dn[4], mv[4] = {0.f, 0.f, 0.f, 0.f}, mnn[4];
+        if constexpr (FMT != 0) {
+          const float4 d4 = *reinterpret_cast<const float4*>(s + G::D + cw * 4);
+          dv[0] = d4.x; dv[1] = d4.y; dv[2] = d4.z; dv[3] = d4.w;
+          if constexpr (FMT == 1) {
+            const float4 m4 = *reinterpret_cast<const float4*>(s + G::DMIN + cw * 4);
+            mv[0] = m4.x; mv[1] = m4.y; mv[2] = m4.z; mv[3] = m4.w;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) { dn[j] = -8388608.f * dv[j]; mnn[j] = -8388608.f * mv[j]; }
+#pragma unroll
+        for (int u = 0; u < G::GT / G::KW; ++u) {
+          const int gi = kw + u * G::KW;
+          if (FMT == 0 && gi >= gn) break;   // a Q8_0 tile past K
+          const int xg = gt0 + gi - c0;      // the group in x's chunk
+          uint2 b[NB];
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+            b[nb] = *reinterpret_cast<const uint2*>(xc + ((xg * NB + nb) * 32 + lane) * 2);
+          // this lane's codes: rows t + 4i (and 16 + t + 4i for Q8_0) of
+          // its 4 columns, one column's 4 codes a register
+          uint32_t r[4], col[4];
+          const unsigned char* cr = s + (gi * (FMT == 0 ? 32 : 16) + t) * G::ROW + cw;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) r[k] = lds32(cr + 4 * k * G::ROW);
+          transpose4(r, col);
+          if constexpr (FMT == 2) {
+            // Q6_K: two 16-groups of the 32-group, each its own scale
+            const unsigned char* hr = s + G::HI + (gi * 8 + t) * G::ROW + cw;
+            const uint32_t h0 = lds32(hr), h1 = lds32(hr + 4 * G::ROW);
+            uint32_t q[2][4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              // element t + 4i's 2 high bits: hi row t + 4 (i & 1), field i >> 1
+              // (16 + t + 4i: field 2 + (i >> 1))
+              const uint32_t p = __byte_perm(h0, h1, j | ((j + 4) << 4) | (j << 8) | ((j + 4) << 12));
+              q[0][j] = (col[j] & M4) | ((__byte_perm(p, p >> 2, 0x7610) & 0x03030303u) << 4);
+              q[1][j] = ((col[j] >> 4) & M4) |
+                        ((__byte_perm(p >> 4, p >> 6, 0x7610) & 0x03030303u) << 4);
+            }
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              // the signed sub-scales: 2^23 + (sc ^ 0x80) less 2^23 + 128, exact
+              const uint32_t scw = lds32(s + G::SC + (2 * gi + h) * BN + cw) ^ 0x80808080u;
+              float sj[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) sj[j] = dv[j] * (u8_biased(scw, j) - 8388736.f);
+              const int qg = 2 * xg + h;
+#pragma unroll
+              for (int nb = 0; nb < NB; ++nb) {
+                int dd[2][4];
+#pragma unroll
+                for (int f = 0; f < 2; ++f)
+                  mma_s8_k16_c(dd[f], q[h][2 * f], q[h][2 * f + 1], h ? b[nb].y : b[nb].x,
+                               MAGIC_BITS);
+                const float4 v = *reinterpret_cast<const float4*>(sxs + qg * 8 * NB + 8 * nb + 2 * t);
+                const float sx[2] = {v.x, v.z}, xs[2] = {v.y, v.w};
+#pragma unroll
+                for (int f = 0; f < 2; ++f)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) {
+                    const int j = 2 * f + (e >> 1), rr = e & 1;
+                    acc[nb][j][rr] = fmaf(i2f(dd[f][e]), sx[rr] * sj[j], acc[nb][j][rr]);
+                    acc[nb][j][rr] = fmaf(xs[rr], -32.0f * sj[j], acc[nb][j][rr]);
+                  }
+              }
+            }
+          } else {
+            uint32_t A[2][4];
+            if constexpr (FMT == 0) {
+              uint32_t colh[4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) r[k] = lds32(cr + (16 + 4 * k) * G::ROW);
+              transpose4(r, colh);
+#pragma unroll
+              for (int f = 0; f < 2; ++f) {
+                A[f][0] = col[2 * f]; A[f][1] = col[2 * f + 1];
+                A[f][2] = colh[2 * f]; A[f][3] = colh[2 * f + 1];
+              }
+            } else {
+#pragma unroll
+              for (int f = 0; f < 2; ++f) {
+                A[f][0] = col[2 * f] & M4; A[f][1] = col[2 * f + 1] & M4;
+                A[f][2] = (col[2 * f] >> 4) & M4; A[f][3] = (col[2 * f + 1] >> 4) & M4;
+              }
+            }
+            float sj[4], cm[4] = {0.f, 0.f, 0.f, 0.f};
+            if constexpr (FMT == 0) {
+              const float4 v = *reinterpret_cast<const float4*>(s + G::SCL + (gi * BN + cw) * 4);
+              sj[0] = v.x; sj[1] = v.y; sj[2] = v.z; sj[3] = v.w;
+            } else {
+              const uint32_t scw = lds32(s + G::SC + gi * BN + cw);
+              const uint32_t mnw = lds32(s + G::MN + gi * BN + cw);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                sj[j] = __fmaf_rn(u8_biased(scw, j), dv[j], dn[j]);    // d * sc
+                cm[j] = __fmaf_rn(u8_biased(mnw, j), mv[j], mnn[j]);   // dmin * mn = -c
+              }
+            }
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb) {
+              int dd[2][4];
+#pragma unroll
+              for (int f = 0; f < 2; ++f) mma_s8_c(dd[f], A[f], b[nb].x, b[nb].y, MAGIC_BITS);
+              const float4 v = *reinterpret_cast<const float4*>(sxs + xg * 8 * NB + 8 * nb + 2 * t);
+              const float sx[2] = {v.x, v.z}, xs[2] = {v.y, v.w};
+#pragma unroll
+              for (int f = 0; f < 2; ++f)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int j = 2 * f + (e >> 1), rr = e & 1;
+                  acc[nb][j][rr] = fmaf(i2f(dd[f][e]), sx[rr] * sj[j], acc[nb][j][rr]);
+                  if constexpr (FMT == 1) acc[nb][j][rr] = fmaf(xs[rr], -cm[j], acc[nb][j][rr]);
+                }
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+      }
+    }
+  }
+
+  // every tile issued has been consumed: the ring and x are free. The k
+  // warps' sums, added in warp order, then the cluster's in rank order
+  // (rank r stores the output quads e = r (mod cl) of the tile).
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+  if (warp < NCW) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          red[((kw * NB + nb) * 8 + 2 * t + rr) * BN + cw + j] = acc[nb][j][rr];
+  }
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem + G::PART);
+  for (int e = tid; e < 8 * NB * BN / 4; e += NT) {
+    float4 v = reinterpret_cast<const float4*>(red)[e];
+    for (int k = 1; k < G::KW; ++k) {
+      const float4 w = reinterpret_cast<const float4*>(red)[k * 8 * NB * BN / 4 + e];
+      v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
+    }
+    reinterpret_cast<float4*>(part)[e] = v;
+  }
+  // a block alone needs no cluster barrier
+  if (cl > 1) cluster.sync();
+  else __syncthreads();
+  const int c4n = ncol / 4, units = a.M * c4n;
+  for (int e = rank * NT + tid; e < units; e += cl * NT) {
+    const int m = e / c4n, c4 = e - m * c4n;
+    float4 v = reinterpret_cast<const float4*>(part)[m * BN / 4 + c4];
+    if (cl > 1) {
+      v = reinterpret_cast<const float4*>(cluster.map_shared_rank(part, 0))[m * BN / 4 + c4];
+      for (int k = 1; k < cl; ++k) {
+        const float4 w =
+            reinterpret_cast<const float4*>(cluster.map_shared_rank(part, k))[m * BN / 4 + c4];
+        v.x += w.x; v.y += w.y; v.z += w.z; v.w += w.w;
+      }
+    }
+    const long o = (long)m * a.N + n0 + 4 * c4;
+    if (a.out_bf16)
+      *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(a.out) + o) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    else
+      *reinterpret_cast<float4*>(reinterpret_cast<float*>(a.out) + o) = v;
+  }
+  if (cl > 1) cluster.sync();   // the other ranks have read this block's sums
+}
+
+template <int FMT, int BN, int NB>
+cudaError_t launch(const Args& a, int cl, cudaStream_t st) {
+  using G = Geo<FMT, BN, NB>;
+  static bool attr_set = false;   // set once, never under graph capture
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmv_kernel<FMT, BN, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, (a.N + BN - 1) / BN, 1);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = G::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, qmv_kernel<FMT, BN, NB>, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <int FMT, int BN>
+cudaError_t launch_rows(const Args& a, int cl, cudaStream_t st) {
+  return a.M <= 8 ? launch<FMT, BN, 1>(a, cl, st) : launch<FMT, BN, 2>(a, cl, st);
 }
 
 template <int FMT>
-void launch_fmt(const Args& a, dim3 grid, cudaStream_t st) {
-  if (a.M <= 1) qmv_kernel<FMT, 1><<<grid, TPB, 0, st>>>(a);
-  else if (a.M <= 2) qmv_kernel<FMT, 2><<<grid, TPB, 0, st>>>(a);
-  else if (a.M <= 4) qmv_kernel<FMT, 4><<<grid, TPB, 0, st>>>(a);
-  else if (a.M <= 8) qmv_kernel<FMT, 8><<<grid, TPB, 0, st>>>(a);
-  else qmv_kernel<FMT, 16><<<grid, TPB, 0, st>>>(a);
+cudaError_t launch_bn(const Args& a, int bn, int cl, cudaStream_t st) {
+  if (bn == 128) return launch_rows<FMT, 128>(a, cl, st);
+  if (bn == 64) return launch_rows<FMT, 64>(a, cl, st);
+  return launch_rows<FMT, 32>(a, cl, st);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// blocks of clusters of cl the card holds at once, or a negative cudaError_t
+template <int FMT, int BN, int NB>
+int resident(int cl) {
+  using G = Geo<FMT, BN, NB>;
+  cudaError_t e = cudaFuncSetAttribute(qmv_kernel<FMT, BN, NB>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, 1, 1);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = G::SMEM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, qmv_kernel<FMT, BN, NB>, &cfg);
+  return e == cudaSuccess ? n * cl : -(int)e;
+}
+
+template <int FMT>
+int resident_bn(int bn, int nb, int cl) {
+  if (bn == 128) return nb == 1 ? resident<FMT, 128, 1>(cl) : resident<FMT, 128, 2>(cl);
+  if (bn == 64) return nb == 1 ? resident<FMT, 64, 1>(cl) : resident<FMT, 64, 2>(cl);
+  return nb == 1 ? resident<FMT, 32, 1>(cl) : resident<FMT, 32, 2>(cl);
 }
 
 }  // namespace
 
-// fmt: 0 Q8_0, 1 Q4_K, 2 Q6_K. xq/sx/xs/part are caller-allocated scratch:
-// xq (M, K) int8, sx/xs (M, K/gs) f32, part (n_split, M, N) f32 when
-// n_split > 1. Returns the cudaError_t of the launches.
+// fmt: 0 Q8_0, 1 Q4_K, 2 Q6_K; x (M <= 16, K) f32 or bf16, 16-byte aligned;
+// out (M, N) f32 or bf16. The plan (qmv_plan): column tile bn (128, 64 or
+// 32), a cluster of cl <= 8 blocks along K, per K units (superblocks; Q8_0
+// groups) a rank, every rank holding at least one. One launch; returns its
+// cudaError_t.
 extern "C" int slt_qmv(int fmt, int M, int K, int N, const void* x, int x_bf16,
-                       void* xq, void* sx, void* xs, const void* codes, const void* hi,
-                       const void* scales, const void* sc, const void* mn, const void* d,
-                       const void* dmin, int n_split, int units_per_split, void* part,
+                       const void* codes, const void* hi, const void* scales, const void* sc,
+                       const void* mn, const void* d, const void* dmin, int bn, int cl, int per,
                        void* out, int out_bf16, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int gs = fmt == 2 ? 16 : 32;
-  const int nq = M * (K / gs);
-  quantize_acts_kernel<<<(nq + 255) / 256, 256, 0, st>>>(
-      x, x_bf16, M, K, gs, (int8_t*)xq, (float*)sx, (float*)xs);
-  Args a{(const int8_t*)xq, (const float*)sx, (const float*)xs, M, K, N,
-         (const uint8_t*)codes, (const uint8_t*)hi, (const float*)scales,
-         (const uint8_t*)sc, (const uint8_t*)mn, (const float*)d, (const float*)dmin,
-         units_per_split, n_split > 1 ? (float*)part : nullptr, out, out_bf16};
-  dim3 grid((N / 4 + CT - 1) / CT, n_split);
-  if (fmt == 0) launch_fmt<0>(a, grid, st);
-  else if (fmt == 1) launch_fmt<1>(a, grid, st);
-  else launch_fmt<2>(a, grid, st);
-  if (n_split > 1) {
-    const long MN = (long)M * N;
-    reduce_splits_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, st>>>(
-        (const float*)part, n_split, MN, out, out_bf16);
-  }
-  return (int)cudaGetLastError();
+  const int unit = fmt == 0 ? 32 : 256, n_units = K / unit;
+  if (fmt < 0 || fmt > 2 || M < 1 || M > MAXR || N < 4 || N % 4 || K % unit || K < unit ||
+      (bn != 128 && bn != 64 && bn != 32) || cl < 1 || cl > 8 || per < 1 ||
+      (long)cl * per < n_units || (long)(cl - 1) * per >= n_units || !aligned16(x) ||
+      (N + bn - 1) / bn > 65535)
+    return (int)cudaErrorInvalidValue;
+  const void* planes[] = {codes, hi, scales, sc, mn, d, dmin};
+  bool wide = N % 16 == 0;
+  for (const void* p : planes) wide = wide && (p == nullptr || aligned16(p));
+  Args a{M, K, N, per, x, x_bf16, (const uint8_t*)codes, (const uint8_t*)hi,
+         (const float*)scales, (const uint8_t*)sc, (const uint8_t*)mn, (const float*)d,
+         (const float*)dmin, out, out_bf16, wide ? 1 : 0};
+  cudaError_t e;
+  if (fmt == 0) e = launch_bn<0>(a, bn, cl, st);
+  else if (fmt == 1) e = launch_bn<1>(a, bn, cl, st);
+  else e = launch_bn<2>(a, bn, cl, st);
+  return (int)e;
+}
+
+// Blocks of the kernel for fmt, column tile bn and up to `rows` rows that the
+// card holds at once in clusters of cl (cudaOccupancyMaxActiveClusters x cl;
+// qmv_plan's table assumes the H100's), or a negative cudaError_t.
+extern "C" int slt_qmv_resident(int fmt, int bn, int rows, int cl) {
+  if (fmt < 0 || fmt > 2 || (bn != 128 && bn != 64 && bn != 32) || rows < 1 || rows > MAXR ||
+      cl < 1 || cl > 8)
+    return -(int)cudaErrorInvalidValue;
+  const int nb = rows <= 8 ? 1 : 2;
+  if (fmt == 0) return resident_bn<0>(bn, nb, cl);
+  if (fmt == 1) return resident_bn<1>(bn, nb, cl);
+  return resident_bn<2>(bn, nb, cl);
 }

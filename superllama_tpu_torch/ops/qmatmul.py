@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,9 +32,17 @@ from .ref import quant_scale
 # weight formats the kernels decode (csrc FMT ids)
 _FMT = {GGMLType.Q8_0: 0, GGMLType.Q4_K: 1, GGMLType.Q6_K: 2}
 _UNIT = {0: 32, 1: 256, 2: 256}   # K elements per split unit
-_QMV_COLS = 256                   # columns per qmv block (64 threads x 4)
-_QMV_SLICES = 4                   # k-slices per qmv block
-_QMV_TARGET_BLOCKS = 264          # two blocks per SM of the H100
+_UNIT_BYTES = {0: 36, 1: 152, 2: 212}   # weight bytes of a column per unit
+_QMV_TILES = (128, 64, 32)        # qmv column tiles, widest first
+_QMV_MAX_CLUSTER = 8              # blocks of a cluster along K (the portable size)
+_QMV_SMS = 132                    # SMs of the H100 the plan fills
+_QMV_SM_SMEM = 228 * 1024         # shared memory of an SM (1 KB of it reserved a block)
+_QMV_BLOCKS_SM = 2                # the kernel's launch bounds: two blocks an SM
+# blocks of a cluster size resident at once on the H100 at two blocks an SM
+# (cudaOccupancyMaxActiveClusters x size: the GPCs' SM counts leave some
+# SMs without a whole cluster)
+_QMV_CLUSTER_RESIDENT = {1: 264, 2: 264, 3: 237, 4: 248, 5: 235, 6: 234, 7: 224, 8: 240}
+_QMV_BLOCK_COST = 16384           # a block's fixed cost (prologue, the sums) in bytes read
 _QMV_MAX_ROWS = 16
 _QMM_BN = 128                     # columns per qmm tensor-core block
 _QMM_BK = 128                     # k-tile of the qmm tensor-core kernel
@@ -110,21 +119,68 @@ def qmv_plain(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     return acc.to(out_dtype)
 
 
-def _qmv_split(fmt: int, K: int, N: int) -> tuple[int, int]:
-    """(n_split, units_per_split) of the grid's K split: enough blocks to fill
-    the card, each slice of a block at least one unit. Depends on (K, N)
-    only, so a row's sums do not depend on the batch size."""
+class QmvPlan(NamedTuple):
+    """The qmv kernel's grid: column tile ``bn``, a cluster of ``cl`` blocks
+    along K, ``per`` K units (superblocks; Q8_0 groups) a rank, ``blocks``
+    in the grid, ``smem`` bytes of shared memory a block."""
+    bn: int
+    cl: int
+    per: int
+    blocks: int
+    smem: int
+
+
+def _qmv_smem(fmt: int, bn: int, rows: int = _QMV_MAX_ROWS) -> int:
+    """Shared memory a qmv block of up to ``rows`` rows takes: the ring of
+    weight tiles (a stage more for Q4_K at 8 rows), x's codes, sx and xs
+    for a chunk of 32-groups, the barriers. Mirrors
+    ``Geo<FMT, BN, NB>::SMEM`` of csrc/qmv.cu."""
+    nb = 1 if rows <= 8 else 2
+    gt = (8 if bn == 32 else 4) if fmt == 0 else 8          # 32-groups a tile
+    nst, xg, qg = (2, 32, 2) if fmt == 2 else (4 if fmt == 1 and nb == 1 else 3, 64, 1)
+    row = 32 if bn == 32 else bn + 32                       # code-plane row stride
+    if fmt == 0:
+        stage = gt * 32 * row + gt * bn * 4
+    elif fmt == 1:
+        stage = gt * 16 * row + 2 * gt * bn + 2 * bn * 4
+    else:
+        stage = gt * 16 * row + gt * 8 * row + 2 * gt * bn + bn * 4
+    return nst * stage + xg * nb * 256 + xg * qg * 8 * nb * 8 + 2 * nst * 8
+
+
+def qmv_plan(fmt: int, K: int, N: int) -> QmvPlan:
+    """The qmv kernel's grid for a (K, N) weight of format ``fmt``: the
+    column tile and the K split (a cluster of at most 8 blocks, each rank
+    at least one unit) whose rounds of resident blocks (two an SM of the
+    H100's 132, fewer for clusters that do not tile its GPCs) times a
+    block's cost (its weight bytes, its x at 8 rows, a fixed
+    ``_QMV_BLOCK_COST``) are least, among those of at least 132 blocks
+    where any is; ties go to the wider tile, then the fewer blocks.
+    Depends on (fmt, K, N) only, so a row's sums do not depend on how many
+    rows share the call."""
     n_units = K // _UNIT[fmt]
-    n_col_blocks = -(-N // _QMV_COLS)
-    split = max(1, min(-(-_QMV_TARGET_BLOCKS // n_col_blocks),
-                       n_units // _QMV_SLICES))
-    per = -(-n_units // split)
-    return -(-n_units // per), per
+    best = None
+    for bn in _QMV_TILES:
+        tiles = -(-N // bn)
+        smem = max(_qmv_smem(fmt, bn, rows) for rows in (8, _QMV_MAX_ROWS))
+        per_sm = min(_QMV_BLOCKS_SM, _QMV_SM_SMEM // (smem + 1024))
+        for cl in range(1, min(_QMV_MAX_CLUSTER, n_units) + 1):
+            per = -(-n_units // cl)
+            if -(-n_units // per) != cl:   # a rank would hold no unit
+                continue
+            blocks = tiles * cl
+            resident = _QMV_CLUSTER_RESIDENT[cl] * per_sm // _QMV_BLOCKS_SM
+            block = per * (bn * _UNIT_BYTES[fmt] + _UNIT[fmt] * 16)   # weight, x at 8 rows
+            cost = -(-blocks // resident) * (block + _QMV_BLOCK_COST)
+            key = (blocks < _QMV_SMS, cost, -bn, blocks)
+            if best is None or key < best[0]:
+                best = (key, QmvPlan(bn, cl, per, blocks, smem))
+    return best[1]
 
 
 def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
-    """int8-activation GEMV (M <= 16 per launch). CUDA: the qmv kernel; CPU:
-    ``qmv_plain``."""
+    """int8-activation GEMV (M <= 16 per launch). CUDA: the qmv kernel, one
+    launch that quantizes x itself; CPU: ``qmv_plain``."""
     if x2.device.type == "cpu":
         return qmv_plain(x2, qt, out_dtype)
     if x2.device.type != "cuda":
@@ -137,23 +193,16 @@ def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     if M > _QMV_MAX_ROWS:
         return torch.cat([qmv(x2[i:i + _QMV_MAX_ROWS], qt, out_dtype)
                           for i in range(0, M, _QMV_MAX_ROWS)])
-    fn = _lib("qmv", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _I, _I, _P, _P, _I, _P])
-    G = K // qt.group
-    dev = x2.device
-    xq = torch.empty((M, K), dtype=torch.int8, device=dev)
-    sx = torch.empty((M, G), dtype=torch.float32, device=dev)
-    xs = torch.empty((M, G), dtype=torch.float32, device=dev)
-    n_split, per = _qmv_split(fmt, K, qt.N)
-    part = (torch.empty((n_split, M, qt.N), dtype=torch.float32, device=dev)
-            if n_split > 1 else None)
-    out = torch.empty((M, qt.N), dtype=out_dtype, device=dev)
+    fn = _lib("qmv", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _P, _I, _P])
+    if x2.data_ptr() % 16:   # the kernel reads x rows in 8- and 16-byte words
+        x2 = x2.clone()
+    plan = qmv_plan(fmt, K, qt.N)
+    out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
     err = fn(fmt, M, K, qt.N, x2.data_ptr(), int(x2.dtype == torch.bfloat16),
-             xq.data_ptr(), sx.data_ptr(), xs.data_ptr(),
-             _ptr(qt.codes), _ptr(qt.hi), _ptr(qt.scales), _ptr(qt.sc),
-             _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin), n_split, per, _ptr(part),
-             out.data_ptr(), int(out_dtype == torch.bfloat16),
-             _build.stream_ptr(dev))
+             _ptr(qt.codes), _ptr(qt.hi), _ptr(qt.scales), _ptr(qt.sc), _ptr(qt.mn),
+             _ptr(qt.d), _ptr(qt.dmin), plan.bn, plan.cl, plan.per, out.data_ptr(),
+             int(out_dtype == torch.bfloat16), _build.stream_ptr(x2.device))
     _build.check(err, "qmv")
     qmv.launches += 1
     return out
