@@ -11,6 +11,8 @@ PyTorch version.
     python3 chip_smoke.py --paged-times   # device, build, paged's rows of phase 6
     python3 chip_smoke.py --qmv-times     # device, build, qmv's rows of phase 6 and
                                           # a bf16 decode block's profile
+    python3 chip_smoke.py --graphs        # device, build, phase 4b, phase 4c and the
+                                          # bf16 serving waves of phase 4
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -28,16 +30,28 @@ Phases, each printing one JSON line:
     fa and paged call checked to take the kernel its types and shape ask
     for;
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
-    server answers 8 concurrent completions and one streamed one; the launch
-    counters show the path went through every kernel (fa only through its
-    tensor-core kernel). Then the same with a Q8_0 KV cache (fd decode),
-    with the paged KV cache (prefill through paged's tensor-core kernel; an
-    ample pool, then a pool of about half the wave's pages that must spill
-    to host), and a short wave on an f32 cache (fa's CUDA-core kernel);
+    server answers 8 concurrent completions and one streamed one, greedy,
+    then 8 sampled ones (temperature 0.8, top-k 40, top-p 0.95, min-p 0.05,
+    a seed each, two with repeat penalty 1.1) twice; the served tokens
+    equal the engine's own, every decode block is a CUDA-graph replay (the
+    device sampler chain inside the sampled ones), and the launch counters,
+    which count a replay's launches, show the path went through every kernel
+    (fa only through its tensor-core kernel). Then the same with a Q8_0 KV
+    cache (fd decode), with the paged KV cache (prefill through paged's
+    tensor-core kernel; an ample pool, then a pool of about half the wave's
+    pages that must spill to host), and a short wave on an f32 cache (fa's
+    CUDA-core kernel);
+ 4b. graph against eager decode blocks on the bf16, Q8_0 and paged caches,
+    greedy and sampled: equal tokens, bit-equal written cache rows, equal
+    launch counts;
+ 4c. DecodeLoop (prefill + one captured graph of the decode steps) against
+    engine.generate on the 8B model, and a seeded sampled loop repeated;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one;
- 6. times: decode tok/s, time to first token (bf16, Q8_0, paged; a
+ 6. times: decode tok/s (greedy and sampled, blocks replayed from CUDA
+    graphs, with the captures' time and the graph pool's bytes), time to
+    first token (bf16, Q8_0, paged; a
     1000-token prompt on bf16 and paged), and each kernel's time beside its
     plain version, a library call and its bound (qmv at every (K, N) of a
     decode step and their sum over a step; qmm at every (K, N) of a lone
@@ -48,12 +62,12 @@ Phases, each printing one JSON line:
     the L2 (the eager reading beside it);
  7. profile: where a lone 32-token and a lone 1000-token prompt chunk's
     time goes (bf16 cache) and where one engine decode step's time goes on
-    each cache
+    each cache, its block eager and replayed from a CUDA graph
     (torch.profiler), qmv, the decode-attention kernels and cache writes
     apart;
  8. tools: the measurement tools' path (the qmv probe at two 8B shapes,
     ops_bench at its default shapes, flash_decode_probe, a short llama-bench
-    on the 8B model) with its own launch counts, then each probe variant's
+    and batched-bench on the 8B model) with its own launch counts, then each probe variant's
     time (from a CUDA graph, weights past the L2) beside its plain version,
     a library call, qmv and its bound.
 The line before the last is the kernels' JSON record, the last line
@@ -790,15 +804,51 @@ def in_one_wave(engine, submit_all, n: int) -> None:
             time.sleep(0.01)
 
 
-def engine_wave(engine, prompts, max_tokens: int) -> list[dict]:
+def engine_wave(engine, prompts, max_tokens: int, samplings=None) -> list[dict]:
+    """The prompts submitted together, greedy unless ``samplings`` gives each
+    request's sampling config."""
     from superllama_tpu_torch.runtime.engine import GenRequest
 
+    samplings = samplings or [{"greedy": True}] * len(prompts)
     reqs = []
     in_one_wave(engine, lambda: reqs.extend(
-        engine.submit(GenRequest(prompt_ids=p, max_tokens=max_tokens,
-                                 sampling={"greedy": True}, stop_eog=False))
-        for p in prompts), len(prompts))
+        engine.submit(GenRequest(prompt_ids=p, max_tokens=max_tokens, sampling=sm,
+                                 stop_eog=False))
+        for p, sm in zip(prompts, samplings)), len(prompts))
     return [r.result(timeout=600) for r in reqs]
+
+
+# the sampled waves' request settings (OpenAI completion fields): one seed a
+# request, the last two with repeat penalty 1.1
+SAMPLED_BODY = {"temperature": 0.8, "top_k": 40, "top_p": 0.95, "min_p": 0.05}
+
+
+def sampled_bodies(n: int) -> list[dict]:
+    return [{**SAMPLED_BODY, "seed": 1000 + i,
+             **({"repeat_penalty": 1.1} if i >= n - 2 else {})} for i in range(n)]
+
+
+def sampled_configs(n: int) -> list[dict]:
+    """The engine's sampling configs of sampled_bodies, as the server builds them."""
+    from superllama_tpu_torch.server.http import ServerApp
+
+    return [ServerApp._sampling_from(b) for b in sampled_bodies(n)]
+
+
+def block_stats(eng) -> dict:
+    """The engine's decode blocks so far, and how many were graph replays."""
+    g = eng._graphs.stats if eng._graphs is not None else {}
+    return {"blocks": eng.stats["blocks"], "chained": eng.stats["chained"],
+            "replays": g.get("replays", 0), "captures": g.get("captures", 0),
+            "capture_s": g.get("capture_s", 0.0)}
+
+
+def check_replayed(label: str, before: dict, after: dict) -> dict:
+    """Every decode block between two block_stats readings was a replay."""
+    d = {k: after[k] - before[k] for k in after}
+    check(d["blocks"] > 0 and d["replays"] == d["blocks"],
+          f"{label}: {d['blocks']} decode blocks, {d['replays']} of them graph replays")
+    return d
 
 
 def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, list]:
@@ -823,6 +873,7 @@ def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, 
             results[i] = http(srv.port, "/v1/completions", body(prompts[i]))
 
         threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+        stats0 = block_stats(eng)
         reset_counts()
         t0 = time.perf_counter()
         in_one_wave(eng, lambda: [t.start() for t in threads], len(prompts))
@@ -862,9 +913,13 @@ def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, 
         alone = eng.generate(stream_prompt, max_tokens=64, sampling={"greedy": True},
                              stop_eog=False)["tokens"]
         check(alone == streamed, f"{label}: streamed tokens differ from engine.generate")
+        greedy_blocks = check_replayed(f"{label} greedy waves", stats0, block_stats(eng))
+        sampled = sampled_wave(eng, srv.port, label, prompts, expect)
         info = {"phase": "serving", "kv": label, "requests": len(prompts) + 1,
                 "batch_wall_s": t_batch, "launches": counts,
                 "served_equal_engine": True, "stream_equal_generate": True,
+                "greedy_blocks": greedy_blocks, "sampled": sampled,
+                "graph_pool_bytes": eng._graphs.pool_bytes(),
                 "ttft_s": [json.loads(d)["timings"]["ttft_s"] for _, d in results]}
         if eng.paged:
             info["paged_stats"] = dict(eng.pkv.stats)
@@ -872,6 +927,53 @@ def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, 
         srv.stop()
     emit(info)
     return counts, served
+
+
+def sampled_wave(eng, port: int, label: str, prompts, expect) -> dict:
+    """The prompts again over HTTP, sampled (sampled_bodies), in one wave:
+    every decode block a graph replay through the device sampler chain; the
+    served tokens must equal the engine's own wave of the same requests,
+    and a second HTTP wave must repeat them."""
+    bodies = sampled_bodies(len(prompts))
+
+    def wave() -> list:
+        results: list = [None] * len(prompts)
+
+        def send(i):
+            results[i] = http(port, "/v1/completions",
+                              {"prompt": prompts[i], "max_tokens": 64, "return_tokens": True,
+                               **bodies[i]})
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+        in_one_wave(eng, lambda: [t.start() for t in threads], len(prompts))
+        for t in threads:
+            t.join(timeout=900)
+        out = []
+        for i, (st, data) in enumerate(results):
+            ch = json.loads(data)["choices"][0]
+            check(st == 200 and ch["finish_reason"] == "length" and len(ch["tokens"]) == 64,
+                  f"{label} sampled request {i}: HTTP {st}, {ch['finish_reason']}")
+            out.append(ch["tokens"])
+        return out
+
+    stats0 = block_stats(eng)
+    reset_counts()
+    t0 = time.perf_counter()
+    served = wave()
+    t_wave = time.perf_counter() - t0
+    counts = read_counts()
+    blocks = check_replayed(f"{label} sampled wave", stats0, block_stats(eng))
+    for name in expect:
+        if name == "qmm":   # a wave's prompt chunks take the M > 32 path
+            continue
+        check(counts[name] > 0, f"the {label} sampled wave never launched the {name} kernel")
+    direct = [r["tokens"] for r in engine_wave(eng, prompts, 64, sampled_configs(len(prompts)))]
+    check(direct == served, f"{label}: sampled served tokens differ from the engine's")
+    again = wave()
+    check(again == served, f"{label}: a repeat of the sampled wave gave other tokens")
+    check(len({tuple(t) for t in served}) == len(served), f"{label}: sampled rows coincide")
+    return {"wall_s": t_wave, "launches": counts, "blocks": blocks,
+            "served_equal_engine": True, "repeat_equal": True}
 
 
 def phase_serving(torch, model) -> dict:
@@ -945,6 +1047,125 @@ def phase_serving_paged(torch, model) -> dict:
     check(spilled == served, "the spilling paged run's tokens differ from the ample pool's")
     check(stats["evictions"] > 0 and stats["restores"] > 0, f"no spill: {stats}")
     return counts
+
+
+def cache_rows(eng) -> dict:
+    """The engine's cache: its positions and the written rows (slots that
+    hold a position) of every tensor."""
+    if eng.paged:
+        c = eng.pkv.cache
+        m = c.page_pos >= 0
+        return {"page_pos": c.page_pos, "table": c.table,
+                "k": c.k_pages.permute(1, 3, 0, 2, 4)[m], "v": c.v_pages.permute(1, 3, 0, 2, 4)[m]}
+    c = eng.cache
+    m = c.pos >= 0
+    rows = {"pos": c.pos, "cursor": c.cursor, "k": c.k.permute(1, 3, 0, 2, 4)[m],
+            "v": c.v.permute(1, 3, 0, 2, 4)[m]}
+    if c.quantized:
+        rows["k_scale"] = c.k_scale.permute(1, 3, 0, 2)[m]
+        rows["v_scale"] = c.v_scale.permute(1, 3, 0, 2)[m]
+    return rows
+
+
+GRAPH_CASES = (("bf16", {}, [32, 100] * 4), ("q8_0", {"kv_dtype": "q8_0"}, [32, 100] * 4),
+               ("paged", {"paged": True, "page_size": 256}, PAGED_LENS))
+
+
+def phase_graph_vs_eager(torch, model) -> list:
+    """Decode blocks replayed from CUDA graphs against the same blocks run
+    eagerly, on each cache, greedy and sampled: two engines (graphs on and
+    off) serve the same two waves of 8 requests x 40 tokens (a warm one,
+    then the measured one, whose last block stops mid-way and rolls back).
+    Tokens, the written cache rows and the measured wave's launch counts
+    must be equal; every block of the graph engine a replay."""
+    import gc
+
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    recs = []
+    for label, kw, lens in GRAPH_CASES:
+        prompts = token_prompts(model.hparams.n_vocab, lens, SEED + 9)
+        engines = {g: Engine(model, n_slots=8, n_ctx=2048, device="cuda", graphs=g,
+                             **{"kv_dtype": torch.bfloat16, **kw}) for g in (True, False)}
+        for eng in engines.values():
+            eng.start()
+        try:
+            for mode in ("greedy", "sampled"):
+                samplings = (None if mode == "greedy" else sampled_configs(len(prompts)))
+                runs = {}
+                for g, eng in engines.items():
+                    engine_wave(eng, prompts, 40, samplings)
+                    stats0 = block_stats(eng)
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    toks = [r["tokens"] for r in engine_wave(eng, prompts, 40, samplings)]
+                    torch.cuda.synchronize()
+                    runs[g] = {"tokens": toks, "wall_s": time.perf_counter() - t0,
+                               "launches": read_counts(),
+                               "blocks": {k: v - stats0[k] for k, v in block_stats(eng).items()}}
+                g_run, e_run = runs[True], runs[False]
+                rows_g, rows_e = cache_rows(engines[True]), cache_rows(engines[False])
+                rows_equal = {k: bool(torch.equal(rows_g[k], rows_e[k])) for k in rows_g}
+                rec = {"phase": "graph_vs_eager", "kv": label, "mode": mode,
+                       "graph_wall_s": g_run["wall_s"], "eager_wall_s": e_run["wall_s"],
+                       "graph_blocks": g_run["blocks"], "eager_blocks": e_run["blocks"],
+                       "tokens_equal": g_run["tokens"] == e_run["tokens"],
+                       "launches_equal": g_run["launches"] == e_run["launches"],
+                       "launches": g_run["launches"], "rows_equal": rows_equal}
+                emit(rec)
+                recs.append(rec)
+                check(rec["tokens_equal"], f"{label} {mode}: graph blocks' tokens differ from eager")
+                check(all(rows_equal.values()),
+                      f"{label} {mode}: graph blocks' cache rows differ from eager: {rows_equal}")
+                check(rec["launches_equal"], f"{label} {mode}: launch counts differ: graph "
+                      f"{g_run['launches']}, eager {e_run['launches']}")
+                gb = g_run["blocks"]
+                check(gb["blocks"] > 0 and gb["replays"] == gb["blocks"] and gb["captures"] == 0,
+                      f"{label} {mode}: graph engine blocks {gb}")
+                check(e_run["blocks"]["replays"] == 0, f"{label} {mode}: eager engine replayed")
+                if not engines[True].paged:
+                    check(gb["chained"] > 0, f"{label} {mode}: no block was chained")
+        finally:
+            for eng in engines.values():
+                eng.stop()
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_decode_loop(torch, model) -> dict:
+    """DecodeLoop (prefill + one captured graph of n_gen - 1 decode steps)
+    against engine.generate on the 8B model: a 32-token prompt, 48 greedy
+    tokens, one slot of 256 positions on both sides (the same shapes, so
+    the same kernels and sums). Then a sampled loop twice with one seed."""
+    from superllama_tpu_torch.runtime.decode_loop import DecodeLoop
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    p = token_prompts(model.hparams.n_vocab, [32], SEED + 8)[0]
+    eng = Engine(model, n_slots=1, n_ctx=256, kv_dtype=torch.bfloat16, device="cuda")
+    want = eng.generate(p, max_tokens=48, sampling={"greedy": True}, stop_eog=False)["tokens"]
+    loop = DecodeLoop(model, n_ctx=256, kv_dtype=torch.bfloat16)
+    first = loop.generate(p, 48, stop_eog=False)[32:]
+    reset_counts()
+    t0 = time.perf_counter()
+    got = loop.generate(p, 48, stop_eog=False)[32:]
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    sampler = DecodeLoop(model, n_ctx=256, kv_dtype=torch.bfloat16, temp=0.8, top_k=40,
+                         top_p=0.95, min_p=0.05)
+    s1, s2 = (sampler.generate(p, 48, seed=5, stop_eog=False)[32:] for _ in range(2))
+    rec = {"phase": "decode_loop", "tokens_equal_engine": got == want == first,
+           "wall_s_48_tokens": wall, "tok_s": 48 / wall, "launches": counts,
+           "graphs": dict(loop._graphs.stats), "sampled_repeat_equal": s1 == s2}
+    emit(rec)
+    check(rec["tokens_equal_engine"], "DecodeLoop's tokens differ from engine.generate's")
+    check(loop._graphs.stats["captures"] == 1 and loop._graphs.stats["replays"] == 2,
+          f"DecodeLoop's decode steps were not one replayed graph: {loop._graphs.stats}")
+    check(counts["qmv"] == 47 * 225 and counts["qmm"] == 225,
+          f"DecodeLoop's launches: {counts}")
+    check(s1 == s2 and len(set(s1)) > 1, "the sampled DecodeLoop did not repeat itself")
+    return rec
 
 
 # ------------------------------------------------------------ 5. parity
@@ -1388,10 +1609,13 @@ def time_decode_attention(torch) -> dict:
 
 
 def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
-    """Decode tok/s at B 1 and B 8 and TTFT at 32 and 100 prompt tokens;
-    with ``long_prompt`` also the TTFT of a 1000-token prompt (the second of
-    two runs: one 1024-token chunk on a dense cache, four 256-token chunks
-    on a paged one with 256-token pages)."""
+    """Decode tok/s at B 1 and B 8, greedy and sampled (sampled_configs),
+    and TTFT at 32 and 100 prompt tokens; with ``long_prompt`` also the
+    TTFT of a 1000-token prompt (the second of two runs: one 1024-token
+    chunk on a dense cache, four 256-token chunks on a paged one with
+    256-token pages). Each decode block is a graph replay, captured in a
+    warm run first; the captures' time and the graph pool's bytes are
+    reported."""
     from superllama_tpu_torch.runtime.engine import Engine
 
     engine_kw.setdefault("kv_dtype", torch.bfloat16)
@@ -1400,6 +1624,9 @@ def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
     eng.generate(p32, max_tokens=16, sampling={"greedy": True}, stop_eog=False)  # warm
     r1 = eng.generate(p32, max_tokens=128, sampling={"greedy": True}, stop_eog=False)
     r100 = eng.generate(p100, max_tokens=8, sampling={"greedy": True}, stop_eog=False)
+    sm = sampled_configs(8)
+    eng.generate(p32, max_tokens=16, sampling=sm[0], stop_eog=False)  # warm
+    r1s = eng.generate(p32, max_tokens=128, sampling=sm[0], stop_eog=False)
     long = {}
     if long_prompt:
         ttft = [eng.generate(p1000, max_tokens=1, sampling={"greedy": True},
@@ -1407,11 +1634,15 @@ def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
         long = {"ttft_ms_prompt1000": ttft[1], "ttft_ms_prompt1000_first": ttft[0]}
     eng.start()
     try:
+        p8 = token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 5)
         t0 = time.perf_counter()
-        rs = engine_wave(eng, token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 5), 128)
+        rs = engine_wave(eng, p8, 128)
         wall = time.perf_counter() - t0
+        rss = engine_wave(eng, p8, 128, sm)
     finally:
         eng.stop()
+    graphs = {**block_stats(eng), "pool_bytes": eng._graphs.pool_bytes()}
+    check(graphs["replays"] == graphs["blocks"], f"time_serving: blocks {graphs}")
     # launches of one lone 32-token prefill chunk, then of one decode step
     reset_counts()
     eng.generate(p32, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
@@ -1420,10 +1651,13 @@ def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
     reset_counts()
     eng.generate(p32, max_tokens=2, sampling={"greedy": True}, stop_eog=False)
     per_step = {k: n - per_chunk[k] for k, n in read_counts().items()}
+    b1 = lambda r: (r["n_generated"] - 1) / (r["total_s"] - r["ttft_s"])   # noqa: E731
+    b8 = lambda rs: (sum(r["n_generated"] - 1 for r in rs)                 # noqa: E731
+                     / (max(r["total_s"] for r in rs) - max(r["ttft_s"] for r in rs)))
     return {
-        "decode_tok_s_b1": (r1["n_generated"] - 1) / (r1["total_s"] - r1["ttft_s"]),
-        "decode_tok_s_b8": sum(r["n_generated"] - 1 for r in rs)
-        / (max(r["total_s"] for r in rs) - max(r["ttft_s"] for r in rs)),
+        "decode_tok_s_b1": b1(r1), "decode_tok_s_b8": b8(rs),
+        "decode_tok_s_b1_sampled": b1(r1s), "decode_tok_s_b8_sampled": b8(rss),
+        "graphs": graphs,
         "ttft_ms_prompt32": r1["ttft_s"] * 1e3, "ttft_ms_prompt100": r100["ttft_s"] * 1e3,
         **long, "batch8_wall_s": wall, "launches_per_prefill_chunk_32": per_chunk,
         "launches_per_decode_step": per_step,
@@ -1447,24 +1681,33 @@ def phase_times(torch, model, smi_line: str) -> dict:
     return kernels
 
 
-def profile_block(torch, model, label: str, **engine_kw) -> dict:
-    """torch.profiler over one engine step (a block of 8 greedy decode
-    steps, 8 active rows at a depth of about 40-100 positions) on one cache;
-    the cache writes run under a "kv_write" range, so their device time (the
-    quantize-on-write ops on a Q8_0 cache) reads apart from the rest."""
+def profile_block(torch, model, label: str, graphs: bool = True, **engine_kw) -> dict:
+    """torch.profiler over one engine step in steady state (one block of 8
+    greedy decode steps launched, the one before it landed; 8 active rows at
+    a depth of about 40-100 positions) on one cache, the block a graph
+    replay or (``graphs=False``) eager. In an eager block the cache writes
+    run under a "kv_write" range, so their device time (the quantize-on-write
+    ops on a Q8_0 cache) reads apart from the rest; a replay runs no Python,
+    so it has no such range and its kernels are read by name. The step
+    before the profiled one is timed unprofiled (``wall_ms_unprofiled``):
+    the profiler's tracing adds its own cost to every kernel."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from superllama_tpu_torch.models import llama as llama_mod
     from superllama_tpu_torch.runtime.engine import Engine, GenRequest
 
     engine_kw.setdefault("kv_dtype", torch.bfloat16)
-    eng = Engine(model, n_slots=8, n_ctx=2048, device="cuda", **engine_kw)
+    eng = Engine(model, n_slots=8, n_ctx=2048, device="cuda", graphs=graphs, **engine_kw)
     for p in token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 6):
         eng.submit(GenRequest(prompt_ids=p, max_tokens=64, sampling={"greedy": True},
                               stop_eog=False))
     eng.step()                      # admit, prefill wave, first decode block
     eng.step()                      # warm decode block
     torch.cuda.synchronize()
+    t0 = time.perf_counter()        # the same kind of step, unprofiled
+    eng.step()
+    torch.cuda.synchronize()
+    wall_unprofiled_ms = (time.perf_counter() - t0) * 1e3
     writers = {name: getattr(llama_mod, name) for name in ("kv_update_layer",
                                                            "paged_update_layer")}
 
@@ -1494,13 +1737,17 @@ def profile_block(torch, model, label: str, **engine_kw) -> dict:
     qmv_rows = [(k, t, n) for k, t, n in dev if any(
         s in k for s in ("qmv_kernel", "quantize_acts_kernel", "reduce_splits_kernel"))]
     kv_write = [e for e in events if e.key == "kv_write" and e.self_cpu_time_total > 0]
-    with open(os.path.join(OUT_DIR, f"profile_decode_{label}.txt"), "w") as f:
+    name = f"profile_decode_{label}{'_graph' if graphs else ''}.txt"
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
     top = sorted(dev, key=lambda r: -r[1])[:12]
-    return {"cache": label, "wall_ms": wall_ms, "device_ms": device_ms,
+    return {"cache": label, "block": "graph replay" if graphs else "eager",
+            "wall_ms": wall_ms, "wall_ms_unprofiled": wall_unprofiled_ms,
+            "device_ms": device_ms,
             "device_idle_share": 1.0 - device_ms / wall_ms,
             "device_ops": sum(c for _, _, c in dev),
             "cuda_launch_calls": sum(e.count for e in events if e.key == "cudaLaunchKernel"),
+            "cuda_graph_launches": sum(e.count for e in events if e.key == "cudaGraphLaunch"),
             "decode_attention_kernels": [{"name": k[:80], "ms": t, "count": n}
                                          for k, t, n in attn],
             "decode_attention_ms": sum(t for _, t, _ in attn),
@@ -1606,20 +1853,22 @@ def profile_chunk(torch, model, n: int = 32, paged: bool = False) -> dict:
 
 def phase_profile(torch, model) -> None:
     """Where a decode step's time goes, on the bf16, Q8_0 and paged caches:
-    one block of 8 greedy decode steps with 8 active rows each, tables in
-    chiprun_out/profile_decode_<cache>.txt."""
+    one block of 8 greedy decode steps with 8 active rows each, eager and
+    replayed from a CUDA graph, tables in
+    chiprun_out/profile_decode_<cache>[_graph].txt."""
     os.makedirs(OUT_DIR, exist_ok=True)
     profile_chunk(torch, model)
     profile_chunk(torch, model, 1000)
     profile_chunk(torch, model, 1000, paged=True)
     for label, kw in (("bf16", {}), ("q8_0", {"kv_dtype": "q8_0"}),
                       ("paged", {"paged": True, "page_size": 256})):
-        rec = profile_block(torch, model, label, **kw)
-        emit({"phase": "profile", "what": "one engine step = 8 greedy decode steps, 8 rows",
-              **rec})
-        if label != "bf16":
-            check(rec["decode_attention_ms"] > 0,
-                  f"the {label} decode step ran no decode-attention kernel")
+        for graphs in (False, True):
+            rec = profile_block(torch, model, label, graphs, **kw)
+            emit({"phase": "profile", "what": "one engine step = 8 greedy decode steps, 8 rows",
+                  **rec})
+            if label != "bf16" and not graphs:
+                check(rec["decode_attention_ms"] > 0,
+                      f"the {label} decode step ran no decode-attention kernel")
 
 
 # ------------------------------------------------------------ 8. tools
@@ -1629,11 +1878,14 @@ def phase_tools(torch, model) -> dict:
     """The measurement tools' path, as a user runs them: qmv_probe at
     ffn_gate/up's (N 14336, K 4096) and at (4096, 4096), ops_bench at its
     default shapes (written to chiprun_out/ops_perf.json),
-    flash_decode_probe, and llama-bench (pp 32, tg 16) on the 8B model. The
-    launch counts are set to 0 just before and read just after."""
+    flash_decode_probe, llama-bench (pp 32, tg 16) and batched-bench (pp
+    128, tg 32, B 1/4/8; its decode chains replayed from CUDA graphs) on the
+    8B model. The launch counts are set to 0 just before and read just
+    after."""
     from dataclasses import asdict
 
-    from superllama_tpu_torch.tools import flash_decode_probe, llama_bench, ops_bench, qmv_probe
+    from superllama_tpu_torch.tools import (batched_bench, flash_decode_probe, llama_bench,
+                                            ops_bench, qmv_probe)
 
     reset_counts()
     t0 = time.perf_counter()
@@ -1643,10 +1895,14 @@ def phase_tools(torch, model) -> dict:
     cells = flash_decode_probe.probe(device="cuda")
     bench = llama_bench.run_bench(model, pp=(32,), tg=(16,), reps=2, n_ctx=2048)
     print(llama_bench.format_markdown(bench), flush=True)
+    batched = batched_bench.run_batched_bench(model, [(128, 32, b) for b in (1, 4, 8)])
+    print(batched_bench.format_table(batched), flush=True)
     counts = read_counts()
     emit({"phase": "tools", "seconds": time.perf_counter() - t0, "launches": counts,
           "qmv_probe": probe, "decode_cells": len(cells),
-          "llama_bench": [asdict(r) for r in bench]})
+          "llama_bench": [asdict(r) for r in bench],
+          "batched_bench": [r.as_dict() | {"t_pp_s": r.t_pp_s, "t_tg_s": r.t_tg_s}
+                            for r in batched]})
     for name, n in counts.items():
         # fa's CUDA-core kernel serves f32 q or K/V, and paged's tensor-core
         # kernel a paged prefill chunk, neither of which a tool sends
@@ -1784,6 +2040,14 @@ def main() -> int:
         # paged's rows of phase 6 alone (decode and four prefill shapes)
         emit({"phase": "paged_times", "card": info["nvidia_smi"], "kernels": time_paged(torch)})
         return 0
+    if "--graphs" in sys.argv[1:]:
+        # the decode blocks' graphs alone: graph against eager blocks on
+        # each cache, DecodeLoop, and the bf16 serving waves
+        model = build_model(torch)
+        phase_graph_vs_eager(torch, model)
+        phase_decode_loop(torch, model)
+        phase_serving(torch, model)
+        return 0
     if "--checks" in sys.argv[1:]:
         # the kernels against their plain versions alone
         phase_kernels(torch)
@@ -1796,6 +2060,8 @@ def main() -> int:
     paged_counts = phase_serving_paged(torch, model)
     counts["paged"], counts["paged_tc"] = paged_counts["paged"], paged_counts["paged_tc"]
     counts["fa"] = phase_serving_f32(torch, model)["fa"]
+    phase_graph_vs_eager(torch, model)
+    phase_decode_loop(torch, model)
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     times = phase_times(torch, model, info["nvidia_smi"])

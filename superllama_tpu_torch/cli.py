@@ -1,9 +1,9 @@
 """Command-line entry points of the port: ``run`` (generate text from a
-prompt), ``serve`` (the OpenAI-compatible HTTP server) and ``llama-bench``
-(the pp/tg perf matrix), with the flag names of the JAX package's CLI for
-what exists.
+prompt), ``serve`` (the OpenAI-compatible HTTP server), ``llama-bench``
+(the pp/tg perf matrix) and ``batched-bench`` (decode scaling with the
+batch), with the flag names of the JAX package's CLI for what exists.
 
-Usage:  python -m superllama_tpu_torch <run|serve|llama-bench> -m model.gguf [options]
+Usage:  python -m superllama_tpu_torch <run|serve|llama-bench|batched-bench> -m model.gguf [options]
 
 All run on the GPU unless ``--device cpu`` is given.
 """
@@ -42,6 +42,9 @@ def _load(args):
 
 
 def cmd_run(args) -> int:
+    """Greedy and not streamed: ``DecodeLoop`` (prefill + captured decode
+    steps), as the JAX CLI routes it; otherwise the engine."""
+    from .runtime.decode_loop import DecodeLoop
     from .runtime.engine import Engine, GenRequest
 
     model, kvd = _load(args)
@@ -50,6 +53,16 @@ def cmd_run(args) -> int:
         print("error: the model has no tokenizer", file=sys.stderr)
         return 2
     ids = tok.encode(args.prompt, add_special=True, parse_special=True)
+    if args.temp <= 0 and not args.stream:
+        loop = DecodeLoop(model, n_ctx=args.ctx_size, kv_dtype=kvd, temp=0.0,
+                          device=args.device)
+        t0 = time.perf_counter()
+        gen = loop.generate(ids, args.n_predict, seed=args.seed)[len(ids):]
+        dt = time.perf_counter() - t0
+        print(tok.decode(gen))
+        print(f"[{len(gen)} tokens, {len(gen) / max(dt, 1e-9):.1f} tok/s with the prefill]",
+              file=sys.stderr)
+        return 0
     sampling = ({"greedy": True} if args.temp <= 0 else
                 {"temp": args.temp, "top_k": args.top_k, "top_p": args.top_p,
                  "min_p": args.min_p, "seed": args.seed})
@@ -102,6 +115,20 @@ def cmd_llama_bench(args) -> int:
     return 0
 
 
+def cmd_batched_bench(args) -> int:
+    """Batched decode scaling (tools/batched-bench counterpart)."""
+    import json
+
+    from .tools.batched_bench import format_table, run_batched_bench
+
+    model, kvd = _load(args)
+    rows = run_batched_bench(model, [(args.pp, args.tg, b) for b in args.batch],
+                             kv_dtype=kvd)
+    print(format_table(rows))
+    print(json.dumps([r.as_dict() for r in rows]))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="superllama_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -140,6 +167,14 @@ def main(argv=None) -> int:
     p.add_argument("-r", "--reps", type=int, default=3, help="timed repetitions")
     p.add_argument("-o", "--output", default="md", choices=["md", "json", "jsonl", "csv"])
     p.set_defaults(fn=cmd_llama_bench)
+
+    p = sub.add_parser("batched-bench", help="batched decode scaling bench")
+    _add_model_args(p)
+    p.add_argument("--pp", type=int, default=512, help="prompt tokens per sequence")
+    p.add_argument("--tg", type=int, default=32, help="generated tokens per sequence")
+    p.add_argument("--batch", type=int, nargs="+", default=[1, 4, 8],
+                   help="parallel sequences, one row each")
+    p.set_defaults(fn=cmd_batched_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -54,8 +54,9 @@ def rope_frequencies(
     Returns (inv_freq[n_rot//2] f32, mscale). Linear scaling is freq_scale < 1
     with ext_factor == 0."""
     dims = torch.arange(0, n_rot, 2, dtype=torch.float32, device=device)
-    theta = torch.pow(torch.tensor(freq_base, dtype=torch.float32,
-                                   device=device), -dims / n_rot)
+    # a fill, not a host-to-device copy: a CUDA graph may capture this
+    theta = torch.pow(torch.full((), freq_base, dtype=torch.float32,
+                                 device=device), -dims / n_rot)
     if ext_factor == 0.0:
         return theta * freq_scale, attn_factor
 

@@ -9,10 +9,21 @@ reference server's update_slots semantics):
    per engine step. A lone prompt prefills into a one-row scratch cache that
    is then copied into its slot's row; two or more prompts load together in
    one (n_slots, P) wave straight into the big cache;
- - sampling: a host ``SamplerChain`` per slot; when every generating slot is
-   greedy, a block of ``block_size`` forward + argmax steps runs on the
-   device and the host rolls back the overshoot past a stop with
-   ``kv_truncate_rows``;
+ - sampling: the first token of a request comes from its host
+   ``SamplerChain``. When every generating slot's config is expressible by
+   the device sampler chain (``ops/device_sampling.py``: all but DRY,
+   mirostat, adaptive-p and more than 16 bias entries), a block of
+   ``block_size`` forward + sample steps runs on the device, keyed per row
+   by the request's seed and the count of tokens it has sampled, so a
+   seeded request gives the JAX package's tokens; greedy-only blocks take a
+   plain argmax. Other configs take the host-sampled step decode;
+ - the block is one function over static input and output buffers. On a
+   CUDA device it is captured once per (cache, block size, slot window,
+   greedy-only) in a CUDA graph (``runtime/graphs.py``) and replayed; on
+   the CPU it runs eagerly. Dense-cache blocks are pipelined as in the JAX
+   engine (``pipeline_depth``): the next block chains off the previous
+   one's device-resident outputs while the host reads the tokens of the
+   one before, and stops roll the cache back with ``kv_truncate_rows``;
  - the dense cache is f32/bf16, or Q8_0 / Q4_0 (``kv_dtype="q8_0"`` /
    ``"q4_0"``);
  - paged mode (``paged=True``): a page pool with host spill
@@ -20,7 +31,7 @@ reference server's update_slots semantics):
    one chunk of at most ``page_size`` tokens per step, one slot at a time,
    the other rows riding on the NULL page; decode picks the slots whose
    pages fit the pool (round robin, the rest wait while their pages spill)
-   and runs host-sampled steps or greedy blocks rolled back with
+   and runs host-sampled steps or (unpipelined) blocks rolled back with
    ``PagedKVManager.rollback``.
 
 Thread model: ``submit`` enqueues; one engine thread (``start``) or the
@@ -28,8 +39,7 @@ caller (``run_until_drained``) owns the device. The cache is updated in
 place.
 
 Not ported yet: speculative and lookup decoding, context shift,
-grammars, prompt-prefix reuse, slot save/restore and the device sampler
-chain; non-greedy requests take the host-sampled step decode.
+grammars, prompt-prefix reuse and slot save/restore.
 """
 
 from __future__ import annotations
@@ -49,7 +59,9 @@ import torch
 from ..device import resolve_device
 from ..models.loader import LoadedModel
 from ..models.registry import get_forward
+from ..ops import device_sampling as dsamp
 from .context import check_model_device
+from .graphs import GraphCache
 from .kv_cache import KVCache, kv_cache_init, kv_insert_row, kv_truncate_rows
 from .paged_kv import PagedKVManager, paged_cache_init
 from .sampling import SamplerChain, make_chain
@@ -102,17 +114,26 @@ class _Slot:
     prefill_P: int = 0               # chunk bucket width
     in_place: bool = False           # prefilling straight into the big cache
     scratch: KVCache | None = None   # one-row scratch cache
+    # the device sampler chain
+    fast: bool = False               # config expressible by the device chain
+    seed: int = 0
+    n_sampled: int = 0               # tokens emitted: the key stream's position
 
 
 class Engine:
     """Continuous-batching engine on one device (default CUDA). kv_dtype is a
-    float torch dtype, or "q8_0" / "q4_0" for a quantized dense cache."""
+    float torch dtype, or "q8_0" / "q4_0" for a quantized dense cache.
+
+    ``graphs`` (default: on for a CUDA device) replays decode blocks from
+    CUDA graphs; ``graphs=False`` runs them eagerly, the CPU's only way.
+    ``pipeline_depth`` is the number of dense-cache blocks in flight."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
                  kv_dtype: torch.dtype | str = torch.bfloat16,
                  prefill_buckets=PREFILL_BUCKETS, block_size: int = 8,
                  device=None, paged: bool = False, page_size: int = 256,
-                 n_pages: int | None = None, max_pages_per_seq: int | None = None):
+                 n_pages: int | None = None, max_pages_per_seq: int | None = None,
+                 pipeline_depth: int = 2, graphs: bool | None = None):
         self.device = resolve_device(device)
         check_model_device(model, self.device)
         self.model = model
@@ -139,11 +160,37 @@ class Engine:
         else:
             self.cache = self._new_cache(n_slots)
         self.slots = [_Slot(i) for i in range(n_slots)]
+        # decode blocks: static inputs and outputs (the warm-up's own set has
+        # every row idle), the chain's per-row parameters, the blocks in
+        # flight (dense cache) and their graphs
+        self._io = self._block_io()
+        self._idle_io = self._block_io()
+        self._sp = dsamp.chain_tensors(dsamp.chain_params([None] * n_slots, self.hp.n_vocab),
+                                       self.device)
+        self._sp_key = None
+        self._pending_q: list[dict] = []
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self._graphs = GraphCache(self.device) if graphs else None
+        self.stats = {"blocks": 0, "chained": 0}
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
         # serializes step() against callers that must see a quiet engine
         self._step_lock = threading.RLock()
         self._running = False
         self._thread: threading.Thread | None = None
+
+    def _block_io(self) -> dict:
+        B = self.n_slots
+        i64 = dict(dtype=torch.int64, device=self.device)
+        io = {"toks": {}}     # the block's (B, n_steps) tokens, by n_steps
+        for pre in ("", "_l"):
+            io["tok" + pre] = torch.zeros((B, 1), **i64)
+            io["pos" + pre] = torch.full((B, 1), -1, dtype=torch.int32, device=self.device)
+            io["ring" + pre] = torch.full((B, dsamp.RING), -1, **i64)
+            io["counts" + pre] = torch.zeros((B,), **i64)
+        io["keys"] = torch.zeros((B, 2), **i64)
+        return io
 
     def _new_cache(self, batch: int) -> KVCache:
         hp = self.hp
@@ -196,6 +243,7 @@ class Engine:
                 s.req._result["error"] = msg
                 s.req._done.set()
             s.state, s.req, s.pending, s.scratch = SlotState.IDLE, None, [], None
+        self._pending_q = []
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -295,6 +343,9 @@ class Engine:
             slot.in_place = True
             slot.prefill_P = min(slot.prefill_P, self.page_size)
         slot.sampler = make_chain(**req.sampling) if req.sampling else make_chain(greedy=True)
+        slot.fast = dsamp.chain_supported(req.sampling or {})
+        slot.seed = int((req.sampling or {}).get("seed", 0))
+        slot.n_sampled = 0
         for t in ids[-64:]:
             slot.sampler.ctx.recent_tokens.append(t)
 
@@ -303,6 +354,9 @@ class Engine:
         loading = [s for s in self.slots if s.state == SlotState.PREFILL]
         if not loading:
             return False
+        # a wave's truncate keeps rows by host counts: land the blocks in
+        # flight first
+        self._flush_pending()
         finals: list[tuple[_Slot, torch.Tensor, int, int]] = []  # (slot, logits, row, col)
         if self.paged:
             for slot in loading:
@@ -382,73 +436,219 @@ class Engine:
         return w if w < self.n_ctx else None
 
     def _decode_step(self) -> bool:
+        """Decode the generating slots: a device block when every one's
+        sampler fits the device chain and the context allows (the JAX
+        engine's routing), else one host-sampled step."""
         active = [s for s in self.slots if s.state == SlotState.GENERATING]
         if not active:
             return False
+        nb = self.block_size
+        fast = nb > 1 and all(s.fast for s in active)
         if self.paged:
-            if (self.block_size > 1
-                    and all(self._greedy_cfg(s.req.sampling) for s in active)
-                    and all(s.n_past + self.block_size + 1 <= self.n_ctx for s in active)):
+            if fast and all(s.n_past + nb + 1 <= self.n_ctx for s in active):
                 self._paged_block_decode_step(active)
             else:
                 self._paged_decode_step(active)
             return True
-        if (self.block_size > 1
-                and all(self._greedy_cfg(s.req.sampling) for s in active)
-                and all(s.n_past + 2 * self.block_size + 1 <= self.n_ctx for s in active)):
-            self._block_decode(active)
-        else:
-            tokens = np.zeros((self.n_slots, 1), np.int64)
-            pos = np.full((self.n_slots, 1), -1, np.int32)
-            for s in active:
-                tokens[s.idx, 0] = s.generated[-1]
-                pos[s.idx, 0] = s.n_past
-            logits = self._forward(tokens, pos, self.cache, s_window=self._s_bucket(
-                max(s.n_past for s in active) + 2))
-            logits_np = logits[:, 0].float().cpu().numpy()
-            for s in active:
-                s.n_past += 1
-                self._emit(s, s.sampler.sample(logits_np[s.idx]))
+        if fast and all(s.n_past + 2 * nb + 1 <= self.n_ctx for s in active):
+            self._block_decode_step(active)
+            return True
+        self._flush_pending()
+        tokens = np.zeros((self.n_slots, 1), np.int64)
+        pos = np.full((self.n_slots, 1), -1, np.int32)
+        for s in active:
+            tokens[s.idx, 0] = s.generated[-1]
+            pos[s.idx, 0] = s.n_past
+        logits = self._forward(tokens, pos, self.cache, s_window=self._s_bucket(
+            max(s.n_past for s in active) + 2))
+        logits_np = logits[:, 0].float().cpu().numpy()
+        for s in active:
+            s.n_past += 1
+            self._emit(s, s.sampler.sample(logits_np[s.idx]))
         return True
 
-    def _block_decode(self, active: list[_Slot]) -> None:
-        """Greedy block decode: block_size forward + argmax steps on the
-        device with no host round-trip between them, then the host accepts
-        each slot's tokens and rolls back the rows that ran past a stop."""
-        nb = self.block_size
-        tok0 = np.zeros((self.n_slots, 1), np.int64)
-        pos0 = np.full((self.n_slots, 1), -1, np.int32)
-        for s in active:
-            tok0[s.idx, 0] = s.generated[-1]
-            pos0[s.idx, 0] = s.n_past
-        win = self._s_bucket(max(s.n_past for s in active) + 2 * nb + 1)
-        toks = self._greedy_steps(tok0, pos0, self.cache, win)
-        keep = self._keep_vector()
-        overshoot = False
-        for s in active:
-            accepted = self._consume_row(s, toks[s.idx])
-            overshoot |= accepted < nb
-            keep[s.idx] = s.n_past
-        if overshoot:
-            kv_truncate_rows(self.cache, torch.from_numpy(keep))
+    # ----------------------------------------------------- device blocks
 
-    def _greedy_steps(self, tok0: np.ndarray, pos0: np.ndarray, cache,
-                      win: int | None) -> np.ndarray:
-        """block_size forward + argmax steps on the device from (n_slots, 1)
-        tokens and positions; rows with pos < 0 ride along unchanged.
-        Returns the (n_slots, block_size) tokens."""
-        tok = torch.as_tensor(tok0).to(self.device)
-        pos = torch.as_tensor(pos0).to(self.device)
+    def _block(self, cache, io: dict, n_steps: int, win: int | None, greedy: bool) -> None:
+        """One decode block, the JAX engine's ``decode_block``: n_steps
+        forward + sample steps from io's inputs, written into io's outputs
+        (the tokens, the last token and position, the ring, the counts
+        advanced by n_steps). Rows with pos < 0 ride along unchanged. Only
+        tensor ops without a host sync: a CUDA graph captures it."""
+        tok, pos, ring = io["tok"], io["pos"], io["ring"]
         live = pos[:, 0] >= 0
+        if not greedy:
+            u_xtc, u_gumbel = dsamp.chain_noise(io["keys"], io["counts"], n_steps)
         steps = []
-        for _ in range(self.block_size):
+        for i in range(n_steps):
             logits, _ = self._fwd(self.model.params, self.hp, tok, pos, cache,
                                   s_window=win)
-            nxt = torch.where(live, torch.argmax(logits[:, -1], dim=-1), tok[:, 0])
+            if greedy:
+                nxt = torch.argmax(logits[:, -1], dim=-1)
+            else:
+                nxt, ring = dsamp.chain_step_core(logits[:, -1].to(torch.float32), ring,
+                                                  self._sp, u_xtc[:, i], u_gumbel[:, i])
+            nxt = torch.where(live, nxt, tok[:, 0])
             pos = torch.where(live[:, None], pos + 1, pos)
             tok = nxt[:, None]
             steps.append(nxt)
-        return torch.stack(steps, dim=1).cpu().numpy()
+        io["toks"][n_steps].copy_(torch.stack(steps, dim=1))
+        io["tok_l"].copy_(tok)
+        io["pos_l"].copy_(pos)
+        io["ring_l"].copy_(ring)
+        io["counts_l"].copy_(io["counts"] + n_steps)
+
+    def _h2d(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """Host array into a static device tensor, asynchronously from
+        pinned memory on a CUDA device."""
+        src = torch.from_numpy(np.ascontiguousarray(arr)).to(dst.dtype)
+        if dst.is_cuda:
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+
+    def _stage_block(self, rows: list[_Slot]) -> bool:
+        """Write the rows' block inputs (last token, position, recent-token
+        ring, seed key, sampled count) into the static inputs, and the
+        chain's parameters when the request set changed. Returns whether
+        every row is greedy (the argmax block)."""
+        B = self.n_slots
+        tok0 = np.zeros((B, 1), np.int64)
+        pos0 = np.full((B, 1), -1, np.int32)
+        ring = np.full((B, dsamp.RING), -1, np.int64)
+        keys = np.zeros((B, 2), np.int64)
+        counts = np.zeros(B, np.int64)
+        cfgs: list[dict | None] = [None] * B
+        for s in rows:
+            tok0[s.idx, 0] = s.generated[-1]
+            pos0[s.idx, 0] = s.n_past
+            recent = s.sampler.ctx.recent_tokens[-dsamp.RING:]
+            if recent:
+                ring[s.idx, -len(recent):] = recent
+            keys[s.idx] = ((s.seed >> 32) & 0xFFFFFFFF, s.seed & 0xFFFFFFFF)
+            counts[s.idx] = s.n_sampled
+            cfgs[s.idx] = s.req.sampling or {"greedy": True}
+        for name, arr in (("tok", tok0), ("pos", pos0), ("ring", ring), ("keys", keys),
+                          ("counts", counts)):
+            self._h2d(self._io[name], arr)
+        sp_key = tuple((s.idx, s.req.request_id) for s in rows)
+        if sp_key != self._sp_key:     # the parameters change with the request set
+            for name, arr in dsamp.chain_params(cfgs, self.hp.n_vocab).items():
+                self._h2d(self._sp[name], arr)
+            self._sp_key = sp_key
+        return all(c is None or self._greedy_cfg(c) for c in cfgs)
+
+    def _run_block(self, ids: tuple, win: int | None, greedy: bool) -> dict:
+        """Run one block on the static inputs (a graph replay on CUDA, eager
+        on the CPU) and start the copy of its tokens to the host."""
+        nb = self.block_size
+        cache = self.pkv.cache if self.paged else self.cache
+        if nb not in self._io["toks"]:
+            for io in (self._io, self._idle_io):
+                io["toks"][nb] = torch.zeros((self.n_slots, nb), dtype=torch.int64,
+                                             device=self.device)
+        run = lambda: self._block(cache, self._io, nb, win, greedy)   # noqa: E731
+        if self._graphs is None:
+            run()
+        else:
+            key = ("paged" if self.paged else str(self.kv_dtype), nb, win, greedy)
+            self._graphs.run(key, run,
+                             lambda: self._block(cache, self._idle_io, nb, win, greedy))
+        self.stats["blocks"] += 1
+        toks, event = self._io["toks"][nb], None
+        if toks.is_cuda:
+            # ordered before the next block overwrites the graph's output
+            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+            host.copy_(toks, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = toks.clone()
+        return {"ids": ids, "toks": host, "event": event, "win": win, "greedy": greedy}
+
+    @staticmethod
+    def _land(pend: dict) -> np.ndarray:
+        if pend["event"] is not None:
+            pend["event"].synchronize()
+        return pend["toks"].numpy()
+
+    def _launch_block(self, active: list[_Slot]) -> dict:
+        """Dispatch one block from host-built inputs."""
+        greedy = self._stage_block(active)
+        win = self._s_bucket(max(s.n_past for s in active) + 2 * self.block_size + 1)
+        return self._run_block(tuple(s.idx for s in active), win, greedy)
+
+    def _chain_block(self, pend: dict) -> dict:
+        """Dispatch the next block off the previous block's outputs, copied
+        into the static inputs on the device: no host round trip."""
+        io = self._io
+        for name in ("tok", "pos", "ring", "counts"):
+            io[name].copy_(io[name + "_l"])
+        self.stats["chained"] += 1
+        return self._run_block(pend["ids"], pend["win"], pend["greedy"])
+
+    def _truncate(self, keep: np.ndarray) -> None:
+        keep_t = torch.from_numpy(keep)
+        if self.device.type == "cuda":
+            keep_t = keep_t.pin_memory().to(self.device, non_blocking=True)
+        kv_truncate_rows(self.cache, keep_t)
+
+    def _consume_block(self, pend: dict, inflight_extra: int = 0) -> None:
+        """Read a landed block's tokens, emit them per slot, roll the cache
+        back past a stop. ``inflight_extra``: cache rows that blocks still in
+        flight have already appended for the surviving slots."""
+        nb = self.block_size
+        toks = self._land(pend)
+        keep = self._keep_vector()
+        overshoot = False
+        for idx in pend["ids"]:
+            s = self.slots[idx]
+            if s.req is None or s.state != SlotState.GENERATING:
+                overshoot = True             # the slot stopped earlier: discard
+                continue
+            accepted = self._consume_row(s, toks[idx])
+            overshoot |= accepted < nb
+            keep[idx] = s.n_past + (inflight_extra if s.state == SlotState.GENERATING else 0)
+        if overshoot:
+            self._truncate(keep)
+
+    def _flush_pending(self) -> None:
+        """Land every block in flight, before a cache mutation that keeps
+        rows by host counts (a host-sampled step, a prefill)."""
+        q, self._pending_q = self._pending_q, []
+        while q:
+            pend = q.pop(0)
+            self._consume_block(pend, inflight_extra=self.block_size * len(q))
+
+    def _block_decode_step(self, active: list[_Slot]) -> None:
+        """Pipelined block decode (the JAX engine's ``_block_decode_step``):
+        chain blocks k+1.. off the device-resident outputs before reading
+        block k's tokens, so the host's stop checks overlap device work. A
+        change of the active set or an outgrown slot window lands the whole
+        pipeline; so does a stop, after the surviving slots emit."""
+        nb = self.block_size
+        q = self._pending_q
+        cur_ids = tuple(s.idx for s in active)
+        max_past = max(s.n_past for s in active)
+        win_ok = all(p["win"] is None or max_past + (len(q) + 1) * nb + 1 <= p["win"]
+                     for p in q)
+        if q and (q[0]["ids"] != cur_ids or not win_ok):
+            self._flush_pending()
+            return
+        if not q:
+            q.append(self._launch_block(active))
+        # top up the pipeline while the window covers the extra depth, but
+        # never past every slot's max_tokens: such a block would only roll back
+        need = max(s.req.max_tokens - len(s.generated) for s in active)
+        while len(q) < self.pipeline_depth and need > len(q) * nb:
+            last_win = q[-1]["win"]
+            if last_win is not None and max_past + (len(q) + 1) * nb + 1 > last_win:
+                break
+            q.append(self._chain_block(q[-1]))
+        pend = q.pop(0)
+        self._consume_block(pend, inflight_extra=nb * len(q))
+        if any(self.slots[i].state != SlotState.GENERATING for i in pend["ids"]):
+            self._flush_pending()
 
     # ------------------------------------------------------------ paged mode
 
@@ -519,21 +719,19 @@ class Engine:
             self._emit(s, s.sampler.sample(logits_np[s.idx]))
 
     def _paged_block_decode_step(self, active: list[_Slot]) -> None:
-        """A greedy decode block on the paged cache: the block's pages are
-        planned up front (one page per row), and a row that stops inside
-        the block rolls back to its accepted tokens."""
+        """A decode block on the paged cache (not pipelined, as in the JAX
+        engine): the block's pages are planned up front (one page per row),
+        and a row that stops inside the block rolls back to its accepted
+        tokens."""
         picked = self._paged_pick(active)
         nb = self.block_size
-        tok0 = np.zeros((self.n_slots, 1), np.int64)
-        pos0 = np.full((self.n_slots, 1), -1, np.int32)
-        for s in picked:
-            tok0[s.idx, 0] = s.generated[-1]
-            pos0[s.idx, 0] = s.n_past
+        greedy = self._stage_block(picked)
         saved = {s.idx: self.pkv.save_cursor(s.idx) for s in picked}
         with self._paged_hold(picked):
             self.pkv.plan_step({s.idx: nb for s in picked})
-            toks = self._greedy_steps(tok0, pos0, self.pkv.cache, None)
+            pend = self._run_block(tuple(s.idx for s in picked), None, greedy)
             self.pkv.finish_step()
+        toks = self._land(pend)
         for s in picked:
             accepted = self._consume_row(s, toks[s.idx])
             if accepted < nb:
@@ -554,6 +752,7 @@ class Engine:
     def _emit(self, slot: _Slot, token: int):
         req = slot.req
         slot.generated.append(token)
+        slot.n_sampled += 1
         if len(slot.generated) == 1:
             slot.t_first_token = time.perf_counter()
         tok = self.model.tokenizer

@@ -195,7 +195,7 @@ def test_server_bad_request(server):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "load_model", "Context",
-                                   "Engine", "ServerApp", "synthetic"])
+                                   "Engine", "ServerApp", "synthetic", "DecodeLoop"])
 def test_entry_points_default_to_cuda(entry, path, model):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -203,6 +203,7 @@ def test_entry_points_default_to_cuda(entry, path, model):
     from superllama_tpu_torch.models.synthetic import (synthetic_qparams_device,
                                                        tiny_test_hparams)
     from superllama_tpu_torch.runtime.context import Context
+    from superllama_tpu_torch.runtime.decode_loop import DecodeLoop
 
     calls = {
         "resolve_device": lambda: resolve_device(),
@@ -211,6 +212,7 @@ def test_entry_points_default_to_cuda(entry, path, model):
         "Engine": lambda: Engine(model),
         "ServerApp": lambda: ServerApp(model),
         "synthetic": lambda: synthetic_qparams_device(tiny_test_hparams()),
+        "DecodeLoop": lambda: DecodeLoop(model),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -225,6 +227,8 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.ops.paged_attention, superllama_tpu_torch.runtime.paged_kv\n"
         "import superllama_tpu_torch.tools.ops_bench, superllama_tpu_torch.tools.qmv_probe\n"
         "import superllama_tpu_torch.tools.flash_decode_probe, superllama_tpu_torch.tools.llama_bench\n"
+        "import superllama_tpu_torch.runtime.decode_loop, superllama_tpu_torch.runtime.graphs\n"
+        "import superllama_tpu_torch.ops.device_sampling, superllama_tpu_torch.tools.batched_bench\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
