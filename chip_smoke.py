@@ -13,6 +13,9 @@ PyTorch version.
                                           # a bf16 decode block's profile
     python3 chip_smoke.py --graphs        # device, build, phase 4b, phase 4c and the
                                           # bf16 serving waves of phase 4
+    python3 chip_smoke.py --prefill       # device, build, phases 4b and 4d, the
+                                          # one-row paged chunk of phase 5, the TTFTs
+                                          # of phase 6, the lone prompts of phase 7
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -30,41 +33,49 @@ Phases, each printing one JSON line:
     fa and paged call checked to take the kernel its types and shape ask
     for;
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
-    server answers 8 concurrent completions and one streamed one, greedy,
-    then 8 sampled ones (temperature 0.8, top-k 40, top-p 0.95, min-p 0.05,
-    a seed each, two with repeat penalty 1.1) twice; the served tokens
-    equal the engine's own, every decode block is a CUDA-graph replay (the
-    device sampler chain inside the sampled ones), and the launch counters,
-    which count a replay's launches, show the path went through every kernel
-    (fa only through its tensor-core kernel). Then the same with a Q8_0 KV
-    cache (fd decode), with the paged KV cache (prefill through paged's
-    tensor-core kernel; an ample pool, then a pool of about half the wave's
-    pages that must spill to host), and a short wave on an f32 cache (fa's
-    CUDA-core kernel);
- 4b. graph against eager decode blocks on the bf16, Q8_0 and paged caches,
-    greedy and sampled: equal tokens, bit-equal written cache rows, equal
-    launch counts;
+    server (warmed up first, as ``serve`` does: no graph may be captured
+    while it serves) answers 8 concurrent completions and one streamed
+    one, greedy, then 8 sampled ones (temperature 0.8, top-k 40, top-p
+    0.95, min-p 0.05, a seed each, two with repeat penalty 1.1) twice; the
+    served tokens equal the engine's own, every decode block and every
+    prompt chunk is a CUDA-graph replay (the device sampler chain inside
+    the sampled blocks), and the launch counters, which count a replay's
+    launches, show the path went through every kernel (fa only through its
+    tensor-core kernel). Then the same with a Q8_0 KV cache (fd decode),
+    with the paged KV cache (prefill through paged's tensor-core kernel; an
+    ample pool, then a pool of about half the wave's pages that must spill
+    to host), and a short wave on an f32 cache (fa's CUDA-core kernel);
+ 4b. graph against eager decode blocks and prompt chunks on the bf16, Q8_0
+    and paged caches, greedy and sampled waves, and lone 100- and
+    1000-token prompts: equal tokens, bit-equal written cache rows, equal
+    launch counts, every block and chunk of the graph engine a replay;
  4c. DecodeLoop (prefill + one captured graph of the decode steps) against
     engine.generate on the 8B model, and a seeded sampled loop repeated;
+ 4d. Engine.warmup on a bf16 and a paged engine: the keys, their capture
+    seconds, the graph pool's bytes, then a 32- and a 1000-token request
+    with no capture after the warm-up, and their TTFT;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
-    and Q4_0 caches; the paged cache against the dense one;
+    and Q4_0 caches; the paged cache against the dense one; a one-row paged
+    prompt chunk against the same chunk padded to 8 rows;
  6. times: decode tok/s (greedy and sampled, blocks replayed from CUDA
     graphs, with the captures' time and the graph pool's bytes), time to
-    first token (bf16, Q8_0, paged; a
-    1000-token prompt on bf16 and paged), and each kernel's time beside its
-    plain version, a library call and its bound (qmv at every (K, N) of a
-    decode step and their sum over a step; qmm at every (K, N) of a lone
-    prompt chunk; fa at the serving wave, a lone 32-token chunk and a
-    1024-token chunk; paged's prefill path at the serving chunk of a
-    100-token prompt and at a long prompt's 256-token chunk),
+    first token of a 32-, 100- and 1000-token prompt (bf16, Q8_0, paged),
+    cold (the first request to reach its chunk's graph key) and warm, and
+    each kernel's time beside its plain version, a library call and its
+    bound (qmv at every (K, N) of a decode step and their sum over a step;
+    qmm at every (K, N) of a lone prompt chunk; fa at the serving wave, a
+    lone 32-token chunk and a 1024-token chunk; paged's prefill path at the
+    engine's one-row chunk of a 100-token prompt, at that chunk padded to 8
+    rows and at a long prompt's 256-token chunk),
     kernel and library both read from a CUDA graph over inputs rotated past
     the L2 (the eager reading beside it);
- 7. profile: where a lone 32-token and a lone 1000-token prompt chunk's
-    time goes (bf16 cache) and where one engine decode step's time goes on
-    each cache, its block eager and replayed from a CUDA graph
-    (torch.profiler), qmv, the decode-attention kernels and cache writes
-    apart;
+ 7. profile: where a lone 32-token and a lone 1000-token prompt's time
+    goes (bf16 cache; the 1000-token one also on the paged cache), its
+    chunks eager and replayed from CUDA graphs, and where one engine
+    decode step's time goes on each cache, its block eager and replayed
+    from a CUDA graph (torch.profiler), qmv, the decode-attention kernels
+    and cache writes apart;
  8. tools: the measurement tools' path (the qmv probe at two 8B shapes,
     ops_bench at its default shapes, flash_decode_probe, a short llama-bench
     and batched-bench on the 8B model) with its own launch counts, then each probe variant's
@@ -417,7 +428,9 @@ def check_decode_kernels(torch, record) -> None:
     # positions in no order with holes (with a window and sinks), the
     # serving chunk of a 100-token prompt (seven rows of padding only over
     # empty tables), a long prompt's fourth chunk, a chunk too long for the
-    # cluster split, D 256, G 8
+    # cluster split, D 256, G 8; the cluster split (one row a call, as the
+    # engine sends) at a 100-token prompt's chunk and over scrambled
+    # positions with a window and sinks
     paged_cases += [("bf16 T=16 P=16 gaps lens (tiles across pages)",
                      dict(T=16, P=16, MAXP=190, gap=5, lens=lens), {}),
                     ("bf16 T=64 P=100 (pages no whole number of tiles)",
@@ -436,7 +449,12 @@ def check_decode_kernels(torch, record) -> None:
                     ("bf16 D=256 T=64 P=64 softcap=30",
                      dict(B=2, T=64, D=256, P=64, MAXP=16, lens=[900, 371]),
                      {"logit_softcap": 30.0}),
-                    ("bf16 G=8 T=16", dict(H=64, T=16, lens=lens), {})]
+                    ("bf16 G=8 T=16", dict(H=64, T=16, lens=lens), {}),
+                    ("bf16 B=1 T=128 prompt 100 (the engine's chunk, cluster split)",
+                     dict(B=1, T=128, lens=[100]), {}),
+                    ("bf16 B=1 T=64 P=64 scrambled positions swa=300 sinks (cluster split)",
+                     dict(B=1, T=64, P=64, MAXP=16, lens=[1000], scramble=True),
+                     {"swa_window": 300, "sinks": True})]
     bf16 = torch.bfloat16
     for i, (case, kw, opts) in enumerate(paged_cases):
         args = paged_inputs(torch, seed=500 + i, **kw)
@@ -835,27 +853,47 @@ def sampled_configs(n: int) -> list[dict]:
     return [ServerApp._sampling_from(b) for b in sampled_bodies(n)]
 
 
-def block_stats(eng) -> dict:
-    """The engine's decode blocks so far, and how many were graph replays."""
+def graph_stats(eng, kind: str) -> dict:
+    """GraphCache's counts of one kind of key ("block" or "chunk"); an
+    unpacked parent tree's cache counted blocks alone, in one dict."""
     g = eng._graphs.stats if eng._graphs is not None else {}
+    if "block" not in g:
+        g = {"block": g, "chunk": {}}
+    return g[kind]
+
+
+def block_stats(eng) -> dict:
+    """The engine's decode blocks and prompt chunks so far, and how many of
+    each were graph replays (blocks' keys "replays", "captures",
+    "capture_s"; chunks' the same keys prefixed "chunk_")."""
+    b, c = graph_stats(eng, "block"), graph_stats(eng, "chunk")
     return {"blocks": eng.stats["blocks"], "chained": eng.stats["chained"],
-            "replays": g.get("replays", 0), "captures": g.get("captures", 0),
-            "capture_s": g.get("capture_s", 0.0)}
+            "replays": b.get("replays", 0), "captures": b.get("captures", 0),
+            "capture_s": b.get("capture_s", 0.0), "chunks": eng.stats.get("chunks", 0),
+            "chunk_replays": c.get("replays", 0), "chunk_captures": c.get("captures", 0),
+            "chunk_capture_s": c.get("capture_s", 0.0)}
 
 
 def check_replayed(label: str, before: dict, after: dict) -> dict:
-    """Every decode block between two block_stats readings was a replay."""
+    """Every decode block and every prompt chunk between two block_stats
+    readings was a replay."""
     d = {k: after[k] - before[k] for k in after}
     check(d["blocks"] > 0 and d["replays"] == d["blocks"],
           f"{label}: {d['blocks']} decode blocks, {d['replays']} of them graph replays")
+    check(d["chunks"] > 0 and d["chunk_replays"] == d["chunks"],
+          f"{label}: {d['chunks']} prompt chunks, {d['chunk_replays']} of them graph replays")
     return d
 
 
 def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, list]:
     """8 concurrent completions and one streamed one over HTTP; the served
     tokens must equal the engine's own wave of the same prompts, and every
-    kernel in ``expect`` must have launched. Returns (launch counts, served
-    tokens)."""
+    kernel in ``expect`` must have launched. The server warms its engine up
+    first (``serve``'s default; ``warmup=False`` skips it), and after a
+    warm-up no capture may happen while it serves. Returns (launch counts,
+    served tokens)."""
+    import gc
+
     from superllama_tpu_torch.server.http import Server, ServerApp
 
     app = ServerApp(model, n_slots=8, n_ctx=2048, model_name=model.name, device="cuda",
@@ -863,6 +901,11 @@ def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, 
     srv = Server(app, host="127.0.0.1", port=0)
     srv.start()
     eng = app.engine
+    warm = app.warmup_info
+    if warm is not None:
+        emit({"phase": "warmup", "kv": label, "keys": len(warm["keys"]),
+              "seconds": warm["seconds"], "capture_s": sum(warm["capture_s"]),
+              "pool_bytes": warm["pool_bytes"]})
     try:
         prompts = token_prompts(model.hparams.n_vocab, lens, SEED + 1)
         body = lambda p, **kw: {"prompt": p, "max_tokens": 64, "temperature": 0,
@@ -923,8 +966,16 @@ def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, 
                 "ttft_s": [json.loads(d)["timings"]["ttft_s"] for _, d in results]}
         if eng.paged:
             info["paged_stats"] = dict(eng.pkv.stats)
+        if warm is not None:
+            after = block_stats(eng)
+            check(after["captures"] == stats0["captures"]
+                  and after["chunk_captures"] == stats0["chunk_captures"],
+                  f"{label}: a graph was captured while serving after the warm-up: {after}")
     finally:
         srv.stop()
+        del app, srv, eng     # the graphs' pool goes back to the card
+        gc.collect()
+        torch.cuda.empty_cache()
     emit(info)
     return counts, served
 
@@ -1050,17 +1101,28 @@ def phase_serving_paged(torch, model) -> dict:
 
 
 def cache_rows(eng) -> dict:
-    """The engine's cache: its positions and the written rows (slots that
-    hold a position) of every tensor."""
+    """A copy of the engine's cache: its positions and the written rows
+    (slots that hold a position) of every tensor. Taken under the engine's
+    step lock: a request's result is set inside the step that emits its
+    last token, and that step goes on to land the block in flight and roll
+    the cache back, so the cache is only settled once the step ends."""
+    import torch
+
+    with eng._step_lock:
+        torch.cuda.synchronize()
+        return _cache_rows(eng)
+
+
+def _cache_rows(eng) -> dict:
     if eng.paged:
         c = eng.pkv.cache
         m = c.page_pos >= 0
-        return {"page_pos": c.page_pos, "table": c.table,
+        return {"page_pos": c.page_pos.clone(), "table": c.table.clone(),
                 "k": c.k_pages.permute(1, 3, 0, 2, 4)[m], "v": c.v_pages.permute(1, 3, 0, 2, 4)[m]}
     c = eng.cache
     m = c.pos >= 0
-    rows = {"pos": c.pos, "cursor": c.cursor, "k": c.k.permute(1, 3, 0, 2, 4)[m],
-            "v": c.v.permute(1, 3, 0, 2, 4)[m]}
+    rows = {"pos": c.pos.clone(), "cursor": c.cursor.clone(),
+            "k": c.k.permute(1, 3, 0, 2, 4)[m], "v": c.v.permute(1, 3, 0, 2, 4)[m]}
     if c.quantized:
         rows["k_scale"] = c.k_scale.permute(1, 3, 0, 2)[m]
         rows["v_scale"] = c.v_scale.permute(1, 3, 0, 2)[m]
@@ -1072,17 +1134,23 @@ GRAPH_CASES = (("bf16", {}, [32, 100] * 4), ("q8_0", {"kv_dtype": "q8_0"}, [32, 
 
 
 def phase_graph_vs_eager(torch, model) -> list:
-    """Decode blocks replayed from CUDA graphs against the same blocks run
-    eagerly, on each cache, greedy and sampled: two engines (graphs on and
-    off) serve the same two waves of 8 requests x 40 tokens (a warm one,
-    then the measured one, whose last block stops mid-way and rolls back).
-    Tokens, the written cache rows and the measured wave's launch counts
-    must be equal; every block of the graph engine a replay."""
+    """Decode blocks and prompt chunks replayed from CUDA graphs against the
+    same blocks and chunks run eagerly, on each cache, greedy and sampled:
+    two engines (graphs on and off) serve the same two waves of 8 requests
+    x 40 tokens (a warm one, then the measured one, whose last block stops
+    mid-way and rolls back), then ("lone") a 100-token and a 1000-token
+    prompt alone, 8 tokens each, twice (the 1000-token one: a 1024-token
+    chunk on a dense cache, four one-row 256-token chunks on the paged one;
+    both through the M > 32 path's cuBLAS product). Tokens, the written
+    cache rows and the measured run's launch counts must be equal; every
+    block and every prompt chunk of the graph engine's measured run a
+    replay, none captured."""
     import gc
 
     from superllama_tpu_torch.runtime.engine import Engine
 
     recs = []
+    lone = token_prompts(model.hparams.n_vocab, [100, 1000], SEED + 10)
     for label, kw, lens in GRAPH_CASES:
         prompts = token_prompts(model.hparams.n_vocab, lens, SEED + 9)
         engines = {g: Engine(model, n_slots=8, n_ctx=2048, device="cuda", graphs=g,
@@ -1090,19 +1158,29 @@ def phase_graph_vs_eager(torch, model) -> list:
         for eng in engines.values():
             eng.start()
         try:
-            for mode in ("greedy", "sampled"):
-                samplings = (None if mode == "greedy" else sampled_configs(len(prompts)))
+            for mode in ("greedy", "sampled", "lone"):
+                samplings = (sampled_configs(len(prompts)) if mode == "sampled" else None)
+
+                def serve(eng):
+                    if mode == "lone":
+                        return [eng.generate(p, max_tokens=8, sampling={"greedy": True},
+                                             stop_eog=False)["tokens"] for p in lone]
+                    return [r["tokens"] for r in engine_wave(eng, prompts, 40, samplings)]
+
                 runs = {}
                 for g, eng in engines.items():
-                    engine_wave(eng, prompts, 40, samplings)
-                    stats0 = block_stats(eng)
-                    reset_counts()
+                    serve(eng)
+                    with eng._step_lock:     # the last step of the warm run has ended
+                        stats0 = block_stats(eng)
+                        reset_counts()
                     t0 = time.perf_counter()
-                    toks = [r["tokens"] for r in engine_wave(eng, prompts, 40, samplings)]
-                    torch.cuda.synchronize()
-                    runs[g] = {"tokens": toks, "wall_s": time.perf_counter() - t0,
-                               "launches": read_counts(),
-                               "blocks": {k: v - stats0[k] for k, v in block_stats(eng).items()}}
+                    toks = serve(eng)
+                    wall = time.perf_counter() - t0
+                    with eng._step_lock:     # and the measured run's
+                        torch.cuda.synchronize()
+                        runs[g] = {"tokens": toks, "wall_s": wall, "launches": read_counts(),
+                                   "blocks": {k: v - stats0[k]
+                                              for k, v in block_stats(eng).items()}}
                 g_run, e_run = runs[True], runs[False]
                 rows_g, rows_e = cache_rows(engines[True]), cache_rows(engines[False])
                 rows_equal = {k: bool(torch.equal(rows_g[k], rows_e[k])) for k in rows_g}
@@ -1114,16 +1192,21 @@ def phase_graph_vs_eager(torch, model) -> list:
                        "launches": g_run["launches"], "rows_equal": rows_equal}
                 emit(rec)
                 recs.append(rec)
-                check(rec["tokens_equal"], f"{label} {mode}: graph blocks' tokens differ from eager")
+                check(rec["tokens_equal"],
+                      f"{label} {mode}: the graph engine's tokens differ from eager")
                 check(all(rows_equal.values()),
-                      f"{label} {mode}: graph blocks' cache rows differ from eager: {rows_equal}")
+                      f"{label} {mode}: the graph engine's cache rows differ from eager: "
+                      f"{rows_equal}")
                 check(rec["launches_equal"], f"{label} {mode}: launch counts differ: graph "
                       f"{g_run['launches']}, eager {e_run['launches']}")
                 gb = g_run["blocks"]
                 check(gb["blocks"] > 0 and gb["replays"] == gb["blocks"] and gb["captures"] == 0,
                       f"{label} {mode}: graph engine blocks {gb}")
-                check(e_run["blocks"]["replays"] == 0, f"{label} {mode}: eager engine replayed")
-                if not engines[True].paged:
+                check(gb["chunks"] > 0 and gb["chunk_replays"] == gb["chunks"]
+                      and gb["chunk_captures"] == 0, f"{label} {mode}: graph engine chunks {gb}")
+                check(e_run["blocks"]["replays"] == 0 and e_run["blocks"]["chunk_replays"] == 0,
+                      f"{label} {mode}: eager engine replayed")
+                if not engines[True].paged and mode != "lone":
                     check(gb["chained"] > 0, f"{label} {mode}: no block was chained")
         finally:
             for eng in engines.values():
@@ -1160,12 +1243,120 @@ def phase_decode_loop(torch, model) -> dict:
            "graphs": dict(loop._graphs.stats), "sampled_repeat_equal": s1 == s2}
     emit(rec)
     check(rec["tokens_equal_engine"], "DecodeLoop's tokens differ from engine.generate's")
-    check(loop._graphs.stats["captures"] == 1 and loop._graphs.stats["replays"] == 2,
+    steps = graph_stats(loop, "block")
+    check(steps["captures"] == 1 and steps["replays"] == 2,
           f"DecodeLoop's decode steps were not one replayed graph: {loop._graphs.stats}")
     check(counts["qmv"] == 47 * 225 and counts["qmm"] == 225,
           f"DecodeLoop's launches: {counts}")
     check(s1 == s2 and len(set(s1)) > 1, "the sampled DecodeLoop did not repeat itself")
     return rec
+
+
+# the warm-up phase's prefill buckets: the full set's 2048-token wave and
+# lone chunk are left out to bound the phase's time (serving's engines warm
+# up on the full set)
+WARM_BUCKETS = (32, 128, 1024)
+
+
+def phase_warmup(torch, model) -> list:
+    """Engine.warmup on a bf16 engine and a paged one (256-token pages), 8
+    slots, n_ctx 2048, prefill buckets WARM_BUCKETS: the keys it captures,
+    each capture's seconds, the graph pool's bytes and the device memory
+    reserved before and after; then one request of 32 and one of 1000
+    tokens (8 tokens each), whose TTFT it prints: no capture may happen
+    after the warm-up, and every key the engine can reach must have been
+    captured by it."""
+    import gc
+
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    recs = []
+    p32, p1000 = token_prompts(model.hparams.n_vocab, [32, 1000], SEED + 11)
+    for label, kw in (("bf16", {}), ("paged", {"paged": True, "page_size": 256})):
+        eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda",
+                     prefill_buckets=WARM_BUCKETS, **kw)
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved()
+        info = eng.warmup()
+        torch.cuda.synchronize()
+        stats0 = block_stats(eng)
+        ttft = {n: eng.generate(p, max_tokens=8, sampling={"greedy": True},
+                                stop_eog=False)["ttft_s"] * 1e3
+                for n, p in ((32, p32), (1000, p1000))}
+        after = block_stats(eng)
+        want = {key for key, *_ in eng._graph_targets()}
+        rec = {"phase": "warmup", "kv": label, "prefill_buckets": list(WARM_BUCKETS),
+               "note": "prefill buckets cut to (32, 128, 1024) to bound this phase's time",
+               "keys": [[list(k), sec] for k, sec in zip(info["keys"], info["capture_s"])],
+               "n_keys": len(info["keys"]), "seconds": info["seconds"],
+               "capture_s": sum(info["capture_s"]), "pool_bytes": info["pool_bytes"],
+               "reserved_bytes_before": reserved0,
+               "reserved_bytes_after": torch.cuda.memory_reserved(),
+               "ttft_ms_after_warmup": ttft,
+               "captures_after_warmup": (after["captures"] - stats0["captures"]
+                                         + after["chunk_captures"] - stats0["chunk_captures"]),
+               "chunk_replays_after_warmup": after["chunk_replays"] - stats0["chunk_replays"]}
+        emit(rec)
+        recs.append(rec)
+        check(set(info["keys"]) == want, f"{label} warm-up: keys {info['keys']}, want {want}")
+        check(rec["captures_after_warmup"] == 0,
+              f"{label}: {rec['captures_after_warmup']} captures after the warm-up")
+        check(rec["chunk_replays_after_warmup"] == after["chunks"] - stats0["chunks"] > 0,
+              f"{label}: prompt chunks after the warm-up were not all replays: {after}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_chunk_parity(torch, model) -> list:
+    """A paged prompt chunk of one row (the engine's: the pool's row view,
+    ``paged_row_view``) against the same chunk padded to the 8 slots' rows
+    (the JAX engine's shape) at full width: row 3's chunks of 256 and 32
+    tokens (positions 0-255, then 256-287 in a fresh page) through two
+    pools of 256-token pages that allocate alike. Logits of every valid
+    position: NMSE < 1e-3 (phase 5's gate), max abs printed. The 32-token
+    chunk of one row runs its matmuls through qmm (M 32), the padded one
+    through the M > 32 path."""
+    from superllama_tpu_torch.models.llama import llama_forward
+    from superllama_tpu_torch.runtime.paged_kv import (PagedKVManager, paged_cache_init,
+                                                       paged_row_view)
+
+    hp = model.hparams
+
+    def manager():
+        return PagedKVManager(paged_cache_init(hp.n_layer, 9, 256, 8, 8, hp.n_head_kv,
+                                               hp.head_dim, dtype=torch.bfloat16,
+                                               device="cuda"))
+
+    pad, one = manager(), manager()
+    view = paged_row_view(one.cache)
+    seq, off, recs = 3, 0, []
+    toks = token_prompts(hp.n_vocab, [288], SEED + 12)[0]
+    with torch.no_grad():
+        for n in (256, 32):
+            t8 = torch.zeros((8, n), dtype=torch.int64, device="cuda")
+            p8 = torch.full((8, n), -1, dtype=torch.int32, device="cuda")
+            t8[seq] = torch.tensor(toks[off:off + n], device="cuda")
+            p8[seq] = torch.arange(off, off + n, dtype=torch.int32, device="cuda")
+            pad.plan_step({seq: n})
+            ref, _ = llama_forward(model.params, hp, t8, p8, pad.cache)
+            pad.finish_step()
+            one.plan_step({seq: n})
+            one.load_row(view, seq)
+            got, _ = llama_forward(model.params, hp, t8[seq:seq + 1], p8[seq:seq + 1], view)
+            one.finish_step()
+            step = compare_steps([got[0].float()], [ref[seq].float()])[0]
+            rec = {"phase": "chunk_parity",
+                   "what": f"paged chunk of {n} tokens at positions {off}-{off + n - 1}: "
+                           "one row against 8 rows", **step}
+            emit(rec)
+            recs.append(rec)
+            check(step["nmse"] < 1e-3, f"paged one-row chunk of {n}: nmse {step['nmse']:g}")
+            off += n
+    check(torch.equal(one.cache.page_pos, pad.cache.page_pos),
+          "the one-row and padded chunks wrote different positions")
+    return recs
 
 
 # ------------------------------------------------------------ 5. parity
@@ -1565,14 +1756,16 @@ def paged_reading(torch, what: str, seed: int, **shape) -> dict:
 def time_paged(torch) -> dict:
     """paged at the decode shape: 8 rows of 2048 positions in 256-token
     pages (MAXP 8); and its prefill path (T*G > 32, bf16: the tensor-core
-    kernel) at (b) the serving chunk of a 100-token prompt (B 8 = n_slots,
-    T 128, row 0 at positions 0-99 in one page, rows 1-7 padding only over
-    empty tables, MAXP 8 = n_ctx 2048), where bytes bound it; (c) a
-    prompt's fourth 256-token chunk (B 1, T 256 at positions 768-1023, four
-    pages), where operations bound it (3.76 GFLOP); (d) that chunk as the
-    engine sends it, beside seven rows of padding (B 8, MAXP 8); and (e) a
-    call whose eight rows are all 100-token prompts (T 128), which the
-    engine never sends: the cluster split's cost where every row is valid."""
+    kernel) at (b) a 100-token prompt's chunk padded to the 8 slots' rows
+    (B 8, T 128, row 0 at positions 0-99 in one page, rows 1-7 padding only
+    over empty tables, MAXP 8 = n_ctx 2048: the JAX engine's chunk), where
+    bytes bound it; (c) a prompt's fourth 256-token chunk (B 1, T 256 at
+    positions 768-1023, four pages: the engine's chunk), where operations
+    bound it (3.76 GFLOP); (d) that chunk beside seven rows of padding (B
+    8, MAXP 8); (e) a call whose eight rows are all 100-token prompts (T
+    128), which the engine never sends (a call of several rows is not
+    split); (f) the chunk of a 100-token prompt as the engine sends it, one
+    row (B 1, T 128), cluster split."""
     rows = {"paged": paged_reading(torch, "2048 positions", 800),
             "paged prefill B=8": paged_reading(
                 torch, "prompt 100 in a 128-token bucket, 7 padding rows", 900, T=128,
@@ -1582,8 +1775,11 @@ def time_paged(torch) -> dict:
             "paged prefill B=8 T=256": paged_reading(
                 torch, "positions 768-1023, 7 padding rows", 870, T=256, lens=[1024] + [0] * 7),
             "paged prefill B=8 all rows": paged_reading(
-                torch, "8 prompts of 100 in a 128-token bucket", 880, T=128, lens=[100] * 8)}
-    for key in ("paged prefill B=8", "paged prefill", "paged prefill B=8 T=256"):
+                torch, "8 prompts of 100 in a 128-token bucket", 880, T=128, lens=[100] * 8),
+            "paged prefill B=1 T=128": paged_reading(
+                torch, "prompt 100 in a 128-token bucket, one row", 905, B=1, T=128,
+                lens=[100])}
+    for key in ("paged prefill B=1 T=128", "paged prefill"):
         rows[key]["launches_per_chunk"] = 32
     return rows
 
@@ -1608,30 +1804,43 @@ def time_decode_attention(torch) -> dict:
     return out
 
 
-def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
-    """Decode tok/s at B 1 and B 8, greedy and sampled (sampled_configs),
-    and TTFT at 32 and 100 prompt tokens; with ``long_prompt`` also the
-    TTFT of a 1000-token prompt (the second of two runs: one 1024-token
-    chunk on a dense cache, four 256-token chunks on a paged one with
-    256-token pages). Each decode block is a graph replay, captured in a
-    warm run first; the captures' time and the graph pool's bytes are
-    reported."""
+TTFT_LENS = (32, 100, 1000)
+
+
+def time_ttft(eng) -> dict:
+    """Time to first token of a lone 32-, 100- and 1000-token prompt on a
+    fresh engine: cold (each the first request to reach its prompt chunk's
+    graph key, whose capture it pays; on a dense cache one chunk each, on
+    a paged one the 1000-token prompt's four 256-token chunks), then warm
+    (the same prompts again, three times: the keys captured)."""
+    prompts = token_prompts(eng.model.hparams.n_vocab, TTFT_LENS, SEED + 4)
+    run = lambda p: eng.generate(p, max_tokens=1, sampling={"greedy": True},  # noqa: E731
+                                 stop_eog=False)["ttft_s"] * 1e3
+    out = {f"ttft_ms_prompt{n}_cold": run(p) for n, p in zip(TTFT_LENS, prompts)}
+    warm = {n: [run(p) for _ in range(3)] for n, p in zip(TTFT_LENS, prompts)}
+    for n in TTFT_LENS:
+        out[f"ttft_ms_prompt{n}"] = sorted(warm[n])[1]
+        out[f"ttft_ms_prompt{n}_runs"] = warm[n]
+    return out
+
+
+def time_serving(torch, model, **engine_kw) -> dict:
+    """TTFT of lone 32-, 100- and 1000-token prompts, cold and warm
+    (time_ttft), then decode tok/s at B 1 and B 8, greedy and sampled
+    (sampled_configs). Each decode block and prompt chunk is a graph replay,
+    the blocks captured in a warm run first; the captures' time and the
+    graph pool's bytes are reported."""
     from superllama_tpu_torch.runtime.engine import Engine
 
     engine_kw.setdefault("kv_dtype", torch.bfloat16)
     eng = Engine(model, n_slots=8, n_ctx=2048, device="cuda", **engine_kw)
-    p32, p100, p1000 = token_prompts(model.hparams.n_vocab, [32, 100, 1000], SEED + 4)
+    ttft = time_ttft(eng)
+    p32 = token_prompts(model.hparams.n_vocab, [32], SEED + 4)[0]
     eng.generate(p32, max_tokens=16, sampling={"greedy": True}, stop_eog=False)  # warm
     r1 = eng.generate(p32, max_tokens=128, sampling={"greedy": True}, stop_eog=False)
-    r100 = eng.generate(p100, max_tokens=8, sampling={"greedy": True}, stop_eog=False)
     sm = sampled_configs(8)
     eng.generate(p32, max_tokens=16, sampling=sm[0], stop_eog=False)  # warm
     r1s = eng.generate(p32, max_tokens=128, sampling=sm[0], stop_eog=False)
-    long = {}
-    if long_prompt:
-        ttft = [eng.generate(p1000, max_tokens=1, sampling={"greedy": True},
-                             stop_eog=False)["ttft_s"] * 1e3 for _ in range(2)]
-        long = {"ttft_ms_prompt1000": ttft[1], "ttft_ms_prompt1000_first": ttft[0]}
     eng.start()
     try:
         p8 = token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 5)
@@ -1642,7 +1851,8 @@ def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
     finally:
         eng.stop()
     graphs = {**block_stats(eng), "pool_bytes": eng._graphs.pool_bytes()}
-    check(graphs["replays"] == graphs["blocks"], f"time_serving: blocks {graphs}")
+    check(graphs["replays"] == graphs["blocks"] and graphs["chunk_replays"] == graphs["chunks"],
+          f"time_serving: blocks and chunks {graphs}")
     # launches of one lone 32-token prefill chunk, then of one decode step
     reset_counts()
     eng.generate(p32, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
@@ -1657,10 +1867,8 @@ def time_serving(torch, model, long_prompt=False, **engine_kw) -> dict:
     return {
         "decode_tok_s_b1": b1(r1), "decode_tok_s_b8": b8(rs),
         "decode_tok_s_b1_sampled": b1(r1s), "decode_tok_s_b8_sampled": b8(rss),
-        "graphs": graphs,
-        "ttft_ms_prompt32": r1["ttft_s"] * 1e3, "ttft_ms_prompt100": r100["ttft_s"] * 1e3,
-        **long, "batch8_wall_s": wall, "launches_per_prefill_chunk_32": per_chunk,
-        "launches_per_decode_step": per_step,
+        "graphs": graphs, **ttft, "batch8_wall_s": wall,
+        "launches_per_prefill_chunk_32": per_chunk, "launches_per_decode_step": per_step,
     }
 
 
@@ -1670,10 +1878,9 @@ def kernel_times(torch) -> dict:
 
 
 def phase_times(torch, model, smi_line: str) -> dict:
-    serving = {"bf16": time_serving(torch, model, long_prompt=True),
+    serving = {"bf16": time_serving(torch, model),
                "q8_0": time_serving(torch, model, kv_dtype="q8_0"),
-               "paged": time_serving(torch, model, paged=True, page_size=256,
-                                     long_prompt=True)}
+               "paged": time_serving(torch, model, paged=True, page_size=256)}
     kernels = kernel_times(torch)
     emit({"phase": "times", "card": smi_line, "serving": serving, "kernels": kernels,
           "qmm_per_chunk": qmm_chunk(kernels), "qmv_per_step": kernels["qmv_step"],
@@ -1768,16 +1975,18 @@ def device_rows(events) -> list:
             and e.key != "kv_write"]
 
 
-def profile_chunk(torch, model, n: int = 32, paged: bool = False) -> dict:
+def profile_chunk(torch, model, n: int = 32, paged: bool = False,
+                  graphs: bool = False) -> dict:
     """torch.profiler over one lone n-token prompt on the bf16 cache, dense
     or (``paged``) in 256-token pages (engine.generate of one token, warmed
-    once): its prompt chunks' wall ms, device ms, idle share, device ms by
-    kernel, the attention kernels' (fa's or paged's, every launch) and,
-    for a chunk above 32 tokens, the M > 32 matmul path's (the llama
-    forward's ``mm`` under a range: dequantize, then torch.matmul); before
-    it the TTFT of one more unprofiled run. A paged engine takes the prompt
-    in 256-token chunks of its 8 slots' rows. The table goes to
-    chiprun_out/profile_chunk_bf16[_paged][_<n>].txt."""
+    once), its chunks eager or (``graphs``) replayed from CUDA graphs: the
+    prompt's wall ms, device ms, idle share, device ms by kernel, the
+    attention kernels' (fa's or paged's, every launch) and, for an eager
+    chunk above 32 tokens, the M > 32 matmul path's (the llama forward's
+    ``mm`` under a range: dequantize, then torch.matmul; a replay runs no
+    Python, so no range); before it the TTFT of one more unprofiled run. A
+    paged engine takes the prompt in one-row 256-token chunks. The table
+    goes to chiprun_out/profile_chunk_bf16[_paged][_<n>][_graph].txt."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from superllama_tpu_torch.models import llama as llama_mod
@@ -1785,7 +1994,8 @@ def profile_chunk(torch, model, n: int = 32, paged: bool = False) -> dict:
     from superllama_tpu_torch.runtime.engine import Engine
 
     kw = {"paged": True, "page_size": 256} if paged else {}
-    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda", **kw)
+    eng = Engine(model, n_slots=8, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda",
+                 graphs=graphs, **kw)
     prompt = token_prompts(model.hparams.n_vocab, [n], SEED + 4)[-1]
     run = lambda: eng.generate(prompt, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
     run()
@@ -1813,7 +2023,7 @@ def profile_chunk(torch, model, n: int = 32, paged: bool = False) -> dict:
     dev = [r for r in device_rows(events) if r[0] != "mm"]
     device_ms = sum(t for _, t, _ in dev)
     os.makedirs(OUT_DIR, exist_ok=True)
-    label = f"{'_paged' if paged else ''}{'' if n == 32 else f'_{n}'}"
+    label = f"{'_paged' if paged else ''}{'' if n == 32 else f'_{n}'}{'_graph' if graphs else ''}"
     with open(os.path.join(OUT_DIR, f"profile_chunk_bf16{label}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
     qmm_rows = [(k, t, c) for k, t, c in dev if "qmm" in k]
@@ -1824,6 +2034,7 @@ def profile_chunk(torch, model, n: int = 32, paged: bool = False) -> dict:
     mm_cpu = [e for e in events if e.key == "mm" and e.self_cpu_time_total > 0]
     rec = {"phase": "profile",
            "what": f"one lone {n}-token prompt, bf16 {'paged ' if paged else ''}cache",
+           "chunks": "graph replay" if graphs else "eager",
            "ttft_ms": ttft_ms, "wall_ms": wall_ms, "device_ms": device_ms,
            "device_idle_share": 1.0 - device_ms / wall_ms,
            "device_ops": sum(c for _, _, c in dev),
@@ -1851,15 +2062,23 @@ def profile_chunk(torch, model, n: int = 32, paged: bool = False) -> dict:
     return rec
 
 
+def profile_chunks(torch, model) -> None:
+    """Where a lone 32-token and 1000-token prompt's time goes on the bf16
+    cache, and a 1000-token one on the paged cache, its chunks eager and
+    replayed from CUDA graphs."""
+    for n, paged in ((32, False), (1000, False), (1000, True)):
+        for graphs in (False, True):
+            profile_chunk(torch, model, n, paged=paged, graphs=graphs)
+
+
 def phase_profile(torch, model) -> None:
     """Where a decode step's time goes, on the bf16, Q8_0 and paged caches:
     one block of 8 greedy decode steps with 8 active rows each, eager and
     replayed from a CUDA graph, tables in
-    chiprun_out/profile_decode_<cache>[_graph].txt."""
+    chiprun_out/profile_decode_<cache>[_graph].txt; before them the lone
+    prompts' (profile_chunks)."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    profile_chunk(torch, model)
-    profile_chunk(torch, model, 1000)
-    profile_chunk(torch, model, 1000, paged=True)
+    profile_chunks(torch, model)
     for label, kw in (("bf16", {}), ("q8_0", {"kv_dtype": "q8_0"}),
                       ("paged", {"paged": True, "page_size": 256})):
         for graphs in (False, True):
@@ -1980,6 +2199,36 @@ def time_probe(torch, smi_line: str) -> dict:
     return out
 
 
+def phase_prefill(torch, model, smi_line: str) -> None:
+    """The prompt path's phases (``--prefill``): graph against eager blocks
+    and chunks, the warm-up, the one-row paged chunk against the padded
+    one, TTFT cold and warm on the bf16, Q8_0 and paged caches, and the
+    lone prompts' profiles. In a tree whose engine has no ``warmup`` (an
+    unpacked parent) only the TTFTs and the profiles run."""
+    import gc
+
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    ours = hasattr(Engine, "warmup")
+    if ours:
+        phase_graph_vs_eager(torch, model)
+        phase_warmup(torch, model)
+        phase_chunk_parity(torch, model)
+    ttft = {}
+    for label, kw in (("bf16", {}), ("q8_0", {"kv_dtype": "q8_0"}),
+                      ("paged", {"paged": True, "page_size": 256})):
+        eng = Engine(model, n_slots=8, n_ctx=2048, device="cuda",
+                     **{"kv_dtype": torch.bfloat16, **kw})
+        ttft[label] = time_ttft(eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "ttft", "card": smi_line, "tree": "this" if ours else "parent",
+          "ttft": ttft})
+    os.makedirs(OUT_DIR, exist_ok=True)
+    profile_chunks(torch, model)
+
+
 # ------------------------------------------------------------ main
 
 # (name, source, the TPU kernel it replaces, the timing entry of its record)
@@ -1994,7 +2243,7 @@ KERNELS = [
     ("paged", "superllama_tpu_torch/csrc/paged.cu",
      "superllama_tpu/ops/paged_attention.py:138", "paged"),
     ("paged_tc", "superllama_tpu_torch/csrc/paged.cu",
-     "superllama_tpu/ops/paged_attention.py:138", "paged prefill B=8"),
+     "superllama_tpu/ops/paged_attention.py:138", "paged prefill B=1 T=128"),
 ] + [(f"qmv_probe_{v}", "superllama_tpu_torch/csrc/qmv_probe.cu",
       f"superllama_tpu/tools/qmv_probe.py:{line}", f"qmv_probe_{v} N=14336")
      for v, line in (("v1", 53), ("v2", 64), ("v3", 91), ("v4", 78))]
@@ -2021,9 +2270,7 @@ def main() -> int:
         emit({"phase": "kernel_times", "card": info["nvidia_smi"], "kernels": kernels,
               "qmm_per_chunk": qmm_chunk(kernels)})
         model = build_model(torch)
-        profile_chunk(torch, model)
-        profile_chunk(torch, model, 1000)
-        profile_chunk(torch, model, 1000, paged=True)
+        profile_chunks(torch, model)
         return 0
     if "--fa-times" in sys.argv[1:]:
         # fa's rows of phase 6 alone, for comparing versions of its kernels
@@ -2039,6 +2286,12 @@ def main() -> int:
     if "--paged-times" in sys.argv[1:]:
         # paged's rows of phase 6 alone (decode and four prefill shapes)
         emit({"phase": "paged_times", "card": info["nvidia_smi"], "kernels": time_paged(torch)})
+        return 0
+    if "--prefill" in sys.argv[1:]:
+        # the prompt path's phases alone, for comparing two trees in one
+        # call (an unpacked parent tree lacks the warm-up and the row view:
+        # it reads only the TTFTs and the lone prompts' profiles)
+        phase_prefill(torch, build_model(torch), info["nvidia_smi"])
         return 0
     if "--graphs" in sys.argv[1:]:
         # the decode blocks' graphs alone: graph against eager blocks on
@@ -2062,8 +2315,10 @@ def main() -> int:
     counts["fa"] = phase_serving_f32(torch, model)["fa"]
     phase_graph_vs_eager(torch, model)
     phase_decode_loop(torch, model)
+    phase_warmup(torch, model)
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
+    phase_chunk_parity(torch, model)
     times = phase_times(torch, model, info["nvidia_smi"])
     phase_profile(torch, model)
     # the probe kernels' launches come from the tools' path

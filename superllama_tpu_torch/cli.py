@@ -88,9 +88,14 @@ def cmd_serve(args) -> int:
     model, kvd = _load(args)
     app = ServerApp(model, n_slots=args.slots, n_ctx=args.ctx_size, kv_dtype=kvd,
                     device=args.device, paged=args.paged_kv,
-                    page_size=args.kv_page_size, n_pages=args.kv_pages)
+                    page_size=args.kv_page_size, n_pages=args.kv_pages,
+                    warmup=args.warmup)
     srv = Server(app, host=args.host, port=args.port)
     srv.start()
+    if app.warmup_info is not None:
+        w = app.warmup_info
+        print(f"warmup: {len(w['keys'])} graphs captured in {w['seconds']:.1f} s, "
+              f"graph pool {w['pool_bytes'] / 2**20:.0f} MiB", file=sys.stderr)
     print(f"listening on http://{args.host}:{srv.port}", file=sys.stderr)
     try:
         while True:
@@ -157,6 +162,10 @@ def main(argv=None) -> int:
     p.add_argument("--kv-page-size", type=int, default=256, help="tokens per KV page")
     p.add_argument("--kv-pages", type=int, default=None,
                    help="device-resident page pool size (default: slots*ctx/page + 1)")
+    p.add_argument("--warmup", dest="warmup", action="store_true", default=True,
+                   help="run a warmup pass (default): capture every graph before serving")
+    p.add_argument("--no-warmup", dest="warmup", action="store_false",
+                   help="skip model warmup")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("llama-bench", help="perf matrix (pp/tg × depth × reps)")

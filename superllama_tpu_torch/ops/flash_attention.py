@@ -155,13 +155,13 @@ def prefill_plan(q_dtype, kv_dtype, B: int, T: int, H: int, Hkv: int, S: int, D:
     padded to the next of 16, 32, 64, 96, 128, 192, 256 (paged_kernel also
     stages a tile's pool pages).
 
-    A page pool's tensor-core grid is cut for a page-chunked prefill, where
-    one batch row of B is a prompt's chunk and the rest ride along as
-    padding: a cluster of two blocks shares each (row tile, kv head)'s
-    visible tiles when two blocks for each of one row's units still fit
-    one resident wave of the card's SMs (two blocks an SM up to 128
-    columns, one above). A call whose rows are all valid then runs twice
-    the blocks it needs."""
+    A page pool's tensor-core grid is cut for the engine's page-chunked
+    prefill, one row a call (B 1): a cluster of two blocks shares each
+    (row tile, kv head)'s visible tiles when two blocks for each of the
+    row's units still fit one resident wave of the card's SMs (two blocks
+    an SM up to 128 columns, one above). A call of several rows is not
+    split: where its rows are all valid, a split would run twice the
+    blocks it needs."""
     bt = FA_ROWS // (H // Hkv)
     grid = (-(-T // bt), Hkv, B)
     if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8):
@@ -180,7 +180,7 @@ def prefill_plan(q_dtype, kv_dtype, B: int, T: int, H: int, Hkv: int, S: int, D:
         # + the tile list, + the row's page table
         smem = FA_STAGES * stage + extra + _up16(4 * -(-S // bs)) + _up16(4 * maxp)
         split = 1
-        if maxp and 2 * grid[0] * Hkv <= sms * (2 if max(dk, dv) <= 128 else 1):
+        if maxp and B == 1 and 2 * grid[0] * Hkv <= sms * (2 if max(dk, dv) <= 128 else 1):
             split = 2
             grid = (2 * grid[0], Hkv, B)
         return FaPlan("tc", FA_ROWS, bt, bs, FA_STAGES, dk, dv, smem, grid, split)

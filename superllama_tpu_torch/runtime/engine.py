@@ -6,9 +6,11 @@ reference server's update_slots semantics):
  - decode: one (n_slots, 1) forward over all slots; idle slots ride along
    with pos = -1 (masked, cursor not advanced);
  - prefill: prompts load in bucketed chunks (``PREFILL_BUCKETS``), one chunk
-   per engine step. A lone prompt prefills into a one-row scratch cache that
-   is then copied into its slot's row; two or more prompts load together in
-   one (n_slots, P) wave straight into the big cache;
+   per engine step. A lone prompt prefills into the engine's one-row
+   scratch cache, which is then copied into its slot's row; a second lone
+   prompt waits (``prefill_off`` 0) until the scratch is free, or joins a
+   wave if one forms meanwhile. Two or more prompts load together in one
+   (n_slots, P) wave straight into the big cache;
  - sampling: the first token of a request comes from its host
    ``SamplerChain``. When every generating slot's config is expressible by
    the device sampler chain (``ops/device_sampling.py``: all but DRY,
@@ -24,22 +26,34 @@ reference server's update_slots semantics):
    engine (``pipeline_depth``): the next block chains off the previous
    one's device-resident outputs while the host reads the tokens of the
    one before, and stops roll the cache back with ``kv_truncate_rows``;
+ - a prompt chunk is one function over static buffers too (``_chunk``:
+   tokens, positions, each row's last column in; each row's logits at that
+   column out), captured once per ("chunk", cache, rows, P) and replayed:
+   rows 1 for the lone prompt (the scratch) and for a paged chunk, n_slots
+   for a wave. The first token is read from its static output after the
+   replay;
+ - ``warmup()`` (the JAX engine's ``warmup``) captures every key the engine
+   can reach before the first request, then serves one micro-wave of two
+   2-token prompts and leaves every slot as it found it. The server calls
+   it before serving; the engine never warms up by itself;
  - the dense cache is f32/bf16, or Q8_0 / Q4_0 (``kv_dtype="q8_0"`` /
    ``"q4_0"``);
  - paged mode (``paged=True``): a page pool with host spill
    (``PagedKVManager``). Admission frees the slot's pages; prompts prefill
    one chunk of at most ``page_size`` tokens per step, one slot at a time,
-   the other rows riding on the NULL page; decode picks the slots whose
-   pages fit the pool (round robin, the rest wait while their pages spill)
-   and runs host-sampled steps or (unpipelined) blocks rolled back with
-   ``PagedKVManager.rollback``.
+   on a one-row view of the pool (``paged_row_view``: that slot's table
+   row and cursors, so no padding rows are computed); decode picks the
+   slots whose pages fit the pool (round robin, the rest wait while their
+   pages spill) and runs host-sampled steps or (unpipelined) blocks rolled
+   back with ``PagedKVManager.rollback``.
 
 Thread model: ``submit`` enqueues; one engine thread (``start``) or the
 caller (``run_until_drained``) owns the device. The cache is updated in
 place.
 
 Not ported yet: speculative and lookup decoding, context shift,
-grammars, prompt-prefix reuse and slot save/restore.
+grammars, prompt-prefix reuse, request priority, the metrics dict and slot
+save/restore.
 """
 
 from __future__ import annotations
@@ -61,12 +75,14 @@ from ..models.loader import LoadedModel
 from ..models.registry import get_forward
 from ..ops import device_sampling as dsamp
 from .context import check_model_device
+from ..ops import _build
 from .graphs import GraphCache
 from .kv_cache import KVCache, kv_cache_init, kv_insert_row, kv_truncate_rows
-from .paged_kv import PagedKVManager, paged_cache_init
+from .paged_kv import PagedKVManager, paged_cache_init, paged_row_view
 from .sampling import SamplerChain, make_chain
 
 PREFILL_BUCKETS = (32, 128, 512, 1024, 2048)
+KERNEL_SOURCES = ("qmv", "qmm", "fa", "fd", "paged")   # the kernels a step reaches
 
 
 class SlotState(Enum):
@@ -113,7 +129,6 @@ class _Slot:
     prefill_off: int = 0             # positions already prefilled
     prefill_P: int = 0               # chunk bucket width
     in_place: bool = False           # prefilling straight into the big cache
-    scratch: KVCache | None = None   # one-row scratch cache
     # the device sampler chain
     fast: bool = False               # config expressible by the device chain
     seed: int = 0
@@ -124,9 +139,10 @@ class Engine:
     """Continuous-batching engine on one device (default CUDA). kv_dtype is a
     float torch dtype, or "q8_0" / "q4_0" for a quantized dense cache.
 
-    ``graphs`` (default: on for a CUDA device) replays decode blocks from
-    CUDA graphs; ``graphs=False`` runs them eagerly, the CPU's only way.
-    ``pipeline_depth`` is the number of dense-cache blocks in flight."""
+    ``graphs`` (default: on for a CUDA device) replays decode blocks and
+    prompt chunks from CUDA graphs; ``graphs=False`` runs them eagerly, the
+    CPU's only way. ``pipeline_depth`` is the number of dense-cache blocks
+    in flight."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
                  kv_dtype: torch.dtype | str = torch.bfloat16,
@@ -157,8 +173,19 @@ class Engine:
             self.block_size = min(self.block_size, self.page_size)
             self.cache = None
             self._paged_rr = 0         # round-robin admission cursor
+            # prompt chunks run on one row of the pool: the loading slot's
+            # table row, and (warm runs) an empty one that writes only the
+            # NULL page
+            self._pview = paged_row_view(self.pkv.cache)
+            self._pview_idle = paged_row_view(self.pkv.cache)
+            self._scratch = None
         else:
             self.cache = self._new_cache(n_slots)
+            # the lone prompt's one-row scratch: engine-owned, since a
+            # captured chunk needs fixed addresses
+            self._scratch = self._new_cache(1)
+        self._scratch_owner: _Slot | None = None
+        self._chunk_bufs: dict = {}    # (rows, P) -> (static io, the warm runs' io)
         self.slots = [_Slot(i) for i in range(n_slots)]
         # decode blocks: static inputs and outputs (the warm-up's own set has
         # every row idle), the chain's per-row parameters, the blocks in
@@ -173,7 +200,7 @@ class Engine:
         if graphs is None:
             graphs = self.device.type == "cuda"
         self._graphs = GraphCache(self.device) if graphs else None
-        self.stats = {"blocks": 0, "chained": 0}
+        self.stats = {"blocks": 0, "chained": 0, "chunks": 0}
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
         # serializes step() against callers that must see a quiet engine
         self._step_lock = threading.RLock()
@@ -197,6 +224,9 @@ class Engine:
         return kv_cache_init(hp.n_layer, batch, self.n_ctx, hp.n_head_kv,
                              hp.head_dim, hp.head_dim_v, dtype=self.kv_dtype,
                              device=self.device)
+
+    def _cache_label(self) -> str:
+        return "paged" if self.paged else str(self.kv_dtype)
 
     # ----------------------------------------------------------- public API
 
@@ -225,6 +255,87 @@ class Engine:
         while not self._queue.empty() or any(s.state != SlotState.IDLE for s in self.slots):
             self.step()
 
+    @torch.no_grad()
+    def warmup(self) -> dict:
+        """Capture every graph key the engine can reach, then serve one real
+        micro-wave: the counterpart of the JAX engine's ``warmup``, which
+        compiles the same variants ahead of time. Call it on an idle engine
+        before ``start``.
+
+        On a dense cache the keys are every decode block (each slot window
+        ``_s_bucket`` can return, greedy-only or not) and every prompt chunk
+        (each bucket, at 1 row, the scratch, and at n_slots rows, a wave); on
+        a paged cache the chunks of one row at each min(bucket, page_size)
+        and the two blocks. Each capture's warm run keeps every row idle (pos
+        -1, or the view's empty table), and the micro-wave (two 2-token
+        prompts, 2 tokens each, as the JAX engine serves) is erased from its
+        slots afterwards, so no slot's state changes. Without graphs (the
+        CPU) only the micro-wave runs. Returns the keys captured, their
+        capture seconds, the graph pool's bytes and the seconds taken."""
+        if self._running:
+            raise RuntimeError("warmup() runs before start()")
+        if not self._queue.empty() or any(s.state != SlotState.IDLE for s in self.slots):
+            raise RuntimeError("warmup() needs an idle engine")
+        t0 = time.perf_counter()
+        keys: list = []
+        with self._step_lock:
+            if self._graphs is not None:
+                if self.device.type == "cuda":
+                    _build.build_all(KERNEL_SOURCES)   # one nvcc a source, all at once
+                for key, fn, warm, kind in self._graph_targets():
+                    if key not in self._graphs.graphs:
+                        self._graphs.capture(key, fn, warm, kind)
+                        keys.append(key)
+            if self.n_slots >= 2:
+                t_wave = time.perf_counter()
+                reqs = [self.submit(GenRequest(prompt_ids=[1, 2], max_tokens=2,
+                                               stop_eog=False)) for _ in range(2)]
+                self.run_until_drained()
+                for r in reqs:
+                    r.result()
+                self._erase_slots([s.idx for s in self.slots if s.t_start >= t_wave])
+        return {"keys": keys,
+                "capture_s": [self._graphs.capture_s[k] for k in keys] if keys else [],
+                "pool_bytes": self._graphs.pool_bytes() if self._graphs is not None else 0,
+                "seconds": time.perf_counter() - t0}
+
+    def _graph_targets(self) -> list:
+        """(key, fn, warm, kind) of every graph the engine can reach."""
+        out = []
+        if self.block_size > 1:
+            wins = [None] if self.paged else self._windows()
+            out += [self._block_graph(self.block_size, win, greedy)
+                    for win in wins for greedy in (True, False)]
+        if self.paged:
+            Ps = sorted({min(b, self.page_size) for b in self.buckets})
+        else:
+            Ps = list(self.buckets)
+        rows = (1,) if self.paged or self.n_slots < 2 else (1, self.n_slots)
+        out += [self._chunk_graph(r, P) for r in rows for P in Ps]
+        return out
+
+    def _windows(self) -> list:
+        """Every slot window ``_s_bucket`` can return: the powers of 2 from
+        256 below n_ctx, then None (the full cache)."""
+        wins, w = [], 256
+        while w < self.n_ctx:
+            wins.append(w)
+            w *= 2
+        return wins + [None]
+
+    def _erase_slots(self, idxs: list[int]) -> None:
+        """Return idle slots to their state at construction (the JAX
+        engine's ``slot_erase``): fresh slot records, empty cache rows (no
+        pages on a paged cache)."""
+        for i in idxs:
+            self.slots[i] = _Slot(i)
+        self._sp_key = None
+        if self.paged:
+            for i in idxs:
+                self.pkv.free_seq(i)
+        else:
+            self._truncate(self._keep_vector())
+
     # ----------------------------------------------------------- engine loop
 
     def _loop(self):
@@ -242,8 +353,10 @@ class Engine:
             if s.req is not None:
                 s.req._result["error"] = msg
                 s.req._done.set()
-            s.state, s.req, s.pending, s.scratch = SlotState.IDLE, None, [], None
+            s.state, s.req, s.pending = SlotState.IDLE, None, []
         self._pending_q = []
+        if self._scratch_owner is not None:
+            self._release_scratch()
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -273,8 +386,7 @@ class Engine:
             except (ValueError, RuntimeError) as e:   # surface to the caller
                 req._result["error"] = str(e)
                 req._done.set()
-                slot.state, slot.req, slot.pending, slot.scratch = (
-                    SlotState.IDLE, None, [], None)
+                slot.state, slot.req, slot.pending = SlotState.IDLE, None, []
         return launched
 
     def _forward(self, tokens: np.ndarray, pos: np.ndarray, cache: KVCache,
@@ -336,7 +448,6 @@ class Engine:
         slot.in_place = False
         slot.pending = ids
         slot.prefill_off = 0
-        slot.scratch = None
         slot.prefill_P = self._bucket(len(ids))
         if self.paged:     # no prefix reuse yet: the slot's pages go back
             self.pkv.free_seq(slot.idx)
@@ -357,7 +468,7 @@ class Engine:
         # a wave's truncate keeps rows by host counts: land the blocks in
         # flight first
         self._flush_pending()
-        finals: list[tuple[_Slot, torch.Tensor, int, int]] = []  # (slot, logits, row, col)
+        finals: list[tuple[_Slot, torch.Tensor]] = []   # (slot, its first token's logits)
         if self.paged:
             for slot in loading:
                 try:
@@ -368,8 +479,8 @@ class Engine:
                     slot.state, slot.req, slot.pending = SlotState.IDLE, None, []
                     self.pkv.free_seq(slot.idx)
             loading = []
-        # slots midway through a scratch prefill must stay on the scratch
-        # path: their chunks live only in slot.scratch
+        # the scratch's owner must stay on the scratch path: its chunks live
+        # only there
         batch = [s for s in loading if s.in_place or s.prefill_off == 0]
         if len(batch) >= 2:
             # one (n_slots, P) wave carries every loading prompt's next chunk
@@ -377,63 +488,122 @@ class Engine:
             keep = self._keep_vector()
             for s in batch:
                 keep[s.idx] = s.prefill_off
-            kv_truncate_rows(self.cache, torch.from_numpy(keep))
-            tok = np.zeros((self.n_slots, P), np.int64)
-            pos = np.full((self.n_slots, P), -1, np.int32)
+            self._truncate(keep)
+            parts = {s.idx: (s.pending[:P], s.prefill_off) for s in batch}
+            io = self._run_chunk(self.n_slots, P, parts)
             for s in batch:
-                chunk = s.pending[:P]
-                tok[s.idx, : len(chunk)] = chunk
-                pos[s.idx, : len(chunk)] = np.arange(s.prefill_off, s.prefill_off + len(chunk))
-            logits = self._forward(tok, pos, self.cache)
-            for s in batch:
-                n = len(s.pending[:P])
+                n = len(parts[s.idx][0])
                 s.pending = s.pending[n:]
                 s.prefill_off += n
                 s.in_place = True
                 if not s.pending:
-                    finals.append((s, logits, s.idx, n - 1))
+                    finals.append((s, io["logits"][s.idx].clone()))
             loading = [s for s in loading if s not in batch]
         for slot in loading:
+            if not slot.in_place:
+                if self._scratch_owner is None:
+                    self._scratch_owner = slot
+                elif self._scratch_owner is not slot:
+                    continue       # the scratch is busy: wait, or join a later wave
             P = slot.prefill_P
             chunk = slot.pending[:P]
-            if slot.in_place:
-                tok = np.zeros((self.n_slots, P), np.int64)
-                pos = np.full((self.n_slots, P), -1, np.int32)
-                row, cache = slot.idx, self.cache
-            else:
-                if slot.scratch is None:
-                    slot.scratch = self._new_cache(1)
-                tok = np.zeros((1, P), np.int64)
-                pos = np.full((1, P), -1, np.int32)
-                row, cache = 0, slot.scratch
-            tok[row, : len(chunk)] = chunk
-            pos[row, : len(chunk)] = np.arange(slot.prefill_off, slot.prefill_off + len(chunk))
-            logits = self._forward(tok, pos, cache)
+            row = slot.idx if slot.in_place else 0
+            io = self._run_chunk(self.n_slots if slot.in_place else 1, P,
+                                 {row: (chunk, slot.prefill_off)})
             slot.pending = slot.pending[len(chunk):]
             slot.prefill_off += len(chunk)
             if not slot.pending:
+                finals.append((slot, io["logits"][row].clone()))
                 if not slot.in_place:
-                    kv_insert_row(self.cache, slot.scratch, slot.idx, slot.n_prompt)
-                    slot.scratch = None
-                finals.append((slot, logits, row, len(chunk) - 1))
-        for slot, logits, row, col in finals:
+                    kv_insert_row(self.cache, self._scratch, slot.idx, slot.n_prompt)
+                    self._release_scratch()
+        for slot, logits in finals:
             slot.state = SlotState.GENERATING
             slot.n_past = slot.n_prompt
             if self._greedy_cfg(slot.req.sampling):
-                tok1 = int(torch.argmax(logits[row, col]))
+                tok1 = int(torch.argmax(logits))
                 slot.sampler.accept(tok1)
             else:
-                tok1 = slot.sampler.sample(logits[row, col].float().cpu().numpy())
+                tok1 = slot.sampler.sample(logits.cpu().numpy())
             self._emit(slot, tok1)
         return True
+
+    def _release_scratch(self) -> None:
+        """Empty the scratch (positions -1, cursor 0) for the next lone prompt."""
+        self._scratch.pos.fill_(-1)
+        self._scratch.cursor.zero_()
+        self._scratch_owner = None
+
+    # ------------------------------------------------------ prompt chunks
+
+    def _chunk(self, cache, io: dict) -> None:
+        """One prompt chunk, the JAX engine's jitted ``prefill`` (or a chunk
+        through ``_decode``): the forward of io's (rows, P) tokens at their
+        positions (pos -1: padding, masked and not counted), every
+        position's logits, then each row's logits at its column ``last``
+        into io's (rows, V) f32 output. The head runs at every position, so
+        its matmul takes the route of rows x P (a one-row head would take
+        the int8-activation GEMV, and the first token's logits would no
+        longer be the reference's). Only tensor ops without a host sync: a
+        CUDA graph captures it."""
+        logits, _ = self._fwd(self.model.params, self.hp, io["tok"], io["pos"], cache)
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        io["logits"].copy_(logits[rows, io["last"]])
+
+    def _chunk_io(self, rows: int, P: int) -> tuple[dict, dict]:
+        """The static inputs and output of a (rows, P) chunk, and the warm
+        runs' own set (every row idle), allocated at first use."""
+        bufs = self._chunk_bufs.get((rows, P))
+        if bufs is None:
+            def new() -> dict:
+                dev = self.device
+                return {"tok": torch.zeros((rows, P), dtype=torch.int64, device=dev),
+                        "pos": torch.full((rows, P), -1, dtype=torch.int32, device=dev),
+                        "last": torch.zeros((rows,), dtype=torch.int64, device=dev),
+                        "logits": torch.zeros((rows, self.hp.n_vocab), dtype=torch.float32,
+                                              device=dev)}
+            bufs = self._chunk_bufs[(rows, P)] = (new(), new())
+        return bufs
+
+    def _chunk_graph(self, rows: int, P: int) -> tuple:
+        """(key, fn, warm, "chunk") of a (rows, P) chunk: a paged chunk on
+        the one-row view (warm: the empty-table view), a one-row dense
+        chunk on the scratch, a wave on the big cache."""
+        io, idle = self._chunk_io(rows, P)
+        if self.paged:
+            cache, warm_cache = self._pview, self._pview_idle
+        else:
+            cache = warm_cache = self._scratch if rows == 1 else self.cache
+        return (("chunk", self._cache_label(), rows, P), lambda: self._chunk(cache, io),
+                lambda: self._chunk(warm_cache, idle), "chunk")
+
+    def _run_chunk(self, rows: int, P: int, parts: dict[int, tuple[list[int], int]]) -> dict:
+        """Stage ``parts`` (row -> (tokens, first position)) into the static
+        inputs of a (rows, P) chunk by pinned non-blocking copies, then run
+        it: a graph replay on CUDA (captured first if its key is new), eager
+        without graphs. Returns its static io."""
+        tok = np.zeros((rows, P), np.int64)
+        pos = np.full((rows, P), -1, np.int32)
+        last = np.zeros(rows, np.int64)
+        for r, (chunk, off) in parts.items():
+            tok[r, : len(chunk)] = chunk
+            pos[r, : len(chunk)] = np.arange(off, off + len(chunk))
+            last[r] = len(chunk) - 1
+        key, fn, warm, kind = self._chunk_graph(rows, P)
+        io = self._chunk_io(rows, P)[0]
+        for name, arr in (("tok", tok), ("pos", pos), ("last", last)):
+            self._h2d(io[name], arr)
+        if self._graphs is None:
+            fn()
+        else:
+            self._graphs.run(key, fn, warm, kind)
+        self.stats["chunks"] += 1
+        return io
 
     def _s_bucket(self, need: int) -> int | None:
         """Decode-length bucket: smallest power-of-2 slot window ≥ need
         (min 256); None = the full cache."""
-        w = 256
-        while w < need:
-            w *= 2
-        return w if w < self.n_ctx else None
+        return next((w for w in self._windows()[:-1] if w >= need), None)
 
     def _decode_step(self) -> bool:
         """Decode the generating slots: a device block when every one's
@@ -538,22 +708,27 @@ class Engine:
             self._sp_key = sp_key
         return all(c is None or self._greedy_cfg(c) for c in cfgs)
 
-    def _run_block(self, ids: tuple, win: int | None, greedy: bool) -> dict:
-        """Run one block on the static inputs (a graph replay on CUDA, eager
-        on the CPU) and start the copy of its tokens to the host."""
-        nb = self.block_size
+    def _block_graph(self, nb: int, win: int | None, greedy: bool) -> tuple:
+        """(key, fn, warm, "block") of a decode block of nb steps; warm runs
+        it with every row idle."""
         cache = self.pkv.cache if self.paged else self.cache
         if nb not in self._io["toks"]:
             for io in (self._io, self._idle_io):
                 io["toks"][nb] = torch.zeros((self.n_slots, nb), dtype=torch.int64,
                                              device=self.device)
-        run = lambda: self._block(cache, self._io, nb, win, greedy)   # noqa: E731
+        return ((self._cache_label(), nb, win, greedy),
+                lambda: self._block(cache, self._io, nb, win, greedy),
+                lambda: self._block(cache, self._idle_io, nb, win, greedy), "block")
+
+    def _run_block(self, ids: tuple, win: int | None, greedy: bool) -> dict:
+        """Run one block on the static inputs (a graph replay on CUDA, eager
+        on the CPU) and start the copy of its tokens to the host."""
+        nb = self.block_size
+        key, fn, warm, kind = self._block_graph(nb, win, greedy)
         if self._graphs is None:
-            run()
+            fn()
         else:
-            key = ("paged" if self.paged else str(self.kv_dtype), nb, win, greedy)
-            self._graphs.run(key, run,
-                             lambda: self._block(cache, self._idle_io, nb, win, greedy))
+            self._graphs.run(key, fn, warm, kind)
         self.stats["blocks"] += 1
         toks, event = self._io["toks"][nb], None
         if toks.is_cuda:
@@ -666,23 +841,21 @@ class Engine:
                 self.pkv.pin(s.idx, False)
 
     def _paged_prefill_chunk(self, slot: _Slot) -> list:
-        """One prompt chunk (≤ page_size tokens) into the slot's page chain;
-        the other rows ride along on the NULL page. Returns the finals entry
-        of a slot whose prompt is done."""
+        """One prompt chunk (≤ page_size tokens) into the slot's page chain,
+        a one-row chunk on the pool's row view: the JAX engine's
+        (n_slots, P) chunk without the padding rows, which never reach the
+        slot's row. Returns the finals entry of a slot whose prompt is
+        done."""
         P = slot.prefill_P
         chunk = slot.pending[:P]
         with self._paged_hold([slot]):
             self.pkv.plan_step({slot.idx: len(chunk)})
-            tok = np.zeros((self.n_slots, P), np.int64)
-            pos = np.full((self.n_slots, P), -1, np.int32)
-            tok[slot.idx, : len(chunk)] = chunk
-            pos[slot.idx, : len(chunk)] = np.arange(slot.prefill_off,
-                                                    slot.prefill_off + len(chunk))
-            logits = self._forward(tok, pos, self.pkv.cache)
+            self.pkv.load_row(self._pview, slot.idx)
+            io = self._run_chunk(1, P, {0: (chunk, slot.prefill_off)})
             self.pkv.finish_step()
         slot.pending = slot.pending[len(chunk):]
         slot.prefill_off += len(chunk)
-        return [] if slot.pending else [(slot, logits, slot.idx, len(chunk) - 1)]
+        return [] if slot.pending else [(slot, io["logits"][0].clone())]
 
     def _paged_pick(self, active: list[_Slot]) -> list[_Slot]:
         """Swap-scheduling admission: the slots whose page chains fit the

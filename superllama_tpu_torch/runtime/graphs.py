@@ -1,9 +1,11 @@
-"""CUDA graphs of decode blocks, and the launch accounting that replays need.
+"""CUDA graphs of decode blocks and prompt chunks, and the launch
+accounting that replays need.
 
 The JAX package compiles a block of decode steps into one dispatch
-(``jax.jit`` over a ``lax.scan``). The port's counterpart captures the
-eager block once per key in a ``torch.cuda.CUDAGraph`` and replays it: one
-host call launches every kernel of every step.
+(``jax.jit`` over a ``lax.scan``), and a prompt chunk into another
+(``jax.jit`` of the forward). The port's counterpart captures the eager
+block or chunk once per key in a ``torch.cuda.CUDAGraph`` and replays it:
+one host call launches every kernel of every step.
 
 The kernel wrappers count their launches in Python (``qmv.launches``, …).
 A replay runs no Python, so ``GraphCache`` records each counter's increase
@@ -42,17 +44,25 @@ def _add_counts(deltas: list[int]) -> None:
         setattr(fn, attr, getattr(fn, attr) + d)
 
 
-class GraphCache:
-    """Captured blocks by key, sharing one memory pool, on one CUDA device
-    (one stream replays them, so their scratch memory may overlap).
+KINDS = ("block", "chunk")
 
-    ``run(key, fn, warm)`` replays the graph of ``key``, capturing ``fn``
-    first when the key is new. ``fn`` must read and write only tensors that
-    outlive the graph (static inputs, static outputs, the cache). ``warm``
-    runs the same kernels as ``fn`` eagerly without changing any state that
-    ``fn`` reads: it builds the kernels and sets their function attributes
-    before the capture, which must not. Both run on a side stream, as a
-    capture must; a failed capture raises."""
+
+class GraphCache:
+    """Captured graphs by key, sharing one memory pool, on one CUDA device
+    (one stream replays them, so their scratch memory may overlap: no
+    output of a graph may live in the pool past its replay).
+
+    ``run(key, fn, warm, kind)`` replays the graph of ``key``, capturing
+    ``fn`` first when the key is new. ``fn`` must read and write only
+    tensors that outlive the graph (static inputs, static outputs, the
+    cache). ``warm`` runs the same kernels as ``fn`` eagerly without
+    changing any state that ``fn`` reads: it builds the kernels and sets
+    their function attributes before the capture, which must not. Both run
+    on a side stream, as a capture must; a failed capture raises.
+
+    ``stats[kind]`` counts the captures, replays and capture seconds of
+    each kind of key (decode ``"block"``, prompt ``"chunk"``) apart;
+    ``capture_s[key]`` holds each key's capture seconds."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -60,23 +70,33 @@ class GraphCache:
             raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
         self.graphs: dict = {}
         self._deltas: dict = {}
+        self._kinds: dict = {}
+        self.capture_s: dict = {}
         self._pool = None
         self._stream = None
-        self.stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
+        self.stats = {k: {"captures": 0, "replays": 0, "capture_s": 0.0} for k in KINDS}
 
-    def run(self, key, fn: Callable[[], None], warm: Callable[[], None]) -> None:
+    def keys(self) -> list:
+        """The captured keys, in the order of their capture."""
+        return list(self.graphs)
+
+    def run(self, key, fn: Callable[[], None], warm: Callable[[], None],
+            kind: str = "block") -> None:
         if key not in self.graphs:
-            self.capture(key, fn, warm)
+            self.capture(key, fn, warm, kind)
         self.replay(key)
 
     def replay(self, key) -> None:
         self.graphs[key].replay()
         _add_counts(self._deltas[key])
-        self.stats["replays"] += 1
+        self.stats[self._kinds[key]]["replays"] += 1
 
-    def capture(self, key, fn: Callable[[], None], warm: Callable[[], None]) -> None:
+    def capture(self, key, fn: Callable[[], None], warm: Callable[[], None],
+                kind: str = "block") -> None:
         """Warm up, then capture ``fn`` as the graph of ``key`` (nothing
         runs on the device during the capture itself)."""
+        if kind not in KINDS:
+            raise ValueError(f"graph kind {kind!r}: one of {KINDS}")
         t0 = time.perf_counter()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -98,8 +118,10 @@ class GraphCache:
             self._pool = graph.pool()
         self.graphs[key] = graph
         self._deltas[key] = [a - b for a, b in zip(after, before)]
-        self.stats["captures"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
+        self._kinds[key] = kind
+        self.capture_s[key] = time.perf_counter() - t0
+        self.stats[kind]["captures"] += 1
+        self.stats[kind]["capture_s"] += self.capture_s[key]
 
     def pool_bytes(self) -> int:
         """Bytes the graphs' private pool holds on the device."""

@@ -63,6 +63,20 @@ def paged_cache_init(n_layer: int, n_pages: int, page_size: int, n_seqs: int,
     )
 
 
+def paged_row_view(cache: PagedKVCache) -> PagedKVCache:
+    """A one-row view of the page pool: ``k_pages``, ``v_pages`` and
+    ``page_pos`` shared with ``cache``, a table (1, MAXP) of -1 (absent)
+    and cursors (1,) of its own, static buffers that
+    ``PagedKVManager.load_row`` fills with one sequence's. A step on the
+    view writes that sequence's pages; on an empty table its writes land on
+    the NULL page."""
+    i32 = dict(dtype=torch.int32, device=cache.table.device)
+    return PagedKVCache(k_pages=cache.k_pages, v_pages=cache.v_pages,
+                        page_pos=cache.page_pos,
+                        table=torch.full((1, cache.table.shape[1]), -1, **i32),
+                        cur_page=torch.zeros((1,), **i32), cur_off=torch.zeros((1,), **i32))
+
+
 # ------------------------------------------------------- in-step updates
 
 
@@ -277,6 +291,16 @@ class PagedKVManager:
                     self._table_np[seq, pg] = self._alloc_slot(seq, pg)
             self.touch(seq)
         self._sync_table()
+
+    def load_row(self, view: PagedKVCache, seq: int) -> None:
+        """Copy one sequence's table row and cursors from the host mirrors
+        into a ``paged_row_view`` (after ``plan_step``: the cursors at its
+        write start), with ``_sync_table``'s synchronous copies. The
+        manager's mirrors stay the source of truth: ``finish_step``
+        advances them."""
+        view.table.copy_(torch.from_numpy(self._table_np[seq:seq + 1]))
+        view.cur_page.copy_(torch.from_numpy(self._cur_page[seq:seq + 1]))
+        view.cur_off.copy_(torch.from_numpy(self._cur_off[seq:seq + 1]))
 
     def finish_step(self):
         """Advance the host offsets past the planned tokens (the step wrote

@@ -28,18 +28,25 @@ REQUEST_TIMEOUT_S = 600
 
 
 class ServerApp:
-    """Wires model + engine; transport-agnostic request handlers."""
+    """Wires model + engine; transport-agnostic request handlers.
+
+    ``warmup`` (the default, as ``serve --warmup``) runs ``Engine.warmup``
+    before ``Server.start`` serves: every graph key is captured before the
+    first request, which then pays no capture. ``warmup_info`` keeps what
+    it returned."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
                  kv_dtype: torch.dtype | str | None = None, model_name: str | None = None,
                  device=None, paged: bool = False, page_size: int = 256,
-                 n_pages: int | None = None):
+                 n_pages: int | None = None, warmup: bool = True):
         self.model = model
         self.model_name = model_name or model.name or "model"
         self.engine = Engine(model, n_slots=n_slots, n_ctx=n_ctx,
                              kv_dtype=kv_dtype or torch.bfloat16, device=device,
                              paged=paged, page_size=page_size, n_pages=n_pages)
         self.chat_template = template_for_model(model)
+        self.warmup = bool(warmup)
+        self.warmup_info: dict | None = None
         self.t_start = time.time()
 
     @staticmethod
@@ -239,6 +246,8 @@ class Server:
         self._thread: threading.Thread | None = None
 
     def start(self):
+        if self.app.warmup and self.app.warmup_info is None:
+            self.app.warmup_info = self.app.engine.warmup()
         self.app.engine.start()
         self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         self._thread.start()

@@ -267,11 +267,14 @@ def test_graph_replays_add_the_captured_launches(monkeypatch):
     cache.run("a", block, block)     # replay only
     cache.run("a", block, block)
     assert (qmv.launches, fd.launches) == (100 + 5 + 15, 7 + 2 + 6)
-    assert cache.graphs["a"].replays == 3 and cache.stats["captures"] == 1
-    cache.capture("b", lambda: setattr(qmv, "launches", qmv.launches + 1), lambda: None)
+    assert cache.graphs["a"].replays == 3 and cache.stats["block"]["captures"] == 1
+    cache.capture("b", lambda: setattr(qmv, "launches", qmv.launches + 1), lambda: None,
+                  kind="chunk")
     assert qmv.launches == 120
     cache.replay("b")
-    assert qmv.launches == 121 and cache.stats["replays"] == 4
+    assert qmv.launches == 121 and cache.stats["block"]["replays"] == 3
+    assert cache.stats["chunk"]["captures"] == 1 and cache.stats["chunk"]["replays"] == 1
+    assert cache.keys() == ["a", "b"] and set(cache.capture_s) == {"a", "b"}
 
 
 def test_graphs_need_a_cuda_device(model):

@@ -65,8 +65,9 @@ def test_bf16_prefill_takes_the_tensor_cores(D):
     8, T 128, 256-token pages, n_ctx 2048): fa's geometry for the row's
     2048 logical slots plus its 8-page table, whole 16s, 64-slot tiles up
     to 128 columns (32 above), two blocks an SM up to 128. 128 tokens of 4
-    heads are 8 row tiles of 64 rows, 64 units a row with the 8 kv heads: a
-    cluster of two a unit."""
+    heads are 8 row tiles of 64 rows, 64 units a row with the 8 kv heads:
+    a cluster of two a unit for the engine's one-row chunk, none for a call
+    of 8 rows."""
     p = _plan(D=D)
     assert isinstance(p, FaPlan) and p.kernel == "tc"
     fa = prefill_plan(torch.bfloat16, torch.bfloat16, 8, 128, 32, 8, 2048, D, D)
@@ -75,7 +76,9 @@ def test_bf16_prefill_takes_the_tensor_cores(D):
     assert fa.grid == (8, 8, 8) and fa.split == 1
     assert p.smem <= SMEM_MAX
     assert D <= p.dk < D + 16 and p.bs == (64 if D <= 128 else 32)
-    assert p.split == 2 and p.grid == (16, 8, 8)
+    assert p.split == 1 and p.grid == (8, 8, 8)
+    one = _plan(B=1, D=D)
+    assert one.split == 2 and one.grid == (16, 8, 1) and one.smem == p.smem
     if D <= 128:
         assert 2 * (p.smem + 1024) <= SM_SMEM
 
@@ -126,13 +129,17 @@ def test_row_tiles_cover_every_token(G, T):
                                          (1, 256, 128, 2), (8, 256, 256, 1), (8, 128, 256, 2),
                                          (1, 2048, 128, 1), (3, 9, 64, 2), (2, 1024, 80, 1)])
 def test_cluster_split_where_one_rows_units_fit_one_wave(B, T, D, split):
-    """Clusters of two only where two blocks for each (row tile, kv head)
-    of one batch row fit the card's resident blocks (264 up to 128 columns,
-    132 above): the serving chunk and a long prompt's 256-token chunk split,
-    a 1024-token chunk or D 256 at T 256 does not."""
+    """``split``: the cluster a call of one row at (T, D) takes. Clusters
+    of two only where two blocks for each (row tile, kv head) of the row
+    fit the card's resident blocks (264 up to 128 columns, 132 above): the
+    serving chunk and a long prompt's 256-token chunk split, a 1024-token
+    chunk or D 256 at T 256 does not. A call of several rows (all of them
+    may be valid) never splits."""
     p = _plan(B=B, T=T, D=D)
     n_rt = -(-T // 16)
-    assert p.split == split and p.grid == (n_rt * split, 8, B)
+    want = split if B == 1 else 1
+    assert p.split == want and p.grid == (n_rt * want, 8, B)
+    assert _plan(B=1, T=T, D=D).split == split
     assert 2 * n_rt * 8 <= SMS * (2 if D <= 128 else 1) or split == 1
 
 
@@ -142,9 +149,9 @@ def test_cluster_split_follows_the_sm_count(sms, split):
     256-token chunk (16 row tiles x 8 kv heads, two blocks a unit, two
     blocks an SM) fits one resident wave from 128 SMs on, so an H100 SXM
     (132) splits it and an H100 PCIe (114) does not; a CPU tensor's plan
-    (no card) takes none."""
-    p = _plan(B=8, T=256, sms=sms)
-    assert p.split == split and p.grid == (16 * split, 8, 8)
+    (no card) takes none. The engine sends one row a chunk."""
+    p = _plan(B=1, T=256, sms=sms)
+    assert p.split == split and p.grid == (16 * split, 8, 1)
     cpu = paged_plan(torch.zeros((8, 256, 32, 128), dtype=torch.bfloat16),
                      *[torch.zeros((2, 8, 256, 128), dtype=torch.bfloat16)] * 2,
                      torch.zeros((8, 8), dtype=torch.int32))
