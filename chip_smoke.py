@@ -16,6 +16,7 @@ PyTorch version.
     python3 chip_smoke.py --prefill       # device, build, phases 4b and 4d, the
                                           # one-row paged chunk of phase 5, the TTFTs
                                           # of phase 6, the lone prompts of phase 7
+    python3 chip_smoke.py --state         # device, build, phase 4e
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -54,6 +55,13 @@ Phases, each printing one JSON line:
  4d. Engine.warmup on a bf16 and a paged engine: the keys, their capture
     seconds, the graph pool's bytes, then a 32- and a 1000-token request
     with no capture after the warm-up, and their TTFT;
+ 4e. the engine's state between requests on warmed-up bf16, Q8_0 and paged
+    servers: a second turn that reuses a 1000-token prompt's cache (its
+    tail through fa's or paged's tensor-core kernel; on the paged cache a
+    16-token tail through qmm) against the same prompt on an erased slot,
+    slot save / erase / restore bit-equal (dense), no capture after the
+    warm-up, TTFT with and without reuse, and /metrics, /slots,
+    /tokenize, /detokenize and /slots/:id over HTTP;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -810,6 +818,19 @@ def http(port: int, path: str, body: dict, timeout: float = 600.0):
         return resp.status, resp.read()
 
 
+def fresh(eng) -> None:
+    """Empty every slot's cache row, so that the next requests prefill their
+    whole prompts: the engine serves a prompt that repeats what a slot holds
+    from that slot's cache (prefix reuse), and a phase that repeats prompts
+    to compare or time their prefill means a prefill from scratch. (An
+    unpacked parent tree's engine keeps nothing between requests.) Waits
+    for the step in progress; every slot must be idle."""
+    if hasattr(eng, "slot_erase"):
+        with eng._step_lock:
+            for s in eng.slots:
+                eng.slot_erase(s.idx)
+
+
 def in_one_wave(engine, submit_all, n: int) -> None:
     """Hold the engine between steps while n requests arrive, so they are
     admitted together and prefill in one wave: the same batch every time,
@@ -951,8 +972,10 @@ def serve_wave(torch, model, label: str, lens, expect, **app_kw) -> tuple[dict, 
                   f"kernel {counts['fa']} times")
 
         # the same prompts straight through the engine, batched the same way
+        fresh(eng)
         direct = [r["tokens"] for r in engine_wave(eng, prompts, 64)]
         check(direct == served, f"{label}: served tokens differ from the engine's for the same wave")
+        fresh(eng)
         alone = eng.generate(stream_prompt, max_tokens=64, sampling={"greedy": True},
                              stop_eog=False)["tokens"]
         check(alone == streamed, f"{label}: streamed tokens differ from engine.generate")
@@ -988,6 +1011,7 @@ def sampled_wave(eng, port: int, label: str, prompts, expect) -> dict:
     bodies = sampled_bodies(len(prompts))
 
     def wave() -> list:
+        fresh(eng)
         results: list = [None] * len(prompts)
 
         def send(i):
@@ -1018,6 +1042,7 @@ def sampled_wave(eng, port: int, label: str, prompts, expect) -> dict:
         if name == "qmm":   # a wave's prompt chunks take the M > 32 path
             continue
         check(counts[name] > 0, f"the {label} sampled wave never launched the {name} kernel")
+    fresh(eng)
     direct = [r["tokens"] for r in engine_wave(eng, prompts, 64, sampled_configs(len(prompts)))]
     check(direct == served, f"{label}: sampled served tokens differ from the engine's")
     again = wave()
@@ -1162,6 +1187,7 @@ def phase_graph_vs_eager(torch, model) -> list:
                 samplings = (sampled_configs(len(prompts)) if mode == "sampled" else None)
 
                 def serve(eng):
+                    fresh(eng)
                     if mode == "lone":
                         return [eng.generate(p, max_tokens=8, sampling={"greedy": True},
                                              stop_eog=False)["tokens"] for p in lone]
@@ -1360,6 +1386,243 @@ def phase_chunk_parity(torch, model) -> list:
 
 
 # ------------------------------------------------------------ 5. parity
+
+
+# ------------------------------------------------------------ 4e. engine state
+
+
+def byte_tokenizer():
+    """A byte-level BPE tokenizer over ids 0-257 (256 byte tokens, BOS 256,
+    EOS 257), for the text routes of the synthetic model, which has none."""
+    from superllama_tpu_torch.tokenizer import Tokenizer
+    from superllama_tpu_torch.tokenizer.vocab import TokenAttr, Vocab
+
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    b2u = dict(zip(bs, map(chr, cs)))
+    tokens = [b2u[b] for b in range(256)] + ["<|bos|>", "<|eos|>"]
+    attrs = [TokenAttr.NORMAL] * 256 + [TokenAttr.CONTROL] * 2
+    return Tokenizer(Vocab(model="gpt2", pre="default", tokens=tokens, scores=[0.0] * 258,
+                           attrs=attrs, bos_id=256, eos_id=257, add_bos=True))
+
+
+STATE_CACHES = (("bf16", {}), ("q8_0", {"kv_dtype": "q8_0"}),
+                ("paged", {"paged": True, "page_size": 256}))
+# greedy tokens of a reused and a fresh prefill may part where the fresh
+# run's two best logits are nearer than this (other chunkings, other sums)
+NEAR_TIE = 0.05
+
+
+def phase_state(torch, model, smi_line: str) -> list:
+    """The engine's state between requests, on each cache of STATE_CACHES,
+    through a server warmed up as ``serve`` does (8 slots, n_ctx 2048):
+
+     - turn 1: a 1000-token prompt, 32 greedy tokens; turn 2: turn 1's
+       prompt, its tokens and 100 new ones. Turn 2 must reuse at least
+       1000 cached tokens and load the rest in one chunk through fa's
+       tensor-core kernel (dense) or paged's (paged), the counts set to 0
+       just before it and read just after; then the same prompt on the
+       erased slot (a fresh prefill): first-token logits within NMSE 1e-3,
+       and tokens equal up to any step where the fresh tokens' two best
+       logits (a teacher-forced forward of them) lie within NEAR_TIE;
+     - dense: save after turn 1, erase, a 200-token request on the slot,
+       restore: turn 2 again gives turn 2's tokens bit for bit; paged: save
+       and restore refuse, erase frees the pages, and a 16-token reused
+       tail (one row of M 32) goes through qmm;
+     - no graph is captured after the warm-up;
+     - bf16 only, over HTTP: /metrics (device memory in use, the requests
+       sent), /slots, /tokenize and /detokenize round trip (a byte-level
+       tokenizer on the server's model), /slots/:id save, erase, restore.
+    TTFT with and without reuse is printed beside the card's name and power
+    limit."""
+    import gc
+
+    from superllama_tpu_torch.server.http import Server, ServerApp
+
+    n_vocab = model.hparams.n_vocab
+    turn1, new2, other, new3 = token_prompts(n_vocab, [1000, 100, 200, 15], SEED + 20)
+    recs = []
+    for label, kw in STATE_CACHES:
+        app = ServerApp(model, n_slots=8, n_ctx=2048, model_name=model.name, device="cuda",
+                        **{"kv_dtype": torch.bfloat16, **kw})
+        srv = Server(app, host="127.0.0.1", port=0)
+        srv.start()
+        eng = app.engine
+        try:
+            rec = state_turns(torch, model, eng, label, turn1, new2, other, new3)
+            if label == "bf16":
+                rec["http"] = state_http(app, srv.port, turn1, rec.pop("requests"))
+            rec.pop("requests", None)
+        finally:
+            srv.stop()
+            del app, srv, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["card"] = smi_line
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def state_turns(torch, model, eng, label, turn1, new2, other, new3) -> dict:
+    from superllama_tpu_torch.runtime.engine import SlotState
+
+    paged = eng.paged
+    last = {}
+    run_chunk = eng._run_chunk
+
+    def spy(rows, P, parts, main=None):
+        io = run_chunk(rows, P, parts, main)
+        last["logits"] = io["logits"][next(iter(parts))].float().clone()
+        return io
+
+    eng._run_chunk = spy
+    sent = [0]
+
+    def gen(p, n=32):
+        sent[0] += 1
+        return eng.generate(p, max_tokens=n, sampling={"greedy": True}, stop_eog=False)
+
+    def holder(p) -> int:
+        with eng._step_lock:
+            return next(s.idx for s in eng.slots
+                        if s.state == SlotState.IDLE and s.cache_tokens[:len(p)] == p)
+
+    caps0 = tuple(graph_stats(eng, k).get("captures", 0) for k in ("chunk", "block"))
+    r1 = gen(turn1)
+    slot = holder(turn1)
+    if paged:
+        for act in (lambda: eng.slot_save(slot), lambda: eng.slot_restore(slot, {})):
+            try:
+                act()
+                check(False, "a paged slot saved or restored")
+            except NotImplementedError:
+                pass
+        snap = None
+    else:
+        snap = eng.slot_save(slot)
+    p2 = turn1 + r1["tokens"] + new2
+    cached0 = eng.metrics["n_prompt_cached"]
+    reset_counts()
+    r2 = gen(p2)
+    counts2 = read_counts()
+    reused = eng.metrics["n_prompt_cached"] - cached0
+    logits_reuse = last["logits"]
+    attn = "paged_tc" if paged else "fa_tc"
+    check(reused >= 1000, f"{label} turn 2 reused {reused} tokens")
+    check(holder(p2) == slot, f"{label} turn 2 left its slot")
+    check(counts2[attn] > 0, f"{label} turn 2's tail never launched {attn}: {counts2}")
+
+    eng.slot_erase(slot)
+    if paged:
+        check(eng.pkv.seq_pages(slot) == 0, "the paged erase kept pages")
+    cached0 = eng.metrics["n_prompt_cached"]
+    r2f = gen(p2)
+    logits_fresh = last["logits"]
+    check(eng.metrics["n_prompt_cached"] == cached0, f"{label}: the erased slot reused a prefix")
+    first_nmse = nmse(logits_reuse, logits_fresh)
+    check(first_nmse <= 1e-3, f"{label} turn 2 first-token logits: nmse {first_nmse:g}")
+    chunks = [p2[i:i + 256] for i in range(0, len(p2), 256)]   # a paged step fits a page
+    fresh_logits = forward_run(torch, model, chunks + [[t] for t in r2f["tokens"][:-1]],
+                               kv_dtype=None if paged else eng.kv_dtype, paged=paged)
+    top2 = [lg[0, -1].topk(2).values for lg in fresh_logits[len(chunks) - 1:]]
+    gaps = [float(v[0] - v[1]) for v in top2]
+    split = next((i for i, (a, b) in enumerate(zip(r2["tokens"], r2f["tokens"])) if a != b),
+                 None)
+    if split is not None:
+        check(gaps[split] < NEAR_TIE, f"{label} turn 2: reused and fresh tokens part at step "
+              f"{split}, where the fresh run's top-2 gap is {gaps[split]:g}")
+    rec = {"phase": "state", "kv": label, "turn1_tokens": len(turn1), "turn2_tokens": len(p2),
+           "reused_tokens": reused, "ttft_ms_turn2_reuse": r2["ttft_s"] * 1e3,
+           "ttft_ms_turn2_fresh": r2f["ttft_s"] * 1e3, "ttft_ms_turn1": r1["ttft_s"] * 1e3,
+           "launches_turn2": counts2, "first_token_nmse": first_nmse,
+           "tokens_equal_fresh": split is None, "split_step": split,
+           "split_gap": None if split is None else gaps[split],
+           "min_top2_gap_fresh": min(gaps), "min_gap_step": gaps.index(min(gaps))}
+
+    if paged:
+        p3 = p2 + r2f["tokens"] + new3       # a 16-token tail after 1163 cached tokens
+        cached0 = eng.metrics["n_prompt_cached"]
+        reset_counts()
+        r3 = gen(p3, 8)
+        counts3 = read_counts()
+        rec.update({"tail16_reused": eng.metrics["n_prompt_cached"] - cached0,
+                    "launches_tail16": counts3, "ttft_ms_tail16": r3["ttft_s"] * 1e3})
+        check(rec["tail16_reused"] == len(p3) - 16, f"paged 16-token tail: {rec}")
+        check(counts3["qmm"] > 0 and counts3["paged_tc"] > 0,
+              f"the paged 16-token tail did not take qmm and paged_tc: {counts3}")
+    else:
+        eng.slot_erase(slot)
+        gen(other, 8)
+        check(holder(other) == slot, f"{label}: the 200-token request took another slot")
+        check(eng.slot_restore(slot, snap) == len(snap["cache_tokens"]), "restore count")
+        cached0 = eng.metrics["n_prompt_cached"]
+        r2r = gen(p2)
+        rec["restored_reused"] = eng.metrics["n_prompt_cached"] - cached0
+        rec["restore_tokens_equal"] = r2r["tokens"] == r2["tokens"]
+        check(rec["restored_reused"] == reused, f"{label} restore: {rec}")
+        check(rec["restore_tokens_equal"], f"{label}: turn 2 after the restore gave other tokens")
+    caps = tuple(graph_stats(eng, k).get("captures", 0) for k in ("chunk", "block"))
+    rec["captures_after_warmup"] = [b - a for a, b in zip(caps0, caps)]
+    check(caps == caps0, f"{label}: graphs captured after the warm-up {rec}")
+    rec["requests"] = sent[0]
+    eng._run_chunk = run_chunk
+    return rec
+
+
+def state_http(app, port: int, turn1, sent: int) -> dict:
+    """The state routes over HTTP on the bf16 server, after its turns."""
+    import urllib.request
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+            return r.status, r.read().decode()
+
+    def post(path, body):
+        st, raw = http(port, path, body, timeout=300)
+        check(st == 200, f"POST {path}: HTTP {st}")
+        return json.loads(raw)
+
+    eng = app.engine
+    out = post("/v1/completions", {"prompt": turn1[:64], "max_tokens": 4, "temperature": 0,
+                                   "return_tokens": True})
+    sent += 1
+    check(out["usage"]["completion_tokens"] == 4, f"HTTP completion: {out}")
+    st, text = get("/metrics")
+    g = {}
+    for line in text.splitlines():
+        if line.startswith("sllm_") and "{" not in line:
+            name, val = line.split()
+            g[name[5:]] = float(val)
+    check(st == 200 and g.get("device_memory_used_bytes", 0) > 0, f"/metrics: {g}")
+    check(g.get("requests_total") == sent, f"/metrics requests_total {g.get('requests_total')}, "
+          f"{sent} sent")
+    st, raw = get("/slots")
+    slots = json.loads(raw)
+    held = [s for s in slots if s["n_past"] > 0]
+    check(st == 200 and held and all(s["n_past"] == len(eng.slots[s["id"]].cache_tokens)
+                                     for s in slots), f"/slots: {slots}")
+    app.model = type(app.model)(**{**vars(app.model), "tokenizer": byte_tokenizer()})
+    text_in = "The state of the engine, 2048 slots of it."
+    ids = post("/tokenize", {"content": text_in})["tokens"]
+    back = post("/detokenize", {"tokens": ids})["content"]
+    check(back == text_in, f"/tokenize then /detokenize: {back!r}")
+    idx = held[0]["id"]
+    saved = post(f"/slots/{idx}?action=save", {"filename": "state.npz"})
+    erased = post(f"/slots/{idx}?action=erase", {})
+    restored = post(f"/slots/{idx}?action=restore", {"filename": "state.npz"})
+    check(saved["n_saved"] == restored["n_restored"] == held[0]["n_past"] and erased["success"],
+          f"/slots/{idx} actions: {saved} {erased} {restored}")
+    return {"requests_total": g["requests_total"], "device_memory_used_bytes":
+            g["device_memory_used_bytes"], "slots_n_past": [s["n_past"] for s in slots],
+            "tokenize_roundtrip": True, "n_saved": saved["n_saved"],
+            "save_ms": saved["timings"]["save_ms"], "restore_ms": restored["timings"]["restore_ms"]}
 
 
 def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None):
@@ -1814,8 +2077,11 @@ def time_ttft(eng) -> dict:
     a paged one the 1000-token prompt's four 256-token chunks), then warm
     (the same prompts again, three times: the keys captured)."""
     prompts = token_prompts(eng.model.hparams.n_vocab, TTFT_LENS, SEED + 4)
-    run = lambda p: eng.generate(p, max_tokens=1, sampling={"greedy": True},  # noqa: E731
-                                 stop_eog=False)["ttft_s"] * 1e3
+    def run(p) -> float:
+        fresh(eng)
+        return eng.generate(p, max_tokens=1, sampling={"greedy": True},
+                            stop_eog=False)["ttft_s"] * 1e3
+
     out = {f"ttft_ms_prompt{n}_cold": run(p) for n, p in zip(TTFT_LENS, prompts)}
     warm = {n: [run(p) for _ in range(3)] for n, p in zip(TTFT_LENS, prompts)}
     for n in TTFT_LENS:
@@ -1836,17 +2102,22 @@ def time_serving(torch, model, **engine_kw) -> dict:
     eng = Engine(model, n_slots=8, n_ctx=2048, device="cuda", **engine_kw)
     ttft = time_ttft(eng)
     p32 = token_prompts(model.hparams.n_vocab, [32], SEED + 4)[0]
-    eng.generate(p32, max_tokens=16, sampling={"greedy": True}, stop_eog=False)  # warm
-    r1 = eng.generate(p32, max_tokens=128, sampling={"greedy": True}, stop_eog=False)
+    # (each request prefills its prompt from scratch: fresh)
+    gen = lambda p, n, sm: (fresh(eng), eng.generate(  # noqa: E731
+        p, max_tokens=n, sampling=sm, stop_eog=False))[1]
+    gen(p32, 16, {"greedy": True})  # warm
+    r1 = gen(p32, 128, {"greedy": True})
     sm = sampled_configs(8)
-    eng.generate(p32, max_tokens=16, sampling=sm[0], stop_eog=False)  # warm
-    r1s = eng.generate(p32, max_tokens=128, sampling=sm[0], stop_eog=False)
+    gen(p32, 16, sm[0])  # warm
+    r1s = gen(p32, 128, sm[0])
     eng.start()
     try:
         p8 = token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 5)
+        fresh(eng)
         t0 = time.perf_counter()
         rs = engine_wave(eng, p8, 128)
         wall = time.perf_counter() - t0
+        fresh(eng)
         rss = engine_wave(eng, p8, 128, sm)
     finally:
         eng.stop()
@@ -1854,10 +2125,12 @@ def time_serving(torch, model, **engine_kw) -> dict:
     check(graphs["replays"] == graphs["blocks"] and graphs["chunk_replays"] == graphs["chunks"],
           f"time_serving: blocks and chunks {graphs}")
     # launches of one lone 32-token prefill chunk, then of one decode step
+    fresh(eng)
     reset_counts()
     eng.generate(p32, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
     per_chunk = read_counts()
     eng.block_size = 1
+    fresh(eng)
     reset_counts()
     eng.generate(p32, max_tokens=2, sampling={"greedy": True}, stop_eog=False)
     per_step = {k: n - per_chunk[k] for k, n in read_counts().items()}
@@ -1999,7 +2272,9 @@ def profile_chunk(torch, model, n: int = 32, paged: bool = False,
     prompt = token_prompts(model.hparams.n_vocab, [n], SEED + 4)[-1]
     run = lambda: eng.generate(prompt, max_tokens=1, sampling={"greedy": True}, stop_eog=False)
     run()
+    fresh(eng)          # each run prefills the whole prompt
     ttft_ms = run()["ttft_s"] * 1e3
+    fresh(eng)
     torch.cuda.synchronize()
     mm = llama_mod.mm
 
@@ -2305,6 +2580,10 @@ def main() -> int:
         # the kernels against their plain versions alone
         phase_kernels(torch)
         return 0
+    if "--state" in sys.argv[1:]:
+        # the engine's state between requests alone (phase 4e)
+        phase_state(torch, build_model(torch), info["nvidia_smi"])
+        return 0
     checks = phase_kernels(torch)
     model = build_model(torch)
     # each kernel's launches come from the serving run of its own path
@@ -2316,6 +2595,7 @@ def main() -> int:
     phase_graph_vs_eager(torch, model)
     phase_decode_loop(torch, model)
     phase_warmup(torch, model)
+    phase_state(torch, model, info["nvidia_smi"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)

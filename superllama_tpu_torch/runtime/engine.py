@@ -45,15 +45,31 @@ reference server's update_slots semantics):
    row and cursors, so no padding rows are computed); decode picks the
    slots whose pages fit the pool (round robin, the rest wait while their
    pages spill) and runs host-sampled steps or (unpipelined) blocks rolled
-   back with ``PagedKVManager.rollback``.
+   back with ``PagedKVManager.rollback``;
+ - prompt-prefix reuse: each slot keeps the tokens its cache row holds
+   (``cache_tokens``) across requests. A request takes the free slot with
+   the longest common prefix; a prefix of 16 tokens or more (at most the
+   prompt less one) stays in the cache, and only the rest prefills, in
+   place: the dense row is truncated to the prefix first (stale cells past
+   it would otherwise be attended), a paged chain is trimmed to it
+   (``PagedKVManager.trim_to_position``) and its chunks start mid-page;
+ - the queue is ordered by ``GenRequest.priority`` (higher first, FIFO
+   within a priority);
+ - ``slot_save`` / ``slot_restore`` / ``slot_erase`` snapshot, load and
+   clear an idle slot's cache row and token history (dense caches; a paged
+   cache can only erase), writing into the cache's own storage, which
+   captured graphs address;
+ - ``metrics`` is the JAX engine's counter dict (requests, tokens,
+   prefill and decode seconds, decode steps, prompt tokens reused; the
+   speculative and context-shift counters stay 0), beside the port's own
+   ``stats``.
 
 Thread model: ``submit`` enqueues; one engine thread (``start``) or the
 caller (``run_until_drained``) owns the device. The cache is updated in
 place.
 
-Not ported yet: speculative and lookup decoding, context shift,
-grammars, prompt-prefix reuse, request priority, the metrics dict and slot
-save/restore.
+Not ported yet: speculative and lookup decoding, context shift and
+grammars.
 """
 
 from __future__ import annotations
@@ -100,6 +116,7 @@ class GenRequest:
     sampling: dict = field(default_factory=dict)
     stream: Optional[Callable[[int, str], None]] = None  # (token_id, piece)
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:16])
+    priority: int = 1                # higher is admitted first
     # filled by the engine
     _done: threading.Event = field(default_factory=threading.Event)
     _result: dict = field(default_factory=dict)
@@ -124,6 +141,9 @@ class _Slot:
     text: str = ""
     t_start: float = 0.0
     t_first_token: float = 0.0
+    # the tokens whose K/V the slot's cache row holds, kept across requests
+    # for prompt-prefix reuse
+    cache_tokens: list[int] = field(default_factory=list)
     # chunked prefill: one chunk per engine step
     pending: list[int] = field(default_factory=list)
     prefill_off: int = 0             # positions already prefilled
@@ -201,7 +221,17 @@ class Engine:
             graphs = self.device.type == "cuda"
         self._graphs = GraphCache(self.device) if graphs else None
         self.stats = {"blocks": 0, "chained": 0, "chunks": 0}
-        self._queue: "queue.Queue[GenRequest]" = queue.Queue()
+        # the JAX engine's counters (what /metrics and /slots read)
+        self.metrics = {
+            "n_requests": 0, "n_tokens_generated": 0, "n_prompt_tokens": 0,
+            "prefill_s": 0.0, "decode_s": 0.0, "n_decode_steps": 0,
+            "n_spec_drafted": 0, "n_spec_accepted": 0, "n_prompt_cached": 0,
+            "n_ctx_shifts": 0,
+        }
+        # (-priority, arrival, request): higher priority first, FIFO within one
+        self._queue: "queue.PriorityQueue" = queue.PriorityQueue()
+        self._qseq = 0
+        self._lock = threading.Lock()
         # serializes step() against callers that must see a quiet engine
         self._step_lock = threading.RLock()
         self._running = False
@@ -231,7 +261,10 @@ class Engine:
     # ----------------------------------------------------------- public API
 
     def submit(self, req: GenRequest) -> GenRequest:
-        self._queue.put(req)
+        with self._lock:     # server threads submit concurrently
+            self._qseq += 1
+            self._queue.put((-req.priority, self._qseq, req))
+            self.metrics["n_requests"] += 1
         return req
 
     def generate(self, prompt_ids: list[int], **kw) -> dict:
@@ -269,9 +302,10 @@ class Engine:
         and the two blocks. Each capture's warm run keeps every row idle (pos
         -1, or the view's empty table), and the micro-wave (two 2-token
         prompts, 2 tokens each, as the JAX engine serves) is erased from its
-        slots afterwards, so no slot's state changes. Without graphs (the
-        CPU) only the micro-wave runs. Returns the keys captured, their
-        capture seconds, the graph pool's bytes and the seconds taken."""
+        slots afterwards, so no slot's state changes, and ``metrics`` is
+        left as it was. Without graphs (the CPU) only the micro-wave runs.
+        Returns the keys captured, their capture seconds, the graph pool's
+        bytes and the seconds taken."""
         if self._running:
             raise RuntimeError("warmup() runs before start()")
         if not self._queue.empty() or any(s.state != SlotState.IDLE for s in self.slots):
@@ -288,12 +322,16 @@ class Engine:
                         keys.append(key)
             if self.n_slots >= 2:
                 t_wave = time.perf_counter()
+                metrics = dict(self.metrics)
                 reqs = [self.submit(GenRequest(prompt_ids=[1, 2], max_tokens=2,
                                                stop_eog=False)) for _ in range(2)]
                 self.run_until_drained()
                 for r in reqs:
                     r.result()
-                self._erase_slots([s.idx for s in self.slots if s.t_start >= t_wave])
+                for s in [s for s in self.slots if s.t_start >= t_wave]:
+                    self.slot_erase(s.idx)
+                self.metrics.clear()
+                self.metrics.update(metrics)
         return {"keys": keys,
                 "capture_s": [self._graphs.capture_s[k] for k in keys] if keys else [],
                 "pool_bytes": self._graphs.pool_bytes() if self._graphs is not None else 0,
@@ -312,6 +350,8 @@ class Engine:
             Ps = list(self.buckets)
         rows = (1,) if self.paged or self.n_slots < 2 else (1, self.n_slots)
         out += [self._chunk_graph(r, P) for r in rows for P in Ps]
+        if not self.paged and self.n_slots == 1:    # a reused prefix's rest, in place
+            out += [self._chunk_graph(1, P, main=True) for P in Ps]
         return out
 
     def _windows(self) -> list:
@@ -323,18 +363,95 @@ class Engine:
             w *= 2
         return wins + [None]
 
-    def _erase_slots(self, idxs: list[int]) -> None:
-        """Return idle slots to their state at construction (the JAX
-        engine's ``slot_erase``): fresh slot records, empty cache rows (no
-        pages on a paged cache)."""
-        for i in idxs:
-            self.slots[i] = _Slot(i)
-        self._sp_key = None
-        if self.paged:
-            for i in idxs:
-                self.pkv.free_seq(i)
-        else:
-            self._truncate(self._keep_vector())
+    # ------------------------------------------------- slot state
+
+    def _idle_slot(self, idx: int) -> _Slot:
+        s = self.slots[idx]
+        if s.state != SlotState.IDLE:
+            raise RuntimeError(f"slot {idx} is busy")
+        return s
+
+    def slot_save(self, idx: int) -> dict:
+        """Snapshot an idle slot's cache row and token history (the JAX
+        engine's ``slot_save``, llama_state_seq_get_data): ``k`` and ``v``
+        (n_layer, H_kv, S, D), ``pos`` (S,), ``n_past``, ``cache_tokens``,
+        and on a Q8_0 / Q4_0 cache ``k_scale`` and ``v_scale`` too (the JAX
+        snapshot omits them). A float cache's K/V are saved as f32 (numpy
+        has no bfloat16; the values are exact), so either package loads the
+        file. A paged cache raises ``NotImplementedError``, as in JAX."""
+        with self._step_lock:
+            s = self._idle_slot(idx)
+            if self.paged:
+                raise NotImplementedError("slot save/restore needs a non-paged cache")
+            self._flush_pending()
+            c, S = self.cache, self.cache.max_seq
+
+            def host(t: torch.Tensor) -> np.ndarray:
+                """A copy of the row's first S cells: a CPU tensor's numpy
+                view would follow later writes to the cache."""
+                t = t[..., :S] if t.ndim == 3 else t[:, :, :S]
+                dtype = torch.float32 if t.is_floating_point() else t.dtype
+                return t.to("cpu", dtype, copy=True).numpy()
+
+            out = {"k": host(c.k[:, idx]), "v": host(c.v[:, idx]),
+                   "pos": c.pos[idx, :S].to("cpu", copy=True).numpy(), "n_past": s.n_past,
+                   "cache_tokens": np.asarray(s.cache_tokens, np.int32)}
+            if c.quantized:
+                out["k_scale"] = host(c.k_scale[:, idx])
+                out["v_scale"] = host(c.v_scale[:, idx])
+            return out
+
+    def slot_restore(self, idx: int, data: dict) -> int:
+        """Load a ``slot_save`` snapshot (or the JAX engine's) into an idle
+        slot's row, in place: the row's spare cell comes back empty. A
+        quantized cache needs the snapshot's scales (``ValueError``
+        without them). Returns the count of tokens restored."""
+        with self._step_lock:
+            s = self._idle_slot(idx)
+            if self.paged:
+                raise NotImplementedError("slot save/restore needs a non-paged cache")
+            c, S = self.cache, self.cache.max_seq
+            parts = [("k", c.k), ("v", c.v)]
+            if c.quantized:
+                if "k_scale" not in data or "v_scale" not in data:
+                    raise ValueError("a quantized cache restores only a snapshot "
+                                     "with its scales (k_scale, v_scale)")
+                parts += [("k_scale", c.k_scale), ("v_scale", c.v_scale)]
+            rows = {}
+            for name, t in parts:
+                a = torch.as_tensor(np.asarray(data[name]))
+                want = tuple(t[:, idx, :, :S].shape)
+                if tuple(a.shape) != want:
+                    raise ValueError(f"snapshot {name} has shape {tuple(a.shape)}, "
+                                     f"the cache row {want}")
+                rows[name] = a
+            pos = torch.as_tensor(np.asarray(data["pos"]).astype(np.int32))
+            if tuple(pos.shape) != (S,):
+                raise ValueError(f"snapshot pos has shape {tuple(pos.shape)}, want ({S},)")
+            self._flush_pending()
+            for name, t in parts:
+                t[:, idx, :, :S].copy_(rows[name].to(t.dtype))
+                t[:, idx, :, S:].zero_()
+            c.pos[idx, :S].copy_(pos)
+            c.pos[idx, S:].fill_(-1)
+            n_past = int(data["n_past"])
+            c.cursor[idx].fill_(n_past)
+            s.n_past = n_past
+            s.cache_tokens = [int(t) for t in np.asarray(data["cache_tokens"])]
+            return len(s.cache_tokens)
+
+    def slot_erase(self, idx: int) -> None:
+        """Empty an idle slot: a fresh slot record, an empty cache row (no
+        pages on a paged cache), written in place."""
+        with self._step_lock:
+            self._idle_slot(idx)
+            self.slots[idx] = _Slot(idx)
+            if self.paged:
+                self.pkv.free_seq(idx)
+                return
+            self._flush_pending()
+            self.cache.pos[idx].fill_(-1)
+            self.cache.cursor[idx].fill_(0)
 
     # ----------------------------------------------------------- engine loop
 
@@ -353,6 +470,7 @@ class Engine:
             if s.req is not None:
                 s.req._result["error"] = msg
                 s.req._done.set()
+                s.cache_tokens = []          # the row's contents are undefined now
             s.state, s.req, s.pending = SlotState.IDLE, None, []
         self._pending_q = []
         if self._scratch_owner is not None:
@@ -376,10 +494,11 @@ class Engine:
             if not free or self._queue.empty():
                 break
             try:
-                req = self._queue.get_nowait()
+                _, _, req = self._queue.get_nowait()
             except queue.Empty:
                 break
-            slot = free[0]
+            # the free slot with the longest cached common prefix
+            slot = max(free, key=lambda s: self._common_prefix(s.cache_tokens, req.prompt_ids))
             try:
                 self._start_request(slot, req)
                 launched = True
@@ -387,7 +506,24 @@ class Engine:
                 req._result["error"] = str(e)
                 req._done.set()
                 slot.state, slot.req, slot.pending = SlotState.IDLE, None, []
+                slot.cache_tokens = []       # the row's contents are undefined now
         return launched
+
+    @staticmethod
+    def _common_prefix(a: list[int], b: list[int]) -> int:
+        n = 0
+        for x, y in zip(a, b):
+            if x != y:
+                break
+            n += 1
+        return n
+
+    def _reusable(self, slot: _Slot, ids: list[int]) -> int:
+        """Prompt tokens the slot's cache row already holds: the common
+        prefix with its ``cache_tokens``, at most the prompt less one (the
+        last token's logits are needed), 0 below 16."""
+        n = min(self._common_prefix(slot.cache_tokens, ids), len(ids) - 1)
+        return n if n >= 16 else 0
 
     def _forward(self, tokens: np.ndarray, pos: np.ndarray, cache: KVCache,
                  s_window: int | None = None) -> torch.Tensor:
@@ -438,21 +574,40 @@ class Engine:
             raise ValueError(
                 f"prompt ({len(ids)}) + max_tokens ({req.max_tokens}) exceeds "
                 f"n_ctx ({self.n_ctx})")
+        if not self.paged:
+            # the truncate below keeps rows by host counts
+            self._flush_pending()
+        n_cached = self._reusable(slot, ids)
+        t0 = time.perf_counter()
+        if self.paged:
+            # keep the cached prefix's pages (the chunks then start
+            # mid-page), or give every page back
+            if not (n_cached and self.pkv.trim_to_position(slot.idx, n_cached)):
+                n_cached = 0
+                self.pkv.free_seq(slot.idx)
+        elif n_cached:
+            # cut the row to the prefix: fa attends every cell whose position
+            # lies at or below the query's, so the older request's cells past
+            # it must go before the rest loads in place
+            keep = self._keep_vector()
+            keep[slot.idx] = n_cached
+            self._truncate(keep)
         slot.req = req
         slot.state = SlotState.PREFILL
         slot.n_prompt = len(ids)
         slot.n_past = 0
         slot.generated = []
         slot.text = ""
-        slot.t_start = time.perf_counter()
-        slot.in_place = False
-        slot.pending = ids
-        slot.prefill_off = 0
-        slot.prefill_P = self._bucket(len(ids))
-        if self.paged:     # no prefix reuse yet: the slot's pages go back
-            self.pkv.free_seq(slot.idx)
-            slot.in_place = True
+        slot.t_start = t0
+        slot.in_place = self.paged or bool(n_cached)
+        slot.pending = ids[n_cached:]
+        slot.prefill_off = n_cached
+        slot.prefill_P = self._bucket(len(slot.pending))
+        if self.paged:
             slot.prefill_P = min(slot.prefill_P, self.page_size)
+        slot.cache_tokens = list(ids)
+        self.metrics["n_prompt_tokens"] += len(ids)
+        self.metrics["n_prompt_cached"] += n_cached
         slot.sampler = make_chain(**req.sampling) if req.sampling else make_chain(greedy=True)
         slot.fast = dsamp.chain_supported(req.sampling or {})
         slot.seed = int((req.sampling or {}).get("seed", 0))
@@ -468,6 +623,7 @@ class Engine:
         # a wave's truncate keeps rows by host counts: land the blocks in
         # flight first
         self._flush_pending()
+        t0 = time.perf_counter()
         finals: list[tuple[_Slot, torch.Tensor]] = []   # (slot, its first token's logits)
         if self.paged:
             for slot in loading:
@@ -477,6 +633,7 @@ class Engine:
                     slot.req._result["error"] = str(e)
                     slot.req._done.set()
                     slot.state, slot.req, slot.pending = SlotState.IDLE, None, []
+                    slot.cache_tokens = []
                     self.pkv.free_seq(slot.idx)
             loading = []
         # the scratch's owner must stay on the scratch path: its chunks live
@@ -509,7 +666,7 @@ class Engine:
             chunk = slot.pending[:P]
             row = slot.idx if slot.in_place else 0
             io = self._run_chunk(self.n_slots if slot.in_place else 1, P,
-                                 {row: (chunk, slot.prefill_off)})
+                                 {row: (chunk, slot.prefill_off)}, main=slot.in_place)
             slot.pending = slot.pending[len(chunk):]
             slot.prefill_off += len(chunk)
             if not slot.pending:
@@ -517,6 +674,7 @@ class Engine:
                 if not slot.in_place:
                     kv_insert_row(self.cache, self._scratch, slot.idx, slot.n_prompt)
                     self._release_scratch()
+        self.metrics["prefill_s"] += time.perf_counter() - t0
         for slot, logits in finals:
             slot.state = SlotState.GENERATING
             slot.n_past = slot.n_prompt
@@ -565,23 +723,31 @@ class Engine:
             bufs = self._chunk_bufs[(rows, P)] = (new(), new())
         return bufs
 
-    def _chunk_graph(self, rows: int, P: int) -> tuple:
+    def _chunk_graph(self, rows: int, P: int, main: bool | None = None) -> tuple:
         """(key, fn, warm, "chunk") of a (rows, P) chunk: a paged chunk on
-        the one-row view (warm: the empty-table view), a one-row dense
-        chunk on the scratch, a wave on the big cache."""
+        the one-row view (warm: the empty-table view); a dense one on the
+        big cache when ``main`` (default: rows > 1, a wave or an in-place
+        chunk), else on the scratch. Only an engine of one slot has both at
+        one row: the big cache's key then ends in "main"."""
         io, idle = self._chunk_io(rows, P)
+        key = ("chunk", self._cache_label(), rows, P)
         if self.paged:
             cache, warm_cache = self._pview, self._pview_idle
         else:
-            cache = warm_cache = self._scratch if rows == 1 else self.cache
-        return (("chunk", self._cache_label(), rows, P), lambda: self._chunk(cache, io),
-                lambda: self._chunk(warm_cache, idle), "chunk")
+            main = rows > 1 if main is None else main
+            cache = warm_cache = self.cache if main else self._scratch
+            if main and rows == 1:
+                key += ("main",)
+        return (key, lambda: self._chunk(cache, io), lambda: self._chunk(warm_cache, idle),
+                "chunk")
 
-    def _run_chunk(self, rows: int, P: int, parts: dict[int, tuple[list[int], int]]) -> dict:
+    def _run_chunk(self, rows: int, P: int, parts: dict[int, tuple[list[int], int]],
+                   main: bool | None = None) -> dict:
         """Stage ``parts`` (row -> (tokens, first position)) into the static
         inputs of a (rows, P) chunk by pinned non-blocking copies, then run
-        it: a graph replay on CUDA (captured first if its key is new), eager
-        without graphs. Returns its static io."""
+        it (``main``: as in ``_chunk_graph``): a graph replay on CUDA
+        (captured first if its key is new), eager without graphs. Returns
+        its static io."""
         tok = np.zeros((rows, P), np.int64)
         pos = np.full((rows, P), -1, np.int32)
         last = np.zeros(rows, np.int64)
@@ -589,7 +755,7 @@ class Engine:
             tok[r, : len(chunk)] = chunk
             pos[r, : len(chunk)] = np.arange(off, off + len(chunk))
             last[r] = len(chunk) - 1
-        key, fn, warm, kind = self._chunk_graph(rows, P)
+        key, fn, warm, kind = self._chunk_graph(rows, P, main)
         io = self._chunk_io(rows, P)[0]
         for name, arr in (("tok", tok), ("pos", pos), ("last", last)):
             self._h2d(io[name], arr)
@@ -612,6 +778,7 @@ class Engine:
         active = [s for s in self.slots if s.state == SlotState.GENERATING]
         if not active:
             return False
+        t0 = time.perf_counter()
         nb = self.block_size
         fast = nb > 1 and all(s.fast for s in active)
         if self.paged:
@@ -619,10 +786,17 @@ class Engine:
                 self._paged_block_decode_step(active)
             else:
                 self._paged_decode_step(active)
-            return True
-        if fast and all(s.n_past + 2 * nb + 1 <= self.n_ctx for s in active):
+            self.metrics["paged"] = dict(self.pkv.stats)
+        elif fast and all(s.n_past + 2 * nb + 1 <= self.n_ctx for s in active):
             self._block_decode_step(active)
-            return True
+        else:
+            self._host_decode_step(active)
+        self.metrics["decode_s"] += time.perf_counter() - t0
+        self.metrics["n_decode_steps"] += 1
+        return True
+
+    def _host_decode_step(self, active: list[_Slot]) -> None:
+        """One host-sampled decode token for every generating slot."""
         self._flush_pending()
         tokens = np.zeros((self.n_slots, 1), np.int64)
         pos = np.full((self.n_slots, 1), -1, np.int32)
@@ -634,8 +808,8 @@ class Engine:
         logits_np = logits[:, 0].float().cpu().numpy()
         for s in active:
             s.n_past += 1
+            s.cache_tokens.append(s.generated[-1])     # the fed token entered the cache
             self._emit(s, s.sampler.sample(logits_np[s.idx]))
-        return True
 
     # ----------------------------------------------------- device blocks
 
@@ -889,6 +1063,7 @@ class Engine:
         logits_np = logits[:, 0].float().cpu().numpy()
         for s in picked:
             s.n_past += 1
+            s.cache_tokens.append(s.generated[-1])
             self._emit(s, s.sampler.sample(logits_np[s.idx]))
 
     def _paged_block_decode_step(self, active: list[_Slot]) -> None:
@@ -911,10 +1086,13 @@ class Engine:
                 self.pkv.rollback(s.idx, saved[s.idx], accepted, nb)
 
     def _consume_row(self, s: _Slot, row: np.ndarray) -> int:
-        """Accept a slot's block tokens until it stops; returns the count."""
+        """Accept a slot's block tokens until it stops; returns the count.
+        Each accepted token's step fed the one before it into the cache:
+        tokens generated past a stop never enter ``cache_tokens``."""
         accepted = 0
         for t in row:
             s.n_past += 1
+            s.cache_tokens.append(s.generated[-1])
             s.sampler.accept(int(t))
             self._emit(s, int(t))
             accepted += 1
@@ -926,6 +1104,7 @@ class Engine:
         req = slot.req
         slot.generated.append(token)
         slot.n_sampled += 1
+        self.metrics["n_tokens_generated"] += 1
         if len(slot.generated) == 1:
             slot.t_first_token = time.perf_counter()
         tok = self.model.tokenizer

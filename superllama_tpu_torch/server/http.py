@@ -1,28 +1,46 @@
 """OpenAI-compatible HTTP server over the port's Engine.
 
 Counterpart of the JAX package's ``server/http.py`` (``ServerApp`` +
-``Server``) for the routes of this slice: ``GET /health``, ``/props``,
-``/v1/models``; ``POST /v1/completions`` (plain and SSE stream, prompt as
-text or a token-id list) and ``/v1/chat/completions`` (plain and SSE).
-Host layer only: all token work happens on the engine's thread. API keys,
-rate limits, metrics and the other routes wait for a later slice.
+``Server``) for these routes, with the JAX payloads and status codes:
+
+ - GET ``/health`` (``/v1/health``), ``/props``, ``/v1/models``
+   (``/models``), ``/slots`` (each slot's state, n_past, n_generated and
+   request; ``n_pages`` on a paged cache) and ``/metrics`` (Prometheus
+   text, namespace ``sllm``: memory, slots, queue, token and request
+   counts, latency percentiles, error rate, the page pool's counters);
+ - POST ``/v1/completions`` (``/completion``, ``/completions``; plain and
+   SSE stream, prompt as text or a token-id list), ``/v1/chat/completions``
+   (``/chat/completions``; plain and SSE), ``/tokenize``, ``/detokenize``,
+   ``/apply-template`` and ``/slots/:id?action=save|restore|erase`` (files
+   in a temporary directory of the server's own).
+
+Every POST is recorded in the latency monitor, the request histogram and
+the request counter. Host layer only: all token work happens on the
+engine's thread. API keys, rate limits and the other routes wait for a
+later slice.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import queue
+import tempfile
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..models.loader import LoadedModel
 from ..runtime.engine import Engine, GenRequest
 from .chat import template_for_model
+from .enterprise import CostTracker, SLAMonitor
+from .metrics import MetricsRegistry
+from .telemetry import MemTelemetry
 
 REQUEST_TIMEOUT_S = 600
 
@@ -47,6 +65,13 @@ class ServerApp:
         self.chat_template = template_for_model(model)
         self.warmup = bool(warmup)
         self.warmup_info: dict | None = None
+        self.metrics = MetricsRegistry()
+        self.metrics.histogram_declare("request_duration_seconds",
+                                       [0.01, 0.05, 0.1, 0.5, 1, 2, 5, 10, 30, 60])
+        self.sla = SLAMonitor()
+        self.cost = CostTracker()
+        self.slot_save_path = tempfile.mkdtemp(prefix="slt_slots_")
+        self.telemetry = MemTelemetry(self.engine.device)
         self.t_start = time.time()
 
     @staticmethod
@@ -87,6 +112,7 @@ class ServerApp:
             stream=stream_cb)
         self.engine.submit(req)
         out = req.result(timeout=REQUEST_TIMEOUT_S)
+        self.cost.record("anonymous", self.model_name, out["n_prompt"], out["n_generated"])
         choice = {"index": 0, "text": out["text"],
                   "finish_reason": out["finish_reason"], "logprobs": None}
         if body.get("return_tokens"):
@@ -128,6 +154,82 @@ class ServerApp:
                 "device": str(self.engine.device),
                 "uptime_s": time.time() - self.t_start}
 
+    def tokenize(self, body: dict) -> dict:
+        ids = self.model.tokenizer.encode(
+            body.get("content", ""), add_special=bool(body.get("add_special", False)),
+            parse_special=bool(body.get("parse_special", True)))
+        return {"tokens": ids}
+
+    def detokenize(self, body: dict) -> dict:
+        return {"content": self.model.tokenizer.decode(body.get("tokens", []))}
+
+    def apply_template(self, body: dict) -> dict:
+        """POST /apply-template: the chat template rendered, nothing generated."""
+        return {"prompt": self.chat_template.apply(body.get("messages", []),
+                                                   add_generation_prompt=True)}
+
+    def handle_slot_action(self, slot_id: int, action: str, body: dict) -> dict:
+        """/slots/:id?action=save|restore|erase (llama-server's slot tasks):
+        save and restore go through ``np.savez`` files in the server's slot
+        directory, named by the body's ``filename`` (no "/", no leading
+        ".")."""
+        eng = self.engine
+        if action == "erase":
+            eng.slot_erase(slot_id)
+            return {"id_slot": slot_id, "success": True}
+        fname = body.get("filename")
+        if not fname or "/" in fname or fname.startswith("."):
+            raise ValueError("invalid or missing filename")
+        path = os.path.join(self.slot_save_path, fname)
+        if action == "save":
+            data = eng.slot_save(slot_id)
+            t0 = time.perf_counter()
+            np.savez(path, **data)
+            return {"id_slot": slot_id, "filename": fname,
+                    "n_saved": len(data["cache_tokens"]),
+                    "n_written": int(data["k"].nbytes + data["v"].nbytes),
+                    "timings": {"save_ms": (time.perf_counter() - t0) * 1e3}}
+        if action == "restore":
+            t0 = time.perf_counter()
+            with np.load(path) as z:
+                n = eng.slot_restore(slot_id, dict(z))
+            return {"id_slot": slot_id, "filename": fname, "n_restored": n,
+                    "timings": {"restore_ms": (time.perf_counter() - t0) * 1e3}}
+        raise ValueError(f"unknown slot action {action!r}")
+
+    def slots(self) -> list[dict]:
+        out = [{"id": s.idx, "state": s.state.name, "n_past": s.n_past,
+                "n_generated": len(s.generated),
+                "request_id": s.req.request_id if s.req else None}
+               for s in self.engine.slots]
+        if self.engine.paged:
+            for d in out:
+                d["n_pages"] = self.engine.pkv.seq_pages(d["id"])
+        return out
+
+    def prometheus_text(self) -> str:
+        m, g = self.engine.metrics, self.metrics.gauge_set
+        mem = self.telemetry.snapshot()
+        g("device_memory_used_bytes", mem["device_used_bytes"])
+        g("device_memory_frac", mem["device_frac"])
+        g("host_memory_frac", mem["host_frac"])
+        g("memory_pressure", int(mem["pressure"]))
+        g("slots_busy", sum(s.state.value != 0 for s in self.engine.slots))
+        g("queue_depth", self.engine._queue.qsize())
+        g("tokens_generated_total", m["n_tokens_generated"])
+        g("prompt_tokens_total", m["n_prompt_tokens"])
+        g("requests_total", m["n_requests"])
+        sla = self.sla.snapshot()
+        g("latency_p50_seconds", sla["p50_s"])
+        g("latency_p95_seconds", sla["p95_s"])
+        g("error_rate", sla["error_rate"])
+        if self.engine.paged:
+            pstats = self.engine.pkv.stats
+            for key in ("allocs", "evictions", "restores", "spill_bytes", "restore_bytes"):
+                g(f"kv_pages_{key}", pstats[key])
+            g("kv_pages_free", len(self.engine.pkv.free))
+        return self.metrics.expose()
+
 
 def _completion_chunk(rid: str, token, piece: str) -> dict:
     return {"id": rid, "object": "text_completion",
@@ -161,35 +263,67 @@ def make_handler(app: ServerApp):
 
         def do_GET(self):
             path = self.path.split("?")[0]
-            if path == "/health":
+            if path in ("/health", "/v1/health"):
                 self._send_json({"status": "ok"})
-            elif path == "/v1/models":
+            elif path in ("/v1/models", "/models"):
                 self._send_json({"object": "list", "data": [{
                     "id": app.model_name, "object": "model",
                     "created": int(app.t_start), "owned_by": "superllama_tpu_torch"}]})
             elif path == "/props":
                 self._send_json(app.props())
+            elif path == "/slots":
+                self._send_json(app.slots())
+            elif path == "/metrics":
+                text = app.prometheus_text().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(text)))
+                self.end_headers()
+                self.wfile.write(text)
             else:
                 self._err(404, f"unknown path {path}")
 
         def do_POST(self):
             path = self.path.split("?")[0]
+            t0 = time.perf_counter()
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(n)) if n else {}
             except (json.JSONDecodeError, ValueError) as e:
                 return self._err(400, f"invalid JSON: {e}")
+            ok = True
             try:
-                if path == "/v1/completions":
+                if path in ("/completion", "/completions", "/v1/completions"):
                     self._dispatch(body, app.handle_completion, _completion_chunk)
-                elif path == "/v1/chat/completions":
+                elif path in ("/v1/chat/completions", "/chat/completions"):
                     self._dispatch(body, app.handle_chat, _chat_chunk)
+                elif path == "/tokenize":
+                    self._send_json(app.tokenize(body))
+                elif path == "/detokenize":
+                    self._send_json(app.detokenize(body))
+                elif path == "/apply-template":
+                    self._send_json(app.apply_template(body))
+                elif path.startswith("/slots/"):
+                    qs = self.path.split("?", 1)[1] if "?" in self.path else ""
+                    action = dict(p.split("=", 1) for p in qs.split("&") if "=" in p
+                                  ).get("action", "")
+                    self._send_json(app.handle_slot_action(int(path.split("/")[2]), action,
+                                                           body))
                 else:
+                    ok = False
                     self._err(404, f"unknown path {path}")
             except (KeyError, TypeError, ValueError, RuntimeError) as e:
+                ok = False
                 self._err(400, f"bad request: {e}")
             except Exception as e:  # noqa: BLE001 — report, keep serving
+                ok = False
                 self._err(500, f"internal error: {e}", "api_error")
+            finally:
+                dt = time.perf_counter() - t0
+                app.sla.record(dt, ok)
+                app.metrics.histogram_observe("request_duration_seconds", dt, {"path": path})
+                app.metrics.counter_inc("http_requests_total",
+                                        labels={"path": path, "ok": str(ok).lower()})
 
         def _dispatch(self, body, handler, chunk_fn):
             if not body.get("stream"):

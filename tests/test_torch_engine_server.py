@@ -229,6 +229,8 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.tools.flash_decode_probe, superllama_tpu_torch.tools.llama_bench\n"
         "import superllama_tpu_torch.runtime.decode_loop, superllama_tpu_torch.runtime.graphs\n"
         "import superllama_tpu_torch.ops.device_sampling, superllama_tpu_torch.tools.batched_bench\n"
+        "import superllama_tpu_torch.server.metrics, superllama_tpu_torch.server.telemetry\n"
+        "import superllama_tpu_torch.server.enterprise\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
