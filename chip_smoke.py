@@ -17,6 +17,7 @@ PyTorch version.
                                           # one-row paged chunk of phase 5, the TTFTs
                                           # of phase 6, the lone prompts of phase 7
     python3 chip_smoke.py --state         # device, build, phase 4e
+    python3 chip_smoke.py --grammar       # device, build, phase 4f
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -62,6 +63,15 @@ Phases, each printing one JSON line:
     slot save / erase / restore bit-equal (dense), no capture after the
     warm-up, TTFT with and without reuse, and /metrics, /slots,
     /tokenize, /detokenize and /slots/:id over HTTP;
+ 4f. structured output on warmed-up bf16, Q8_0 and paged servers of the
+    model with a 128,256-piece tokenizer: a bounded JSON schema greedy
+    (bf16) and seeded sampled (Q8_0, paged; repeated on an erased slot)
+    ends by EOS with schema-valid text through the host-sampled step (qmv;
+    fd on Q8_0, paged on paged; no decode block while it generates); a
+    wave of 7 plain requests beside one grammar request; over HTTP
+    response_format, a GBNF grammar, tool calls plain and streamed and a
+    bad grammar's 400; no capture after the warm-up; the host step's
+    forward ms, the mask's ms a token and the grammar request's tok/s;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -1625,6 +1635,335 @@ def state_http(app, port: int, turn1, sent: int) -> dict:
             "save_ms": saved["timings"]["save_ms"], "restore_ms": restored["timings"]["restore_ms"]}
 
 
+# ----------------------------------------------------- 4f. structured output
+
+GRAMMAR_SCHEMA = {"type": "object",
+                  "properties": {"ok": {"type": "boolean"},
+                                 "n": {"type": "integer", "minimum": 0, "maximum": 99},
+                                 "c": {"enum": ["red", "green", "blue"]}},
+                  "required": ["ok", "n", "c"], "additionalProperties": False}
+GRAMMAR_TOOLS = [
+    {"type": "function", "function": {
+        "name": "get_weather", "description": "the weather in a city",
+        "parameters": {"type": "object",
+                       "properties": {"city": {"enum": ["Oslo", "Lima", "Pune"]},
+                                      "days": {"type": "integer", "minimum": 1, "maximum": 7}},
+                       "required": ["city", "days"], "additionalProperties": False}}},
+    {"type": "function", "function": {
+        "name": "set_alarm", "description": "an alarm at an hour",
+        "parameters": {"type": "object",
+                       "properties": {"hour": {"type": "integer", "minimum": 0, "maximum": 23},
+                                      "loud": {"type": "boolean"}},
+                       "required": ["hour", "loud"], "additionalProperties": False}}}]
+GRAMMAR_SAMPLED = {"temp": 0.8, "top_k": 40, "top_p": 0.95, "min_p": 0.05}
+# JSON pieces the vocab carries beside its random ones, so the mask meets
+# multi-character tokens ("Ġ" is a space in the byte-level alphabet)
+JSON_PIECES = (['{"', '":', '",', '"}', '":Ġ', ',Ġ"', 'Ġ"', '{Ġ"', '}', '{', ':', ',', '"',
+                'true', 'false', 'null', 'ok', 'red', 'green', 'blue', 'name', 'arguments',
+                'Oslo', 'Lima', 'Pune', 'city', 'days', 'hour', 'loud', 'get_weather',
+                'set_alarm', '"}}', '}}', '":{"', 'ĠĠ', 'Ċ']
+               + [str(i) for i in range(10, 100)])
+
+
+def grammar_tokenizer(n_vocab: int):
+    """A byte-level BPE tokenizer with one piece per id below n_vocab: the
+    256 byte tokens, BOS 256 and EOS 257 (as ``byte_tokenizer``), the JSON
+    pieces, then seeded unique printable pieces of 2-8 characters. Prompts
+    encode to byte tokens (no merges); the grammar sampler sees every
+    piece."""
+    import numpy as np
+
+    from superllama_tpu_torch.tokenizer import Tokenizer
+    from superllama_tpu_torch.tokenizer.vocab import TokenAttr, Vocab
+
+    base = byte_tokenizer().vocab
+    tokens = list(base.tokens)
+    seen = set(tokens)
+    alphabet = [chr(c) for c in range(ord("!"), ord("~") + 1)] + ["Ġ"]
+    for p in JSON_PIECES:
+        if p not in seen:
+            tokens.append(p)
+            seen.add(p)
+    rng = np.random.default_rng(SEED + 30)
+    while len(tokens) < n_vocab:
+        for n, idx in zip(rng.integers(2, 9, 4096), rng.integers(0, len(alphabet), (4096, 8))):
+            p = "".join(alphabet[i] for i in idx[:n])
+            if p not in seen and len(tokens) < n_vocab:
+                tokens.append(p)
+                seen.add(p)
+    attrs = list(base.attrs) + [TokenAttr.NORMAL] * (n_vocab - len(base.tokens))
+    return Tokenizer(Vocab(model="gpt2", pre="default", tokens=tokens,
+                           scores=[0.0] * n_vocab, attrs=attrs, bos_id=256, eos_id=257,
+                           add_bos=True))
+
+
+def schema_ok(obj) -> bool:
+    return (isinstance(obj, dict) and set(obj) == {"ok", "n", "c"}
+            and isinstance(obj["ok"], bool) and isinstance(obj["n"], int)
+            and not isinstance(obj["n"], bool) and 0 <= obj["n"] <= 99
+            and obj["c"] in ("red", "green", "blue"))
+
+
+def args_ok(name: str, args) -> bool:
+    """A tool call's arguments satisfy its tool's parameters."""
+    if name == "get_weather":
+        return (set(args) == {"city", "days"} and args["city"] in ("Oslo", "Lima", "Pune")
+                and type(args["days"]) is int and 1 <= args["days"] <= 7)
+    return (set(args) == {"hour", "loud"} and type(args["hour"]) is int
+            and 0 <= args["hour"] <= 23 and isinstance(args["loud"], bool))
+
+
+class MaskClock:
+    """Times every GrammarSampler.apply (the mask) and every host-step
+    forward (``Engine._forward``, synchronized) while installed."""
+
+    def __init__(self, torch, eng):
+        from superllama_tpu_torch.runtime import sampling
+
+        self.torch, self.eng, self.cls = torch, eng, sampling.GrammarSampler
+        self.apply, self.forward = self.cls.apply, eng._forward
+        self.mask_s: list[float] = []
+        self.fwd_s: list[float] = []
+        clock = self
+
+        def apply(gs, logits, ctx):
+            t0 = time.perf_counter()
+            out = clock.apply(gs, logits, ctx)
+            clock.mask_s.append(time.perf_counter() - t0)
+            return out
+
+        def forward(*a, **k):
+            t0 = time.perf_counter()
+            out = clock.forward(*a, **k)
+            torch.cuda.synchronize()
+            clock.fwd_s.append(time.perf_counter() - t0)
+            return out
+
+        self.cls.apply = apply
+        eng._forward = forward
+
+    def reset(self) -> None:
+        self.mask_s.clear()
+        self.fwd_s.clear()
+
+    def close(self) -> None:
+        self.cls.apply = self.apply
+        self.eng._forward = self.forward
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def grammar_request(torch, eng, clock, label: str, prompt, sampling: dict, expect) -> dict:
+    """One JSON-schema request alone on a warmed-up engine: it must end by
+    EOS with schema-valid text a fresh GrammarState accepts, run no decode
+    block and launch every kernel of ``expect``."""
+    from superllama_tpu_torch.grammar import json_schema_to_gbnf
+    from superllama_tpu_torch.grammar.gbnf import GrammarState, parse_gbnf
+
+    gbnf = json_schema_to_gbnf(GRAMMAR_SCHEMA)
+    fresh(eng)
+    stats0 = block_stats(eng)
+    clock.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    r = eng.generate(prompt, max_tokens=64, sampling=sampling, grammar=gbnf)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    d = {k: v - stats0[k] for k, v in block_stats(eng).items()}
+    check(r["finish_reason"] == "stop", f"{label} grammar request: {r['finish_reason']}, "
+          f"{r['n_generated']} tokens, {r['text']!r}")
+    obj = json.loads(r["text"])
+    check(schema_ok(obj), f"{label} grammar request: {obj} breaks the schema")
+    st = GrammarState(parse_gbnf(gbnf))
+    check(st.accept_text(r["text"]) and st.can_terminate,
+          f"{label}: a fresh GrammarState refuses {r['text']!r}")
+    check(d["blocks"] == 0 and d["replays"] == 0,
+          f"{label}: decode blocks ran while the grammar request generated: {d}")
+    for name in expect:
+        check(counts[name] > 0, f"the {label} grammar request never launched {name}: {counts}")
+    decode_s = r["total_s"] - r["ttft_s"]
+    return {"tokens": r["tokens"], "text": r["text"], "n_generated": r["n_generated"],
+            "wall_s": wall, "ttft_s": r["ttft_s"],
+            "tok_s": (r["n_generated"] - 1) / decode_s if r["n_generated"] > 1 else None,
+            "mask_ms_median": median(clock.mask_s) * 1e3,
+            "mask_ms_max": max(clock.mask_s) * 1e3, "mask_steps": len(clock.mask_s),
+            "mask_share_of_decode": sum(clock.mask_s) / decode_s,
+            "host_step_forward_ms_median": median(clock.fwd_s) * 1e3, "launches": counts}
+
+
+def mixed_wave(torch, model, eng, clock) -> dict:
+    """8 greedy requests of 64 tokens, then 7 of them beside one greedy
+    grammar request: every request finishes, no block runs while the grammar
+    slot generates, and each kind's tok/s is read."""
+    from superllama_tpu_torch.grammar import json_schema_to_gbnf
+    from superllama_tpu_torch.runtime.engine import GenRequest
+
+    gbnf = json_schema_to_gbnf(GRAMMAR_SCHEMA)
+    prompts = token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 31)
+    rate = lambda r: (r["n_generated"] - 1) / (r["total_s"] - r["ttft_s"])   # noqa: E731
+    fresh(eng)
+    plain = [rate(r) for r in engine_wave(eng, prompts, 64)]
+    run_block = eng._run_block
+    during: list[bool] = []
+
+    def spy(*a, **k):
+        during.append(any(s.req is not None and s.req.grammar for s in eng.slots))
+        return run_block(*a, **k)
+
+    eng._run_block = spy
+    fresh(eng)
+    clock.reset()
+    reqs = []
+    try:
+        in_one_wave(eng, lambda: reqs.extend(
+            [eng.submit(GenRequest(prompt_ids=p, max_tokens=64, stop_eog=False,
+                                   sampling={"greedy": True})) for p in prompts[:7]]
+            + [eng.submit(GenRequest(prompt_ids=prompts[7], max_tokens=64, grammar=gbnf,
+                                     sampling={"greedy": True}))]), 8)
+        out = [r.result(timeout=900) for r in reqs]
+    finally:
+        eng._run_block = run_block
+    check(all(o["finish_reason"] == "length" for o in out[:7]), "mixed wave: a plain request "
+          "stopped early")
+    check(out[7]["finish_reason"] == "stop" and schema_ok(json.loads(out[7]["text"])),
+          f"mixed wave: the grammar request gave {out[7]['text']!r}")
+    check(not any(during), "mixed wave: a decode block ran while the grammar slot generated")
+    return {"plain_tok_s_per_row_alone": median(plain),
+            "plain_tok_s_per_row_mixed": median([rate(o) for o in out[:7]]),
+            "grammar_tok_s_mixed": rate(out[7]), "grammar_tokens": out[7]["n_generated"],
+            "blocks_after_grammar_slot": len(during),
+            "mask_ms_median": median(clock.mask_s) * 1e3,
+            "host_step_forward_ms_median": median(clock.fwd_s) * 1e3}
+
+
+def grammar_http(port: int, eng) -> dict:
+    """The structured-output routes over HTTP: response_format, a GBNF
+    grammar, tools with tool_choice "required" plain and streamed (each on
+    erased slots), a bad grammar refused with 400 and the next request
+    served."""
+    import urllib.error
+
+    def post(path, body):
+        st, raw = http(port, path, body, timeout=900)
+        check(st == 200, f"POST {path}: HTTP {st}")
+        return raw
+
+    seeded = {"temperature": 0.8, "top_k": 40, "top_p": 0.95, "min_p": 0.05, "seed": 11}
+    out = json.loads(post("/v1/completions", {
+        "prompt": "A JSON answer:", "max_tokens": 96, **seeded,
+        "response_format": {"type": "json_schema",
+                            "json_schema": {"name": "answer", "schema": GRAMMAR_SCHEMA}}}))
+    obj = json.loads(out["choices"][0]["text"])
+    check(schema_ok(obj), f"response_format json_schema gave {obj}")
+    alt = json.loads(post("/v1/completions", {"prompt": "Pick:", "max_tokens": 8, **seeded,
+                                              "grammar": 'root ::= "alpha" | "beta"'}))
+    check(alt["choices"][0]["text"] in ("alpha", "beta"), f"GBNF alpha|beta gave {alt}")
+    chat = {"messages": [{"role": "user", "content": "What is the weather in Oslo?"}],
+            "tools": GRAMMAR_TOOLS, "tool_choice": "required", "max_tokens": 160, **seeded}
+    fresh(eng)
+    plain = json.loads(post("/v1/chat/completions", chat))["choices"][0]
+    check(plain["finish_reason"] == "tool_calls", f"tools: finish {plain['finish_reason']}")
+    call = plain["message"]["tool_calls"][0]["function"]
+    check(call["name"] in ("get_weather", "set_alarm")
+          and args_ok(call["name"], json.loads(call["arguments"])), f"tool call {call}")
+    fresh(eng)
+    raw = post("/v1/chat/completions", {**chat, "stream": True}).decode()
+    chunks = [json.loads(ln[6:]) for ln in raw.split("\n")
+              if ln.startswith("data: ") and ln != "data: [DONE]"]
+    names, args = [], ""
+    for c in chunks[:-1]:
+        for tc in c["choices"][0]["delta"].get("tool_calls", []):
+            if "name" in tc["function"]:
+                names.append(tc["function"]["name"])
+            args += tc["function"]["arguments"]
+    check(chunks[-1]["choices"][0]["finish_reason"] == "tool_calls",
+          f"streamed tools: final chunk {chunks[-1]}")
+    check(names == [call["name"]] and json.loads(args) == json.loads(call["arguments"]),
+          f"streamed tool call {names} {args!r} against {call}")
+    try:
+        http(port, "/v1/completions", {"prompt": "x", "max_tokens": 4, "grammar": "root ::= (("})
+        check(False, "a bad grammar was served")
+    except urllib.error.HTTPError as e:
+        check(e.code == 400, f"a bad grammar gave HTTP {e.code}")
+    after = json.loads(post("/v1/completions", {"prompt": "x", "max_tokens": 4,
+                                                "temperature": 0}))
+    check(after["usage"]["completion_tokens"] >= 1, f"after the bad grammar: {after}")
+    return {"response_format": obj, "grammar": alt["choices"][0]["text"],
+            "tool_call": call, "streamed_equal_plain": True, "bad_grammar_status": 400}
+
+
+GRAMMAR_CACHES = (("bf16", {}, "greedy", ("qmv",)),
+                  ("q8_0", {"kv_dtype": "q8_0"}, "sampled", ("qmv", "fd")),
+                  ("paged", {"paged": True, "page_size": 256}, "sampled", ("qmv", "paged")))
+
+
+def phase_grammar(torch, model, smi_line: str) -> list:
+    """Structured output on warmed-up bf16, Q8_0 and paged servers (8 slots,
+    n_ctx 2048) of the synthetic model with a 128,256-piece tokenizer
+    (``grammar_tokenizer``):
+
+     - a bounded JSON schema (a boolean, an integer in 0-99, an enum of three
+       strings), greedy on bf16 and seeded temperature 0.8 on Q8_0 and
+       paged: the request ends by EOS with schema-valid text that a fresh
+       GrammarState accepts; no decode block runs while it generates; qmv
+       launches (fd on Q8_0, paged on the paged cache); the sampled request
+       repeated on an erased slot gives the same tokens;
+     - bf16: a wave of 7 plain greedy requests and one grammar request
+       against a wave of 8 plain ones (tok/s of each kind), and the HTTP
+       routes (``grammar_http``);
+     - no graph is captured after the warm-up.
+    Prints the host step's forward ms, the mask's ms a token and its share
+    of the decode, and the grammar request's tok/s, beside the card's name
+    and power limit."""
+    import gc
+
+    from superllama_tpu_torch.server.http import Server, ServerApp
+
+    tok = grammar_tokenizer(model.hparams.n_vocab)
+    gmodel = type(model)(**{**vars(model), "tokenizer": tok})
+    prompt = tok.encode("Reply with a JSON object: is it ok, a number and a colour.",
+                        add_special=True, parse_special=True)
+    recs = []
+    for label, kw, mode, expect in GRAMMAR_CACHES:
+        app = ServerApp(gmodel, n_slots=8, n_ctx=2048, model_name=model.name, device="cuda",
+                        **{"kv_dtype": torch.bfloat16, **kw})
+        srv = Server(app, host="127.0.0.1", port=0)
+        srv.start()
+        eng = app.engine
+        caps0 = tuple(graph_stats(eng, k).get("captures", 0) for k in ("chunk", "block"))
+        clock = MaskClock(torch, eng)
+        try:
+            sm = ({"greedy": True} if mode == "greedy"
+                  else {**GRAMMAR_SAMPLED, "seed": 21})
+            rec = {"phase": "grammar", "kv": label, "mode": mode,
+                   **grammar_request(torch, eng, clock, label, prompt, sm, expect)}
+            if mode == "sampled":
+                again = grammar_request(torch, eng, clock, label, prompt, sm, expect)
+                check(again["tokens"] == rec["tokens"],
+                      f"{label}: the sampled grammar request on an erased slot gave other tokens")
+                rec["repeat_equal"] = True
+            if label == "bf16":
+                rec["mixed_wave"] = mixed_wave(torch, model, eng, clock)
+                rec["http"] = grammar_http(srv.port, eng)
+            caps = tuple(graph_stats(eng, k).get("captures", 0) for k in ("chunk", "block"))
+            check(caps == caps0, f"{label}: graphs captured after the warm-up ({caps0} -> {caps})")
+            rec["captures_after_warmup"] = 0
+        finally:
+            clock.close()
+            srv.stop()
+            del app, srv, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec["card"] = smi_line
+        rec.pop("tokens")
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
 def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None):
     """Prefill tokens_seq[0] then decode the rest one by one on a fresh
     cache (dense of kv_dtype, default bf16, or paged bf16 with 256-token
@@ -2584,6 +2923,10 @@ def main() -> int:
         # the engine's state between requests alone (phase 4e)
         phase_state(torch, build_model(torch), info["nvidia_smi"])
         return 0
+    if "--grammar" in sys.argv[1:]:
+        # structured output alone (phase 4f)
+        phase_grammar(torch, build_model(torch), info["nvidia_smi"])
+        return 0
     checks = phase_kernels(torch)
     model = build_model(torch)
     # each kernel's launches come from the serving run of its own path
@@ -2596,6 +2939,7 @@ def main() -> int:
     phase_decode_loop(torch, model)
     phase_warmup(torch, model)
     phase_state(torch, model, info["nvidia_smi"])
+    phase_grammar(torch, model, info["nvidia_smi"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)

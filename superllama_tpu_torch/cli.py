@@ -11,6 +11,7 @@ All run on the GPU unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -41,19 +42,35 @@ def _load(args):
     return model, getattr(torch, kvd) if kvd in ("bfloat16", "float32") else kvd
 
 
+def _grammar(args) -> str | None:
+    """The run's GBNF: ``--grammar``, replaced by ``--grammar-file``'s text,
+    replaced by ``--json-schema`` converted."""
+    grammar = args.grammar
+    if args.grammar_file:
+        with open(args.grammar_file) as f:
+            grammar = f.read()
+    if args.json_schema:
+        from .grammar import json_schema_to_gbnf
+
+        grammar = json_schema_to_gbnf(json.loads(args.json_schema))
+    return grammar
+
+
 def cmd_run(args) -> int:
-    """Greedy and not streamed: ``DecodeLoop`` (prefill + captured decode
-    steps), as the JAX CLI routes it; otherwise the engine."""
+    """Greedy, not streamed and without a grammar: ``DecodeLoop`` (prefill
+    + captured decode steps), as the JAX CLI routes it; otherwise the
+    engine, which applies the grammar."""
     from .runtime.decode_loop import DecodeLoop
     from .runtime.engine import Engine, GenRequest
 
+    grammar = _grammar(args)
     model, kvd = _load(args)
     tok = model.tokenizer
     if tok is None:
         print("error: the model has no tokenizer", file=sys.stderr)
         return 2
     ids = tok.encode(args.prompt, add_special=True, parse_special=True)
-    if args.temp <= 0 and not args.stream:
+    if args.temp <= 0 and not args.stream and grammar is None:
         loop = DecodeLoop(model, n_ctx=args.ctx_size, kv_dtype=kvd, temp=0.0,
                           device=args.device)
         t0 = time.perf_counter()
@@ -69,7 +86,7 @@ def cmd_run(args) -> int:
     eng = Engine(model, n_slots=1, n_ctx=args.ctx_size, kv_dtype=kvd,
                  device=args.device)
     req = GenRequest(
-        prompt_ids=ids, max_tokens=args.n_predict, sampling=sampling,
+        prompt_ids=ids, max_tokens=args.n_predict, sampling=sampling, grammar=grammar,
         stream=(lambda t, piece: print(piece, end="", flush=True))
         if args.stream else None)
     eng.submit(req)
@@ -149,6 +166,9 @@ def main(argv=None) -> int:
     p.add_argument("--min-p", type=float, default=0.05)
     p.add_argument("-s", "--seed", type=int, default=0, help="RNG seed")
     p.add_argument("--stream", action="store_true")
+    p.add_argument("--grammar", help="GBNF grammar for constrained decoding")
+    p.add_argument("--grammar-file", help="file with a GBNF grammar")
+    p.add_argument("-j", "--json-schema", help="JSON schema to constrain output to")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("serve", help="HTTP server")

@@ -14,7 +14,7 @@ reference server's update_slots semantics):
  - sampling: the first token of a request comes from its host
    ``SamplerChain``. When every generating slot's config is expressible by
    the device sampler chain (``ops/device_sampling.py``: all but DRY,
-   mirostat, adaptive-p and more than 16 bias entries), a block of
+   mirostat, adaptive-p, more than 16 bias entries and a grammar), a block of
    ``block_size`` forward + sample steps runs on the device, keyed per row
    by the request's seed and the count of tokens it has sampled, so a
    seeded request gives the JAX package's tokens; greedy-only blocks take a
@@ -59,6 +59,13 @@ reference server's update_slots semantics):
    clear an idle slot's cache row and token history (dense caches; a paged
    cache can only erase), writing into the cache's own storage, which
    captured graphs address;
+ - constrained decoding: a request's ``grammar`` (GBNF text; ``grammar_lazy``
+   waits for one of ``grammar_triggers``, regexes over the emitted text)
+   puts a ``GrammarSampler`` into its host chain after the cutting stages,
+   before the terminal picker, over the pieces of every id below n_vocab
+   (``_vocab_pieces``, built once per engine). Such a slot is never fast,
+   so while it generates every slot takes the host-sampled step, and its
+   first token comes from its chain, not from an argmax;
  - ``metrics`` is the JAX engine's counter dict (requests, tokens,
    prefill and decode seconds, decode steps, prompt tokens reused; the
    speculative and context-shift counters stay 0), beside the port's own
@@ -68,13 +75,13 @@ Thread model: ``submit`` enqueues; one engine thread (``start``) or the
 caller (``run_until_drained``) owns the device. The cache is updated in
 place.
 
-Not ported yet: speculative and lookup decoding, context shift and
-grammars.
+Not ported yet: speculative and lookup decoding and context shift.
 """
 
 from __future__ import annotations
 
 import queue
+import re
 import threading
 import time
 import uuid
@@ -95,7 +102,7 @@ from ..ops import _build
 from .graphs import GraphCache
 from .kv_cache import KVCache, kv_cache_init, kv_insert_row, kv_truncate_rows
 from .paged_kv import PagedKVManager, paged_cache_init, paged_row_view
-from .sampling import SamplerChain, make_chain
+from .sampling import GrammarSampler, SamplerChain, make_chain
 
 PREFILL_BUCKETS = (32, 128, 512, 1024, 2048)
 KERNEL_SOURCES = ("qmv", "qmm", "fa", "fd", "paged")   # the kernels a step reaches
@@ -114,6 +121,9 @@ class GenRequest:
     stop_eog: bool = True
     stop_strings: list[str] = field(default_factory=list)
     sampling: dict = field(default_factory=dict)
+    grammar: str | None = None       # GBNF text (constrained decoding)
+    grammar_lazy: bool = False
+    grammar_triggers: list[str] = field(default_factory=list)
     stream: Optional[Callable[[int, str], None]] = None  # (token_id, piece)
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:16])
     priority: int = 1                # higher is admitted first
@@ -205,6 +215,7 @@ class Engine:
             # captured chunk needs fixed addresses
             self._scratch = self._new_cache(1)
         self._scratch_owner: _Slot | None = None
+        self._pieces: tuple[list[bytes], set[int]] | None = None   # _vocab_pieces
         self._chunk_bufs: dict = {}    # (rows, P) -> (static io, the warm runs' io)
         self.slots = [_Slot(i) for i in range(n_slots)]
         # decode blocks: static inputs and outputs (the warm-up's own set has
@@ -554,6 +565,25 @@ class Engine:
             or sm.get("penalty_freq", 0.0) != 0.0
             or sm.get("penalty_present", 0.0) != 0.0)
 
+    @classmethod
+    def _greedy_fast(cls, req: GenRequest) -> bool:
+        """True iff the request's next token is the argmax of its logits:
+        a greedy config (``_greedy_cfg``) without a grammar."""
+        return req.grammar is None and cls._greedy_cfg(req.sampling)
+
+    def _vocab_pieces(self) -> tuple[list[bytes], set[int]]:
+        """The bytes of every id below n_vocab and the end-of-generation
+        ids, for grammar filtering: built at the first grammar request,
+        then kept."""
+        if self._pieces is None:
+            tok = self.model.tokenizer
+            if tok is None:
+                raise ValueError("a grammar needs the model's tokenizer")
+            n = self.hp.n_vocab
+            self._pieces = ([tok.token_to_piece(t) for t in range(n)],
+                            {t for t in range(n) if tok.vocab.is_eog(t)})
+        return self._pieces
+
     def _keep_vector(self) -> np.ndarray:
         """Rows each slot owns in its cache row: n_past, or the prefilled
         offset of a slot midway through an in-place prefill."""
@@ -563,6 +593,24 @@ class Engine:
                            if s.state == SlotState.PREFILL and s.in_place
                            else s.n_past)
         return keep
+
+    def _make_sampler(self, req: GenRequest) -> SamplerChain:
+        """The request's host chain; with a grammar, a ``GrammarSampler``
+        after the cutting stages and before the terminal picker, so only the
+        surviving candidates take the grammar test (the sampler rescans the
+        whole vocab when none of them is legal)."""
+        sampler = make_chain(**req.sampling) if req.sampling else make_chain(greedy=True)
+        if req.grammar:
+            pieces, eos_ids = self._vocab_pieces()
+            chain = sampler.samplers
+            at = next((i for i, st in enumerate(chain) if hasattr(st, "sample")), len(chain))
+            try:
+                chain.insert(at, GrammarSampler(req.grammar, pieces, eos_ids,
+                                                lazy=req.grammar_lazy,
+                                                trigger_patterns=req.grammar_triggers))
+            except re.error as e:
+                raise ValueError(f"bad grammar trigger: {e}") from e
+        return sampler
 
     def _start_request(self, slot: _Slot, req: GenRequest):
         ids = [int(t) for t in req.prompt_ids]
@@ -574,6 +622,7 @@ class Engine:
             raise ValueError(
                 f"prompt ({len(ids)}) + max_tokens ({req.max_tokens}) exceeds "
                 f"n_ctx ({self.n_ctx})")
+        sampler = self._make_sampler(req)    # a bad grammar fails before the slot changes
         if not self.paged:
             # the truncate below keeps rows by host counts
             self._flush_pending()
@@ -608,8 +657,8 @@ class Engine:
         slot.cache_tokens = list(ids)
         self.metrics["n_prompt_tokens"] += len(ids)
         self.metrics["n_prompt_cached"] += n_cached
-        slot.sampler = make_chain(**req.sampling) if req.sampling else make_chain(greedy=True)
-        slot.fast = dsamp.chain_supported(req.sampling or {})
+        slot.sampler = sampler
+        slot.fast = req.grammar is None and dsamp.chain_supported(req.sampling or {})
         slot.seed = int((req.sampling or {}).get("seed", 0))
         slot.n_sampled = 0
         for t in ids[-64:]:
@@ -678,7 +727,7 @@ class Engine:
         for slot, logits in finals:
             slot.state = SlotState.GENERATING
             slot.n_past = slot.n_prompt
-            if self._greedy_cfg(slot.req.sampling):
+            if self._greedy_fast(slot.req):
                 tok1 = int(torch.argmax(logits))
                 slot.sampler.accept(tok1)
             else:

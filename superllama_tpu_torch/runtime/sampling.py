@@ -3,13 +3,15 @@ mirrors include/llama.h:1276-1477).
 
 Host-side numpy implementation operating on the final-token logits; the chain
 composes transforms exactly like llama_sampler_chain. A copy of the JAX
-package's numpy chain without the grammar sampler (constrained decoding is not
-ported yet); the engine's greedy block decode takes argmax on the device.
+package's numpy chain, the grammar sampler included; the engine's decode
+blocks sample on the device (``ops/device_sampling.py``), and a request with
+a grammar stays on this chain.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -489,6 +491,111 @@ class Infill(Sampler):
 
     def reset(self):
         self._rng = np.random.default_rng(self._seed)
+
+
+class GrammarSampler(Sampler):
+    """Constrained decoding against a GBNF grammar (llama_sampler_init_grammar
+    / _lazy_patterns counterpart, include/llama.h:1370-1392).
+
+    Masks candidate tokens whose UTF-8 pieces the grammar rejects. For
+    efficiency the transform only tests candidates still finite after earlier
+    chain stages; if all of those are rejected it rescans the full vocab in
+    descending-logit order. ``lazy`` grammars stay dormant until a trigger
+    pattern (regex over emitted text) or trigger token appears.
+    """
+
+    def __init__(self, grammar, pieces: list[bytes], eos_ids: set[int],
+                 lazy: bool = False, trigger_patterns: list[str] | None = None,
+                 trigger_tokens: set[int] | None = None):
+        from ..grammar.gbnf import Grammar, GrammarState, parse_gbnf
+        if isinstance(grammar, str):
+            grammar = parse_gbnf(grammar)
+        self.grammar: "Grammar" = grammar
+        self.pieces = pieces
+        self.eos_ids = eos_ids
+        self.lazy = lazy
+        self.trigger_res = [re.compile(p) for p in (trigger_patterns or [])]
+        self.trigger_tokens = trigger_tokens or set()
+        self._GrammarState = GrammarState
+        # first codepoint of each piece (None = empty or partial UTF-8): a
+        # cheap pre-filter — a token can only be legal if some stack's top
+        # char atom matches its first codepoint
+        self._first_cp: list[int | None] = []
+        for p in pieces:
+            try:
+                s = p.decode("utf-8")
+                self._first_cp.append(ord(s[0]) if s else None)
+            except UnicodeDecodeError:
+                self._first_cp.append(None)
+        self.reset()
+
+    def reset(self):
+        self.state = self._GrammarState(self.grammar)
+        self.active = not self.lazy
+        self._emitted = ""
+
+    def _allowed(self, tid: int) -> bool:
+        if tid in self.eos_ids:
+            return self.state.can_terminate
+        piece = self.pieces[tid]
+        if not piece:
+            return False
+        cp = self._first_cp[tid]
+        if cp is not None and not self.state._partial:
+            from ..grammar.gbnf import _matches
+            if not any(st and _matches(st[-1], cp) for st in self.state.stacks):
+                return False
+        return self.state.would_accept(piece)
+
+    def apply(self, logits, ctx):
+        if not self.active or not self.state.alive:
+            return logits
+        out = logits.copy()
+        cand = np.flatnonzero(np.isfinite(logits))
+        any_ok = False
+        for tid in cand:
+            if self._allowed(int(tid)):
+                any_ok = True
+            else:
+                out[tid] = -np.inf
+        if not any_ok:
+            # earlier stages cut away every grammar-legal token: rescan the
+            # full vocab against the pre-chain logits (resampling semantics
+            # of common_sampler_sample grammar_first=false)
+            base = logits
+            if ctx is not None and ctx.orig_logits is not None:
+                base = ctx.orig_logits
+            order = np.argsort(base)[::-1]
+            for tid in order:
+                if self._allowed(int(tid)):
+                    out[tid] = 0.0  # sole survivor
+                    return out
+            # dead grammar: allow EOS so generation stops
+            for tid in self.eos_ids:
+                out[tid] = 0.0
+        return out
+
+    def accept(self, token: int):
+        if self.active:
+            if token not in self.eos_ids:
+                self.state.accept_bytes(self.pieces[token])
+            return
+        if not self.lazy:
+            return
+        if token in self.trigger_tokens:
+            self.active = True
+            return
+        try:
+            self._emitted += self.pieces[token].decode("utf-8", errors="ignore")
+        except IndexError:
+            return
+        for cre in self.trigger_res:
+            m = cre.search(self._emitted)
+            if m:
+                self.active = True
+                # feed the grammar everything from the trigger start
+                self.state.accept_text(self._emitted[m.start():])
+                return
 
 
 class SamplerChain:

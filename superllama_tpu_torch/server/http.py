@@ -14,6 +14,18 @@ Counterpart of the JAX package's ``server/http.py`` (``ServerApp`` +
    ``/apply-template`` and ``/slots/:id?action=save|restore|erase`` (files
    in a temporary directory of the server's own).
 
+Structured output: a completion's ``grammar`` (GBNF), ``json_schema`` or
+``response_format`` (``json_schema`` / ``json_object``) constrains its
+tokens (``grammar_lazy`` and ``grammar_triggers`` pass through). A chat
+request's ``tools`` and ``tool_choice`` give a tool plan
+(``toolcall.plan_tools`` over the chat template's source): its grammar,
+triggers and extra stops reach the engine, and the reply carries
+``tool_calls`` with ``finish_reason: "tool_calls"``. ``reasoning_format``
+(default "auto"; "none" keeps the raw text) splits ``<think>`` spans into
+``reasoning_content``. A streamed chat sends typed deltas: content,
+reasoning, and a tool call's start and argument fragments. A grammar or
+schema that does not parse gives 400.
+
 Every POST is recorded in the latency monitor, the request histogram and
 the request counter. Host layer only: all token work happens on the
 engine's thread. API keys, rate limits and the other routes wait for a
@@ -35,12 +47,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..grammar import json_schema_to_gbnf
 from ..models.loader import LoadedModel
 from ..runtime.engine import Engine, GenRequest
 from .chat import template_for_model
 from .enterprise import CostTracker, SLAMonitor
 from .metrics import MetricsRegistry
 from .telemetry import MemTelemetry
+from .toolcall import (ReasoningStream, StreamingToolCallParser, parse_tool_calls,
+                       plan_tools, split_reasoning)
 
 REQUEST_TIMEOUT_S = 600
 
@@ -76,23 +91,51 @@ class ServerApp:
 
     @staticmethod
     def _sampling_from(body: dict) -> dict:
+        """The request's sampler config, field by field as the JAX server
+        reads it."""
         s: dict[str, Any] = {}
         for key, name, cast in (("temperature", "temp", float), ("top_p", "top_p", float),
                                 ("top_k", "top_k", int), ("min_p", "min_p", float),
                                 ("repeat_penalty", "penalty_repeat", float),
                                 ("frequency_penalty", "penalty_freq", float),
-                                ("presence_penalty", "penalty_present", float)):
+                                ("presence_penalty", "penalty_present", float),
+                                ("typical_p", "typical_p", float),
+                                ("dry_multiplier", "dry_multiplier", float)):
             if key in body:
                 s[name] = cast(body[key])
         if body.get("seed") is not None:
             s["seed"] = int(body["seed"])
+        if body.get("logit_bias"):
+            lb = body["logit_bias"]
+            pairs = lb.items() if isinstance(lb, dict) else lb   # or [[id, bias], ...]
+            s["logit_bias"] = {int(k): float(v) for k, v in pairs}
+        if "mirostat" in body:
+            s["mirostat"] = int(body["mirostat"])
+            s["mirostat_tau"] = float(body.get("mirostat_tau", 5.0))
+            s["mirostat_eta"] = float(body.get("mirostat_eta", 0.1))
         if body.get("temperature", 1.0) == 0.0:
             s["greedy"] = True
         return s
 
     @staticmethod
+    def _grammar_from(body: dict) -> str | None:
+        """The request's GBNF: ``grammar``, else ``json_schema``, else an
+        OpenAI ``response_format`` of type ``json_schema`` or
+        ``json_object``."""
+        if body.get("grammar"):
+            return body["grammar"]
+        if body.get("json_schema") is not None:
+            return json_schema_to_gbnf(body["json_schema"])
+        rf = body.get("response_format") or {}
+        if rf.get("type") == "json_schema":
+            return json_schema_to_gbnf(rf["json_schema"].get("schema", {}))
+        if rf.get("type") == "json_object":
+            return json_schema_to_gbnf(rf.get("schema", {}))
+        return None
+
+    @staticmethod
     def _stops(body) -> list[str]:
-        stop = body.get("stop") or []
+        stop = body.get("stop") or body.get("stop_sequences") or []
         return [stop] if isinstance(stop, str) else list(stop)
 
     def handle_completion(self, body: dict, stream_cb=None) -> dict:
@@ -109,6 +152,9 @@ class ServerApp:
             prompt_ids=ids,
             max_tokens=int(body.get("max_tokens") or body.get("n_predict") or 128),
             stop_strings=self._stops(body), sampling=self._sampling_from(body),
+            grammar=self._grammar_from(body),
+            grammar_lazy=bool(body.get("grammar_lazy", False)),
+            grammar_triggers=list(body.get("grammar_triggers", [])),
             stream=stream_cb)
         self.engine.submit(req)
         out = req.result(timeout=REQUEST_TIMEOUT_S)
@@ -130,21 +176,91 @@ class ServerApp:
         }
 
     def handle_chat(self, body: dict, stream_cb=None) -> dict:
-        prompt = self.chat_template.apply(body["messages"], add_generation_prompt=True)
+        """The chat template over the messages (and ``tools``), the tool
+        plan's grammar, triggers and stops, then the reply split into
+        reasoning, content and tool calls."""
+        plan = plan_tools(body, self.chat_template.source)
+        prompt = self.chat_template.apply(body["messages"], add_generation_prompt=True,
+                                          tools=body.get("tools"))
         inner = {**body, "prompt": prompt}
         inner.setdefault("max_tokens", body.get("max_tokens") or 512)
+        if plan is not None and plan.grammar:
+            inner["grammar"] = plan.grammar
+            inner["grammar_lazy"] = plan.grammar_lazy
+            inner["grammar_triggers"] = plan.triggers
+        reason_fmt = body.get("reasoning_format", "auto")
+        # deepseek-r1-style templates end the prompt inside an open <think>
+        forced_open = prompt.rstrip().endswith("<think>")
+        if plan is not None and plan.extra_stops:
+            inner["stop"] = self._stops(body) + plan.extra_stops
+        stream_cb, flush = self._tool_stream(plan, stream_cb, reasoning=reason_fmt != "none",
+                                             forced_open=forced_open)
         out = self.handle_completion(inner, stream_cb)
-        choice = out["choices"][0]
+        flush()
+        content = out["choices"][0]["text"]
+        finish = out["choices"][0]["finish_reason"]
+        reasoning = ""
+        if reason_fmt != "none":
+            reasoning, content = split_reasoning(content, forced_open=forced_open)
+        message: dict = {"role": "assistant", "content": content}
+        if plan is not None:
+            content, tool_calls = parse_tool_calls(plan, content)
+            if tool_calls:
+                message = {"role": "assistant", "content": content or None,
+                           "tool_calls": tool_calls}
+                finish = "tool_calls"
+        if reasoning:
+            message["reasoning_content"] = reasoning
         return {
             "id": "chatcmpl-" + uuid.uuid4().hex[:24],
             "object": "chat.completion",
             "created": out["created"],
             "model": self.model_name,
-            "choices": [{"index": 0,
-                         "message": {"role": "assistant", "content": choice["text"]},
-                         "finish_reason": choice["finish_reason"]}],
+            "choices": [{"index": 0, "message": message, "finish_reason": finish}],
             "usage": out["usage"],
         }
+
+    @staticmethod
+    def _tool_stream(plan, stream_cb, reasoning: bool = False, forced_open: bool = False):
+        """Wrap a raw-piece stream callback with the incremental reasoning
+        and tool-call splitters: downstream then receives typed events
+        (``{"ev": "content" | "reasoning" | "tc_start" | "tc_args", ...}``)
+        in place of raw text. Returns the callback and a ``flush`` that
+        sends what the splitters still hold once generation ends."""
+        if stream_cb is None or (plan is None and not reasoning):
+            return stream_cb, lambda: None
+        parser = StreamingToolCallParser(plan) if plan is not None else None
+        rstream = ReasoningStream(forced_open=forced_open) if reasoning else None
+
+        def after_reasoning(token, text):
+            if parser is not None:
+                for ev in parser.feed(text):
+                    stream_cb(token, ev)
+            else:
+                stream_cb(token, {"ev": "content", "text": text})
+
+        def wrapped(token, piece):
+            if rstream is None:
+                after_reasoning(token, piece)
+                return
+            for kind, text in rstream.feed(piece):
+                if kind == "reasoning":
+                    stream_cb(token, {"ev": "reasoning", "text": text})
+                else:
+                    after_reasoning(token, text)
+
+        def flush():
+            if rstream is not None:
+                for kind, text in rstream.finish():
+                    if kind == "reasoning":
+                        stream_cb(None, {"ev": "reasoning", "text": text})
+                    else:
+                        after_reasoning(None, text)
+            if parser is not None:
+                for ev in parser.finish():
+                    stream_cb(None, ev)
+
+        return wrapped, flush
 
     def props(self) -> dict:
         hp = self.model.hparams
@@ -237,10 +353,26 @@ def _completion_chunk(rid: str, token, piece: str) -> dict:
                          "finish_reason": None}]}
 
 
-def _chat_chunk(rid: str, token, piece: str) -> dict:
+def _chat_chunk(rid: str, token, piece) -> dict | None:
+    """A chat SSE chunk of a raw piece or of a typed event of
+    ``ServerApp._tool_stream``; None for an event with no text."""
+    if isinstance(piece, dict):
+        ev = piece["ev"]
+        if ev in ("content", "reasoning"):
+            if not piece["text"]:
+                return None
+            delta = {"content" if ev == "content" else "reasoning_content": piece["text"]}
+        elif ev == "tc_start":
+            delta = {"tool_calls": [{"index": piece["index"], "id": piece["id"],
+                                     "type": "function",
+                                     "function": {"name": piece["name"], "arguments": ""}}]}
+        else:   # tc_args
+            delta = {"tool_calls": [{"index": piece["index"],
+                                     "function": {"arguments": piece["delta"]}}]}
+    else:
+        delta = {"content": piece}
     return {"id": rid, "object": "chat.completion.chunk",
-            "choices": [{"index": 0, "delta": {"content": piece},
-                         "finish_reason": None}]}
+            "choices": [{"index": 0, "delta": delta, "finish_reason": None}]}
 
 
 def make_handler(app: ServerApp):
@@ -353,7 +485,8 @@ def make_handler(app: ServerApp):
 
             rid = uuid.uuid4().hex[:24]
             while (item := q.get()) is not done:
-                send_event(json.dumps(chunk_fn(rid, *item)))
+                if (chunk := chunk_fn(rid, *item)) is not None:
+                    send_event(json.dumps(chunk))
             worker.join()
             final = holder.get("result") or {}
             last = chunk_fn(rid, None, "")

@@ -231,6 +231,9 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.ops.device_sampling, superllama_tpu_torch.tools.batched_bench\n"
         "import superllama_tpu_torch.server.metrics, superllama_tpu_torch.server.telemetry\n"
         "import superllama_tpu_torch.server.enterprise\n"
+        "import superllama_tpu_torch.grammar, superllama_tpu_torch.grammar.gbnf\n"
+        "import superllama_tpu_torch.grammar.json_schema, superllama_tpu_torch.runtime.sampling\n"
+        "import superllama_tpu_torch.server.toolcall, superllama_tpu_torch.server.json_partial\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
