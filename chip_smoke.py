@@ -18,6 +18,7 @@ PyTorch version.
                                           # of phase 6, the lone prompts of phase 7
     python3 chip_smoke.py --state         # device, build, phase 4e
     python3 chip_smoke.py --grammar       # device, build, phase 4f
+    python3 chip_smoke.py --spec          # device, build, phase 4g
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -72,6 +73,22 @@ Phases, each printing one JSON line:
     response_format, a GBNF grammar, tool calls plain and streamed and a
     bad grammar's 400; no capture after the warm-up; the host step's
     forward ms, the mask's ms a token and the grammar request's tok/s;
+ 4g. the decode variants at full width, eager (no graph for their rounds):
+    speculative engines of 4 slots (bf16 with a synthetic Llama-3.2-1B-width
+    draft at n_draft 8, served over HTTP and warmed up; Q8_0 and paged with
+    that draft at n_draft 7; bf16 with the 8B as its own draft at 7; bf16
+    with a draft of another vocab through the translator), lookup engines
+    (bf16, paged; prompts of repeated spans): 4 greedy requests of 64 tokens
+    (16 on the engines with the 1B draft) must give the plain engine's
+    tokens on the same cache, or part at one position where the two
+    candidates' logits lie within the two paths' difference there, each
+    later token ranked first or near it by the plain prefill of the
+    variant's own tokens; a seeded sampled request repeats on an erased slot;
+    the draft rollout launches qmv (and fd on Q8_0), the verify qmm, fd or
+    paged where its shape asks; context shift on bf16, Q8_0 and paged
+    engines (n_ctx 512, 600 tokens, the first shift held against the plain
+    op on a CPU copy); lookahead against Context greedy; self-extend's
+    positions and re-roped K; tok/s of each beside the plain engines';
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -196,6 +213,10 @@ def rand_weight(torch, kind: str, N: int, K: int, seed: int):
 
 
 KN_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+# the same of the Llama-3.2-1B-width draft (phase 4g): its rollout sends
+# them through qmv at 4 and 8 rows, the translated draft's catch-up through
+# qmm at up to 32
+KN_1B = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (2048, 128256)]
 # launches of each (K, N) in a lone prompt chunk of the 8B model: wq+wo, wk+wv,
 # gate+up, down per layer (32 layers), the output head once
 CHUNK_LAUNCHES = {(4096, 4096): 64, (4096, 1024): 64, (4096, 14336): 64,
@@ -391,6 +412,10 @@ def check_decode_kernels(torch, record) -> None:
     fd_cases += [("q8 T=8 S=6000 block_s=4096 sinks swa=3000 bf16",
                   dict(B=2, T=8, S=6000, kv="q8", sinks=True),
                   {"block_s": 4096, "swa_window": 3000})]
+    # the 1B draft's rollout on its Q8_0 cache: 4 rows of head size 64, G 4,
+    # the catch-up over a 2-token tail and the single-token steps
+    fd_cases += [(f"q8 D=64 B=4 T={T} n_past 150 bf16 (the 1B draft's rollout)",
+                  dict(B=4, T=T, D=64, kv="q8", n_past=150), {}) for T in (1, 2)]
     for i, (case, kw, opts) in enumerate(fd_cases):
         args, extra = fd_inputs(torch, seed=300 + i, **kw)
         got = flash_decode_attention(*args, **extra, **opts)
@@ -544,7 +569,7 @@ def check_qmv_plans(torch) -> None:
     emit({"phase": "qmv_resident", "card": {cl: fn(1, 128, 8, cl) for cl in range(1, 9)},
           "plan_assumes": qm._QMV_CLUSTER_RESIDENT})
     for fmt in (0, 1, 2):
-        for K, N in KN_8B:
+        for K, N in KN_8B + KN_1B:
             p = qm.qmv_plan(fmt, K, N)
             per_sm = min(qm._QMV_BLOCKS_SM, qm._QMV_SM_SMEM // (p.smem + 1024))
             assumed = qm._QMV_CLUSTER_RESIDENT[p.cl] * per_sm // qm._QMV_BLOCKS_SM
@@ -556,7 +581,7 @@ def check_qmv_plans(torch) -> None:
 
 def check_qmv_rows(torch) -> None:
     """qmv's sums run in an order fixed by (fmt, K, N): at every (K, N) of
-    a decode step (Q4_K, bf16 x), row 0 of an M 8 and an M 16 call equals
+    a decode step of the 8B and of the 1B draft (Q4_K, bf16 x), row 0 of an M 8 and an M 16 call equals
     the same row alone at M 1, bit for bit; and one call is one device
     kernel under torch.profiler (no quantizer, no reduce kernel)."""
     from torch.profiler import ProfilerActivity, profile
@@ -566,7 +591,7 @@ def check_qmv_rows(torch) -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 20)
     bf16 = torch.bfloat16
-    for i, (K, N) in enumerate(KN_8B):
+    for i, (K, N) in enumerate(KN_8B + KN_1B):
         qt = rand_weight(torch, "Q4_K", N, K, 300 + i)
         x = torch.randn((16, K), generator=gen, device="cuda").to(bf16)
         alone = qmv(x[:1], qt, bf16)
@@ -633,9 +658,11 @@ def phase_kernels(torch) -> list:
     gen.manual_seed(SEED)
     seed = 0
     mv_cases = [("Q4_K", M, K, N, bf16) for M in (1, 8, 16) for K, N in KN_8B]
+    mv_cases += [("Q4_K", M, K, N, bf16) for M in (1, 4, 8) for K, N in KN_1B]
     mv_cases += [("Q6_K", 8, 4096, 14336, bf16), ("Q8_0", 8, 4096, 14336, bf16),
                  ("Q4_K", 8, 4096, 14336, f32)]
     mm_cases = [("Q4_K", M, K, N, bf16) for M in (1, 8, 17, 24, 32) for K, N in KN_8B]
+    mm_cases += [("Q4_K", M, K, N, bf16) for M in (24, 32) for K, N in KN_1B]
     mm_cases += [("Q6_K", 32, 4096, 14336, bf16), ("Q8_0", 32, 4096, 14336, bf16),
                  ("Q4_K", 32, 4096, 4096, f32)]
     # the edges at small shapes, in f32: every row-count instantiation of
@@ -709,6 +736,11 @@ def phase_kernels(torch) -> list:
                  ("D=256 T=256 S=1024 bf16", dict(T=256, S=1024, n_past=300, D=256)),
                  ("D=256 T=256 S=1024 q8_0 kv", dict(T=256, S=1024, n_past=300, D=256,
                                                       q8=True))]
+    # the 1B draft's prompt start (head size 64, G 4): a 100-token prompt's
+    # one-row chunk on a bf16 and on a Q8_0 draft cache
+    fa_cases += [(f"D=64 T=128 prompt 100 {name} (the 1B draft's prompt chunk)",
+                  dict(T=128, D=64, n_past=0, lens=[100], **kw))
+                 for name, kw in (("bf16", {}), ("q8_0 kv", {"q8": True}))]
     for i, (case, kw) in enumerate(fa_cases):
         kw = dict(kw)
         swa, cap = kw.pop("swa", 0), kw.pop("softcap", 0.0)
@@ -2843,6 +2875,743 @@ def phase_prefill(torch, model, smi_line: str) -> None:
     profile_chunks(torch, model)
 
 
+# ------------------------------------------------------------ 4g. decode variants
+
+# Llama-3.2-1B's published widths (meta-llama/Llama-3.2-1B config.json),
+# the speculative draft of the synthetic 8B
+DRAFT_1B = dict(n_embd=2048, n_layer=16, n_head=32, n_head_kv=8, head_dim=64, head_dim_v=64,
+                n_rot=64, n_ff=8192, n_vocab=128256, rope_freq_base=500000.0)
+# (label, engine kwargs, draft, n_draft, the kernels its rollout and its
+# verify must launch, the prompt start's kernel)
+SPEC_ENGINES = (
+    ("bf16-1b-k8", {}, "1b", 8, ("qmv",), (), "fa_tc"),
+    ("q8_0-1b-k7", {"kv_dtype": "q8_0"}, "1b", 7, ("qmv", "fd"), ("qmm", "fd"), "fa_tc"),
+    ("paged-1b-k7", {"paged": True, "page_size": 256}, "1b", 7, ("qmv",), ("qmm", "paged"),
+     "paged_tc"),
+    ("bf16-self-k7", {}, "self", 7, ("qmv",), ("qmm",), "fa_tc"),
+)
+SPEC_CACHES = {"bf16": {}, "q8_0": {"kv_dtype": "q8_0"}, "paged": {"paged": True, "page_size": 256}}
+SPEC_SAMPLED = {"temp": 0.8, "top_k": 40, "top_p": 0.95, "min_p": 0.05, "seed": 21}
+# greedy tokens a request: the engines with the 1B draft accept nothing
+# (random weights), one token a round, and read their round's cost within
+# a few rounds
+SPEC_TOKENS, DRAFT_TOKENS, SAMPLED_TOKENS = 64, 16, 8
+
+
+def build_draft(torch):
+    """The synthetic 1B draft (seed 1, about 1.2 GB of Q4_K and bf16)."""
+    from superllama_tpu_torch.models.loader import LoadedModel
+    from superllama_tpu_torch.models.synthetic import (llama3_8b_hparams,
+                                                       synthetic_qparams_device)
+
+    hp = llama3_8b_hparams(**DRAFT_1B)
+    t0 = time.perf_counter()
+    params = synthetic_qparams_device(hp, seed=SEED + 1, device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "draft_model", "n_layer": hp.n_layer, "n_embd": hp.n_embd,
+          "head_dim": hp.head_dim, "n_vocab": hp.n_vocab, "seconds": time.perf_counter() - t0})
+    return LoadedModel(hp, params, tokenizer=None, metadata={}, name="synthetic-llama3.2-1b-q4_k")
+
+
+def byte_draft(torch, draft):
+    """The 1B draft over byte_tokenizer's 258 ids: its layers, a 258-row
+    embedding and a dense head of its own (seeded, of the embedding's
+    type)."""
+    import dataclasses
+
+    tok = byte_tokenizer()
+    n = tok.vocab.n_tokens
+    dev, dt = draft.params["token_embd"].device, draft.params["token_embd"].dtype
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 50)
+    E = draft.hparams.n_embd
+    params = {**draft.params,
+              "token_embd": (torch.randn((n, E), generator=g, device=dev) * 0.02).to(dt),
+              "output": (torch.randn((E, n), generator=g, device=dev) / E ** 0.5).to(dt)}
+    return type(draft)(dataclasses.replace(draft.hparams, n_vocab=n), params, tokenizer=tok,
+                       metadata={}, name="synthetic-llama3.2-1b-bytes")
+
+
+class PathTimer:
+    """Wraps an engine's ``_d_rollout`` and ``_verify``: each call bracketed
+    by torch.cuda.synchronize, its seconds and the kernel launches it made
+    summed by path (a comparison's launches are never among them)."""
+
+    def __init__(self, torch, eng):
+        self.torch, self.eng = torch, eng
+        self.s = {"rollout": 0.0, "verify": 0.0}
+        self.n = {"rollout": 0, "verify": 0}
+        self.launches = {"rollout": {}, "verify": {}}
+        for name, attr in (("rollout", "_d_rollout"), ("verify", "_verify")):
+            if hasattr(eng, attr):
+                setattr(eng, attr, self._wrap(name, getattr(eng, attr)))
+
+    def _wrap(self, name, fn):
+        def run(*a, **k):
+            self.torch.cuda.synchronize()
+            c0, t0 = read_counts(), time.perf_counter()
+            out = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.s[name] += time.perf_counter() - t0
+            self.n[name] += 1
+            c1 = read_counts()
+            for kname in c1:
+                d = c1[kname] - c0.get(kname, 0)
+                if d:
+                    self.launches[name][kname] = self.launches[name].get(kname, 0) + d
+            return out
+        return run
+
+    def reset(self) -> None:
+        for d in (self.s, self.n):
+            for k in d:
+                d[k] = 0
+        self.launches = {"rollout": {}, "verify": {}}
+
+    def ms(self) -> dict:
+        return {f"{k}_ms": (1e3 * self.s[k] / self.n[k] if self.n[k] else None) for k in self.s}
+
+
+def decode_rate(eng, run) -> tuple:
+    """(results, decode tok/s): the engine's decode seconds and tokens over
+    ``run()``, bracketed by torch.cuda.synchronize (the first token of each
+    request comes from its prefill and is not counted)."""
+    import torch
+
+    m0 = dict(eng.metrics)
+    torch.cuda.synchronize()
+    out = run()
+    with eng._step_lock:     # a request ends inside a step: let the step count its time
+        torch.cuda.synchronize()
+    d_s = eng.metrics["decode_s"] - m0["decode_s"]
+    d_tok = eng.metrics["n_tokens_generated"] - m0["n_tokens_generated"] - len(out)
+    return out, (d_tok / d_s if d_s > 0 else None)
+
+
+def first_divergence(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def path_logits(torch, model, ids, rows: int, width: int, kv_dtype=None, paged=False,
+                masked=False):
+    """The logits of ids[-1] at its position through two paths over one
+    cache (``rows`` rows, row 0 real) that holds ids[:-1], prefilled in one
+    chunk: (a) a decode step of one token a row, the plain engine's; (b) a
+    step of ``width`` tokens a row, ids[-1] first (the verify's or, with
+    ``masked``, lookahead's tree step with a causal mask over its cells).
+    With ids of one token the prefix is empty and (a)/(b) are the prompt's
+    chunks at ``rows`` rows and at one row. Returns (a, b), f32 on the host."""
+    from superllama_tpu_torch.models.llama import llama_forward
+    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init, kv_truncate_rows
+    from superllama_tpu_torch.runtime.paged_kv import PagedKVManager, paged_cache_init
+
+    hp = model.hparams
+    kv_dtype = kv_dtype or torch.bfloat16
+    S = 2048
+    n = len(ids) - 1
+
+    def new_cache(nrows):
+        if not paged:
+            return None, kv_cache_init(hp.n_layer, nrows, S, hp.n_head_kv, hp.head_dim,
+                                       hp.head_dim_v, dtype=kv_dtype, device="cuda")
+        mpps = S // 256
+        mgr = PagedKVManager(paged_cache_init(hp.n_layer, nrows * mpps + 1, 256, nrows, mpps,
+                                              hp.n_head_kv, hp.head_dim, hp.head_dim_v,
+                                              dtype=kv_dtype, device="cuda"))
+        return mgr, mgr.cache
+
+    def step(mgr, cache, toks, start, mask=None):
+        nrows, T = (cache.table if mgr is not None else cache.cursor).shape[0], len(toks)
+        tok = torch.zeros((nrows, T), dtype=torch.int64, device="cuda")
+        pos = torch.full((nrows, T), -1, dtype=torch.int32, device="cuda")
+        tok[0] = torch.tensor(toks, device="cuda")
+        pos[0] = torch.arange(start, start + T, device="cuda")
+        if mgr is not None:
+            mgr.plan_step({0: T})
+        lg, _ = llama_forward(model.params, hp, tok, pos, cache, attn_mask=mask)
+        if mgr is not None:
+            mgr.finish_step()
+        return lg[0].float().cpu()
+
+    mgr, cache = new_cache(rows)
+    if n == 0:
+        # the first token: the plain engine's prompt wave against a lone chunk
+        a = step(mgr, cache, ids, 0)[-1]
+        b = step(*new_cache(1), ids, 0)[-1]
+        return a, b
+    step(mgr, cache, ids[:-1], 0)
+    saved = mgr.save_cursor(0) if paged else None
+    a = step(mgr, cache, ids[-1:], n)[0]
+    if paged:
+        mgr.rollback(0, saved, 0, 1)
+    else:
+        keep = torch.zeros(rows, dtype=torch.int32, device="cuda")
+        keep[0] = n
+        kv_truncate_rows(cache, keep)
+    mask = None
+    if masked:
+        mask = torch.full((1, 1, width, S), -1e30, device="cuda")
+        mask[0, 0, :, :n] = 0.0
+        for t in range(width):
+            mask[0, 0, t, n:n + t + 1] = 0.0
+    b = step(mgr, cache, [ids[-1]] * width, n, mask=mask)[0]
+    return a, b
+
+
+def forced_gaps(torch, model, prompt, got, kv_dtype=None, paged=False):
+    """The plain prefill teacher-forced over the variant's own tokens:
+    prompt + got[:-1] in one chunk at one row of a fresh cache. Returns
+    (gaps, logits): gaps[j] = the largest logit at got[j]'s position less
+    got[j]'s own, and the (len(got), V) logits there, f32 on the host."""
+    from superllama_tpu_torch.models.llama import llama_forward
+    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
+    from superllama_tpu_torch.runtime.paged_kv import PagedKVManager, paged_cache_init
+
+    hp = model.hparams
+    kv_dtype = kv_dtype or torch.bfloat16
+    ids = list(prompt) + list(got[:-1])
+    T = len(ids)
+    mgr = None
+    if paged:
+        mgr = PagedKVManager(paged_cache_init(hp.n_layer, 9, 256, 1, 8, hp.n_head_kv,
+                                              hp.head_dim, hp.head_dim_v, dtype=kv_dtype,
+                                              device="cuda"))
+        cache = mgr.cache
+        mgr.plan_step({0: T})
+    else:
+        cache = kv_cache_init(hp.n_layer, 1, 2048, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
+                              dtype=kv_dtype, device="cuda")
+    tok = torch.tensor([ids], dtype=torch.int64, device="cuda")
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    lg, _ = llama_forward(model.params, hp, tok, pos, cache)
+    if mgr is not None:
+        mgr.finish_step()
+    lg = lg[0, len(prompt) - 1:].float()
+    want = torch.tensor(got, dtype=torch.int64, device="cuda")
+    gaps = lg.max(-1).values - lg.gather(1, want[:, None])[:, 0]
+    return gaps.cpu(), lg.cpu()
+
+
+PATH_NMSE = 1e-3     # logits of two paths of one position: phase 5's limit
+
+
+def greedy_rule(torch, model, label: str, prompt, ref, got, rows: int, width: int,
+                **path_kw) -> dict:
+    """``got`` (a variant's greedy tokens) against ``ref`` (the plain path's,
+    as many): equal, or parted at a first position i where the two
+    candidates' logits (the plain decode path's) differ by no more than the
+    largest difference between the plain path's and the variant's path's
+    logits there; those two paths and the plain prefill there agree within
+    logits NMSE 1e-3. From i on, the plain prefill teacher-forced over
+    prompt + got must rank each got[j] first or within 2 D of the first, D
+    the largest difference among the three paths at i: a token the
+    variant's path ranks first lies at most 2 D below the first wherever
+    the two paths differ by at most D."""
+    ref = ref[:len(got)]
+    i = first_divergence(ref, got)
+    if i is None and len(ref) == len(got):
+        return {"equal": True}
+    check(i is not None, f"{label}: {len(got)} tokens against the plain path's {len(ref)}")
+    a, b = path_logits(torch, model, list(prompt) + list(ref[:i]), rows, width, **path_kw)
+    x, y = ref[i], got[i]
+    gap = abs(float(a[x] - a[y]))
+    path_diff = float((a - b).abs().max())
+    check(gap <= path_diff,
+          f"{label}: tokens part at {i} ({x} against {y}), their logits {gap} apart, but the "
+          f"two paths' logits only {path_diff} apart there")
+    gaps, forced = forced_gaps(torch, model, prompt, got, path_kw.get("kv_dtype"),
+                               path_kw.get("paged", False))
+    p = forced[i]
+    errs = {"decode_vs_variant": nmse(b, a), "decode_vs_prefill": nmse(p, a)}
+    check(max(errs.values()) <= PATH_NMSE,
+          f"{label}: at {i} the paths' logits differ by NMSE {errs} (limit {PATH_NMSE})")
+    D = max(path_diff, float((a - p).abs().max()), float((b - p).abs().max()))
+    worst = int(gaps[i:].argmax()) + i
+    check(float(gaps[worst]) <= 2 * D,
+          f"{label}: at {worst} (after the parting at {i}) token {got[worst]} lies "
+          f"{float(gaps[worst])} below the plain prefill's first, more than 2 x {D}")
+    return {"equal": False, "parted_at": i, "logit_gap": gap, "path_diff": path_diff,
+            "path_nmse": errs, "spread": D, "forced_max_gap": float(gaps[worst]),
+            "forced_max_gap_at": worst, "forced_n_not_first": int((gaps[i:] > 0).sum())}
+
+
+def spec_prompts(n_vocab: int) -> list:
+    return token_prompts(n_vocab, [100] * 4, SEED + 40)
+
+
+def repeated_prompts(n_vocab: int) -> list:
+    """Prompts of a 16-token span repeated (lookup's drafts come from them)."""
+    spans = token_prompts(n_vocab, [16] * 4, SEED + 41)
+    return [(s * 7)[:100] for s in spans]
+
+
+def plain_baselines(torch, model, prompts, lookup_prompts) -> dict:
+    """The plain engines' greedy tokens (a warm second wave of the same
+    prompts) and their block-decode tok/s at B 4 and B 1 (the seeded
+    sampled request, its second run), on each cache of SPEC_CACHES."""
+    import gc
+
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    out = {}
+    for label, kw in SPEC_CACHES.items():
+        eng = Engine(model, n_slots=4, n_ctx=2048, device="cuda", **kw)
+        eng.start()
+        engine_wave(eng, prompts, SPEC_TOKENS)            # captures its graphs
+        fresh(eng)
+        res, b4 = decode_rate(eng, lambda: engine_wave(eng, prompts, SPEC_TOKENS))
+        sampled = lambda: [eng.generate(prompts[0], max_tokens=SAMPLED_TOKENS,
+                                        sampling=SPEC_SAMPLED, stop_eog=False)]
+        for _ in range(2):           # the first run captures the sampled block's graphs
+            fresh(eng)
+            _, b1 = decode_rate(eng, sampled)
+        rec = {"tokens": [r["tokens"] for r in res], "tok_s_b4": b4, "tok_s_b1": b1}
+        if label in ("bf16", "paged"):
+            fresh(eng)
+            rec["lookup_tokens"] = [r["tokens"] for r in engine_wave(eng, lookup_prompts,
+                                                                      SPEC_TOKENS)]
+        out[label] = rec
+        eng.stop()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "variants_plain", **{k: {"tok_s_b4": v["tok_s_b4"], "tok_s_b1": v["tok_s_b1"]}
+                                        for k, v in out.items()}})
+    return out
+
+
+def spec_engine_run(torch, model, eng, label, prompts, base, expect_roll, expect_ver,
+                    expect_start, n_tokens=SPEC_TOKENS, waves=None) -> dict:
+    """A speculative (or lookup) engine's greedy wave of n_tokens a request
+    (or the results of ``waves``, already served) against the plain
+    engine's, its launches, rates and the seeded sampled request repeated
+    on an erased slot."""
+    t0 = time.perf_counter()
+    timer = PathTimer(torch, eng)
+    fresh(eng)
+    reset_counts()
+    res, b4 = decode_rate(eng, lambda: engine_wave(eng, prompts, n_tokens))
+    counts = read_counts()
+    got = [r["tokens"] for r in res]
+    if waves is not None:
+        check(waves == got, f"{label}: served tokens differ from the engine's own wave")
+    for name in expect_start:
+        check(counts[name] > 0, f"{label}: the prompt start never launched {name}")
+    for name in expect_roll:
+        check(timer.launches["rollout"].get(name, 0) > 0,
+              f"{label}: the draft rollout never launched {name}: {timer.launches}")
+    for name in expect_ver:
+        check(timer.launches["verify"].get(name, 0) > 0,
+              f"{label}: the verify never launched {name}: {timer.launches}")
+    rows, width = eng.n_slots, (eng.n_draft if eng.draft_model is not None else eng.lookup_k) + 1
+    kw = {"paged": eng.paged, "kv_dtype": eng.kv_dtype}
+    rules = [greedy_rule(torch, model, f"{label} request {i}", p, r, g, rows, width, **kw)
+             for i, (p, r, g) in enumerate(zip(prompts, base, got))]
+    m = eng.metrics
+    rate = m["n_spec_accepted"] / max(m["n_spec_drafted"], 1)
+    paths = {**timer.ms(), "rounds": timer.n["verify"], "launches": timer.launches}
+    timer.reset()
+    fresh(eng)
+    s1, b1 = decode_rate(eng, lambda: [eng.generate(
+        prompts[0], max_tokens=SAMPLED_TOKENS, sampling=SPEC_SAMPLED, stop_eog=False)])
+    b1_paths = timer.ms()
+    fresh(eng)
+    s2 = eng.generate(prompts[0], max_tokens=SAMPLED_TOKENS, sampling=SPEC_SAMPLED,
+                      stop_eog=False)
+    check(s1[0]["tokens"] == s2["tokens"],
+          f"{label}: the seeded sampled request on an erased slot gave other tokens")
+    return {"launches": counts, "greedy": rules, "accept_rate": rate,
+            "n_spec_drafted": m["n_spec_drafted"], "n_spec_accepted": m["n_spec_accepted"],
+            "tok_s_b4": b4, "tok_s_b1": b1, "b4": paths, "b1": b1_paths,
+            "sampled_repeat_equal": True, "tokens": n_tokens,
+            "seconds": time.perf_counter() - t0}
+
+
+def spec_http(torch, model, draft, prompts, base) -> dict:
+    """The bf16 engine with the 1B draft at n_draft 8 behind the port's
+    server (warmed up as ``serve`` does): 4 concurrent greedy completions,
+    whose tokens must equal the engine's own wave; then the engine's run
+    of SPEC_ENGINES' first row; no capture after the warm-up."""
+    from superllama_tpu_torch.server.http import Server, ServerApp
+
+    label, kw, _, k, roll, ver, start = SPEC_ENGINES[0]
+    app = ServerApp(model, n_slots=4, n_ctx=2048, model_name=model.name, device="cuda",
+                    draft_model=draft, n_draft=k, **kw)
+    srv = Server(app, host="127.0.0.1", port=0)
+    srv.start()
+    eng = app.engine
+    caps0 = tuple(graph_stats(eng, x).get("captures", 0) for x in ("chunk", "block"))
+    try:
+        results: list = [None] * len(prompts)
+
+        def send(i):
+            results[i] = http(srv.port, "/v1/completions",
+                              {"prompt": prompts[i], "max_tokens": DRAFT_TOKENS,
+                               "temperature": 0, "return_tokens": True})
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+        reset_counts()
+        in_one_wave(eng, lambda: [t.start() for t in threads], len(prompts))
+        for t in threads:
+            t.join(timeout=900)
+        http_counts = read_counts()
+        served = []
+        for i, (st, data) in enumerate(results):
+            ch = json.loads(data)["choices"][0]
+            check(st == 200 and ch["finish_reason"] == "length", f"{label} HTTP request {i}: {st}")
+            served.append(ch["tokens"])
+        rec = spec_engine_run(torch, model, eng, label, prompts, base, roll, ver, (start,),
+                              DRAFT_TOKENS, waves=served)
+        rec["http_launches"] = http_counts
+        caps = tuple(graph_stats(eng, x).get("captures", 0) for x in ("chunk", "block"))
+        check(caps == caps0, f"{label}: graphs captured after the warm-up ({caps0} -> {caps})")
+        rec["warmup_keys"] = len(app.warmup_info["keys"])
+        rec["captures_after_warmup"] = 0
+    finally:
+        srv.stop()
+    return rec
+
+
+class ShiftProbe:
+    """Stands in for the engine module's ``kv_context_shift``: times each
+    shift (torch.cuda.synchronize around it) and holds the first one against
+    the plain torch op on a CPU copy of the cache taken just before it, in
+    f32 (a Q8_0 copy keeps its codes): positions and cursors equal, V
+    bit-equal, K within NMSE 1e-5 (Q8_0: codes within one step)."""
+
+    def __init__(self, torch, engine_mod):
+        self.torch, self.mod = torch, engine_mod
+        self.orig = engine_mod.kv_context_shift
+        engine_mod.kv_context_shift = self
+        self.ms: list = []
+        self.ref = None
+        self.checked: dict = {}
+
+    def close(self) -> None:
+        self.mod.kv_context_shift = self.orig
+
+    def __call__(self, cache, keep, discard, inv_freq, rope_type, mscale):
+        torch = self.torch
+        from superllama_tpu_torch.runtime.kv_cache import KVCache
+
+        first = self.ref is None
+        if first:
+            f = lambda t: None if t is None else t.to(
+                "cpu", torch.float32 if t.is_floating_point() else t.dtype, copy=True)
+            snap = KVCache(k=f(cache.k), v=f(cache.v), pos=f(cache.pos), cursor=f(cache.cursor),
+                           k_scale=f(cache.k_scale), v_scale=f(cache.v_scale))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.orig(cache, keep, discard, inv_freq, rope_type, mscale)
+        torch.cuda.synchronize()
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        if first:
+            ref = self.orig(snap, torch.as_tensor(keep).cpu(), torch.as_tensor(discard).cpu(),
+                            inv_freq.cpu(), rope_type, mscale)
+            self.ref = ref
+            S = cache.max_seq
+            check(torch.equal(cache.pos.cpu()[:, :S], ref.pos[:, :S])
+                  and torch.equal(cache.cursor.cpu(), ref.cursor),
+                  "shift: positions or cursors differ from the plain op's")
+            check(torch.equal(cache.v.cpu()[..., :S, :].to(ref.v.dtype), ref.v[..., :S, :]),
+                  "shift: V differs from the plain op's")
+            k = cache.k.cpu()[..., :S, :]
+            if cache.quantized:
+                dk = (k.int() - ref.k[..., :S, :].int()).abs().max().item()
+                check(dk <= 1, f"shift: Q8_0 K codes {dk} steps from the plain op's")
+                check(torch.equal(cache.v_scale.cpu()[..., :S], ref.v_scale[..., :S]),
+                      "shift: V scales differ from the plain op's")
+                self.checked = {"k_code_steps": dk, "k_scale_nmse": nmse(
+                    cache.k_scale.cpu()[..., :S], ref.k_scale[..., :S])}
+            else:
+                e = nmse(k.float(), ref.k[..., :S, :])
+                check(e <= 1e-5, f"shift: K NMSE {e} against the plain op's")
+                self.checked = {"k_nmse": e}
+        return out
+
+
+def shift_runs(torch, model) -> list:
+    """bf16, Q8_0 and paged engines with ctx_shift, n_ctx 512, 2 slots, each
+    slot a 100-token prompt and 600 greedy tokens (each shifts once on the
+    way: at n_past 511, 205 cells go); the first shift against the plain op
+    (the paged one on its dense row, and the chain after import through
+    export_row)."""
+    import gc
+
+    from superllama_tpu_torch.runtime import engine as engine_mod
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    from superllama_tpu_torch.runtime.engine import GenRequest
+
+    prompts = token_prompts(model.hparams.n_vocab, [100, 100], SEED + 42)
+    recs = []
+    for label, kw in (("bf16", {}), ("q8_0", {"kv_dtype": "q8_0"}),
+                      ("paged", {"paged": True, "page_size": 256, "max_pages_per_seq": 3})):
+        eng = Engine(model, n_slots=2, n_ctx=512, device="cuda", ctx_shift=True, **kw)
+        probe = ShiftProbe(torch, engine_mod)
+        rec = {"phase": "ctx_shift", "kv": label}
+        try:
+            if eng.paged:
+                orig = eng._paged_shift
+
+                def paged_shift(s, n_keep, n_discard, orig=orig, rec=rec):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    orig(s, n_keep, n_discard)
+                    torch.cuda.synchronize()
+                    rec.setdefault("paged_shift_ms", []).append(1e3 * (time.perf_counter() - t0))
+                    if "chain_checked" not in rec:
+                        k, v, pos = eng.pkv.export_row(s.idx)
+                        cells = pos >= 0
+                        n = int(cells.sum())
+                        ref = probe.ref
+                        check(torch.equal(pos[cells], ref.pos[0, :n]),
+                              "paged shift: the chain's positions differ from the plain op's")
+                        check(torch.equal(v[:, :, cells].float(), ref.v[:, 0, :, :n]),
+                              "paged shift: the chain's V differs from the plain op's")
+                        e = nmse(k[:, :, cells].float(), ref.k[:, 0, :, :n])
+                        check(e <= 1e-5, f"paged shift: the chain's K NMSE {e}")
+                        rec["chain_checked"] = {"cells": n, "k_nmse": e}
+
+                eng._paged_shift = paged_shift
+            reqs = [eng.submit(GenRequest(prompt_ids=p, max_tokens=600,
+                                          sampling={"greedy": True}, stop_eog=False))
+                    for p in prompts]
+            eng.run_until_drained()
+            for r in reqs:
+                res = r.result()
+                check(res["finish_reason"] == "length" and res["n_generated"] == 600,
+                      f"ctx shift {label}: {res['finish_reason']} after {res['n_generated']}")
+            check(eng.metrics["n_ctx_shifts"] >= 2,
+                  f"ctx shift {label}: {eng.metrics['n_ctx_shifts']} shifts")
+            rec.update({"n_ctx_shifts": eng.metrics["n_ctx_shifts"], "shift_ms": probe.ms,
+                        "first_shift": probe.checked})
+        finally:
+            probe.close()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit(rec)
+        recs.append(rec)
+    return recs
+
+
+def lookahead_run(torch, model) -> dict:
+    """LookaheadDecoder (W 8, N 4, G 8, n_ctx 1024, bf16) for 64 tokens
+    against Context greedy, the greedy rule at the tree step's width."""
+    from superllama_tpu_torch.runtime.context import Context
+    from superllama_tpu_torch.runtime.lookahead import LookaheadDecoder
+
+    prompt = token_prompts(model.hparams.n_vocab, [100], SEED + 43)[0]
+    la = LookaheadDecoder(model, W=8, N=4, G=8, n_ctx=1024, kv_dtype=torch.bfloat16,
+                          device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = la.generate(prompt, SPEC_TOKENS)[len(prompt):]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ctx = Context(model, n_ctx=1024, kv_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref = ctx.greedy_generate(prompt, SPEC_TOKENS, stop_eog=False)[len(prompt):]
+    torch.cuda.synchronize()
+    dt_ref = time.perf_counter() - t1
+    rule = greedy_rule(torch, model, "lookahead", prompt, ref, got, 1, la.T, masked=True)
+    return {"phase": "lookahead", "W": 8, "N": 4, "G": 8, "tokens": len(got),
+            "n_accept": la.n_accept, "n_steps": la.n_steps, "greedy": rule,
+            "tok_s": len(got) / dt, "context_tok_s": len(ref) / dt_ref}
+
+
+def herded_positions(n_prompt: int, n_dec: int, ga_n: int, ga_w: int, chunk: int = 64):
+    """passkey.cpp's positions of a prompt fed in chunks, then n_dec tokens
+    one by one: each compression moves the cells' positions as its
+    seq_add / seq_div / seq_add do."""
+    pos: list = []
+    state = {"n_past": 0, "ga_i": 0}
+
+    def herd():
+        n_past, ga_i = state["n_past"], state["ga_i"]
+        ib = (ga_n * ga_i) // ga_w
+        bd = (ga_w // ga_n) * (ga_n - 1)
+        dd = (ga_w // ga_n) - ib * bd - ga_w
+        for i, p in enumerate(pos):
+            if ga_i <= p < n_past:
+                p += ib * bd
+            if ga_i + ib * bd <= p < ga_i + ib * bd + ga_w:
+                p //= ga_n
+            elif ga_i + ib * bd + ga_w <= p < n_past + ib * bd:
+                p += dd
+            pos[i] = p
+        state["n_past"] -= bd
+        state["ga_i"] += ga_w // ga_n
+
+    def feed(k):
+        while state["n_past"] >= state["ga_i"] + ga_w:
+            herd()
+        pos.extend(range(state["n_past"], state["n_past"] + k))
+        state["n_past"] += k
+
+    for i in range(0, n_prompt, chunk):
+        feed(min(chunk, n_prompt - i))
+    for _ in range(n_dec):
+        feed(1)
+    return pos
+
+
+def self_extend_run(torch, model) -> dict:
+    """SelfExtend (ga_n 4, ga_w 512) over a bf16 Context: a 1,024-token
+    prompt, 16 greedy tokens; the cache positions equal the passkey
+    formula's, and the first herd's re-roped K equals the plain ops' on a
+    CPU f32 copy (NMSE 1e-5)."""
+    from types import SimpleNamespace
+
+    from superllama_tpu_torch.runtime.context import Context
+    from superllama_tpu_torch.runtime.kv_cache import KVCache
+    from superllama_tpu_torch.runtime.self_extend import SelfExtend
+
+    prompt = token_prompts(model.hparams.n_vocab, [1024], SEED + 44)[0]
+    ctx = Context(model, n_ctx=2048, kv_dtype=torch.bfloat16, device="cuda")
+    se = SelfExtend(ctx, ga_n=4, ga_w=512)
+    herd = se._herd
+    rec = {"phase": "self_extend", "ga_n": 4, "ga_w": 512, "herds": 0}
+
+    def checked_herd():
+        if se.n_past < se.ga_i + se.ga_w:
+            return herd()
+        first = rec["herds"] == 0
+        c = ctx.cache
+        if first:
+            snap = KVCache(k=c.k.to("cpu", torch.float32, copy=True),
+                           v=c.v.to("cpu", copy=True), pos=c.pos.to("cpu", copy=True),
+                           cursor=c.cursor.to("cpu", copy=True))
+            state = (se.n_past, se.ga_i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        herd()
+        torch.cuda.synchronize()
+        rec.setdefault("herd_ms", []).append(1e3 * (time.perf_counter() - t0))
+        rec["herds"] += 1
+        if first:
+            cpu = SelfExtend.__new__(SelfExtend)
+            cpu.ctx = SimpleNamespace(cache=snap, hp=ctx.hp)
+            cpu.ga_n, cpu.ga_w = se.ga_n, se.ga_w
+            cpu.n_past, cpu.ga_i = state
+            cpu._inv_freq, cpu._mscale = se._inv_freq.cpu(), se._mscale
+            cpu._herd()
+            S = c.max_seq
+            check(torch.equal(c.pos.cpu(), snap.pos), "self-extend: positions differ after a herd")
+            e = nmse(c.k.cpu().float()[..., :S, :], snap.k[..., :S, :])
+            check(e <= 1e-5, f"self-extend: re-roped K NMSE {e} against the plain ops")
+            rec["first_herd_k_nmse"] = e
+
+    se._herd = checked_herd
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = se.generate(prompt, 16)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    n = int(ctx.cache.cursor[0])
+    pos = ctx.cache.pos[0, :n].cpu().tolist()
+    want = herded_positions(len(prompt), 15, 4, 512)
+    check(pos == want, "self-extend: the cache positions differ from the passkey formula's")
+    check(len(out) == len(prompt) + 16, "self-extend: wrong token count")
+    rec.update({"cells": n, "max_position": max(pos), "positions_equal_formula": True})
+    return rec
+
+
+def phase_spec(torch, model, smi_line: str) -> None:
+    """Phase 4g, the decode variants on the card (see the module
+    docstring); each engine's record carries its launch counts."""
+    import gc
+
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    t_phase = time.perf_counter()
+    parts, last = {}, [t_phase]
+
+    def lap(name: str) -> None:      # seconds of each part of the phase
+        now = time.perf_counter()
+        parts[name], last[0] = now - last[0], now
+
+    n_vocab = model.hparams.n_vocab
+    prompts, lk_prompts = spec_prompts(n_vocab), repeated_prompts(n_vocab)
+    draft = build_draft(torch)
+    base = plain_baselines(torch, model, prompts, lk_prompts)
+    lap("draft and plain baselines")
+    recs = []
+    # the bf16 engine with the 1B draft behind the HTTP server
+    rec = spec_http(torch, model, draft, prompts, base["bf16"]["tokens"])
+    recs.append({"phase": "spec", "engine": SPEC_ENGINES[0][0], **rec})
+    lap(SPEC_ENGINES[0][0] + " (server, warm-up, HTTP and engine waves)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, kw, which, k, roll, ver, start in SPEC_ENGINES[1:]:
+        dm = draft if which == "1b" else model
+        eng = Engine(model, n_slots=4, n_ctx=2048, device="cuda", draft_model=dm, n_draft=k,
+                     **kw)
+        cache = "paged" if eng.paged else ("q8_0" if kw.get("kv_dtype") == "q8_0" else "bf16")
+        eng.start()
+        rec = spec_engine_run(torch, model, eng, label, prompts, base[cache]["tokens"], roll,
+                              ver, (start,), DRAFT_TOKENS if which == "1b" else SPEC_TOKENS)
+        eng.stop()
+        recs.append({"phase": "spec", "engine": label, **rec})
+        lap(label)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # a draft of another vocab: the target with a 128,256-piece tokenizer
+    tok = grammar_tokenizer(n_vocab)
+    tmodel = type(model)(**{**vars(model), "tokenizer": tok})
+    eng = Engine(tmodel, n_slots=4, n_ctx=2048, device="cuda",
+                 draft_model=byte_draft(torch, draft), n_draft=7)
+    check(eng.spec_translator is not None, "a draft of another vocab got no translator")
+    eng.start()
+    rec = spec_engine_run(torch, model, eng, "bf16-bytes-k7", prompts, base["bf16"]["tokens"],
+                          (), ("qmm",), ("fa_tc",), DRAFT_TOKENS)
+    eng.stop()
+    recs.append({"phase": "spec", "engine": "bf16-bytes-k7", **rec})
+    lap("bf16-bytes-k7")
+    del eng, tmodel
+    for label, kw, ver in (("bf16", {}, ()), ("paged", SPEC_CACHES["paged"], ("paged_tc",))):
+        eng = Engine(model, n_slots=4, n_ctx=2048, device="cuda", lookup_ngrams=8, **kw)
+        eng.start()
+        rec = spec_engine_run(torch, model, eng, f"lookup-{label}", lk_prompts,
+                              base[label]["lookup_tokens"], (), ver, ())
+        eng.stop()
+        check(rec["n_spec_drafted"] > 0, f"lookup {label}: nothing drafted")
+        recs.append({"phase": "lookup", "engine": label, **rec})
+        lap(f"lookup-{label}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for r in recs:
+        r["card"] = smi_line
+        emit(r)
+    shifts = shift_runs(torch, model)
+    lap("context shift")
+    la = lookahead_run(torch, model)
+    lap("lookahead")
+    emit({**la, "card": smi_line})
+    se = self_extend_run(torch, model)
+    lap("self-extend")
+    emit({**se, "card": smi_line})
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {"phase": "variants", "card": smi_line, "seconds": time.perf_counter() - t_phase,
+               "plain": {k: {"tok_s_b4": v["tok_s_b4"], "tok_s_b1": v["tok_s_b1"]}
+                         for k, v in base.items()},
+               "spec": {r["engine"]: {"tok_s_b4": r["tok_s_b4"], "tok_s_b1": r["tok_s_b1"],
+                                      "accept_rate": r["accept_rate"], **r["b4"]}
+                        for r in recs},
+               "shift_ms": {r["kv"]: r["shift_ms"][0] for r in shifts},
+               "paged_shift_ms": shifts[-1].get("paged_shift_ms", [None])[0],
+               "lookahead_tok_s": la["tok_s"], "seconds_by_part": parts}
+    summary["spec"] = {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                       for k, v in summary["spec"].items()}
+    emit(summary)
+
+
 # ------------------------------------------------------------ main
 
 # (name, source, the TPU kernel it replaces, the timing entry of its record)
@@ -2927,6 +3696,10 @@ def main() -> int:
         # structured output alone (phase 4f)
         phase_grammar(torch, build_model(torch), info["nvidia_smi"])
         return 0
+    if "--spec" in sys.argv[1:]:
+        # the decode variants alone (phase 4g)
+        phase_spec(torch, build_model(torch), info["nvidia_smi"])
+        return 0
     checks = phase_kernels(torch)
     model = build_model(torch)
     # each kernel's launches come from the serving run of its own path
@@ -2940,6 +3713,7 @@ def main() -> int:
     phase_warmup(torch, model)
     phase_state(torch, model, info["nvidia_smi"])
     phase_grammar(torch, model, info["nvidia_smi"])
+    phase_spec(torch, model, info["nvidia_smi"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)

@@ -103,10 +103,16 @@ def cmd_serve(args) -> int:
     from .server.http import Server, ServerApp
 
     model, kvd = _load(args)
+    draft = None
+    if args.draft_model:
+        from .models import load_model
+
+        draft = load_model(args.draft_model, keep_quantized=args.keep_quantized,
+                           device=args.device)
     app = ServerApp(model, n_slots=args.slots, n_ctx=args.ctx_size, kv_dtype=kvd,
                     device=args.device, paged=args.paged_kv,
                     page_size=args.kv_page_size, n_pages=args.kv_pages,
-                    warmup=args.warmup)
+                    warmup=args.warmup, draft_model=draft, n_draft=args.draft_n)
     srv = Server(app, host=args.host, port=args.port)
     srv.start()
     if app.warmup_info is not None:
@@ -186,6 +192,10 @@ def main(argv=None) -> int:
                    help="run a warmup pass (default): capture every graph before serving")
     p.add_argument("--no-warmup", dest="warmup", action="store_false",
                    help="skip model warmup")
+    p.add_argument("-md", "--draft-model",
+                   help="draft model for speculative decoding (loaded on --device)")
+    p.add_argument("--draft-n", "--draft", dest="draft_n", type=int, default=8,
+                   help="draft tokens per round")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("llama-bench", help="perf matrix (pp/tg × depth × reps)")

@@ -15,12 +15,14 @@ matmuls dispatch through ``qmatmul``. Attention follows the JAX routing:
    ["flash_decode"]``, run the split-KV decode kernel on a Q8_0 cache, and
    on a float or Q4_0 cache when ``hp.extra["flash_decode_float"]`` is set;
    ``hp.extra["flash_decode_off"]`` turns it off;
+ - a step with ``attn_mask`` (lookahead's tree mask) turns flash and the
+   decode kernel off and takes the plain path with that mask, as in JAX;
  - everything else takes the plain grouped-query path over the
    (dequantized) cache.
 The KV cache is updated in place.
 
 Not ported yet (they raise NotImplementedError): MoE, ALiBi, LayerNorm
-models, llama4 / chameleon / deci extras, M-RoPE, custom attention masks.
+models, llama4 / chameleon / deci extras, M-RoPE.
 """
 
 from __future__ import annotations
@@ -132,21 +134,27 @@ def llama_forward(
     decode-length bucketing); every valid slot index must be below it. Dense
     caches only.
 
+    ``attn_mask``: an additive (B, 1, T, S) mask that replaces the causal
+    mask (tree attention); it turns flash and the decode kernel off. Dense
+    caches only.
+
     ``flash=None`` selects the flash-attention kernel for prefill-sized
     steps on the GPU (T ≥ 32); see the module docstring for the rest."""
-    if attn_mask is not None:
-        raise NotImplementedError("custom attention masks are not ported yet")
     _check_supported(params, hp)
     B, T = tokens.shape
     on_gpu = tokens.device.type == "cuda"
     if flash is None:
         flash = on_gpu and T >= 32
+    if attn_mask is not None:
+        if isinstance(cache, PagedKVCache):
+            raise ValueError("attn_mask needs a dense KV cache")
+        flash = False       # a custom mask rides the additive-mask path
     H, Hkv, D, Dv = hp.n_head, hp.n_head_kv, hp.head_dim, hp.head_dim_v
     pos = pos.to(torch.int32)
     paged = isinstance(cache, PagedKVCache)
     # split-KV decode kernel: decode-sized steps on a Q8_0 cache, and on any
     # other dense cache when flash_decode_float asks for it
-    fdec = (not flash and not paged
+    fdec = (not flash and not paged and attn_mask is None
             and not hp.extra.get("flash_decode_off")
             and (on_gpu or bool(hp.extra.get("flash_decode")))
             and T * (H // Hkv) <= 32
@@ -168,7 +176,9 @@ def llama_forward(
             s_window = None
         Sw = s_window or S
         wpos = cache.positions(Sw)
-        if not flash and not fdec:
+        if attn_mask is not None:
+            mask_full = mask_swa = attn_mask.to(torch.float32)
+        elif not flash and not fdec:
             mask_full = causal_mask(wpos, pos)
             mask_swa = causal_mask(wpos, pos, hp.swa_window) if hp.swa_window else mask_full
 

@@ -66,16 +66,34 @@ reference server's update_slots semantics):
    (``_vocab_pieces``, built once per engine). Such a slot is never fast,
    so while it generates every slot takes the host-sampled step, and its
    first token comes from its chain, not from an argmax;
+ - speculative decoding (``draft_model``, ``n_draft``): a dense draft cache
+   of the engine's ``kv_dtype`` shadows the target's rows (dense even when
+   the target is paged). Such an engine starts each prompt whole and
+   synchronously (target chunks on the scratch or the paged row view, then
+   the draft's prompt on a one-row draft scratch): no prompt wave, no prefix
+   reuse. Each round, one function over tensors (``_d_rollout``) catches the
+   draft up on each row's 1-2 unseen tokens and drafts K tokens greedily,
+   read once; one batched target pass verifies [last token, drafts] at K+1
+   positions (``_verify``); each slot's host chain samples position by
+   position, the longest agreeing prefix plus one token is kept, and both
+   caches roll back (``kv_truncate_rows``, ``PagedKVManager.rollback``).
+   When the vocabs differ (or are not ``are_compatible``) a
+   ``VocabTranslator`` retokenizes through text (dense targets only);
+ - lookup decoding (``lookup_ngrams``): drafts from a per-slot
+   ``NgramCache`` over the slot's tokens, verified the same way;
+ - context shift (``ctx_shift``): a slot about to pass n_ctx drops the
+   oldest half after its first ``min(n_prompt, n_ctx // 4)`` cells
+   (``kv_context_shift``: K re-roped, the row compacted, in place; a paged
+   chain goes through a dense row and back);
+ - speculative, lookup and shift steps run eagerly; blocks in flight are
+   landed before any other kind of step;
  - ``metrics`` is the JAX engine's counter dict (requests, tokens,
-   prefill and decode seconds, decode steps, prompt tokens reused; the
-   speculative and context-shift counters stay 0), beside the port's own
-   ``stats``.
+   prefill and decode seconds, decode steps, prompt tokens reused, tokens
+   drafted and accepted, context shifts), beside the port's own ``stats``.
 
 Thread model: ``submit`` enqueues; one engine thread (``start``) or the
 caller (``run_until_drained``) owns the device. The cache is updated in
 place.
-
-Not ported yet: speculative and lookup decoding and context shift.
 """
 
 from __future__ import annotations
@@ -97,12 +115,16 @@ from ..device import resolve_device
 from ..models.loader import LoadedModel
 from ..models.registry import get_forward
 from ..ops import device_sampling as dsamp
+from ..ops.ref import rope_frequencies
 from .context import check_model_device
 from ..ops import _build
 from .graphs import GraphCache
-from .kv_cache import KVCache, kv_cache_init, kv_insert_row, kv_truncate_rows
+from .kv_cache import (KVCache, kv_cache_init, kv_context_shift, kv_insert_row,
+                       kv_truncate_rows)
+from .ngram import NgramCache
 from .paged_kv import PagedKVManager, paged_cache_init, paged_row_view
 from .sampling import GrammarSampler, SamplerChain, make_chain
+from .speculative import VocabTranslator, are_compatible
 
 PREFILL_BUCKETS = (32, 128, 512, 1024, 2048)
 KERNEL_SOURCES = ("qmv", "qmm", "fa", "fd", "paged")   # the kernels a step reaches
@@ -163,6 +185,9 @@ class _Slot:
     fast: bool = False               # config expressible by the device chain
     seed: int = 0
     n_sampled: int = 0               # tokens emitted: the key stream's position
+    # speculative decoding
+    d_past: int = 0                  # the draft cache's cells for this row
+    draft_tail: list[int] = field(default_factory=list)   # tokens the draft has not seen
 
 
 class Engine:
@@ -172,16 +197,30 @@ class Engine:
     ``graphs`` (default: on for a CUDA device) replays decode blocks and
     prompt chunks from CUDA graphs; ``graphs=False`` runs them eagerly, the
     CPU's only way. ``pipeline_depth`` is the number of dense-cache blocks
-    in flight."""
+    in flight. ``draft_model`` / ``n_draft``, ``lookup_ngrams`` and
+    ``ctx_shift`` are the JAX engine's decode variants (module docstring),
+    with its checks."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
                  kv_dtype: torch.dtype | str = torch.bfloat16,
                  prefill_buckets=PREFILL_BUCKETS, block_size: int = 8,
                  device=None, paged: bool = False, page_size: int = 256,
                  n_pages: int | None = None, max_pages_per_seq: int | None = None,
-                 pipeline_depth: int = 2, graphs: bool | None = None):
+                 pipeline_depth: int = 2, graphs: bool | None = None,
+                 draft_model: LoadedModel | None = None, n_draft: int = 8,
+                 ctx_shift: bool = False, lookup_ngrams: int = 0):
         self.device = resolve_device(device)
         check_model_device(model, self.device)
+        if paged:
+            if lookup_ngrams and lookup_ngrams + 1 > page_size:
+                raise ValueError("lookup window must fit one page")
+            if draft_model is not None and n_draft + 1 > page_size:
+                raise ValueError(f"speculative window {n_draft}+1 must fit one page "
+                                 f"({page_size})")
+        if ctx_shift and kv_dtype == "q4_0":
+            raise ValueError("ctx_shift needs an f32, bf16 or Q8_0 cache: the shift re-ropes "
+                             "K, and the JAX package's re-rope of a Q4_0 K fails (its "
+                             "per-32-group scales taken as Q8_0's per-row ones)")
         self.model = model
         self.hp = model.hparams
         self.n_slots = n_slots
@@ -232,6 +271,7 @@ class Engine:
             graphs = self.device.type == "cuda"
         self._graphs = GraphCache(self.device) if graphs else None
         self.stats = {"blocks": 0, "chained": 0, "chunks": 0}
+        self._init_variants(draft_model, n_draft, ctx_shift, lookup_ngrams)
         # the JAX engine's counters (what /metrics and /slots read)
         self.metrics = {
             "n_requests": 0, "n_tokens_generated": 0, "n_prompt_tokens": 0,
@@ -248,6 +288,44 @@ class Engine:
         self._running = False
         self._thread: threading.Thread | None = None
 
+    def _init_variants(self, draft_model, n_draft: int, ctx_shift: bool,
+                       lookup_ngrams: int) -> None:
+        """The draft model's shadow cache and vocab translator, the context
+        shift's rope table and the n-gram caches (JAX ``Engine.__init__``)."""
+        self.draft_model = draft_model
+        self.n_draft = int(n_draft)
+        self.spec_translator = None
+        if draft_model is not None:
+            check_model_device(draft_model, self.device)
+            dhp = draft_model.hparams
+            tt, td = self.model.tokenizer, draft_model.tokenizer
+            if dhp.n_vocab != self.hp.n_vocab or (
+                    tt is not None and td is not None and not are_compatible(tt, td)):
+                if tt is None or td is None:
+                    raise ValueError("draft/target vocab mismatch and no tokenizers to "
+                                     "translate through (common/speculative.cpp:89-148)")
+                if self.paged:
+                    raise ValueError("a draft of another vocab needs a dense target cache: "
+                                     "the JAX engine's paged round feeds draft ids to the "
+                                     "target untranslated")
+                self.spec_translator = VocabTranslator(tt, td)
+            self._dfwd = get_forward(dhp.arch)
+            self.d_cache = self._new_cache(self.n_slots, dhp)
+            self._d_scratch = self._new_cache(1, dhp)
+        self.ctx_shift = bool(ctx_shift)
+        if self.ctx_shift:
+            # the JAX engine's table: no rope scaling, no per-dim factors
+            self._rope = rope_frequencies(self.hp.head_dim, self.hp.n_rot,
+                                          self.hp.rope_freq_base, device=self.device)
+        self.lookup_k = int(lookup_ngrams)
+        self._ngrams: dict[int, NgramCache] = {}
+        self._ngram_hwm: dict[int, int] = {}
+
+    @property
+    def _variant(self) -> bool:
+        """A speculative or lookup engine: never a dense block, no micro-wave."""
+        return self.draft_model is not None or bool(self.lookup_k)
+
     def _block_io(self) -> dict:
         B = self.n_slots
         i64 = dict(dtype=torch.int64, device=self.device)
@@ -260,8 +338,8 @@ class Engine:
         io["keys"] = torch.zeros((B, 2), **i64)
         return io
 
-    def _new_cache(self, batch: int) -> KVCache:
-        hp = self.hp
+    def _new_cache(self, batch: int, hp=None) -> KVCache:
+        hp = hp or self.hp
         return kv_cache_init(hp.n_layer, batch, self.n_ctx, hp.n_head_kv,
                              hp.head_dim, hp.head_dim_v, dtype=self.kv_dtype,
                              device=self.device)
@@ -314,7 +392,8 @@ class Engine:
         -1, or the view's empty table), and the micro-wave (two 2-token
         prompts, 2 tokens each, as the JAX engine serves) is erased from its
         slots afterwards, so no slot's state changes, and ``metrics`` is
-        left as it was. Without graphs (the CPU) only the micro-wave runs.
+        left as it was. Without graphs (the CPU) only the micro-wave runs. A
+        speculative or lookup engine skips the micro-wave, as in JAX.
         Returns the keys captured, their capture seconds, the graph pool's
         bytes and the seconds taken."""
         if self._running:
@@ -331,7 +410,7 @@ class Engine:
                     if key not in self._graphs.graphs:
                         self._graphs.capture(key, fn, warm, kind)
                         keys.append(key)
-            if self.n_slots >= 2:
+            if self.n_slots >= 2 and not self._variant:    # as the JAX engine
                 t_wave = time.perf_counter()
                 metrics = dict(self.metrics)
                 reqs = [self.submit(GenRequest(prompt_ids=[1, 2], max_tokens=2,
@@ -349,9 +428,11 @@ class Engine:
                 "seconds": time.perf_counter() - t0}
 
     def _graph_targets(self) -> list:
-        """(key, fn, warm, kind) of every graph the engine can reach."""
+        """(key, fn, warm, kind) of every graph the engine can reach: a
+        dense speculative or lookup engine takes no block, and a speculative
+        one starts its prompts at one row only."""
         out = []
-        if self.block_size > 1:
+        if self.block_size > 1 and (self.paged or not self._variant):
             wins = [None] if self.paged else self._windows()
             out += [self._block_graph(self.block_size, win, greedy)
                     for win in wins for greedy in (True, False)]
@@ -359,7 +440,8 @@ class Engine:
             Ps = sorted({min(b, self.page_size) for b in self.buckets})
         else:
             Ps = list(self.buckets)
-        rows = (1,) if self.paged or self.n_slots < 2 else (1, self.n_slots)
+        one_row = self.paged or self.n_slots < 2 or self.draft_model is not None
+        rows = (1,) if one_row else (1, self.n_slots)
         out += [self._chunk_graph(r, P) for r in rows for P in Ps]
         if not self.paged and self.n_slots == 1:    # a reused prefix's rest, in place
             out += [self._chunk_graph(1, P, main=True) for P in Ps]
@@ -536,13 +618,16 @@ class Engine:
         n = min(self._common_prefix(slot.cache_tokens, ids), len(ids) - 1)
         return n if n >= 16 else 0
 
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        """A host int array on the device: token ids as int64, positions
+        (and other int32 arrays) as int32."""
+        dtype = torch.int64 if arr.dtype == np.int64 else torch.int32
+        return torch.as_tensor(arr, dtype=dtype).to(self.device)
+
     def _forward(self, tokens: np.ndarray, pos: np.ndarray, cache: KVCache,
                  s_window: int | None = None) -> torch.Tensor:
-        logits, _ = self._fwd(
-            self.model.params, self.hp,
-            torch.as_tensor(tokens, dtype=torch.int64).to(self.device),
-            torch.as_tensor(pos, dtype=torch.int32).to(self.device), cache,
-            s_window=s_window)
+        logits, _ = self._fwd(self.model.params, self.hp, self._dev(tokens), self._dev(pos),
+                              cache, s_window=s_window)
         return logits
 
     def _bucket(self, n: int) -> int:
@@ -618,14 +703,18 @@ class Engine:
             raise ValueError("empty prompt")
         if any(t < 0 or t >= self.hp.n_vocab for t in ids):
             raise ValueError(f"prompt token ids must lie in [0, {self.hp.n_vocab})")
-        if len(ids) + req.max_tokens > self.n_ctx:
+        if not self.ctx_shift and len(ids) + req.max_tokens > self.n_ctx:
             raise ValueError(
                 f"prompt ({len(ids)}) + max_tokens ({req.max_tokens}) exceeds "
                 f"n_ctx ({self.n_ctx})")
+        if len(ids) + 1 > self.n_ctx:
+            raise ValueError(f"prompt ({len(ids)}) exceeds n_ctx ({self.n_ctx})")
         sampler = self._make_sampler(req)    # a bad grammar fails before the slot changes
         if not self.paged:
             # the truncate below keeps rows by host counts
             self._flush_pending()
+        if self.draft_model is not None:
+            return self._start_request_sync(slot, req, ids, sampler)
         n_cached = self._reusable(slot, ids)
         t0 = time.perf_counter()
         if self.paged:
@@ -657,12 +746,80 @@ class Engine:
         slot.cache_tokens = list(ids)
         self.metrics["n_prompt_tokens"] += len(ids)
         self.metrics["n_prompt_cached"] += n_cached
+        self._setup_sampler(slot, req, ids, sampler)
+
+    def _setup_sampler(self, slot: _Slot, req: GenRequest, ids: list[int],
+                       sampler: SamplerChain) -> None:
         slot.sampler = sampler
         slot.fast = req.grammar is None and dsamp.chain_supported(req.sampling or {})
         slot.seed = int((req.sampling or {}).get("seed", 0))
         slot.n_sampled = 0
         for t in ids[-64:]:
             slot.sampler.ctx.recent_tokens.append(t)
+
+    # ------------------------------------------------- speculative start
+
+    def _start_request_sync(self, slot: _Slot, req: GenRequest, ids: list[int],
+                            sampler: SamplerChain) -> None:
+        """Whole-prompt synchronous start of a speculative engine (the JAX
+        engine's ``_start_request_sync`` / ``_start_request_spec_paged``):
+        the target's prompt in chunks of one bucket (dense: on the scratch,
+        then copied into the slot's row; paged: on the row view, chunks of
+        at most a page), the draft's shadow prefill, then the first token
+        from the request's chain."""
+        t0 = time.perf_counter()
+        n = len(ids)
+        slot.req = req
+        slot.state = SlotState.GENERATING
+        slot.n_past = slot.n_prompt = n
+        slot.generated = []
+        slot.cache_tokens = list(ids)
+        slot.text = ""
+        slot.t_start = t0
+        slot.in_place, slot.pending, slot.prefill_off = False, [], 0
+        self._setup_sampler(slot, req, ids, sampler)
+        self.metrics["n_prompt_tokens"] += n
+        P = self._bucket(n)
+        if self.paged:
+            P = min(P, self.page_size)
+            self.pkv.free_seq(slot.idx)
+            slot.pending, slot.prefill_P = list(ids), P
+            while slot.pending:
+                finals = self._paged_prefill_chunk(slot)
+            logits = finals[0][1]
+        else:
+            for off in range(0, n, P):
+                io = self._run_chunk(1, P, {0: (ids[off:off + P], off)})
+            logits = io["logits"][0].clone()
+            kv_insert_row(self.cache, self._scratch, slot.idx, n)
+            self._release_scratch()
+        slot.prefill_off = 0
+        self.metrics["prefill_s"] += time.perf_counter() - t0
+        self._draft_prefill_prompt(slot, ids, P)
+        self._emit(slot, slot.sampler.sample(logits.float().cpu().numpy()))
+        if slot.state == SlotState.GENERATING:
+            slot.draft_tail = [slot.generated[-1]]
+
+    def _draft_prefill_prompt(self, slot: _Slot, ids: list[int], P: int) -> None:
+        """The draft's shadow prefill of the prompt (retokenized into the
+        draft vocab when translating), eagerly on the one-row draft scratch
+        in chunks of P, then copied into the slot's draft row."""
+        dm = self.draft_model
+        d_ids = (self.spec_translator.tgt_to_dft(ids)
+                 if self.spec_translator is not None else ids)
+        dn = len(d_ids)
+        sc = self._d_scratch
+        for off in range(0, dn, P):
+            chunk = d_ids[off:off + P]
+            tok = np.zeros((1, P), np.int64)
+            pos = np.full((1, P), -1, np.int32)
+            tok[0, :len(chunk)] = chunk
+            pos[0, :len(chunk)] = np.arange(off, off + len(chunk))
+            self._dfwd(dm.params, dm.hparams, self._dev(tok), self._dev(pos), sc)
+        kv_insert_row(self.d_cache, sc, slot.idx, dn)
+        sc.pos.fill_(-1)
+        sc.cursor.zero_()
+        slot.d_past = dn
 
     def _prefill_step(self) -> bool:
         """Advance every loading slot by one prompt chunk."""
@@ -821,22 +978,45 @@ class Engine:
         return next((w for w in self._windows()[:-1] if w >= need), None)
 
     def _decode_step(self) -> bool:
-        """Decode the generating slots: a device block when every one's
-        sampler fits the device chain and the context allows (the JAX
-        engine's routing), else one host-sampled step."""
-        active = [s for s in self.slots if s.state == SlotState.GENERATING]
-        if not active:
+        """Decode the generating slots, routed as the JAX engine routes
+        them: a context shift first where a slot is about to pass n_ctx;
+        then a speculative round, a lookup round (when some slot has a
+        draft) while K+1 more cells fit every slot; else a device block when
+        every slot's sampler fits the device chain and the context allows
+        (a dense speculative or lookup engine never takes one); else one
+        host-sampled step."""
+        generating = lambda: [s for s in self.slots if s.state == SlotState.GENERATING]
+        if not generating():
             return False
         t0 = time.perf_counter()
+        if self.ctx_shift:
+            self._maybe_context_shift()
+        active = generating()
         nb = self.block_size
-        fast = nb > 1 and all(s.fast for s in active)
-        if self.paged:
-            if fast and all(s.n_past + nb + 1 <= self.n_ctx for s in active):
+        fast = lambda: nb > 1 and all(s.fast for s in active)
+        fits = lambda k: all(s.n_past + k + 1 <= self.n_ctx for s in active)
+        block = not self.paged and not self._variant and fast() and fits(2 * nb)
+        if self._pending_q and not block:
+            # land the blocks in flight before another kind of step: they may
+            # end some slots
+            self._flush_pending()
+            active = generating()
+            if not active:
+                return True
+        if self.draft_model is not None and fits(self.n_draft):
+            if self.spec_translator is not None:
+                self._spec_translate_step(active)
+            else:
+                self._spec_decode_step(active)
+        elif self.lookup_k and fits(self.lookup_k) and self._lookup_decode_step(active):
+            pass
+        elif self.paged:
+            if fast() and fits(nb):
                 self._paged_block_decode_step(active)
             else:
                 self._paged_decode_step(active)
             self.metrics["paged"] = dict(self.pkv.stats)
-        elif fast and all(s.n_past + 2 * nb + 1 <= self.n_ctx for s in active):
+        elif block:
             self._block_decode_step(active)
         else:
             self._host_decode_step(active)
@@ -844,9 +1024,256 @@ class Engine:
         self.metrics["n_decode_steps"] += 1
         return True
 
+    # ------------------------------------------------- speculative decoding
+
+    @torch.no_grad()
+    def _d_rollout(self, tail: torch.Tensor, dpos: torch.Tensor, tail_len: torch.Tensor,
+                   base_pos: torch.Tensor) -> torch.Tensor:
+        """The whole greedy draft rollout as one function over tensors (the
+        JAX engine's ``d_rollout``): the draft catches up on each row's
+        (B, W) tail at dpos (-1: padding; a row whose first column is -1 is
+        idle), its argmax after the tail's last token is draft 0, then K-1
+        single-token steps at base_pos + k, each fed the argmax before it.
+        Returns the (B, K) drafts on the device; no host read inside."""
+        dm, dc = self.draft_model, self.d_cache
+        logits, _ = self._dfwd(dm.params, dm.hparams, tail, dpos, dc)
+        nxt = torch.argmax(logits, dim=-1)
+        tok = torch.gather(nxt, 1, (tail_len.to(torch.int64) - 1)[:, None])[:, 0]
+        live = dpos[:, 0] >= 0
+        drafts = [tok]
+        for k in range(1, self.n_draft):
+            pos = torch.where(live, base_pos + k, -1).to(torch.int32)[:, None]
+            lg, _ = self._dfwd(dm.params, dm.hparams, tok[:, None], pos, dc)
+            tok = torch.argmax(lg[:, 0], dim=-1)
+            drafts.append(tok)
+        return torch.stack(drafts, dim=1)
+
+    def _verify(self, rows: list[_Slot], vtok: np.ndarray, vpos: np.ndarray) -> tuple:
+        """One target pass over (B, K+1) tokens at their positions: the
+        slots' verify. A paged target plans K+1 cells a row (the rows made
+        resident and pinned) and saves each row's cursor for the rollback.
+        Returns (logits (B, K+1, V) f32 on the host, saved cursors)."""
+        if not self.paged:
+            return self._forward(vtok, vpos, self.cache).float().cpu().numpy(), {}
+        with self._paged_hold(rows):
+            saved = {s.idx: self.pkv.save_cursor(s.idx) for s in rows}
+            self.pkv.plan_step({s.idx: vtok.shape[1] for s in rows})
+            logits = self._forward(vtok, vpos, self.pkv.cache)
+            self.pkv.finish_step()
+        return logits.float().cpu().numpy(), saved
+
+    def _accept(self, s: _Slot, vlogits: np.ndarray, drafts: np.ndarray, L: int) -> int:
+        """Sample the slot's verify positions from its chain in order,
+        emitting each token, while it equals the draft before it (at most L
+        drafts) and the slot still generates: the longest agreeing prefix
+        plus one token. Returns the drafts accepted."""
+        accepted = 0
+        for i in range(L + 1):
+            t = s.sampler.sample(vlogits[s.idx, i])
+            self._emit(s, t)
+            if i < L and t == int(drafts[i]) and s.state == SlotState.GENERATING:
+                accepted += 1
+                continue
+            break
+        return accepted
+
+    def _verify_tokens(self, rows: list[_Slot], drafts: np.ndarray) -> tuple:
+        """(tokens, positions) (B, K+1) of the verify: each row's last
+        token then its K drafts, at n_past on; idle rows at -1."""
+        B, K1 = self.n_slots, drafts.shape[1] + 1
+        vtok = np.zeros((B, K1), np.int64)
+        vpos = np.full((B, K1), -1, np.int32)
+        for s in rows:
+            vtok[s.idx, 0] = s.generated[-1]
+            vtok[s.idx, 1:] = drafts[s.idx]
+            vpos[s.idx] = s.n_past + np.arange(K1)
+        return vtok, vpos
+
+    def _verify_and_commit(self, active: list[_Slot], drafts: np.ndarray,
+                           lens: np.ndarray) -> dict[int, int]:
+        """The batched verify of each slot's last token and its lens[idx]
+        drafts, accepted per slot (``_accept``), the spec counters, then
+        the target rolls back to each slot's new n_past (a paged row to
+        its saved cursor). Returns each slot's count of tokens emitted."""
+        vtok, vpos = self._verify_tokens(active, drafts)
+        vlogits, saved = self._verify(active, vtok, vpos)
+        keep_t = self._keep_vector()
+        emitted = {}
+        for s in active:
+            L = int(lens[s.idx])
+            accepted = self._accept(s, vlogits, drafts[s.idx], L)
+            self.metrics["n_spec_drafted"] += L
+            self.metrics["n_spec_accepted"] += accepted
+            n = emitted[s.idx] = accepted + 1
+            s.n_past += n
+            s.cache_tokens.extend(int(x) for x in vtok[s.idx, :n])
+            keep_t[s.idx] = s.n_past
+            if self.paged:
+                self.pkv.rollback(s.idx, saved[s.idx], n, vtok.shape[1])
+        if not self.paged:
+            self._truncate(keep_t)
+        return emitted
+
+    def _spec_decode_step(self, active: list[_Slot]) -> None:
+        """One speculative round for every generating slot (the JAX
+        engine's ``_spec_decode_step``): the draft rollout over each row's
+        1-2 unseen tokens, the batched verify, accept per slot, then both
+        caches roll back: the target to n_past, the draft to the cells it
+        was fed that the target kept."""
+        K, B = self.n_draft, self.n_slots
+        tok = np.zeros((B, 2), np.int64)
+        dpos = np.full((B, 2), -1, np.int32)
+        tlen = np.ones(B, np.int32)
+        bpos = np.zeros(B, np.int32)
+        for s in active:
+            tail = s.draft_tail[:2]
+            tok[s.idx, :len(tail)] = tail
+            dpos[s.idx, :len(tail)] = s.d_past + np.arange(len(tail))
+            tlen[s.idx] = len(tail)
+            bpos[s.idx] = s.d_past + len(tail) - 1
+        drafts = self._d_rollout(self._dev(tok), self._dev(dpos), self._dev(tlen),
+                                 self._dev(bpos)).cpu().numpy()
+        for s in active:
+            s.d_past += len(s.draft_tail[:2]) + K - 1
+        self._verify_and_commit(active, drafts, np.full(B, K, np.int32))
+        keep_d = np.asarray([s.d_past for s in self.slots], np.int32)
+        for s in active:
+            keep_d[s.idx] = s.d_past = min(s.n_past, s.d_past)
+            if s.state == SlotState.GENERATING:
+                # the tokens the draft has not been fed (1 or 2)
+                s.draft_tail = s.generated[s.d_past - s.n_prompt:s.n_past + 1 - s.n_prompt]
+        self._truncate(keep_d, self.d_cache)
+
+    def _spec_translate_step(self, active: list[_Slot]) -> None:
+        """A speculative round through the vocab translator (the JAX
+        engine's ``_spec_translate_step``, common/speculative.cpp:200-222,
+        351-359): each slot's unseen target tokens are retokenized into the
+        draft vocab and committed to the draft cache (a bucketed width W),
+        the K draft tokens go back through text to target ids (any count up
+        to K) for the batched verify; the draft cache keeps only the
+        committed tails."""
+        K, B = self.n_draft, self.n_slots
+        tr = self.spec_translator
+        tails = {s.idx: tr.tgt_to_dft(s.draft_tail) for s in active}
+        live = [s for s in active if tails[s.idx]]
+        drafts = np.zeros((B, K), np.int64)
+        lens = np.zeros(B, np.int32)
+        if live:
+            W = 2
+            while W < max(len(tails[s.idx]) for s in live):
+                W *= 2
+            tok = np.zeros((B, W), np.int64)
+            dpos = np.full((B, W), -1, np.int32)
+            tlen = np.ones(B, np.int32)
+            bpos = np.zeros(B, np.int32)
+            for s in live:
+                tl = tails[s.idx][:W]
+                tok[s.idx, :len(tl)] = tl
+                dpos[s.idx, :len(tl)] = s.d_past + np.arange(len(tl))
+                tlen[s.idx] = len(tl)
+                bpos[s.idx] = s.d_past + len(tl) - 1
+            dd = self._d_rollout(self._dev(tok), self._dev(dpos), self._dev(tlen),
+                                 self._dev(bpos)).cpu().numpy()
+            for s in live:
+                s.d_past += len(tails[s.idx][:W])     # committed; the drafts roll back
+                s.draft_tail = []
+                tgt = tr.dft_to_tgt([int(x) for x in dd[s.idx]])[:K]
+                lens[s.idx] = len(tgt)
+                drafts[s.idx, :len(tgt)] = tgt
+        keep_d = np.asarray([s.d_past for s in self.slots], np.int32)
+        emitted = self._verify_and_commit(active, drafts, lens)
+        for s in active:
+            if s.state == SlotState.GENERATING:
+                s.draft_tail = s.draft_tail + s.generated[-emitted[s.idx]:]
+        self._truncate(keep_d, self.d_cache)
+
+    def _lookup_decode_step(self, active: list[_Slot]) -> bool:
+        """One lookup round (the JAX engine's ``_lookup_decode_step``):
+        n-gram drafts per slot (up to K, maybe none) from the slot's
+        ``NgramCache``, grown from its high-water mark, then the batched
+        verify and accept. Returns False, untouched, when no slot has a
+        draft."""
+        K, B = self.lookup_k, self.n_slots
+        drafts = np.zeros((B, K), np.int64)
+        lens = np.zeros(B, np.int32)
+        for s in active:
+            seq = s.cache_tokens + s.generated[-1:]
+            ng = self._ngrams.get(s.idx)
+            hwm = self._ngram_hwm.get(s.idx, 0)
+            if ng is None or hwm > len(seq):
+                ng = self._ngrams[s.idx] = NgramCache()
+                hwm = 0
+            if len(seq) > hwm:
+                ng.extend(seq[max(hwm - ng.n_max, 0):hwm], seq[hwm:])
+                self._ngram_hwm[s.idx] = len(seq)
+            d = ng.draft(seq, K)
+            lens[s.idx] = len(d)
+            drafts[s.idx, :len(d)] = d
+        if not lens.any():
+            return False
+        self._verify_and_commit(active, drafts, lens)
+        return True
+
+    # ------------------------------------------------------ context shift
+
+    def _shift_plan(self, s: _Slot) -> tuple[int, int]:
+        """(n_keep, n_discard) of a slot's shift: keep min(n_prompt,
+        n_ctx // 4) cells, drop half of the rest (at least one)."""
+        n_keep = min(s.n_prompt, self.n_ctx // 4)
+        return n_keep, max((s.n_past - n_keep) // 2, 1)
+
+    def _maybe_context_shift(self) -> None:
+        """Shift every generating slot about to pass n_ctx (the JAX
+        engine's ``_maybe_context_shift`` and ``_maybe_paged_context_shift``):
+        evict the oldest half after its kept cells, re-rope and compact, in
+        the cache's own storage; a paged chain is exported to a dense row,
+        shifted there and imported back. Blocks in flight land first."""
+        hit = lambda: [s for s in self.slots if s.state == SlotState.GENERATING
+                       and s.n_past + 1 > self.n_ctx - 1]
+        if not hit():
+            return
+        self._flush_pending()
+        plans = [(s, *self._shift_plan(s)) for s in hit()]
+        if self.paged:
+            for s, n_keep, n_discard in plans:
+                self._paged_shift(s, n_keep, n_discard)
+        else:
+            keep = np.zeros(self.n_slots, np.int32)
+            discard = np.zeros(self.n_slots, np.int32)
+            for s, n_keep, n_discard in plans:
+                keep[s.idx], discard[s.idx] = n_keep, n_discard
+            inv_freq, mscale = self._rope
+            kv_context_shift(self.cache, self._dev(keep), self._dev(discard), inv_freq,
+                             self.hp.rope_type, mscale)
+        for s, n_keep, n_discard in plans:
+            s.n_past -= n_discard
+            s.cache_tokens = s.cache_tokens[:n_keep] + s.cache_tokens[n_keep + n_discard:]
+            self.metrics["n_ctx_shifts"] += 1
+
+    def _paged_shift(self, s: _Slot, n_keep: int, n_discard: int) -> None:
+        """A paged slot's shift: its chain's cells as one dense row of n_ctx
+        cells, shifted there, and the row's valid cells imported back as a
+        new chain. The gap cells of closed pages are left out: the JAX
+        engine keeps them in the row (at position -1), which its compaction
+        then drops, but a chain with gaps may hold more than n_ctx cells."""
+        k, v, pos = self.pkv.export_row(s.idx)
+        cells = pos >= 0
+        k, v, pos = k[:, :, cells], v[:, :, cells], pos[cells]
+        n = int(pos.shape[0])
+        row = self._new_cache(1)
+        row.k[:, 0, :, :n] = k.to(row.k.device)
+        row.v[:, 0, :, :n] = v.to(row.v.device)
+        row.pos[0, :n] = pos.to(row.pos.device)
+        row.cursor.fill_(n)
+        inv_freq, mscale = self._rope
+        kv_context_shift(row, torch.tensor([n_keep]), torch.tensor([n_discard]), inv_freq,
+                         self.hp.rope_type, mscale)
+        n_new = int(row.cursor[0])
+        self.pkv.import_row(s.idx, row.k[:, 0, :, :n_new], row.v[:, 0, :, :n_new],
+                            row.pos[0, :n_new])
+
     def _host_decode_step(self, active: list[_Slot]) -> None:
         """One host-sampled decode token for every generating slot."""
-        self._flush_pending()
         tokens = np.zeros((self.n_slots, 1), np.int64)
         pos = np.full((self.n_slots, 1), -1, np.int32)
         for s in active:
@@ -985,11 +1412,13 @@ class Engine:
         self.stats["chained"] += 1
         return self._run_block(pend["ids"], pend["win"], pend["greedy"])
 
-    def _truncate(self, keep: np.ndarray) -> None:
-        keep_t = torch.from_numpy(keep)
+    def _truncate(self, keep: np.ndarray, cache: KVCache | None = None) -> None:
+        """Cut each row of the cache (default: the target's) to its keep
+        count, in place."""
+        keep_t = torch.from_numpy(np.asarray(keep, np.int32))
         if self.device.type == "cuda":
             keep_t = keep_t.pin_memory().to(self.device, non_blocking=True)
-        kv_truncate_rows(self.cache, keep_t)
+        kv_truncate_rows(self.cache if cache is None else cache, keep_t)
 
     def _consume_block(self, pend: dict, inflight_extra: int = 0) -> None:
         """Read a landed block's tokens, emit them per slot, roll the cache
@@ -1170,7 +1599,7 @@ class Engine:
         eog = req.stop_eog and vocab is not None and vocab.is_eog(token)
         hit_stop = any(ss in slot.text for ss in req.stop_strings)
         done = eog or hit_stop or len(slot.generated) >= req.max_tokens
-        if done or slot.n_past + 1 > self.n_ctx:
+        if done or (slot.n_past + 1 > self.n_ctx and not self.ctx_shift):
             self._finish(slot, "stop" if (eog or hit_stop) else "length")
 
     def _finish(self, slot: _Slot, finish_reason: str):

@@ -23,7 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.ref import quant_scale
+from ..ops.ref import apply_rope, quant_scale
 
 
 @dataclass
@@ -222,3 +222,172 @@ def kv_insert_row(big: KVCache, small: KVCache, row: int, n_valid: int) -> KVCac
     big.pos[row] = small.pos[0]
     big.cursor[row] = n_valid
     return big
+
+
+# --- sequence ops -------------------------------------------------------------
+#
+# The JAX package's seq_* ops and context shift (llama_memory_seq_* of
+# include/llama.h) return new arrays; these write their results into the
+# cache's own tensors (``copy_``), since captured CUDA graphs address them.
+# They read and write slots [0, max_seq) only; the spare slot is left alone.
+
+
+def _gather_slots(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """x (B, H, S, ...) gathered along S by a per-row (B, S) order."""
+    idx = order.reshape(order.shape[0], 1, order.shape[1], *([1] * (x.ndim - 3)))
+    return torch.gather(x, 2, idx.expand(x.shape))
+
+
+def _rerope_k(cache: KVCache, il: int, delta: torch.Tensor, inv_freq: torch.Tensor,
+              rope_type: int = 0, mscale: float = 1.0):
+    """Layer il's stored K over its first S slots re-rotated by a per-(row,
+    slot) position delta (B, S): the reference's shift by rope rerun. A Q8_0
+    K is dequantized, rotated and requantized with ``q8_quantize_rows``, as
+    the JAX package does. Returns (k, k_scale or None), new tensors.
+
+    A Q4_0 K raises: the JAX package multiplies its packed nibbles by the
+    per-32-group scales as if they were Q8_0's per-row ones, which fails."""
+    if cache.q4:
+        raise ValueError("a Q4_0 KV cache cannot be re-roped (context shift, seq_add_rerope, "
+                         "seq_div): the JAX package's _rerope_k treats its per-32-group "
+                         "scales as Q8_0's per-row ones and fails")
+    S = cache.max_seq
+    k = cache.k[il][:, :, :S]
+    if cache.quantized:
+        k = k.to(torch.float32) * cache.k_scale[il][:, :, :S, None]
+    # (B, H, S, D) → (B, S, H, D): rope over S
+    k = apply_rope(k.transpose(1, 2), delta.to(torch.int32), inv_freq, rope_type,
+                   mscale).transpose(1, 2)
+    if cache.quantized:
+        return q8_quantize_rows(k)
+    return k.to(cache.k.dtype), None
+
+
+def kv_context_shift(cache: KVCache, keep: torch.Tensor, discard: torch.Tensor,
+                     inv_freq: torch.Tensor, rope_type: int = 0,
+                     mscale: float = 1.0) -> KVCache:
+    """Context shift (server-context.cpp:1976-2023 semantics), in place: per
+    row, drop positions [keep, keep + discard) and slide later positions
+    down by ``discard``. K is re-roped by −discard and the row compacted
+    (a stable sort by new position, holes last), so slot order stays
+    position order. keep / discard: (B,) ints; discard 0 leaves a row's
+    positions as they are (its K goes through the rotation by 0, as in
+    JAX)."""
+    S = cache.max_seq
+    pos = cache.pos[:, :S]
+    keep = torch.as_tensor(keep).to(pos.device, torch.int32)[:, None]
+    discard = torch.as_tensor(discard).to(pos.device, torch.int32)[:, None]
+    kd = keep + discard
+    sel_discard = (pos >= keep) & (pos < kd) & (discard > 0)
+    sel_shift = (pos >= kd) & (discard > 0)
+    new_pos = torch.where(sel_discard, -1, torch.where(sel_shift, pos - discard, pos))
+    delta = torch.where(sel_shift, -discard, 0)
+    order = torch.argsort(torch.where(new_pos < 0, 2 ** 30, new_pos), dim=1, stable=True)
+    for il in range(cache.k.shape[0]):
+        k, ks = _rerope_k(cache, il, delta, inv_freq, rope_type, mscale)
+        cache.k[il][:, :, :S].copy_(_gather_slots(k, order))
+        cache.v[il][:, :, :S].copy_(_gather_slots(cache.v[il][:, :, :S], order))
+        if ks is not None:
+            cache.k_scale[il][:, :, :S].copy_(_gather_slots(ks, order))
+            cache.v_scale[il][:, :, :S].copy_(_gather_slots(cache.v_scale[il][:, :, :S], order))
+    pos_c = torch.gather(new_pos, 1, order)
+    pos.copy_(pos_c)
+    cache.cursor.copy_((pos_c >= 0).sum(dim=1, dtype=torch.int32))
+    return cache
+
+
+def kv_gather_slots(cache: KVCache, idx: torch.Tensor, n_valid: torch.Tensor) -> KVCache:
+    """Reorder / compact rows by slot index, in place: new slot j takes old
+    slot idx[b, j]; slots from n_valid[b] on become empty and the cursor is
+    n_valid (tree-decoding accept: lookahead keeps the prefix and the
+    winning branch's cells)."""
+    S = cache.max_seq
+    idx = torch.as_tensor(idx).to(cache.pos.device, torch.int64)
+    n_valid = torch.as_tensor(n_valid).to(cache.pos.device, torch.int32)
+    tensors = [cache.k, cache.v] + ([cache.k_scale, cache.v_scale] if cache.quantized else [])
+    for t in tensors:
+        for il in range(t.shape[0]):
+            t[il][:, :, :S].copy_(_gather_slots(t[il][:, :, :S], idx))
+    pos = torch.gather(cache.pos[:, :S], 1, idx)
+    valid = torch.arange(S, device=pos.device)[None, :] < n_valid[:, None]
+    cache.pos[:, :S].copy_(torch.where(valid, pos, -1))
+    cache.cursor.copy_(n_valid)
+    return cache
+
+
+def _row_sel(cache: KVCache, b: int, p0: int, p1: int) -> torch.Tensor:
+    """(S,) cells of row b whose positions lie in [p0, p1)."""
+    p = cache.pos[b, : cache.max_seq]
+    return (p >= p0) & (p < p1)
+
+
+def seq_rm(cache: KVCache, b: int, p0: int, p1: int) -> KVCache:
+    """Remove positions [p0, p1) of row b (llama_memory_seq_rm), in place."""
+    cache.pos[b, : cache.max_seq].masked_fill_(_row_sel(cache, b, p0, p1), -1)
+    return cache
+
+
+def seq_add(cache: KVCache, b: int, p0: int, p1: int, delta: int) -> KVCache:
+    """Shift positions [p0, p1) of row b by delta, in place: the position
+    table only (K stays as rotated; ``seq_add_rerope`` re-ropes it)."""
+    p = cache.pos[b, : cache.max_seq]
+    p.copy_(torch.where(_row_sel(cache, b, p0, p1), p + delta, p))
+    return cache
+
+
+def _rerope_rows(cache: KVCache, delta: torch.Tensor, inv_freq, rope_type, mscale) -> None:
+    """Re-rope every layer's K by a (B, S) delta, in place."""
+    S = cache.max_seq
+    for il in range(cache.k.shape[0]):
+        k, ks = _rerope_k(cache, il, delta, inv_freq, rope_type, mscale)
+        cache.k[il][:, :, :S].copy_(k)
+        if ks is not None:
+            cache.k_scale[il][:, :, :S].copy_(ks)
+
+
+def seq_add_rerope(cache: KVCache, b: int, p0: int, p1: int, delta: int,
+                   inv_freq: torch.Tensor, rope_type: int = 0,
+                   mscale: float = 1.0) -> KVCache:
+    """seq_add with K re-roped to match (exact llama_memory_seq_add), in
+    place."""
+    sel = _row_sel(cache, b, p0, p1)
+    d = torch.zeros_like(cache.pos[:, : cache.max_seq])
+    d[b] = torch.where(sel, delta, 0)
+    _rerope_rows(cache, d, inv_freq, rope_type, mscale)
+    p = cache.pos[b, : cache.max_seq]
+    p.copy_(torch.where(sel, p + delta, p))
+    return cache
+
+
+def seq_div(cache: KVCache, b: int, p0: int, p1: int, d: int,
+            inv_freq: torch.Tensor, rope_type: int = 0,
+            mscale: float = 1.0) -> KVCache:
+    """Integer-divide positions [p0, p1) of row b by d, K re-roped by each
+    cell's delta, in place: self-extend's grouped attention
+    (llama_memory_seq_div; examples/passkey/passkey.cpp:138-139)."""
+    sel = _row_sel(cache, b, p0, p1)
+    p = cache.pos[b, : cache.max_seq]
+    new_p = torch.where(sel, torch.div(p, d, rounding_mode="floor"), p)
+    delta = torch.zeros_like(cache.pos[:, : cache.max_seq])
+    delta[b] = torch.where(sel, new_p - p, 0)
+    _rerope_rows(cache, delta, inv_freq, rope_type, mscale)
+    p.copy_(new_p)
+    return cache
+
+
+def seq_cp(cache: KVCache, src: int, dst: int) -> KVCache:
+    """Copy row src over row dst (llama_memory_seq_cp for batch-row
+    sequences), in place."""
+    for t in (cache.k, cache.v) + ((cache.k_scale, cache.v_scale) if cache.quantized else ()):
+        t[:, dst].copy_(t[:, src])
+    cache.pos[dst].copy_(cache.pos[src])
+    cache.cursor[dst].copy_(cache.cursor[src])
+    return cache
+
+
+def seq_keep(cache: KVCache, b: int) -> KVCache:
+    """Clear every row but b, in place."""
+    other = torch.arange(cache.pos.shape[0], device=cache.pos.device) != b
+    cache.pos.masked_fill_(other[:, None], -1)
+    cache.cursor.masked_fill_(other, 0)
+    return cache

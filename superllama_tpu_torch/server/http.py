@@ -66,17 +66,20 @@ class ServerApp:
     ``warmup`` (the default, as ``serve --warmup``) runs ``Engine.warmup``
     before ``Server.start`` serves: every graph key is captured before the
     first request, which then pays no capture. ``warmup_info`` keeps what
-    it returned."""
+    it returned. ``draft_model`` / ``n_draft`` serve with speculative
+    decoding (the draft on the target's device)."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
                  kv_dtype: torch.dtype | str | None = None, model_name: str | None = None,
                  device=None, paged: bool = False, page_size: int = 256,
-                 n_pages: int | None = None, warmup: bool = True):
+                 n_pages: int | None = None, warmup: bool = True,
+                 draft_model: LoadedModel | None = None, n_draft: int = 8):
         self.model = model
         self.model_name = model_name or model.name or "model"
         self.engine = Engine(model, n_slots=n_slots, n_ctx=n_ctx,
                              kv_dtype=kv_dtype or torch.bfloat16, device=device,
-                             paged=paged, page_size=page_size, n_pages=n_pages)
+                             paged=paged, page_size=page_size, n_pages=n_pages,
+                             draft_model=draft_model, n_draft=n_draft)
         self.chat_template = template_for_model(model)
         self.warmup = bool(warmup)
         self.warmup_info: dict | None = None

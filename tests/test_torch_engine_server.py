@@ -234,6 +234,8 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.grammar, superllama_tpu_torch.grammar.gbnf\n"
         "import superllama_tpu_torch.grammar.json_schema, superllama_tpu_torch.runtime.sampling\n"
         "import superllama_tpu_torch.server.toolcall, superllama_tpu_torch.server.json_partial\n"
+        "import superllama_tpu_torch.runtime.speculative, superllama_tpu_torch.runtime.ngram\n"
+        "import superllama_tpu_torch.runtime.lookahead, superllama_tpu_torch.runtime.self_extend\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

@@ -3,6 +3,7 @@ llama GGUF written offline from a seeded HF model, with a hand-built
 byte-level BPE vocab (256 byte tokens + BOS/EOS + 2 spares)."""
 
 import numpy as np
+import pytest
 import torch
 
 from superllama_tpu.gguf import GGMLType
@@ -37,23 +38,31 @@ def byte_vocab_fields() -> dict:
     }
 
 
-def write_tiny_llama(directory, types=(GGMLType.F32,), seed=0) -> dict:
-    """Write the tiny llama (hidden 256, so Q4_K blocks fit) in each GGML
-    type; returns {type: path}."""
+def write_tiny_llama(directory, types=(GGMLType.F32,), seed=0, vocab_fields=None,
+                     name="tiny", keep_layers=None) -> dict:
+    """Write the tiny llama (hidden 256, so Q4_K blocks fit, 2 layers) in
+    each GGML type; with ``keep_layers`` only its first layers (a shallower
+    model with the same embeddings and head), over ``vocab_fields``
+    (default the byte vocab); returns {type: path}."""
     from transformers import LlamaConfig, LlamaForCausalLM
 
+    fields = vocab_fields or byte_vocab_fields()
     torch.manual_seed(seed)
     cfg = LlamaConfig(
-        vocab_size=N_VOCAB, hidden_size=256, intermediate_size=512,
-        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
-        max_position_embeddings=256, rms_norm_eps=1e-6, rope_theta=10000.0,
-        tie_word_embeddings=False, architectures=["LlamaForCausalLM"])
+        vocab_size=len(fields["tokenizer.ggml.tokens"]), hidden_size=256,
+        intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, max_position_embeddings=256, rms_norm_eps=1e-6,
+        rope_theta=10000.0, tie_word_embeddings=False, architectures=["LlamaForCausalLM"])
     hf = LlamaForCausalLM(cfg).eval()
     sd = {k: v.detach().numpy() for k, v in hf.state_dict().items()}
+    if keep_layers is not None:
+        cfg.num_hidden_layers = keep_layers
+        sd = {k: v for k, v in sd.items()
+              if not k.startswith("model.layers.") or int(k.split(".")[2]) < keep_layers}
     paths = {}
     for t in types:
-        path = str(directory / f"tiny_{t.name}.gguf")
-        convert_state_dict(path, cfg, sd, t, tokenizer_fields=byte_vocab_fields())
+        path = str(directory / f"{name}_{t.name}.gguf")
+        convert_state_dict(path, cfg, sd, t, tokenizer_fields=fields)
         paths[t] = path
     return paths
 
@@ -112,3 +121,14 @@ def failing_build(monkeypatch) -> type:
                       (probe_mod, "qmv_variant_plain")):
         monkeypatch.setattr(mod, name, plain)
     return BuildFailed
+
+
+@pytest.fixture(scope="module")
+def torch_one_thread():
+    """torch on one intra-op thread for a module: tiny eager steps gain
+    nothing from more, and several test workers' threads oversubscribe the
+    cores (a module of engine runs took 8× its time alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
