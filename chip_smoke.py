@@ -19,6 +19,7 @@ PyTorch version.
     python3 chip_smoke.py --state         # device, build, phase 4e
     python3 chip_smoke.py --grammar       # device, build, phase 4f
     python3 chip_smoke.py --spec          # device, build, phase 4g
+    python3 chip_smoke.py --server        # device, build, phase 4h
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -89,6 +90,22 @@ Phases, each printing one JSON line:
     engines (n_ctx 512, 600 tokens, the first shift held against the plain
     op on a CPU copy); lookahead against Context greedy; self-extend's
     positions and re-roped K; tok/s of each beside the plain engines';
+ 4h. the server's front door on warmed-up servers of the 8B model with a
+    128,256-piece tokenizer carrying FIM pieces: API keys (401 without a
+    key and with a bad one; Bearer and x-api-key), a client past its rate
+    (429), the audit log, /health "healthy", one JSONL metrics line per
+    request; /v1/messages greedy (64 tokens) equal to /v1/completions of
+    the rendered prompt on bf16, Q8_0 and paged caches, streamed (the
+    Messages API's events in order), with tools (tool_choice any: a
+    tool_use block within the schema), count_tokens; /v1/responses and
+    /api/chat equal to the chat route, /api/tags, /api/show, /infill equal
+    to the FIM ids' completion, /embeddings 501; /profile around 4
+    requests (the trace names engine.prefill, engine.decode, qmv and fa's
+    tensor-core kernel; decode tok/s inside and outside the window); a
+    ModelRouter serving the 8B and the 1B-width model, whose unload returns
+    its device memory to within 64 MB; no capture after any warm-up; the
+    launches of qmv, qmm, fa, fd and paged; each front-door step's host
+    cost over 1,000 calls and each part's seconds;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -1697,19 +1714,19 @@ JSON_PIECES = (['{"', '":', '",', '"}', '":Ġ', ',Ġ"', 'Ġ"', '{Ġ"', '}', '{',
                + [str(i) for i in range(10, 100)])
 
 
-def grammar_tokenizer(n_vocab: int):
+def grammar_tokenizer(n_vocab: int, control=()):
     """A byte-level BPE tokenizer with one piece per id below n_vocab: the
-    256 byte tokens, BOS 256 and EOS 257 (as ``byte_tokenizer``), the JSON
-    pieces, then seeded unique printable pieces of 2-8 characters. Prompts
-    encode to byte tokens (no merges); the grammar sampler sees every
-    piece."""
+    256 byte tokens, BOS 256 and EOS 257 (as ``byte_tokenizer``), the
+    ``control`` pieces (control tokens, from id 258), the JSON pieces, then
+    seeded unique printable pieces of 2-8 characters. Prompts encode to
+    byte tokens (no merges); the grammar sampler sees every piece."""
     import numpy as np
 
     from superllama_tpu_torch.tokenizer import Tokenizer
     from superllama_tpu_torch.tokenizer.vocab import TokenAttr, Vocab
 
     base = byte_tokenizer().vocab
-    tokens = list(base.tokens)
+    tokens = list(base.tokens) + list(control)
     seen = set(tokens)
     alphabet = [chr(c) for c in range(ord("!"), ord("~") + 1)] + ["Ġ"]
     for p in JSON_PIECES:
@@ -1723,7 +1740,8 @@ def grammar_tokenizer(n_vocab: int):
             if p not in seen and len(tokens) < n_vocab:
                 tokens.append(p)
                 seen.add(p)
-    attrs = list(base.attrs) + [TokenAttr.NORMAL] * (n_vocab - len(base.tokens))
+    attrs = (list(base.attrs) + [TokenAttr.CONTROL] * len(control)
+             + [TokenAttr.NORMAL] * (n_vocab - len(base.tokens) - len(control)))
     return Tokenizer(Vocab(model="gpt2", pre="default", tokens=tokens,
                            scores=[0.0] * n_vocab, attrs=attrs, bos_id=256, eos_id=257,
                            add_bos=True))
@@ -3632,6 +3650,523 @@ KERNELS = [
      for v, line in (("v1", 53), ("v2", 64), ("v3", 91), ("v4", 78))]
 
 
+# ------------------------------------------------------------ 4h. the front door
+
+FRONT_KEYS = {"sk-alice": "alice", "sk-bob": "bob", "sk-carol": "carol"}
+ALICE = {"x-api-key": "sk-alice"}
+FIM_PIECES = ("<|fim_prefix|>", "<|fim_suffix|>", "<|fim_middle|>")
+FRONT_SYSTEM = "You are a terse assistant."
+FRONT_USER = "Name three colours."
+# a short name and short values: a grammar token costs about 0.5 s of mask here
+PICK_TOOL = {"name": "tint", "description": "pick a colour",
+             "input_schema": {"type": "object",
+                              "properties": {"c": {"enum": ["red", "green", "blue"]}},
+                              "required": ["c"], "additionalProperties": False}}
+FRONT_CACHES = (("q8_0", {"kv_dtype": "q8_0"}, ("qmv", "fd")),
+                ("paged", {"paged": True, "page_size": 256}, ("qmv", "paged")))
+FRONT_RPM = 30          # the flooding client's limit: 30 a minute + RateLimiter's burst of 10
+
+
+class FrontDoor:
+    """HTTP calls to one server with their status (errors included),
+    counting those that pass the key and rate checks (each adds one line to
+    the server's JSONL metrics log)."""
+
+    def __init__(self, port: int):
+        self.port, self.passed = port, 0
+
+    def call(self, path: str, body=None, headers=ALICE, timeout: float = 600.0):
+        import urllib.error
+        import urllib.request
+
+        r = urllib.request.Request(
+            f"http://127.0.0.1:{self.port}{path}",
+            data=json.dumps(body).encode() if body is not None else None,
+            method="POST" if body is not None else "GET",
+            headers={"Content-Type": "application/json", **(headers or {})})
+        try:
+            with urllib.request.urlopen(r, timeout=timeout) as resp:
+                st, ctype, data = resp.status, resp.headers["Content-Type"], resp.read()
+        except urllib.error.HTTPError as e:
+            st, ctype, data = e.code, e.headers["Content-Type"], e.read()
+        if body is not None and st not in (401, 429):
+            self.passed += 1
+        return st, (json.loads(data) if "json" in (ctype or "") else data.decode())
+
+    def ok(self, path: str, body=None, headers=ALICE):
+        st, out = self.call(path, body, headers)
+        check(st == 200, f"{path}: HTTP {st}: {str(out)[:300]}")
+        return out
+
+
+def sse_events(raw: str) -> list:
+    out = []
+    for block in raw.strip().split("\n\n"):
+        ev = data = None
+        for ln in block.split("\n"):
+            if ln.startswith("event: "):
+                ev = ln[7:]
+            elif ln.startswith("data: "):
+                data = json.loads(ln[6:])
+        out.append((ev, data))
+    return out
+
+
+def graph_captures(eng) -> tuple:
+    return tuple(graph_stats(eng, k).get("captures", 0) for k in ("chunk", "block"))
+
+
+def front_messages(door: FrontDoor, eng, label: str) -> dict:
+    """A greedy /v1/messages request of 64 tokens against /v1/completions of
+    the same rendered prompt (each on erased slots): the same text, the
+    usage of the same tokens; the walls of both."""
+    body = {"system": FRONT_SYSTEM, "messages": [{"role": "user", "content": FRONT_USER}],
+            "max_tokens": 64, "temperature": 0}
+    fresh(eng)
+    t0 = time.perf_counter()
+    msg = door.ok("/v1/messages", body)
+    t_msg = time.perf_counter() - t0
+    prompt = door.ok("/apply-template", {"messages": [
+        {"role": "system", "content": FRONT_SYSTEM},
+        {"role": "user", "content": FRONT_USER}]})["prompt"]
+    fresh(eng)
+    t0 = time.perf_counter()
+    comp = door.ok("/v1/completions", {"prompt": prompt, "max_tokens": 64, "temperature": 0})
+    t_comp = time.perf_counter() - t0
+    text = msg["content"][0]["text"]
+    check(msg["type"] == "message" and msg["content"][0]["type"] == "text",
+          f"{label} /v1/messages: {str(msg)[:300]}")
+    check(text == comp["choices"][0]["text"],
+          f"{label}: /v1/messages text differs from /v1/completions of its prompt")
+    check(msg["usage"]["output_tokens"] == comp["usage"]["completion_tokens"] == 64,
+          f"{label}: usage {msg['usage']} against {comp['usage']}")
+    check(msg["stop_reason"] == "max_tokens", f"{label}: stop_reason {msg['stop_reason']}")
+    return {"text": text, "messages_wall_s": t_msg, "completions_wall_s": t_comp,
+            "body": body, "prompt": prompt}
+
+
+def front_door_checks(door: FrontDoor, app) -> dict:
+    """401 without a key and with a bad one (audited), 200 by Bearer and by
+    x-api-key, a third client flooding past its rate (429, audited),
+    /health "healthy"."""
+    st, out = door.call("/tokenize", {"content": "hi"}, headers={})
+    check(st == 401 and out["error"]["type"] == "authentication_error", f"no key: {st} {out}")
+    st, out = door.call("/tokenize", {"content": "hi"}, headers={"x-api-key": "sk-eve"})
+    check(st == 401 and out["error"]["message"] == "invalid API key", f"bad key: {st} {out}")
+    door.ok("/tokenize", {"content": "hi"}, headers={"Authorization": "Bearer sk-alice"})
+    door.ok("/tokenize", {"content": "hi"}, headers={"x-api-key": "sk-bob"})
+    codes = [door.call("/tokenize", {"content": "x"}, headers={"x-api-key": "sk-carol"})[0]
+             for _ in range(FRONT_RPM + 11)]
+    check(codes == [200] * (FRONT_RPM + 10) + [429], f"rate limit: {codes}")
+    door.ok("/tokenize", {"content": "hi"})           # another client is not limited
+    fails = [e["err"] for e in app.audit.query("auth_failure")]
+    limited = [e["client"] for e in app.audit.query("rate_limited")]
+    check(fails == ["missing API key", "invalid API key"] and limited == ["carol"],
+          f"audit log: {fails} {limited}")
+    health = door.ok("/health")
+    check(health == {"status": "healthy"}, f"/health: {health}")
+    return {"unauthorized": [401, 401], "rate_limited_after": FRONT_RPM + 10,
+            "audit_failures": len(fails) + len(limited), "health": health["status"]}
+
+
+def front_stream_and_tools(door: FrontDoor, eng, plain: dict) -> dict:
+    """The greedy request streamed (the Messages API's events in order, the
+    text deltas joined equal to the plain reply), a tools request with
+    tool_choice any (a tool_use block whose input satisfies the schema,
+    stop_reason tool_use), and count_tokens against /tokenize."""
+    fresh(eng)
+    raw = door.ok("/v1/messages", {**plain["body"], "stream": True})
+    events = sse_events(raw)
+    names = [e for e, _ in events]
+    deltas = names[2:-3]
+    check(names[:2] == ["message_start", "content_block_start"]
+          and names[-3:] == ["content_block_stop", "message_delta", "message_stop"]
+          and deltas and set(deltas) == {"content_block_delta"}
+          and all(e == d["type"] for e, d in events), f"stream events {names}")
+    text = "".join(d["delta"]["text"] for e, d in events if e == "content_block_delta")
+    check(text == plain["text"], "streamed text_deltas differ from the plain reply")
+    stop = events[-2][1]
+    check(stop["delta"]["stop_reason"] == "max_tokens" and stop["usage"]["output_tokens"] == 64,
+          f"message_delta {stop}")
+    fresh(eng)
+    t0 = time.perf_counter()
+    tools = door.ok("/v1/messages", {"messages": [{"role": "user",
+                                                   "content": "Pick a colour for the sky."}],
+                                     "tools": [PICK_TOOL], "tool_choice": {"type": "any"},
+                                     "max_tokens": 48, "temperature": 0})
+    t_tools = time.perf_counter() - t0
+    use = [b for b in tools["content"] if b["type"] == "tool_use"]
+    check(tools["stop_reason"] == "tool_use" and len(use) == 1
+          and use[0]["name"] == "tint" and use[0]["id"].startswith("toolu_")
+          and use[0]["input"] in ({"c": "red"}, {"c": "green"}, {"c": "blue"}),
+          f"tools: {str(tools)[:400]}")
+    n = door.ok("/v1/messages/count_tokens", {"system": FRONT_SYSTEM, "messages": [
+        {"role": "user", "content": [{"type": "text", "text": FRONT_USER}]}]})["input_tokens"]
+    ids = door.ok("/tokenize", {"content": plain["prompt"], "add_special": True})["tokens"]
+    check(n == len(ids), f"count_tokens {n} against /tokenize {len(ids)}")
+    return {"stream_events": len(events), "tool_use": use[0]["input"],
+            "tool_tokens": tools["usage"]["output_tokens"], "tool_wall_s": t_tools,
+            "count_tokens": n}
+
+
+def front_routes(door: FrontDoor, eng, tok) -> dict:
+    """/v1/responses and /api/chat against the chat route's text for the
+    same messages, /api/tags and /api/show, /infill against /v1/completions
+    of the FIM ids (its short prompt through qmm), /embeddings 501."""
+    msgs = [{"role": "system", "content": FRONT_SYSTEM},
+            {"role": "user", "content": "Say hello."}]
+
+    def greedy(path, body):
+        fresh(eng)
+        return door.ok(path, {**body, "temperature": 0})
+
+    chat = greedy("/v1/chat/completions", {"messages": msgs, "max_tokens": 16})
+    text = chat["choices"][0]["message"]["content"]
+    resp = greedy("/v1/responses", {"input": msgs, "max_output_tokens": 16})
+    r_text = "".join(c["text"] for o in resp["output"] if o["type"] == "message"
+                     for c in o["content"])
+    check(r_text == text and resp["usage"]["output_tokens"] == 16,
+          f"/v1/responses {r_text!r} against the chat route's {text!r}")
+    ollama = greedy("/api/chat", {"messages": msgs, "max_tokens": 16})
+    check(ollama["choices"][0]["message"]["content"] == text, "/api/chat differs from the chat route")
+    tags = door.ok("/api/tags")
+    show = door.ok("/api/show", {"model": "llama-3-8b"})
+    check(tags["models"][0]["name"] == "llama-3-8b" and show["details"]["family"] == "llama",
+          f"/api/tags {tags} /api/show {show}")
+    fim = [tok.vocab.token_to_id[p] for p in FIM_PIECES]
+    prefix, suffix = "def add(a, b):", "\n"
+    ids = [fim[0], *tok.encode(prefix, add_special=False), fim[1],
+           *tok.encode(suffix, add_special=False), fim[2]]
+    qmm0 = read_counts()["qmm"]
+    infill = greedy("/infill", {"input_prefix": prefix, "input_suffix": suffix,
+                                "max_tokens": 16})
+    qmm_launches = read_counts()["qmm"] - qmm0
+    direct = greedy("/v1/completions", {"prompt": ids, "max_tokens": 16})
+    check(infill["choices"][0]["text"] == direct["choices"][0]["text"]
+          and infill["usage"] == direct["usage"], "/infill differs from the FIM ids' completion")
+    check(qmm_launches > 0, f"/infill's {len(ids)}-token prompt launched qmm {qmm_launches} times")
+    st, out = door.call("/embeddings", {"input": "hi"})
+    check(st == 501 and out["error"]["message"] == "no embedding model loaded",
+          f"/embeddings: {st} {out}")
+    return {"chat_text_equal": True, "infill_prompt_tokens": len(ids),
+            "infill_qmm_launches": qmm_launches, "embeddings_status": st}
+
+
+PROFILE_TOKENS = 24      # each request's tokens in the profile window (3 blocks)
+
+
+def front_wave(door: FrontDoor, eng, prompts) -> dict:
+    """The prompts over HTTP at once (greedy, PROFILE_TOKENS each) on
+    erased slots; decode tok/s from the engine's counters."""
+    fresh(eng)
+    m0 = dict(eng.metrics)
+    results: list = [None] * len(prompts)
+
+    def send(i):
+        results[i] = door.call("/v1/completions", {"prompt": prompts[i],
+                                                   "max_tokens": PROFILE_TOKENS,
+                                                   "temperature": 0})
+
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    in_one_wave(eng, lambda: [t.start() for t in threads], len(prompts))
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(all(r is not None and r[0] == 200 for r in results), f"profile wave: {results}")
+    n = eng.metrics["n_tokens_generated"] - m0["n_tokens_generated"]
+    dec = eng.metrics["decode_s"] - m0["decode_s"]
+    return {"tokens": n, "wall_s": wall, "decode_tok_s": n / dec}
+
+
+def front_profile(door: FrontDoor, eng) -> dict:
+    """/profile/start, 4 requests, /profile/stop: the trace names the
+    engine's two spans and the qmv and fa kernels, launched from replayed
+    graphs (every block and chunk of the window a replay, one
+    cudaGraphLaunch a replay, and as many qmv and fa kernels in the trace
+    as the replays' launch counts); decode tok/s inside the window and
+    outside it."""
+    import shutil
+    import tempfile
+
+    prompts = token_prompts(eng.hp.n_vocab, [32] * 4, SEED + 70)
+    outside = front_wave(door, eng, prompts)
+    tdir = tempfile.mkdtemp(prefix="front_door_trace_")
+    try:
+        st, _ = door.call("/profile/start", {"dir": tdir})
+        check(st == 200, f"/profile/start: {st}")
+        st2, _ = door.call("/profile/start", {"dir": tdir})
+        stats0, counts0 = block_stats(eng), read_counts()
+        inside = front_wave(door, eng, prompts)
+        replays = check_replayed("profile window", stats0, block_stats(eng))
+        launched = {k: n - counts0[k] for k, n in read_counts().items()}
+        t0 = time.perf_counter()
+        stop = door.ok("/profile/stop", {})
+        t_stop = time.perf_counter() - t0
+        st3, _ = door.call("/profile/stop", {})
+        check(st2 == 409 and st3 == 409 and stop["dir"] == tdir,
+              f"profile statuses {st2} {stop} {st3}")
+        path = os.path.join(tdir, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    names = [e.get("name", "") for e in events]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by = lambda s: sum(s in e.get("name", "") for e in kernels)
+    found = {"engine.prefill": names.count("engine.prefill"),
+             "engine.decode": names.count("engine.decode"),
+             "qmv_kernel": by("qmv_kernel"), "fa_tc_kernel": by("fa_tc_kernel"),
+             "cudaGraphLaunch": sum("cudaGraphLaunch" in n for n in names)}
+    check(all(found.values()), f"the trace lacks a span or kernel: {found}")
+    check(found["qmv_kernel"] == launched["qmv"] and found["fa_tc_kernel"] == launched["fa_tc"]
+          and found["cudaGraphLaunch"] == replays["replays"] + replays["chunk_replays"],
+          f"the trace's kernels {found} against the replays' launches {launched}, {replays}")
+    return {"trace_bytes": size, "trace_events": len(events), "kernels_in_trace": len(kernels),
+            "found": found, "window_launches": {k: n for k, n in launched.items() if n},
+            "window_replays": replays,
+            "stop_s": t_stop, "decode_tok_s_outside": outside["decode_tok_s"],
+            "decode_tok_s_inside": inside["decode_tok_s"],
+            "wave_wall_s_outside": outside["wall_s"], "wave_wall_s_inside": inside["wall_s"]}
+
+
+def front_host_cost(app) -> dict:
+    """Microseconds a call of each front-door step, over 1,000 calls: the
+    key check, the rate check (a new client each call), the audit event and
+    the JSONL metrics line (a file of its own)."""
+    import tempfile
+
+    from superllama_tpu_torch.server.metrics import JsonlMetricsLogger
+
+    fd, path = tempfile.mkstemp(suffix=".jsonl")
+    os.close(fd)
+    log = JsonlMetricsLogger(path)
+    steps = {"auth": lambda i: app.auth(ALICE),
+             "allow_request": lambda i: app.rate.allow_request(f"timing-{i}"),
+             "audit.log": lambda i: app.audit.log("request", "alice", {"path": "/x"}),
+             "jsonl.log": lambda i: log.log(app.engine)}
+    out = {}
+    for name, fn in steps.items():
+        t0 = time.perf_counter()
+        for i in range(1000):
+            fn(i)
+        out[name] = (time.perf_counter() - t0) * 1e3      # µs a call over 1,000 calls
+    os.unlink(path)
+    out["total"] = sum(out.values())
+    return out
+
+
+def front_router(torch, door_cls, gmodel) -> dict:
+    """A ModelRouter on the card with the 8B and the 1B-width model: each
+    answers a request routed by ``model``, an unknown model gets 404, no
+    graph is captured after a model's warm-up, and unloading the 1B brings
+    the allocated device memory back to within 64 MB of its value before
+    the load."""
+    import gc
+
+    from superllama_tpu_torch.server.http import Server
+    from superllama_tpu_torch.server.router import ModelRouter
+
+    router = ModelRouter(n_slots=1, n_ctx=128, kv_dtype=torch.bfloat16, device="cuda",
+                         api_keys=FRONT_KEYS)
+    srv = Server(router, host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        door = door_cls(srv.port)
+        t0 = time.perf_counter()
+        router.load("llama-3-8b", gmodel)     # an in-memory model: no GGUF to name
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        router.load("llama-3.2-1b", build_draft(torch))
+        torch.cuda.synchronize()
+        mem_loaded = torch.cuda.memory_allocated()
+        t_load = time.perf_counter() - t0
+        caps = {name: graph_captures(router.app_for({"model": name}).engine)
+                for name in ("llama-3-8b", "llama-3.2-1b")}
+        prompt = token_prompts(gmodel.hparams.n_vocab, [24], SEED + 80)[0]
+        models = door.ok("/v1/models")
+        check([m["id"] for m in models["data"]] == ["llama-3-8b", "llama-3.2-1b"],
+              f"router models {models}")
+        for name in caps:
+            out = door.ok("/v1/completions", {"model": name, "prompt": prompt,
+                                              "max_tokens": 16, "temperature": 0})
+            check(out["usage"]["completion_tokens"] == 16 and out["model"] == name,
+                  f"router {name}: {out}")
+            # (no local name for the app or its engine: it would keep the
+            # model alive past its unload)
+            check(graph_captures(router.app_for({"model": name}).engine) == caps[name],
+                  f"router {name}: a graph was captured after the warm-up")
+        st, out = door.call("/v1/completions", {"model": "llama-2", "prompt": prompt,
+                                                "max_tokens": 2})
+        check(st == 404 and out["error"]["type"] == "model_not_found", f"unknown model: {st} {out}")
+        st, _ = door.call("/models/unload", {"model": "llama-3.2-1b"}, headers={})
+        check(st == 401, f"/models/unload without a key: {st}")
+        door.ok("/models/unload", {"model": "llama-3.2-1b"})
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        check(abs(mem_after - mem0) <= 64 << 20,
+              f"unload left {(mem_after - mem0) / 2**20:.1f} MB of the 1B allocated")
+        # what is left: torch's per-stream cuBLAS workspaces (the 1B engine's
+        # threads and capture stream) stay cached until cleared
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        mem_cleared = torch.cuda.memory_allocated()
+        return {"load_s": t_load, "mem_before_load": mem0, "mem_loaded": mem_loaded,
+                "mem_after_unload": mem_after, "mem_after_cublas_clear": mem_cleared,
+                "unload_returned_bytes": mem_loaded - mem_after,
+                "left_after_unload_bytes": mem_after - mem0}
+    finally:
+        srv.stop()
+        for name in [m["id"] for m in router.models()]:
+            router.unload(name)
+        del router, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_front_door(torch, model, smi_line: str) -> dict:
+    """The server's front door on warmed-up servers of the synthetic 8B
+    with a 128,256-piece tokenizer that carries FIM pieces
+    (``grammar_tokenizer(control=FIM_PIECES)``):
+
+     - bf16, 4 slots, three API keys, 30 requests a minute a client, a
+       JSONL metrics file: 401 without a key and with a bad one, 200 by
+       Bearer and by x-api-key, 429 for the client past its rate, the
+       failures audited, /health "healthy"; /v1/messages greedy (64
+       tokens) equal to /v1/completions of the rendered prompt, streamed
+       (events in order, text deltas equal), tools with tool_choice any (a
+       tool_use block within the schema), count_tokens equal to /tokenize;
+       /v1/responses and /api/chat equal to the chat route; /api/tags,
+       /api/show; /infill equal to the FIM ids' completion (through qmm);
+       /embeddings 501; /profile around 4 requests (the trace names both
+       engine spans and the qmv and fa kernels; tok/s inside and outside);
+       one JSONL line per request past the front door; each step's host
+       cost over 1,000 calls;
+     - Q8_0 and paged servers of 2 slots: the greedy /v1/messages
+       against /v1/completions;
+     - a ModelRouter serving the 8B and the 1B-width model (build_draft),
+       routed by ``model``, 404 for another, the 1B unloaded back to
+       within 64 MB of the memory before its load;
+     - every server: no graph captured after its warm-up; launches of qmv,
+       qmm and fa's tensor-core kernel on bf16, fd on Q8_0, paged on the
+       paged cache (the counts set to 0 before each server's requests and
+       read after). Prints the seconds of each part."""
+    import gc
+    import tempfile
+
+    from superllama_tpu_torch.server.http import Server, ServerApp
+
+    t_phase = time.perf_counter()
+    parts: dict = {}
+    by_part: dict = {}
+    mark = [time.perf_counter(), read_counts()]
+
+    def part(name):
+        """The seconds and the kernel launches since the last part ended."""
+        now, counts = time.perf_counter(), read_counts()
+        parts[name] = now - mark[0]
+        by_part[name] = {k: n - mark[1][k] for k, n in counts.items() if n != mark[1][k]}
+        mark[:] = [now, counts]
+
+    def zero():
+        """The counts set to 0 before a server's requests (read after)."""
+        reset_counts()
+        mark[1] = read_counts()
+
+    tok = grammar_tokenizer(model.hparams.n_vocab, control=FIM_PIECES)
+    gmodel = type(model)(**{**vars(model), "tokenizer": tok})
+    tmp = tempfile.mkdtemp(prefix="front_door_")
+    metrics_path = os.path.join(tmp, "metrics.jsonl")
+    rec = {"phase": "front_door", "card": smi_line}
+    part("tokenizer")
+    app = ServerApp(gmodel, n_slots=4, n_ctx=256, kv_dtype=torch.bfloat16,
+                    model_name="llama-3-8b", device="cuda", api_keys=FRONT_KEYS,
+                    rate_limit_rpm=FRONT_RPM, metrics_path=metrics_path)
+    srv = Server(app, host="127.0.0.1", port=0)
+    srv.start()
+    eng = app.engine
+    rec["warmup_graphs"] = {"bf16": len(app.warmup_info["keys"])}
+    part("bf16_warmup")
+    try:
+        door = FrontDoor(srv.port)
+        caps0 = graph_captures(eng)
+        zero()
+        rec["front_door"] = front_door_checks(door, app)
+        part("front_door")
+        plain = front_messages(door, eng, "bf16")
+        rec["messages_bf16"] = {k: plain[k] for k in ("messages_wall_s", "completions_wall_s")}
+        rec["stream_tools"] = front_stream_and_tools(door, eng, plain)
+        part("messages_bf16")
+        rec["routes"] = front_routes(door, eng, tok)
+        part("routes")
+        rec["profile"] = front_profile(door, eng)
+        part("profile")
+        counts = read_counts()
+        for name in ("qmv", "qmm", "fa_tc"):
+            check(counts[name] > 0, f"the front door's bf16 server never launched {name}")
+        check(counts["fa"] == 0, f"the bf16 server launched the CUDA-core fa {counts['fa']} times")
+        check(graph_captures(eng) == caps0,
+              f"bf16: graphs captured after the warm-up ({caps0} -> {graph_captures(eng)})")
+        with open(metrics_path) as f:
+            lines = [json.loads(ln) for ln in f]
+        check(len(lines) == door.passed and {"slots_busy", "queue_depth"} <= set(lines[-1]),
+              f"{len(lines)} JSONL lines for {door.passed} requests past the front door")
+        bill = app.cost.bill("alice")
+        check(bill["requests"] > 0 and app.cost.bill("anonymous")["requests"] == 0,
+              f"billing: {bill}")
+        rec["launches"] = {"bf16": counts}
+        rec["jsonl_lines"] = len(lines)
+        rec["host_cost_us"] = front_host_cost(app)
+        part("host_cost")
+    finally:
+        srv.stop()
+        del app, srv, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, kw, expect in FRONT_CACHES:
+        app = ServerApp(gmodel, n_slots=2, n_ctx=256, model_name="llama-3-8b", device="cuda",
+                        api_keys=FRONT_KEYS, **{"kv_dtype": torch.bfloat16, **kw})
+        srv = Server(app, host="127.0.0.1", port=0)
+        srv.start()
+        eng = app.engine
+        rec["warmup_graphs"][label] = len(app.warmup_info["keys"])
+        part(f"{label}_warmup")
+        try:
+            caps0 = graph_captures(eng)
+            zero()
+            out = front_messages(FrontDoor(srv.port), eng, label)
+            counts = read_counts()
+            for name in expect:
+                check(counts[name] + counts.get(name + "_tc", 0) > 0,
+                      f"the {label} server never launched {name}")
+            check(graph_captures(eng) == caps0, f"{label}: graphs captured after the warm-up")
+            rec[f"messages_{label}"] = {k: out[k] for k in ("messages_wall_s",
+                                                             "completions_wall_s")}
+            rec["launches"][label] = counts
+        finally:
+            srv.stop()
+            del app, srv, eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        part(f"messages_{label}")
+    try:
+        rec["router"] = front_router(torch, FrontDoor, gmodel)
+    except BaseException:
+        emit({**rec, "seconds_by_part": parts, "failed_in": "router"})   # what was read
+        raise
+    part("router")
+    os.unlink(metrics_path)
+    os.rmdir(tmp)
+    rec["seconds_by_part"] = parts
+    rec["launches_by_part"] = by_part
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3700,6 +4235,10 @@ def main() -> int:
         # the decode variants alone (phase 4g)
         phase_spec(torch, build_model(torch), info["nvidia_smi"])
         return 0
+    if "--server" in sys.argv[1:]:
+        # the server's front door alone (phase 4h)
+        phase_front_door(torch, build_model(torch), info["nvidia_smi"])
+        return 0
     checks = phase_kernels(torch)
     model = build_model(torch)
     # each kernel's launches come from the serving run of its own path
@@ -3714,6 +4253,7 @@ def main() -> int:
     phase_state(torch, model, info["nvidia_smi"])
     phase_grammar(torch, model, info["nvidia_smi"])
     phase_spec(torch, model, info["nvidia_smi"])
+    phase_front_door(torch, model, info["nvidia_smi"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)

@@ -1,11 +1,21 @@
-"""Command-line entry points of the port: ``run`` (generate text from a
-prompt), ``serve`` (the OpenAI-compatible HTTP server), ``llama-bench``
-(the pp/tg perf matrix) and ``batched-bench`` (decode scaling with the
-batch), with the flag names of the JAX package's CLI for what exists.
+"""Command-line entry points of the port, with the flag names of the JAX
+package's CLI:
 
-Usage:  python -m superllama_tpu_torch <run|serve|llama-bench|batched-bench> -m model.gguf [options]
+  run            generate text from a prompt (llama-cli)
+  serve          the HTTP server: OpenAI, Anthropic and Ollama APIs (llama-server)
+  llama-bench    the pp/tg perf matrix
+  batched-bench  decode scaling with the batch
+  tokenize       a prompt's token ids and pieces (llama-tokenize)
+  gguf-dump      a GGUF's metadata and tensor table
+  encrypt-model  AES-256-GCM encrypt or decrypt a GGUF (SLT_MODEL_KEY loads it)
 
-All run on the GPU unless ``--device cpu`` is given.
+Usage:  python -m superllama_tpu_torch <command> [options]
+
+``run`` and ``serve`` take the option table of ``args.py`` (the JAX
+package's, each option with its LLAMA_ARG_* environment mirror: flag > env
+> default). A flag of a feature the port does not have yet (``UNPORTED``)
+makes them exit with code 2; flags the JAX CLI accepts and ignores are
+accepted and ignored. All run on the GPU unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -16,6 +26,10 @@ import sys
 import time
 
 _KV_DTYPES = ("bfloat16", "float32", "q8_0", "q4_0")
+# dest -> flag of the options whose feature is not ported yet
+UNPORTED = {"lora": "--lora", "control_vector": "--control-vector",
+            "embed_model": "--embed-model", "mmproj": "--mmproj",
+            "hf_repo": "-hf/--hf-repo", "model_url": "-mu/--model-url"}
 
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
@@ -28,11 +42,33 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
 
+def _unported(args) -> bool:
+    """Print and return True when a flag of ``UNPORTED`` is set (by flag or
+    environment)."""
+    given = [flag for dest, flag in UNPORTED.items() if getattr(args, dest, None)]
+    if given:
+        print(f"error: {', '.join(given)}: not ported yet", file=sys.stderr)
+    return bool(given)
+
+
+def api_keys_from(specs) -> dict[str, str]:
+    """``--api-key NAME=KEY`` (repeatable), or a bare KEY (client
+    "default", as ``LLAMA_API_KEY`` holds one), as ``{key: client}``."""
+    out = {}
+    for spec in specs or []:
+        name, sep, key = spec.partition("=")
+        out[key if sep else name] = name if sep else "default"
+    return out
+
+
 def _load(args):
     import torch
 
     from .models import load_model
 
+    if not getattr(args, "model", None):
+        print("error: -m/--model is required (or set LLAMA_ARG_MODEL)", file=sys.stderr)
+        raise SystemExit(2)
     t0 = time.perf_counter()
     model = load_model(args.model, keep_quantized=args.keep_quantized,
                        device=args.device)
@@ -59,10 +95,29 @@ def _grammar(args) -> str | None:
 def cmd_run(args) -> int:
     """Greedy, not streamed and without a grammar: ``DecodeLoop`` (prefill
     + captured decode steps), as the JAX CLI routes it; otherwise the
-    engine, which applies the grammar."""
+    engine, which applies the grammar and the sampler chain of the
+    sampling flags (``--preset`` merged under them). ``--profile-dir``
+    writes a torch.profiler trace of the run there."""
+    from .args import sampling_from_args
     from .runtime.decode_loop import DecodeLoop
     from .runtime.engine import Engine, GenRequest
 
+    if _unported(args):
+        return 2
+    if args.profile_dir:
+        from .utils import profiler
+
+        trace_dir, args.profile_dir = args.profile_dir, None
+        with profiler.device_trace(trace_dir, cuda=str(args.device).startswith("cuda")):
+            rc = cmd_run(args)
+        print(f"[trace written to {trace_dir}/{profiler.TRACE_FILE}]", file=sys.stderr)
+        return rc
+    if args.preset:
+        from .presets import apply_preset, load_preset
+
+        merged = apply_preset({"temp": args.temp, "top_k": args.top_k, "top_p": args.top_p},
+                              load_preset(args.preset))
+        args.temp, args.top_k, args.top_p = merged["temp"], merged["top_k"], merged["top_p"]
     grammar = _grammar(args)
     model, kvd = _load(args)
     tok = model.tokenizer
@@ -80,13 +135,12 @@ def cmd_run(args) -> int:
         print(f"[{len(gen)} tokens, {len(gen) / max(dt, 1e-9):.1f} tok/s with the prefill]",
               file=sys.stderr)
         return 0
-    sampling = ({"greedy": True} if args.temp <= 0 else
-                {"temp": args.temp, "top_k": args.top_k, "top_p": args.top_p,
-                 "min_p": args.min_p, "seed": args.seed})
+    sampling = {"greedy": True} if args.temp <= 0 else sampling_from_args(args)
     eng = Engine(model, n_slots=1, n_ctx=args.ctx_size, kv_dtype=kvd,
                  device=args.device)
     req = GenRequest(
         prompt_ids=ids, max_tokens=args.n_predict, sampling=sampling, grammar=grammar,
+        stop_eog=not args.ignore_eos,
         stream=(lambda t, piece: print(piece, end="", flush=True))
         if args.stream else None)
     eng.submit(req)
@@ -100,8 +154,12 @@ def cmd_run(args) -> int:
 
 
 def cmd_serve(args) -> int:
+    """The HTTP server; ``--api-key``, ``--rate-limit``, ``--metrics-file``
+    and ``--ssl-cert-file`` / ``--ssl-key-file`` set its front door."""
     from .server.http import Server, ServerApp
 
+    if _unported(args):
+        return 2
     model, kvd = _load(args)
     draft = None
     if args.draft_model:
@@ -109,17 +167,23 @@ def cmd_serve(args) -> int:
 
         draft = load_model(args.draft_model, keep_quantized=args.keep_quantized,
                            device=args.device)
-    app = ServerApp(model, n_slots=args.slots, n_ctx=args.ctx_size, kv_dtype=kvd,
+    # -np/--slots/--parallel: the table names it by its longest flag
+    app = ServerApp(model, n_slots=args.parallel, n_ctx=args.ctx_size, kv_dtype=kvd,
                     device=args.device, paged=args.paged_kv,
                     page_size=args.kv_page_size, n_pages=args.kv_pages,
-                    warmup=args.warmup, draft_model=draft, n_draft=args.draft_n)
-    srv = Server(app, host=args.host, port=args.port)
+                    warmup=not args.no_warmup, draft_model=draft, n_draft=args.draft_n,
+                    api_keys=api_keys_from(args.api_key) or None,
+                    rate_limit_rpm=args.rate_limit, metrics_path=args.metrics_file)
+    tls = ({"tls_cert": args.ssl_cert_file, "tls_key": args.ssl_key_file}
+           if args.ssl_cert_file else {})
+    srv = Server(app, host=args.host, port=args.port, **tls)
     srv.start()
     if app.warmup_info is not None:
         w = app.warmup_info
         print(f"warmup: {len(w['keys'])} graphs captured in {w['seconds']:.1f} s, "
               f"graph pool {w['pool_bytes'] / 2**20:.0f} MiB", file=sys.stderr)
-    print(f"listening on http://{args.host}:{srv.port}", file=sys.stderr)
+    scheme = "https" if tls else "http"
+    print(f"listening on {scheme}://{args.host}:{srv.port}", file=sys.stderr)
     try:
         while True:
             time.sleep(3600)
@@ -157,45 +221,55 @@ def cmd_batched_bench(args) -> int:
     return 0
 
 
+def cmd_tokenize(args) -> int:
+    """Each token id of the text and its piece, as the JAX CLI prints them."""
+    from .models.loader import load_tokenizer
+
+    tok = load_tokenizer(args.model)
+    if tok is None:
+        print("error: the model has no tokenizer", file=sys.stderr)
+        return 2
+    for t in tok.encode(args.text, add_special=True, parse_special=True):
+        print(f"{t:>8} -> {tok.token_to_piece(t)!r}")
+    return 0
+
+
+def cmd_gguf_dump(args) -> int:
+    from .tools.gguf_dump import dump
+
+    print(dump(args.model, show_tensors=not args.no_tensors))
+    return 0
+
+
+def cmd_encrypt(args) -> int:
+    from .server.security import ModelEncryptor
+
+    enc = ModelEncryptor(args.key)
+    if args.decrypt:
+        enc.decrypt_file(args.input, args.output)
+    else:
+        enc.encrypt_file(args.input, args.output)
+    print(f"{'decrypted' if args.decrypt else 'encrypted'} -> {args.output}")
+    return 0
+
+
 def main(argv=None) -> int:
+    from .args import add_options
+
     ap = argparse.ArgumentParser(prog="superllama_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("run", help="generate text")
-    _add_model_args(p)
+    add_options(p, "run")
     p.add_argument("-p", "--prompt", required=True)
-    p.add_argument("-n", "--n-predict", type=int, default=128, help="tokens to generate")
-    p.add_argument("--temp", type=float, default=0.8, help="temperature (<=0 → greedy)")
-    p.add_argument("--top-k", type=int, default=40)
-    p.add_argument("--top-p", type=float, default=0.95)
-    p.add_argument("--min-p", type=float, default=0.05)
-    p.add_argument("-s", "--seed", type=int, default=0, help="RNG seed")
     p.add_argument("--stream", action="store_true")
-    p.add_argument("--grammar", help="GBNF grammar for constrained decoding")
-    p.add_argument("--grammar-file", help="file with a GBNF grammar")
-    p.add_argument("-j", "--json-schema", help="JSON schema to constrain output to")
+    p.add_argument("--profile-dir", help="write a torch.profiler trace of the run "
+                   "(trace.json, Chrome trace format) into this directory")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("serve", help="HTTP server")
-    _add_model_args(p)
-    p.add_argument("--host", default="127.0.0.1", help="bind address")
-    p.add_argument("--port", type=int, default=8080, help="bind port")
-    p.add_argument("-np", "--slots", "--parallel", type=int, default=4,
-                   help="concurrent generation slots")
-    p.add_argument("--paged-kv", action="store_true",
-                   help="serve with the paged KV cache (device⇄host spill)")
-    p.add_argument("--kv-page-size", type=int, default=256, help="tokens per KV page")
-    p.add_argument("--kv-pages", type=int, default=None,
-                   help="device-resident page pool size (default: slots*ctx/page + 1)")
-    p.add_argument("--warmup", dest="warmup", action="store_true", default=True,
-                   help="run a warmup pass (default): capture every graph before serving")
-    p.add_argument("--no-warmup", dest="warmup", action="store_false",
-                   help="skip model warmup")
-    p.add_argument("-md", "--draft-model",
-                   help="draft model for speculative decoding (loaded on --device)")
-    p.add_argument("--draft-n", "--draft", dest="draft_n", type=int, default=8,
-                   help="draft tokens per round")
+    add_options(p, "serve")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("llama-bench", help="perf matrix (pp/tg × depth × reps)")
@@ -214,6 +288,23 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, nargs="+", default=[1, 4, 8],
                    help="parallel sequences, one row each")
     p.set_defaults(fn=cmd_batched_bench)
+
+    p = sub.add_parser("tokenize", help="tokenizer inspection")
+    p.add_argument("-m", "--model", required=True)
+    p.add_argument("text")
+    p.set_defaults(fn=cmd_tokenize)
+
+    p = sub.add_parser("gguf-dump", help="inspect GGUF metadata + tensors")
+    p.add_argument("model")
+    p.add_argument("--no-tensors", action="store_true")
+    p.set_defaults(fn=cmd_gguf_dump)
+
+    p = sub.add_parser("encrypt-model", help="AES-256-GCM encrypt/decrypt a GGUF")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--key", required=True, help="32-byte hex key or passphrase")
+    p.add_argument("--decrypt", action="store_true")
+    p.set_defaults(fn=cmd_encrypt)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -18,6 +18,7 @@ import torch
 from ..device import resolve_device
 from ..gguf import GGUFReader
 from ..ops.qtensor import REPACKABLE, repack
+from ..server.security import decrypted
 from .hparams import HParams, hparams_from_gguf
 from .registry import get_forward
 
@@ -52,8 +53,15 @@ def load_model(path: str, dtype: torch.dtype = torch.float32,
 
     keep_quantized=True keeps Q8_0 / Q4_K / Q6_K matmul weights packed as
     QTensors for the quantized kernels; other tensors are dequantized to
-    ``dtype``."""
+    ``dtype``. An encrypted GGUF (``server/security.py``'s AES-256-GCM
+    container) is decrypted with ``SLT_MODEL_KEY`` to a temporary file,
+    removed once the tensors are on the device."""
     dev = resolve_device(device)
+    with decrypted(path) as plain:
+        return _load(plain, dtype, keep_quantized, dev)
+
+
+def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedModel:
     reader = GGUFReader(path)
     try:
         if int(reader.metadata.get("split.count", 1) or 1) > 1:
@@ -108,3 +116,18 @@ def load_model(path: str, dtype: torch.dtype = torch.float32,
         reader.close()
     return LoadedModel(hparams=hp, params=params, tokenizer=tok, metadata=md,
                        name=md.get("general.name", ""))
+
+
+def load_tokenizer(path: str):
+    """The GGUF's tokenizer alone (no tensor is read), or None when it has
+    none; an encrypted file is decrypted as ``load_model`` does."""
+    from ..tokenizer import Tokenizer, vocab_from_gguf
+
+    with decrypted(path) as plain:
+        reader = GGUFReader(plain)
+        try:
+            if "tokenizer.ggml.tokens" not in reader.metadata:
+                return None
+            return Tokenizer(vocab_from_gguf(reader))
+        finally:
+            reader.close()

@@ -116,6 +116,7 @@ from ..models.loader import LoadedModel
 from ..models.registry import get_forward
 from ..ops import device_sampling as dsamp
 from ..ops.ref import rope_frequencies
+from ..utils import profiler
 from .context import check_model_device
 from ..ops import _build
 from .graphs import GraphCache
@@ -287,6 +288,7 @@ class Engine:
         self._step_lock = threading.RLock()
         self._running = False
         self._thread: threading.Thread | None = None
+        self._calls: "queue.Queue" = queue.Queue()    # on_engine_thread's calls
 
     def _init_variants(self, draft_model, n_draft: int, ctx_shift: bool,
                        lookup_ngrams: int) -> None:
@@ -371,6 +373,7 @@ class Engine:
         self._running = False
         if self._thread:
             self._thread.join(timeout=30)
+        self._run_calls()          # a call that arrived as the thread ended
 
     def run_until_drained(self):
         """Synchronous mode: run steps until all work completes."""
@@ -550,6 +553,7 @@ class Engine:
 
     def _loop(self):
         while self._running:
+            self._run_calls()
             try:
                 busy = self.step()
             except Exception as e:  # noqa: BLE001 — fail the requests, keep serving
@@ -576,9 +580,39 @@ class Engine:
         Returns True if any work was done."""
         with self._step_lock:
             launched = self._launch_waiting()
-            prefilled = self._prefill_step()
-            decoded = self._decode_step()
+            with profiler.annotate("engine.prefill"):
+                prefilled = self._prefill_step()
+            with profiler.annotate("engine.decode"):
+                decoded = self._decode_step()
             return launched or prefilled or decoded
+
+    def on_engine_thread(self, fn: Callable[[], object], timeout: float = 60.0):
+        """``fn()`` run between two steps on the engine's thread while it
+        runs (else here, holding the step lock); returns its result or
+        raises its exception. torch.profiler records the CPU spans of the
+        thread that starts it, so ``/profile/start`` starts it here."""
+        if not self._running or threading.current_thread() is self._thread:
+            with self._step_lock:
+                return fn()
+        box: dict = {"done": threading.Event()}
+        self._calls.put((fn, box))
+        if not box["done"].wait(timeout):
+            raise TimeoutError("the engine thread did not take the call")
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+
+    def _run_calls(self) -> None:
+        while True:
+            try:
+                fn, box = self._calls.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                box["result"] = fn()
+            except Exception as e:  # noqa: BLE001 — raised in the caller
+                box["error"] = e
+            box["done"].set()
 
     def _launch_waiting(self) -> bool:
         launched = False

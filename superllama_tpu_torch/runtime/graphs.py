@@ -123,6 +123,17 @@ class GraphCache:
         self.stats[kind]["captures"] += 1
         self.stats[kind]["capture_s"] += self.capture_s[key]
 
+    def clear(self) -> None:
+        """Destroy every captured graph and let go of their pool: its
+        memory returns to the allocator once nothing else holds the pool."""
+        for graph in self.graphs.values():
+            graph.reset()
+        self.graphs.clear()
+        self._deltas.clear()
+        self._kinds.clear()
+        self._pool = None
+        self._stream = None
+
     def pool_bytes(self) -> int:
         """Bytes the graphs' private pool holds on the device."""
         if self._pool is None:

@@ -136,7 +136,8 @@ def _req(port, path, body=None, raw=False):
 
 
 def test_server_health_models_props(server):
-    assert _req(server.port, "/health")["status"] == "ok"
+    # the JAX server's answer: its HealthMonitor's status
+    assert _req(server.port, "/health")["status"] == "healthy"
     assert _req(server.port, "/v1/models")["data"][0]["id"] == "tiny-test"
     props = _req(server.port, "/props")
     assert props["arch"] == "llama" and props["n_slots"] == 2
@@ -236,6 +237,9 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.server.toolcall, superllama_tpu_torch.server.json_partial\n"
         "import superllama_tpu_torch.runtime.speculative, superllama_tpu_torch.runtime.ngram\n"
         "import superllama_tpu_torch.runtime.lookahead, superllama_tpu_torch.runtime.self_extend\n"
+        "import superllama_tpu_torch.utils.profiler, superllama_tpu_torch.args\n"
+        "import superllama_tpu_torch.presets, superllama_tpu_torch.server.router\n"
+        "import superllama_tpu_torch.server.security, superllama_tpu_torch.tools.gguf_dump\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

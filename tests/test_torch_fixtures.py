@@ -38,6 +38,18 @@ def byte_vocab_fields() -> dict:
     }
 
 
+FIM_PIECES = ("<|fim_prefix|>", "<|fim_suffix|>", "<|fim_middle|>")
+
+
+def fim_vocab_fields() -> dict:
+    """The byte vocab plus the three FIM pieces of Qwen2.5-Coder-style
+    vocabs (control tokens, ids 260-262), for ``/infill``."""
+    fields = byte_vocab_fields()
+    fields["tokenizer.ggml.tokens"] = fields["tokenizer.ggml.tokens"] + list(FIM_PIECES)
+    fields["tokenizer.ggml.token_type"] = fields["tokenizer.ggml.token_type"] + [3] * 3
+    return fields
+
+
 def write_tiny_llama(directory, types=(GGMLType.F32,), seed=0, vocab_fields=None,
                      name="tiny", keep_layers=None) -> dict:
     """Write the tiny llama (hidden 256, so Q4_K blocks fit, 2 layers) in
@@ -65,6 +77,38 @@ def write_tiny_llama(directory, types=(GGMLType.F32,), seed=0, vocab_fields=None
         convert_state_dict(path, cfg, sd, t, tokenizer_fields=fields)
         paths[t] = path
     return paths
+
+
+def write_tiny_llama_np(directory, vocab_fields=None, seed=0, name="tiny") -> str:
+    """The tiny llama's shapes (hidden 256, 2 layers, 4 heads over 2 KV
+    heads, FFN 512) as one F32 GGUF of seeded numpy weights (normal, std
+    0.02; norms 1), without importing transformers (whose import takes
+    about 15 s); returns its path."""
+    from types import SimpleNamespace
+
+    fields = vocab_fields or byte_vocab_fields()
+    V, E, F, H, KV = len(fields["tokenizer.ggml.tokens"]), 256, 512, 4, 2
+    cfg = SimpleNamespace(vocab_size=V, hidden_size=E, intermediate_size=F,
+                          num_hidden_layers=2, num_attention_heads=H, num_key_value_heads=KV,
+                          max_position_embeddings=256, rms_norm_eps=1e-6, rope_theta=10000.0,
+                          tie_word_embeddings=False, architectures=["LlamaForCausalLM"])
+    rng = np.random.default_rng(seed)
+    w = lambda *shape: rng.normal(0.0, 0.02, shape).astype(np.float32)
+    kv = KV * E // H
+    sd = {"model.embed_tokens.weight": w(V, E), "model.norm.weight": np.ones(E, np.float32),
+          "lm_head.weight": w(V, E)}
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = np.ones(E, np.float32)
+        sd[p + "post_attention_layernorm.weight"] = np.ones(E, np.float32)
+        for key, shape in (("self_attn.q_proj", (E, E)), ("self_attn.k_proj", (kv, E)),
+                           ("self_attn.v_proj", (kv, E)), ("self_attn.o_proj", (E, E)),
+                           ("mlp.gate_proj", (F, E)), ("mlp.up_proj", (F, E)),
+                           ("mlp.down_proj", (E, F))):
+            sd[p + key + ".weight"] = w(*shape)
+    path = str(directory / f"{name}_F32.gguf")
+    convert_state_dict(path, cfg, sd, GGMLType.F32, tokenizer_fields=fields)
+    return path
 
 
 def prompt(n: int, seed: int = 0) -> list[int]:

@@ -157,7 +157,8 @@ def test_apply_template_matches_jax(server, jax_app):
 def test_route_aliases(server, route):
     p = prompt(9, 43)
     if route == "/v1/health":
-        assert call(server.port, route) == call(server.port, "/health") == {"status": "ok"}
+        # the JAX server's answer: its HealthMonitor's status
+        assert call(server.port, route) == call(server.port, "/health") == {"status": "healthy"}
     elif route == "/models":
         assert call(server.port, route) == call(server.port, "/v1/models")
     elif route == "/chat/completions":
