@@ -20,6 +20,11 @@ PyTorch version.
     python3 chip_smoke.py --grammar       # device, build, phase 4f
     python3 chip_smoke.py --spec          # device, build, phase 4g
     python3 chip_smoke.py --server        # device, build, phase 4h
+    python3 chip_smoke.py --formats       # device, build, phase 4i
+    python3 chip_smoke.py --format-times  # device, build, every format's qmv and
+                                          # qmm readings (phase 6's format rows)
+    python3 chip_smoke.py --base-times    # device, build, the Q8_0 / Q4_K / Q6_K
+                                          # rows of --format-times
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -35,7 +40,14 @@ Phases, each printing one JSON line:
     to the row alone, one qmv call profiled to one device kernel, and
     the residency qmv's grids assume checked on the card; each
     fa and paged call checked to take the kernel its types and shape ask
-    for;
+    for; then (3b) each of the twenty other weight formats (seeded random
+    GGUF bytes through the port's repack) through qmv at M 1, 8, 16 and
+    qmm at M 32, bf16 and f32 x, at the 8B's gate/up and down shapes, and
+    a format of each family, group size and adds at every other shape the
+    serving mixes and the 1B-width file drive (qmv at M 1, 5, 8, 16, qmm
+    at M 17, 32), each call its family's kernel (int8 planar, nibble
+    planar, Q5_K), and the M 33 dequantize + matmul path against the CPU
+    for a format of each family;
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
     server (warmed up first, as ``serve`` does: no graph may be captured
     while it serves) answers 8 concurrent completions and one streamed
@@ -49,7 +61,8 @@ Phases, each printing one JSON line:
     with the paged KV cache (prefill through paged's tensor-core kernel; an
     ample pool, then a pool of about half the wave's pages that must spill
     to host), and a short wave on an f32 cache (fa's CUDA-core kernel);
- 4b. graph against eager decode blocks and prompt chunks on the bf16, Q8_0
+ 4b. graph against eager decode blocks and prompt chunks (the 8B widths
+    at a depth of 8 layers) on the bf16, Q8_0
     and paged caches, greedy and sampled waves, and lone 100- and
     1000-token prompts: equal tokens, bit-equal written cache rows, equal
     launch counts, every block and chunk of the graph engine a replay;
@@ -79,7 +92,7 @@ Phases, each printing one JSON line:
     draft at n_draft 8, served over HTTP and warmed up; Q8_0 and paged with
     that draft at n_draft 7; bf16 with the 8B as its own draft at 7; bf16
     with a draft of another vocab through the translator), lookup engines
-    (bf16, paged; prompts of repeated spans): 4 greedy requests of 64 tokens
+    (bf16, paged; prompts of repeated spans): 4 greedy requests of 32 tokens
     (16 on the engines with the 1B draft) must give the plain engine's
     tokens on the same cache, or part at one position where the two
     candidates' logits lie within the two paths' difference there, each
@@ -106,6 +119,14 @@ Phases, each printing one JSON line:
     its device memory to within 64 MB; no capture after any warm-up; the
     launches of qmv, qmm, fa, fd and paged; each front-door step's host
     cost over 1,000 calls and each part's seconds;
+ 4i. the weight formats on the serving path: the 8B-width model in the
+    Q4_0, Q5_K_M and IQ4_XS mixes (weights made on the card in repack's
+    layout) over HTTP on a bf16 cache, greedy and sampled
+    waves equal to the engine's, a full-width forward against the plain
+    versions, decode tok/s and TTFT; then a Llama-3.2-1B-width GGUF of
+    mixed formats written by the port's writer, split in two shards,
+    loaded onto the card from the first shard (planes equal to repack's,
+    the unsplit file equal) and served;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -122,8 +143,8 @@ Phases, each printing one JSON line:
     rows and at a long prompt's 256-token chunk),
     kernel and library both read from a CUDA graph over inputs rotated past
     the L2 (the eager reading beside it);
- 7. profile: where a lone 32-token and a lone 1000-token prompt's time
-    goes (bf16 cache; the 1000-token one also on the paged cache), its
+ 7. profile (the 8B widths at a depth of 8 layers): where a lone 32-token
+    and a lone 1000-token prompt's time goes (bf16 cache; the 1000-token one also on the paged cache), its
     chunks eager and replayed from CUDA graphs, and where one engine
     decode step's time goes on each cache, its block eager and replayed
     from a CUDA graph (torch.profiler), qmv, the decode-attention kernels
@@ -151,9 +172,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 SEED = 0
+T_START = time.perf_counter()
+CUT_LAYERS = 8   # the depth of phases 4b and 7's 8B-width model
 
 
 def emit(obj) -> None:
+    if "phase" in obj:   # a phase's line carries the script's seconds so far
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -187,6 +212,8 @@ def phase_device(torch) -> dict:
 
 
 def phase_build() -> None:
+    """nvcc of every source, all started together (build_all), each one's
+    seconds from the start to its library."""
     from superllama_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -200,7 +227,7 @@ def phase_build() -> None:
         used = [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "Used" in ln]
         regs[name] = used
     emit({"phase": "build", "seconds": dt, "sources": list(_build.SOURCES),
-          "ptxas_used": regs})
+          "source_seconds": dict(_build.SECONDS), "ptxas_used": regs})
 
 
 # ------------------------------------------------------------ 3. kernels
@@ -714,6 +741,7 @@ def phase_kernels(torch) -> list:
     weights.clear()
     check_qmv_rows(torch)
     check_qmv_plans(torch)
+    check_format_kernels(torch, record)
 
     fa_cases = [("T=32 bf16", dict(T=32)), ("T=128 bf16", dict(T=128)),
                 ("T=32 f32", dict(T=32, dtype="f32")),
@@ -816,7 +844,9 @@ def counters() -> dict:
     from superllama_tpu_torch.ops import qmatmul as qm_mod
 
     fa = fa_mod.flash_attention
-    return {"qmv": (qm_mod.qmv, "launches"), "qmm": (qm_mod.qmm, "launches"),
+    fams = {f"{k}_{f}": (getattr(qm_mod, k), f"launches_{f}") for k in ("qmv", "qmm")
+            for f in qm_mod._FAMILY.values()}
+    return {"qmv": (qm_mod.qmv, "launches"), "qmm": (qm_mod.qmm, "launches"), **fams,
             "fa": (fa, "launches"), "fa_tc": (fa, "launches_tc"),
             "fd": (fa_mod.flash_decode_attention, "launches"),
             "paged": (pa_mod.paged_flash_attention, "launches"),
@@ -842,22 +872,28 @@ def read_counts() -> dict:
     return counts
 
 
-def build_model(torch):
+def build_model(torch, mix: str = "Q4_K", n_layer: int = 32):
+    """The synthetic Llama-3-8B-width model (n_layer deep), its weights of a
+    ``MIXES`` entry in repack's layout (default every matmul weight Q4_K)
+    generated on the card."""
     from superllama_tpu_torch.models.loader import LoadedModel
     from superllama_tpu_torch.models.synthetic import (llama3_8b_hparams,
-                                                       synthetic_qparams_device)
+                                                       synthetic_qparams_device,
+                                                       synthetic_qparams_mix)
 
-    hp = llama3_8b_hparams()
+    hp = llama3_8b_hparams(n_layer=n_layer)
     t0 = time.perf_counter()
-    params = synthetic_qparams_device(hp, seed=SEED, device="cuda")
+    params = (synthetic_qparams_device(hp, seed=SEED, device="cuda") if mix == "Q4_K" else
+              synthetic_qparams_mix(hp, mix, seed=SEED, device="cuda"))
     torch.cuda.synchronize()
     qbytes = sum(w.nbytes for layer in params["layers"] for w in layer.values()
                  if hasattr(w, "planes")) + params["output"].nbytes
-    emit({"phase": "model", "arch": hp.arch, "n_layer": hp.n_layer,
-          "n_embd": hp.n_embd, "n_vocab": hp.n_vocab, "q4k_weight_bytes": qbytes,
+    key = "q4k_weight_bytes" if mix == "Q4_K" else "weight_bytes"
+    emit({"phase": "model", "arch": hp.arch, "mix": mix, "n_layer": hp.n_layer,
+          "n_embd": hp.n_embd, "n_vocab": hp.n_vocab, key: qbytes,
           "seconds": time.perf_counter() - t0})
     return LoadedModel(hp, params, tokenizer=None, metadata={},
-                       name="synthetic-llama3-8b-q4_k")
+                       name=f"synthetic-llama3-8b-{mix.lower()}")
 
 
 def token_prompts(n_vocab: int, lens, seed: int) -> list[list[int]]:
@@ -1098,7 +1134,7 @@ def sampled_wave(eng, port: int, label: str, prompts, expect) -> dict:
     counts = read_counts()
     blocks = check_replayed(f"{label} sampled wave", stats0, block_stats(eng))
     for name in expect:
-        if name == "qmm":   # a wave's prompt chunks take the M > 32 path
+        if name.startswith("qmm"):   # a wave's prompt chunks take the M > 32 path
             continue
         check(counts[name] > 0, f"the {label} sampled wave never launched the {name} kernel")
     fresh(eng)
@@ -2054,7 +2090,7 @@ def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None
     return out
 
 
-def phase_parity(torch, model) -> None:
+def phase_parity(torch, model, label: str = "Q4_K") -> None:
     """One full-width forward (32-token prefill + 4 decode steps) with the
     kernels and again with their plain versions on the same inputs."""
     from superllama_tpu_torch.models import llama as llama_mod
@@ -2071,7 +2107,7 @@ def phase_parity(torch, model) -> None:
     finally:
         qm_mod.qmv, qm_mod.qmm, llama_mod.flash_attention = saved
     steps = compare_steps(got, ref)
-    emit({"phase": "parity", "steps": steps})
+    emit({"phase": "parity", "model": label, "steps": steps})
     # bf16 activations between layers: the kernels and the plain versions
     # sum in other orders, a last-bit difference can round a bf16 activation
     # or move an int8 activation code by one step, and that compounds over
@@ -2479,12 +2515,12 @@ def time_ttft(eng) -> dict:
     return out
 
 
-def time_serving(torch, model, **engine_kw) -> dict:
+def time_serving(torch, model, sampled: bool = True, **engine_kw) -> dict:
     """TTFT of lone 32-, 100- and 1000-token prompts, cold and warm
-    (time_ttft), then decode tok/s at B 1 and B 8, greedy and sampled
-    (sampled_configs). Each decode block and prompt chunk is a graph replay,
-    the blocks captured in a warm run first; the captures' time and the
-    graph pool's bytes are reported."""
+    (time_ttft), then decode tok/s at B 1 and B 8, greedy and (with
+    sampled) sampled (sampled_configs). Each decode block and prompt chunk
+    is a graph replay, the blocks captured in a warm run first; the
+    captures' time and the graph pool's bytes are reported."""
     from superllama_tpu_torch.runtime.engine import Engine
 
     engine_kw.setdefault("kv_dtype", torch.bfloat16)
@@ -2497,8 +2533,9 @@ def time_serving(torch, model, **engine_kw) -> dict:
     gen(p32, 16, {"greedy": True})  # warm
     r1 = gen(p32, 128, {"greedy": True})
     sm = sampled_configs(8)
-    gen(p32, 16, sm[0])  # warm
-    r1s = gen(p32, 128, sm[0])
+    if sampled:
+        gen(p32, 16, sm[0])  # warm
+        r1s = gen(p32, 128, sm[0])
     eng.start()
     try:
         p8 = token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 5)
@@ -2506,8 +2543,9 @@ def time_serving(torch, model, **engine_kw) -> dict:
         t0 = time.perf_counter()
         rs = engine_wave(eng, p8, 128)
         wall = time.perf_counter() - t0
-        fresh(eng)
-        rss = engine_wave(eng, p8, 128, sm)
+        if sampled:
+            fresh(eng)
+            rss = engine_wave(eng, p8, 128, sm)
     finally:
         eng.stop()
     graphs = {**block_stats(eng), "pool_bytes": eng._graphs.pool_bytes()}
@@ -2528,7 +2566,8 @@ def time_serving(torch, model, **engine_kw) -> dict:
                      / (max(r["total_s"] for r in rs) - max(r["ttft_s"] for r in rs)))
     return {
         "decode_tok_s_b1": b1(r1), "decode_tok_s_b8": b8(rs),
-        "decode_tok_s_b1_sampled": b1(r1s), "decode_tok_s_b8_sampled": b8(rss),
+        **({"decode_tok_s_b1_sampled": b1(r1s), "decode_tok_s_b8_sampled": b8(rss)}
+           if sampled else {}),
         "graphs": graphs, **ttft, "batch8_wall_s": wall,
         "launches_per_prefill_chunk_32": per_chunk, "launches_per_decode_step": per_step,
     }
@@ -2786,10 +2825,12 @@ def phase_tools(torch, model) -> dict:
           "llama_bench": [asdict(r) for r in bench],
           "batched_bench": [r.as_dict() | {"t_pp_s": r.t_pp_s, "t_tg_s": r.t_tg_s}
                             for r in batched]})
+    families = {f"{k}_{f}" for k in ("qmv", "qmm") for f in FAMILY_FORMAT}
     for name, n in counts.items():
         # fa's CUDA-core kernel serves f32 q or K/V, and paged's tensor-core
-        # kernel a paged prefill chunk, neither of which a tool sends
-        check(n > 0 or name in ("fa", "paged_tc"),
+        # kernel a paged prefill chunk, neither of which a tool sends; the
+        # tools run the Q4_K model, so no format family's kernel either
+        check(n > 0 or name in ("fa", "paged_tc") or name in families,
               f"the tools' path never launched the {name} kernel")
     return counts
 
@@ -2913,7 +2954,7 @@ SPEC_SAMPLED = {"temp": 0.8, "top_k": 40, "top_p": 0.95, "min_p": 0.05, "seed": 
 # greedy tokens a request: the engines with the 1B draft accept nothing
 # (random weights), one token a round, and read their round's cost within
 # a few rounds
-SPEC_TOKENS, DRAFT_TOKENS, SAMPLED_TOKENS = 64, 16, 8
+SPEC_TOKENS, DRAFT_TOKENS, SAMPLED_TOKENS = 32, 16, 8
 
 
 def build_draft(torch):
@@ -3415,7 +3456,7 @@ def shift_runs(torch, model) -> list:
 
 
 def lookahead_run(torch, model) -> dict:
-    """LookaheadDecoder (W 8, N 4, G 8, n_ctx 1024, bf16) for 64 tokens
+    """LookaheadDecoder (W 8, N 4, G 8, n_ctx 1024, bf16) for 32 tokens
     against Context greedy, the greedy rule at the tree step's width."""
     from superllama_tpu_torch.runtime.context import Context
     from superllama_tpu_torch.runtime.lookahead import LookaheadDecoder
@@ -3630,6 +3671,450 @@ def phase_spec(torch, model, smi_line: str) -> None:
     emit(summary)
 
 
+# ------------------------------------------------------------ 3b / 4i. weight formats
+
+# the twenty formats the kernels read beyond Q8_0, Q4_K and Q6_K
+NEW_FORMATS = ("Q4_0", "Q4_1", "Q5_0", "Q5_1", "MXFP4", "IQ4_NL", "IQ4_XS", "IQ2_XXS",
+               "IQ2_XS", "IQ2_S", "IQ3_XXS", "IQ3_S", "IQ1_S", "IQ1_M", "Q2_K", "Q3_K",
+               "Q5_K", "Q8_K", "TQ1_0", "TQ2_0")
+FORMAT_KN = [(4096, 14336), (14336, 4096)]   # the 8B's gate/up and down
+# each family's format on the main path (the serving mixes) and in the
+# kernels' record
+FAMILY_FORMAT = {"i8": "IQ4_XS", "nib": "Q4_0", "q5k": "Q5_K"}
+MIX_FAMILY = {"Q4_0": "nib", "Q5_K_M": "q5k", "IQ4_XS": "i8"}
+_FORMAT_CPU: dict = {}   # (format, K, N) -> the port's repack of rand_raw bytes, on the CPU
+# a format of each family, group size and adds (the three the mixes and the
+# 1B-width file serve among them), also at every other (K, N) of those
+# paths: the 8B's q/o and k/v, the 1B's four (its head is Q6_K), at the
+# rows phase 4i gives them (decode 1-8, qmv's 16-row tile, chunks to 32)
+SHAPE_FORMATS = ("Q4_0", "Q5_K", "IQ4_XS", "Q4_1", "Q5_1", "Q2_K", "IQ1_M", "Q8_K")
+SHAPE_KN = [(4096, 4096), (4096, 1024)] + KN_1B[:4]
+SHAPE_ROWS = ((1, 5, 8, 16), (17, 32))   # qmv's, qmm's
+# a format of each family and group size (with and without adds), for the edge shapes
+EDGE_FORMATS = ("Q5_0", "Q5_1", "Q3_K", "Q2_K", "IQ1_M", "Q8_K", "Q4_0", "Q4_1", "Q5_K")
+
+
+def format_family(name: str) -> str:
+    from superllama_tpu_torch.gguf.constants import GGMLType
+    from superllama_tpu_torch.ops import qmatmul as qm
+
+    return qm._FAMILY[qm._FMT[GGMLType[name]]]
+
+
+def wire_bpw(name: str) -> float:
+    from superllama_tpu_torch.gguf.constants import GGML_TYPE_TRAITS, GGMLType
+
+    tr = GGML_TYPE_TRAITS[GGMLType[name]]
+    return tr.type_size * 8 / tr.block_size
+
+
+def format_weights(kn, names=NEW_FORMATS) -> float:
+    """Seeded random GGUF bytes (``rand_raw``) of each named format at each
+    (K, N), through the port's ``repack`` on a pool of threads (numpy's
+    array work releases the GIL); kept on the CPU for the later phases.
+    Returns the seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from superllama_tpu_torch.gguf.constants import GGMLType
+    from superllama_tpu_torch.models.synthetic import rand_raw
+    from superllama_tpu_torch.ops.qtensor import repack
+
+    def make(key):
+        name, K, N = key
+        t = GGMLType[name]
+        return key, repack(rand_raw(t, N, K, SEED + 40), t, (N, K))
+
+    todo = [(n, K, N) for n in names for K, N in kn if (n, K, N) not in _FORMAT_CPU]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        _FORMAT_CPU.update(ex.map(make, todo))
+    return time.perf_counter() - t0
+
+
+def on_card(qt, clone: bool = False):
+    """A QTensor's planes on the card (copies of card planes with clone)."""
+    import dataclasses
+
+    return dataclasses.replace(qt, **{n: (p.clone() if clone else p.to("cuda"))
+                                      for n, p in qt.planes().items()})
+
+
+def check_format_kernels(torch, record) -> None:
+    """Every new format through qmv (M 1, 8, 16) and qmm (M 32), bf16 and f32
+    x, at the 8B's gate/up and down shapes, and SHAPE_FORMATS at SHAPE_KN
+    and SHAPE_ROWS, against their plain versions: the weights are the port's
+    repack of rand_raw bytes; each call must launch its family's kernel,
+    and two calls give the same bits. At M 33 (the plain dequantize +
+    torch.matmul) one format of each family, its dequantized weight
+    bit-equal to the CPU's and the product within NMSE 1e-9 of the CPU's
+    f32 product."""
+    from superllama_tpu_torch.ops import qmatmul as qm
+    from superllama_tpu_torch.ops.qtensor import dequant_qtensor
+
+    repack_s = format_weights(FORMAT_KN) + format_weights(SHAPE_KN, SHAPE_FORMATS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 30)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def cell(name, qt, K, N, qmv_rows, qmm_rows) -> None:
+        fam = format_family(name)
+        for kernel, fn, plain, rows in (("qmv", qm.qmv, qm.qmv_plain, qmv_rows),
+                                        ("qmm", qm.qmm, qm.qmm_plain, qmm_rows)):
+            for M in rows:
+                for dt in (bf16, f32):
+                    x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+                    case = f"{name} M={M} K={K} N={N} {str(dt)[6:]}"
+                    before = getattr(fn, f"launches_{fam}")
+                    got = fn(x, qt, dt)
+                    again = fn(x, qt, dt)
+                    torch.cuda.synchronize()
+                    check(getattr(fn, f"launches_{fam}") - before == 2,
+                          f"{kernel} {case}: the {fam} kernel did not launch")
+                    check(torch.equal(got, again), f"{kernel}_{fam} {case}: two calls differ")
+                    record(f"{kernel}_{fam}", case, got, plain(x, qt, dt), dt)
+
+    dispatch = {}
+    for name in NEW_FORMATS:
+        fam = format_family(name)
+        for K, N in FORMAT_KN:
+            cpu = _FORMAT_CPU[(name, K, N)]
+            qt = on_card(cpu)
+            cell(name, qt, K, N, (1, 8, 16), (32,))
+            if fam not in dispatch and K == 4096:
+                x = torch.randn((33, K), generator=gen, device="cuda")
+                w_cpu = dequant_qtensor(cpu)
+                check(torch.equal(dequant_qtensor(qt).cpu(), w_cpu),
+                      f"{name}: the card's dequantized weight differs from the CPU's")
+                before = (qm.qmv.launches, qm.qmm.launches)
+                got = qm.qmatmul(x, qt)
+                check((qm.qmv.launches, qm.qmm.launches) == before,
+                      f"{name} M 33: a kernel launched on the dequantize + matmul path")
+                dispatch[fam] = {"format": name,
+                                 "nmse_vs_cpu": nmse(got.cpu(), x.cpu() @ w_cpu)}
+                check(dispatch[fam]["nmse_vs_cpu"] < 1e-9, f"{name} M 33: {dispatch[fam]}")
+            del qt
+    n_shape = 0
+    for name in SHAPE_FORMATS:
+        for K, N in SHAPE_KN:
+            cell(name, on_card(_FORMAT_CPU[(name, K, N)]), K, N, *SHAPE_ROWS)
+            n_shape += 2 * sum(map(len, SHAPE_ROWS))
+    # the edges at small shapes, in f32 (qmm in bf16 too): partial column
+    # tiles, K of 17 groups (the 32-element formats), qmm row tiles past 32,
+    # for a format of each family and group size
+    from superllama_tpu_torch.gguf.constants import GGML_TYPE_TRAITS, GGMLType
+    from superllama_tpu_torch.models.synthetic import rand_raw
+    from superllama_tpu_torch.ops.qtensor import repack
+
+    n_edge = 0
+    for name in EDGE_FORMATS:
+        t = GGMLType[name]
+        fam = format_family(name)
+        for M, K, N in EDGE_SHAPES:
+            if K % GGML_TYPE_TRAITS[t].block_size:
+                continue
+            qt = on_card(repack(rand_raw(t, N, K, SEED + 41), t, (N, K)))
+            for kernel, fn, plain, dts in (("qmv", qm.qmv, qm.qmv_plain, (f32,) if M <= 16 else ()),
+                                           ("qmm", qm.qmm, qm.qmm_plain, (f32, bf16))):
+                for dt in dts:
+                    x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+                    got = fn(x, qt, dt)
+                    torch.cuda.synchronize()
+                    record(f"{kernel}_{fam}", f"{name} M={M} K={K} N={N} {str(dt)[6:]}", got,
+                           plain(x, qt, dt), dt)
+                    n_edge += 1
+    emit({"phase": "format_kernels", "formats": len(NEW_FORMATS), "repack_s": repack_s,
+          "dispatch_m33": dispatch, "shape_checks": n_shape, "edge_checks": n_edge})
+
+
+def format_reading(torch, fn, plain, qt, label: str, M: int, ops_kind: str) -> dict:
+    """fn (qmv or qmm) at M rows, bf16 x and output, over card copies of qt
+    past the L2, beside torch.matmul on its dequantized bf16 weight (as
+    matmul_reading). The bound counts the bytes the kernel reads: the
+    repacked planes (``QTensor.nbytes``), x and the output."""
+    from superllama_tpu_torch.ops.qtensor import dequant_qtensor
+
+    K, N = qt.K, qt.N
+    copies = [qt] + [on_card(qt, clone=True) for _ in range(1, n_copies(qt.nbytes, 6))]
+    dense = [dequant_qtensor(qt, torch.bfloat16)]
+    dense += [dense[0].clone() for _ in range(1, n_copies(K * N * 2))]
+    x = torch.randn((M, K), device="cuda").to(torch.bfloat16)
+    row = kernel_reading(
+        torch, f"{label} M={M} K={K} N={N} bf16",
+        lambda i: fn(x, copies[i % len(copies)], torch.bfloat16),
+        lambda i: plain(x, copies[i % len(copies)], torch.bfloat16),
+        lambda i: torch.matmul(x, dense[i % len(dense)]),
+        max(12, len(copies), len(dense)), qt.nbytes + x.numel() * 2 + M * N * 2,
+        2.0 * M * K * N, ops_kind)
+    row.update(bytes_per_weight=qt.nbytes / (K * N), group=qt.group)
+    del copies, dense
+    return row
+
+
+def time_formats(torch, names=NEW_FORMATS, m1: bool = True) -> dict:
+    """qmv at M 8 (and M 1 with m1) and qmm at M 32 on the 8B's gate/up (K
+    4096, N 14336) for each format, each row with its wire bits a weight
+    beside the bytes the kernel reads."""
+    from superllama_tpu_torch.ops.qmatmul import qmm, qmm_plain, qmv, qmv_plain
+
+    format_weights(FORMAT_KN[:1], names)
+    out = {}
+    for name in names:
+        qt = on_card(_FORMAT_CPU[(name, 4096, 14336)])
+        for key, fn, plain, M, kind in (("qmv", qmv, qmv_plain, 8, "int8"),
+                                        ("qmv M=1", qmv, qmv_plain, 1, "int8"),
+                                        ("qmm", qmm, qmm_plain, 32, "bf16")):
+            if M == 1 and not m1:
+                continue
+            row = format_reading(torch, fn, plain, qt, name, M, kind)
+            row.update(family=format_family(name), wire_bpw=wire_bpw(name))
+            out[f"{key} {name}"] = row
+        del qt
+    for fam, name in FAMILY_FORMAT.items():
+        if name in names:
+            out[f"qmv_{fam}"], out[f"qmm_{fam}"] = out[f"qmv {name}"], out[f"qmm {name}"]
+    return out
+
+
+def time_base_formats(torch) -> dict:
+    """The three redesigned formats' rows at the same shapes (qmv M 8, qmm
+    M 32, gate/up), for comparing a tree with its parent in one call."""
+    from superllama_tpu_torch.ops.qmatmul import qmm, qmm_plain, qmv, qmv_plain
+
+    out = {}
+    for kind in ("Q8_0", "Q4_K", "Q6_K"):
+        out[f"qmv {kind}"] = matmul_reading(torch, qmv, qmv_plain, kind, 8, 4096, 14336, "int8")
+        out[f"qmm {kind}"] = matmul_reading(torch, qmm, qmm_plain, kind, 32, 4096, 14336, "bf16")
+    return out
+
+
+def phase_mixes(torch, smi_line: str) -> dict:
+    """The 8B-width model in the Q4_0, Q5_K_M and IQ4_XS mixes (weights made
+    on the card in repack's layout, ``MIXES``), each on a bf16 dense cache of
+    8 slots: greedy and sampled waves over HTTP equal to the engine's
+    (serve_wave, no warm-up: the graphs are captured as the waves reach
+    their keys), its family's qmv and qmm launched, a full-width forward
+    within NMSE 1e-3 of the plain versions, then decode tok/s at B 1 and
+    B 8 and the TTFTs (time_serving). Returns the families' launches."""
+    import gc
+
+    launches = {}
+    for mix, fam in MIX_FAMILY.items():
+        t0 = time.perf_counter()
+        model = build_model(torch, mix)
+        build_s = time.perf_counter() - t0
+        params = model.params
+        weight_bytes = (sum(w.nbytes for layer in params["layers"] for w in layer.values()
+                            if hasattr(w, "planes")) + params["output"].nbytes)
+        counts, _ = serve_wave(torch, model, mix, [32, 100] * 4,
+                               ("qmv", "qmm", "fa_tc", f"qmv_{fam}", f"qmm_{fam}"),
+                               kv_dtype=torch.bfloat16, warmup=False)
+        launches.update({k: counts[k] for k in (f"qmv_{fam}", f"qmm_{fam}")})
+        phase_parity(torch, model, mix)
+        t = time_serving(torch, model, sampled=False)   # the sampled wave is served above
+        emit({"phase": "mix", "mix": mix, "card": smi_line, "build_s": build_s,
+              "weight_bytes": weight_bytes,
+              "embd_bytes": params["token_embd"].numel() * params["token_embd"].element_size(),
+              **{k: t[k] for k in ("decode_tok_s_b1", "decode_tok_s_b8", "ttft_ms_prompt32",
+                                   "ttft_ms_prompt1000", "launches_per_decode_step",
+                                   "launches_per_prefill_chunk_32")},
+              "seconds": time.perf_counter() - t0})
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+# the Llama-3.2-1B-width GGUF file's types by tensor role
+FILE_TYPES = {"attn_q": "Q4_0", "attn_k": "Q4_0", "attn_v": "Q5_K", "attn_output": "Q4_0",
+              "ffn_gate": "Q4_0", "ffn_up": "IQ4_XS", "ffn_down": "Q5_K",
+              "output": "Q6_K", "token_embd": "Q4_0"}
+
+
+def write_file_model(path: str, hp, tok) -> dict:
+    """A llama GGUF of hp's widths, FILE_TYPES' formats of rand_raw bytes
+    (norms F32 ones), and tok's vocab, written by the port's GGUFWriter.
+    Returns {tensor name: (type, raw bytes, (N, K))} of the quantized ones."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from superllama_tpu_torch.gguf import GGMLType, GGUFWriter
+    from superllama_tpu_torch.models.synthetic import rand_raw
+
+    E, F, V = hp.n_embd, hp.n_ff, hp.n_vocab
+    qd, kvd = hp.n_head * hp.head_dim, hp.n_head_kv * hp.head_dim
+    shapes = {"token_embd.weight": ("token_embd", V, E), "output.weight": ("output", V, E)}
+    for il in range(hp.n_layer):
+        for role, N, K in (("attn_q", qd, E), ("attn_k", kvd, E), ("attn_v", kvd, E),
+                           ("attn_output", E, qd), ("ffn_gate", F, E), ("ffn_up", F, E),
+                           ("ffn_down", E, F)):
+            shapes[f"blk.{il}.{role}.weight"] = (role, N, K)
+
+    def make(item):
+        i, (name, (role, N, K)) = item
+        t = GGMLType[FILE_TYPES[role]]
+        return name, (t, rand_raw(t, N, K, SEED + 50 + i), (N, K))
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        raws = dict(ex.map(make, enumerate(shapes.items())))
+    w = GGUFWriter(path, arch="llama")
+    for key, v in (("context_length", 8192), ("embedding_length", E), ("block_count", hp.n_layer),
+                   ("feed_forward_length", F), ("attention.head_count", hp.n_head),
+                   ("attention.head_count_kv", hp.n_head_kv),
+                   ("attention.layer_norm_rms_epsilon", hp.rms_eps),
+                   ("rope.freq_base", hp.rope_freq_base), ("rope.dimension_count", hp.n_rot),
+                   ("vocab_size", V)):
+        w.add(f"llama.{key}", v)
+    v = tok.vocab
+    w.add("general.name", "synthetic-llama3.2-1b-mixed")
+    w.add("tokenizer.ggml.model", v.model)
+    w.add("tokenizer.ggml.pre", v.pre)
+    w.add("tokenizer.ggml.tokens", list(v.tokens))
+    w.add("tokenizer.ggml.token_type", [int(a) for a in v.attrs])
+    w.add("tokenizer.ggml.merges", [])
+    w.add("tokenizer.ggml.bos_token_id", v.bos_id)
+    w.add("tokenizer.ggml.eos_token_id", v.eos_id)
+    w.add("tokenizer.ggml.add_bos_token", True)
+    ones = np.ones(E, np.float32)
+    w.add_tensor("output_norm.weight", ones)
+    for il in range(hp.n_layer):
+        w.add_tensor(f"blk.{il}.attn_norm.weight", ones)
+        w.add_tensor(f"blk.{il}.ffn_norm.weight", ones)
+    for name, (t, raw, (N, K)) in raws.items():
+        w.add_tensor(name, raw, t, raw_ne=(K, N))
+    w.write()
+    return raws
+
+
+def phase_gguf_file(torch, smi_line: str) -> dict:
+    """A real file on the card: a Llama-3.2-1B-width GGUF (16 layers, 2048
+    wide, 32/8 heads of 64, FFN 8192, vocab 128,256) of Q4_0 and Q5_K
+    blocks, an IQ4_XS ffn_up, a Q6_K output and a Q4_0 token_embd, written
+    by the port's GGUFWriter and split in two shards by its split_gguf,
+    loads through load_model(first shard, keep_quantized=True) onto the
+    card: every QTensor's planes equal repack's of the written bytes, the
+    Q4_0 token_embd equals dequantize's, the unsplit file loads to the
+    same parameters, and a wave of greedy requests served over HTTP equals
+    the engine's."""
+    import gc
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from superllama_tpu_torch.gguf import dequantize
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+    from superllama_tpu_torch.ops.qtensor import QTensor, repack
+    from superllama_tpu_torch.server.http import Server, ServerApp
+    from superllama_tpu_torch.tools.gguf_split import shard_paths, split_gguf
+
+    t_all = time.perf_counter()
+    hp = llama3_8b_hparams(**DRAFT_1B)
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "gguf_1b")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    try:
+        whole = os.path.join(d, "synthetic-1b.gguf")
+        t0 = time.perf_counter()
+        raws = write_file_model(whole, hp, grammar_tokenizer(hp.n_vocab))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        shards = split_gguf(whole, os.path.join(d, "synthetic-1b"), n_split=2)
+        split_s = time.perf_counter() - t0
+        check(shard_paths(shards[1]) == shards, f"shard paths {shards}")
+        t0 = time.perf_counter()
+        model = load_model(shards[0], dtype=torch.bfloat16, keep_quantized=True, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        by_name = {"output.weight": model.params["output"]}
+        roles = {"attn_q": "wq", "attn_k": "wk", "attn_v": "wv", "attn_output": "wo",
+                 "ffn_gate": "ffn_gate", "ffn_up": "ffn_up", "ffn_down": "ffn_down"}
+        for il, layer in enumerate(model.params["layers"]):
+            by_name.update({f"blk.{il}.{r}.weight": layer[k] for r, k in roles.items()})
+
+        def planes_equal(name) -> bool:
+            t, raw, shape = raws[name]
+            ref, got = repack(raw, t, shape), by_name[name]
+            return (got.ggml_type == t and all(
+                torch.equal(getattr(got, p).cpu(), getattr(ref, p))
+                if getattr(ref, p) is not None else getattr(got, p) is None
+                for p in QTensor.PLANES))
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+            bad = [n for n, ok in zip(by_name, ex.map(planes_equal, by_name)) if not ok]
+        check(not bad, f"loaded QTensors differ from repack of their bytes: {bad[:4]}")
+        t, raw, (V, E) = raws["token_embd.weight"]
+        emb = torch.from_numpy(dequantize(raw, t, (V, E))).to(torch.bfloat16)
+        check(torch.equal(model.params["token_embd"].cpu(), emb),
+              "the Q4_0 token_embd differs from dequantize's")
+        verify_s = time.perf_counter() - t0
+        whole_model = load_model(whole, dtype=torch.bfloat16, keep_quantized=True,
+                                 device="cuda")
+        flat = lambda m: [(k, v) for k, v in m.params.items() if k != "layers"] + [
+            (f"{i}.{k}", v) for i, layer in enumerate(m.params["layers"])
+            for k, v in layer.items()]
+        same = lambda a, b: (all(torch.equal(getattr(a, p), getattr(b, p)) if getattr(a, p)
+                                 is not None else getattr(b, p) is None for p in QTensor.PLANES)
+                             if isinstance(a, QTensor) else
+                             b is None if a is None else torch.equal(a, b))
+        got, ref = flat(model), flat(whole_model)
+        check([k for k, _ in got] == [k for k, _ in ref]
+              and all(same(a, b) for (_, a), (_, b) in zip(got, ref)),
+              "the split and the unsplit file loaded to different parameters")
+        del whole_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        types = sorted({v.ggml_type.name for _, v in got if isinstance(v, QTensor)})
+        # a wave of greedy requests over HTTP against the engine's own wave
+        app = ServerApp(model, n_slots=4, n_ctx=1024, model_name=model.name, device="cuda",
+                        kv_dtype=torch.bfloat16, warmup=False)
+        srv = Server(app, host="127.0.0.1", port=0)
+        srv.start()
+        try:
+            prompts = token_prompts(hp.n_vocab, [24, 40, 16, 64], SEED + 6)
+            results: list = [None] * len(prompts)
+
+            def send(i):
+                results[i] = http(srv.port, "/v1/completions",
+                                  {"prompt": prompts[i], "max_tokens": 32, "temperature": 0,
+                                   "return_tokens": True})
+
+            threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+            reset_counts()
+            in_one_wave(app.engine, lambda: [t.start() for t in threads], len(prompts))
+            for th in threads:
+                th.join(timeout=600)
+            counts = read_counts()
+            served = []
+            for i, (st, data) in enumerate(results):
+                check(st == 200, f"1B file request {i}: HTTP {st}")
+                served.append(json.loads(data)["choices"][0]["tokens"])
+            fresh(app.engine)
+            direct = [r["tokens"] for r in engine_wave(app.engine, prompts, 32)]
+            check(direct == served, "1B file: served tokens differ from the engine's")
+            text = http(srv.port, "/v1/completions", {"prompt": "Hello", "max_tokens": 4,
+                                                      "temperature": 0})
+            check(text[0] == 200, f"1B file: a text prompt's HTTP {text[0]}")
+        finally:
+            srv.stop()
+            del app, srv
+        for name in ("qmv_nib", "qmv_q5k", "qmv_i8", "qmv"):
+            check(counts[name] > 0, f"the 1B file's wave never launched {name}")
+        info = {"phase": "gguf_file", "card": smi_line, "layers": hp.n_layer,
+                "file_bytes": os.path.getsize(whole),
+                "shard_bytes": [os.path.getsize(p) for p in shards], "types": types,
+                "write_s": write_s, "split_s": split_s, "load_s": load_s,
+                "verify_s": verify_s, "launches": counts, "served_equal_engine": True,
+                "seconds": time.perf_counter() - t_all}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(info)
+    return info
+
+
 # ------------------------------------------------------------ main
 
 # (name, source, the TPU kernel it replaces, the timing entry of its record)
@@ -3645,6 +4130,8 @@ KERNELS = [
      "superllama_tpu/ops/paged_attention.py:138", "paged"),
     ("paged_tc", "superllama_tpu_torch/csrc/paged.cu",
      "superllama_tpu/ops/paged_attention.py:138", "paged prefill B=1 T=128"),
+] + [(f"{k}_{fam}", f"superllama_tpu_torch/csrc/{k}.cu", f"superllama_tpu/ops/qmatmul.py:{line}",
+       f"{k}_{fam}") for k, line in (("qmv", 235), ("qmm", 94)) for fam in ("i8", "nib", "q5k")
 ] + [(f"qmv_probe_{v}", "superllama_tpu_torch/csrc/qmv_probe.cu",
       f"superllama_tpu/tools/qmv_probe.py:{line}", f"qmv_probe_{v} N=14336")
      for v, line in (("v1", 53), ("v2", 64), ("v3", 91), ("v4", 78))]
@@ -4215,13 +4702,34 @@ def main() -> int:
         # the decode blocks' graphs alone: graph against eager blocks on
         # each cache, DecodeLoop, and the bf16 serving waves
         model = build_model(torch)
-        phase_graph_vs_eager(torch, model)
+        phase_graph_vs_eager(torch, build_model(torch, n_layer=CUT_LAYERS))
         phase_decode_loop(torch, model)
         phase_serving(torch, model)
         return 0
     if "--checks" in sys.argv[1:]:
         # the kernels against their plain versions alone
         phase_kernels(torch)
+        return 0
+    if "--formats" in sys.argv[1:]:
+        # the weight formats on the serving path alone (phase 4i; their
+        # kernel checks run with --checks)
+        phase_mixes(torch, info["nvidia_smi"])
+        phase_gguf_file(torch, info["nvidia_smi"])
+        return 0
+    if "--format-times" in sys.argv[1:]:
+        # each new format's qmv and qmm readings beside the three redesigned
+        # formats' at the same shapes (an argument after the flag names the
+        # formats, comma-separated: those alone)
+        i = sys.argv.index("--format-times") + 1
+        names = (tuple(sys.argv[i].split(",")) if i < len(sys.argv)
+                 and not sys.argv[i].startswith("--") else NEW_FORMATS)
+        emit({"phase": "format_times", "card": info["nvidia_smi"],
+              "kernels": {**time_base_formats(torch), **time_formats(torch, names)}})
+        return 0
+    if "--base-times" in sys.argv[1:]:
+        # the redesigned formats' rows alone (also for a parent tree)
+        emit({"phase": "base_times", "card": info["nvidia_smi"],
+              "kernels": time_base_formats(torch)})
         return 0
     if "--state" in sys.argv[1:]:
         # the engine's state between requests alone (phase 4e)
@@ -4247,22 +4755,28 @@ def main() -> int:
     paged_counts = phase_serving_paged(torch, model)
     counts["paged"], counts["paged_tc"] = paged_counts["paged"], paged_counts["paged_tc"]
     counts["fa"] = phase_serving_f32(torch, model)["fa"]
-    phase_graph_vs_eager(torch, model)
+    # graph against eager and the profiles at a cut depth (their checks do
+    # not depend on it; eager runs take most of their time)
+    phase_graph_vs_eager(torch, build_model(torch, n_layer=CUT_LAYERS))
     phase_decode_loop(torch, model)
     phase_warmup(torch, model)
     phase_state(torch, model, info["nvidia_smi"])
     phase_grammar(torch, model, info["nvidia_smi"])
     phase_spec(torch, model, info["nvidia_smi"])
     phase_front_door(torch, model, info["nvidia_smi"])
+    # the new formats' kernels launch on the serving mixes' path
+    counts.update(phase_mixes(torch, info["nvidia_smi"]))
+    phase_gguf_file(torch, info["nvidia_smi"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)
     times = phase_times(torch, model, info["nvidia_smi"])
-    phase_profile(torch, model)
+    phase_profile(torch, build_model(torch, n_layer=CUT_LAYERS))
     # the probe kernels' launches come from the tools' path
     tool_counts = phase_tools(torch, model)
     counts.update({name: n for name, n in tool_counts.items() if name.startswith("qmv_probe")})
     times.update(time_probe(torch, info["nvidia_smi"]))
+    times.update(time_formats(torch, tuple(FAMILY_FORMAT.values()), m1=False))
     record = []
     for name, source, replaces, timing in KERNELS:
         t = times[timing]

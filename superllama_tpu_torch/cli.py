@@ -36,7 +36,7 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-m", "--model", required=True, help="GGUF model path")
     p.add_argument("-c", "--ctx-size", type=int, default=2048, help="context window size")
     p.add_argument("--keep-quantized", action="store_true",
-                   help="keep Q8_0/Q4_K/Q6_K weights packed for the quantized kernels")
+                   help="keep repackable weights packed for the quantized kernels")
     p.add_argument("--kv-dtype", default="bfloat16", choices=_KV_DTYPES,
                    help="KV cache dtype")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")

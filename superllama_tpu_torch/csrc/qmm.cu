@@ -58,10 +58,20 @@
 //    split order by one qmm_reduce launch. No float atomics: two runs give
 //    the same bits.
 // Edges: rows >= M and columns >= N hold stale shared memory, which reaches
-// only their own (unstored) outputs; a Q8_0 k-tile past K is cut to whole
-// 32-groups and the warps skip the groups beyond it.
+// only their own (unstored) outputs; a k-tile past K (a format of 32-element
+// blocks) is cut to whole 32-groups and the warps skip the groups beyond it.
 //
-// Weight formats (FMT): 0 = Q8_0, 1 = Q4_K compact, 2 = Q6_K compact.
+// Weight formats (FMT): 0 = Q8_0, 1 = Q4_K compact, 2 = Q6_K compact, and
+// the other formats of the JAX package in three families of runtime group
+// size, offset and adds: 3 = int8 planar (int8 codes, f32 scales at gs 8,
+// 16, 32 or 256, optional f32 adds: Q5_0, Q5_1, MXFP4, IQ4_NL, IQ4_XS, the
+// IQ1/IQ2/IQ3 i-quants, Q2_K, Q3_K, Q8_K, TQ1_0, TQ2_0), 4 = nibble planar
+// (group-local nibbles, f32 scales per 32, offset 8 or f32 adds: Q4_0,
+// Q4_1), 5 = Q5_K compact (Q4_K's planes and a 1-bit hi plane). Their
+// element is bf16(fadd_rn(fmul_rn(code - offset, s), a)) as above; in the
+// tensor-core kernel each lane reads the scale (and add) rows of its 8-row
+// k pieces (four a 32-group at gs 8, two at gs 16, one a k-tile at gs 256).
+// They are simple paths: correct first, their speed is later work.
 
 #include "ptx.cuh"
 
@@ -79,6 +89,7 @@ struct Args {
   const uint8_t* codes; const uint8_t* hi; const float* scales;
   const uint8_t* sc; const uint8_t* mn; const float* d; const float* dmin;
   void* out; int out_bf16;
+  const float* adds; int gs, offset;   // the planar families (FMT 3, 4)
 };
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -90,14 +101,17 @@ __device__ __forceinline__ float dequant(const Args& a, int k, int n) {
   const long N = a.N;
   float q, s, add = 0.f, off = 0.f;
   bool has_add = false;
-  if (FMT == 0) {
+  if (FMT == 0 || FMT == 3) {
     q = (float)(int8_t)a.codes[(long)k * N + n];
-    s = a.scales[(long)(k / 32) * N + n];
+    s = a.scales[(long)(k / (FMT == 0 ? 32 : a.gs)) * N + n];
   } else {
     const int e = k % 32, row = (k / 32) * 16 + (e % 16);
     const uint8_t byte = a.codes[(long)row * N + n];
     int code = e < 16 ? (byte & 0x0F) : (byte >> 4);
-    if (FMT == 1) {
+    if (FMT == 5) code |= ((a.hi[(long)((k / 32) * 4 + e % 4) * N + n] >> (e / 4)) & 1) << 4;
+    if (FMT == 4) {
+      s = a.scales[(long)(k / 32) * N + n];
+    } else if (FMT == 1 || FMT == 5) {
       const int g = k / 32;
       s = a.d[(long)(k / 256) * N + n] * (float)a.sc[(long)g * N + n];
       add = -(a.dmin[(long)(k / 256) * N + n] * (float)a.mn[(long)g * N + n]);
@@ -109,6 +123,13 @@ __device__ __forceinline__ float dequant(const Args& a, int k, int n) {
       off = 32.f;
     }
     q = (float)code;
+  }
+  if (FMT == 3 || FMT == 4) {
+    off = (float)a.offset;
+    if (a.adds != nullptr) {
+      add = a.adds[(long)(k / a.gs) * N + n];
+      has_add = true;
+    }
   }
   float w = __fmul_rn(__fsub_rn(q, off), s);
   if (has_add) w = __fadd_rn(w, add);
@@ -196,25 +217,31 @@ struct Args {
   const uint8_t* codes; const uint8_t* hi; const float* scales;
   const uint8_t* sc; const uint8_t* mn; const float* d; const float* dmin;
   float* part; void* out; int out_bf16;
+  const float* adds; int gs, offset;         // the planar families (FMT 3, 4)
 };
 
-// byte offsets inside one ring stage (all multiples of 16)
+// byte offsets inside one ring stage (all multiples of 16). FMT 3's scale
+// and add planes hold up to BK/8 rows (gs 8), FMT 4's one a 32-group.
 template <int FMT>
 struct Stage {
-  static constexpr int CODE_ROWS = FMT == 0 ? BK : BK / 2;
-  static constexpr int HI_ROWS = FMT == 2 ? BK / 4 : 0;
-  static constexpr int SC_ROWS = FMT == 0 ? 0 : FMT == 1 ? BK / 32 : BK / 16;
-  static constexpr int MN_ROWS = FMT == 1 ? BK / 32 : 0;
+  static constexpr bool PLANAR = FMT == 3 || FMT == 4;
+  static constexpr bool KQ = FMT == 1 || FMT == 5;    // Q4_K's planes
+  static constexpr int CODE_ROWS = FMT == 0 || FMT == 3 ? BK : BK / 2;
+  static constexpr int HI_ROWS = FMT == 2 ? BK / 4 : FMT == 5 ? BK / 8 : 0;
+  static constexpr int SC_ROWS = FMT == 0 || PLANAR ? 0 : KQ ? BK / 32 : BK / 16;
+  static constexpr int MN_ROWS = KQ ? BK / 32 : 0;
+  static constexpr int SCL_ROWS = FMT == 0 || FMT == 4 ? BK / 32 : FMT == 3 ? BK / 8 : 0;
   static constexpr int X = 0;
   static constexpr int CODES = X + BM * XROW;
   static constexpr int HI = CODES + CODE_ROWS * CROW;
   static constexpr int SC = HI + HI_ROWS * CROW;
   static constexpr int MN = SC + SC_ROWS * BN;
   static constexpr int D = MN + MN_ROWS * BN;
-  static constexpr int DMIN = D + (FMT == 0 ? 0 : BN * 4);
-  static constexpr int SCL = DMIN + (FMT == 1 ? BN * 4 : 0);
-  static constexpr int BYTES = SCL + (FMT == 0 ? BK / 32 * BN * 4 : 0);
-  static constexpr int NST = FMT == 0 ? 3 : 4;
+  static constexpr int DMIN = D + (FMT == 0 || PLANAR ? 0 : BN * 4);
+  static constexpr int SCL = DMIN + (KQ ? BN * 4 : 0);
+  static constexpr int ADD = SCL + SCL_ROWS * BN * 4;
+  static constexpr int BYTES = ADD + (PLANAR ? SCL_ROWS * BN * 4 : 0);
+  static constexpr int NST = FMT == 0 ? 3 : FMT == 3 ? 2 : 4;
   static constexpr int SMEM = NST * BYTES + 2 * NST * 8;
 };
 
@@ -227,8 +254,17 @@ template <int FMT>
 __device__ __forceinline__ float deq(uint32_t nib, int j, float s, float c, float a) {
   constexpr float BIAS = FMT == 0 ? 8388608.f + 128.f : 8388608.f + 32.f;
   const float f = __uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7440u + j));
-  if constexpr (FMT == 1) return __fadd_rn(__fmaf_rn(f, s, c), a);
+  if constexpr (FMT == 1 || FMT == 5) return __fadd_rn(__fmaf_rn(f, s, c), a);
   return __fmul_rn(f - BIAS, s);
+}
+
+// the planar families: bias = 2^23 + the byte's bias (128 for int8 codes)
+// + offset, exact; then fmul_rn by s and, with adds, fadd_rn of a
+__device__ __forceinline__ float deq_planar(uint32_t nib, int j, float bias, float s, float a,
+                                            bool adds) {
+  const float f = __uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7440u + j));
+  const float w = __fmul_rn(f - bias, s);
+  return adds ? __fadd_rn(w, a) : w;
 }
 
 template <int FMT>
@@ -283,10 +319,17 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
       if constexpr (FMT == 0) {
         rows8(S::CODES, CROW, a.codes, k0, kv);
         rows32(S::SCL, a.scales, k0 / 32, kv / 32);
+      } else if constexpr (S::PLANAR) {
+        // the tile's scale (and add) rows: kv / gs of them, one at gs 256
+        const int gs = FMT == 4 ? 32 : a.gs, nr = gs == 256 ? 1 : kv / gs;
+        rows8(S::CODES, CROW, a.codes, FMT == 3 ? k0 : k0 / 2, FMT == 3 ? kv : kv / 2);
+        rows32(S::SCL, a.scales, k0 / gs, nr);
+        if (a.adds != nullptr) rows32(S::ADD, a.adds, k0 / gs, nr);
       } else {
         rows8(S::CODES, CROW, a.codes, k0 / 2, kv / 2);
         rows32(S::D, a.d, k0 / 256, 1);
-        if constexpr (FMT == 1) {
+        if constexpr (FMT == 5) rows8(S::HI, CROW, a.hi, k0 / 8, kv / 8);
+        if constexpr (S::KQ) {
           rows8(S::SC, BN, a.sc, k0 / 32, kv / 32);
           rows8(S::MN, BN, a.mn, k0 / 32, kv / 32);
           rows32(S::DMIN, a.dmin, k0 / 256, 1);
@@ -322,14 +365,15 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
 #pragma unroll
     for (int gq = 0; gq < 2; ++gq) {
       const int gi = kw * 2 + gq;
-      if (gi >= ng) break;   // a Q8_0 tile past K
+      if (gi >= ng) break;   // a tile past K (32-element formats)
       // this lane's code words: rows 2t, 2t+1, 2t+8, 2t+9 of the group's 16
       // packed rows (Q8_0: of each 16-row half, k-step h at rows 16h + ..)
-      const int crow = (FMT == 0 ? gi * 32 : gi * 16) + 2 * t;
+      constexpr bool I8 = FMT == 0 || FMT == 3;   // int8 code rows
+      const int crow = (I8 ? gi * 32 : gi * 16) + 2 * t;
       const unsigned char* cw = s + S::CODES + crow * CROW + cb;
       uint32_t w[2][4];
 #pragma unroll
-      for (int h = 0; h < (FMT == 0 ? 2 : 1); ++h) {
+      for (int h = 0; h < (I8 ? 2 : 1); ++h) {
         const unsigned char* c = cw + h * 16 * CROW;
         w[h][0] = *reinterpret_cast<const uint32_t*>(c);
         w[h][1] = *reinterpret_cast<const uint32_t*>(c + CROW);
@@ -339,14 +383,31 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
       // per-column scales of the group (of each 16-half for Q6_K)
       float sc[2][4], cs[4] = {0.f, 0.f, 0.f, 0.f}, ad[4] = {0.f, 0.f, 0.f, 0.f};
       uint32_t hw[2] = {0u, 0u};
-      if constexpr (FMT == 0) {
+      // the planar families: scale and add of each (k-step h, 8-row half
+      // hb) of the group, for the lane's 4 columns
+      float ps[2][2][4], pa[2][2][4];
+      if constexpr (S::PLANAR) {
+        const int gs = FMT == 4 ? 32 : a.gs;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int hb = 0; hb < 2; ++hb) {
+            const int row = gs == 256 ? 0 : (gi * 32 + 16 * h + 8 * hb) / gs;
+            const float4 v = *reinterpret_cast<const float4*>(s + S::SCL + row * BN * 4 + cb * 4);
+            ps[h][hb][0] = v.x; ps[h][hb][1] = v.y; ps[h][hb][2] = v.z; ps[h][hb][3] = v.w;
+            float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (a.adds != nullptr)
+              u = *reinterpret_cast<const float4*>(s + S::ADD + row * BN * 4 + cb * 4);
+            pa[h][hb][0] = u.x; pa[h][hb][1] = u.y; pa[h][hb][2] = u.z; pa[h][hb][3] = u.w;
+          }
+      } else if constexpr (FMT == 0) {
         const float4 v = *reinterpret_cast<const float4*>(s + S::SCL + gi * BN * 4 + cb * 4);
         sc[0][0] = sc[1][0] = v.x; sc[0][1] = sc[1][1] = v.y;
         sc[0][2] = sc[1][2] = v.z; sc[0][3] = sc[1][3] = v.w;
       } else {
         const float4 dv = *reinterpret_cast<const float4*>(s + S::D + cb * 4);
         const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
-        if constexpr (FMT == 1) {
+        if constexpr (S::KQ) {
           const float4 mv = *reinterpret_cast<const float4*>(s + S::DMIN + cb * 4);
           const float dm[4] = {mv.x, mv.y, mv.z, mv.w};
           const uint32_t scw = *reinterpret_cast<const uint32_t*>(s + S::SC + gi * BN + cb);
@@ -356,6 +417,13 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
             sc[0][j] = sc[1][j] = __fmul_rn(dd[j], (float)((scw >> (8 * j)) & 255u));
             cs[j] = -8388608.f * sc[0][j];
             ad[j] = -__fmul_rn(dm[j], (float)((mnw >> (8 * j)) & 255u));
+          }
+          if constexpr (FMT == 5) {
+            // element e's hi bit: hi row e % 4, bit e / 4; the lane's rows
+            // 2t + (q & 1) (mod 4) of the group's 4
+            const unsigned char* hp = s + S::HI + gi * 4 * CROW + cb;
+            hw[0] = *reinterpret_cast<const uint32_t*>(hp + ((2 * t) & 3) * CROW);
+            hw[1] = *reinterpret_cast<const uint32_t*>(hp + ((2 * t + 1) & 3) * CROW);
           }
         } else {
 #pragma unroll
@@ -377,21 +445,35 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
         uint32_t nib[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          if constexpr (FMT == 0) {
+          if constexpr (I8) {
             nib[q] = w[h][q] ^ 0x80808080u;   // int8 -> biased byte
           } else {
             nib[q] = (h ? w[0][q] >> 4 : w[0][q]) & 0x0F0F0F0Fu;
             if constexpr (FMT == 2)   // element e's 2 high bits: hi row e % 8, field e / 8
               nib[q] |= ((hw[q & 1] >> (4 * h + 2 * (q >> 1))) & 0x03030303u) << 4;
+            if constexpr (FMT == 5)   // row 2t + q (+ 8 for q > 1): bit 4h + 2 (q >> 1) + t / 2
+              nib[q] |= ((hw[q & 1] >> (4 * h + 2 * (q >> 1) + (t >> 1))) & 0x01010101u) << 4;
           }
         }
         uint32_t bf[4][2];
+        if constexpr (S::PLANAR) {
+          const float bias = 8388608.f + (FMT == 3 ? 128.f : 0.f) + (float)a.offset;
+          const bool adds = a.adds != nullptr;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          bf[j][0] = pack_bf16(deq<FMT>(nib[0], j, sc[h][j], cs[j], ad[j]),
-                               deq<FMT>(nib[1], j, sc[h][j], cs[j], ad[j]));
-          bf[j][1] = pack_bf16(deq<FMT>(nib[2], j, sc[h][j], cs[j], ad[j]),
-                               deq<FMT>(nib[3], j, sc[h][j], cs[j], ad[j]));
+          for (int j = 0; j < 4; ++j) {
+            bf[j][0] = pack_bf16(deq_planar(nib[0], j, bias, ps[h][0][j], pa[h][0][j], adds),
+                                 deq_planar(nib[1], j, bias, ps[h][0][j], pa[h][0][j], adds));
+            bf[j][1] = pack_bf16(deq_planar(nib[2], j, bias, ps[h][1][j], pa[h][1][j], adds),
+                                 deq_planar(nib[3], j, bias, ps[h][1][j], pa[h][1][j], adds));
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            bf[j][0] = pack_bf16(deq<FMT>(nib[0], j, sc[h][j], cs[j], ad[j]),
+                                 deq<FMT>(nib[1], j, sc[h][j], cs[j], ad[j]));
+            bf[j][1] = pack_bf16(deq<FMT>(nib[2], j, sc[h][j], cs[j], ad[j]),
+                                 deq<FMT>(nib[3], j, sc[h][j], cs[j], ad[j]));
+          }
         }
         const int kk = gi * 32 + h * 16 + (lane >> 4) * 8;
 #pragma unroll
@@ -499,41 +581,57 @@ cudaError_t launch(const Args& a, int n_split, cudaStream_t st) {
 
 }  // namespace tc
 
-// fmt: 0 Q8_0, 1 Q4_K, 2 Q6_K. x (M, K) f32 or bf16; out (M, N) f32 or bf16.
-// Returns the cudaError_t of the launch.
+// fmt: 0 Q8_0, 1 Q4_K, 2 Q6_K, 3 int8 planar, 4 nibble planar, 5 Q5_K;
+// adds (K/gs, N) f32 or null, gs and offset for fmt 3 and 4. x (M, K) f32
+// or bf16; out (M, N) f32 or bf16. Returns the cudaError_t of the launch.
 extern "C" int slt_qmm(int fmt, int M, int K, int N, const void* x, int x_bf16,
                        const void* codes, const void* hi, const void* scales,
                        const void* sc, const void* mn, const void* d, const void* dmin,
-                       void* out, int out_bf16, void* stream) {
+                       const void* adds, int gs, int offset, void* out, int out_bf16,
+                       void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (fmt < 0 || fmt > 5 || (fmt == 3 && gs != 8 && gs != 16 && gs != 32 && gs != 256) ||
+      (fmt == 4 && gs != 32))
+    return (int)cudaErrorInvalidValue;
   Args a{x, x_bf16, M, K, N, (const uint8_t*)codes, (const uint8_t*)hi,
          (const float*)scales, (const uint8_t*)sc, (const uint8_t*)mn,
-         (const float*)d, (const float*)dmin, out, out_bf16};
+         (const float*)d, (const float*)dmin, out, out_bf16, (const float*)adds, gs, offset};
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   if (fmt == 0) qmm_kernel<0><<<grid, TPB, 0, st>>>(a);
   else if (fmt == 1) qmm_kernel<1><<<grid, TPB, 0, st>>>(a);
-  else qmm_kernel<2><<<grid, TPB, 0, st>>>(a);
+  else if (fmt == 2) qmm_kernel<2><<<grid, TPB, 0, st>>>(a);
+  else if (fmt == 3) qmm_kernel<3><<<grid, TPB, 0, st>>>(a);
+  else if (fmt == 4) qmm_kernel<4><<<grid, TPB, 0, st>>>(a);
+  else qmm_kernel<5><<<grid, TPB, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The tensor-core kernel for bf16 x, N a multiple of 16 and 16-byte aligned
-// planes: fmt as above; the K range is cut into n_split splits of per
-// 128-deep k-tiles (qmm_plan), part holds n_split * M * N f32 when
-// n_split > 1. Returns the cudaError_t of the launches.
+// planes: fmt, adds, gs and offset as above; the K range is cut into
+// n_split splits of per 128-deep k-tiles (qmm_plan), part holds
+// n_split * M * N f32 when n_split > 1. Returns the cudaError_t of the
+// launches.
 extern "C" int slt_qmm_tc(int fmt, int M, int K, int N, const void* x, const void* codes,
                           const void* hi, const void* scales, const void* sc, const void* mn,
-                          const void* d, const void* dmin, int n_split, int per, void* part,
-                          void* out, int out_bf16, void* stream) {
+                          const void* d, const void* dmin, const void* adds, int gs, int offset,
+                          int n_split, int per, void* part, void* out, int out_bf16,
+                          void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (N % 16 || K % 32 || n_split < 1 || (n_split > 1 && part == nullptr))
+  if (N % 16 || K % 32 || n_split < 1 || (n_split > 1 && part == nullptr) || fmt < 0 ||
+      fmt > 5 || (fmt == 3 && gs != 8 && gs != 16 && gs != 32 && gs != 256) ||
+      (fmt == 3 && gs == 256 && K % 256) || (fmt == 4 && gs != 32))
     return (int)cudaErrorInvalidValue;
   tc::Args a{M, K, N, per, (const __nv_bfloat16*)x, (const uint8_t*)codes,
              (const uint8_t*)hi, (const float*)scales, (const uint8_t*)sc,
              (const uint8_t*)mn, (const float*)d, (const float*)dmin,
-             n_split > 1 ? (float*)part : nullptr, out, out_bf16};
+             n_split > 1 ? (float*)part : nullptr, out, out_bf16, (const float*)adds, gs,
+             offset};
   cudaError_t e;
   if (fmt == 0) e = tc::launch<0>(a, n_split, st);
   else if (fmt == 1) e = tc::launch<1>(a, n_split, st);
-  else e = tc::launch<2>(a, n_split, st);
+  else if (fmt == 2) e = tc::launch<2>(a, n_split, st);
+  else if (fmt == 3) e = tc::launch<3>(a, n_split, st);
+  else if (fmt == 4) e = tc::launch<4>(a, n_split, st);
+  else e = tc::launch<5>(a, n_split, st);
   return (int)e;
 }

@@ -596,6 +596,371 @@ int resident_bn(int bn, int nb, int cl) {
   return nb == 1 ? resident<FMT, 32, 1>(cl) : resident<FMT, 32, 2>(cl);
 }
 
+// ------------------------------------------- the planar and Q5_K kernel
+//
+// The other formats of the JAX package (ops/qtensor.py), in one kernel of
+// runtime group size, offset and adds (the same sums as above, the same
+// activation quantizer at the weights' group size):
+//   FAM 3: int8 codes (K, N), f32 scales (K/gs, N), optional f32 adds;
+//          gs 8 (IQ1_M), 16 (Q2_K, Q3_K, IQ2_XS, IQ2_S), 32 (Q5_0, Q5_1,
+//          MXFP4, IQ4_NL, IQ4_XS, IQ2_XXS, IQ3_XXS, IQ3_S, IQ1_S) or 256
+//          (Q8_K, TQ1_0, TQ2_0);
+//   FAM 4: nibbles (K/2, N) in the group-local layout, f32 scales per 32,
+//          offset 8 (Q4_0) or f32 adds (Q4_1);
+//   FAM 5: Q5_K compact (Q4_K's planes and a 1-bit hi plane, element e of a
+//          32-group in hi row e % 4, bit e / 4).
+// A block of 8 warps owns BN columns and one split of K (qmv_planar_plan:
+// where the column tiles alone give too few blocks, up to 8 splits, whose
+// f32 partials qmv_planar_reduce adds in split order; no thread block
+// cluster: a cluster of two cost this kernel about 0.02 ms a call on the
+// H100, PERF.md section 6). For each chunk of KC elements of its
+// range it quantizes x's rows into shared memory (a team of gs/8 threads
+// a (row, group), 8 elements a thread, every item's x loaded first: amax
+// and the code sum by shuffles in a fixed order), then each thread takes
+// 4 adjacent columns and 32-element k blocks in turn (k slice ks takes
+// blocks ks, ks + KS, ..): its 32-bit loads of the block's code rows all
+// issued first, straight from device memory, a byte transpose to one
+// column's 4 codes a word, dp4a against x's codes, a group's exact integer
+// dot scaled by sx * s in f32, the correction xs * (a - offset * s) once a
+// group. The k slices' sums are added in a fixed order (shuffles, then the
+// warps' in warp order). A simple kernel: correct first; its speed is
+// later work.
+
+constexpr int PNT = 256;             // threads of a planar block
+constexpr int KC = 1024;             // x elements a chunk
+
+struct PArgs {
+  int M, K, N, per, unit, gs, offset;   // per: K units (unit elements) a split
+  const void* x; int x_bf16;
+  const uint8_t* codes; const uint8_t* hi; const float* scales; const float* adds;
+  const uint8_t* sc; const uint8_t* mn; const float* d; const float* dmin;
+  float* part;                          // (splits, M, N) f32 partials, or null
+  void* out; int out_bf16;
+};
+
+template <int MR>
+struct PGeo {
+  static constexpr int XQ = 0;                          // int8 codes (MR, KC)
+  static constexpr int SXS = XQ + MR * KC;              // (sx, xs) (MR, KC / 8)
+  static constexpr int PART = SXS + MR * (KC / 8) * 8;  // f32 sums (MR, BN <= 64)
+  static constexpr int RED = PART + MR * 64 * 4;        // each warp's (MR, BN)
+  static constexpr int SMEM = RED + (PNT / 32) * MR * 64 * 4;
+};
+
+// x's rows m < MR over [c0, c0 + cn) quantized at group size gs: codes to
+// xq (row stride KC), (sx, xs) to sxs at (row, group in the chunk). Each
+// thread takes items (row, 8 elements) tid, tid + PNT, ..: every item's x
+// is loaded first, then quantized (a team of gs/8 lanes a group).
+template <int MR>
+__device__ __forceinline__ void quantize_planar(const PArgs& a, int8_t* xq, float2* sxs, int c0,
+                                                int cn, int tid) {
+  constexpr int NI = (MR * KC / 8 + PNT - 1) / PNT;   // items a thread at most
+  const int T = a.gs >= 256 ? 32 : a.gs / 8;          // threads a (row, group)
+  const int per_row = cn / 8, items = MR * per_row;
+  uint4 raw[NI][2];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int it = tid + i * PNT, m = it / per_row, k = c0 + (it - m * per_row) * 8;
+    raw[i][0] = raw[i][1] = make_uint4(0u, 0u, 0u, 0u);
+    if (it < items && m < a.M) {
+      if (a.x_bf16) {
+        raw[i][0] = __ldg(reinterpret_cast<const uint4*>(
+            reinterpret_cast<const __nv_bfloat16*>(a.x) + (long)m * a.K + k));
+      } else {
+        const uint4* src = reinterpret_cast<const uint4*>(reinterpret_cast<const float*>(a.x) +
+                                                          (long)m * a.K + k);
+        raw[i][0] = __ldg(src);
+        raw[i][1] = __ldg(src + 1);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    // block-uniform: past the last warp that holds an item, none computes
+    if (i * PNT >= (items + 31) / 32 * 32) break;
+    const int it = tid + i * PNT, m = it / per_row, e8 = it - m * per_row;
+    float v[8];
+    if (a.x_bf16) {
+      const uint32_t ww[4] = {raw[i][0].x, raw[i][0].y, raw[i][0].z, raw[i][0].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[2 * e] = __uint_as_float(ww[e] << 16);
+        v[2 * e + 1] = __uint_as_float(ww[e] & 0xffff0000u);
+      }
+    } else {
+      const uint32_t ww[8] = {raw[i][0].x, raw[i][0].y, raw[i][0].z, raw[i][0].w,
+                              raw[i][1].x, raw[i][1].y, raw[i][1].z, raw[i][1].w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = __uint_as_float(ww[e]);
+    }
+    float amax = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    for (int o = T / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float sx = __fdiv_rn(amax, 127.0f);
+    const float inv = amax > 0.f ? __fdiv_rn(127.0f, amax) : 0.f;
+    int c[8], sum = 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      c[e] = __float2int_rn(__fmul_rn(v[e], inv));
+      sum += c[e];
+    }
+    for (int o = T / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (it < items) {
+      *reinterpret_cast<uint2*>(xq + m * KC + e8 * 8) =
+          make_uint2(pack_s8(c[0], c[1], c[2], c[3]), pack_s8(c[4], c[5], c[6], c[7]));
+      if (e8 % T == 0)
+        sxs[m * (KC / 8) + (e8 * 8) / a.gs] = make_float2(sx, __fmul_rn((float)sum, sx));
+    }
+  }
+}
+
+template <int FAM, int BN, int MR>
+__global__ void __launch_bounds__(PNT, MR > 8 ? 1 : 2) qmv_planar_kernel(PArgs a) {
+  using G = PGeo<MR>;
+  constexpr int QW = BN / 4;               // column quads: lanes along a row
+  constexpr int KS = PNT / QW;             // k slices of a block
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* xq = reinterpret_cast<int8_t*>(smem + G::XQ);
+  float2* sxs = reinterpret_cast<float2*>(smem + G::SXS);
+  float* part = reinterpret_cast<float*>(smem + G::PART);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = blockIdx.x;         // the K split
+  const int n0 = blockIdx.y * BN, ncol = min(BN, a.N - n0);
+  const int n_units = a.K / a.unit;
+  const int kb0 = min(rank * a.per, n_units) * a.unit;
+  const int kb1 = min((rank + 1) * a.per, n_units) * a.unit;
+  const int cq = tid % QW, ks = tid / QW;  // this thread's column quad and k slice
+  const int n = n0 + 4 * cq;
+  const bool live = 4 * cq < ncol;
+  const long N = a.N;
+  const int gsb = a.gs < 32 ? a.gs : 32;   // elements of a group piece in a k block
+  const int np = 32 / gsb;                 // group pieces a k block
+  const bool has_adds = FAM == 5 || a.adds != nullptr;
+  float acc[MR][4];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+
+  for (int c0 = kb0; c0 < kb1; c0 += KC) {
+    const int cn = min(KC, kb1 - c0);
+    __syncthreads();   // the last chunk's codes are read
+    quantize_planar<MR>(a, xq, sxs, c0, cn, tid);
+    __syncthreads();
+    if (!live) continue;
+    for (int j = ks; j < cn / 32; j += KS) {
+      const int kl = 32 * j, k = c0 + kl;
+      // every code row of the k block first (32 int8 rows, or 16 nibble
+      // rows and Q5_K's 4 hi rows), then the scales: all in flight at once
+      uint32_t w[32];
+      if constexpr (FAM == 3) {
+        const uint8_t* p = a.codes + (long)k * N + n;
+#pragma unroll
+        for (int r = 0; r < 32; ++r) w[r] = __ldg(reinterpret_cast<const uint32_t*>(p + r * N));
+      } else {
+        const uint8_t* p = a.codes + (long)(k / 2) * N + n;
+#pragma unroll
+        for (int r = 0; r < 16; ++r) w[r] = __ldg(reinterpret_cast<const uint32_t*>(p + r * N));
+        if constexpr (FAM == 5) {
+          const uint8_t* h = a.hi + (long)(k / 8) * N + n;
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            w[16 + r] = __ldg(reinterpret_cast<const uint32_t*>(h + r * N));
+        }
+      }
+      // the group pieces of the k block (4 of gs 8, 2 of gs 16, else 1):
+      // their scales and corrections, the correction only at a group's
+      // first k block
+      float s[4][4], cr[4][4];
+      bool corr[4];
+#pragma unroll
+      for (int pc = 0; pc < 4; ++pc) {
+        corr[pc] = false;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[pc][c] = cr[pc][c] = 0.f;
+        if (pc >= np) continue;
+        const int g = (k + pc * gsb) / a.gs;
+        corr[pc] = (has_adds || a.offset) && (k + pc * gsb) % a.gs == 0;
+        if constexpr (FAM == 5) {
+          const float4 dv = __ldg(reinterpret_cast<const float4*>(a.d + (k / 256) * N + n));
+          const float4 mv = __ldg(reinterpret_cast<const float4*>(a.dmin + (k / 256) * N + n));
+          const uint32_t scw = __ldg(reinterpret_cast<const uint32_t*>(a.sc + g * N + n));
+          const uint32_t mnw = __ldg(reinterpret_cast<const uint32_t*>(a.mn + g * N + n));
+          const float dd[4] = {dv.x, dv.y, dv.z, dv.w}, dm[4] = {mv.x, mv.y, mv.z, mv.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[pc][c] = __fmul_rn(dd[c], (float)((scw >> (8 * c)) & 255u));
+            cr[pc][c] = -__fmul_rn(dm[c], (float)((mnw >> (8 * c)) & 255u));
+          }
+        } else {
+          const float4 sv = __ldg(reinterpret_cast<const float4*>(a.scales + g * N + n));
+          s[pc][0] = sv.x; s[pc][1] = sv.y; s[pc][2] = sv.z; s[pc][3] = sv.w;
+          if (a.adds != nullptr) {
+            const float4 av = __ldg(reinterpret_cast<const float4*>(a.adds + g * N + n));
+            cr[pc][0] = av.x; cr[pc][1] = av.y; cr[pc][2] = av.z; cr[pc][3] = av.w;
+          }
+          if (a.offset) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              cr[pc][c] = __fadd_rn(cr[pc][c], -(float)a.offset * s[pc][c]);
+          }
+        }
+      }
+      // this thread's 4 columns' codes: word q of column c holds elements
+      // 4q .. 4q + 3 of the k block
+      uint32_t col[4][8];
+      if constexpr (FAM == 3) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          uint32_t t[4];
+          transpose4(w + 4 * q, t);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) col[c][q] = t[c];
+        }
+      } else {
+        // byte row e < 16 of the group holds element e (low nibble) and
+        // 16 + e (high nibble)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t t[4];
+          transpose4(w + 4 * q, t);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            col[c][q] = t[c] & M4;
+            col[c][4 + q] = (t[c] >> 4) & M4;
+          }
+        }
+        if constexpr (FAM == 5) {
+          uint32_t t[4];
+          transpose4(w + 16, t);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int q = 0; q < 8; ++q) col[c][q] |= ((t[c] >> q) & 0x01010101u) << 4;
+        }
+      }
+      const int gl0 = kl / a.gs;   // x's group of the first piece, in the chunk
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        const int* xr = reinterpret_cast<const int*>(xq + m * KC + kl);
+        // the exact dot of each 8-element piece, then of each group piece
+        int d8[4][4];
+#pragma unroll
+        for (int pr = 0; pr < 4; ++pr) {
+          const int x0 = xr[2 * pr], x1 = xr[2 * pr + 1];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            d8[pr][c] = __dp4a((int)col[c][2 * pr + 1], x1, __dp4a((int)col[c][2 * pr], x0, 0));
+        }
+#pragma unroll
+        for (int pc = 0; pc < 4; ++pc) {
+          if (pc >= np) break;
+          const float2 v = sxs[m * (KC / 8) + gl0 + pc];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int dot = gsb == 8 ? d8[pc][c]
+                            : gsb == 16 ? d8[(2 * pc) & 3][c] + d8[(2 * pc + 1) & 3][c]
+                                        : d8[0][c] + d8[1][c] + d8[2][c] + d8[3][c];
+            acc[m][c] = fmaf((float)dot, v.x * s[pc][c], acc[m][c]);
+            if (corr[pc]) acc[m][c] = fmaf(v.y, cr[pc][c], acc[m][c]);
+          }
+        }
+      }
+    }
+  }
+
+  // the k slices' sums: within a warp by shuffles (a fixed tree), each
+  // warp's into its slot of red, then the warps' added in warp order
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      for (int o = 16; o >= QW; o >>= 1) acc[m][c] += __shfl_down_sync(0xffffffffu, acc[m][c], o);
+  float* red = reinterpret_cast<float*>(smem + G::RED);
+  if (lane < QW) {
+#pragma unroll
+    for (int m = 0; m < MR; ++m)
+      *reinterpret_cast<float4*>(red + (warp * MR + m) * BN + 4 * cq) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  }
+  __syncthreads();
+  for (int e = tid; e < MR * BN / 4; e += PNT) {
+    float4 v = reinterpret_cast<const float4*>(red)[e];
+    for (int w = 1; w < PNT / 32; ++w) {
+      const float4 u = reinterpret_cast<const float4*>(red)[w * MR * BN / 4 + e];
+      v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+    }
+    reinterpret_cast<float4*>(part)[e] = v;
+  }
+  __syncthreads();
+  // the block's sums: this split's partials, or the output
+  const int c4n = ncol / 4;
+  for (int e = tid; e < a.M * c4n; e += PNT) {
+    const int m = e / c4n, c4 = e - m * c4n;
+    const float4 v = reinterpret_cast<const float4*>(part)[m * BN / 4 + c4];
+    const long o = (long)m * a.N + n0 + 4 * c4;
+    if (a.part != nullptr)
+      *reinterpret_cast<float4*>(a.part + (long)rank * a.M * a.N + o) = v;
+    else if (a.out_bf16)
+      *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(a.out) + o) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    else
+      *reinterpret_cast<float4*>(reinterpret_cast<float*>(a.out) + o) = v;
+  }
+}
+
+// the splits' partials (splits, M, N) added in split order; 4 outputs a thread
+__global__ void qmv_planar_reduce(const float* part, int splits, long MN, void* out,
+                                  int out_bf16) {
+  const long i = ((long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= MN) return;
+  float4 acc = *reinterpret_cast<const float4*>(part + i);
+  for (int sp = 1; sp < splits; ++sp) {
+    const float4 v = *reinterpret_cast<const float4*>(part + (long)sp * MN + i);
+    acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+  }
+  if (out_bf16)
+    *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(out) + i) =
+        make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+  else
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + i) = acc;
+}
+
+
+template <int FAM, int BN, int MR>
+cudaError_t launch_planar(const PArgs& a, int splits, cudaStream_t st) {
+  constexpr int smem = PGeo<MR>::SMEM;
+  static bool attr_set = false;   // set once, never under graph capture
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmv_planar_kernel<FAM, BN, MR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(splits, (a.N + BN - 1) / BN);
+  qmv_planar_kernel<FAM, BN, MR><<<grid, PNT, smem, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const long MN = (long)a.M * a.N;
+  qmv_planar_reduce<<<(unsigned)((MN / 4 + 255) / 256), 256, 0, st>>>(a.part, splits, MN,
+                                                                      a.out, a.out_bf16);
+  return cudaGetLastError();
+}
+
+template <int FAM, int BN>
+cudaError_t launch_planar_rows(const PArgs& a, int splits, cudaStream_t st) {
+  if (a.M == 1) return launch_planar<FAM, BN, 1>(a, splits, st);
+  return a.M <= 8 ? launch_planar<FAM, BN, 8>(a, splits, st)
+                  : launch_planar<FAM, BN, 16>(a, splits, st);
+}
+
+template <int FAM>
+cudaError_t launch_planar_bn(const PArgs& a, int bn, int splits, cudaStream_t st) {
+  if (bn == 64) return launch_planar_rows<FAM, 64>(a, splits, st);
+  return launch_planar_rows<FAM, 32>(a, splits, st);
+}
+
 }  // namespace
 
 // fmt: 0 Q8_0, 1 Q4_K, 2 Q6_K; x (M <= 16, K) f32 or bf16, 16-byte aligned;
@@ -638,4 +1003,38 @@ extern "C" int slt_qmv_resident(int fmt, int bn, int rows, int cl) {
   if (fmt == 0) return resident_bn<0>(bn, nb, cl);
   if (fmt == 1) return resident_bn<1>(bn, nb, cl);
   return resident_bn<2>(bn, nb, cl);
+}
+
+// The planar and Q5_K formats (fmt 3 int8 planar, 4 nibble planar, 5 Q5_K
+// compact): x (M <= 16, K) f32 or bf16, 16-byte aligned; gs 8, 16, 32 or
+// 256 (fmt 4, 5: 32); offset subtracted from the codes; adds f32 (K/gs, N)
+// or null; unit 32 or 256 (gs 256 and fmt 5) K elements, per of them a
+// split of `splits` <= 8 along K, bn 64 or 32 columns a block
+// (qmv_planar_plan); part holds splits * M * N f32 when splits > 1. The
+// kernel's launch, and the reduce's when splits > 1; returns the
+// cudaError_t.
+extern "C" int slt_qmv_planar(int fmt, int M, int K, int N, const void* x, int x_bf16,
+                              const void* codes, const void* hi, const void* scales,
+                              const void* adds, const void* sc, const void* mn, const void* d,
+                              const void* dmin, int gs, int offset, int unit, int bn,
+                              int splits, int per, void* part, void* out, int out_bf16,
+                              void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bool gs_ok = fmt == 3 ? (gs == 8 || gs == 16 || gs == 32 || gs == 256) : gs == 32;
+  const bool unit_ok = unit == ((gs == 256 || fmt == 5) ? 256 : 32);
+  if (fmt < 3 || fmt > 5 || !gs_ok || !unit_ok || M < 1 || M > MAXR || N < 4 || N % 4 ||
+      K % unit || K < unit || (bn != 64 && bn != 32) || splits < 1 ||
+      splits > 8 || per < 1 || (long)splits * per < K / unit ||
+      (long)(splits - 1) * per >= K / unit || (splits > 1 && part == nullptr) ||
+      !aligned16(x) || (N + bn - 1) / bn > 65535)
+    return (int)cudaErrorInvalidValue;
+  PArgs a{M, K, N, per, unit, gs, offset, x, x_bf16, (const uint8_t*)codes, (const uint8_t*)hi,
+          (const float*)scales, (const float*)adds, (const uint8_t*)sc, (const uint8_t*)mn,
+          (const float*)d, (const float*)dmin, splits > 1 ? (float*)part : nullptr, out,
+          out_bf16};
+  cudaError_t e;
+  if (fmt == 3) e = launch_planar_bn<3>(a, bn, splits, st);
+  else if (fmt == 4) e = launch_planar_bn<4>(a, bn, splits, st);
+  else e = launch_planar_bn<5>(a, bn, splits, st);
+  return (int)e;
 }

@@ -1,17 +1,20 @@
-"""GGUF container reader and the block decoders the port loads."""
+"""GGUF container reader and writer, and the block decoders the port loads."""
 
 from .constants import GGML_TYPE_TRAITS, GGMLType, GGUFValueType, Keys, QK_K
-from .quants import DEQUANTIZERS, dequantize
+from .quants import DEQUANTIZERS, dequantize, quantize
 from .reader import GGUFReader, TensorInfo
+from .writer import GGUFWriter
 
 __all__ = [
     "GGML_TYPE_TRAITS",
     "GGMLType",
     "GGUFValueType",
     "GGUFReader",
+    "GGUFWriter",
     "Keys",
     "QK_K",
     "TensorInfo",
     "DEQUANTIZERS",
     "dequantize",
+    "quantize",
 ]

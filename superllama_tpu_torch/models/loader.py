@@ -9,6 +9,8 @@ device once.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any
 
@@ -51,11 +53,15 @@ def load_model(path: str, dtype: torch.dtype = torch.float32,
     """Load a llama-family GGUF: hparams + tokenizer + params on ``device``
     (default CUDA).
 
-    keep_quantized=True keeps Q8_0 / Q4_K / Q6_K matmul weights packed as
-    QTensors for the quantized kernels; other tensors are dequantized to
-    ``dtype``. An encrypted GGUF (``server/security.py``'s AES-256-GCM
-    container) is decrypted with ``SLT_MODEL_KEY`` to a temporary file,
-    removed once the tensors are on the device."""
+    keep_quantized=True keeps the matmul weights of every ``REPACKABLE``
+    type packed as QTensors for the quantized kernels; other tensors are
+    dequantized to ``dtype``. A split model loads from all its shards given
+    the first one's path (``*-00001-of-0000N.gguf``, which carries the
+    metadata). Tensors are decoded and repacked on a pool of threads (numpy
+    releases the GIL in its array work). An encrypted GGUF
+    (``server/security.py``'s AES-256-GCM container) is decrypted with
+    ``SLT_MODEL_KEY`` to a temporary file, removed once the tensors are on
+    the device."""
     dev = resolve_device(device)
     with decrypted(path) as plain:
         return _load(plain, dtype, keep_quantized, dev)
@@ -63,9 +69,17 @@ def load_model(path: str, dtype: torch.dtype = torch.float32,
 
 def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedModel:
     reader = GGUFReader(path)
+    extra: list[GGUFReader] = []
+    pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
     try:
         if int(reader.metadata.get("split.count", 1) or 1) > 1:
-            raise NotImplementedError("split GGUF files are not ported yet")
+            # a multi-shard model: merge the shards' tensor indices
+            from ..tools.gguf_split import shard_paths
+
+            for p in shard_paths(path):
+                if p != path:
+                    extra.append(GGUFReader(p))
+                    reader.tensors.update(extra[-1].tensors)
         hp = hparams_from_gguf(reader)
         get_forward(hp.arch)              # raises for unported architectures
         tok = None
@@ -74,8 +88,8 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
 
             tok = Tokenizer(vocab_from_gguf(reader))
 
-        def g(name, t=True):
-            return _get(reader, name, dtype, dev, t, keep_quantized)
+        def g(name, t=True):       # a future of the tensor (or of None)
+            return pool.submit(_get, reader, name, dtype, dev, t, keep_quantized)
 
         params: dict[str, Any] = {
             "token_embd": g("token_embd.weight", t=False),    # (V, E) lookup
@@ -110,10 +124,16 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                 "ffn_down_b": g(p + "ffn_down.bias", t=False),
                 "attn_sinks": g(p + "attn_sinks.weight", t=False),
             }
-            params["layers"].append({k: v for k, v in layer.items() if v is not None})
+            params["layers"].append(layer)
+        params = {k: [{n: f.result() for n, f in layer.items()} for layer in v]
+                  if k == "layers" else v.result() for k, v in params.items()}
+        params["layers"] = [{k: v for k, v in layer.items() if v is not None}
+                            for layer in params["layers"]]
         md = dict(reader.metadata)
     finally:
-        reader.close()
+        pool.shutdown(cancel_futures=True)   # no thread reads a file past here
+        for r in [reader, *extra]:
+            r.close()
     return LoadedModel(hparams=hp, params=params, tokenizer=tok, metadata=md,
                        name=md.get("general.name", ""))
 

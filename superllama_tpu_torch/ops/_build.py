@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -30,6 +31,7 @@ SOURCES = ("qmv", "qmm", "fa", "fd", "paged", "qmv_probe")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+SECONDS: dict[str, float] = {}   # nvcc seconds of each source this process built
 
 
 def nvcc_path() -> str:
@@ -51,21 +53,25 @@ def _lib_path(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start one nvcc process for csrc/<name>.cu; None if already built."""
+    """Start one nvcc process for csrc/<name>.cu, its output going to a log
+    file beside the library (no pipe to fill); None if already built."""
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = tmp.with_suffix(".log")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, out
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+    return proc, tmp, out, log
 
 
 def _finish(name: str, job) -> str:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
+    proc, tmp, out, logf = job
+    proc.wait()
+    log = logf.read_text()
+    logf.unlink()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
     os.replace(tmp, out)
@@ -75,9 +81,17 @@ def _finish(name: str, job) -> str:
 
 def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every named source at once (one nvcc each, all started
-    together) and load them. Returns the compiler log of each source built."""
+    together) and load them. Returns the compiler log of each source built;
+    ``SECONDS`` gets each one's time from the start to its nvcc's exit."""
     with _lock:
+        t0 = time.perf_counter()
         jobs = {n: _start(n) for n in names if n not in _libs}
+        running = {n: j for n, j in jobs.items() if j is not None}
+        while running:
+            for n in [n for n, j in running.items() if j[0].poll() is not None]:
+                SECONDS[n] = time.perf_counter() - t0
+                del running[n]
+            time.sleep(0.05)
         logs = {n: _finish(n, j) for n, j in jobs.items() if j is not None}
         for n in jobs:
             _libs[n] = ctypes.CDLL(str(_lib_path(n)))

@@ -11,9 +11,14 @@ regimes (the mmvq / mmq / dense-GEMM split):
  - otherwise the fused dequant + matmul, ``qmm``.
 
 ``qmv`` and ``qmm`` launch the hand-written CUDA kernels of
-``csrc/qmv.cu`` and ``csrc/qmm.cu`` on CUDA tensors, and run their plain
-PyTorch versions (``qmv_plain``, ``qmm_plain``) only on CPU tensors. Each
-wrapper counts its launches in ``<wrapper>.launches``.
+``csrc/qmv.cu`` and ``csrc/qmm.cu`` on CUDA tensors, for every format of
+``REPACKABLE``, and run their plain PyTorch versions (``qmv_plain``,
+``qmm_plain``) only on CPU tensors. The kernels read six layouts (``_FMT``):
+Q8_0, Q4_K and Q6_K on redesigned paths, and three families of runtime group
+size, offset and adds for the other twenty formats: int8 planar, nibble
+planar and Q5_K compact. Each wrapper counts its launches in
+``<wrapper>.launches``, and those of the three families also in
+``<wrapper>.launches_i8``, ``launches_nib`` and ``launches_q5k``.
 """
 
 from __future__ import annotations
@@ -29,11 +34,21 @@ from . import _build
 from .qtensor import QTensor, dequant_qtensor, qt_codes, qt_scales_adds
 from .ref import quant_scale
 
-# weight formats the kernels decode (csrc FMT ids)
-_FMT = {GGMLType.Q8_0: 0, GGMLType.Q4_K: 1, GGMLType.Q6_K: 2}
+# weight formats the kernels decode (csrc FMT ids): 0-2 the redesigned
+# Q8_0 / Q4_K / Q6_K paths, 3 int8 planar, 4 nibble planar, 5 Q5_K compact
+_FMT = {GGMLType.Q8_0: 0, GGMLType.Q4_K: 1, GGMLType.Q6_K: 2, GGMLType.Q5_K: 5,
+        GGMLType.Q4_0: 4, GGMLType.Q4_1: 4}
+_FMT.update({t: 3 for t in (
+    GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.MXFP4, GGMLType.IQ4_NL, GGMLType.IQ4_XS,
+    GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ3_XXS, GGMLType.IQ3_S,
+    GGMLType.IQ1_S, GGMLType.IQ1_M, GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q8_K,
+    GGMLType.TQ1_0, GGMLType.TQ2_0)})
+_FAMILY = {3: "i8", 4: "nib", 5: "q5k"}   # the families' launch counters
 _UNIT = {0: 32, 1: 256, 2: 256}   # K elements per split unit
 _UNIT_BYTES = {0: 36, 1: 152, 2: 212}   # weight bytes of a column per unit
 _QMV_TILES = (128, 64, 32)        # qmv column tiles, widest first
+_PLANAR_TILES = (64, 32)          # the planar kernel's: its plan picks no wider one at
+                                  # a Llama-3-8B or -1B decode shape
 _QMV_MAX_CLUSTER = 8              # blocks of a cluster along K (the portable size)
 _QMV_SMS = 132                    # SMs of the H100 the plan fills
 _QMV_SM_SMEM = 228 * 1024         # shared memory of an SM (1 KB of it reserved a block)
@@ -64,6 +79,12 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _unit(fmt: int, group: int) -> int:
+    """K elements of a split unit: a format's superblock, or a 32-group for
+    the planar formats of group size at most 32."""
+    return _UNIT[fmt] if fmt < 3 else 256 if fmt == 5 or group == 256 else 32
+
+
 def _check_weight(x2: torch.Tensor, qt: QTensor) -> int:
     """Validate a CUDA launch; returns the kernel's format id."""
     fmt = _FMT.get(qt.ggml_type)
@@ -71,7 +92,7 @@ def _check_weight(x2: torch.Tensor, qt: QTensor) -> int:
         raise NotImplementedError(f"no CUDA kernel for {qt.ggml_type.name} weights")
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"activations must be f32 or bf16, got {x2.dtype}")
-    if qt.N % 4 or qt.K % _UNIT[fmt] or x2.shape[1] != qt.K:
+    if qt.N % 4 or qt.K % _unit(fmt, qt.group) or x2.shape[1] != qt.K:
         raise ValueError(f"unsupported shape: x {tuple(x2.shape)}, weight "
                          f"(K={qt.K}, N={qt.N}) {qt.ggml_type.name}")
     for name, plane in qt.planes().items():
@@ -178,9 +199,45 @@ def qmv_plan(fmt: int, K: int, N: int) -> QmvPlan:
     return best[1]
 
 
+def qmv_planar_plan(fmt: int, group: int, K: int, N: int) -> tuple[int, int, int]:
+    """(bn, splits, per) of the planar kernel (fmt 3-5): the column tile
+    (64 or 32) and up to 8 splits of K, each of ``per`` units
+    (``_unit``), whose f32 partials a reduce launch adds in split order.
+    Among grids of at least 132 blocks where any is (the H100's SMs), the
+    fewest splits (each costs a partials pass and a launch), else the most
+    blocks; then the fewest rounds of resident blocks (two an SM) times a
+    block's cost (a byte a weight, x at 8 rows, a fixed
+    ``_QMV_BLOCK_COST``), then the wider tile. A function of the weight's
+    layout only, so a row's sums do not depend on M."""
+    unit = _unit(fmt, group)
+    n_units = K // unit
+    best = None
+    for bn in _PLANAR_TILES:
+        for splits in range(1, min(_QMV_MAX_CLUSTER, n_units) + 1):
+            per = -(-n_units // splits)
+            if -(-n_units // per) != splits:   # a split would hold no unit
+                continue
+            blocks = -(-N // bn) * splits
+            rounds = -(-blocks // (_QMV_SMS * _QMV_BLOCKS_SM))
+            cost = rounds * (per * unit * (bn + 16) + _QMV_BLOCK_COST)
+            full = blocks >= _QMV_SMS
+            key = (not full, splits if full else -blocks, cost, -bn)
+            if best is None or key < best[0]:
+                best = (key, (bn, splits, per))
+    return best[1]
+
+
+def _count(fn, fmt: int) -> None:
+    fn.launches += 1
+    fam = _FAMILY.get(fmt)
+    if fam is not None:
+        setattr(fn, f"launches_{fam}", getattr(fn, f"launches_{fam}") + 1)
+
+
 def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
-    """int8-activation GEMV (M <= 16 per launch). CUDA: the qmv kernel, one
-    launch that quantizes x itself; CPU: ``qmv_plain``."""
+    """int8-activation GEMV (M <= 16 per launch). CUDA: the qmv kernel of
+    the weight's format, one launch that quantizes x itself; CPU:
+    ``qmv_plain``."""
     if x2.device.type == "cpu":
         return qmv_plain(x2, qt, out_dtype)
     if x2.device.type != "cuda":
@@ -193,6 +250,8 @@ def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     if M > _QMV_MAX_ROWS:
         return torch.cat([qmv(x2[i:i + _QMV_MAX_ROWS], qt, out_dtype)
                           for i in range(0, M, _QMV_MAX_ROWS)])
+    if fmt >= 3:
+        return _qmv_planar(x2, qt, fmt, out_dtype)
     fn = _lib("qmv", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _P, _I, _P])
     if x2.data_ptr() % 16:   # the kernel reads x rows in 8- and 16-byte words
@@ -204,11 +263,34 @@ def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
              _ptr(qt.d), _ptr(qt.dmin), plan.bn, plan.cl, plan.per, out.data_ptr(),
              int(out_dtype == torch.bfloat16), _build.stream_ptr(x2.device))
     _build.check(err, "qmv")
-    qmv.launches += 1
+    _count(qmv, fmt)
+    return out
+
+
+def _qmv_planar(x2: torch.Tensor, qt: QTensor, fmt: int, out_dtype) -> torch.Tensor:
+    """The planar kernel (csrc/qmv.cu, ``slt_qmv_planar``): one launch, and
+    its reduce where the plan splits K."""
+    M, K = x2.shape
+    fn = _lib("qmv", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _I, _I, _P, _P, _I, _P], entry="qmv_planar")
+    if x2.data_ptr() % 16:   # the kernel reads x rows in 16- and 32-byte words
+        x2 = x2.clone()
+    bn, splits, per = qmv_planar_plan(fmt, qt.group, K, qt.N)
+    out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
+    part = (torch.empty((splits, M, qt.N), dtype=torch.float32, device=x2.device)
+            if splits > 1 else None)
+    err = fn(fmt, M, K, qt.N, x2.data_ptr(), int(x2.dtype == torch.bfloat16),
+             _ptr(qt.codes), _ptr(qt.hi), _ptr(qt.scales), _ptr(qt.adds), _ptr(qt.sc),
+             _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin), qt.group, qt.offset,
+             _unit(fmt, qt.group), bn, splits, per, _ptr(part), out.data_ptr(),
+             int(out_dtype == torch.bfloat16), _build.stream_ptr(x2.device))
+    _build.check(err, "qmv")
+    _count(qmv, fmt)
     return out
 
 
 qmv.launches = 0
+qmv.launches_i8 = qmv.launches_nib = qmv.launches_q5k = 0
 
 
 # --- qmm: fused dequant + matmul ---------------------------------------------
@@ -225,10 +307,11 @@ def qmm_plain(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
 
 def qmm_plan(K: int, N: int) -> tuple[int, int]:
     """(n_split, tiles_per_split) of the tensor-core qmm kernel's K split, in
-    k-tiles of 128 (a Q8_0 K's last tile may be shorter). N's column blocks
-    alone when they fill the resident slots (two blocks an SM); else the
-    split, up to one resident wave of blocks, whose waves times k-tiles a
-    block is least (the smallest such: each split adds M x N partials).
+    k-tiles of 128 (a K of 32-element blocks may end in a shorter one). N's
+    column blocks alone when they fill the resident slots (two blocks an
+    SM); else the split, up to one resident wave of blocks, whose waves
+    times k-tiles a block is least (the smallest such: each split adds M x
+    N partials).
     Depends on (K, N) only, so a row's sums do not depend on M."""
     n_tiles = -(-K // _QMM_BK)
     n_col_blocks = -(-N // _QMM_BN)
@@ -258,8 +341,8 @@ def qmm(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     M, K = x2.shape
     out_bf16 = int(out_dtype == torch.bfloat16)
     if x2.dtype == torch.bfloat16 and qt.N % 16 == 0:
-        fn = _lib("qmm", [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _P, _P, _I, _P], entry="qmm_tc")
+        fn = _lib("qmm", [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _P, _P, _I, _P], entry="qmm_tc")
         out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
         if x2.data_ptr() % 16:   # x rows go in by 16-byte copies
             x2 = x2.clone()
@@ -268,22 +351,23 @@ def qmm(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
                 if n_split > 1 else None)
         err = fn(fmt, M, K, qt.N, x2.data_ptr(), _ptr(qt.codes), _ptr(qt.hi),
                  _ptr(qt.scales), _ptr(qt.sc), _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin),
-                 n_split, per, _ptr(part), out.data_ptr(), out_bf16,
-                 _build.stream_ptr(x2.device))
+                 _ptr(qt.adds), qt.group, qt.offset, n_split, per, _ptr(part),
+                 out.data_ptr(), out_bf16, _build.stream_ptr(x2.device))
     else:
-        fn = _lib("qmm", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _P])
+        fn = _lib("qmm", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _P, _I, _P])
         out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
         err = fn(fmt, M, K, qt.N, x2.data_ptr(), int(x2.dtype == torch.bfloat16),
                  _ptr(qt.codes), _ptr(qt.hi), _ptr(qt.scales), _ptr(qt.sc),
-                 _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin), out.data_ptr(), out_bf16,
-                 _build.stream_ptr(x2.device))
+                 _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin), _ptr(qt.adds), qt.group,
+                 qt.offset, out.data_ptr(), out_bf16, _build.stream_ptr(x2.device))
     _build.check(err, "qmm")
-    qmm.launches += 1
+    _count(qmm, fmt)
     return out
 
 
 qmm.launches = 0
+qmm.launches_i8 = qmm.launches_nib = qmm.launches_q5k = 0
 
 
 # --- dispatch ------------------------------------------------------------------

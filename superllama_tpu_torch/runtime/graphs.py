@@ -29,7 +29,9 @@ def launch_counters() -> list[tuple[object, str]]:
     from ..ops import qmatmul as qm_mod
 
     fa, pa = fa_mod.flash_attention, pa_mod.paged_flash_attention
-    return [(qm_mod.qmv, "launches"), (qm_mod.qmm, "launches"),
+    fams = [(fn, f"launches_{f}") for fn in (qm_mod.qmv, qm_mod.qmm)
+            for f in qm_mod._FAMILY.values()]
+    return [(qm_mod.qmv, "launches"), (qm_mod.qmm, "launches"), *fams,
             (fa, "launches"), (fa, "launches_tc"),
             (fa_mod.flash_decode_attention, "launches"),
             (pa, "launches"), (pa, "launches_tc")]

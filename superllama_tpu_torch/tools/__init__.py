@@ -1,3 +1,4 @@
 """Measurement tools of the port: per-kernel benchmarks (``ops_bench``), the
 decode-GEMV variant probe (``qmv_probe``), the decode-attention routing probe
-(``flash_decode_probe``) and the pp/tg perf matrix (``llama_bench``)."""
+(``flash_decode_probe``), the pp/tg perf matrix (``llama_bench``) and the
+GGUF shard / merge tool (``gguf_split``)."""

@@ -240,6 +240,7 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.utils.profiler, superllama_tpu_torch.args\n"
         "import superllama_tpu_torch.presets, superllama_tpu_torch.server.router\n"
         "import superllama_tpu_torch.server.security, superllama_tpu_torch.tools.gguf_dump\n"
+        "import superllama_tpu_torch.gguf.writer, superllama_tpu_torch.tools.gguf_split\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")

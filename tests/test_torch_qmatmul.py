@@ -72,8 +72,10 @@ def test_repack_and_dequant_bitexact(case):
                                   np.asarray(jqt.dequant_qtensor(jq)))
 
 
-@pytest.mark.parametrize("gs", [16, 32])
+@pytest.mark.parametrize("gs", [8, 16, 32, 256])
 def test_quantize_acts_matches_jax(gs):
+    """Every group size of the formats: IQ1_M's 8, 16, 32, and the 256 of
+    Q8_K / TQ1_0 / TQ2_0."""
     x = _x(6, 256) * np.float32(3.0)
     x[0, :gs] = 0.0                                  # an all-zero group
     xq, sx, xs = quantize_acts(torch.from_numpy(x), gs)
@@ -139,7 +141,8 @@ def test_dispatch_regimes():
 
 def test_cuda_tensor_never_takes_plain_path(monkeypatch):
     """A CUDA tensor goes to the kernel: when the build fails, qmv and qmm
-    raise that failure and never run their plain versions."""
+    raise that failure and never run their plain versions. Every one of the
+    23 REPACKABLE types has a kernel format id (``_check_weight``)."""
     from superllama_tpu_torch.ops import qmatmul as qm_mod
 
     build_failed = failing_build(monkeypatch)
@@ -153,6 +156,12 @@ def test_cuda_tensor_never_takes_plain_path(monkeypatch):
             with pytest.raises(build_failed):
                 fn(x, tq, torch.float32)
             assert fn.launches == before
+    assert len(tqt.REPACKABLE) == 23
+    x = cuda_typed(torch.zeros((1, 256)))
+    for ttype in tqt.REPACKABLE:
+        _, _, w = _weights(ttype, 64, 256)
+        w = dataclasses.replace(w, **{n: cuda_typed(p) for n, p in w.planes().items()})
+        assert qm_mod._check_weight(x, w) in range(6), ttype.name
 
 
 def test_non_cuda_device_raises():
