@@ -25,6 +25,10 @@ PyTorch version.
                                           # qmm readings (phase 6's format rows)
     python3 chip_smoke.py --base-times    # device, build, the Q8_0 / Q4_K / Q6_K
                                           # rows of --format-times
+    python3 chip_smoke.py --qmv-clusters  # device, build, qmv of a format of each
+                                          # kernel format at every served (K, N):
+                                          # the plan's cluster against none
+                                          # (--sweep: against every grid)
 
 Phases, each printing one JSON line:
  1. device: torch's name and capability, nvidia-smi's name and power limit;
@@ -37,8 +41,8 @@ Phases, each printing one JSON line:
     order with holes, paged over pages smaller than a tile; qmv, qmm, the
     tensor-core attention kernels and the decode kernels called twice and
     held bit-equal; qmv's row 0 of an M 8 and an M 16 call held bit-equal
-    to the row alone, one qmv call profiled to one device kernel, and
-    the residency qmv's grids assume checked on the card; each
+    to the row alone, and the residency qmv's grids assume checked on the
+    card; each
     fa and paged call checked to take the kernel its types and shape ask
     for; then (3b) each of the twenty other weight formats (seeded random
     GGUF bytes through the port's repack) through qmv at M 1, 8, 16 and
@@ -47,7 +51,10 @@ Phases, each printing one JSON line:
     serving mixes and the 1B-width file drive (qmv at M 1, 5, 8, 16, qmm
     at M 17, 32), each call its family's kernel (int8 planar, nibble
     planar, Q5_K), and the M 33 dequantize + matmul path against the CPU
-    for a format of each family;
+    for a format of each family; qmv's row 0 of an M 8 and an M 16 call
+    held bit-equal to the row alone for a format of each of its kernel
+    formats at every such shape; one qmv call of Q4_K and of each of those
+    formats profiled to one device kernel each (no reduce, no quantizer);
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
     server (warmed up first, as ``serve`` does: no graph may be captured
     while it serves) answers 8 concurrent completions and one streamed
@@ -612,7 +619,7 @@ def check_qmv_plans(torch) -> None:
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
     emit({"phase": "qmv_resident", "card": {cl: fn(1, 128, 8, cl) for cl in range(1, 9)},
           "plan_assumes": qm._QMV_CLUSTER_RESIDENT})
-    for fmt in (0, 1, 2):
+    for fmt in range(len(qm._QMV_UNIT)):
         for K, N in KN_8B + KN_1B:
             p = qm.qmv_plan(fmt, K, N)
             per_sm = min(qm._QMV_BLOCKS_SM, qm._QMV_SM_SMEM // (p.smem + 1024))
@@ -625,11 +632,8 @@ def check_qmv_plans(torch) -> None:
 
 def check_qmv_rows(torch) -> None:
     """qmv's sums run in an order fixed by (fmt, K, N): at every (K, N) of
-    a decode step of the 8B and of the 1B draft (Q4_K, bf16 x), row 0 of an M 8 and an M 16 call equals
-    the same row alone at M 1, bit for bit; and one call is one device
-    kernel under torch.profiler (no quantizer, no reduce kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    a decode step of the 8B and of the 1B draft (Q4_K, bf16 x), row 0 of an
+    M 8 and an M 16 call equals the same row alone at M 1, bit for bit."""
     from superllama_tpu_torch.ops.qmatmul import qmv
 
     gen = torch.Generator(device="cuda")
@@ -644,13 +648,6 @@ def check_qmv_rows(torch) -> None:
             torch.cuda.synchronize()
             check(torch.equal(got[0], alone[0]),
                   f"qmv K={K} N={N}: row 0 of an M {M} call differs from the row alone")
-        if N == 14336:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                qmv(x[:8], qt, bf16)
-                torch.cuda.synchronize()
-            kernels = device_rows(prof.key_averages())
-            check(sum(c for _, _, c in kernels) == 1 and "qmv_kernel" in kernels[0][0],
-                  f"one qmv call ran these device ops: {kernels}")
         del qt
 
 
@@ -742,6 +739,7 @@ def phase_kernels(torch) -> list:
     check_qmv_rows(torch)
     check_qmv_plans(torch)
     check_format_kernels(torch, record)
+    check_one_kernel_a_call(torch)
 
     fa_cases = [("T=32 bf16", dict(T=32)), ("T=128 bf16", dict(T=128)),
                 ("T=32 f32", dict(T=32, dtype="f32")),
@@ -3698,7 +3696,16 @@ def format_family(name: str) -> str:
     from superllama_tpu_torch.gguf.constants import GGMLType
     from superllama_tpu_torch.ops import qmatmul as qm
 
-    return qm._FAMILY[qm._FMT[GGMLType[name]]]
+    t = GGMLType[name]
+    return qm._FAMILY[qm.family(t, qm._FMT[t])]
+
+
+def qmv_format(name: str) -> int:
+    """The qmv kernel's format (csrc/qmv.cu FMT) of a type."""
+    from superllama_tpu_torch.gguf.constants import GGMLType
+    from superllama_tpu_torch.ops import qmatmul as qm
+
+    return qm.qmv_fmt(qm._FMT[GGMLType[name]])
 
 
 def wire_bpw(name: str) -> float:
@@ -3823,7 +3830,65 @@ def check_format_kernels(torch, record) -> None:
                            plain(x, qt, dt), dt)
                     n_edge += 1
     emit({"phase": "format_kernels", "formats": len(NEW_FORMATS), "repack_s": repack_s,
-          "dispatch_m33": dispatch, "shape_checks": n_shape, "edge_checks": n_edge})
+          "dispatch_m33": dispatch, "shape_checks": n_shape, "edge_checks": n_edge,
+          "row_checks": check_format_rows(torch)})
+
+
+def check_format_rows(torch) -> int:
+    """check_qmv_rows for SHAPE_FORMATS, a format of each of qmv's kernel
+    formats beyond Q4_K and Q6_K (IQ4_XS Q8_0's, Q5_1 adds, Q2_K gs 16,
+    IQ1_M gs 8, Q8_K gs 256, Q4_0 and Q4_1 nibbles, Q5_K): at the 8B's
+    gate/up and down and every SHAPE_KN, row 0 of an M 8 and an M 16 call
+    equals the row alone, bit for bit. Returns the checks made."""
+    from superllama_tpu_torch.ops.qmatmul import qmv
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    bf16 = torch.bfloat16
+    n = 0
+    for name in SHAPE_FORMATS:
+        for K, N in FORMAT_KN + SHAPE_KN:
+            qt = on_card(_FORMAT_CPU[(name, K, N)])
+            x = torch.randn((16, K), generator=gen, device="cuda").to(bf16)
+            alone = qmv(x[:1], qt, bf16)
+            for M in (8, 16):
+                got = qmv(x[:M], qt, bf16)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], alone[0]), f"qmv {name} K={K} N={N}: row 0 of an "
+                      f"M {M} call differs from the row alone")
+                n += 1
+            del qt
+    return n
+
+
+def check_one_kernel_a_call(torch) -> None:
+    """One qmv call is one device kernel, ``qmv_kernel`` (no quantizer, no
+    reduce kernel): under one torch.profiler window, an M 8 call at the
+    8B's gate/up for Q4_K and for each of SHAPE_FORMATS (a format of each
+    kernel format and family), each call synchronised, shows exactly that
+    many device ops, all of them qmv's kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from superllama_tpu_torch.ops.qmatmul import qmv
+
+    K, N = FORMAT_KN[0]
+    weights = [rand_weight(torch, "Q4_K", N, K, 320)]
+    weights += [on_card(_FORMAT_CPU[(name, K, N)]) for name in SHAPE_FORMATS]
+    x = torch.randn((8, K), device="cuda").to(torch.bfloat16)
+    for qt in weights:
+        qmv(x, qt, torch.bfloat16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for qt in weights:
+            qmv(x, qt, torch.bfloat16)
+            torch.cuda.synchronize()
+    kernels = device_rows(prof.key_averages())
+    check(sum(c for _, _, c in kernels) == len(weights)
+          and all("qmv_kernel" in k for k, _, _ in kernels),
+          f"{len(weights)} qmv calls (Q4_K, {', '.join(SHAPE_FORMATS)}) ran these device "
+          f"ops: {kernels}")
+    emit({"phase": "qmv_one_kernel", "calls": len(weights),
+          "kernels": [{"name": k[:60], "count": c} for k, _, c in kernels]})
 
 
 def format_reading(torch, fn, plain, qt, label: str, M: int, ops_kind: str) -> dict:
@@ -3872,6 +3937,72 @@ def time_formats(torch, names=NEW_FORMATS, m1: bool = True) -> dict:
     for fam, name in FAMILY_FORMAT.items():
         if name in names:
             out[f"qmv_{fam}"], out[f"qmm_{fam}"] = out[f"qmv {name}"], out[f"qmm {name}"]
+    return out
+
+
+def time_qmv_clusters(torch, names=SHAPE_FORMATS, sweep: bool = False) -> dict:
+    """qmv at M 8 (bf16 x and output) for each named format at the 8B's
+    gate/up, down, q/o, k/v and the 1B's four shapes, under its plan and
+    under the best plan without a cluster (qmv_plan with clusters of at
+    most 1): device ms a call from a CUDA graph over copies past the L2.
+    Each row: both plans, both times, and their ratio. With ``sweep``,
+    every other grid too (each column tile and cluster size with no empty
+    rank and at least 96 blocks, or the most there are), each row then
+    naming the fastest; the full sweep goes to chiprun_out/qmv_plans.json."""
+    from superllama_tpu_torch.ops import qmatmul as qm
+
+    format_weights(FORMAT_KN + SHAPE_KN, [n for n in names if n in NEW_FORMATS])
+    x = torch.randn((8, 14336), device="cuda").to(torch.bfloat16)
+    out, full = {}, {}
+    plan = qm.qmv_plan
+    for name in names:
+        fmt = qmv_format(name)
+        for K, N in FORMAT_KN + SHAPE_KN:
+            key = (name, K, N)
+            qt = (on_card(_FORMAT_CPU[key]) if name in NEW_FORMATS
+                  else rand_weight(torch, name, N, K, 330))
+            copies = [qt] + [on_card(qt, clone=True) for _ in range(1, n_copies(qt.nbytes, 6))]
+            xs = x[:, :K].contiguous()
+            call = lambda i: qm.qmv(xs, copies[i % len(copies)], torch.bfloat16)
+            reps = max(12, len(copies))
+            p0 = plan(fmt, K, N)
+            row = {"fmt": fmt, "plan": list(p0[:4]), "ms": graph_ms(torch, call, reps)}
+            most = qm._QMV_MAX_CLUSTER
+            qm._QMV_MAX_CLUSTER = 1
+            try:
+                row["plan_cl1"] = list(qm.qmv_plan(fmt, K, N)[:4])
+                row["ms_cl1"] = graph_ms(torch, call, reps)
+            finally:
+                qm._QMV_MAX_CLUSTER = most
+            row["cl1_over_plan"] = row["ms_cl1"] / row["ms"]
+            if sweep:
+                n_units = K // qm._QMV_UNIT[fmt]
+                grids = []
+                for bn in qm._QMV_TILES:
+                    for cl in range(1, min(8, n_units) + 1):
+                        per = -(-n_units // cl)
+                        if -(-n_units // per) == cl:
+                            grids.append(qm.QmvPlan(bn, cl, per, -(-N // bn) * cl, p0.smem))
+                least = min(96, max(g.blocks for g in grids))
+                times = []
+                for g in grids:
+                    if g.blocks < least:
+                        continue
+                    qm.qmv_plan = lambda f, k, n, g=g: g
+                    try:
+                        times.append((graph_ms(torch, call, reps), list(g[:4])))
+                    finally:
+                        qm.qmv_plan = plan
+                times.sort()
+                row["best"], row["ms_best"] = times[0][1], times[0][0]
+                row["plan_over_best"] = row["ms"] / row["ms_best"]
+                full[f"{name} K={K} N={N}"] = times
+            out[f"{name} K={K} N={N}"] = row
+            del copies, qt
+    if sweep:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "qmv_plans.json"), "w") as f:
+            json.dump(full, f)
     return out
 
 
@@ -4725,6 +4856,14 @@ def main() -> int:
                  and not sys.argv[i].startswith("--") else NEW_FORMATS)
         emit({"phase": "format_times", "card": info["nvidia_smi"],
               "kernels": {**time_base_formats(torch), **time_formats(torch, names)}})
+        return 0
+    if "--qmv-clusters" in sys.argv[1:]:
+        # the planned clusters of qmv's formats against none, at the served
+        # shapes (with --sweep, against every grid, Q8_0 / Q4_K / Q6_K too)
+        sweep = "--sweep" in sys.argv[1:]
+        names = ("Q8_0", "Q4_K", "Q6_K") + SHAPE_FORMATS if sweep else SHAPE_FORMATS
+        emit({"phase": "qmv_clusters", "card": info["nvidia_smi"],
+              "rows": time_qmv_clusters(torch, names, sweep)})
         return 0
     if "--base-times" in sys.argv[1:]:
         # the redesigned formats' rows alone (also for a parent tree)

@@ -31,12 +31,12 @@
 //    in that k order. Each product is then scaled in f32 by sx*s and the
 //    group-sum correction added, per lane 4 columns x 2 rows a fragment.
 //  - The weight planes of a block's column tile stream through a ring of
-//    NST stages (3; 4 for Q4_K at 8 rows; 2 for Q6_K's larger tiles) of
-//    one superblock (Q8_0: 4-8 groups): a producer warp fills a stage with
+//    NST stages (3; 4 for Q4_K at 8 rows; 2 for Q6_K's and IQ1_M's larger
+//    tiles) of 4-8 32-groups: a producer warp fills a stage with
 //    16-byte cp.async copies (4-byte ones when N is not a multiple of 16),
 //    pointer increments down each lane's column, completed on the stage's
 //    `full` mbarrier; the 8 consumer warps (column slabs x k warps) free it
-//    on `empty`. Up to 94 KB a block, two blocks an SM, are in flight.
+//    on `empty`. Up to 112 KB a block, two blocks an SM, are in flight.
 //  - A grid that fills the card at every decode shape: qmv_plan (in
 //    ops/qmatmul.py, a function of (fmt, K, N) only) picks the column tile
 //    (128, 64 or 32) and a thread block cluster of up to 8 blocks along K,
@@ -54,10 +54,29 @@
 // Edges: columns past N and rows past M compute on stale shared memory or
 // zero codes and are never stored.
 //
-// Weight formats (FMT): 0 = Q8_0 (int8 codes, f32 scale plane, gs 32),
-// 1 = Q4_K compact (nibbles, u8 sc/mn, f32 d/dmin per 256, gs 32),
-// 2 = Q6_K compact (nibbles + 2-bit hi plane, i8 sc, f32 d per 256, gs 16,
-// offset 32).
+// Weight formats (FMT), every layout of ops/qtensor.py's repack:
+//   0 int8 codes (K, N), f32 scale plane (K/32, N): Q8_0, Q5_0, MXFP4,
+//     IQ4_NL, IQ4_XS, IQ2_XXS, IQ3_XXS, IQ3_S;
+//   1 Q4_K compact (nibbles, u8 sc/mn, f32 d/dmin per 256, gs 32);
+//   2 Q6_K compact (nibbles + 2-bit hi plane, i8 sc, f32 d per 256, gs 16,
+//     offset 32);
+//   3 int8, gs 32, an f32 adds plane: Q5_1, IQ1_S;
+//   4 int8, gs 16, adds where present: Q3_K, IQ2_XS, IQ2_S, Q2_K (adds);
+//   5 int8, gs 8, adds: IQ1_M;
+//   6 int8, gs 256: Q8_K, TQ1_0, TQ2_0;
+//   7 nibbles (K/2, N) in Q4_K's group-local layout, f32 scales per 32,
+//     offset 8 (Q4_0) or adds (Q4_1);
+//   8 Q5_K compact: Q4_K's planes and a 1-bit hi plane (element e of a
+//     32-group in hi row e % 4, bit e / 4).
+// The correction c = a - offset*s of FMT 3, 4, 5 and 7 (adds plane and
+// offset given at run time) is added once a group, as FMT 1 adds its mins.
+// gs 16 groups take two m16n8k16 products a 32-group (Q6_K's), gs 8 four,
+// each with x's B fragment holding one 8-group's codes and zeros in the
+// other half. A gs-256 group's eight m16n8k32 products accumulate in s32
+// before its one scale (the JAX kernel's ig * (sx * s)): there each k warp
+// owns whole 256-groups and a stage holds P 32-groups of each k warp's
+// group, so the dot never leaves one warp's registers. Its |dot| <=
+// 256 * 128 * 127 = 4,161,536 < 2^22, inside the magic conversion's range.
 
 #include "ptx.cuh"
 
@@ -65,6 +84,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -75,50 +96,72 @@ constexpr int NCW = 8;               // consumer warps
 constexpr int NTC = NCW * 32;        // consumer threads
 constexpr int NT = NTC + 32;         // and the producer warp
 constexpr int MAXR = 16;             // rows a launch
+constexpr int NFMT = 9;              // weight formats
 constexpr uint32_t M4 = 0x0F0F0F0Fu;
 
 struct Args {
-  int M, K, N, per;                  // per: K units (superblocks; Q8_0 groups) a rank
+  int M, K, N, per;                  // per: K units (superblocks; 32-groups) a rank
   const void* x; int x_bf16;
   const uint8_t* codes; const uint8_t* hi; const float* scales;
   const uint8_t* sc; const uint8_t* mn; const float* d; const float* dmin;
+  const float* adds; int offset;     // FMT 3, 4, 5, 7: adds plane or null, code offset
   void* out; int out_bf16;
   int wide;                          // 16-byte copies, else 4-byte
+};
+
+// a format's layout
+template <int FMT>
+struct Fmt {
+  static constexpr bool COMPACT = FMT == 1 || FMT == 2 || FMT == 8;   // sub-scales x d a superblock
+  static constexpr bool NIB = COMPACT || FMT == 7;                    // 4-bit codes
+  static constexpr int HIB = FMT == 2 ? 2 : FMT == 8 ? 1 : 0;         // hi-plane bits
+  static constexpr bool MINS = FMT == 1 || FMT == 8;                  // u8 mins x dmin
+  static constexpr bool ADDS = FMT == 3 || FMT == 4 || FMT == 5 || FMT == 7;   // c = a - offset*s
+  static constexpr int GS = FMT == 2 || FMT == 4 ? 16 : FMT == 5 ? 8 : FMT == 6 ? 256 : 32;
+  static constexpr int UPG = COMPACT || FMT == 6 ? 8 : 1;             // 32-groups a K unit
+  static constexpr int CR = NIB ? 16 : 32;                            // code rows a 32-group
 };
 
 // one instantiation's geometry: format, BN columns, NB n8 fragments of rows.
 // ops/qmatmul.py::_qmv_smem mirrors SMEM: change both together.
 template <int FMT, int BN, int NB>
 struct Geo {
+  using F = Fmt<FMT>;
   static constexpr int NS = BN / 32;                        // column slabs
   static constexpr int KW = NCW / NS;                       // k warps
-  static constexpr int GT = FMT == 0 ? (BN == 32 ? 8 : 4) : 8;   // 32-groups a tile
-  static constexpr int UPG = FMT == 0 ? 1 : 8;              // 32-groups a K unit
-  static constexpr int NST = FMT == 2 ? 2 : FMT == 1 && NB == 1 ? 4 : 3;   // ring stages
-  static constexpr int XG = FMT == 2 ? 32 : 64;             // 32-groups of x a chunk
-  static constexpr int QG = FMT == 2 ? 2 : 1;               // quantizer groups a 32-group
+  static constexpr int GT = F::NIB || BN == 32 ? 8 : 4;     // 32-groups a tile
+  static constexpr int P = GT / KW;                         // FMT 6: of each k warp's group
+  static constexpr int NST = FMT == 2 || (FMT == 5 && BN == 128) ? 2
+                             : FMT == 1 && NB == 1 ? 4 : 3;   // ring stages
+  static constexpr int XG = FMT == 5 ? 16 : FMT == 2 || FMT == 4 || FMT >= 7 ? 32 : 64;   // 32-groups of x a chunk
+  static constexpr int QG = F::GS >= 32 ? 1 : 32 / F::GS;   // quantizer groups a 32-group
+  static constexpr int XQ = F::GS == 256 ? XG / 8 : XG * QG;   // quantizer groups a chunk
   static constexpr int ROW = BN == 32 ? 32 : BN + 32;       // code / hi row stride
-  static constexpr int CODE_ROWS = FMT == 0 ? GT * 32 : GT * 16;
-  static constexpr int HI_ROWS = FMT == 2 ? GT * 8 : 0;
-  static constexpr int SC_ROWS = FMT == 1 ? GT : FMT == 2 ? 2 * GT : 0;
+  static constexpr int CODE_ROWS = GT * F::CR;
+  static constexpr int HI_ROWS = GT * 4 * F::HIB;
+  static constexpr int SC_ROWS = FMT == 2 ? 2 * GT : F::COMPACT ? GT : 0;
+  static constexpr int SR = FMT == 6 ? KW : F::COMPACT ? 0 : GT * QG;   // f32 scale rows
   // byte offsets inside one ring stage (all multiples of 16)
   static constexpr int HI = CODE_ROWS * ROW;
   static constexpr int SC = HI + HI_ROWS * ROW;
   static constexpr int MN = SC + SC_ROWS * BN;
-  static constexpr int D = MN + (FMT == 1 ? GT * BN : 0);
-  static constexpr int DMIN = D + (FMT == 0 ? 0 : BN * 4);
-  static constexpr int SCL = DMIN + (FMT == 1 ? BN * 4 : 0);
-  static constexpr int STAGE = SCL + (FMT == 0 ? GT * BN * 4 : 0);
+  static constexpr int D = MN + (F::MINS ? GT * BN : 0);
+  static constexpr int DMIN = D + (F::COMPACT ? BN * 4 : 0);
+  static constexpr int SCL = DMIN + (F::MINS ? BN * 4 : 0);
+  static constexpr int ADD = SCL + SR * BN * 4;
+  static constexpr int STAGE = ADD + (F::ADDS ? SR * BN * 4 : 0);
   // after the ring: x's codes as B fragments, then (sx, xs) pairs at
   // (quantizer group, row)
   static constexpr int XC = NST * STAGE;
   static constexpr int SXS = XC + XG * NB * 256;
-  static constexpr int BAR = SXS + XG * QG * 8 * NB * 8;
+  static constexpr int BAR = SXS + XQ * 8 * NB * 8;
   static constexpr int SMEM = BAR + 2 * NST * 8;
   // the end's sums reuse the ring and x: the k warps' (KW, 8 NB, BN) f32,
   // then the block's (8 NB, BN)
   static constexpr int PART = KW * 8 * NB * BN * 4;
   static_assert(PART + 8 * NB * BN * 4 <= BAR, "the sums outgrow the ring");
+  static_assert(XG % GT == 0 && (FMT != 6 || XG % (8 * KW) == 0), "a tile straddles x's chunks");
+  static_assert(SMEM <= 113 * 1024, "two blocks an SM");
 };
 
 __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
@@ -183,11 +226,30 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int dstride,
   }
 }
 
+// The tiles of a rank's 32-groups [g0, g1): tile i holds 32-groups
+// g0 + i GT .. (a short last one at K's end). FMT 6 streams each k warp's
+// own 256-group instead: round r gives k warp w the group g0 + 8 (r KW + w),
+// and tile i = r T + p of a round holds 32-groups p P .. p P + P - 1 of each
+// of its KW groups (a group past g1 is neither copied nor read).
+template <int FMT, int BN, int NB>
+struct Tiles {
+  using G = Geo<FMT, BN, NB>;
+  static constexpr int T = 8 / G::P;   // FMT 6: tiles a round
+  __device__ static int count(int g0, int g1) {
+    return FMT == 6 ? (g1 - g0 + 8 * G::KW - 1) / (8 * G::KW) * T : (g1 - g0 + G::GT - 1) / G::GT;
+  }
+  // the first 32-group of x tile i reads (x's chunks hold whole tiles)
+  __device__ static int start(int g0, int i) {
+    return FMT == 6 ? g0 + i / T * 8 * G::KW : g0 + i * G::GT;
+  }
+};
+
 template <int FMT, int BN, int NB>
 __device__ __forceinline__ void produce(const Args& a, unsigned char* smem, uint64_t* full,
                                         uint64_t* empty, int n0, int ncol, int g0, int g1,
                                         int nt, int lane) {
   using G = Geo<FMT, BN, NB>;
+  using F = Fmt<FMT>;
   const long N = a.N;
   const bool wide = a.wide;
   // a plane's rows from row0 (esz-byte elements), at this tile's columns
@@ -197,24 +259,44 @@ __device__ __forceinline__ void produce(const Args& a, unsigned char* smem, uint
   for (int i = 0; i < nt; ++i) {
     const int st = i % G::NST;
     if (i >= G::NST) mbar_wait(&empty[st], (i / G::NST - 1) & 1);
-    const int gt0 = g0 + i * G::GT, gn = min(G::GT, g1 - gt0);
     unsigned char* s = smem + st * G::STAGE;
-    if constexpr (FMT == 0) {
-      copy_rows<BN>(s, G::ROW, plane(a.codes, 1, gt0 * 32L), N, gn * 32, ncol, wide, lane);
-      copy_rows<BN * 4>(s + G::SCL, BN * 4, plane(a.scales, 4, gt0), N * 4, gn, ncol * 4,
-                        wide, lane);
+    if constexpr (FMT == 6) {
+      constexpr int T = Tiles<FMT, BN, NB>::T;
+      const int r = i / T, p = i % T;
+      for (int w = 0; w < G::KW; ++w) {
+        const int grp = g0 + (r * G::KW + w) * 8;   // k warp w's 256-group
+        if (grp >= g1) break;
+        copy_rows<BN>(s + w * G::P * 32 * G::ROW, G::ROW,
+                      plane(a.codes, 1, (grp + p * G::P) * 32L), N, G::P * 32, ncol, wide, lane);
+        if (p == T - 1)
+          copy_rows<BN * 4>(s + G::SCL + w * BN * 4, BN * 4, plane(a.scales, 4, grp / 8), N * 4,
+                            1, ncol * 4, wide, lane);
+      }
     } else {
-      copy_rows<BN>(s, G::ROW, plane(a.codes, 1, gt0 * 16L), N, gn * 16, ncol, wide, lane);
-      copy_rows<BN * 4>(s + G::D, BN * 4, plane(a.d, 4, gt0 / 8), N * 4, 1, ncol * 4, wide,
-                        lane);
-      if constexpr (FMT == 1) {
-        copy_rows<BN>(s + G::SC, BN, plane(a.sc, 1, gt0), N, gn, ncol, wide, lane);
-        copy_rows<BN>(s + G::MN, BN, plane(a.mn, 1, gt0), N, gn, ncol, wide, lane);
-        copy_rows<BN * 4>(s + G::DMIN, BN * 4, plane(a.dmin, 4, gt0 / 8), N * 4, 1, ncol * 4,
-                          wide, lane);
+      const int gt0 = g0 + i * G::GT, gn = min(G::GT, g1 - gt0);
+      copy_rows<BN>(s, G::ROW, plane(a.codes, 1, gt0 * (long)F::CR), N, gn * F::CR, ncol, wide,
+                    lane);
+      if constexpr (F::HIB > 0)
+        copy_rows<BN>(s + G::HI, G::ROW, plane(a.hi, 1, gt0 * 4L * F::HIB), N, gn * 4 * F::HIB,
+                      ncol, wide, lane);
+      if constexpr (F::COMPACT) {
+        constexpr int SPG = FMT == 2 ? 2 : 1;   // sub-scale rows a 32-group
+        copy_rows<BN * 4>(s + G::D, BN * 4, plane(a.d, 4, gt0 / 8), N * 4, 1, ncol * 4, wide,
+                          lane);
+        copy_rows<BN>(s + G::SC, BN, plane(a.sc, 1, (long)gt0 * SPG), N, gn * SPG, ncol, wide,
+                      lane);
+        if constexpr (F::MINS) {
+          copy_rows<BN>(s + G::MN, BN, plane(a.mn, 1, gt0), N, gn, ncol, wide, lane);
+          copy_rows<BN * 4>(s + G::DMIN, BN * 4, plane(a.dmin, 4, gt0 / 8), N * 4, 1, ncol * 4,
+                            wide, lane);
+        }
       } else {
-        copy_rows<BN>(s + G::HI, G::ROW, plane(a.hi, 1, gt0 * 8L), N, gn * 8, ncol, wide, lane);
-        copy_rows<BN>(s + G::SC, BN, plane(a.sc, 1, gt0 * 2L), N, gn * 2, ncol, wide, lane);
+        copy_rows<BN * 4>(s + G::SCL, BN * 4, plane(a.scales, 4, (long)gt0 * G::QG), N * 4,
+                          gn * G::QG, ncol * 4, wide, lane);
+        if constexpr (F::ADDS)
+          if (a.adds != nullptr)
+            copy_rows<BN * 4>(s + G::ADD, BN * 4, plane(a.adds, 4, (long)gt0 * G::QG), N * 4,
+                              gn * G::QG, ncol * 4, wide, lane);
       }
     }
     cp_async_arrive_noinc(&full[st]);
@@ -227,18 +309,30 @@ __device__ __forceinline__ void produce(const Args& a, unsigned char* smem, uint
 // memory: int8 codes as B fragments (32-group grp, fragment m / 8, lane
 // (m % 8) * 4 + t, register h: elements 16 h + t + 4 i, i = 0..3, so a
 // (row, group)'s 8 words are contiguous), (sx, xs) at (quantizer group,
-// row). One thread a (row, 32-group), rows fastest; rows past M get zero
-// codes, sx and xs. The codes round by adding 1.5 * 2^23 (round half to
-// even, as rintf), their low bytes are the int8 codes and the sum of the
-// bit patterns less 1.5 * 2^23 each is the exact code sum.
+// row). One thread a (row, 32-group), rows fastest (gs 256: 8 adjacent
+// lanes a (row, 256-group), their amax and code sum by shuffles; the items
+// of a warp are all live or all past the end, as R cn is a multiple of 64);
+// rows past M get zero codes, sx and xs. The codes round by adding 1.5 *
+// 2^23 (round half to even, as rintf), their low bytes are the int8 codes
+// and the sum of the bit patterns less 1.5 * 2^23 each is the exact code
+// sum.
 template <int FMT, int NB>
 __device__ __forceinline__ void quantize(const Args& a, uint32_t* xc, float2* sxs, int c0,
                                          int cn, int tid) {
   constexpr int R = 8 * NB;
-  constexpr int GS = FMT == 2 ? 16 : 32;   // elements a quantizer group
+  constexpr int GS = Fmt<FMT>::GS;
+  constexpr int QS = GS > 32 ? 32 : GS;    // elements of a quantizer group in one thread
+  constexpr int QG = 32 / QS;
   constexpr float MAGIC = 12582912.f;      // 1.5 * 2^23
   for (int it = tid; it < R * cn; it += NTC) {
-    const int m = it % R, grp = it / R;
+    int m, grp;
+    if constexpr (GS == 256) {
+      m = (it >> 3) % R;
+      grp = (it >> 3) / R * 8 + (it & 7);
+    } else {
+      m = it % R;
+      grp = it / R;
+    }
     float v[32];
     if (m < a.M) {
       const long k = (long)m * a.K + (c0 + grp) * 32L;
@@ -269,21 +363,30 @@ __device__ __forceinline__ void quantize(const Args& a, uint32_t* xc, float2* sx
     }
     uint32_t b[32];
 #pragma unroll
-    for (int h0 = 0; h0 < 32; h0 += GS) {
+    for (int h0 = 0; h0 < 32; h0 += QS) {
       float amax = 0.f;
 #pragma unroll
-      for (int e = h0; e < h0 + GS; ++e) amax = fmaxf(amax, fabsf(v[e]));
+      for (int e = h0; e < h0 + QS; ++e) amax = fmaxf(amax, fabsf(v[e]));
+      if constexpr (GS == 256) {
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      }
       const float sx = amax / 127.0f;
       const float inv = amax > 0.f ? 127.0f / amax : 0.f;
       uint32_t sum = 0;
 #pragma unroll
-      for (int e = h0; e < h0 + GS; ++e) {
+      for (int e = h0; e < h0 + QS; ++e) {
         b[e] = __float_as_uint(__fadd_rn(__fmul_rn(v[e], inv), MAGIC));
         sum += b[e];
       }
-      sum -= (uint32_t)GS * 0x4B400000u;   // exact modulo 2^32
-      const int qg = FMT == 2 ? 2 * grp + h0 / 16 : grp;
-      sxs[qg * R + m] = make_float2(sx, __fmul_rn((float)(int)sum, sx));
+      sum -= (uint32_t)QS * 0x4B400000u;   // exact modulo 2^32
+      if constexpr (GS == 256) {
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if ((it & 7) == 0) sxs[grp / 8 * R + m] = make_float2(sx, __fmul_rn((float)(int)sum, sx));
+      } else {
+        sxs[(grp * QG + h0 / QS) * R + m] = make_float2(sx, __fmul_rn((float)(int)sum, sx));
+      }
     }
     uint32_t w[8];
 #pragma unroll
@@ -302,9 +405,22 @@ __device__ __forceinline__ void quantize(const Args& a, uint32_t* xc, float2* sx
 
 // ------------------------------------------------------------ the kernel
 
+// a Q5_K hi word's column j (byte j: bit i the hi bit of element t + 4 i,
+// bit 4 + i that of 16 + t + 4 i) as bit 4 of each code byte: lo for the
+// low nibbles' codes, hi for the high nibbles'
+__device__ __forceinline__ void q5_hi(uint32_t hw, int j, uint32_t& lo, uint32_t& hi) {
+  const uint32_t rep = __byte_perm(hw, 0, 0x1111u * j);   // byte j in every byte
+  // byte i holds 0 or 2^i (<= 8): adding 0x7F sets its bit 7 iff it is set
+  lo = (((rep & 0x08040201u) + 0x7F7F7F7Fu) & 0x80808080u) >> 3;
+  hi = ((((rep & 0x80402010u) >> 4) + 0x7F7F7F7Fu) & 0x80808080u) >> 3;
+}
+
 template <int FMT, int BN, int NB>
 __global__ void __launch_bounds__(NT, 2) qmv_kernel(Args a) {
   using G = Geo<FMT, BN, NB>;
+  using F = Fmt<FMT>;
+  using TL = Tiles<FMT, BN, NB>;
+  constexpr int R = 8 * NB;
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BAR);
@@ -312,10 +428,10 @@ __global__ void __launch_bounds__(NT, 2) qmv_kernel(Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = blockIdx.x, cl = gridDim.x;       // the cluster spans grid x
   const int n0 = blockIdx.y * BN, ncol = min(BN, a.N - n0);
-  const int n_units = FMT == 0 ? a.K / 32 : a.K / 256;
-  const int g0 = min(rank * a.per, n_units) * G::UPG;       // this block's 32-groups
-  const int g1 = min((rank + 1) * a.per, n_units) * G::UPG;
-  const int nt = (g1 - g0 + G::GT - 1) / G::GT;
+  const int n_units = a.K / (32 * F::UPG);
+  const int g0 = min(rank * a.per, n_units) * F::UPG;       // this block's 32-groups
+  const int g1 = min((rank + 1) * a.per, n_units) * F::UPG;
+  const int nt = TL::count(g0, g1);
   if (tid == 0) {
     for (int i = 0; i < G::NST; ++i) { mbar_init(&full[i], 32); mbar_init(&empty[i], NCW); }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -332,142 +448,245 @@ __global__ void __launch_bounds__(NT, 2) qmv_kernel(Args a) {
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[nb][j][0] = acc[nb][j][1] = 0.f;
+  // the correction c = a - offset * s at run time (FMT 3, 4, 5, 7)
+  const bool has_adds = F::ADDS && a.adds != nullptr;
+  const bool corr = F::MINS || has_adds || (F::ADDS && a.offset != 0);
+  const float noff = -(float)a.offset;
+
+  // acc += each product's exact dot (as 1.5 * 2^23 + dot) times sx * s,
+  // and once a group xs * c; sxs at the quantizer group's (row 2t, 2t + 1)
+  auto scale_add = [&](int nb, const int (&dd)[2][4], const float2* q, const float (&sj)[4],
+                       const float (&cj)[4], bool with_c) {
+    const float4 v = *reinterpret_cast<const float4*>(q + 8 * nb + 2 * t);
+    const float sx[2] = {v.x, v.z}, xs[2] = {v.y, v.w};
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 2 * f + (e >> 1), rr = e & 1;
+        acc[nb][j][rr] = fmaf(i2f(dd[f][e]), sx[rr] * sj[j], acc[nb][j][rr]);
+        if (with_c) acc[nb][j][rr] = fmaf(xs[rr], cj[j], acc[nb][j][rr]);
+      }
+  };
 
   if (warp == NCW) {
     produce<FMT, BN, NB>(a, smem, full, empty, n0, ncol, g0, g1, nt, lane);
   } else {
     uint32_t* xc = reinterpret_cast<uint32_t*>(smem + G::XC);
     float2* sxs = reinterpret_cast<float2*>(smem + G::SXS);
+    int dacc[NB][2][4];   // FMT 6: this warp's 256-group's dots, as 1.5 * 2^23 + dot
     int i = 0;
     for (int c0 = g0; c0 < g1; c0 += G::XG) {
       const int cn = min(G::XG, g1 - c0);
       if (c0 != g0) asm volatile("bar.sync 1, %0;\n" ::"r"(NTC) : "memory");
       quantize<FMT, NB>(a, xc, sxs, c0, cn, tid);
       asm volatile("bar.sync 1, %0;\n" ::"r"(NTC) : "memory");
-      for (; i < nt && g0 + i * G::GT < c0 + cn; ++i) {
+      for (; i < nt && TL::start(g0, i) < c0 + cn; ++i) {
         const int st = i % G::NST;
         mbar_wait(&full[st], (i / G::NST) & 1);
         __syncwarp();
         const unsigned char* s = smem + st * G::STAGE;
-        const int gt0 = g0 + i * G::GT, gn = min(G::GT, g1 - gt0);
-        // the superblock's d (and dmin), and -2^23 times them: fma(2^23 + b,
-        // d, -2^23 d) rounds b d once, so it is fmul_rn(d, b) (d is an f16
-        // value: no overflow)
-        float dv[4] = {0.f, 0.f, 0.f, 0.f}, dn[4], mv[4] = {0.f, 0.f, 0.f, 0.f}, mnn[4];
-        if constexpr (FMT != 0) {
-          const float4 d4 = *reinterpret_cast<const float4*>(s + G::D + cw * 4);
-          dv[0] = d4.x; dv[1] = d4.y; dv[2] = d4.z; dv[3] = d4.w;
-          if constexpr (FMT == 1) {
-            const float4 m4 = *reinterpret_cast<const float4*>(s + G::DMIN + cw * 4);
-            mv[0] = m4.x; mv[1] = m4.y; mv[2] = m4.z; mv[3] = m4.w;
-          }
-        }
+        if constexpr (FMT == 6) {
+          const int r = i / TL::T, p = i % TL::T;
+          const int grp = g0 + (r * G::KW + kw) * 8;   // this warp's 256-group
+          if (grp < g1) {
+            if (p == 0) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) { dn[j] = -8388608.f * dv[j]; mnn[j] = -8388608.f * mv[j]; }
-#pragma unroll
-        for (int u = 0; u < G::GT / G::KW; ++u) {
-          const int gi = kw + u * G::KW;
-          if (FMT == 0 && gi >= gn) break;   // a Q8_0 tile past K
-          const int xg = gt0 + gi - c0;      // the group in x's chunk
-          uint2 b[NB];
-#pragma unroll
-          for (int nb = 0; nb < NB; ++nb)
-            b[nb] = *reinterpret_cast<const uint2*>(xc + ((xg * NB + nb) * 32 + lane) * 2);
-          // this lane's codes: rows t + 4i (and 16 + t + 4i for Q8_0) of
-          // its 4 columns, one column's 4 codes a register
-          uint32_t r[4], col[4];
-          const unsigned char* cr = s + (gi * (FMT == 0 ? 32 : 16) + t) * G::ROW + cw;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) r[k] = lds32(cr + 4 * k * G::ROW);
-          transpose4(r, col);
-          if constexpr (FMT == 2) {
-            // Q6_K: two 16-groups of the 32-group, each its own scale
-            const unsigned char* hr = s + G::HI + (gi * 8 + t) * G::ROW + cw;
-            const uint32_t h0 = lds32(hr), h1 = lds32(hr + 4 * G::ROW);
-            uint32_t q[2][4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              // element t + 4i's 2 high bits: hi row t + 4 (i & 1), field i >> 1
-              // (16 + t + 4i: field 2 + (i >> 1))
-              const uint32_t p = __byte_perm(h0, h1, j | ((j + 4) << 4) | (j << 8) | ((j + 4) << 12));
-              q[0][j] = (col[j] & M4) | ((__byte_perm(p, p >> 2, 0x7610) & 0x03030303u) << 4);
-              q[1][j] = ((col[j] >> 4) & M4) |
-                        ((__byte_perm(p >> 4, p >> 6, 0x7610) & 0x03030303u) << 4);
-            }
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              // the signed sub-scales: 2^23 + (sc ^ 0x80) less 2^23 + 128, exact
-              const uint32_t scw = lds32(s + G::SC + (2 * gi + h) * BN + cw) ^ 0x80808080u;
-              float sj[4];
-#pragma unroll
-              for (int j = 0; j < 4; ++j) sj[j] = dv[j] * (u8_biased(scw, j) - 8388736.f);
-              const int qg = 2 * xg + h;
-#pragma unroll
-              for (int nb = 0; nb < NB; ++nb) {
-                int dd[2][4];
-#pragma unroll
-                for (int f = 0; f < 2; ++f)
-                  mma_s8_k16_c(dd[f], q[h][2 * f], q[h][2 * f + 1], h ? b[nb].y : b[nb].x,
-                               MAGIC_BITS);
-                const float4 v = *reinterpret_cast<const float4*>(sxs + qg * 8 * NB + 8 * nb + 2 * t);
-                const float sx[2] = {v.x, v.z}, xs[2] = {v.y, v.w};
+              for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
                 for (int f = 0; f < 2; ++f)
 #pragma unroll
-                  for (int e = 0; e < 4; ++e) {
-                    const int j = 2 * f + (e >> 1), rr = e & 1;
-                    acc[nb][j][rr] = fmaf(i2f(dd[f][e]), sx[rr] * sj[j], acc[nb][j][rr]);
-                    acc[nb][j][rr] = fmaf(xs[rr], -32.0f * sj[j], acc[nb][j][rr]);
-                  }
-              }
+                  for (int e = 0; e < 4; ++e) dacc[nb][f][e] = MAGIC_BITS;
             }
-          } else {
-            uint32_t A[2][4];
-            if constexpr (FMT == 0) {
-              uint32_t colh[4];
 #pragma unroll
-              for (int k = 0; k < 4; ++k) r[k] = lds32(cr + (16 + 4 * k) * G::ROW);
-              transpose4(r, colh);
+            for (int u = 0; u < G::P; ++u) {
+              const int xg = grp + p * G::P + u - c0;
+              const unsigned char* cr = s + ((kw * G::P + u) * 32 + t) * G::ROW + cw;
+              uint32_t r4[4], col[4], colh[4], A[2][4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) r4[k] = lds32(cr + 4 * k * G::ROW);
+              transpose4(r4, col);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) r4[k] = lds32(cr + (16 + 4 * k) * G::ROW);
+              transpose4(r4, colh);
 #pragma unroll
               for (int f = 0; f < 2; ++f) {
                 A[f][0] = col[2 * f]; A[f][1] = col[2 * f + 1];
                 A[f][2] = colh[2 * f]; A[f][3] = colh[2 * f + 1];
               }
-            } else {
 #pragma unroll
-              for (int f = 0; f < 2; ++f) {
-                A[f][0] = col[2 * f] & M4; A[f][1] = col[2 * f + 1] & M4;
-                A[f][2] = (col[2 * f] >> 4) & M4; A[f][3] = (col[2 * f + 1] >> 4) & M4;
+              for (int nb = 0; nb < NB; ++nb) {
+                const uint2 b = *reinterpret_cast<const uint2*>(xc + ((xg * NB + nb) * 32 + lane) * 2);
+#pragma unroll
+                for (int f = 0; f < 2; ++f) mma_s8(dacc[nb][f], A[f], b.x, b.y);
               }
             }
-            float sj[4], cm[4] = {0.f, 0.f, 0.f, 0.f};
-            if constexpr (FMT == 0) {
-              const float4 v = *reinterpret_cast<const float4*>(s + G::SCL + (gi * BN + cw) * 4);
-              sj[0] = v.x; sj[1] = v.y; sj[2] = v.z; sj[3] = v.w;
-            } else {
-              const uint32_t scw = lds32(s + G::SC + gi * BN + cw);
-              const uint32_t mnw = lds32(s + G::MN + gi * BN + cw);
+            if (p == TL::T - 1) {   // the group's one scale
+              const float4 v = *reinterpret_cast<const float4*>(s + G::SCL + (kw * BN + cw) * 4);
+              const float sj[4] = {v.x, v.y, v.z, v.w}, cj[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int nb = 0; nb < NB; ++nb)
+                scale_add(nb, dacc[nb], sxs + (grp - c0) / 8 * R, sj, cj, false);
+            }
+          }
+        } else {
+          const int gt0 = g0 + i * G::GT, gn = min(G::GT, g1 - gt0);
+          // the superblock's d (and dmin), and -2^23 times them: fma(2^23 + b,
+          // d, -2^23 d) rounds b d once, so it is fmul_rn(d, b) (d is an f16
+          // value: no overflow)
+          float dv[4] = {0.f, 0.f, 0.f, 0.f}, dn[4], mv[4] = {0.f, 0.f, 0.f, 0.f}, mnn[4];
+          if constexpr (F::COMPACT) {
+            const float4 d4 = *reinterpret_cast<const float4*>(s + G::D + cw * 4);
+            dv[0] = d4.x; dv[1] = d4.y; dv[2] = d4.z; dv[3] = d4.w;
+            if constexpr (F::MINS) {
+              const float4 m4 = *reinterpret_cast<const float4*>(s + G::DMIN + cw * 4);
+              mv[0] = m4.x; mv[1] = m4.y; mv[2] = m4.z; mv[3] = m4.w;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) { dn[j] = -8388608.f * dv[j]; mnn[j] = -8388608.f * mv[j]; }
+#pragma unroll
+          for (int u = 0; u < G::GT / G::KW; ++u) {
+            const int gi = kw + u * G::KW;
+            if (gi >= gn) break;                 // a tile past K
+            const int xg = gt0 + gi - c0;        // the group in x's chunk
+            uint2 b[NB];
+#pragma unroll
+            for (int nb = 0; nb < NB; ++nb)
+              b[nb] = *reinterpret_cast<const uint2*>(xc + ((xg * NB + nb) * 32 + lane) * 2);
+            // this lane's codes: rows t + 4i (and 16 + t + 4i for int8) of
+            // its 4 columns, one column's 4 codes a register
+            uint32_t r4[4], col[4];
+            const unsigned char* cr = s + (gi * F::CR + t) * G::ROW + cw;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) r4[k] = lds32(cr + 4 * k * G::ROW);
+            transpose4(r4, col);
+            if constexpr (FMT == 2) {
+              // Q6_K: two 16-groups of the 32-group, each its own scale
+              const unsigned char* hr = s + G::HI + (gi * 8 + t) * G::ROW + cw;
+              const uint32_t h0 = lds32(hr), h1 = lds32(hr + 4 * G::ROW);
+              uint32_t q[2][4];
 #pragma unroll
               for (int j = 0; j < 4; ++j) {
-                sj[j] = __fmaf_rn(u8_biased(scw, j), dv[j], dn[j]);    // d * sc
-                cm[j] = __fmaf_rn(u8_biased(mnw, j), mv[j], mnn[j]);   // dmin * mn = -c
+                // element t + 4i's 2 high bits: hi row t + 4 (i & 1), field i >> 1
+                // (16 + t + 4i: field 2 + (i >> 1))
+                const uint32_t pp = __byte_perm(h0, h1, j | ((j + 4) << 4) | (j << 8) | ((j + 4) << 12));
+                q[0][j] = (col[j] & M4) | ((__byte_perm(pp, pp >> 2, 0x7610) & 0x03030303u) << 4);
+                q[1][j] = ((col[j] >> 4) & M4) |
+                          ((__byte_perm(pp >> 4, pp >> 6, 0x7610) & 0x03030303u) << 4);
               }
-            }
 #pragma unroll
-            for (int nb = 0; nb < NB; ++nb) {
-              int dd[2][4];
+              for (int h = 0; h < 2; ++h) {
+                // the signed sub-scales: 2^23 + (sc ^ 0x80) less 2^23 + 128, exact
+                const uint32_t scw = lds32(s + G::SC + (2 * gi + h) * BN + cw) ^ 0x80808080u;
+                float sj[4], cj[4];
 #pragma unroll
-              for (int f = 0; f < 2; ++f) mma_s8_c(dd[f], A[f], b[nb].x, b[nb].y, MAGIC_BITS);
-              const float4 v = *reinterpret_cast<const float4*>(sxs + xg * 8 * NB + 8 * nb + 2 * t);
-              const float sx[2] = {v.x, v.z}, xs[2] = {v.y, v.w};
-#pragma unroll
-              for (int f = 0; f < 2; ++f)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                  const int j = 2 * f + (e >> 1), rr = e & 1;
-                  acc[nb][j][rr] = fmaf(i2f(dd[f][e]), sx[rr] * sj[j], acc[nb][j][rr]);
-                  if constexpr (FMT == 1) acc[nb][j][rr] = fmaf(xs[rr], -cm[j], acc[nb][j][rr]);
+                for (int j = 0; j < 4; ++j) {
+                  sj[j] = dv[j] * (u8_biased(scw, j) - 8388736.f);
+                  cj[j] = -32.0f * sj[j];
                 }
+#pragma unroll
+                for (int nb = 0; nb < NB; ++nb) {
+                  int dd[2][4];
+#pragma unroll
+                  for (int f = 0; f < 2; ++f)
+                    mma_s8_k16_c(dd[f], q[h][2 * f], q[h][2 * f + 1], h ? b[nb].y : b[nb].x,
+                                 MAGIC_BITS);
+                  scale_add(nb, dd, sxs + (2 * xg + h) * R, sj, cj, true);
+                }
+              }
+            } else {
+              // the 32-group's codes as two A fragments: A[f][0..1] elements
+              // t + 4i of columns cw + 2f, cw + 2f + 1, A[f][2..3] 16 + t + 4i
+              uint32_t A[2][4];
+              if constexpr (!F::NIB) {
+                uint32_t colh[4];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) r4[k] = lds32(cr + (16 + 4 * k) * G::ROW);
+                transpose4(r4, colh);
+#pragma unroll
+                for (int f = 0; f < 2; ++f) {
+                  A[f][0] = col[2 * f]; A[f][1] = col[2 * f + 1];
+                  A[f][2] = colh[2 * f]; A[f][3] = colh[2 * f + 1];
+                }
+              } else {
+                uint32_t lo[4], hi[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) { lo[j] = col[j] & M4; hi[j] = (col[j] >> 4) & M4; }
+                if constexpr (F::HIB == 1) {
+                  // Q5_K: element e's bit 4 in hi row e % 4, bit e / 4
+                  const uint32_t hw = lds32(s + G::HI + (gi * 4 + t) * G::ROW + cw);
+#pragma unroll
+                  for (int j = 0; j < 4; ++j) {
+                    uint32_t l5, h5;
+                    q5_hi(hw, j, l5, h5);
+                    lo[j] |= l5;
+                    hi[j] |= h5;
+                  }
+                }
+#pragma unroll
+                for (int f = 0; f < 2; ++f) {
+                  A[f][0] = lo[2 * f]; A[f][1] = lo[2 * f + 1];
+                  A[f][2] = hi[2 * f]; A[f][3] = hi[2 * f + 1];
+                }
+              }
+              if constexpr (F::GS == 32) {
+                float sj[4], cj[4] = {0.f, 0.f, 0.f, 0.f};
+                if constexpr (F::COMPACT) {
+                  const uint32_t scw = lds32(s + G::SC + gi * BN + cw);
+                  const uint32_t mnw = lds32(s + G::MN + gi * BN + cw);
+#pragma unroll
+                  for (int j = 0; j < 4; ++j) {
+                    sj[j] = __fmaf_rn(u8_biased(scw, j), dv[j], dn[j]);     // d * sc
+                    cj[j] = -__fmaf_rn(u8_biased(mnw, j), mv[j], mnn[j]);   // -dmin * mn
+                  }
+                } else {
+                  const float4 v = *reinterpret_cast<const float4*>(s + G::SCL + (gi * BN + cw) * 4);
+                  sj[0] = v.x; sj[1] = v.y; sj[2] = v.z; sj[3] = v.w;
+                  if constexpr (F::ADDS) {
+                    if (has_adds) {
+                      const float4 w = *reinterpret_cast<const float4*>(s + G::ADD + (gi * BN + cw) * 4);
+                      cj[0] = w.x; cj[1] = w.y; cj[2] = w.z; cj[3] = w.w;
+                    }
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) cj[j] = __fadd_rn(cj[j], noff * sj[j]);
+                  }
+                }
+#pragma unroll
+                for (int nb = 0; nb < NB; ++nb) {
+                  int dd[2][4];
+#pragma unroll
+                  for (int f = 0; f < 2; ++f) mma_s8_c(dd[f], A[f], b[nb].x, b[nb].y, MAGIC_BITS);
+                  scale_add(nb, dd, sxs + xg * R, sj, cj, corr);
+                }
+              } else {
+                // gs 16: the two halves' m16n8k16 products; gs 8: each half's
+                // two 8-groups, x's codes of the other 8 masked to zero
+#pragma unroll
+                for (int q = 0; q < G::QG; ++q) {
+                  const int h = F::GS == 16 ? q : q >> 1;
+                  const uint32_t mask = F::GS == 16 ? 0xFFFFFFFFu : q & 1 ? 0xFFFF0000u : 0x0000FFFFu;
+                  const int row = gi * G::QG + q;
+                  const float4 v = *reinterpret_cast<const float4*>(s + G::SCL + (row * BN + cw) * 4);
+                  const float sj[4] = {v.x, v.y, v.z, v.w};
+                  float cj[4] = {0.f, 0.f, 0.f, 0.f};
+                  if (has_adds) {
+                    const float4 w = *reinterpret_cast<const float4*>(s + G::ADD + (row * BN + cw) * 4);
+                    cj[0] = w.x; cj[1] = w.y; cj[2] = w.z; cj[3] = w.w;
+                  }
+#pragma unroll
+                  for (int j = 0; j < 4; ++j) cj[j] = __fadd_rn(cj[j], noff * sj[j]);
+#pragma unroll
+                  for (int nb = 0; nb < NB; ++nb) {
+                    int dd[2][4];
+                    const uint32_t bx = (h ? b[nb].y : b[nb].x) & mask;
+#pragma unroll
+                    for (int f = 0; f < 2; ++f)
+                      mma_s8_k16_c(dd[f], A[f][2 * h], A[f][2 * h + 1], bx, MAGIC_BITS);
+                    scale_add(nb, dd, sxs + (xg * G::QG + q) * R, sj, cj, corr);
+                  }
+                }
+              }
             }
           }
         }
@@ -596,445 +815,60 @@ int resident_bn(int bn, int nb, int cl) {
   return nb == 1 ? resident<FMT, 32, 1>(cl) : resident<FMT, 32, 2>(cl);
 }
 
-// ------------------------------------------- the planar and Q5_K kernel
-//
-// The other formats of the JAX package (ops/qtensor.py), in one kernel of
-// runtime group size, offset and adds (the same sums as above, the same
-// activation quantizer at the weights' group size):
-//   FAM 3: int8 codes (K, N), f32 scales (K/gs, N), optional f32 adds;
-//          gs 8 (IQ1_M), 16 (Q2_K, Q3_K, IQ2_XS, IQ2_S), 32 (Q5_0, Q5_1,
-//          MXFP4, IQ4_NL, IQ4_XS, IQ2_XXS, IQ3_XXS, IQ3_S, IQ1_S) or 256
-//          (Q8_K, TQ1_0, TQ2_0);
-//   FAM 4: nibbles (K/2, N) in the group-local layout, f32 scales per 32,
-//          offset 8 (Q4_0) or f32 adds (Q4_1);
-//   FAM 5: Q5_K compact (Q4_K's planes and a 1-bit hi plane, element e of a
-//          32-group in hi row e % 4, bit e / 4).
-// A block of 8 warps owns BN columns and one split of K (qmv_planar_plan:
-// where the column tiles alone give too few blocks, up to 8 splits, whose
-// f32 partials qmv_planar_reduce adds in split order; no thread block
-// cluster: a cluster of two cost this kernel about 0.02 ms a call on the
-// H100, PERF.md section 6). For each chunk of KC elements of its
-// range it quantizes x's rows into shared memory (a team of gs/8 threads
-// a (row, group), 8 elements a thread, every item's x loaded first: amax
-// and the code sum by shuffles in a fixed order), then each thread takes
-// 4 adjacent columns and 32-element k blocks in turn (k slice ks takes
-// blocks ks, ks + KS, ..): its 32-bit loads of the block's code rows all
-// issued first, straight from device memory, a byte transpose to one
-// column's 4 codes a word, dp4a against x's codes, a group's exact integer
-// dot scaled by sx * s in f32, the correction xs * (a - offset * s) once a
-// group. The k slices' sums are added in a fixed order (shuffles, then the
-// warps' in warp order). A simple kernel: correct first; its speed is
-// later work.
-
-constexpr int PNT = 256;             // threads of a planar block
-constexpr int KC = 1024;             // x elements a chunk
-
-struct PArgs {
-  int M, K, N, per, unit, gs, offset;   // per: K units (unit elements) a split
-  const void* x; int x_bf16;
-  const uint8_t* codes; const uint8_t* hi; const float* scales; const float* adds;
-  const uint8_t* sc; const uint8_t* mn; const float* d; const float* dmin;
-  float* part;                          // (splits, M, N) f32 partials, or null
-  void* out; int out_bf16;
-};
-
-template <int MR>
-struct PGeo {
-  static constexpr int XQ = 0;                          // int8 codes (MR, KC)
-  static constexpr int SXS = XQ + MR * KC;              // (sx, xs) (MR, KC / 8)
-  static constexpr int PART = SXS + MR * (KC / 8) * 8;  // f32 sums (MR, BN <= 64)
-  static constexpr int RED = PART + MR * 64 * 4;        // each warp's (MR, BN)
-  static constexpr int SMEM = RED + (PNT / 32) * MR * 64 * 4;
-};
-
-// x's rows m < MR over [c0, c0 + cn) quantized at group size gs: codes to
-// xq (row stride KC), (sx, xs) to sxs at (row, group in the chunk). Each
-// thread takes items (row, 8 elements) tid, tid + PNT, ..: every item's x
-// is loaded first, then quantized (a team of gs/8 lanes a group).
-template <int MR>
-__device__ __forceinline__ void quantize_planar(const PArgs& a, int8_t* xq, float2* sxs, int c0,
-                                                int cn, int tid) {
-  constexpr int NI = (MR * KC / 8 + PNT - 1) / PNT;   // items a thread at most
-  const int T = a.gs >= 256 ? 32 : a.gs / 8;          // threads a (row, group)
-  const int per_row = cn / 8, items = MR * per_row;
-  uint4 raw[NI][2];
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int it = tid + i * PNT, m = it / per_row, k = c0 + (it - m * per_row) * 8;
-    raw[i][0] = raw[i][1] = make_uint4(0u, 0u, 0u, 0u);
-    if (it < items && m < a.M) {
-      if (a.x_bf16) {
-        raw[i][0] = __ldg(reinterpret_cast<const uint4*>(
-            reinterpret_cast<const __nv_bfloat16*>(a.x) + (long)m * a.K + k));
-      } else {
-        const uint4* src = reinterpret_cast<const uint4*>(reinterpret_cast<const float*>(a.x) +
-                                                          (long)m * a.K + k);
-        raw[i][0] = __ldg(src);
-        raw[i][1] = __ldg(src + 1);
-      }
-    }
+// the format's instantiation: f(std::integral_constant<int, FMT>)
+template <typename Fn>
+auto by_fmt(int fmt, Fn f) {
+  switch (fmt) {
+    case 0: return f(std::integral_constant<int, 0>());
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 6: return f(std::integral_constant<int, 6>());
+    case 7: return f(std::integral_constant<int, 7>());
+    default: return f(std::integral_constant<int, 8>());
   }
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    // block-uniform: past the last warp that holds an item, none computes
-    if (i * PNT >= (items + 31) / 32 * 32) break;
-    const int it = tid + i * PNT, m = it / per_row, e8 = it - m * per_row;
-    float v[8];
-    if (a.x_bf16) {
-      const uint32_t ww[4] = {raw[i][0].x, raw[i][0].y, raw[i][0].z, raw[i][0].w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        v[2 * e] = __uint_as_float(ww[e] << 16);
-        v[2 * e + 1] = __uint_as_float(ww[e] & 0xffff0000u);
-      }
-    } else {
-      const uint32_t ww[8] = {raw[i][0].x, raw[i][0].y, raw[i][0].z, raw[i][0].w,
-                              raw[i][1].x, raw[i][1].y, raw[i][1].z, raw[i][1].w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __uint_as_float(ww[e]);
-    }
-    float amax = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
-    for (int o = T / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float sx = __fdiv_rn(amax, 127.0f);
-    const float inv = amax > 0.f ? __fdiv_rn(127.0f, amax) : 0.f;
-    int c[8], sum = 0;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      c[e] = __float2int_rn(__fmul_rn(v[e], inv));
-      sum += c[e];
-    }
-    for (int o = T / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (it < items) {
-      *reinterpret_cast<uint2*>(xq + m * KC + e8 * 8) =
-          make_uint2(pack_s8(c[0], c[1], c[2], c[3]), pack_s8(c[4], c[5], c[6], c[7]));
-      if (e8 % T == 0)
-        sxs[m * (KC / 8) + (e8 * 8) / a.gs] = make_float2(sx, __fmul_rn((float)sum, sx));
-    }
-  }
-}
-
-template <int FAM, int BN, int MR>
-__global__ void __launch_bounds__(PNT, MR > 8 ? 1 : 2) qmv_planar_kernel(PArgs a) {
-  using G = PGeo<MR>;
-  constexpr int QW = BN / 4;               // column quads: lanes along a row
-  constexpr int KS = PNT / QW;             // k slices of a block
-  extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* xq = reinterpret_cast<int8_t*>(smem + G::XQ);
-  float2* sxs = reinterpret_cast<float2*>(smem + G::SXS);
-  float* part = reinterpret_cast<float*>(smem + G::PART);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rank = blockIdx.x;         // the K split
-  const int n0 = blockIdx.y * BN, ncol = min(BN, a.N - n0);
-  const int n_units = a.K / a.unit;
-  const int kb0 = min(rank * a.per, n_units) * a.unit;
-  const int kb1 = min((rank + 1) * a.per, n_units) * a.unit;
-  const int cq = tid % QW, ks = tid / QW;  // this thread's column quad and k slice
-  const int n = n0 + 4 * cq;
-  const bool live = 4 * cq < ncol;
-  const long N = a.N;
-  const int gsb = a.gs < 32 ? a.gs : 32;   // elements of a group piece in a k block
-  const int np = 32 / gsb;                 // group pieces a k block
-  const bool has_adds = FAM == 5 || a.adds != nullptr;
-  float acc[MR][4];
-#pragma unroll
-  for (int m = 0; m < MR; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int c0 = kb0; c0 < kb1; c0 += KC) {
-    const int cn = min(KC, kb1 - c0);
-    __syncthreads();   // the last chunk's codes are read
-    quantize_planar<MR>(a, xq, sxs, c0, cn, tid);
-    __syncthreads();
-    if (!live) continue;
-    for (int j = ks; j < cn / 32; j += KS) {
-      const int kl = 32 * j, k = c0 + kl;
-      // every code row of the k block first (32 int8 rows, or 16 nibble
-      // rows and Q5_K's 4 hi rows), then the scales: all in flight at once
-      uint32_t w[32];
-      if constexpr (FAM == 3) {
-        const uint8_t* p = a.codes + (long)k * N + n;
-#pragma unroll
-        for (int r = 0; r < 32; ++r) w[r] = __ldg(reinterpret_cast<const uint32_t*>(p + r * N));
-      } else {
-        const uint8_t* p = a.codes + (long)(k / 2) * N + n;
-#pragma unroll
-        for (int r = 0; r < 16; ++r) w[r] = __ldg(reinterpret_cast<const uint32_t*>(p + r * N));
-        if constexpr (FAM == 5) {
-          const uint8_t* h = a.hi + (long)(k / 8) * N + n;
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            w[16 + r] = __ldg(reinterpret_cast<const uint32_t*>(h + r * N));
-        }
-      }
-      // the group pieces of the k block (4 of gs 8, 2 of gs 16, else 1):
-      // their scales and corrections, the correction only at a group's
-      // first k block
-      float s[4][4], cr[4][4];
-      bool corr[4];
-#pragma unroll
-      for (int pc = 0; pc < 4; ++pc) {
-        corr[pc] = false;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[pc][c] = cr[pc][c] = 0.f;
-        if (pc >= np) continue;
-        const int g = (k + pc * gsb) / a.gs;
-        corr[pc] = (has_adds || a.offset) && (k + pc * gsb) % a.gs == 0;
-        if constexpr (FAM == 5) {
-          const float4 dv = __ldg(reinterpret_cast<const float4*>(a.d + (k / 256) * N + n));
-          const float4 mv = __ldg(reinterpret_cast<const float4*>(a.dmin + (k / 256) * N + n));
-          const uint32_t scw = __ldg(reinterpret_cast<const uint32_t*>(a.sc + g * N + n));
-          const uint32_t mnw = __ldg(reinterpret_cast<const uint32_t*>(a.mn + g * N + n));
-          const float dd[4] = {dv.x, dv.y, dv.z, dv.w}, dm[4] = {mv.x, mv.y, mv.z, mv.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            s[pc][c] = __fmul_rn(dd[c], (float)((scw >> (8 * c)) & 255u));
-            cr[pc][c] = -__fmul_rn(dm[c], (float)((mnw >> (8 * c)) & 255u));
-          }
-        } else {
-          const float4 sv = __ldg(reinterpret_cast<const float4*>(a.scales + g * N + n));
-          s[pc][0] = sv.x; s[pc][1] = sv.y; s[pc][2] = sv.z; s[pc][3] = sv.w;
-          if (a.adds != nullptr) {
-            const float4 av = __ldg(reinterpret_cast<const float4*>(a.adds + g * N + n));
-            cr[pc][0] = av.x; cr[pc][1] = av.y; cr[pc][2] = av.z; cr[pc][3] = av.w;
-          }
-          if (a.offset) {
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              cr[pc][c] = __fadd_rn(cr[pc][c], -(float)a.offset * s[pc][c]);
-          }
-        }
-      }
-      // this thread's 4 columns' codes: word q of column c holds elements
-      // 4q .. 4q + 3 of the k block
-      uint32_t col[4][8];
-      if constexpr (FAM == 3) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          uint32_t t[4];
-          transpose4(w + 4 * q, t);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) col[c][q] = t[c];
-        }
-      } else {
-        // byte row e < 16 of the group holds element e (low nibble) and
-        // 16 + e (high nibble)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          uint32_t t[4];
-          transpose4(w + 4 * q, t);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            col[c][q] = t[c] & M4;
-            col[c][4 + q] = (t[c] >> 4) & M4;
-          }
-        }
-        if constexpr (FAM == 5) {
-          uint32_t t[4];
-          transpose4(w + 16, t);
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-#pragma unroll
-            for (int q = 0; q < 8; ++q) col[c][q] |= ((t[c] >> q) & 0x01010101u) << 4;
-        }
-      }
-      const int gl0 = kl / a.gs;   // x's group of the first piece, in the chunk
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const int* xr = reinterpret_cast<const int*>(xq + m * KC + kl);
-        // the exact dot of each 8-element piece, then of each group piece
-        int d8[4][4];
-#pragma unroll
-        for (int pr = 0; pr < 4; ++pr) {
-          const int x0 = xr[2 * pr], x1 = xr[2 * pr + 1];
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            d8[pr][c] = __dp4a((int)col[c][2 * pr + 1], x1, __dp4a((int)col[c][2 * pr], x0, 0));
-        }
-#pragma unroll
-        for (int pc = 0; pc < 4; ++pc) {
-          if (pc >= np) break;
-          const float2 v = sxs[m * (KC / 8) + gl0 + pc];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int dot = gsb == 8 ? d8[pc][c]
-                            : gsb == 16 ? d8[(2 * pc) & 3][c] + d8[(2 * pc + 1) & 3][c]
-                                        : d8[0][c] + d8[1][c] + d8[2][c] + d8[3][c];
-            acc[m][c] = fmaf((float)dot, v.x * s[pc][c], acc[m][c]);
-            if (corr[pc]) acc[m][c] = fmaf(v.y, cr[pc][c], acc[m][c]);
-          }
-        }
-      }
-    }
-  }
-
-  // the k slices' sums: within a warp by shuffles (a fixed tree), each
-  // warp's into its slot of red, then the warps' added in warp order
-#pragma unroll
-  for (int m = 0; m < MR; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      for (int o = 16; o >= QW; o >>= 1) acc[m][c] += __shfl_down_sync(0xffffffffu, acc[m][c], o);
-  float* red = reinterpret_cast<float*>(smem + G::RED);
-  if (lane < QW) {
-#pragma unroll
-    for (int m = 0; m < MR; ++m)
-      *reinterpret_cast<float4*>(red + (warp * MR + m) * BN + 4 * cq) =
-          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-  }
-  __syncthreads();
-  for (int e = tid; e < MR * BN / 4; e += PNT) {
-    float4 v = reinterpret_cast<const float4*>(red)[e];
-    for (int w = 1; w < PNT / 32; ++w) {
-      const float4 u = reinterpret_cast<const float4*>(red)[w * MR * BN / 4 + e];
-      v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
-    }
-    reinterpret_cast<float4*>(part)[e] = v;
-  }
-  __syncthreads();
-  // the block's sums: this split's partials, or the output
-  const int c4n = ncol / 4;
-  for (int e = tid; e < a.M * c4n; e += PNT) {
-    const int m = e / c4n, c4 = e - m * c4n;
-    const float4 v = reinterpret_cast<const float4*>(part)[m * BN / 4 + c4];
-    const long o = (long)m * a.N + n0 + 4 * c4;
-    if (a.part != nullptr)
-      *reinterpret_cast<float4*>(a.part + (long)rank * a.M * a.N + o) = v;
-    else if (a.out_bf16)
-      *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(a.out) + o) =
-          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-    else
-      *reinterpret_cast<float4*>(reinterpret_cast<float*>(a.out) + o) = v;
-  }
-}
-
-// the splits' partials (splits, M, N) added in split order; 4 outputs a thread
-__global__ void qmv_planar_reduce(const float* part, int splits, long MN, void* out,
-                                  int out_bf16) {
-  const long i = ((long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i >= MN) return;
-  float4 acc = *reinterpret_cast<const float4*>(part + i);
-  for (int sp = 1; sp < splits; ++sp) {
-    const float4 v = *reinterpret_cast<const float4*>(part + (long)sp * MN + i);
-    acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
-  }
-  if (out_bf16)
-    *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(out) + i) =
-        make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
-  else
-    *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + i) = acc;
-}
-
-
-template <int FAM, int BN, int MR>
-cudaError_t launch_planar(const PArgs& a, int splits, cudaStream_t st) {
-  constexpr int smem = PGeo<MR>::SMEM;
-  static bool attr_set = false;   // set once, never under graph capture
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qmv_planar_kernel<FAM, BN, MR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const dim3 grid(splits, (a.N + BN - 1) / BN);
-  qmv_planar_kernel<FAM, BN, MR><<<grid, PNT, smem, st>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return e;
-  const long MN = (long)a.M * a.N;
-  qmv_planar_reduce<<<(unsigned)((MN / 4 + 255) / 256), 256, 0, st>>>(a.part, splits, MN,
-                                                                      a.out, a.out_bf16);
-  return cudaGetLastError();
-}
-
-template <int FAM, int BN>
-cudaError_t launch_planar_rows(const PArgs& a, int splits, cudaStream_t st) {
-  if (a.M == 1) return launch_planar<FAM, BN, 1>(a, splits, st);
-  return a.M <= 8 ? launch_planar<FAM, BN, 8>(a, splits, st)
-                  : launch_planar<FAM, BN, 16>(a, splits, st);
-}
-
-template <int FAM>
-cudaError_t launch_planar_bn(const PArgs& a, int bn, int splits, cudaStream_t st) {
-  if (bn == 64) return launch_planar_rows<FAM, 64>(a, splits, st);
-  return launch_planar_rows<FAM, 32>(a, splits, st);
 }
 
 }  // namespace
 
-// fmt: 0 Q8_0, 1 Q4_K, 2 Q6_K; x (M <= 16, K) f32 or bf16, 16-byte aligned;
-// out (M, N) f32 or bf16. The plan (qmv_plan): column tile bn (128, 64 or
-// 32), a cluster of cl <= 8 blocks along K, per K units (superblocks; Q8_0
-// groups) a rank, every rank holding at least one. One launch; returns its
-// cudaError_t.
+// fmt 0-8 (the formats above); x (M <= 16, K) f32 or bf16, 16-byte
+// aligned; out (M, N) f32 or bf16; adds (FMT 3, 4, 5, 7) an f32 (K/gs, N)
+// plane or null, offset the codes' (Q6_K: 32; FMT 3, 4, 5, 7: any; else 0).
+// The plan (qmv_plan): column tile bn (128, 64 or 32), a cluster of cl <= 8
+// blocks along K, per K units (superblocks; 32-groups) a rank, every rank
+// holding at least one. One launch; returns its cudaError_t.
 extern "C" int slt_qmv(int fmt, int M, int K, int N, const void* x, int x_bf16,
                        const void* codes, const void* hi, const void* scales, const void* sc,
-                       const void* mn, const void* d, const void* dmin, int bn, int cl, int per,
-                       void* out, int out_bf16, void* stream) {
+                       const void* mn, const void* d, const void* dmin, const void* adds,
+                       int offset, int bn, int cl, int per, void* out, int out_bf16,
+                       void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int unit = fmt == 0 ? 32 : 256, n_units = K / unit;
-  if (fmt < 0 || fmt > 2 || M < 1 || M > MAXR || N < 4 || N % 4 || K % unit || K < unit ||
+  const bool planar_c = fmt == 3 || fmt == 4 || fmt == 5 || fmt == 7;   // adds and offset
+  const int unit = fmt == 1 || fmt == 2 || fmt == 6 || fmt == 8 ? 256 : 32, n_units = K / unit;
+  if (fmt < 0 || fmt >= NFMT || M < 1 || M > MAXR || N < 4 || N % 4 || K % unit || K < unit ||
       (bn != 128 && bn != 64 && bn != 32) || cl < 1 || cl > 8 || per < 1 ||
       (long)cl * per < n_units || (long)(cl - 1) * per >= n_units || !aligned16(x) ||
-      (N + bn - 1) / bn > 65535)
+      (N + bn - 1) / bn > 65535 || (adds != nullptr && !planar_c) ||
+      offset != (fmt == 2 ? 32 : planar_c ? offset : 0))
     return (int)cudaErrorInvalidValue;
-  const void* planes[] = {codes, hi, scales, sc, mn, d, dmin};
+  const void* planes[] = {codes, hi, scales, sc, mn, d, dmin, adds};
   bool wide = N % 16 == 0;
   for (const void* p : planes) wide = wide && (p == nullptr || aligned16(p));
   Args a{M, K, N, per, x, x_bf16, (const uint8_t*)codes, (const uint8_t*)hi,
          (const float*)scales, (const uint8_t*)sc, (const uint8_t*)mn, (const float*)d,
-         (const float*)dmin, out, out_bf16, wide ? 1 : 0};
-  cudaError_t e;
-  if (fmt == 0) e = launch_bn<0>(a, bn, cl, st);
-  else if (fmt == 1) e = launch_bn<1>(a, bn, cl, st);
-  else e = launch_bn<2>(a, bn, cl, st);
-  return (int)e;
+         (const float*)dmin, (const float*)adds, offset, out, out_bf16, wide ? 1 : 0};
+  return (int)by_fmt(fmt, [&](auto f) { return launch_bn<decltype(f)::value>(a, bn, cl, st); });
 }
 
 // Blocks of the kernel for fmt, column tile bn and up to `rows` rows that the
 // card holds at once in clusters of cl (cudaOccupancyMaxActiveClusters x cl;
 // qmv_plan's table assumes the H100's), or a negative cudaError_t.
 extern "C" int slt_qmv_resident(int fmt, int bn, int rows, int cl) {
-  if (fmt < 0 || fmt > 2 || (bn != 128 && bn != 64 && bn != 32) || rows < 1 || rows > MAXR ||
-      cl < 1 || cl > 8)
+  if (fmt < 0 || fmt >= NFMT || (bn != 128 && bn != 64 && bn != 32) || rows < 1 ||
+      rows > MAXR || cl < 1 || cl > 8)
     return -(int)cudaErrorInvalidValue;
   const int nb = rows <= 8 ? 1 : 2;
-  if (fmt == 0) return resident_bn<0>(bn, nb, cl);
-  if (fmt == 1) return resident_bn<1>(bn, nb, cl);
-  return resident_bn<2>(bn, nb, cl);
-}
-
-// The planar and Q5_K formats (fmt 3 int8 planar, 4 nibble planar, 5 Q5_K
-// compact): x (M <= 16, K) f32 or bf16, 16-byte aligned; gs 8, 16, 32 or
-// 256 (fmt 4, 5: 32); offset subtracted from the codes; adds f32 (K/gs, N)
-// or null; unit 32 or 256 (gs 256 and fmt 5) K elements, per of them a
-// split of `splits` <= 8 along K, bn 64 or 32 columns a block
-// (qmv_planar_plan); part holds splits * M * N f32 when splits > 1. The
-// kernel's launch, and the reduce's when splits > 1; returns the
-// cudaError_t.
-extern "C" int slt_qmv_planar(int fmt, int M, int K, int N, const void* x, int x_bf16,
-                              const void* codes, const void* hi, const void* scales,
-                              const void* adds, const void* sc, const void* mn, const void* d,
-                              const void* dmin, int gs, int offset, int unit, int bn,
-                              int splits, int per, void* part, void* out, int out_bf16,
-                              void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool gs_ok = fmt == 3 ? (gs == 8 || gs == 16 || gs == 32 || gs == 256) : gs == 32;
-  const bool unit_ok = unit == ((gs == 256 || fmt == 5) ? 256 : 32);
-  if (fmt < 3 || fmt > 5 || !gs_ok || !unit_ok || M < 1 || M > MAXR || N < 4 || N % 4 ||
-      K % unit || K < unit || (bn != 64 && bn != 32) || splits < 1 ||
-      splits > 8 || per < 1 || (long)splits * per < K / unit ||
-      (long)(splits - 1) * per >= K / unit || (splits > 1 && part == nullptr) ||
-      !aligned16(x) || (N + bn - 1) / bn > 65535)
-    return (int)cudaErrorInvalidValue;
-  PArgs a{M, K, N, per, unit, gs, offset, x, x_bf16, (const uint8_t*)codes, (const uint8_t*)hi,
-          (const float*)scales, (const float*)adds, (const uint8_t*)sc, (const uint8_t*)mn,
-          (const float*)d, (const float*)dmin, splits > 1 ? (float*)part : nullptr, out,
-          out_bf16};
-  cudaError_t e;
-  if (fmt == 3) e = launch_planar_bn<3>(a, bn, splits, st);
-  else if (fmt == 4) e = launch_planar_bn<4>(a, bn, splits, st);
-  else e = launch_planar_bn<5>(a, bn, splits, st);
-  return (int)e;
+  return by_fmt(fmt, [&](auto f) { return resident_bn<decltype(f)::value>(bn, nb, cl); });
 }

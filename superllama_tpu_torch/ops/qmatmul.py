@@ -13,12 +13,15 @@ regimes (the mmvq / mmq / dense-GEMM split):
 ``qmv`` and ``qmm`` launch the hand-written CUDA kernels of
 ``csrc/qmv.cu`` and ``csrc/qmm.cu`` on CUDA tensors, for every format of
 ``REPACKABLE``, and run their plain PyTorch versions (``qmv_plain``,
-``qmm_plain``) only on CPU tensors. The kernels read six layouts (``_FMT``):
-Q8_0, Q4_K and Q6_K on redesigned paths, and three families of runtime group
-size, offset and adds for the other twenty formats: int8 planar, nibble
-planar and Q5_K compact. Each wrapper counts its launches in
-``<wrapper>.launches``, and those of the three families also in
-``<wrapper>.launches_i8``, ``launches_nib`` and ``launches_q5k``.
+``qmm_plain``) only on CPU tensors. ``_FMT`` describes each type's repacked
+planes (``Layout``: code width, hi bits, group size, scale source, adds,
+offset); ``qmv`` reads all of them with one kernel in nine instantiated
+layouts (``qmv_fmt``), ``qmm`` with Q8_0, Q4_K and Q6_K paths and three
+families of runtime group size, offset and adds for the other twenty
+formats: int8 planar, nibble planar and Q5_K compact (``Layout.family``).
+Each wrapper counts its launches in ``<wrapper>.launches``, and those of the
+three families also in ``<wrapper>.launches_i8``, ``launches_nib`` and
+``launches_q5k``.
 """
 
 from __future__ import annotations
@@ -34,21 +37,74 @@ from . import _build
 from .qtensor import QTensor, dequant_qtensor, qt_codes, qt_scales_adds
 from .ref import quant_scale
 
-# weight formats the kernels decode (csrc FMT ids): 0-2 the redesigned
-# Q8_0 / Q4_K / Q6_K paths, 3 int8 planar, 4 nibble planar, 5 Q5_K compact
-_FMT = {GGMLType.Q8_0: 0, GGMLType.Q4_K: 1, GGMLType.Q6_K: 2, GGMLType.Q5_K: 5,
-        GGMLType.Q4_0: 4, GGMLType.Q4_1: 4}
-_FMT.update({t: 3 for t in (
-    GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.MXFP4, GGMLType.IQ4_NL, GGMLType.IQ4_XS,
-    GGMLType.IQ2_XXS, GGMLType.IQ2_XS, GGMLType.IQ2_S, GGMLType.IQ3_XXS, GGMLType.IQ3_S,
-    GGMLType.IQ1_S, GGMLType.IQ1_M, GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q8_K,
-    GGMLType.TQ1_0, GGMLType.TQ2_0)})
+
+class Layout(NamedTuple):
+    """What the kernels read of a type's repacked planes (ops/qtensor.py):
+    ``code_bits`` 8 (int8 codes (K, N)) or 4 (nibbles (K/2, N), group-local),
+    ``hi_bits`` of a hi plane above the nibbles, ``group`` weights a scale,
+    ``scales`` "plane" (f32 (K/gs, N)) or "superblock" (u8 / i8 sub-scales
+    times an f32 d a superblock), ``adds`` an additive term (the f32 adds
+    plane, or the mins times dmin), ``offset`` subtracted from the codes."""
+    code_bits: int
+    hi_bits: int
+    group: int
+    scales: str
+    adds: bool
+    offset: int
+
+
+def layout(qt: QTensor) -> Layout:
+    """A QTensor's layout, from its own fields."""
+    return Layout(4 if qt.nibble else 8, qt.hi_bits, qt.group,
+                  "superblock" if qt.sc is not None else "plane",
+                  qt.adds is not None or qt.mn is not None, qt.offset)
+
+
+_I8 = Layout(8, 0, 32, "plane", False, 0)
+# each type's layout (tests hold them to ``layout`` of the type's repack)
+_FMT = {t: _I8 for t in (GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.MXFP4, GGMLType.IQ4_NL,
+                         GGMLType.IQ4_XS, GGMLType.IQ2_XXS, GGMLType.IQ3_XXS, GGMLType.IQ3_S)}
+_FMT.update({t: _I8._replace(adds=True) for t in (GGMLType.Q5_1, GGMLType.IQ1_S)})
+_FMT.update({t: _I8._replace(group=16) for t in (GGMLType.Q3_K, GGMLType.IQ2_XS,
+                                                  GGMLType.IQ2_S)})
+_FMT.update({t: _I8._replace(group=256) for t in (GGMLType.Q8_K, GGMLType.TQ1_0,
+                                                   GGMLType.TQ2_0)})
+_FMT.update({
+    GGMLType.Q2_K: _I8._replace(group=16, adds=True),
+    GGMLType.IQ1_M: _I8._replace(group=8, adds=True),
+    GGMLType.Q4_0: Layout(4, 0, 32, "plane", False, 8),
+    GGMLType.Q4_1: Layout(4, 0, 32, "plane", True, 0),
+    GGMLType.Q4_K: Layout(4, 0, 32, "superblock", True, 0),
+    GGMLType.Q5_K: Layout(4, 1, 32, "superblock", True, 0),
+    GGMLType.Q6_K: Layout(4, 2, 16, "superblock", False, 32)})
+
+
+def family(ttype: GGMLType, lay: Layout) -> int:
+    """qmm's format id (csrc/qmm.cu) and the launch counters' family: 0-2
+    Q8_0 / Q4_K / Q6_K, 3 int8 planar, 4 nibble planar, 5 Q5_K compact."""
+    if ttype == GGMLType.Q8_0:
+        return 0
+    if lay.scales == "superblock":
+        return {0: 1, 2: 2, 1: 5}[lay.hi_bits]
+    return 4 if lay.code_bits == 4 else 3
+
+
+def qmv_fmt(lay: Layout) -> int:
+    """The qmv kernel's format (csrc/qmv.cu FMT): 0 int8 gs 32, 1 Q4_K, 2
+    Q6_K, 3 int8 gs 32 with adds, 4 int8 gs 16, 5 int8 gs 8, 6 int8 gs 256,
+    7 nibbles with f32 scales, 8 Q5_K."""
+    if lay.scales == "superblock":
+        return {0: 1, 2: 2, 1: 8}[lay.hi_bits]
+    if lay.code_bits == 4:
+        return 7
+    return {8: 5, 16: 4, 256: 6}.get(lay.group, 3 if lay.adds or lay.offset else 0)
+
+
 _FAMILY = {3: "i8", 4: "nib", 5: "q5k"}   # the families' launch counters
-_UNIT = {0: 32, 1: 256, 2: 256}   # K elements per split unit
-_UNIT_BYTES = {0: 36, 1: 152, 2: 212}   # weight bytes of a column per unit
+_QMV_UNIT = (32, 256, 256, 32, 32, 32, 256, 32, 256)    # K elements a split unit, by qmv FMT
+# weight bytes of a column a unit (adds planes counted where the format may have one)
+_QMV_UNIT_BYTES = (36, 152, 212, 40, 48, 64, 260, 24, 184)
 _QMV_TILES = (128, 64, 32)        # qmv column tiles, widest first
-_PLANAR_TILES = (64, 32)          # the planar kernel's: its plan picks no wider one at
-                                  # a Llama-3-8B or -1B decode shape
 _QMV_MAX_CLUSTER = 8              # blocks of a cluster along K (the portable size)
 _QMV_SMS = 132                    # SMs of the H100 the plan fills
 _QMV_SM_SMEM = 228 * 1024         # shared memory of an SM (1 KB of it reserved a block)
@@ -58,6 +114,9 @@ _QMV_BLOCKS_SM = 2                # the kernel's launch bounds: two blocks an SM
 # SMs without a whole cluster)
 _QMV_CLUSTER_RESIDENT = {1: 264, 2: 264, 3: 237, 4: 248, 5: 235, 6: 234, 7: 224, 8: 240}
 _QMV_BLOCK_COST = 16384           # a block's fixed cost (prologue, the sums) in bytes read
+_QMV_X_COST = 32                  # a K element of x in bytes read: 16 at 8 bf16 rows, twice
+                                  # that with the quantizer's work (fit to the H100 readings
+                                  # of chip_smoke.py --qmv-clusters --sweep)
 _QMV_MAX_ROWS = 16
 _QMM_BN = 128                     # columns per qmm tensor-core block
 _QMM_BK = 128                     # k-tile of the qmm tensor-core kernel
@@ -79,27 +138,24 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _unit(fmt: int, group: int) -> int:
-    """K elements of a split unit: a format's superblock, or a 32-group for
-    the planar formats of group size at most 32."""
-    return _UNIT[fmt] if fmt < 3 else 256 if fmt == 5 or group == 256 else 32
-
-
 def _check_weight(x2: torch.Tensor, qt: QTensor) -> int:
-    """Validate a CUDA launch; returns the kernel's format id."""
-    fmt = _FMT.get(qt.ggml_type)
-    if fmt is None:
+    """Validate a CUDA launch; returns the weight's family (qmm's format id)."""
+    lay = _FMT.get(qt.ggml_type)
+    if lay is None:
         raise NotImplementedError(f"no CUDA kernel for {qt.ggml_type.name} weights")
+    if layout(qt) != lay:
+        raise ValueError(f"{qt.ggml_type.name} weight in layout {layout(qt)}, "
+                         f"the kernels read {lay}")
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"activations must be f32 or bf16, got {x2.dtype}")
-    if qt.N % 4 or qt.K % _unit(fmt, qt.group) or x2.shape[1] != qt.K:
+    if qt.N % 4 or qt.K % _QMV_UNIT[qmv_fmt(lay)] or x2.shape[1] != qt.K:
         raise ValueError(f"unsupported shape: x {tuple(x2.shape)}, weight "
                          f"(K={qt.K}, N={qt.N}) {qt.ggml_type.name}")
     for name, plane in qt.planes().items():
         if plane.device != x2.device or not plane.is_contiguous():
             raise ValueError(f"weight plane {name} must be a contiguous "
                              f"tensor on {x2.device}")
-    return fmt
+    return family(qt.ggml_type, lay)
 
 
 # --- activation quantization (Q8_1 semantics of the mmvq path) -------------
@@ -142,7 +198,7 @@ def qmv_plain(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
 
 class QmvPlan(NamedTuple):
     """The qmv kernel's grid: column tile ``bn``, a cluster of ``cl`` blocks
-    along K, ``per`` K units (superblocks; Q8_0 groups) a rank, ``blocks``
+    along K, ``per`` K units (superblocks; 32-groups) a rank, ``blocks``
     in the grid, ``smem`` bytes of shared memory a block."""
     bn: int
     cl: int
@@ -153,33 +209,40 @@ class QmvPlan(NamedTuple):
 
 def _qmv_smem(fmt: int, bn: int, rows: int = _QMV_MAX_ROWS) -> int:
     """Shared memory a qmv block of up to ``rows`` rows takes: the ring of
-    weight tiles (a stage more for Q4_K at 8 rows), x's codes, sx and xs
-    for a chunk of 32-groups, the barriers. Mirrors
-    ``Geo<FMT, BN, NB>::SMEM`` of csrc/qmv.cu."""
+    weight tiles, x's codes, sx and xs for a chunk of 32-groups, the
+    barriers. Mirrors ``Geo<FMT, BN, NB>::SMEM`` of csrc/qmv.cu."""
     nb = 1 if rows <= 8 else 2
-    gt = (8 if bn == 32 else 4) if fmt == 0 else 8          # 32-groups a tile
-    nst, xg, qg = (2, 32, 2) if fmt == 2 else (4 if fmt == 1 and nb == 1 else 3, 64, 1)
+    compact, mins = fmt in (1, 2, 8), fmt in (1, 8)
+    nib = compact or fmt == 7
+    hib = {2: 2, 8: 1}.get(fmt, 0)
+    gs = {2: 16, 4: 16, 5: 8, 6: 256}.get(fmt, 32)
+    kw = 8 // (bn // 32)                                    # k warps
+    gt = 8 if nib or bn == 32 else 4                        # 32-groups a tile
+    nst = 2 if fmt == 2 or (fmt == 5 and bn == 128) else 4 if fmt == 1 and nb == 1 else 3
+    xg = 16 if fmt == 5 else 32 if fmt in (2, 4, 7, 8) else 64   # 32-groups of x a chunk
+    qg = 1 if gs >= 32 else 32 // gs                        # quantizer groups a 32-group
+    xq = xg // 8 if gs == 256 else xg * qg
     row = 32 if bn == 32 else bn + 32                       # code-plane row stride
-    if fmt == 0:
-        stage = gt * 32 * row + gt * bn * 4
-    elif fmt == 1:
-        stage = gt * 16 * row + 2 * gt * bn + 2 * bn * 4
-    else:
-        stage = gt * 16 * row + gt * 8 * row + 2 * gt * bn + bn * 4
-    return nst * stage + xg * nb * 256 + xg * qg * 8 * nb * 8 + 2 * nst * 8
+    sr = kw if fmt == 6 else 0 if compact else gt * qg      # f32 scale rows
+    stage = (gt * (16 if nib else 32) * row + gt * 4 * hib * row
+             + ((2 if fmt == 2 else 1) * gt * bn if compact else 0) + (gt * bn if mins else 0)
+             + (bn * 4 if compact else 0) + (bn * 4 if mins else 0)
+             + sr * bn * 4 * (2 if fmt in (3, 4, 5, 7) else 1))
+    return nst * stage + xg * nb * 256 + xq * 8 * nb * 8 + 2 * nst * 8
 
 
 def qmv_plan(fmt: int, K: int, N: int) -> QmvPlan:
-    """The qmv kernel's grid for a (K, N) weight of format ``fmt``: the
+    """The qmv kernel's grid for a (K, N) weight of qmv format ``fmt``: the
     column tile and the K split (a cluster of at most 8 blocks, each rank
     at least one unit) whose rounds of resident blocks (two an SM of the
     H100's 132, fewer for clusters that do not tile its GPCs) times a
-    block's cost (its weight bytes, its x at 8 rows, a fixed
-    ``_QMV_BLOCK_COST``) are least, among those of at least 132 blocks
-    where any is; ties go to the wider tile, then the fewer blocks.
-    Depends on (fmt, K, N) only, so a row's sums do not depend on how many
-    rows share the call."""
-    n_units = K // _UNIT[fmt]
+    block's cost (its weight bytes, its x and its quantizing,
+    ``_QMV_X_COST`` a K element, a fixed ``_QMV_BLOCK_COST``) are least,
+    among those of at least 132 blocks where any is; ties go to the wider
+    tile, then the fewer blocks. Depends on (fmt, K, N) only, so a row's
+    sums do not depend on how many rows share the call."""
+    unit = _QMV_UNIT[fmt]
+    n_units = K // unit
     best = None
     for bn in _QMV_TILES:
         tiles = -(-N // bn)
@@ -191,7 +254,7 @@ def qmv_plan(fmt: int, K: int, N: int) -> QmvPlan:
                 continue
             blocks = tiles * cl
             resident = _QMV_CLUSTER_RESIDENT[cl] * per_sm // _QMV_BLOCKS_SM
-            block = per * (bn * _UNIT_BYTES[fmt] + _UNIT[fmt] * 16)   # weight, x at 8 rows
+            block = per * (bn * _QMV_UNIT_BYTES[fmt] + unit * _QMV_X_COST)   # weight, x
             cost = -(-blocks // resident) * (block + _QMV_BLOCK_COST)
             key = (blocks < _QMV_SMS, cost, -bn, blocks)
             if best is None or key < best[0]:
@@ -199,37 +262,9 @@ def qmv_plan(fmt: int, K: int, N: int) -> QmvPlan:
     return best[1]
 
 
-def qmv_planar_plan(fmt: int, group: int, K: int, N: int) -> tuple[int, int, int]:
-    """(bn, splits, per) of the planar kernel (fmt 3-5): the column tile
-    (64 or 32) and up to 8 splits of K, each of ``per`` units
-    (``_unit``), whose f32 partials a reduce launch adds in split order.
-    Among grids of at least 132 blocks where any is (the H100's SMs), the
-    fewest splits (each costs a partials pass and a launch), else the most
-    blocks; then the fewest rounds of resident blocks (two an SM) times a
-    block's cost (a byte a weight, x at 8 rows, a fixed
-    ``_QMV_BLOCK_COST``), then the wider tile. A function of the weight's
-    layout only, so a row's sums do not depend on M."""
-    unit = _unit(fmt, group)
-    n_units = K // unit
-    best = None
-    for bn in _PLANAR_TILES:
-        for splits in range(1, min(_QMV_MAX_CLUSTER, n_units) + 1):
-            per = -(-n_units // splits)
-            if -(-n_units // per) != splits:   # a split would hold no unit
-                continue
-            blocks = -(-N // bn) * splits
-            rounds = -(-blocks // (_QMV_SMS * _QMV_BLOCKS_SM))
-            cost = rounds * (per * unit * (bn + 16) + _QMV_BLOCK_COST)
-            full = blocks >= _QMV_SMS
-            key = (not full, splits if full else -blocks, cost, -bn)
-            if best is None or key < best[0]:
-                best = (key, (bn, splits, per))
-    return best[1]
-
-
-def _count(fn, fmt: int) -> None:
+def _count(fn, family_id: int) -> None:
     fn.launches += 1
-    fam = _FAMILY.get(fmt)
+    fam = _FAMILY.get(family_id)
     if fam is not None:
         setattr(fn, f"launches_{fam}", getattr(fn, f"launches_{fam}") + 1)
 
@@ -242,7 +277,7 @@ def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
         return qmv_plain(x2, qt, out_dtype)
     if x2.device.type != "cuda":
         raise ValueError(f"qmv runs on cuda or cpu tensors, not {x2.device}")
-    fmt = _check_weight(x2, qt)
+    fam = _check_weight(x2, qt)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"qmv output must be f32 or bf16, got {out_dtype}")
     x2 = x2.contiguous()
@@ -250,42 +285,19 @@ def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     if M > _QMV_MAX_ROWS:
         return torch.cat([qmv(x2[i:i + _QMV_MAX_ROWS], qt, out_dtype)
                           for i in range(0, M, _QMV_MAX_ROWS)])
-    if fmt >= 3:
-        return _qmv_planar(x2, qt, fmt, out_dtype)
-    fn = _lib("qmv", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _P, _I, _P])
+    fn = _lib("qmv", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _I, _P, _I, _P])
     if x2.data_ptr() % 16:   # the kernel reads x rows in 8- and 16-byte words
         x2 = x2.clone()
+    fmt = qmv_fmt(_FMT[qt.ggml_type])
     plan = qmv_plan(fmt, K, qt.N)
     out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
     err = fn(fmt, M, K, qt.N, x2.data_ptr(), int(x2.dtype == torch.bfloat16),
              _ptr(qt.codes), _ptr(qt.hi), _ptr(qt.scales), _ptr(qt.sc), _ptr(qt.mn),
-             _ptr(qt.d), _ptr(qt.dmin), plan.bn, plan.cl, plan.per, out.data_ptr(),
-             int(out_dtype == torch.bfloat16), _build.stream_ptr(x2.device))
+             _ptr(qt.d), _ptr(qt.dmin), _ptr(qt.adds), qt.offset, plan.bn, plan.cl, plan.per,
+             out.data_ptr(), int(out_dtype == torch.bfloat16), _build.stream_ptr(x2.device))
     _build.check(err, "qmv")
-    _count(qmv, fmt)
-    return out
-
-
-def _qmv_planar(x2: torch.Tensor, qt: QTensor, fmt: int, out_dtype) -> torch.Tensor:
-    """The planar kernel (csrc/qmv.cu, ``slt_qmv_planar``): one launch, and
-    its reduce where the plan splits K."""
-    M, K = x2.shape
-    fn = _lib("qmv", [_I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _I, _I, _P, _P, _I, _P], entry="qmv_planar")
-    if x2.data_ptr() % 16:   # the kernel reads x rows in 16- and 32-byte words
-        x2 = x2.clone()
-    bn, splits, per = qmv_planar_plan(fmt, qt.group, K, qt.N)
-    out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
-    part = (torch.empty((splits, M, qt.N), dtype=torch.float32, device=x2.device)
-            if splits > 1 else None)
-    err = fn(fmt, M, K, qt.N, x2.data_ptr(), int(x2.dtype == torch.bfloat16),
-             _ptr(qt.codes), _ptr(qt.hi), _ptr(qt.scales), _ptr(qt.adds), _ptr(qt.sc),
-             _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin), qt.group, qt.offset,
-             _unit(fmt, qt.group), bn, splits, per, _ptr(part), out.data_ptr(),
-             int(out_dtype == torch.bfloat16), _build.stream_ptr(x2.device))
-    _build.check(err, "qmv")
-    _count(qmv, fmt)
+    _count(qmv, fam)
     return out
 
 

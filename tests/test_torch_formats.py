@@ -205,6 +205,56 @@ def _cuda(t):
     return dataclasses.replace(t, **{n: cuda_typed(p) for n, p in t.planes().items()})
 
 
+# each type's repacked planes as the kernels read them: (code bits, hi
+# bits, group, scale source, adds, offset)
+LAYOUT = {t: (8, 0, 32, "plane", False, 0) for t in (
+    GGMLType.Q8_0, GGMLType.Q5_0, GGMLType.MXFP4, GGMLType.IQ4_NL, GGMLType.IQ4_XS,
+    GGMLType.IQ2_XXS, GGMLType.IQ3_XXS, GGMLType.IQ3_S)}
+LAYOUT.update({GGMLType.Q5_1: (8, 0, 32, "plane", True, 0),
+               GGMLType.IQ1_S: (8, 0, 32, "plane", True, 0),
+               GGMLType.IQ1_M: (8, 0, 8, "plane", True, 0),
+               GGMLType.Q2_K: (8, 0, 16, "plane", True, 0),
+               GGMLType.Q3_K: (8, 0, 16, "plane", False, 0),
+               GGMLType.IQ2_XS: (8, 0, 16, "plane", False, 0),
+               GGMLType.IQ2_S: (8, 0, 16, "plane", False, 0),
+               GGMLType.Q8_K: (8, 0, 256, "plane", False, 0),
+               GGMLType.TQ1_0: (8, 0, 256, "plane", False, 0),
+               GGMLType.TQ2_0: (8, 0, 256, "plane", False, 0),
+               GGMLType.Q4_0: (4, 0, 32, "plane", False, 8),
+               GGMLType.Q4_1: (4, 0, 32, "plane", True, 0),
+               GGMLType.Q4_K: (4, 0, 32, "superblock", True, 0),
+               GGMLType.Q5_K: (4, 1, 32, "superblock", True, 0),
+               GGMLType.Q6_K: (4, 2, 16, "superblock", False, 32)})
+
+
+@pytest.mark.parametrize("ttype", ALL, ids=ID)
+def test_layout_matches_the_repacked_planes(ttype):
+    """``_FMT`` describes each of the 23 types by the planes its repack
+    makes: code width (int8 codes (K, N) or nibbles (K/2, N)), hi bits and
+    the hi plane's rows, group size and the scale planes' rows, f32 planes
+    or superblock sub-scales, adds (the plane or the mins) and offset; and
+    ``layout`` reads the same description off the QTensor's fields."""
+    K, N = 512, 64
+    t = tqt.repack(rand_raw(ttype, N, K, 9), ttype, (N, K))
+    lay = qm._FMT[ttype]
+    assert tuple(lay) == LAYOUT[ttype] and qm.layout(t) == lay
+    assert t.codes.shape == ((K // 2, N) if lay.code_bits == 4 else (K, N))
+    assert t.codes.dtype == (torch.uint8 if lay.code_bits == 4 else torch.int8)
+    assert (t.hi is None) == (lay.hi_bits == 0)
+    if t.hi is not None:
+        assert t.hi.shape == (K * lay.hi_bits // 8, N)
+    if lay.scales == "plane":
+        assert t.scales.shape == (K // lay.group, N) and t.sc is None
+        assert (t.adds is not None) == lay.adds
+        if lay.adds:
+            assert t.adds.shape == (K // lay.group, N)
+    else:
+        assert t.scales is None and t.sc.shape == (K // lay.group, N)
+        assert t.d.shape == (K // 256, N)
+        assert (t.mn is not None) == (t.dmin is not None) == lay.adds
+    assert t.offset == lay.offset
+
+
 @pytest.mark.parametrize("ttype", ALL, ids=ID)
 def test_check_weight_gives_a_format_id(ttype):
     """Every REPACKABLE type has a kernel format: its family's for the new
@@ -229,16 +279,22 @@ class _Recorder:
 
 @pytest.fixture
 def fake_libs(monkeypatch):
-    """CUDA-typed tensors reach recording qmv / qmm libraries; the plain
-    versions raise if reached."""
-    recs = {"qmv_planar": _Recorder(), "qmm": _Recorder(), "qmm_tc": _Recorder()}
-    libs = {"qmv": types.SimpleNamespace(slt_qmv_planar=recs["qmv_planar"]),
+    """CUDA-typed tensors reach recording qmv / qmm libraries; torch.empty
+    records every allocation; the plain versions raise if reached."""
+    recs = {"qmv": _Recorder(), "qmm": _Recorder(), "qmm_tc": _Recorder()}
+    libs = {"qmv": types.SimpleNamespace(slt_qmv=recs["qmv"]),
             "qmm": types.SimpleNamespace(slt_qmm=recs["qmm"], slt_qmm_tc=recs["qmm_tc"])}
     monkeypatch.setattr(_build, "load", lambda name: libs[name])
     monkeypatch.setattr(_build, "stream_ptr", lambda dev: 7)
+    allocs = recs["allocs"] = []
     empty = torch.empty
-    monkeypatch.setattr(torch, "empty", lambda *a, **kw: cuda_typed(
-        empty(*a, **{k: v for k, v in kw.items() if k != "device"})))
+
+    def recording_empty(*a, **kw):
+        t = cuda_typed(empty(*a, **{k: v for k, v in kw.items() if k != "device"}))
+        allocs.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
 
     def plain(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
@@ -250,30 +306,31 @@ def fake_libs(monkeypatch):
 
 @pytest.mark.parametrize("ttype", NEW, ids=ID)
 def test_wrappers_pass_the_planar_layout(fake_libs, ttype):
-    """qmv launches the planar entry once with the plan, the planes (adds
-    included), group size, offset and unit; qmm's tensor-core (bf16 x) and
-    CUDA-core (f32 x) entries get adds, group size and offset; each launch
-    adds one to the wrapper's count and to its family's."""
+    """qmv launches its one kernel once, with the layout's format, the plan,
+    the planes (adds included) and the offset, and allocates only the
+    output (no split-K partials); qmm's tensor-core (bf16 x) and CUDA-core
+    (f32 x) entries get adds, group size and offset; each launch adds one
+    to the wrapper's count and to its family's."""
     K, N = 1024, 128
     _, _, t = _weights(ttype, N, K)
     t = _cuda(t)
     fmt = FAMILY[ttype]
     fam = qm._FAMILY[fmt]
     ptr = lambda n: None if getattr(t, n) is None else getattr(t, n).data_ptr()
-    unit = 256 if fmt == 5 or t.group == 256 else 32
     x = cuda_typed(torch.zeros((8, K), dtype=torch.bfloat16))
     before = (qm.qmv.launches, getattr(qm.qmv, f"launches_{fam}"))
     qm.qmv(x, t, torch.bfloat16)
     assert (qm.qmv.launches, getattr(qm.qmv, f"launches_{fam}")) == (before[0] + 1,
                                                                      before[1] + 1)
-    (a,) = fake_libs["qmv_planar"].calls
-    assert a[:4] == (fmt, 8, K, N) and a[5] == 1
-    assert a[6:14] == tuple(ptr(n) for n in ("codes", "hi", "scales", "adds", "sc", "mn",
-                                             "d", "dmin"))
-    assert a[14:17] == (t.group, t.offset, unit)
-    bn, splits, per = qm.qmv_planar_plan(fmt, t.group, K, N)
-    assert a[17:20] == (bn, splits, per)
-    assert (a[20] is None) == (splits == 1)
+    (a,) = fake_libs["qmv"].calls
+    kfmt = qm.qmv_fmt(qm._FMT[ttype])
+    assert kfmt >= 3 or qm._FMT[ttype] == qm._FMT[GGMLType.Q8_0]
+    assert a[:4] == (kfmt, 8, K, N) and a[5] == 1
+    assert a[6:14] == tuple(ptr(n) for n in ("codes", "hi", "scales", "sc", "mn", "d", "dmin",
+                                             "adds"))
+    assert a[14] == t.offset
+    assert a[15:18] == tuple(qm.qmv_plan(kfmt, K, N)[:3])
+    assert [tuple(o.shape) for o in fake_libs["allocs"]] == [(8, N)]
     for dt, entry in ((torch.bfloat16, "qmm_tc"), (torch.float32, "qmm")):
         before = getattr(qm.qmm, f"launches_{fam}")
         qm.qmm(cuda_typed(torch.zeros((24, K), dtype=dt)), t, dt)
@@ -351,31 +408,6 @@ def test_synthetic_mix_types_and_forward(mix):
     tokens = torch.arange(8)[None]
     logits, _ = llama_forward(p, hp, tokens, torch.arange(8, dtype=torch.int32)[None], cache)
     assert logits.shape[-1] == V and torch.isfinite(logits).all()
-
-
-# (K, N) of a decode step at Llama-3-8B width, and small shapes
-PLAN_KN = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256),
-           (512, 64), (1024, 96), (544, 128)]
-
-
-@pytest.mark.parametrize("fmt,gs", [(3, 8), (3, 16), (3, 32), (3, 256), (4, 32), (5, 32)],
-                         ids=lambda v: str(v))
-def test_planar_plan_covers_every_k_unit_once(fmt, gs):
-    """Every K unit in exactly one split, no split empty, at most 8 splits,
-    a column tile of 64 or 32; at the 8B's shapes at least 132 blocks,
-    and no split where the column tiles alone give them."""
-    for K, N in PLAN_KN:
-        unit = 256 if fmt == 5 or gs == 256 else 32
-        if K % unit:
-            continue
-        bn, splits, per = qm.qmv_planar_plan(fmt, gs, K, N)
-        n_units = K // unit
-        assert bn in (64, 32) and 1 <= splits <= 8
-        assert splits * per >= n_units and (splits - 1) * per < n_units
-        if K >= 4096:
-            assert -(-N // bn) * splits >= 132, (K, N, bn, splits)
-        if -(-N // 32) >= 132:
-            assert splits == 1, (K, N, bn, splits)
 
 
 # --- the GGUF writer and the split tool -----------------------------------------
