@@ -22,7 +22,14 @@ PyTorch version.
     python3 chip_smoke.py --server        # device, build, phase 4h
     python3 chip_smoke.py --formats       # device, build, phase 4i
     python3 chip_smoke.py --format-times  # device, build, every format's qmv and
-                                          # qmm readings (phase 6's format rows)
+                                          # qmm readings (phase 6's format rows), and
+                                          # qmm of a format of each layout at every
+                                          # served shape, M 17 and 32 (with a list
+                                          # F1,F2 after the flag: those formats'
+                                          # gate/up rows alone)
+    python3 chip_smoke.py --qmm-plans     # device, build, qmm of a format of each
+                                          # layout at every served (K, N): the
+                                          # plan's K split against the others
     python3 chip_smoke.py --base-times    # device, build, the Q8_0 / Q4_K / Q6_K
                                           # rows of --format-times
     python3 chip_smoke.py --qmv-clusters  # device, build, qmv of a format of each
@@ -46,15 +53,19 @@ Phases, each printing one JSON line:
     fa and paged call checked to take the kernel its types and shape ask
     for; then (3b) each of the twenty other weight formats (seeded random
     GGUF bytes through the port's repack) through qmv at M 1, 8, 16 and
-    qmm at M 32, bf16 and f32 x, at the 8B's gate/up and down shapes, and
-    a format of each family, group size and adds at every other shape the
-    serving mixes and the 1B-width file drive (qmv at M 1, 5, 8, 16, qmm
-    at M 17, 32), each call its family's kernel (int8 planar, nibble
-    planar, Q5_K), and the M 33 dequantize + matmul path against the CPU
+    qmm at M 17, 32, bf16 and f32 x, at the 8B's gate/up and down shapes,
+    and a format of each family, group size and adds at every other shape
+    the serving mixes and the 1B-width file drive (qmv at M 1, 5, 8, 16,
+    qmm at M 17, 32), each call counted in its family (int8 codes,
+    nibbles, Q5_K), and the M 33 dequantize + matmul path against the CPU
     for a format of each family; qmv's row 0 of an M 8 and an M 16 call
-    held bit-equal to the row alone for a format of each of its kernel
-    formats at every such shape; one qmv call of Q4_K and of each of those
-    formats profiled to one device kernel each (no reduce, no quantizer);
+    held bit-equal to the row alone, and qmm's row 0 of an M 32 call to
+    an M 17 call's, for a format of each layout at every such shape; one
+    qmv call of Q4_K and of each of those formats profiled to one device
+    kernel each (no reduce, no quantizer), and one bf16 qmm call of each
+    of the 23 types to its layout's qmm_tc_kernel instantiation (then
+    qmm_reduce where the plan splits K); each of qmm's eleven
+    instantiations at two blocks an SM on the card;
  4. serving: a synthetic Llama-3-8B-width Q4_K model behind the port's HTTP
     server (warmed up first, as ``serve`` does: no graph may be captured
     while it serves) answers 8 concurrent completions and one streamed
@@ -740,6 +751,7 @@ def phase_kernels(torch) -> list:
     check_qmv_plans(torch)
     check_format_kernels(torch, record)
     check_one_kernel_a_call(torch)
+    check_qmm_resident(torch)
 
     fa_cases = [("T=32 bf16", dict(T=32)), ("T=128 bf16", dict(T=128)),
                 ("T=32 f32", dict(T=32, dtype="f32")),
@@ -3747,8 +3759,8 @@ def on_card(qt, clone: bool = False):
 
 
 def check_format_kernels(torch, record) -> None:
-    """Every new format through qmv (M 1, 8, 16) and qmm (M 32), bf16 and f32
-    x, at the 8B's gate/up and down shapes, and SHAPE_FORMATS at SHAPE_KN
+    """Every new format through qmv (M 1, 8, 16) and qmm (M 17, 32), bf16 and
+    f32 x, at the 8B's gate/up and down shapes, and SHAPE_FORMATS at SHAPE_KN
     and SHAPE_ROWS, against their plain versions: the weights are the port's
     repack of rand_raw bytes; each call must launch its family's kernel,
     and two calls give the same bits. At M 33 (the plain dequantize +
@@ -3786,7 +3798,7 @@ def check_format_kernels(torch, record) -> None:
         for K, N in FORMAT_KN:
             cpu = _FORMAT_CPU[(name, K, N)]
             qt = on_card(cpu)
-            cell(name, qt, K, N, (1, 8, 16), (32,))
+            cell(name, qt, K, N, (1, 8, 16), SHAPE_ROWS[1])
             if fam not in dispatch and K == 4096:
                 x = torch.randn((33, K), generator=gen, device="cuda")
                 w_cpu = dequant_qtensor(cpu)
@@ -3831,7 +3843,62 @@ def check_format_kernels(torch, record) -> None:
                     n_edge += 1
     emit({"phase": "format_kernels", "formats": len(NEW_FORMATS), "repack_s": repack_s,
           "dispatch_m33": dispatch, "shape_checks": n_shape, "edge_checks": n_edge,
-          "row_checks": check_format_rows(torch)})
+          "row_checks": check_format_rows(torch), "qmm_row_checks": check_qmm_rows(torch)})
+
+
+# a format of each of qmm's planar layouts and of layout 0's other formats
+# (IQ4_XS 0, Q5_1 3, Q2_K 4 with adds, Q3_K 4, IQ1_M 5, Q8_K 6, Q4_0 and Q4_1
+# 7, Q5_K 8): their row checks at every served shape (Q3_K at the 8B's
+# gate/up and down, the others at SHAPE_KN too)
+QMM_ROW_FORMATS = SHAPE_FORMATS + ("Q3_K",)
+
+
+def check_qmm_rows(torch) -> int:
+    """qmm's sums run in an order fixed by (layout, K, N): for
+    QMM_ROW_FORMATS at the 8B's gate/up and down and every SHAPE_KN (Q3_K
+    at the first two), row 0 of an M 32 call equals row 0 of an M 17 call,
+    bit for bit (bf16 x and output). Returns the checks made."""
+    from superllama_tpu_torch.ops.qmatmul import qmm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 22)
+    bf16 = torch.bfloat16
+    n = 0
+    for name in QMM_ROW_FORMATS:
+        for K, N in FORMAT_KN + (SHAPE_KN if name in SHAPE_FORMATS else []):
+            qt = on_card(_FORMAT_CPU[(name, K, N)])
+            x = torch.randn((32, K), generator=gen, device="cuda").to(bf16)
+            got17, got32 = qmm(x[:17], qt, bf16), qmm(x, qt, bf16)
+            torch.cuda.synchronize()
+            check(torch.equal(got17[0], got32[0]), f"qmm {name} K={K} N={N}: row 0 of an M 32 "
+                  f"call differs from row 0 of an M 17 call")
+            n += 1
+            del qt
+    return n
+
+
+def check_qmm_resident(torch) -> None:
+    """Each instantiation of qmm_tc_kernel (``_QMM_INSTANCES``) at two
+    blocks an SM on the card (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    at the shared bytes ``_qmm_smem`` mirrors."""
+    import ctypes
+
+    from superllama_tpu_torch.ops import _build
+    from superllama_tpu_torch.ops import qmatmul as qm
+
+    fn = _build.load("qmm").slt_qmm_resident
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    card = {}
+    for fmt, adds in qm._QMM_INSTANCES:
+        smem = ctypes.c_int(0)
+        blocks = fn(fmt, int(adds), ctypes.addressof(smem))
+        stages, mirror = qm._qmm_smem(fmt, adds)
+        card[f"{fmt}{'+adds' if adds else ''}"] = {"blocks_per_sm": blocks, "smem": smem.value,
+                                                  "stages": stages}
+        check(blocks >= 2 and smem.value == mirror,
+              f"qmm layout {fmt} adds {adds}: {blocks} blocks an SM at {smem.value} shared "
+              f"bytes (the plan assumes 2; _qmm_smem mirrors {mirror})")
+    emit({"phase": "qmm_resident", "card": card})
 
 
 def check_format_rows(torch) -> int:
@@ -3863,32 +3930,66 @@ def check_format_rows(torch) -> int:
 
 def check_one_kernel_a_call(torch) -> None:
     """One qmv call is one device kernel, ``qmv_kernel`` (no quantizer, no
-    reduce kernel): under one torch.profiler window, an M 8 call at the
-    8B's gate/up for Q4_K and for each of SHAPE_FORMATS (a format of each
-    kernel format and family), each call synchronised, shows exactly that
-    many device ops, all of them qmv's kernel."""
+    reduce kernel), and each type's bf16 qmm call runs its layout's
+    qmm_tc_kernel instantiation (``qmv_fmt``, with an adds plane or
+    without), then qmm_reduce where qmm_plan splits K. Under one
+    torch.profiler window (a second one has shown no device ops), each call
+    synchronised: an M 8 qmv call at the 8B's gate/up for Q4_K and for each
+    of SHAPE_FORMATS (a format of each kernel format and family) shows
+    exactly that many device ops, all of them qmv's kernel; then an M 32
+    qmm call of each of the 23 types there shows exactly the sequence of
+    its instantiations (and reduces)."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
-    from superllama_tpu_torch.ops.qmatmul import qmv
+    from superllama_tpu_torch.gguf.constants import GGMLType
+    from superllama_tpu_torch.ops import qmatmul as qm
 
     K, N = FORMAT_KN[0]
     weights = [rand_weight(torch, "Q4_K", N, K, 320)]
     weights += [on_card(_FORMAT_CPU[(name, K, N)]) for name in SHAPE_FORMATS]
-    x = torch.randn((8, K), device="cuda").to(torch.bfloat16)
+    names = ("Q8_0", "Q4_K", "Q6_K") + NEW_FORMATS
+    mm_weights = [on_card(_FORMAT_CPU[(name, K, N)]) if name in NEW_FORMATS
+                  else rand_weight(torch, name, N, K, 340) for name in names]
+    split = qm.qmm_plan(K, N)[0] > 1
+    expect = []
+    for name, qt in zip(names, mm_weights):
+        expect += [(qm.qmv_fmt(qm._FMT[GGMLType[name]]), qt.adds is not None)]
+        expect += [None] if split else []
+    x = torch.randn((32, K), device="cuda").to(torch.bfloat16)
     for qt in weights:
-        qmv(x, qt, torch.bfloat16)
+        qm.qmv(x[:8], qt, torch.bfloat16)
+    for qt in mm_weights:
+        qm.qmm(x, qt, torch.bfloat16)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for qt in weights:
-            qmv(x, qt, torch.bfloat16)
+            qm.qmv(x[:8], qt, torch.bfloat16)
             torch.cuda.synchronize()
-    kernels = device_rows(prof.key_averages())
-    check(sum(c for _, _, c in kernels) == len(weights)
-          and all("qmv_kernel" in k for k, _, _ in kernels),
+        for qt in mm_weights:
+            qm.qmm(x, qt, torch.bfloat16)
+            torch.cuda.synchronize()
+    seq = [e.name for e in sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                                  key=lambda e: e.time_range.start)]
+    mv, mm = seq[:len(weights)], seq[len(weights):]
+    check(len(mv) == len(weights) and all("qmv_kernel" in k for k in mv),
           f"{len(weights)} qmv calls (Q4_K, {', '.join(SHAPE_FORMATS)}) ran these device "
-          f"ops: {kernels}")
-    emit({"phase": "qmv_one_kernel", "calls": len(weights),
-          "kernels": [{"name": k[:60], "count": c} for k, _, c in kernels]})
+          f"ops: {mv}")
+
+    def instance(key: str):
+        m = (re.search(r"qmm_tc_kernel<(\d+), ?(true|false)>", key)
+             or re.search(r"qmm_tc_kernelILi(\d+)ELb([01])E", key))
+        if m:
+            return int(m.group(1)), m.group(2) in ("true", "1")
+        return None if "qmm_reduce" in key else key
+
+    got = [instance(k) for k in mm]
+    check(got == expect, f"{len(names)} qmm calls ({', '.join(names)}) ran these device ops "
+          f"{got}, not their layouts' instantiations {expect}")
+    emit({"phase": "one_kernel_a_call", "qmv_calls": len(weights), "qmm_calls": len(names),
+          "qmv_kernels": sorted(set(k[:60] for k in mv)),
+          "qmm_kernels": sorted(set(k[:60] for k in mm))})
 
 
 def format_reading(torch, fn, plain, qt, label: str, M: int, ops_kind: str) -> dict:
@@ -3937,6 +4038,75 @@ def time_formats(torch, names=NEW_FORMATS, m1: bool = True) -> dict:
     for fam, name in FAMILY_FORMAT.items():
         if name in names:
             out[f"qmv_{fam}"], out[f"qmm_{fam}"] = out[f"qmv {name}"], out[f"qmm {name}"]
+    return out
+
+
+# a format of each of qmm's nine layouts (ops/qmatmul.py::qmv_fmt; Q4_1 is
+# layout 7 with adds): qmm's shape rows
+QMM_SHAPE_FORMATS = ("IQ4_XS", "Q4_K", "Q6_K", "Q5_1", "Q2_K", "IQ1_M", "Q8_K", "Q4_0", "Q4_1",
+                     "Q5_K")
+
+
+def time_qmm_shapes(torch) -> dict:
+    """qmm at M 17 and M 32 (bf16 x and output) for QMM_SHAPE_FORMATS at
+    every served (K, N): the 8B's gate/up, down, q/o, k/v and the 1B's
+    four, each row with its layout, its plan and its launches in a lone
+    32-token chunk of a model of that format (the 8B's shapes)."""
+    from superllama_tpu_torch.gguf.constants import GGMLType
+    from superllama_tpu_torch.ops import qmatmul as qm
+
+    format_weights(FORMAT_KN + SHAPE_KN, [n for n in QMM_SHAPE_FORMATS if n in NEW_FORMATS])
+    out = {}
+    for name in QMM_SHAPE_FORMATS:
+        for K, N in FORMAT_KN + SHAPE_KN:
+            qt = (on_card(_FORMAT_CPU[(name, K, N)]) if name in NEW_FORMATS
+                  else rand_weight(torch, name, N, K, 350))
+            for M in SHAPE_ROWS[1]:
+                row = format_reading(torch, qm.qmm, qm.qmm_plain, qt, name, M, "bf16")
+                row.update(layout=qm.qmv_fmt(qm._FMT[GGMLType[name]]), plan=qm.qmm_plan(K, N),
+                           launches_per_chunk=CHUNK_LAUNCHES.get((K, N), 0))
+                out[f"qmm {name} M={M} K={K} N={N}"] = row
+            del qt
+    return out
+
+
+def time_qmm_plans(torch, names=QMM_SHAPE_FORMATS) -> dict:
+    """qmm at M 32 (bf16 x and output) for each named format at every served
+    (K, N) under qmm_plan's split and under each split of a power-of-two
+    count of k-tiles a split: device ms a call from a CUDA graph over
+    copies past the L2. Each row: the plan, its time, the fastest split and
+    its time, and their ratio."""
+    from superllama_tpu_torch.ops import qmatmul as qm
+
+    format_weights(FORMAT_KN + SHAPE_KN, [n for n in names if n in NEW_FORMATS])
+    x = torch.randn((32, 14336), device="cuda").to(torch.bfloat16)
+    plan = qm.qmm_plan
+    out = {}
+    for name in names:
+        for K, N in FORMAT_KN + SHAPE_KN:
+            qt = (on_card(_FORMAT_CPU[(name, K, N)]) if name in NEW_FORMATS
+                  else rand_weight(torch, name, N, K, 360))
+            copies = [qt] + [on_card(qt, clone=True) for _ in range(1, n_copies(qt.nbytes, 6))]
+            xs = x[:, :K].contiguous()
+            call = lambda i: qm.qmm(xs, copies[i % len(copies)], torch.bfloat16)
+            reps = max(12, len(copies))
+            n_tiles = -(-K // qm._QMM_BK)
+            splits = {plan(K, N)} | {(-(-n_tiles // per), per) for per in
+                                     (1 << i for i in range(n_tiles.bit_length()))}
+            times = []
+            for sp in sorted(splits):
+                qm.qmm_plan = lambda k, n, sp=sp: sp
+                try:
+                    times.append((graph_ms(torch, call, reps), list(sp)))
+                finally:
+                    qm.qmm_plan = plan
+            p0 = list(plan(K, N))
+            ms = next(t for t, sp in times if sp == p0)
+            best = min(times)
+            out[f"{name} K={K} N={N}"] = {"plan": p0, "ms": ms, "best": best[1],
+                                          "ms_best": best[0], "plan_over_best": ms / best[0],
+                                          "all": times}
+            del copies, qt
     return out
 
 
@@ -4852,10 +5022,13 @@ def main() -> int:
         # formats' at the same shapes (an argument after the flag names the
         # formats, comma-separated: those alone)
         i = sys.argv.index("--format-times") + 1
-        names = (tuple(sys.argv[i].split(",")) if i < len(sys.argv)
-                 and not sys.argv[i].startswith("--") else NEW_FORMATS)
+        named = i < len(sys.argv) and not sys.argv[i].startswith("--")
+        names = tuple(sys.argv[i].split(",")) if named else NEW_FORMATS
         emit({"phase": "format_times", "card": info["nvidia_smi"],
               "kernels": {**time_base_formats(torch), **time_formats(torch, names)}})
+        if not named:   # qmm of a format of each layout at every served shape
+            emit({"phase": "qmm_shape_times", "card": info["nvidia_smi"],
+                  "kernels": time_qmm_shapes(torch)})
         return 0
     if "--qmv-clusters" in sys.argv[1:]:
         # the planned clusters of qmv's formats against none, at the served
@@ -4864,6 +5037,15 @@ def main() -> int:
         names = ("Q8_0", "Q4_K", "Q6_K") + SHAPE_FORMATS if sweep else SHAPE_FORMATS
         emit({"phase": "qmv_clusters", "card": info["nvidia_smi"],
               "rows": time_qmv_clusters(torch, names, sweep)})
+        return 0
+    if "--qmm-plans" in sys.argv[1:]:
+        # qmm's plan against every power-of-two k-tiles-a-split grid, at the
+        # served shapes (an argument after the flag names the formats)
+        i = sys.argv.index("--qmm-plans") + 1
+        names = (tuple(sys.argv[i].split(",")) if i < len(sys.argv)
+                 and not sys.argv[i].startswith("--") else QMM_SHAPE_FORMATS)
+        emit({"phase": "qmm_plans", "card": info["nvidia_smi"],
+              "rows": time_qmm_plans(torch, names)})
         return 0
     if "--base-times" in sys.argv[1:]:
         # the redesigned formats' rows alone (also for a parent tree)

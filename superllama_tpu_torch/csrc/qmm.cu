@@ -40,44 +40,70 @@
 //    pack; for Q4_K the code's product with s is one exact fma (deq). Each
 //    group's d/dmin/sc/mn (Q4_K), d/sc/hi (Q6_K) or scales
 //    (Q8_0) are read once per column and lane, not per element.
-//  - The packed planes and x stream through a ring of NST stages (4; 3 for
-//    Q8_0) of one 128-deep k-tile: a producer warp fills a stage with
-//    16-byte cp.async copies (36 a lane for a Q4_K tile), completed on
-//    the stage's `full` mbarrier through cp.async.mbarrier.arrive, once every
-//    consumer warp has arrived on its `empty` mbarrier. No block-wide
-//    barrier sits in the loop; up to NST tiles are in flight. Each lane
-//    keeps one 16-byte column of each plane and steps down its rows by
-//    pointer increments: the producer's instructions a tile set the pace
-//    at first (K 4096, N 14336 on an H100 80GB HBM3 at 700 W: one
-//    cp.async.bulk per plane row, 106 copies of 128-256 bytes a tile, read
-//    0.112 ms; cp.async with divisions in the address math 0.086 ms;
-//    without them 0.037 ms).
+//  - The packed planes and x stream through a ring of NST stages of one
+//    k-tile (128 deep): a producer warp fills a stage with 16-byte cp.async
+//    copies, completed on the stage's `full` mbarrier through
+//    cp.async.mbarrier.arrive, once every consumer warp has arrived on its
+//    `empty` mbarrier. No block-wide barrier sits in the loop; up to NST
+//    tiles are in flight. Each lane keeps one 16-byte column of each plane
+//    and steps down its rows by pointer increments: the producer's
+//    instructions a tile set the pace at first (K 4096, N 14336 on an H100
+//    80GB HBM3 at 700 W: one cp.async.bulk per plane row, 106 copies of
+//    128-256 bytes a tile, read 0.112 ms; cp.async with divisions in the
+//    address math 0.086 ms; without them 0.037 ms).
 //  - Enough blocks at every shape: where N alone gives too few, the K range
 //    is split (qmm_plan in ops/qmatmul.py, a function of (K, N) only, so a
-//    row's sums never depend on M); the splits' f32 partials are added in
-//    split order by one qmm_reduce launch. No float atomics: two runs give
-//    the same bits.
+//    row's sums never depend on M: one block a SM where a block then holds
+//    at most 16 k-tiles, else two an SM); the splits' f32 partials are
+//    added in split order by one qmm_reduce launch. No float atomics: two
+//    runs give the same bits.
 // Edges: rows >= M and columns >= N hold stale shared memory, which reaches
 // only their own (unstored) outputs; a k-tile past K (a format of 32-element
 // blocks) is cut to whole 32-groups and the warps skip the groups beyond it.
 //
-// Weight formats (FMT): 0 = Q8_0, 1 = Q4_K compact, 2 = Q6_K compact, and
-// the other formats of the JAX package in three families of runtime group
-// size, offset and adds: 3 = int8 planar (int8 codes, f32 scales at gs 8,
-// 16, 32 or 256, optional f32 adds: Q5_0, Q5_1, MXFP4, IQ4_NL, IQ4_XS, the
-// IQ1/IQ2/IQ3 i-quants, Q2_K, Q3_K, Q8_K, TQ1_0, TQ2_0), 4 = nibble planar
-// (group-local nibbles, f32 scales per 32, offset 8 or f32 adds: Q4_0,
-// Q4_1), 5 = Q5_K compact (Q4_K's planes and a 1-bit hi plane). Their
-// element is bf16(fadd_rn(fmul_rn(code - offset, s), a)) as above; in the
-// tensor-core kernel each lane reads the scale (and add) rows of its 8-row
-// k pieces (four a 32-group at gs 8, two at gs 16, one a k-tile at gs 256).
-// They are simple paths: correct first, their speed is later work.
+// Weight layouts (FMT), the nine of ops/qmatmul.py::qmv_fmt that qmv.cu reads
+// too, every type of ops/qtensor.py's repack:
+//   0 int8 codes (K, N), f32 scales per 32: Q8_0, and on the same path Q5_0,
+//     MXFP4, IQ4_NL, IQ4_XS, IQ2_XXS, IQ3_XXS, IQ3_S (no adds, offset 0:
+//     their element is Q8_0's);
+//   1 Q4_K compact (nibbles, u8 sc/mn, f32 d/dmin per 256);
+//   2 Q6_K compact (nibbles + 2-bit hi plane, i8 sc per 16, f32 d);
+//   3 int8, gs 32, an f32 adds plane: Q5_1, IQ1_S;
+//   4 int8, gs 16, adds where present: Q3_K, IQ2_XS, IQ2_S, Q2_K (adds);
+//   5 int8, gs 8, adds: IQ1_M;
+//   6 int8, gs 256: Q8_K, TQ1_0, TQ2_0;
+//   7 nibbles (K/2, N) in Q4_K's group-local layout, f32 scales per 32,
+//     offset 8 (Q4_0) or adds (Q4_1);
+//   8 Q5_K compact: Q4_K's planes and a 1-bit hi plane.
+// Group size is a compile-time parameter of each layout, and so are the f32
+// adds (layouts 4 and 7 are instantiated with and without them): each lane
+// reads one float4 of scales (and one of adds) for its 4 columns a piece of
+// 8 code rows a group covers, with no division and no per-element branch
+// (one a 32-group at gs >= 32, two at gs 16, four at gs 8). A stage holds
+// only the scale and add rows its layout reads, and each instantiation's
+// ring has as many stages as fit in 113 KB, two blocks an SM (Stage, mirrored
+// by ops/qmatmul.py::_qmm_smem): 3 for the int8 layouts at gs 32 and 16, 4
+// at gs 256, 5 for the nibbles, 2 at gs 8. The element of layouts 3-7 is
+// bf16(fadd_rn(fmul_rn(code - offset, s), a)), as the plain version's.
+// The CUDA-core kernel reads the same layout ids through its own int8,
+// nibble and compact paths.
+// Measured at gate/up (K 4096, N 14336, M 32) on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py --format-times on copies of this kernel): the int8
+// layouts' time is set by their copies (IQ4_XS 0.038 ms; without the
+// consumers' work 0.034, the weight planes alone 0.033 against a 0.020
+// bound; IQ1_M 0.054, 0.050, 0.050 against 0.035), the nibble layouts' by
+// the consumers (Q4_0 0.034; the copies alone 0.025). TMA boxes of the code
+// plane (128-byte swizzle), and of the code and f32 planes, read 5-10 %
+// slower than this cp.async ring; a 64-deep k-tile for IQ1_M (5 stages)
+// 3 % slower than 2 stages of 128; L2 prefetch hints no faster.
 
 #include "ptx.cuh"
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -210,6 +236,8 @@ constexpr int NCW = 8;                       // consumer warps: 4 column x 2 k
 constexpr int NT = (NCW + 1) * 32;           // and the producer warp
 constexpr int XROW = BK * 2 + 16;            // bytes of an x row in shared memory
 constexpr int CROW = BN + 16;                // bytes of a code-plane row
+constexpr int BLOCK_SMEM = 113 * 1024;       // a block's share of an SM at two blocks an SM
+constexpr int NLAYOUT = 9;
 
 struct Args {
   int M, K, N, per;                          // per: k-tiles a split
@@ -217,59 +245,70 @@ struct Args {
   const uint8_t* codes; const uint8_t* hi; const float* scales;
   const uint8_t* sc; const uint8_t* mn; const float* d; const float* dmin;
   float* part; void* out; int out_bf16;
-  const float* adds; int gs, offset;         // the planar families (FMT 3, 4)
+  const float* adds; int offset;             // the f32 adds plane (ADDS), the codes' offset
 };
 
-// byte offsets inside one ring stage (all multiples of 16). FMT 3's scale
-// and add planes hold up to BK/8 rows (gs 8), FMT 4's one a 32-group.
-template <int FMT>
+// One ring stage of layout L (ops/qmatmul.py::qmv_fmt, csrc/qmv.cu's
+// numbering): the tile's x rows, code rows, and only the scale, add, hi and
+// sub-scale rows the layout reads (byte offsets, multiples of 16). NST: as
+// many stages as fit in a block's share at two blocks an SM (Q4_K keeps 4:
+// five read no faster on the H100). ops/qmatmul.py::_qmm_smem mirrors SMEM
+// and NST: change them together.
+template <int L, bool ADDS>
 struct Stage {
-  static constexpr bool PLANAR = FMT == 3 || FMT == 4;
-  static constexpr bool KQ = FMT == 1 || FMT == 5;    // Q4_K's planes
-  static constexpr int CODE_ROWS = FMT == 0 || FMT == 3 ? BK : BK / 2;
-  static constexpr int HI_ROWS = FMT == 2 ? BK / 4 : FMT == 5 ? BK / 8 : 0;
-  static constexpr int SC_ROWS = FMT == 0 || PLANAR ? 0 : KQ ? BK / 32 : BK / 16;
+  static constexpr bool COMPACT = L == 1 || L == 2 || L == 8;   // sub-scales x d a superblock
+  static constexpr bool KQ = L == 1 || L == 8;                  // Q4_K's planes
+  static constexpr bool PLANAR = L >= 3 && L <= 7;              // f32 scale plane, offset
+  static constexpr bool I8 = L == 0 || (PLANAR && L != 7);      // int8 code rows
+  static constexpr int GS = L == 2 || L == 4 ? 16 : L == 5 ? 8 : L == 6 ? 256 : 32;
+  static constexpr int NP = GS >= 32 ? 1 : 32 / GS;             // scale pieces a 32-group
+  static constexpr int CODE_ROWS = I8 ? BK : BK / 2;
+  static constexpr int HI_ROWS = L == 2 ? BK / 4 : L == 8 ? BK / 8 : 0;
+  static constexpr int SC_ROWS = KQ ? BK / 32 : L == 2 ? BK / 16 : 0;
   static constexpr int MN_ROWS = KQ ? BK / 32 : 0;
-  static constexpr int SCL_ROWS = FMT == 0 || FMT == 4 ? BK / 32 : FMT == 3 ? BK / 8 : 0;
+  static constexpr int SCL_ROWS = COMPACT ? 0 : GS == 256 ? 1 : BK / GS;
+  static constexpr int ADD_ROWS = ADDS ? SCL_ROWS : 0;
   static constexpr int X = 0;
   static constexpr int CODES = X + BM * XROW;
   static constexpr int HI = CODES + CODE_ROWS * CROW;
   static constexpr int SC = HI + HI_ROWS * CROW;
   static constexpr int MN = SC + SC_ROWS * BN;
   static constexpr int D = MN + MN_ROWS * BN;
-  static constexpr int DMIN = D + (FMT == 0 || PLANAR ? 0 : BN * 4);
+  static constexpr int DMIN = D + (COMPACT ? BN * 4 : 0);
   static constexpr int SCL = DMIN + (KQ ? BN * 4 : 0);
   static constexpr int ADD = SCL + SCL_ROWS * BN * 4;
-  static constexpr int BYTES = ADD + (PLANAR ? SCL_ROWS * BN * 4 : 0);
-  static constexpr int NST = FMT == 0 ? 3 : FMT == 3 ? 2 : 4;
+  static constexpr int BYTES = ADD + ADD_ROWS * BN * 4;
+  static constexpr int NST = L == 1 ? 4 : BLOCK_SMEM / (BYTES + 16);
   static constexpr int SMEM = NST * BYTES + 2 * NST * 8;
+  static_assert(NST >= 2 && SMEM <= BLOCK_SMEM, "a ring of two stages, two blocks an SM");
 };
 
 // code byte j of nib (values < 256), dequantized: f = 2^23 + byte is
 // exact in f32. Q8_0 / Q6_K: one exact subtraction gives byte - bias, then
-// fmul_rn by s. Q4_K (no bias): fma_rn(f, s, c) with c = -2^23 s (exact: a
-// power-of-two multiple) rounds f s + c = byte s once, so it is fmul_rn(byte,
-// s) in one instruction; then fadd_rn of a.
-template <int FMT>
+// fmul_rn by s. Q4_K / Q5_K (no bias): fma_rn(f, s, c) with c = -2^23 s
+// (exact: a power-of-two multiple) rounds f s + c = byte s once, so it is
+// fmul_rn(byte, s) in one instruction; then fadd_rn of a.
+template <int L>
 __device__ __forceinline__ float deq(uint32_t nib, int j, float s, float c, float a) {
-  constexpr float BIAS = FMT == 0 ? 8388608.f + 128.f : 8388608.f + 32.f;
+  constexpr float BIAS = L == 0 ? 8388608.f + 128.f : 8388608.f + 32.f;
   const float f = __uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7440u + j));
-  if constexpr (FMT == 1 || FMT == 5) return __fadd_rn(__fmaf_rn(f, s, c), a);
+  if constexpr (L == 1 || L == 8) return __fadd_rn(__fmaf_rn(f, s, c), a);
   return __fmul_rn(f - BIAS, s);
 }
 
-// the planar families: bias = 2^23 + the byte's bias (128 for int8 codes)
+// the planar layouts: bias = 2^23 + the byte's bias (128 for int8 codes)
 // + offset, exact; then fmul_rn by s and, with adds, fadd_rn of a
-__device__ __forceinline__ float deq_planar(uint32_t nib, int j, float bias, float s, float a,
-                                            bool adds) {
+template <bool ADDS>
+__device__ __forceinline__ float deq_planar(uint32_t nib, int j, float bias, float s, float a) {
   const float f = __uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7440u + j));
   const float w = __fmul_rn(f - bias, s);
-  return adds ? __fadd_rn(w, a) : w;
+  if constexpr (ADDS) return __fadd_rn(w, a);
+  return w;
 }
 
-template <int FMT>
+template <int L, bool ADDS>
 __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
-  using S = Stage<FMT>;
+  using S = Stage<L, ADDS>;
   constexpr int NST = S::NST;
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + NST * S::BYTES);
@@ -316,19 +355,19 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
         for (int r = 0; r < n; ++r)
           cp_async16(s + off + r * BN * 4 + lane * 16, plane + (row0 + r) * N + n0 + lane * 4);
       };
-      if constexpr (FMT == 0) {
+      if constexpr (L == 0) {
         rows8(S::CODES, CROW, a.codes, k0, kv);
         rows32(S::SCL, a.scales, k0 / 32, kv / 32);
       } else if constexpr (S::PLANAR) {
         // the tile's scale (and add) rows: kv / gs of them, one at gs 256
-        const int gs = FMT == 4 ? 32 : a.gs, nr = gs == 256 ? 1 : kv / gs;
-        rows8(S::CODES, CROW, a.codes, FMT == 3 ? k0 : k0 / 2, FMT == 3 ? kv : kv / 2);
-        rows32(S::SCL, a.scales, k0 / gs, nr);
-        if (a.adds != nullptr) rows32(S::ADD, a.adds, k0 / gs, nr);
+        const int nr = S::GS == 256 ? 1 : kv / S::GS;
+        rows8(S::CODES, CROW, a.codes, S::I8 ? k0 : k0 / 2, S::I8 ? kv : kv / 2);
+        rows32(S::SCL, a.scales, k0 / S::GS, nr);
+        if constexpr (ADDS) rows32(S::ADD, a.adds, k0 / S::GS, nr);
       } else {
         rows8(S::CODES, CROW, a.codes, k0 / 2, kv / 2);
         rows32(S::D, a.d, k0 / 256, 1);
-        if constexpr (FMT == 5) rows8(S::HI, CROW, a.hi, k0 / 8, kv / 8);
+        if constexpr (L == 8) rows8(S::HI, CROW, a.hi, k0 / 8, kv / 8);
         if constexpr (S::KQ) {
           rows8(S::SC, BN, a.sc, k0 / 32, kv / 32);
           rows8(S::MN, BN, a.mn, k0 / 32, kv / 32);
@@ -347,6 +386,7 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
   // one in each n8 fragment j (fragment slot g <-> column cb + j)
   const int wn = warp & 3, kw = warp >> 2, g = lane >> 2, t = lane & 3;
   const int cb = wn * 32 + 4 * g;
+  const float bias = 8388608.f + (S::I8 ? 128.f : 0.f) + (float)a.offset;   // PLANAR
   const bool two = mrows > 16;
   float acc[2][4][4];
 #pragma unroll
@@ -367,13 +407,12 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
       const int gi = kw * 2 + gq;
       if (gi >= ng) break;   // a tile past K (32-element formats)
       // this lane's code words: rows 2t, 2t+1, 2t+8, 2t+9 of the group's 16
-      // packed rows (Q8_0: of each 16-row half, k-step h at rows 16h + ..)
-      constexpr bool I8 = FMT == 0 || FMT == 3;   // int8 code rows
-      const int crow = (I8 ? gi * 32 : gi * 16) + 2 * t;
+      // packed rows (int8: of each 16-row half, k-step h at rows 16h + ..)
+      const int crow = (S::I8 ? gi * 32 : gi * 16) + 2 * t;
       const unsigned char* cw = s + S::CODES + crow * CROW + cb;
       uint32_t w[2][4];
 #pragma unroll
-      for (int h = 0; h < (I8 ? 2 : 1); ++h) {
+      for (int h = 0; h < (S::I8 ? 2 : 1); ++h) {
         const unsigned char* c = cw + h * 16 * CROW;
         w[h][0] = *reinterpret_cast<const uint32_t*>(c);
         w[h][1] = *reinterpret_cast<const uint32_t*>(c + CROW);
@@ -383,24 +422,22 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
       // per-column scales of the group (of each 16-half for Q6_K)
       float sc[2][4], cs[4] = {0.f, 0.f, 0.f, 0.f}, ad[4] = {0.f, 0.f, 0.f, 0.f};
       uint32_t hw[2] = {0u, 0u};
-      // the planar families: scale and add of each (k-step h, 8-row half
-      // hb) of the group, for the lane's 4 columns
-      float ps[2][2][4], pa[2][2][4];
+      // the planar layouts: scale (and add) of each of the group's NP
+      // pieces for the lane's 4 columns, one float4 a piece (the one row of
+      // the tile at gs 256)
+      float ps[S::NP][4], pa[S::NP][4] = {};
       if constexpr (S::PLANAR) {
-        const int gs = FMT == 4 ? 32 : a.gs;
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int hb = 0; hb < 2; ++hb) {
-            const int row = gs == 256 ? 0 : (gi * 32 + 16 * h + 8 * hb) / gs;
-            const float4 v = *reinterpret_cast<const float4*>(s + S::SCL + row * BN * 4 + cb * 4);
-            ps[h][hb][0] = v.x; ps[h][hb][1] = v.y; ps[h][hb][2] = v.z; ps[h][hb][3] = v.w;
-            float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (a.adds != nullptr)
-              u = *reinterpret_cast<const float4*>(s + S::ADD + row * BN * 4 + cb * 4);
-            pa[h][hb][0] = u.x; pa[h][hb][1] = u.y; pa[h][hb][2] = u.z; pa[h][hb][3] = u.w;
+        for (int p = 0; p < S::NP; ++p) {
+          const int row = S::GS == 256 ? 0 : gi * S::NP + p;
+          const float4 v = *reinterpret_cast<const float4*>(s + S::SCL + row * BN * 4 + cb * 4);
+          ps[p][0] = v.x; ps[p][1] = v.y; ps[p][2] = v.z; ps[p][3] = v.w;
+          if constexpr (ADDS) {
+            const float4 u = *reinterpret_cast<const float4*>(s + S::ADD + row * BN * 4 + cb * 4);
+            pa[p][0] = u.x; pa[p][1] = u.y; pa[p][2] = u.z; pa[p][3] = u.w;
           }
-      } else if constexpr (FMT == 0) {
+        }
+      } else if constexpr (L == 0) {
         const float4 v = *reinterpret_cast<const float4*>(s + S::SCL + gi * BN * 4 + cb * 4);
         sc[0][0] = sc[1][0] = v.x; sc[0][1] = sc[1][1] = v.y;
         sc[0][2] = sc[1][2] = v.z; sc[0][3] = sc[1][3] = v.w;
@@ -418,7 +455,7 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
             cs[j] = -8388608.f * sc[0][j];
             ad[j] = -__fmul_rn(dm[j], (float)((mnw >> (8 * j)) & 255u));
           }
-          if constexpr (FMT == 5) {
+          if constexpr (L == 8) {
             // element e's hi bit: hi row e % 4, bit e / 4; the lane's rows
             // 2t + (q & 1) (mod 4) of the group's 4
             const unsigned char* hp = s + S::HI + gi * 4 * CROW + cb;
@@ -445,34 +482,35 @@ __global__ void __launch_bounds__(NT, 2) qmm_tc_kernel(Args a) {
         uint32_t nib[4];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          if constexpr (I8) {
+          if constexpr (S::I8) {
             nib[q] = w[h][q] ^ 0x80808080u;   // int8 -> biased byte
           } else {
             nib[q] = (h ? w[0][q] >> 4 : w[0][q]) & 0x0F0F0F0Fu;
-            if constexpr (FMT == 2)   // element e's 2 high bits: hi row e % 8, field e / 8
+            if constexpr (L == 2)   // element e's 2 high bits: hi row e % 8, field e / 8
               nib[q] |= ((hw[q & 1] >> (4 * h + 2 * (q >> 1))) & 0x03030303u) << 4;
-            if constexpr (FMT == 5)   // row 2t + q (+ 8 for q > 1): bit 4h + 2 (q >> 1) + t / 2
+            if constexpr (L == 8)   // row 2t + q (+ 8 for q > 1): bit 4h + 2 (q >> 1) + t / 2
               nib[q] |= ((hw[q & 1] >> (4 * h + 2 * (q >> 1) + (t >> 1))) & 0x01010101u) << 4;
           }
         }
         uint32_t bf[4][2];
         if constexpr (S::PLANAR) {
-          const float bias = 8388608.f + (FMT == 3 ? 128.f : 0.f) + (float)a.offset;
-          const bool adds = a.adds != nullptr;
+          // b0's rows lie in 8-row piece 2h of the group, b1's in 2h + 1
+          const int p0 = S::NP == 1 ? 0 : S::NP == 2 ? h : 2 * h;
+          const int p1 = S::NP == 4 ? 2 * h + 1 : p0;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            bf[j][0] = pack_bf16(deq_planar(nib[0], j, bias, ps[h][0][j], pa[h][0][j], adds),
-                                 deq_planar(nib[1], j, bias, ps[h][0][j], pa[h][0][j], adds));
-            bf[j][1] = pack_bf16(deq_planar(nib[2], j, bias, ps[h][1][j], pa[h][1][j], adds),
-                                 deq_planar(nib[3], j, bias, ps[h][1][j], pa[h][1][j], adds));
+            bf[j][0] = pack_bf16(deq_planar<ADDS>(nib[0], j, bias, ps[p0][j], pa[p0][j]),
+                                 deq_planar<ADDS>(nib[1], j, bias, ps[p0][j], pa[p0][j]));
+            bf[j][1] = pack_bf16(deq_planar<ADDS>(nib[2], j, bias, ps[p1][j], pa[p1][j]),
+                                 deq_planar<ADDS>(nib[3], j, bias, ps[p1][j], pa[p1][j]));
           }
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            bf[j][0] = pack_bf16(deq<FMT>(nib[0], j, sc[h][j], cs[j], ad[j]),
-                                 deq<FMT>(nib[1], j, sc[h][j], cs[j], ad[j]));
-            bf[j][1] = pack_bf16(deq<FMT>(nib[2], j, sc[h][j], cs[j], ad[j]),
-                                 deq<FMT>(nib[3], j, sc[h][j], cs[j], ad[j]));
+            bf[j][0] = pack_bf16(deq<L>(nib[0], j, sc[h][j], cs[j], ad[j]),
+                                 deq<L>(nib[1], j, sc[h][j], cs[j], ad[j]));
+            bf[j][1] = pack_bf16(deq<L>(nib[2], j, sc[h][j], cs[j], ad[j]),
+                                 deq<L>(nib[3], j, sc[h][j], cs[j], ad[j]));
           }
         }
         const int kk = gi * 32 + h * 16 + (lane >> 4) * 8;
@@ -559,18 +597,18 @@ __global__ void qmm_reduce(const float* part, int n_split, long MN, void* out, i
   }
 }
 
-template <int FMT>
+template <int L, bool ADDS>
 cudaError_t launch(const Args& a, int n_split, cudaStream_t st) {
-  constexpr int smem = Stage<FMT>::SMEM;
+  using S = Stage<L, ADDS>;
   static bool attr_set = false;   // set once, never under graph capture
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qmm_tc_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        qmm_tc_kernel<L, ADDS>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, n_split);
-  qmm_tc_kernel<FMT><<<grid, NT, smem, st>>>(a);
+  qmm_tc_kernel<L, ADDS><<<grid, NT, S::SMEM, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return e;
   const long MN = (long)a.M * a.N;
@@ -579,30 +617,84 @@ cudaError_t launch(const Args& a, int n_split, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// blocks of layout (L, ADDS) the card holds on one SM, and its shared bytes
+template <int L, bool ADDS>
+int resident(int* smem) {
+  using S = Stage<L, ADDS>;
+  *smem = S::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(qmm_tc_kernel<L, ADDS>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, qmm_tc_kernel<L, ADDS>, NT, S::SMEM);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// f(integral_constant L, bool_constant ADDS) for a layout and whether its
+// weight has an adds plane: the eleven instantiations (adds fixed by layouts
+// 0-3, 5, 6 and 8, either way for 4 and 7)
+template <class F>
+auto with_layout(int fmt, bool adds, F&& f) {
+  using std::integral_constant;
+  using T = std::true_type;
+  using Fa = std::false_type;
+  switch (fmt) {
+    case 0: return f(integral_constant<int, 0>{}, Fa{});
+    case 1: return f(integral_constant<int, 1>{}, Fa{});
+    case 2: return f(integral_constant<int, 2>{}, Fa{});
+    case 3: return f(integral_constant<int, 3>{}, T{});
+    case 4: return adds ? f(integral_constant<int, 4>{}, T{}) : f(integral_constant<int, 4>{}, Fa{});
+    case 5: return f(integral_constant<int, 5>{}, T{});
+    case 6: return f(integral_constant<int, 6>{}, Fa{});
+    case 7: return adds ? f(integral_constant<int, 7>{}, T{}) : f(integral_constant<int, 7>{}, Fa{});
+    default: return f(integral_constant<int, 8>{}, Fa{});
+  }
+}
+
 }  // namespace tc
 
-// fmt: 0 Q8_0, 1 Q4_K, 2 Q6_K, 3 int8 planar, 4 nibble planar, 5 Q5_K;
-// adds (K/gs, N) f32 or null, gs and offset for fmt 3 and 4. x (M, K) f32
-// or bf16; out (M, N) f32 or bf16. Returns the cudaError_t of the launch.
+namespace {
+
+// a layout's group size, and whether its weights' adds plane (null or not)
+// and offset fit it
+bool layout_ok(int fmt, int gs, const void* adds, int offset) {
+  constexpr int GS[tc::NLAYOUT] = {32, 32, 16, 32, 16, 8, 256, 32, 32};
+  if (fmt < 0 || fmt >= tc::NLAYOUT || gs != GS[fmt]) return false;
+  if (fmt == 3 || fmt == 5) return adds != nullptr;
+  return (adds == nullptr || fmt == 4 || fmt == 7) && (fmt != 0 || offset == 0);
+}
+
+}  // namespace
+
+// fmt: the weight's layout (ops/qmatmul.py::qmv_fmt: 0 int8 gs 32, 1 Q4_K,
+// 2 Q6_K, 3 int8 gs 32 adds, 4 int8 gs 16, 5 int8 gs 8 adds, 6 int8 gs 256,
+// 7 nibbles with f32 scales, 8 Q5_K); adds (K/gs, N) f32 or null, gs and
+// offset of the planar layouts. The CUDA-core kernel reads the int8 layouts
+// through its int8 path (Q8_0's for layout 0), the nibbles and Q5_K through
+// theirs. x (M, K) f32 or bf16; out (M, N) f32 or bf16. Returns the
+// cudaError_t of the launch.
 extern "C" int slt_qmm(int fmt, int M, int K, int N, const void* x, int x_bf16,
                        const void* codes, const void* hi, const void* scales,
                        const void* sc, const void* mn, const void* d, const void* dmin,
                        const void* adds, int gs, int offset, void* out, int out_bf16,
                        void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (fmt < 0 || fmt > 5 || (fmt == 3 && gs != 8 && gs != 16 && gs != 32 && gs != 256) ||
-      (fmt == 4 && gs != 32))
-    return (int)cudaErrorInvalidValue;
+  if (!layout_ok(fmt, gs, adds, offset)) return (int)cudaErrorInvalidValue;
   Args a{x, x_bf16, M, K, N, (const uint8_t*)codes, (const uint8_t*)hi,
          (const float*)scales, (const uint8_t*)sc, (const uint8_t*)mn,
          (const float*)d, (const float*)dmin, out, out_bf16, (const float*)adds, gs, offset};
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (fmt == 0) qmm_kernel<0><<<grid, TPB, 0, st>>>(a);
-  else if (fmt == 1) qmm_kernel<1><<<grid, TPB, 0, st>>>(a);
-  else if (fmt == 2) qmm_kernel<2><<<grid, TPB, 0, st>>>(a);
-  else if (fmt == 3) qmm_kernel<3><<<grid, TPB, 0, st>>>(a);
-  else if (fmt == 4) qmm_kernel<4><<<grid, TPB, 0, st>>>(a);
-  else qmm_kernel<5><<<grid, TPB, 0, st>>>(a);
+  // the CUDA-core kernel's own families: 0 Q8_0, 1 Q4_K, 2 Q6_K, 3 int8
+  // planar, 4 nibble planar, 5 Q5_K
+  constexpr int FAMILY[tc::NLAYOUT] = {0, 1, 2, 3, 3, 3, 3, 4, 5};
+  switch (FAMILY[fmt]) {
+    case 0: qmm_kernel<0><<<grid, TPB, 0, st>>>(a); break;
+    case 1: qmm_kernel<1><<<grid, TPB, 0, st>>>(a); break;
+    case 2: qmm_kernel<2><<<grid, TPB, 0, st>>>(a); break;
+    case 3: qmm_kernel<3><<<grid, TPB, 0, st>>>(a); break;
+    case 4: qmm_kernel<4><<<grid, TPB, 0, st>>>(a); break;
+    default: qmm_kernel<5><<<grid, TPB, 0, st>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -617,21 +709,26 @@ extern "C" int slt_qmm_tc(int fmt, int M, int K, int N, const void* x, const voi
                           int n_split, int per, void* part, void* out, int out_bf16,
                           void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (N % 16 || K % 32 || n_split < 1 || (n_split > 1 && part == nullptr) || fmt < 0 ||
-      fmt > 5 || (fmt == 3 && gs != 8 && gs != 16 && gs != 32 && gs != 256) ||
-      (fmt == 3 && gs == 256 && K % 256) || (fmt == 4 && gs != 32))
+  if (N % 16 || K % 32 || n_split < 1 || (n_split > 1 && part == nullptr) ||
+      !layout_ok(fmt, gs, adds, offset) || (fmt == 6 && K % 256))
     return (int)cudaErrorInvalidValue;
-  tc::Args a{M, K, N, per, (const __nv_bfloat16*)x, (const uint8_t*)codes,
-             (const uint8_t*)hi, (const float*)scales, (const uint8_t*)sc,
-             (const uint8_t*)mn, (const float*)d, (const float*)dmin,
-             n_split > 1 ? (float*)part : nullptr, out, out_bf16, (const float*)adds, gs,
-             offset};
-  cudaError_t e;
-  if (fmt == 0) e = tc::launch<0>(a, n_split, st);
-  else if (fmt == 1) e = tc::launch<1>(a, n_split, st);
-  else if (fmt == 2) e = tc::launch<2>(a, n_split, st);
-  else if (fmt == 3) e = tc::launch<3>(a, n_split, st);
-  else if (fmt == 4) e = tc::launch<4>(a, n_split, st);
-  else e = tc::launch<5>(a, n_split, st);
-  return (int)e;
+  const tc::Args a{M, K, N, per, (const __nv_bfloat16*)x, (const uint8_t*)codes,
+                   (const uint8_t*)hi, (const float*)scales, (const uint8_t*)sc,
+                   (const uint8_t*)mn, (const float*)d, (const float*)dmin,
+                   n_split > 1 ? (float*)part : nullptr, out, out_bf16, (const float*)adds,
+                   offset};
+  return (int)tc::with_layout(fmt, adds != nullptr, [&](auto L, auto A) {
+    return tc::launch<decltype(L)::value, decltype(A)::value>(a, n_split, st);
+  });
+}
+
+// Blocks of the tensor-core kernel of layout fmt (with an adds plane or
+// not) that the card holds on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+// the plan assumes two), or a negative cudaError_t; *smem gets the
+// instantiation's shared bytes (ops/qmatmul.py::_qmm_smem mirrors them).
+extern "C" int slt_qmm_resident(int fmt, int adds, int* smem) {
+  if (fmt < 0 || fmt >= tc::NLAYOUT) return -(int)cudaErrorInvalidValue;
+  return tc::with_layout(fmt, adds != 0, [&](auto L, auto A) {
+    return tc::resident<decltype(L)::value, decltype(A)::value>(smem);
+  });
 }

@@ -15,12 +15,15 @@ regimes (the mmvq / mmq / dense-GEMM split):
 ``REPACKABLE``, and run their plain PyTorch versions (``qmv_plain``,
 ``qmm_plain``) only on CPU tensors. ``_FMT`` describes each type's repacked
 planes (``Layout``: code width, hi bits, group size, scale source, adds,
-offset); ``qmv`` reads all of them with one kernel in nine instantiated
-layouts (``qmv_fmt``), ``qmm`` with Q8_0, Q4_K and Q6_K paths and three
-families of runtime group size, offset and adds for the other twenty
-formats: int8 planar, nibble planar and Q5_K compact (``Layout.family``).
-Each wrapper counts its launches in ``<wrapper>.launches``, and those of the
-three families also in ``<wrapper>.launches_i8``, ``launches_nib`` and
+offset). Both kernels read them in the same nine layouts, one table
+(``qmv_fmt``): 0 int8 gs 32 (Q8_0 and the seven gs-32 int8 formats without
+adds, on Q8_0's path), 1 Q4_K, 2 Q6_K, 3 int8 gs 32 with adds, 4 int8 gs
+16, 5 int8 gs 8 with adds, 6 int8 gs 256, 7 nibbles with f32 scales, 8
+Q5_K; group size is a compile-time parameter of each, and so are adds
+(qmm's layouts 4 and 7 have an instantiation with and one without). Each
+wrapper counts its launches in ``<wrapper>.launches``, and those of the
+twenty formats beyond Q8_0, Q4_K and Q6_K also by family (``family``) in
+``<wrapper>.launches_i8`` (int8 codes), ``launches_nib`` (Q4_0, Q4_1) and
 ``launches_q5k``.
 """
 
@@ -80,8 +83,8 @@ _FMT.update({
 
 
 def family(ttype: GGMLType, lay: Layout) -> int:
-    """qmm's format id (csrc/qmm.cu) and the launch counters' family: 0-2
-    Q8_0 / Q4_K / Q6_K, 3 int8 planar, 4 nibble planar, 5 Q5_K compact."""
+    """The launch counters' family of a type: 0-2 Q8_0 / Q4_K / Q6_K, 3
+    int8 codes, 4 nibbles with f32 scales, 5 Q5_K."""
     if ttype == GGMLType.Q8_0:
         return 0
     if lay.scales == "superblock":
@@ -90,9 +93,9 @@ def family(ttype: GGMLType, lay: Layout) -> int:
 
 
 def qmv_fmt(lay: Layout) -> int:
-    """The qmv kernel's format (csrc/qmv.cu FMT): 0 int8 gs 32, 1 Q4_K, 2
-    Q6_K, 3 int8 gs 32 with adds, 4 int8 gs 16, 5 int8 gs 8, 6 int8 gs 256,
-    7 nibbles with f32 scales, 8 Q5_K."""
+    """The kernels' layout of a type (csrc/qmv.cu and csrc/qmm.cu FMT): 0
+    int8 gs 32, 1 Q4_K, 2 Q6_K, 3 int8 gs 32 with adds, 4 int8 gs 16, 5
+    int8 gs 8, 6 int8 gs 256, 7 nibbles with f32 scales, 8 Q5_K."""
     if lay.scales == "superblock":
         return {0: 1, 2: 2, 1: 8}[lay.hi_bits]
     if lay.code_bits == 4:
@@ -121,6 +124,13 @@ _QMV_MAX_ROWS = 16
 _QMM_BN = 128                     # columns per qmm tensor-core block
 _QMM_BK = 128                     # k-tile of the qmm tensor-core kernel
 _QMM_RESIDENT = 264               # blocks resident at once: two an SM of the H100
+_QMM_SMS = 132                    # SMs of the H100
+_QMM_SHORT = 16                   # k-tiles a block up to which one block a SM wins
+_QMM_BM = 32                      # rows per qmm tensor-core block
+_QMM_BLOCK_SMEM = 113 * 1024      # a block's share of an SM at two blocks an SM
+# the tensor-core kernel's instantiations: (layout, an f32 adds plane)
+_QMM_INSTANCES = ((0, False), (1, False), (2, False), (3, True), (4, False), (4, True),
+                  (5, True), (6, False), (7, False), (7, True), (8, False))
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 
@@ -139,7 +149,7 @@ def _ptr(t: torch.Tensor | None):
 
 
 def _check_weight(x2: torch.Tensor, qt: QTensor) -> int:
-    """Validate a CUDA launch; returns the weight's family (qmm's format id)."""
+    """Validate a CUDA launch; returns the weight's layout (``qmv_fmt``)."""
     lay = _FMT.get(qt.ggml_type)
     if lay is None:
         raise NotImplementedError(f"no CUDA kernel for {qt.ggml_type.name} weights")
@@ -155,7 +165,7 @@ def _check_weight(x2: torch.Tensor, qt: QTensor) -> int:
         if plane.device != x2.device or not plane.is_contiguous():
             raise ValueError(f"weight plane {name} must be a contiguous "
                              f"tensor on {x2.device}")
-    return family(qt.ggml_type, lay)
+    return qmv_fmt(lay)
 
 
 # --- activation quantization (Q8_1 semantics of the mmvq path) -------------
@@ -262,9 +272,9 @@ def qmv_plan(fmt: int, K: int, N: int) -> QmvPlan:
     return best[1]
 
 
-def _count(fn, family_id: int) -> None:
+def _count(fn, qt: QTensor) -> None:
     fn.launches += 1
-    fam = _FAMILY.get(family_id)
+    fam = _FAMILY.get(family(qt.ggml_type, _FMT[qt.ggml_type]))
     if fam is not None:
         setattr(fn, f"launches_{fam}", getattr(fn, f"launches_{fam}") + 1)
 
@@ -277,7 +287,7 @@ def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
         return qmv_plain(x2, qt, out_dtype)
     if x2.device.type != "cuda":
         raise ValueError(f"qmv runs on cuda or cpu tensors, not {x2.device}")
-    fam = _check_weight(x2, qt)
+    fmt = _check_weight(x2, qt)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"qmv output must be f32 or bf16, got {out_dtype}")
     x2 = x2.contiguous()
@@ -289,7 +299,6 @@ def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
                       _I, _P, _I, _P])
     if x2.data_ptr() % 16:   # the kernel reads x rows in 8- and 16-byte words
         x2 = x2.clone()
-    fmt = qmv_fmt(_FMT[qt.ggml_type])
     plan = qmv_plan(fmt, K, qt.N)
     out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
     err = fn(fmt, M, K, qt.N, x2.data_ptr(), int(x2.dtype == torch.bfloat16),
@@ -297,7 +306,7 @@ def qmv(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
              _ptr(qt.d), _ptr(qt.dmin), _ptr(qt.adds), qt.offset, plan.bn, plan.cl, plan.per,
              out.data_ptr(), int(out_dtype == torch.bfloat16), _build.stream_ptr(x2.device))
     _build.check(err, "qmv")
-    _count(qmv, fam)
+    _count(qmv, qt)
     return out
 
 
@@ -317,16 +326,46 @@ def qmm_plain(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
     return (x2.to(cdt).to(torch.float32) @ w).to(out_dtype)
 
 
+def _qmm_smem(fmt: int, adds: bool) -> tuple[int, int]:
+    """(ring stages, shared bytes) of a tensor-core qmm block of layout
+    ``fmt`` (with an f32 adds plane or not): the stage holds the k-tile's x
+    rows, its code rows and only the scale, add, hi and sub-scale rows the
+    layout reads; as many stages as fit in a block's share at two blocks an
+    SM (Q4_K keeps its 4). Mirrors ``Stage<L, ADDS>`` of csrc/qmm.cu."""
+    compact, kq = fmt in (1, 2, 8), fmt in (1, 8)
+    i8 = fmt in (0, 3, 4, 5, 6)
+    gs = {2: 16, 4: 16, 5: 8, 6: 256}.get(fmt, 32)
+    bk, crow = _QMM_BK, _QMM_BN + 16
+    code_rows = bk if i8 else bk // 2
+    hi_rows = {2: bk // 4, 8: bk // 8}.get(fmt, 0)
+    sc_rows = bk // 32 if kq else bk // 16 if fmt == 2 else 0
+    scl_rows = 0 if compact else 1 if gs == 256 else bk // gs
+    stage = (_QMM_BM * (bk * 2 + 16) + code_rows * crow + hi_rows * crow
+             + sc_rows * _QMM_BN + (bk // 32 * _QMM_BN if kq else 0)
+             + (_QMM_BN * 4 if compact else 0) + (_QMM_BN * 4 if kq else 0)
+             + scl_rows * (2 if adds else 1) * _QMM_BN * 4)
+    nst = 4 if fmt == 1 else _QMM_BLOCK_SMEM // (stage + 16)
+    return nst, nst * stage + 2 * nst * 8
+
+
 def qmm_plan(K: int, N: int) -> tuple[int, int]:
     """(n_split, tiles_per_split) of the tensor-core qmm kernel's K split, in
-    k-tiles of 128 (a K of 32-element blocks may end in a shorter one). N's
-    column blocks alone when they fill the resident slots (two blocks an
-    SM); else the split, up to one resident wave of blocks, whose waves
-    times k-tiles a block is least (the smallest such: each split adds M x
-    N partials).
+    k-tiles of 128 (a K of 32-element blocks may end in a shorter one).
+    One block a SM where that leaves each block at most ``_QMM_SHORT``
+    k-tiles: the largest split of at most 132 blocks (a second block on an
+    SM then gains less than another split costs: its partials, its share
+    of the reduce, its ring's fill). Else N's column blocks alone when they
+    fill the resident slots (two blocks an SM); else the split, up to one
+    resident wave of blocks, whose waves times k-tiles a block is least
+    (the smallest such: each split adds M x N partials). Measured against
+    every power-of-two split on the H100 (``chip_smoke.py --qmm-plans``).
     Depends on (K, N) only, so a row's sums do not depend on M."""
     n_tiles = -(-K // _QMM_BK)
     n_col_blocks = -(-N // _QMM_BN)
+    valid = [sp for sp in range(1, n_tiles + 1) if -(-n_tiles // -(-n_tiles // sp)) == sp]
+    alone = [sp for sp in valid if n_col_blocks * sp <= _QMM_SMS]
+    if alone and -(-n_tiles // alone[-1]) <= _QMM_SHORT:
+        return alone[-1], -(-n_tiles // alone[-1])
 
     def rounds(split):
         per = -(-n_tiles // split)
@@ -374,7 +413,7 @@ def qmm(x2: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
                  _ptr(qt.mn), _ptr(qt.d), _ptr(qt.dmin), _ptr(qt.adds), qt.group,
                  qt.offset, out.data_ptr(), out_bf16, _build.stream_ptr(x2.device))
     _build.check(err, "qmm")
-    _count(qmm, fmt)
+    _count(qmm, qt)
     return out
 
 

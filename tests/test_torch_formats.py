@@ -257,12 +257,13 @@ def test_layout_matches_the_repacked_planes(ttype):
 
 @pytest.mark.parametrize("ttype", ALL, ids=ID)
 def test_check_weight_gives_a_format_id(ttype):
-    """Every REPACKABLE type has a kernel format: its family's for the new
-    ones, 0-2 for the three redesigned ones."""
+    """Every REPACKABLE type has a kernel format: the layout both kernels
+    read (``qmv_fmt``), 0-2 for the three redesigned ones, 0 also for the
+    gs-32 int8 formats without adds."""
     _, _, t = _weights(ttype, 64, 256)
     fmt = qm._check_weight(cuda_typed(torch.zeros((1, 256))), _cuda(t))
-    assert fmt == FAMILY.get(ttype, {GGMLType.Q8_0: 0, GGMLType.Q4_K: 1,
-                                     GGMLType.Q6_K: 2}.get(ttype))
+    assert fmt == qm.qmv_fmt(qm._FMT[ttype])
+    assert fmt == {GGMLType.Q8_0: 0, GGMLType.Q4_K: 1, GGMLType.Q6_K: 2}.get(ttype, fmt)
 
 
 class _Recorder:
@@ -309,13 +310,12 @@ def test_wrappers_pass_the_planar_layout(fake_libs, ttype):
     """qmv launches its one kernel once, with the layout's format, the plan,
     the planes (adds included) and the offset, and allocates only the
     output (no split-K partials); qmm's tensor-core (bf16 x) and CUDA-core
-    (f32 x) entries get adds, group size and offset; each launch adds one
-    to the wrapper's count and to its family's."""
+    (f32 x) entries get the same layout, adds, group size and offset; each
+    launch adds one to the wrapper's count and to its family's."""
     K, N = 1024, 128
     _, _, t = _weights(ttype, N, K)
     t = _cuda(t)
-    fmt = FAMILY[ttype]
-    fam = qm._FAMILY[fmt]
+    fam = qm._FAMILY[FAMILY[ttype]]
     ptr = lambda n: None if getattr(t, n) is None else getattr(t, n).data_ptr()
     x = cuda_typed(torch.zeros((8, K), dtype=torch.bfloat16))
     before = (qm.qmv.launches, getattr(qm.qmv, f"launches_{fam}"))
@@ -336,7 +336,7 @@ def test_wrappers_pass_the_planar_layout(fake_libs, ttype):
         qm.qmm(cuda_typed(torch.zeros((24, K), dtype=dt)), t, dt)
         assert getattr(qm.qmm, f"launches_{fam}") == before + 1
         (a,) = fake_libs[entry].calls
-        assert a[0] == fmt
+        assert a[0] == kfmt
         i = 12 if entry == "qmm_tc" else 13
         assert a[i:i + 3] == (ptr("adds"), t.group, t.offset)
 
