@@ -21,6 +21,7 @@ PyTorch version.
     python3 chip_smoke.py --spec          # device, build, phase 4g
     python3 chip_smoke.py --server        # device, build, phase 4h
     python3 chip_smoke.py --formats       # device, build, phase 4i
+    python3 chip_smoke.py --toolchain     # device, build, phase 4j
     python3 chip_smoke.py --format-times  # device, build, every format's qmv and
                                           # qmm readings (phase 6's format rows), and
                                           # qmm of a format of each layout at every
@@ -145,6 +146,22 @@ Phases, each printing one JSON line:
     mixed formats written by the port's writer, split in two shards,
     loaded onto the card from the first shard (planes equal to repack's,
     the unsplit file equal) and served;
+ 4j. the model-file toolchain: a Llama-3-8B-width, 32-layer Q4_K_M GGUF
+    (Q4_K blocks and token_embd, Q6_K attn_v, ffn_down and output, the
+    128,256-piece tokenizer; every layer the bytes of layer 0) written by
+    the port's GGUFWriter, loaded through the native repack (its seconds
+    and thread counts; layer 0's planes bit-equal to the numpy route's,
+    both routes timed on the same bytes) and served greedy on a bf16 cache
+    (a lone prompt through qmm and fa, a wave through qmv); at
+    Llama-3.2-1B's widths, 16 layers, an F16 GGUF of seeded weights through
+    the CLI's quantize to Q4_K_M (a few rows of four tensors equal to the
+    numpy encoders' bytes), imatrix on the card over the repo's own text,
+    quantize --imatrix at a cut depth (IMATRIX_LAYERS; its weighted tensors
+    differ from the plain file's, the others equal), perplexity of the F16
+    and the Q4_K_M file on the same text, the KL divergence of Q4_K_M
+    against F16, and the packed load's perplexity against the dequantized
+    one (PPL_TOL); about 200 KB of the repo's text through the native and
+    the Python tokenizer, equal ids, both timed;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -4231,17 +4248,8 @@ FILE_TYPES = {"attn_q": "Q4_0", "attn_k": "Q4_0", "attn_v": "Q5_K", "attn_output
               "output": "Q6_K", "token_embd": "Q4_0"}
 
 
-def write_file_model(path: str, hp, tok) -> dict:
-    """A llama GGUF of hp's widths, FILE_TYPES' formats of rand_raw bytes
-    (norms F32 ones), and tok's vocab, written by the port's GGUFWriter.
-    Returns {tensor name: (type, raw bytes, (N, K))} of the quantized ones."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import numpy as np
-
-    from superllama_tpu_torch.gguf import GGMLType, GGUFWriter
-    from superllama_tpu_torch.models.synthetic import rand_raw
-
+def weight_shapes(hp) -> dict:
+    """{GGUF tensor name: (role, N, K)} of a llama of hp's widths."""
     E, F, V = hp.n_embd, hp.n_ff, hp.n_vocab
     qd, kvd = hp.n_head * hp.head_dim, hp.n_head_kv * hp.head_dim
     shapes = {"token_embd.weight": ("token_embd", V, E), "output.weight": ("output", V, E)}
@@ -4250,24 +4258,27 @@ def write_file_model(path: str, hp, tok) -> dict:
                            ("attn_output", E, qd), ("ffn_gate", F, E), ("ffn_up", F, E),
                            ("ffn_down", E, F)):
             shapes[f"blk.{il}.{role}.weight"] = (role, N, K)
+    return shapes
 
-    def make(item):
-        i, (name, (role, N, K)) = item
-        t = GGMLType[FILE_TYPES[role]]
-        return name, (t, rand_raw(t, N, K, SEED + 50 + i), (N, K))
 
-    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
-        raws = dict(ex.map(make, enumerate(shapes.items())))
+def model_writer(path: str, hp, tok, name: str):
+    """A GGUFWriter holding a llama's metadata (hp's widths, tok's vocab) and
+    its F32 norms (ones); the caller adds the matmul weights and writes."""
+    import numpy as np
+
+    from superllama_tpu_torch.gguf import GGUFWriter
+
+    E = hp.n_embd
     w = GGUFWriter(path, arch="llama")
     for key, v in (("context_length", 8192), ("embedding_length", E), ("block_count", hp.n_layer),
-                   ("feed_forward_length", F), ("attention.head_count", hp.n_head),
+                   ("feed_forward_length", hp.n_ff), ("attention.head_count", hp.n_head),
                    ("attention.head_count_kv", hp.n_head_kv),
                    ("attention.layer_norm_rms_epsilon", hp.rms_eps),
                    ("rope.freq_base", hp.rope_freq_base), ("rope.dimension_count", hp.n_rot),
-                   ("vocab_size", V)):
+                   ("vocab_size", hp.n_vocab)):
         w.add(f"llama.{key}", v)
     v = tok.vocab
-    w.add("general.name", "synthetic-llama3.2-1b-mixed")
+    w.add("general.name", name)
     w.add("tokenizer.ggml.model", v.model)
     w.add("tokenizer.ggml.pre", v.pre)
     w.add("tokenizer.ggml.tokens", list(v.tokens))
@@ -4281,8 +4292,40 @@ def write_file_model(path: str, hp, tok) -> dict:
     for il in range(hp.n_layer):
         w.add_tensor(f"blk.{il}.attn_norm.weight", ones)
         w.add_tensor(f"blk.{il}.ffn_norm.weight", ones)
-    for name, (t, raw, (N, K)) in raws.items():
-        w.add_tensor(name, raw, t, raw_ne=(K, N))
+    return w
+
+
+def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b-mixed",
+                     shared_layers: bool = False) -> dict:
+    """A llama GGUF of hp's widths, ``types``' formats by role (default
+    FILE_TYPES) of rand_raw bytes (norms F32 ones), and tok's vocab, written
+    by the port's GGUFWriter; with ``shared_layers`` every layer holds the
+    bytes of layer 0 (rand_raw makes about 0.2 GB/s on one core). Returns
+    {tensor name: (type, raw bytes, (N, K))} of the quantized ones."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from superllama_tpu_torch.gguf import GGMLType
+    from superllama_tpu_torch.models.synthetic import rand_raw
+
+    types = types or FILE_TYPES
+    shapes = weight_shapes(hp)
+    key = (lambda n: n.split(".", 2)[-1]) if shared_layers else (lambda n: n)
+    first = {}                      # each set of bytes -> the first tensor holding it
+    for n in shapes:
+        first.setdefault(key(n), n)
+
+    def make(item):
+        i, (k, n) = item
+        role, N, K = shapes[n]
+        t = GGMLType[types[role]]
+        return k, (t, rand_raw(t, N, K, SEED + 50 + i), (N, K))
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        made = dict(ex.map(make, enumerate(first.items())))
+    raws = {n: made[key(n)] for n in shapes}
+    w = model_writer(path, hp, tok, name)
+    for n, (t, raw, (N, K)) in raws.items():
+        w.add_tensor(n, raw, t, raw_ne=(K, N))
     w.write()
     return raws
 
@@ -4412,6 +4455,332 @@ def phase_gguf_file(torch, smi_line: str) -> dict:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    emit(info)
+    return info
+
+
+# ------------------------------------------------------------ 4j. the model-file toolchain
+
+# llama.cpp's Q4_K_M rules (the port's tools/quantize.py) by tensor role
+Q4_K_M_TYPES = {"attn_q": "Q4_K", "attn_k": "Q4_K", "attn_v": "Q6_K", "attn_output": "Q4_K",
+                "ffn_gate": "Q4_K", "ffn_up": "Q4_K", "ffn_down": "Q6_K",
+                "output": "Q6_K", "token_embd": "Q4_K"}
+# the depth of the imatrix-weighted quantize: its K-quant searches run in
+# numpy, as in the JAX package, and one 1B-width layer (61M weights) takes
+# most of a minute
+IMATRIX_LAYERS = 1
+PPL_CTX, PPL_CHUNKS, IMATRIX_CHUNKS = 512, 4, 8
+PPL_TOL = 1e-3       # relative: the packed load against the same file dequantized
+
+
+def repo_text(limit: int = 200_000) -> str:
+    """The repo's own text: its Markdown files at the root, then the port's
+    Python sources, in name order, up to ``limit`` bytes."""
+    import glob
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(glob.glob(os.path.join(root, "*.md"))) + sorted(
+        glob.glob(os.path.join(root, "superllama_tpu_torch", "**", "*.py"), recursive=True))
+    out, n = [], 0
+    for f in files:
+        with open(f, encoding="utf-8") as fh:
+            out.append(fh.read())
+        n += len(out[-1].encode())
+        if n >= limit:
+            break
+    text = "".join(out).encode()[:limit].decode("utf-8", "ignore")
+    check(len(text) > limit // 2, f"the repo's text holds {len(text)} bytes")
+    return text
+
+
+class NoNative:
+    """SLT_NO_NATIVE=1 inside the block: the numpy route."""
+
+    def __enter__(self):
+        os.environ["SLT_NO_NATIVE"] = "1"
+
+    def __exit__(self, *exc):
+        del os.environ["SLT_NO_NATIVE"]
+
+
+def toolchain_8b(torch, d: str, tok) -> dict:
+    """The 8B Q4_K_M file: written, loaded through the native repack
+    (planes of layer 0 held to the numpy route's, both routes timed on the
+    same bytes), served greedy on a bf16 cache."""
+    import gc
+
+    from superllama_tpu_torch.models.loader import load_model, load_threads
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+    from superllama_tpu_torch.ops.qtensor import QTensor, repack
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    hp = llama3_8b_hparams()
+    path = os.path.join(d, "synthetic-8b-q4_k_m.gguf")
+    t0 = time.perf_counter()
+    raws = write_file_model(path, hp, tok, Q4_K_M_TYPES, "synthetic-llama3-8b-q4_k_m",
+                            shared_layers=True)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = load_model(path, dtype=torch.bfloat16, keep_quantized=True, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    workers, threads = load_threads()
+    # both routes on layer 0's bytes, on this host
+    roles = {"attn_q": "wq", "attn_k": "wk", "attn_v": "wv", "attn_output": "wo",
+             "ffn_gate": "ffn_gate", "ffn_up": "ffn_up", "ffn_down": "ffn_down"}
+    layer0 = {f"blk.0.{r}.weight": k for r, k in roles.items()}
+    t0 = time.perf_counter()
+    native_qt = {n: repack(raws[n][1], raws[n][0], raws[n][2]) for n in layer0}
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for n in layer0:
+        repack(raws[n][1], raws[n][0], raws[n][2], threads=1)
+    native_1_s = time.perf_counter() - t0
+    with NoNative():
+        t0 = time.perf_counter()
+        numpy_qt = {n: repack(raws[n][1], raws[n][0], raws[n][2]) for n in layer0}
+        numpy_s = time.perf_counter() - t0
+    for n, key in layer0.items():
+        got = model.params["layers"][0][key]
+        for qt in (native_qt[n], got):
+            check(all(torch.equal(getattr(qt, p).cpu(), getattr(numpy_qt[n], p))
+                      if getattr(numpy_qt[n], p) is not None else getattr(qt, p) is None
+                      for p in QTensor.PLANES), f"{n}: native planes differ from numpy's")
+    types = sorted({v.ggml_type.name for layer in model.params["layers"] for v in layer.values()
+                    if isinstance(v, QTensor)} | {model.params["output"].ggml_type.name})
+    del native_qt, numpy_qt
+    # a lone prompt (a 32-row chunk: qmm, fa), then a wave (decode: qmv)
+    eng = Engine(model, n_slots=4, n_ctx=512, kv_dtype=torch.bfloat16, device="cuda")
+    eng.start()
+    try:
+        prompts = token_prompts(hp.n_vocab, [30, 24, 17, 28], SEED + 71)
+        reset_counts()
+        t0 = time.perf_counter()
+        lone = eng.generate(prompts[0], max_tokens=16, sampling={"greedy": True},
+                            stop_eog=False)["tokens"]
+        wave = [r["tokens"] for r in engine_wave(eng, prompts, 16)]
+        serve_s = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        eng.stop()
+    for name in ("qmv", "qmm", "fa_tc"):
+        check(counts[name] > 0, f"the 8B Q4_K_M file's requests never launched {name}")
+    check(len(lone) == 16 and all(len(t) == 16 and max(t) < hp.n_vocab for t in wave),
+          "the 8B Q4_K_M file's requests gave the wrong tokens")
+    info = {"file_bytes": os.path.getsize(path), "types": types, "layers": hp.n_layer,
+            "write_s": write_s, "load_s": load_s, "load_workers": workers,
+            "repack_threads": threads, "layer0_native_s": native_s,
+            "layer0_native_1thread_s": native_1_s,
+            "layer0_numpy_s": numpy_s, "layer0_planes_equal": True, "serve_s": serve_s,
+            "lone_tokens": lone, "wave_tokens": wave,
+            "launches": {k: counts[k] for k in ("qmv", "qmm", "fa_tc")}}
+    os.remove(path)
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def write_f16_model(path: str, hp, tok, weights: dict) -> None:
+    from superllama_tpu_torch.gguf import GGMLType
+
+    w = model_writer(path, hp, tok, "synthetic-llama3.2-1b-f16")
+    for n in weight_shapes(hp):
+        w.add_tensor(n, weights[n], GGMLType.F16)
+    w.write()
+
+
+def f16_weights(torch, hp) -> dict:
+    """Seeded normal weights of hp's widths (std 1/sqrt(K)), made on the
+    card, as F16 host arrays."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 72)
+    out = {}
+    for n, (_, N, K) in weight_shapes(hp).items():
+        x = torch.randn((N, K), generator=g, device="cuda", dtype=torch.float32)
+        out[n] = (x * (1.0 / math.sqrt(K))).to(torch.float16).cpu().numpy()
+    return out
+
+
+def cli_run(argv) -> str:
+    """Run the port's CLI (exit 0 or fail); its last stdout line."""
+    import contextlib
+    import io
+
+    from superllama_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(argv) == 0, f"{argv[0]} exited non-zero")
+    return buf.getvalue().strip().splitlines()[-1]
+
+
+def toolchain_1b(torch, d: str, tok, text: str) -> dict:
+    """llama.cpp's quantization workflow at Llama-3.2-1B's widths: an F16
+    file, quantize to Q4_K_M, imatrix on the card, quantize --imatrix (at
+    IMATRIX_LAYERS), perplexity of both files and their KL divergence, the
+    packed load against the dequantized one."""
+    import gc
+
+    import numpy as np
+
+    from superllama_tpu_torch.gguf import GGMLType, GGUFReader
+    from superllama_tpu_torch.gguf.quants import QUANTIZERS
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+    from superllama_tpu_torch.tools.imatrix import load_imatrix
+    from superllama_tpu_torch.tools.perplexity import compute_kl_divergence, compute_perplexity
+
+    out = {}
+    lap = time.perf_counter()
+
+    def took(key):
+        nonlocal lap
+        now = time.perf_counter()
+        out[key] = now - lap
+        lap = now
+
+    hp = llama3_8b_hparams(**DRAFT_1B)
+    f16, q = os.path.join(d, "f16.gguf"), os.path.join(d, "q4_k_m.gguf")
+    weights = f16_weights(torch, hp)
+    write_f16_model(f16, hp, tok, weights)
+    took("write_f16_s")
+    out["f16_bytes"] = os.path.getsize(f16)
+    out["quantize_stats"] = json.loads(cli_run(["quantize", f16, q, "Q4_K_M"]))
+    took("quantize_s")
+    out["q4_k_m_bytes"] = os.path.getsize(q)
+    # a few rows of four tensors: the file's bytes are the numpy encoders'
+    r = GGUFReader(q)
+    try:
+        for n in ("blk.0.attn_q.weight", "blk.1.ffn_down.weight", "token_embd.weight",
+                  "output.weight"):
+            ti = r.tensors[n]
+            rows = weights[n][:8].astype(np.float32)
+            per_row = ti.raw().size // ti.shape[0]
+            check(np.array_equal(ti.raw().reshape(-1)[:8 * per_row], QUANTIZERS[ti.ggml_type](rows)),
+                  f"{n}: quantize's bytes differ from the numpy encoder's")
+    finally:
+        r.close()
+    took("verify_s")
+    corpus = os.path.join(d, "corpus.txt")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.write(text)
+    imx_path = os.path.join(d, "imatrix.gguf")
+    cli_run(["imatrix", "-m", f16, "-f", corpus, "-o", imx_path, "-c", str(PPL_CTX),
+              "--chunks", str(IMATRIX_CHUNKS)])
+    imx = load_imatrix(imx_path)
+    check(len(imx) == 7 * hp.n_layer and all(np.isfinite(v).all() and (v > 0).all()
+                                             for v in imx.values()),
+          f"imatrix: {len(imx)} tensors, or not finite and positive")
+    took("imatrix_s")
+    # quantize --imatrix on the first IMATRIX_LAYERS layers of the same weights
+    cut = llama3_8b_hparams(**{**DRAFT_1B, "n_layer": IMATRIX_LAYERS})
+    f16_cut, q_cut = os.path.join(d, "f16_cut.gguf"), os.path.join(d, "q_cut_imatrix.gguf")
+    write_f16_model(f16_cut, cut, tok, weights)
+    t0 = time.perf_counter()
+    out["imatrix_quantize_stats"] = json.loads(cli_run(
+        ["quantize", f16_cut, q_cut, "Q4_K_M", "--imatrix", imx_path]))
+    out["imatrix_quantize_s"] = time.perf_counter() - t0
+    r, rq = GGUFReader(q_cut), GGUFReader(q)
+    try:
+        for n, ti in r.tensors.items():
+            same = bytes(ti.raw()) == bytes(rq.tensors[n].raw())
+            weighted = n.startswith("blk.") and len(ti.ne) == 2
+            check(same != weighted, f"{n}: imatrix-weighted bytes {'equal' if same else 'differ'}")
+    finally:
+        r.close()
+        rq.close()
+    took("imatrix_quantize_total_s")
+    # perplexity of both files on the same text, KL of Q4_K_M against F16
+    ids = tok.encode(text, add_special=False)[: PPL_CTX * PPL_CHUNKS]
+    base = []
+    m = load_model(f16, device="cuda")
+    res = compute_perplexity(m, ids, n_ctx=PPL_CTX, logits_sink=base, device="cuda")
+    out["ppl_f16"] = res.ppl
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    took("ppl_f16_s")
+    m = load_model(q, device="cuda")
+    kl = compute_kl_divergence(m, ids, base, n_ctx=PPL_CTX, device="cuda")
+    out.update({"ppl_q4_k_m": kl["ppl"], **{k: kl[k] for k in kl if k != "ppl"}})
+    del m, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    took("ppl_kl_q4_k_m_s")
+    m = load_model(q, keep_quantized=True, device="cuda")
+    reset_counts()
+    packed = compute_perplexity(m, ids, n_ctx=PPL_CTX, device="cuda").ppl
+    counts = read_counts()
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    took("ppl_packed_s")
+    out["ppl_q4_k_m_packed"] = packed
+    out["packed_rel_diff"] = abs(packed - out["ppl_q4_k_m"]) / out["ppl_q4_k_m"]
+    out["tokens_scored"] = res.n_tokens
+    check(all(math.isfinite(out[k]) and out[k] > 1 for k in ("ppl_f16", "ppl_q4_k_m")),
+          f"perplexities {out['ppl_f16']}, {out['ppl_q4_k_m']}")
+    check(out["kl_mean"] > 0 and math.isfinite(out["kl_max"]), f"KL {out['kl_mean']}")
+    check(out["packed_rel_diff"] < PPL_TOL,
+          f"packed perplexity {packed} against dequantized {out['ppl_q4_k_m']}")
+    check(counts["fa"] > 0, "the f32 perplexity run never launched fa")
+    out.update({"layers": hp.n_layer, "imatrix_layers": IMATRIX_LAYERS,
+                "imatrix_chunks": IMATRIX_CHUNKS, "ppl_ctx": PPL_CTX, "ppl_chunks": PPL_CHUNKS,
+                "packed_launches": {k: counts[k] for k in ("fa", "qmm", "qmv")}})
+    return out
+
+
+def toolchain_tokenizer(tok, text: str) -> dict:
+    """The repo's text through the 128,256-piece tokenizer, natively and in
+    Python (the plain version): equal ids."""
+    from superllama_tpu_torch.tokenizer import Tokenizer
+
+    plain = Tokenizer(tok.vocab)
+    plain._nat, plain._nat_tried = None, True
+    t0 = time.perf_counter()
+    tok.encode("warm", add_special=False)       # g++ (once a tree) and the vocab's core
+    core_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = tok.encode(text, add_special=False)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = plain.encode(text, add_special=False)
+    python_s = time.perf_counter() - t0
+    check(tok._nat is not None and got == ref, "native tokenizer ids differ from Python's")
+    return {"bytes": len(text.encode()), "ids": len(got), "native_core_s": core_s,
+            "native_s": native_s, "python_s": python_s}
+
+
+def phase_toolchain(torch, smi_line: str) -> dict:
+    """4j. The model-file toolchain on the card's host: an 8B-width Q4_K_M
+    GGUF written, loaded through the native repack and served; the 1B-width
+    quantization workflow (quantize, imatrix, quantize --imatrix,
+    perplexity, KL divergence); the native tokenizer against Python's."""
+    import shutil
+    import tempfile
+
+    from superllama_tpu_torch.models.loader import load_threads
+
+    t_all = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="toolchain_", dir=build)
+    try:
+        tok = grammar_tokenizer(128256)
+        text = repo_text()
+        info = {"phase": "toolchain", "card": smi_line, "host_cores": len(os.sched_getaffinity(0)),
+                "load_threads": load_threads()}
+        info["tokenizer"] = toolchain_tokenizer(tok, text)
+        t0 = time.perf_counter()
+        info["file_8b"] = toolchain_8b(torch, d, tok)
+        info["file_8b"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info["workflow_1b"] = toolchain_1b(torch, d, tok, text)
+        info["workflow_1b"]["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    info["seconds"] = time.perf_counter() - t_all
     emit(info)
     return info
 
@@ -5052,6 +5421,10 @@ def main() -> int:
         emit({"phase": "base_times", "card": info["nvidia_smi"],
               "kernels": time_base_formats(torch)})
         return 0
+    if "--toolchain" in sys.argv[1:]:
+        # the model-file toolchain alone (phase 4j)
+        phase_toolchain(torch, info["nvidia_smi"])
+        return 0
     if "--state" in sys.argv[1:]:
         # the engine's state between requests alone (phase 4e)
         phase_state(torch, build_model(torch), info["nvidia_smi"])
@@ -5088,6 +5461,7 @@ def main() -> int:
     # the new formats' kernels launch on the serving mixes' path
     counts.update(phase_mixes(torch, info["nvidia_smi"]))
     phase_gguf_file(torch, info["nvidia_smi"])
+    phase_toolchain(torch, info["nvidia_smi"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)

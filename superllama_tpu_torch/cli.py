@@ -8,14 +8,18 @@ package's CLI:
   tokenize       a prompt's token ids and pieces (llama-tokenize)
   gguf-dump      a GGUF's metadata and tensor table
   encrypt-model  AES-256-GCM encrypt or decrypt a GGUF (SLT_MODEL_KEY loads it)
+  quantize       re-quantize a GGUF (llama-quantize), optionally with an imatrix
+  imatrix        collect an importance matrix over a calibration text
+  perplexity     perplexity, or hellaswag / winogrande / multiple-choice scores
 
 Usage:  python -m superllama_tpu_torch <command> [options]
 
 ``run`` and ``serve`` take the option table of ``args.py`` (the JAX
 package's, each option with its LLAMA_ARG_* environment mirror: flag > env
 > default). A flag of a feature the port does not have yet (``UNPORTED``)
-makes them exit with code 2; flags the JAX CLI accepts and ignores are
-accepted and ignored. All run on the GPU unless ``--device cpu`` is given.
+makes them (and ``perplexity``) exit with code 2; flags the JAX CLI
+accepts and ignores are accepted and ignored. All run on the GPU unless
+``--device cpu`` is given (``quantize`` runs on the host).
 """
 
 from __future__ import annotations
@@ -40,6 +44,14 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--kv-dtype", default="bfloat16", choices=_KV_DTYPES,
                    help="KV cache dtype")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+
+def _add_adapter_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's adapter flags of its model commands (``UNPORTED``)."""
+    p.add_argument("--lora", action="append", metavar="FILE[:SCALE]",
+                   help="apply a LoRA adapter (repeatable; not ported yet)")
+    p.add_argument("--control-vector", action="append", metavar="FILE[:SCALE]",
+                   help="apply a control vector (repeatable; not ported yet)")
 
 
 def _unported(args) -> bool:
@@ -253,6 +265,65 @@ def cmd_encrypt(args) -> int:
     return 0
 
 
+def cmd_quantize(args) -> int:
+    """Re-quantize a GGUF to a file type (tools/quantize counterpart); runs
+    on the host."""
+    from .tools.imatrix import load_imatrix
+    from .tools.quantize import quantize_model
+
+    imx = load_imatrix(args.imatrix) if args.imatrix else None
+    t0 = time.perf_counter()
+    stats = quantize_model(args.input, args.output, args.ftype, imatrix=imx,
+                           progress=(lambda name, t: print(f"  {name}: {t}", file=sys.stderr))
+                           if args.verbose else None)
+    print(f"quantized {args.input} -> {args.output} ({args.ftype}) in "
+          f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
+    print(json.dumps(stats))
+    return 0
+
+
+def cmd_imatrix(args) -> int:
+    """Collect an importance matrix over ``ctx_size``-token chunks of a
+    calibration text (tools/imatrix counterpart)."""
+    from .models import load_model
+    from .tools.imatrix import collect_imatrix, save_imatrix
+
+    model = load_model(args.model, device=args.device)
+    with open(args.file) as f:
+        ids = model.tokenizer.encode(f.read(), add_special=True)
+    n = args.ctx_size
+    batches = [ids[i:i + n] for i in range(0, len(ids) - n + 1, n)][: args.chunks]
+    imx = collect_imatrix(model, batches, n_ctx=n, device=args.device)
+    save_imatrix(args.output, imx, arch=model.hparams.arch)
+    print(f"wrote {args.output} ({len(imx)} tensors, {len(batches)} chunks)")
+    return 0
+
+
+def cmd_perplexity(args) -> int:
+    """Perplexity of a text file, or the accuracy of hellaswag, winogrande or
+    multiple-choice tasks (tools/perplexity counterpart)."""
+    from .models import load_model
+    from .tools.perplexity import (compute_perplexity, score_hellaswag,
+                                   score_multiple_choice, score_winogrande)
+
+    if _unported(args):
+        return 2
+    model = load_model(args.model, keep_quantized=args.keep_quantized, device=args.device)
+    with open(args.file) as f:
+        text = f.read()
+    scorer = (score_hellaswag if args.hellaswag else score_winogrande if args.winogrande
+              else score_multiple_choice if args.multiple_choice else None)
+    if scorer is None:
+        ids = model.tokenizer.encode(text, add_special=False)
+        if args.chunks:
+            ids = ids[: args.chunks * args.ctx_size]
+        print(compute_perplexity(model, ids, n_ctx=args.ctx_size, device=args.device))
+        return 0
+    res = scorer(model, text, args.tasks or None, args.ctx_size, device=args.device)
+    print(f"{res['task']}: acc = {100.0 * res['acc']:.4f}% over {res['n']} tasks")
+    return 0
+
+
 def main(argv=None) -> int:
     from .args import add_options
 
@@ -305,6 +376,37 @@ def main(argv=None) -> int:
     p.add_argument("--key", required=True, help="32-byte hex key or passphrase")
     p.add_argument("--decrypt", action="store_true")
     p.set_defaults(fn=cmd_encrypt)
+
+    p = sub.add_parser("quantize", help="re-quantize a GGUF")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("ftype", nargs="?", default="Q4_K_M")
+    p.add_argument("--imatrix", default=None, help="an imatrix GGUF (from `imatrix`)")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_quantize)
+
+    p = sub.add_parser("imatrix", help="collect importance matrix")
+    p.add_argument("-m", "--model", required=True)
+    p.add_argument("-f", "--file", required=True, help="calibration text")
+    p.add_argument("-o", "--output", default="imatrix.gguf")
+    p.add_argument("-c", "--ctx-size", type=int, default=512)
+    p.add_argument("--chunks", type=int, default=32)
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.set_defaults(fn=cmd_imatrix)
+
+    p = sub.add_parser("perplexity", help="perplexity over a text file")
+    _add_model_args(p)
+    _add_adapter_args(p)
+    p.add_argument("-f", "--file", required=True)
+    p.add_argument("--chunks", type=int, default=0)
+    p.add_argument("--hellaswag", action="store_true",
+                   help="score 6-line hellaswag tasks (acc_norm)")
+    p.add_argument("--winogrande", action="store_true",
+                   help="score winogrande CSV tasks")
+    p.add_argument("--multiple-choice", action="store_true",
+                   help="score JSONL multiple-choice tasks (MMLU-style)")
+    p.add_argument("--tasks", type=int, default=0, help="max tasks to score")
+    p.set_defaults(fn=cmd_perplexity)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,7 +1,7 @@
-"""GGUF container reader and writer, and the block decoders the port loads."""
+"""GGUF container reader and writer, and the block codecs of every ggml format."""
 
 from .constants import GGML_TYPE_TRAITS, GGMLType, GGUFValueType, Keys, QK_K
-from .quants import DEQUANTIZERS, dequantize, quantize
+from .quants import DEQUANTIZERS, QUANTIZERS, dequantize, quantize
 from .reader import GGUFReader, TensorInfo
 from .writer import GGUFWriter
 
@@ -15,6 +15,7 @@ __all__ = [
     "QK_K",
     "TensorInfo",
     "DEQUANTIZERS",
+    "QUANTIZERS",
     "dequantize",
     "quantize",
 ]

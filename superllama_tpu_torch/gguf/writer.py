@@ -2,8 +2,8 @@
 
 The port's copy of the JAX package's ``gguf/writer.py``: the same bytes for
 the same metadata and tensors. Tensors go in as pre-packed block bytes
-(``raw_ne``) or as float arrays encoded to F32, F16 or BF16; the block-quant
-encoders are not ported, so a float array given another type raises.
+(``raw_ne``) or as float arrays encoded to any type of ``QUANTIZERS``
+(``gguf/quants.py``); a type without an encoder raises.
 """
 
 from __future__ import annotations
@@ -94,9 +94,9 @@ class GGUFWriter:
         raw_ne: Sequence[int] | None = None,
     ):
         """Add a tensor. ``data`` is a float array in numpy shape order
-        (innermost dim last); it is encoded to ``ggml_type`` (default: F32;
-        F16 and BF16 too). Pass pre-packed bytes with ``raw_ne`` (ggml dim
-        order) to store as-is.
+        (innermost dim last); it is encoded to ``ggml_type`` (default: F32).
+        Pass pre-packed bytes with ``raw_ne`` (ggml dim order) to store
+        as-is.
         """
         if raw_ne is not None:
             assert data.dtype == np.uint8

@@ -59,9 +59,23 @@ def _norm(x: torch.Tensor, obj: dict, key: str, hp: HParams) -> torch.Tensor:
     return out if b is None else out + b
 
 
-def dense_ffn(x: torch.Tensor, layer: dict, hp: HParams) -> torch.Tensor:
+def _im(imx: dict | None, key: str, x: torch.Tensor) -> None:
+    """Imatrix hook: accumulate the per-input-channel Σx² and the row count
+    of the weight named ``key`` (IMatrixCollector::collect_imatrix's
+    statistics, tools/imatrix/imatrix.cpp:219). Without a dict it does
+    nothing, so the forward runs no extra operation."""
+    if imx is None:
+        return
+    xf = x.to(torch.float32).reshape(-1, x.shape[-1])
+    imx[key] = imx.get(key, 0) + torch.sum(xf * xf, dim=0)
+    imx[key + ".__count"] = imx.get(key + ".__count", 0) + xf.shape[0]
+
+
+def dense_ffn(x: torch.Tensor, layer: dict, hp: HParams, imx: dict | None = None,
+              pfx: str = "") -> torch.Tensor:
     if "ffn_gate" not in layer:
         raise NotImplementedError("gate-less FFNs are not ported yet")
+    _im(imx, pfx + "ffn_up.weight", x)
     gate = mm(x, layer["ffn_gate"])
     up = mm(x, layer["ffn_up"])
     if "ffn_up_b" in layer:
@@ -69,6 +83,7 @@ def dense_ffn(x: torch.Tensor, layer: dict, hp: HParams) -> torch.Tensor:
     if "ffn_gate_b" in layer:
         gate = gate + layer["ffn_gate_b"]
     act = ops.GLU_FNS[hp.act](gate, up)
+    _im(imx, pfx + "ffn_down.weight", act)
     out = mm(act, layer["ffn_down"])
     if "ffn_down_b" in layer:
         out = out + layer["ffn_down_b"]
@@ -126,6 +141,7 @@ def llama_forward(
     flash: bool | None = None,
     s_window: int | None = None,
     attn_mask: torch.Tensor | None = None,
+    imatrix: dict | None = None,
 ) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """One forward step (prefill or decode). Returns (logits (B, T, V), cache);
     the cache is updated in place.
@@ -137,6 +153,10 @@ def llama_forward(
     ``attn_mask``: an additive (B, 1, T, S) mask that replaces the causal
     mask (tree attention); it turns flash and the decode kernel off. Dense
     caches only.
+
+    ``imatrix``: a dict to accumulate each matmul weight's input Σx² and
+    row count in, keyed by GGUF weight name (``tools/imatrix.py``); None
+    (the default) adds no operation.
 
     ``flash=None`` selects the flash-attention kernel for prefill-sized
     steps on the GPU (T ≥ 32); see the module docstring for the rest."""
@@ -183,7 +203,9 @@ def llama_forward(
             mask_swa = causal_mask(wpos, pos, hp.swa_window) if hp.swa_window else mask_full
 
     for il, layer in enumerate(params["layers"]):
+        pfx = f"blk.{il}."
         h = _norm(x, layer, "attn_norm", hp)
+        _im(imatrix, pfx + "attn_q.weight", h)
         q = mm(h, layer["wq"])
         k = mm(h, layer["wk"])
         v = mm(h, layer["wv"])
@@ -244,12 +266,14 @@ def llama_forward(
                            else ops.attention_ref)
                 attn = attn_fn(q, ck, cv, mask_swa if swa else mask_full, scale=kq_scale,
                                logit_softcap=hp.attn_logit_softcap, sinks=sinks)
-        attn = mm(attn.reshape(B, T, H * Dv), layer["wo"])
+        attn = attn.reshape(B, T, H * Dv)
+        _im(imatrix, pfx + "attn_output.weight", attn)
+        attn = mm(attn, layer["wo"])
         if "bo" in layer:
             attn = attn + layer["bo"]
         attn = _norm(attn, layer, "attn_post_norm", hp)
         x = x + attn * hp.f_residual_scale
-        ffn = dense_ffn(_norm(x, layer, "ffn_norm", hp), layer, hp)
+        ffn = dense_ffn(_norm(x, layer, "ffn_norm", hp), layer, hp, imatrix, pfx)
         ffn = _norm(ffn, layer, "ffn_post_norm", hp)
         x = x + ffn * hp.f_residual_scale
 

@@ -34,14 +34,30 @@ class LoadedModel:
     name: str = ""
 
 
+# Tensors load on a pool of LOAD_WORKERS threads (numpy and the native
+# library release the GIL in their array work). A native repack spreads one
+# tensor over threads of its own: each gets cores // workers of them, so the
+# pool and the library together keep each core busy once, with no more
+# threads than cores.
+LOAD_WORKERS = 8
+
+
+def load_threads() -> tuple[int, int]:
+    """(pool workers, native repack threads a worker) on this host."""
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else (
+        os.cpu_count() or 1)
+    workers = min(LOAD_WORKERS, cores)
+    return workers, max(1, cores // workers)
+
+
 def _get(reader: GGUFReader, name: str, dtype: torch.dtype, device,
-         transpose: bool = True, keep_quantized: bool = False):
+         transpose: bool = True, keep_quantized: bool = False, threads: int = 0):
     ti = reader.tensors.get(name)
     if ti is None:
         return None
     if (keep_quantized and transpose and len(ti.ne) == 2
             and ti.ggml_type in REPACKABLE):
-        return repack(ti.raw(), ti.ggml_type, ti.shape, device=device)
+        return repack(ti.raw(), ti.ggml_type, ti.shape, device=device, threads=threads)
     arr = ti.astype_f32()
     if transpose and arr.ndim == 2:
         arr = arr.T                       # (out, in) → (in, out)
@@ -57,8 +73,9 @@ def load_model(path: str, dtype: torch.dtype = torch.float32,
     type packed as QTensors for the quantized kernels; other tensors are
     dequantized to ``dtype``. A split model loads from all its shards given
     the first one's path (``*-00001-of-0000N.gguf``, which carries the
-    metadata). Tensors are decoded and repacked on a pool of threads (numpy
-    releases the GIL in its array work). An encrypted GGUF
+    metadata). Tensors are decoded and repacked on a pool of threads
+    (``load_threads``; Q4_0, Q8_0 and the K-quants through the native
+    repack, bit-identical to numpy's). An encrypted GGUF
     (``server/security.py``'s AES-256-GCM container) is decrypted with
     ``SLT_MODEL_KEY`` to a temporary file, removed once the tensors are on
     the device."""
@@ -70,7 +87,8 @@ def load_model(path: str, dtype: torch.dtype = torch.float32,
 def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedModel:
     reader = GGUFReader(path)
     extra: list[GGUFReader] = []
-    pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+    workers, threads = load_threads()
+    pool = ThreadPoolExecutor(max_workers=workers)
     try:
         if int(reader.metadata.get("split.count", 1) or 1) > 1:
             # a multi-shard model: merge the shards' tensor indices
@@ -89,7 +107,7 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
             tok = Tokenizer(vocab_from_gguf(reader))
 
         def g(name, t=True):       # a future of the tensor (or of None)
-            return pool.submit(_get, reader, name, dtype, dev, t, keep_quantized)
+            return pool.submit(_get, reader, name, dtype, dev, t, keep_quantized, threads)
 
         params: dict[str, Any] = {
             "token_embd": g("token_embd.weight", t=False),    # (V, E) lookup

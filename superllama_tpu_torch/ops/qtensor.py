@@ -23,8 +23,10 @@ planes:
     add  [g, n] = -dmin[g // sb, n] * mn[g, n]
     code [k, n] = lo_nibble + (hi_plane << 4)      (hi_bits 0, 1 or 2)
 
-Repacking runs in numpy (the JAX package's ``_extract`` + ``_compact_kquant``
-path, byte-identical planes) and the result moves to the device once.
+Repacking runs in the native library for Q4_0, Q8_0 and the three
+K-quants, in numpy otherwise (the JAX package's ``_extract`` +
+``_compact_kquant`` path; the two give byte-identical planes), and the
+result moves to the device once.
 ``qt_codes``, ``qt_scales_adds`` and ``dequant_qtensor`` are the plain torch
 decoders the kernels are held against.
 """
@@ -466,15 +468,28 @@ def _compact_kquant(raw: np.ndarray, ttype: GGMLType, N: int, K: int,
 
 
 def repack(raw: np.ndarray, ttype: GGMLType, out_in_shape: tuple[int, int],
-           device="cpu") -> QTensor:
+           device="cpu", threads: int = 0) -> QTensor:
     """Repack GGUF packed bytes (row-major (N,K) blocks) into a QTensor on
     ``device``: f32 scale (and add) planes for the planar formats, the
-    compact factored form for Q4_K, Q5_K and Q6_K."""
+    compact factored form for Q4_K, Q5_K and Q6_K.
+
+    Q4_0, Q8_0, Q4_K, Q5_K and Q6_K take the native repack
+    (``native/quants.cpp::slq_repack`` on ``threads`` host threads, 0: every
+    core), whose planes are bit-identical to ``_extract``'s; the other types
+    (and every type under ``SLT_NO_NATIVE=1``) take ``_extract`` in numpy."""
+    from .. import native
+
     N, K = out_in_shape
-    rawu8 = np.frombuffer(raw.tobytes(), np.uint8)
-    codes, scales, adds, gs, offset, nibble = _extract(rawu8, ttype, N, K)
-    codes = codes.reshape(N, K).T                       # (K, N)
-    codes = _pack_nib4(codes.astype(np.uint8)) if nibble else codes.astype(np.int8)
+    rawu8 = np.ascontiguousarray(raw).reshape(-1).view(np.uint8)
+    nat = native.repack(rawu8, int(ttype), N, K, threads)
+    if nat is not None:
+        codes, scales, adds, gs, offset, nibble = nat
+    else:
+        codes, scales, adds, gs, offset, nibble = _extract(rawu8, ttype, N, K)
+        codes = codes.reshape(N, K).T                       # (K, N)
+        codes = _pack_nib4(codes.astype(np.uint8)) if nibble else codes.astype(np.int8)
+        scales, adds = (None if a is None else np.ascontiguousarray(
+            a.reshape(N, K // gs).T, np.float32) for a in (scales, adds))
     put = lambda a: None if a is None else torch.from_numpy(
         np.ascontiguousarray(a)).to(device)
     if ttype in COMPACT:
@@ -485,11 +500,8 @@ def repack(raw: np.ndarray, ttype: GGMLType, out_in_shape: tuple[int, int],
             sc=put(c["sc"]), mn=put(c["mn"]), d=put(c["d"]),
             dmin=put(c["dmin"]), hi=put(c["hi"]), hi_bits=c["hi_bits"],
             sb=c["sb"])
-    planes = lambda a: None if a is None else np.ascontiguousarray(
-        a.reshape(N, K // gs).T, np.float32)
-    return QTensor(codes=put(codes), scales=put(planes(scales)),
-                   adds=put(planes(adds)), group=gs, offset=offset,
-                   nibble=nibble, K=K, N=N, ggml_type=ttype)
+    return QTensor(codes=put(codes), scales=put(scales), adds=put(adds), group=gs,
+                   offset=offset, nibble=nibble, K=K, N=N, ggml_type=ttype)
 
 
 REPACKABLE = {

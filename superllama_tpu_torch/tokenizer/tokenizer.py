@@ -1,5 +1,7 @@
 """SPM / BPE / WPM tokenizers (behavioral parity with src/llama-vocab.cpp
-llm_tokenizer_{spm,bpe,wpm}; original implementation)."""
+llm_tokenizer_{spm,bpe,wpm}; original implementation). SPM and byte-level
+BPE merges run in the native core (``native/tokenizer.cpp``), whose ids
+are the Python paths' here."""
 
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ class Tokenizer:
     def __init__(self, vocab: Vocab):
         self.vocab = vocab
         self.model = vocab.model
+        self._nat = None        # native (C++) core, built lazily
+        self._nat_tried = False
         if self.model in ("gpt2",):
             self._merge_rank = {m: i for i, m in enumerate(vocab.merges)}
         elif self.model == "rwkv":
@@ -265,8 +269,26 @@ class Tokenizer:
 
     # ------------------------------------------------------------- SPM
 
+    def _native(self):
+        """Lazily build the native (C++) tokenizer core for this vocab; its
+        ids are the Python paths' below, which stay the plain version (and
+        run under ``SLT_NO_NATIVE=1``). A failed build raises, every call."""
+        if not self._nat_tried:
+            from .. import native
+
+            if self.model == "llama":
+                self._nat = native.native_spm(self.vocab)
+            elif self.model == "gpt2":
+                self._nat = native.native_bpe(self.vocab)
+            self._nat_tried = True
+        return self._nat
+
     def _spm_tokenize(self, text: str, out: list[int]):
         """Greedy bigram merge by vocab score (llm_tokenizer_spm semantics)."""
+        nat = self._native()
+        if nat is not None:
+            out.extend(nat.encode(text))
+            return
         v = self.vocab
         data = text.encode("utf-8")
         if not data:
@@ -353,8 +375,12 @@ class Tokenizer:
     def _bpe_tokenize(self, text: str, out: list[int]):
         v = self.vocab
         b2u = _byte_to_unicode()
+        nat = self._native()
         for word in regex_split(text, v.pre):
             enc = "".join(b2u[b] for b in word.encode("utf-8"))
+            if nat is not None:
+                out.extend(nat.encode_word(enc))
+                continue
             parts = self._bpe_merge(enc)
             for p in parts:
                 tid = v.token_to_id.get(p)

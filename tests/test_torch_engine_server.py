@@ -241,7 +241,12 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.presets, superllama_tpu_torch.server.router\n"
         "import superllama_tpu_torch.server.security, superllama_tpu_torch.tools.gguf_dump\n"
         "import superllama_tpu_torch.gguf.writer, superllama_tpu_torch.tools.gguf_split\n"
+        "import superllama_tpu_torch.native, superllama_tpu_torch.gguf.kquant_search\n"
+        "import superllama_tpu_torch.tools.quantize, superllama_tpu_torch.tools.imatrix\n"
+        "import superllama_tpu_torch.tools.perplexity\n"
+        "from superllama_tpu_torch import native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
+        "bad += [f'built at import: {n}' for n in native._libs]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

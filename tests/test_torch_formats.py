@@ -434,18 +434,19 @@ def _write(cls, path, tensors):
 
 def test_writer_bytes_match_jax(tmp_path):
     """The same metadata and tensors (pre-packed block bytes, float arrays
-    encoded to F32, F16 and BF16) give the same file bytes."""
+    encoded to F32, F16, BF16 and a block format) give the same file bytes;
+    a type without an encoder raises."""
     rng = np.random.default_rng(0)
     f = rng.normal(0, 1, (3, 64)).astype(np.float32)
     tensors = {"a.weight": (quantize(rng.normal(0, 1, (2, 256)).astype(np.float32),
                                      GGMLType.IQ4_XS), GGMLType.IQ4_XS, (256, 2)),
                "b.weight": (f, GGMLType.F32, None), "c.weight": (f, GGMLType.F16, None),
-               "d.weight": (f, GGMLType.BF16, None)}
+               "d.weight": (f, GGMLType.BF16, None), "e.weight": (f, GGMLType.Q4_0, None)}
     _write(JaxWriter, tmp_path / "j.gguf", tensors)
     _write(GGUFWriter, tmp_path / "t.gguf", tensors)
     assert (tmp_path / "t.gguf").read_bytes() == (tmp_path / "j.gguf").read_bytes()
     with pytest.raises(NotImplementedError):
-        GGUFWriter(str(tmp_path / "x.gguf")).add_tensor("q", f, GGMLType.Q4_0)
+        GGUFWriter(str(tmp_path / "x.gguf")).add_tensor("q", f, GGMLType.F64)
 
 
 @pytest.mark.parametrize("path", ["/m/x.gguf", "/m/x-00001-of-00003.gguf",

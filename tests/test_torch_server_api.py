@@ -25,6 +25,7 @@ import json
 import shutil
 import ssl
 import subprocess
+import time
 import urllib.error
 import urllib.request
 
@@ -201,8 +202,15 @@ def test_billing_and_metrics_log(servers):
     both(servers, "/v1/completions", {"prompt": "ab", "max_tokens": 2, "temperature": 0},
          {"Authorization": "Bearer sk-bob"})
     for s, n in zip(servers, lines):
-        with open(s.app.jsonl.path) as f:
-            rows = [json.loads(ln) for ln in f]
+        # both servers write the line in the request's `finally`, after the
+        # response has gone out: wait (a bounded time) for the handler to end
+        deadline = time.monotonic() + 10
+        while True:
+            with open(s.app.jsonl.path) as f:
+                rows = [json.loads(ln) for ln in f]
+            if len(rows) > n or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
         assert len(rows) == n + 1 and {"slots_busy", "queue_depth"} <= set(rows[-1])
         assert s.app.cost.bill("bob")["output_tokens"] >= 2
 
