@@ -22,6 +22,7 @@ PyTorch version.
     python3 chip_smoke.py --server        # device, build, phase 4h
     python3 chip_smoke.py --formats       # device, build, phase 4i
     python3 chip_smoke.py --toolchain     # device, build, phase 4j
+    python3 chip_smoke.py --archs         # device, build, phase 4k
     python3 chip_smoke.py --format-times  # device, build, every format's qmv and
                                           # qmm readings (phase 6's format rows), and
                                           # qmm of a format of each layout at every
@@ -81,12 +82,12 @@ Phases, each printing one JSON line:
     ample pool, then a pool of about half the wave's pages that must spill
     to host), and a short wave on an f32 cache (fa's CUDA-core kernel);
  4b. graph against eager decode blocks and prompt chunks (the 8B widths
-    at a depth of 8 layers) on the bf16, Q8_0
+    at a depth of 8 layers, as phases 4c-4g; 4g's draft too) on the bf16, Q8_0
     and paged caches, greedy and sampled waves, and lone 100- and
     1000-token prompts: equal tokens, bit-equal written cache rows, equal
     launch counts, every block and chunk of the graph engine a replay;
  4c. DecodeLoop (prefill + one captured graph of the decode steps) against
-    engine.generate on the 8B model, and a seeded sampled loop repeated;
+    engine.generate, and a seeded sampled loop repeated;
  4d. Engine.warmup on a bf16 and a paged engine: the keys, their capture
     seconds, the graph pool's bytes, then a 32- and a 1000-token request
     with no capture after the warm-up, and their TTFT;
@@ -155,13 +156,32 @@ Phases, each printing one JSON line:
     (a lone prompt through qmm and fa, a wave through qmv); at
     Llama-3.2-1B's widths, 16 layers, an F16 GGUF of seeded weights through
     the CLI's quantize to Q4_K_M (a few rows of four tensors equal to the
-    numpy encoders' bytes), imatrix on the card over the repo's own text,
+    numpy encoders' bytes; the files WORKFLOW_LAYERS deep), imatrix on
+    the card over the repo's own text,
     quantize --imatrix at a cut depth (IMATRIX_LAYERS; its weighted tensors
     differ from the plain file's, the others equal), perplexity of the F16
     and the Q4_K_M file on the same text, the KL divergence of Q4_K_M
     against F16, and the packed load's perplexity against the dequantized
     one (PPL_TOL); about 200 KB of the repo's text through the native and
     the Python tokenizer, equal ids, both timed;
+ 4k. the dense architecture registry: a Command-R7B-width GGUF (cohere2:
+    4096 wide, 32 layers, 32/8 heads of 128, FFN 14,336, a 256,000-piece
+    vocab, a 4,096 window on three layers of four and NoPE on the fourth,
+    LayerNorm, a parallel residual, tied embeddings; a Q4_K_M-style mix of
+    rand_raw bytes, every layer layer 0's) written, loaded packed and its
+    hparams checked; a 4,600-token prompt (the M > 32 path, fa_tc) whose
+    last 32-token chunk through the kernels (qmm, fa_tc) and through the
+    plain versions over the same cache agree within ARCH_NMSE; 16 greedy
+    tokens on a bf16, a Q8_0 (fd) and a paged (paged) cache through the
+    Engine held to the eager plain route by greedy_rule; a wave of 8 over
+    HTTP after the warm-up (every block and chunk a replay), B 1 / B 8
+    decode tok/s and the warm TTFT of 32 tokens. Then eight feature
+    families (bloom: ALiBi; phi3: fused qkv and a packed fused gate-up;
+    gpt2: learned positions; falcon: parallel residual; deci: per-layer
+    heads; chameleon; gemma2: D 256 with softcaps; qwen3vl: IMROPE) at 2
+    layers (deci 4), 1,024 wide: first-token logits on the card against
+    the port's CPU plain forward of the same file, and 4 greedy requests
+    on a warmed Q8_0 Engine (ALiBi: no fa, no fd launch);
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -1367,7 +1387,7 @@ def phase_graph_vs_eager(torch, model) -> list:
 
 def phase_decode_loop(torch, model) -> dict:
     """DecodeLoop (prefill + one captured graph of n_gen - 1 decode steps)
-    against engine.generate on the 8B model: a 32-token prompt, 48 greedy
+    against engine.generate on the 8B widths: a 32-token prompt, 48 greedy
     tokens, one slot of 256 positions on both sides (the same shapes, so
     the same kernels and sums). Then a sampled loop twice with one seed."""
     from superllama_tpu_torch.runtime.decode_loop import DecodeLoop
@@ -1394,7 +1414,8 @@ def phase_decode_loop(torch, model) -> dict:
     steps = graph_stats(loop, "block")
     check(steps["captures"] == 1 and steps["replays"] == 2,
           f"DecodeLoop's decode steps were not one replayed graph: {loop._graphs.stats}")
-    check(counts["qmv"] == 47 * 225 and counts["qmm"] == 225,
+    per_step = 7 * model.hparams.n_layer + 1          # each layer's matmuls and the head
+    check(counts["qmv"] == 47 * per_step and counts["qmm"] == per_step,
           f"DecodeLoop's launches: {counts}")
     check(s1 == s2 and len(set(s1)) > 1, "the sampled DecodeLoop did not repeat itself")
     return rec
@@ -2077,10 +2098,36 @@ def phase_grammar(torch, model, smi_line: str) -> list:
     return recs
 
 
-def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None):
+class PlainKernels:
+    """Within the block, every kernel the forward calls is its plain PyTorch
+    version (the eager plain route)."""
+
+    def __enter__(self):
+        from superllama_tpu_torch.models import llama as llama_mod
+        from superllama_tpu_torch.ops import flash_attention as fa_mod
+        from superllama_tpu_torch.ops import paged_attention as pa_mod
+        from superllama_tpu_torch.ops import qmatmul as qm_mod
+
+        self.saved = [(qm_mod, "qmv", qm_mod.qmv_plain), (qm_mod, "qmm", qm_mod.qmm_plain),
+                      (llama_mod, "flash_attention", fa_mod.flash_attention_plain),
+                      (llama_mod, "flash_decode_attention", fa_mod.flash_decode_plain),
+                      (llama_mod, "paged_flash_attention", pa_mod.paged_flash_attention_plain)]
+        self.saved = [(mod, name, getattr(mod, name), plain) for mod, name, plain in self.saved]
+        for mod, name, _, plain in self.saved:
+            setattr(mod, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn, _ in self.saved:
+            setattr(mod, name, fn)
+
+
+def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None,
+                greedy: int = 0):
     """Prefill tokens_seq[0] then decode the rest one by one on a fresh
     cache (dense of kv_dtype, default bf16, or paged bf16 with 256-token
-    pages), with ``extra`` set in hparams.extra meanwhile; returns the
+    pages), then ``greedy`` more decode steps, each of the last step's
+    argmax, with ``extra`` set in hparams.extra meanwhile; returns the
     logits of every step (f32)."""
     from superllama_tpu_torch.models.llama import llama_forward
     from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
@@ -2100,7 +2147,9 @@ def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None
     out, p0 = [], 0
     try:
         with torch.no_grad():
-            for toks in tokens_seq:
+            for i in range(len(tokens_seq) + greedy):
+                toks = (tokens_seq[i] if i < len(tokens_seq)
+                        else [int(out[-1][0, -1].argmax())])
                 t = torch.tensor([toks], device="cuda")
                 pos = torch.arange(p0, p0 + len(toks), device="cuda", dtype=torch.int32)[None]
                 if mgr is not None:
@@ -2120,19 +2169,10 @@ def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None
 def phase_parity(torch, model, label: str = "Q4_K") -> None:
     """One full-width forward (32-token prefill + 4 decode steps) with the
     kernels and again with their plain versions on the same inputs."""
-    from superllama_tpu_torch.models import llama as llama_mod
-    from superllama_tpu_torch.ops import qmatmul as qm_mod
-    from superllama_tpu_torch.ops.flash_attention import flash_attention_plain
-
     seq = token_prompts(model.hparams.n_vocab, [32, 1, 1, 1, 1], SEED + 3)
     got = forward_run(torch, model, seq)
-    saved = (qm_mod.qmv, qm_mod.qmm, llama_mod.flash_attention)
-    qm_mod.qmv, qm_mod.qmm, llama_mod.flash_attention = (
-        qm_mod.qmv_plain, qm_mod.qmm_plain, flash_attention_plain)
-    try:
+    with PlainKernels():
         ref = forward_run(torch, model, seq)
-    finally:
-        qm_mod.qmv, qm_mod.qmm, llama_mod.flash_attention = saved
     steps = compare_steps(got, ref)
     emit({"phase": "parity", "model": label, "steps": steps})
     # bf16 activations between layers: the kernels and the plain versions
@@ -2984,13 +3024,14 @@ SPEC_SAMPLED = {"temp": 0.8, "top_k": 40, "top_p": 0.95, "min_p": 0.05, "seed": 
 SPEC_TOKENS, DRAFT_TOKENS, SAMPLED_TOKENS = 32, 16, 8
 
 
-def build_draft(torch):
-    """The synthetic 1B draft (seed 1, about 1.2 GB of Q4_K and bf16)."""
+def build_draft(torch, n_layer: int = DRAFT_1B["n_layer"]):
+    """The synthetic 1B draft (seed 1, about 1.2 GB of Q4_K and bf16 at its
+    16 layers), ``n_layer`` deep."""
     from superllama_tpu_torch.models.loader import LoadedModel
     from superllama_tpu_torch.models.synthetic import (llama3_8b_hparams,
                                                        synthetic_qparams_device)
 
-    hp = llama3_8b_hparams(**DRAFT_1B)
+    hp = llama3_8b_hparams(**{**DRAFT_1B, "n_layer": n_layer})
     t0 = time.perf_counter()
     params = synthetic_qparams_device(hp, seed=SEED + 1, device="cuda")
     torch.cuda.synchronize()
@@ -3182,7 +3223,7 @@ PATH_NMSE = 1e-3     # logits of two paths of one position: phase 5's limit
 
 
 def greedy_rule(torch, model, label: str, prompt, ref, got, rows: int, width: int,
-                **path_kw) -> dict:
+                paths=None, **path_kw) -> dict:
     """``got`` (a variant's greedy tokens) against ``ref`` (the plain path's,
     as many): equal, or parted at a first position i where the two
     candidates' logits (the plain decode path's) differ by no more than the
@@ -3192,13 +3233,16 @@ def greedy_rule(torch, model, label: str, prompt, ref, got, rows: int, width: in
     prompt + got must rank each got[j] first or within 2 D of the first, D
     the largest difference among the three paths at i: a token the
     variant's path ranks first lies at most 2 D below the first wherever
-    the two paths differ by at most D."""
+    the two paths differ by at most D. ``paths(ids)`` gives the two paths'
+    logits (default: path_logits' plain decode step and variant step)."""
     ref = ref[:len(got)]
     i = first_divergence(ref, got)
     if i is None and len(ref) == len(got):
         return {"equal": True}
     check(i is not None, f"{label}: {len(got)} tokens against the plain path's {len(ref)}")
-    a, b = path_logits(torch, model, list(prompt) + list(ref[:i]), rows, width, **path_kw)
+    ids = list(prompt) + list(ref[:i])
+    a, b = (paths(ids) if paths is not None
+            else path_logits(torch, model, ids, rows, width, **path_kw))
     x, y = ref[i], got[i]
     gap = abs(float(a[x] - a[y]))
     path_diff = float((a - b).abs().max())
@@ -3621,7 +3665,8 @@ def phase_spec(torch, model, smi_line: str) -> None:
 
     n_vocab = model.hparams.n_vocab
     prompts, lk_prompts = spec_prompts(n_vocab), repeated_prompts(n_vocab)
-    draft = build_draft(torch)
+    # the draft no deeper than the target (the whole run's target is cut)
+    draft = build_draft(torch, min(DRAFT_1B["n_layer"], model.hparams.n_layer))
     base = plain_baselines(torch, model, prompts, lk_prompts)
     lap("draft and plain baselines")
     recs = []
@@ -4248,11 +4293,14 @@ FILE_TYPES = {"attn_q": "Q4_0", "attn_k": "Q4_0", "attn_v": "Q5_K", "attn_output
               "output": "Q6_K", "token_embd": "Q4_0"}
 
 
-def weight_shapes(hp) -> dict:
-    """{GGUF tensor name: (role, N, K)} of a llama of hp's widths."""
+def weight_shapes(hp, tied: bool = False) -> dict:
+    """{GGUF tensor name: (role, N, K)} of a llama of hp's widths (without
+    output.weight when ``tied``)."""
     E, F, V = hp.n_embd, hp.n_ff, hp.n_vocab
     qd, kvd = hp.n_head * hp.head_dim, hp.n_head_kv * hp.head_dim
-    shapes = {"token_embd.weight": ("token_embd", V, E), "output.weight": ("output", V, E)}
+    shapes = {"token_embd.weight": ("token_embd", V, E)}
+    if not tied:
+        shapes["output.weight"] = ("output", V, E)
     for il in range(hp.n_layer):
         for role, N, K in (("attn_q", qd, E), ("attn_k", kvd, E), ("attn_v", kvd, E),
                            ("attn_output", E, qd), ("ffn_gate", F, E), ("ffn_up", F, E),
@@ -4261,22 +4309,26 @@ def weight_shapes(hp) -> dict:
     return shapes
 
 
-def model_writer(path: str, hp, tok, name: str):
-    """A GGUFWriter holding a llama's metadata (hp's widths, tok's vocab) and
-    its F32 norms (ones); the caller adds the matmul weights and writes."""
+def model_writer(path: str, hp, tok, name: str, arch: str = "llama", keys=None,
+                 ffn_norm: bool = True):
+    """A GGUFWriter holding a model's metadata (hp's widths under ``arch``,
+    ``keys`` added or overriding, tok's vocab) and its F32 norms (ones;
+    without ffn_norm when ``ffn_norm`` is False); the caller adds the matmul
+    weights and writes."""
     import numpy as np
 
     from superllama_tpu_torch.gguf import GGUFWriter
 
     E = hp.n_embd
-    w = GGUFWriter(path, arch="llama")
-    for key, v in (("context_length", 8192), ("embedding_length", E), ("block_count", hp.n_layer),
-                   ("feed_forward_length", hp.n_ff), ("attention.head_count", hp.n_head),
-                   ("attention.head_count_kv", hp.n_head_kv),
-                   ("attention.layer_norm_rms_epsilon", hp.rms_eps),
-                   ("rope.freq_base", hp.rope_freq_base), ("rope.dimension_count", hp.n_rot),
-                   ("vocab_size", hp.n_vocab)):
-        w.add(f"llama.{key}", v)
+    w = GGUFWriter(path, arch=arch)
+    meta = {"context_length": 8192, "embedding_length": E, "block_count": hp.n_layer,
+            "feed_forward_length": hp.n_ff, "attention.head_count": hp.n_head,
+            "attention.head_count_kv": hp.n_head_kv,
+            "attention.layer_norm_rms_epsilon": hp.rms_eps,
+            "rope.freq_base": hp.rope_freq_base, "rope.dimension_count": hp.n_rot,
+            "vocab_size": hp.n_vocab, **(keys or {})}
+    for key, v in meta.items():
+        w.add(f"{arch}.{key}", v)
     v = tok.vocab
     w.add("general.name", name)
     w.add("tokenizer.ggml.model", v.model)
@@ -4291,24 +4343,28 @@ def model_writer(path: str, hp, tok, name: str):
     w.add_tensor("output_norm.weight", ones)
     for il in range(hp.n_layer):
         w.add_tensor(f"blk.{il}.attn_norm.weight", ones)
-        w.add_tensor(f"blk.{il}.ffn_norm.weight", ones)
+        if ffn_norm:
+            w.add_tensor(f"blk.{il}.ffn_norm.weight", ones)
     return w
 
 
 def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b-mixed",
-                     shared_layers: bool = False) -> dict:
-    """A llama GGUF of hp's widths, ``types``' formats by role (default
-    FILE_TYPES) of rand_raw bytes (norms F32 ones), and tok's vocab, written
-    by the port's GGUFWriter; with ``shared_layers`` every layer holds the
-    bytes of layer 0 (rand_raw makes about 0.2 GB/s on one core). Returns
-    {tensor name: (type, raw bytes, (N, K))} of the quantized ones."""
+                     shared_layers: bool = False, arch: str = "llama", keys=None,
+                     ffn_norm: bool = True, tied: bool = False) -> dict:
+    """A GGUF of hp's widths under ``arch`` (``model_writer``'s ``keys`` and
+    ``ffn_norm``; no output.weight when ``tied``), ``types``' formats by
+    role (default FILE_TYPES) of rand_raw bytes (norms F32 ones), and tok's
+    vocab, written by the port's GGUFWriter; with ``shared_layers`` every
+    layer holds the bytes of layer 0 (rand_raw makes about 0.2 GB/s on one
+    core). Returns {tensor name: (type, raw bytes, (N, K))} of the quantized
+    ones."""
     from concurrent.futures import ThreadPoolExecutor
 
     from superllama_tpu_torch.gguf import GGMLType
     from superllama_tpu_torch.models.synthetic import rand_raw
 
     types = types or FILE_TYPES
-    shapes = weight_shapes(hp)
+    shapes = weight_shapes(hp, tied)
     key = (lambda n: n.split(".", 2)[-1]) if shared_layers else (lambda n: n)
     first = {}                      # each set of bytes -> the first tensor holding it
     for n in shapes:
@@ -4323,7 +4379,7 @@ def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b
     with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
         made = dict(ex.map(make, enumerate(first.items())))
     raws = {n: made[key(n)] for n in shapes}
-    w = model_writer(path, hp, tok, name)
+    w = model_writer(path, hp, tok, name, arch, keys, ffn_norm)
     for n, (t, raw, (N, K)) in raws.items():
         w.add_tensor(n, raw, t, raw_ne=(K, N))
     w.write()
@@ -4471,6 +4527,9 @@ Q4_K_M_TYPES = {"attn_q": "Q4_K", "attn_k": "Q4_K", "attn_v": "Q6_K", "attn_outp
 IMATRIX_LAYERS = 1
 PPL_CTX, PPL_CHUNKS, IMATRIX_CHUNKS = 512, 4, 8
 PPL_TOL = 1e-3       # relative: the packed load against the same file dequantized
+# the depth of the 1B-width workflow's files (Llama-3.2-1B has 16 layers):
+# every step of it is per layer
+WORKFLOW_LAYERS = 8
 
 
 def repo_text(limit: int = 200_000) -> str:
@@ -4616,10 +4675,11 @@ def cli_run(argv) -> str:
 
 
 def toolchain_1b(torch, d: str, tok, text: str) -> dict:
-    """llama.cpp's quantization workflow at Llama-3.2-1B's widths: an F16
-    file, quantize to Q4_K_M, imatrix on the card, quantize --imatrix (at
-    IMATRIX_LAYERS), perplexity of both files and their KL divergence, the
-    packed load against the dequantized one."""
+    """llama.cpp's quantization workflow at Llama-3.2-1B's widths (at
+    WORKFLOW_LAYERS deep): an F16 file, quantize to Q4_K_M, imatrix on the
+    card, quantize --imatrix (at IMATRIX_LAYERS), perplexity of both files
+    and their KL divergence, the packed load against the dequantized
+    one."""
     import gc
 
     import numpy as np
@@ -4640,7 +4700,7 @@ def toolchain_1b(torch, d: str, tok, text: str) -> dict:
         out[key] = now - lap
         lap = now
 
-    hp = llama3_8b_hparams(**DRAFT_1B)
+    hp = llama3_8b_hparams(**{**DRAFT_1B, "n_layer": WORKFLOW_LAYERS})
     f16, q = os.path.join(d, "f16.gguf"), os.path.join(d, "q4_k_m.gguf")
     weights = f16_weights(torch, hp)
     write_f16_model(f16, hp, tok, weights)
@@ -4778,6 +4838,456 @@ def phase_toolchain(torch, smi_line: str) -> dict:
         t0 = time.perf_counter()
         info["workflow_1b"] = toolchain_1b(torch, d, tok, text)
         info["workflow_1b"]["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    info["seconds"] = time.perf_counter() - t_all
+    emit(info)
+    return info
+
+
+# ------------------------------------------------------------ 4k. the dense architecture registry
+
+# Command-R7B (CohereForAI/c4ai-command-r7b-12-2024 config.json): cohere2 at
+# its published widths; a 4,096-token window on three layers of four, NoPE
+# on the fourth, LayerNorm without bias, a parallel residual off one shared
+# norm, logit scale 0.25, tied embeddings
+CMDR7B = dict(arch="cohere2", n_embd=4096, n_layer=32, n_head=32, n_head_kv=8, head_dim=128,
+              head_dim_v=128, n_rot=128, n_ff=14336, n_vocab=256000, rope_freq_base=50000.0)
+CMDR7B_KEYS = {"attention.layer_norm_epsilon": 1e-5, "attention.sliding_window": 4096,
+               "logit_scale": 0.25, "attention.key_length": 128, "attention.value_length": 128}
+# llama.cpp's Q4_K_M rules; a tied embedding is the head, so it takes the
+# head's Q6_K
+CMDR7B_TYPES = {**Q4_K_M_TYPES, "token_embd": "Q6_K"}
+# a 4,600-token prompt, past the window; its last chunk of 32 rows takes
+# qmm and fa_tc (T ≥ 32)
+LONG_CHUNKS = (2048, 2048, 472, 32)
+ARCH_NMSE = 1e-3     # phase 5's limit: bf16 activations, kernels against plain versions
+ARCH_DECODE = 16     # greedy tokens a cache
+# the sweep: 2 layers (deci 4), 1,024 wide, 8 heads of 128 (gemma2 256), FFN
+# 2,816, Q4_K weights of rand_raw bytes, a 32,000-piece vocab
+SWEEP = dict(E=1024, H=8, D=128, F=2816, L=2, V=32000)
+SWEEP_FAMILIES = ("bloom", "phi3", "gpt2", "falcon", "deci", "chameleon", "gemma2", "qwen3vl")
+
+
+def cmdr7b_long_prompt(torch, model) -> dict:
+    """The 4,600-token prompt in LONG_CHUNKS on a bf16 cache through the
+    kernels (the M > 32 path, fa_tc); then its last 32-token chunk twice
+    over the same cache: through the kernels (qmm, fa_tc) and through the
+    plain versions. The last position's logits of the two agree within
+    ARCH_NMSE."""
+    from superllama_tpu_torch.models.llama import llama_forward
+    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init, kv_truncate_rows
+
+    hp = model.hparams
+    n = sum(LONG_CHUNKS)
+    ids = token_prompts(hp.n_vocab, [n], SEED + 80)[0]
+    cache = kv_cache_init(hp.n_layer, 1, n + 8, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
+                          dtype=torch.bfloat16, device="cuda")
+
+    def chunk(p0, p1):
+        tok = torch.tensor([ids[p0:p1]], device="cuda")
+        pos = torch.arange(p0, p1, dtype=torch.int32, device="cuda")[None]
+        with torch.no_grad():
+            lg, _ = llama_forward(model.params, hp, tok, pos, cache)
+        return lg[0, -1].float()
+
+    t0 = time.perf_counter()
+    reset_counts()
+    p0 = 0
+    for c in LONG_CHUNKS[:-1]:
+        chunk(p0, p0 + c)
+        p0 += c
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    got = chunk(p0, n)
+    counts = read_counts()
+    kv_truncate_rows(cache, torch.tensor([p0], dtype=torch.int32, device="cuda"))
+    with PlainKernels():
+        ref = chunk(p0, n)
+    err = nmse(got, ref)
+    check(err < ARCH_NMSE, f"Command-R7B long prompt: kernel against plain route nmse {err:g}")
+    for name in ("qmm", "fa_tc"):
+        check(counts[name] > 0, f"Command-R7B long prompt never launched {name}")
+    return {"tokens": n, "chunks": list(LONG_CHUNKS), "prefill_s": prefill_s, "nmse": err,
+            "nmse_bound": ARCH_NMSE, "argmax_agree": bool(got.argmax() == ref.argmax()),
+            "launches": {k: counts[k] for k in ("qmm", "fa_tc", "fa", "qmv")}}
+
+
+def plain_greedy(torch, model, prompt, n: int, kv_dtype=None, paged=False) -> list:
+    """n greedy tokens through the eager plain route: the prompt's prefill,
+    then one decode step a token, every kernel replaced by its plain
+    version."""
+    with PlainKernels():
+        steps = forward_run(torch, model, [list(prompt)], kv_dtype, paged, greedy=n - 1)
+    return [int(lg[0, -1].argmax()) for lg in steps]
+
+
+def route_paths(torch, model, prompt, kv_dtype=None, paged=False):
+    """greedy_rule's paths for a served decode against the eager plain
+    route: the logits of ids[-1] at its position through the plain route
+    (a) and through the kernels (b), the prompt prefilled, then one decode
+    step a token, on a fresh cache of the kind each time."""
+    def paths(ids):
+        seq = [list(prompt)] + [[t] for t in ids[len(prompt):]]
+        with PlainKernels():
+            a = forward_run(torch, model, seq, kv_dtype, paged)[-1][0, -1].cpu()
+        b = forward_run(torch, model, seq, kv_dtype, paged)[-1][0, -1].cpu()
+        return a, b
+    return paths
+
+
+def cmdr7b_decode(torch, model) -> dict:
+    """ARCH_DECODE greedy tokens of a 32-token prompt on a bf16, a Q8_0
+    (fd) and a paged (paged) cache through the Engine (its decode blocks
+    replayed from CUDA graphs), each held to the eager plain route by
+    greedy_rule."""
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    hp = model.hparams
+    prompt = token_prompts(hp.n_vocab, [32], SEED + 81)[0]
+    out = {}
+    for label, kw, kernel in (("bf16", {}, "qmv"), ("q8_0", {"kv_dtype": "q8_0"}, "fd"),
+                              ("paged", {"paged": True, "page_size": 256}, "paged")):
+        eng = Engine(model, n_slots=1, n_ctx=512, device="cuda",
+                     **{"kv_dtype": torch.bfloat16, **kw})
+        reset_counts()
+        got = eng.generate(prompt, max_tokens=ARCH_DECODE, sampling={"greedy": True},
+                           stop_eog=False)["tokens"]
+        counts = read_counts()
+        stats = block_stats(eng)
+        check(stats["blocks"] > 0 and stats["replays"] == stats["blocks"],
+              f"Command-R7B {label}: decode blocks {stats}")
+        check(counts[kernel] > 0, f"Command-R7B {label} decode never launched {kernel}")
+        del eng
+        cache_kw = {"kv_dtype": kw.get("kv_dtype"), "paged": bool(kw.get("paged"))}
+        ref = plain_greedy(torch, model, prompt, ARCH_DECODE, **cache_kw)
+        rule = greedy_rule(torch, model, f"Command-R7B {label}", prompt, ref, got, 1, 1,
+                           paths=route_paths(torch, model, prompt, **cache_kw), **cache_kw)
+        out[label] = {"greedy_rule": rule, "launches": {k: counts[k] for k in
+                                                        ("qmv", "qmm", "fa_tc", "fd", "paged")},
+                      "blocks": stats["blocks"], "replays": stats["replays"]}
+    return out
+
+
+def cmdr7b_serving(torch, model) -> dict:
+    """A wave of 8 requests of 32-token prompts, 32 tokens each, over HTTP
+    to a warmed-up ServerApp (bf16 cache): the served tokens equal the
+    engine's own wave, every decode block and prompt chunk a replay and no
+    capture after the warm-up; then B 1 and B 8 decode tok/s and the warm
+    TTFT of a 32-token prompt."""
+    import gc
+
+    from superllama_tpu_torch.server.http import Server, ServerApp
+
+    app = ServerApp(model, n_slots=8, n_ctx=512, model_name=model.name, device="cuda",
+                    kv_dtype=torch.bfloat16)
+    srv = Server(app, host="127.0.0.1", port=0)
+    srv.start()
+    eng, warm = app.engine, app.warmup_info
+    try:
+        prompts = token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 82)
+        results: list = [None] * len(prompts)
+
+        def send(i):
+            results[i] = http(srv.port, "/v1/completions",
+                              {"prompt": prompts[i], "max_tokens": 32, "temperature": 0,
+                               "return_tokens": True})
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+        stats0 = block_stats(eng)
+        reset_counts()
+        in_one_wave(eng, lambda: [t.start() for t in threads], len(prompts))
+        for t in threads:
+            t.join(timeout=600)
+        counts = read_counts()
+        served = []
+        for i, (st, data) in enumerate(results):
+            ch = json.loads(data)["choices"][0]
+            check(st == 200 and len(ch["tokens"]) == 32, f"Command-R7B request {i}: HTTP {st}")
+            served.append(ch["tokens"])
+        fresh(eng)
+        direct = [r["tokens"] for r in engine_wave(eng, prompts, 32)]
+        check(direct == served, "Command-R7B: served tokens differ from the engine's wave")
+        replayed = check_replayed("Command-R7B wave", stats0, block_stats(eng))
+        p32 = prompts[0]
+        gen = lambda n: (fresh(eng), eng.generate(  # noqa: E731
+            p32, max_tokens=n, sampling={"greedy": True}, stop_eog=False))[1]
+        ttft = sorted(gen(1)["ttft_s"] * 1e3 for _ in range(3))[1]
+        r1 = gen(64)
+        fresh(eng)
+        rs = engine_wave(eng, prompts, 64)
+        after = block_stats(eng)
+        check(after["captures"] == stats0["captures"]
+              and after["chunk_captures"] == stats0["chunk_captures"],
+              f"Command-R7B: a graph was captured after the warm-up: {after}")
+        b8 = (sum(r["n_generated"] - 1 for r in rs)
+              / (max(r["total_s"] for r in rs) - max(r["ttft_s"] for r in rs)))
+        info = {"warmup_keys": len(warm["keys"]), "warmup_s": warm["seconds"],
+                "graph_pool_bytes": warm["pool_bytes"], "served_equal_engine": True,
+                "wave_blocks": replayed, "launches": {k: counts[k] for k in
+                                                      ("qmv", "qmm", "fa_tc", "fd", "paged")},
+                "decode_tok_s_b1": (r1["n_generated"] - 1) / (r1["total_s"] - r1["ttft_s"]),
+                "decode_tok_s_b8": b8, "ttft_ms_prompt32": ttft}
+    finally:
+        srv.stop()
+        del app, srv, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (the wave prefills as one 8-row chunk of 256 rows: the M > 32 path,
+    # no qmm; the long prompt's last chunk holds qmm)
+    for name in ("qmv", "fa_tc"):
+        check(info["launches"][name] > 0, f"Command-R7B serving never launched {name}")
+    return info
+
+
+def cmdr7b(torch, d: str, smi_line: str) -> dict:
+    """Command-R7B at full width, as a Q4_K_M-style file of rand_raw bytes
+    (every layer layer 0's) with a 256,000-piece vocab: written, loaded
+    packed onto the card, its hparams checked against the published
+    config, then the long prompt, the three caches' decode and the
+    serving wave."""
+    import gc
+
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+
+    hp = llama3_8b_hparams(**CMDR7B)
+    tok = grammar_tokenizer(hp.n_vocab)
+    path = os.path.join(d, "synthetic-command-r7b-q4_k_m.gguf")
+    t0 = time.perf_counter()
+    write_file_model(path, hp, tok, CMDR7B_TYPES, "synthetic-command-r7b-q4_k_m",
+                     shared_layers=True, arch="cohere2", keys=CMDR7B_KEYS, ffn_norm=False,
+                     tied=True)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = load_model(path, dtype=torch.bfloat16, keep_quantized=True, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = model.hparams
+    want = {"arch": "cohere2", "n_embd": 4096, "n_layer": 32, "n_head": 32, "n_head_kv": 8,
+            "head_dim": 128, "n_ff": 14336, "n_vocab": 256000, "swa_window": 4096,
+            "swa_pattern": 4, "rope_freq_base": 50000.0, "norm_type": "ln",
+            "parallel_residual": True, "logit_scale": 0.25}
+    have = {k: getattr(got, k) for k in want}
+    check(have == want and bool(got.extra.get("rope_swa_only"))
+          and model.params.get("output") is None,
+          f"Command-R7B hparams from the file: {have} (want {want}), extra {got.extra}")
+    check([got.is_swa_layer(il) for il in range(4)] == [True, True, True, False],
+          "Command-R7B: the window is not on three layers of four")
+    info = {"file_bytes": os.path.getsize(path), "write_s": write_s, "load_s": load_s,
+            "hparams": have}
+    os.remove(path)
+    t0 = time.perf_counter()
+    info["long_prompt"] = cmdr7b_long_prompt(torch, model)
+    info["long_prompt"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info["decode"] = cmdr7b_decode(torch, model)
+    info["decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info["serving"] = cmdr7b_serving(torch, model)
+    info["serving"]["seconds"] = time.perf_counter() - t0
+    info["card"] = smi_line
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def sweep_file(path: str, family: str) -> str:
+    """A tiny-depth GGUF of one feature family at SWEEP's widths: Q4_K
+    matmul weights of rand_raw bytes, F32 norms, biases and learned
+    positions, no tokenizer; the architecture's own tensor names and
+    metadata."""
+    import numpy as np
+
+    from superllama_tpu_torch.gguf import GGMLType, GGUFWriter
+    from superllama_tpu_torch.models.synthetic import rand_raw
+
+    E, H, D, F, L, V = (SWEEP[k] for k in ("E", "H", "D", "F", "L", "V"))
+    arch = family
+    HKV = {"bloom": H, "gpt2": H, "falcon": 1}.get(family, 2)
+    if family == "gemma2":
+        D = 256
+    ln = family in ("bloom", "gpt2", "falcon")
+    rng = np.random.default_rng([SEED + 90, *family.encode()])
+    w = GGUFWriter(path, arch=arch)
+    heads = [H, 0, H, H] if family == "deci" else H
+    heads_kv = [0, 0, HKV, HKV] if family == "deci" else HKV
+    ffs = [F, F, 0, F] if family == "deci" else F
+    n_layer = 4 if family == "deci" else L
+    meta = {"context_length": 2048, "embedding_length": E, "block_count": n_layer,
+            "feed_forward_length": ffs, "attention.head_count": heads,
+            "attention.head_count_kv": heads_kv, "attention.key_length": D,
+            "attention.value_length": D, "rope.dimension_count": D, "vocab_size": V,
+            "rope.freq_base": 10000.0,
+            ("attention.layer_norm_epsilon" if ln else
+             "attention.layer_norm_rms_epsilon"): 1e-5}
+    meta.update({"gemma2": {"attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+                            "attention.sliding_window": 4096},
+                 "qwen3vl": {"rope.dimension_sections": [24, 20, 20, 0],
+                             "n_deepstack_layers": 0},
+                 "chameleon": {"swin_norm": False}}.get(family, {}))
+    w.add("general.name", f"sweep-{family}")
+    for k, v in meta.items():
+        w.add(f"{arch}.{k}", v)
+    seed = iter(range(SEED + 100, SEED + 10_000))
+
+    def q(name, N, K):
+        w.add_tensor(name, rand_raw(GGMLType.Q4_K, N, K, next(seed)), GGMLType.Q4_K,
+                     raw_ne=(K, N))
+
+    def f32(name, *shape, scale=0.05, one=False):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        w.add_tensor(name, a + 1.0 if one else a)
+
+    def norm(name, dim):
+        f32(name + ".weight", dim, one=True)
+        if ln:
+            f32(name + ".bias", dim)
+
+    q("token_embd.weight", V, E)
+    if family == "gpt2":
+        f32("position_embd.weight", 2048, E, scale=0.02)
+    if family == "bloom":
+        norm("token_embd_norm", E)
+    norm("output_norm", E)
+    if family not in ("bloom", "gemma2"):        # the others ship their head
+        q("output.weight", V, E)
+    fused = family in ("bloom", "phi3", "gpt2", "falcon")
+    for il in range(n_layer):
+        b = f"blk.{il}."
+        h = heads[il] if family == "deci" else H
+        hkv = heads_kv[il] if family == "deci" else HKV
+        f = ffs[il] if family == "deci" else F
+        if h:
+            norm(b + "attn_norm", E)
+            if fused:
+                q(b + "attn_qkv.weight", (h + 2 * hkv) * D, E)
+                if family in ("bloom", "gpt2"):
+                    f32(b + "attn_qkv.bias", (h + 2 * hkv) * D)
+            elif hkv:
+                q(b + "attn_q.weight", h * D, E)
+                q(b + "attn_k.weight", hkv * D, E)
+                q(b + "attn_v.weight", hkv * D, E)
+            q(b + "attn_output.weight", E, h * D if hkv else E)
+            if family in ("bloom", "gpt2"):
+                f32(b + "attn_output.bias", E)
+        if family == "chameleon":
+            for n_, hh in (("q", h), ("k", hkv)):
+                f32(b + f"attn_{n_}_norm.weight", hh, D, one=True)
+                f32(b + f"attn_{n_}_norm.bias", hh, D)
+        if family == "qwen3vl":
+            f32(b + "attn_q_norm.weight", D, one=True)
+            f32(b + "attn_k_norm.weight", D, one=True)
+        if family == "gemma2":
+            f32(b + "post_attention_norm.weight", E, one=True)
+            f32(b + "post_ffw_norm.weight", E, one=True)
+        if not f:
+            continue
+        if family != "falcon":
+            norm(b + "ffn_norm", E)
+        if family == "phi3":
+            q(b + "ffn_up.weight", 2 * f, E)        # gate ∥ up, split by rows at load
+        else:
+            if family not in ("bloom", "gpt2", "falcon"):
+                q(b + "ffn_gate.weight", f, E)
+            q(b + "ffn_up.weight", f, E)
+            if family in ("bloom", "gpt2"):
+                f32(b + "ffn_up.bias", f)
+        q(b + "ffn_down.weight", E, f)
+        if family in ("bloom", "gpt2"):
+            f32(b + "ffn_down.bias", E)
+    w.write()
+    return path
+
+
+def sweep_family(torch, d: str, family: str) -> dict:
+    """One family's file loaded packed onto the card and onto the host: the
+    32-token prompt's first-token logits through the card's kernels against
+    the port's CPU plain forward (ARCH_NMSE); then 4 greedy requests on a
+    warmed-up Q8_0 Engine, every block a replay and no capture after the
+    warm-up (ALiBi: no fa and no fd launch)."""
+    import gc
+
+    from superllama_tpu_torch.models.llama import llama_forward
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.runtime.engine import Engine
+    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
+
+    t0 = time.perf_counter()
+    path = sweep_file(os.path.join(d, f"sweep-{family}.gguf"), family)
+    models = {dev: load_model(path, dtype=torch.bfloat16, keep_quantized=True, device=dev)
+              for dev in ("cuda", "cpu")}
+    hp = models["cuda"].hparams
+    prompt = token_prompts(hp.n_vocab, [32], SEED + 83)[0]
+    first = {}
+    reset_counts()
+    for dev, m in models.items():
+        cache = kv_cache_init(hp.n_layer, 1, 64, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
+                              dtype=torch.bfloat16, device=dev)
+        with torch.no_grad():
+            lg, _ = llama_forward(m.params, hp, torch.tensor([prompt], device=dev),
+                                  torch.arange(32, dtype=torch.int32, device=dev)[None], cache)
+        first[dev] = lg[0, -1].float().cpu()
+    prefill = read_counts()
+    err = nmse(first["cuda"], first["cpu"])
+    check(err < ARCH_NMSE, f"sweep {family}: card against CPU plain forward nmse {err:g}")
+    eng = Engine(models["cuda"], n_slots=4, n_ctx=256, kv_dtype="q8_0", device="cuda")
+    warm = eng.warmup()
+    eng.start()
+    try:
+        stats0 = block_stats(eng)
+        reset_counts()
+        outs = engine_wave(eng, token_prompts(hp.n_vocab, [32, 20, 27, 32], SEED + 84), 16)
+        counts = read_counts()
+        replayed = check_replayed(f"sweep {family}", stats0, block_stats(eng))
+        after = block_stats(eng)
+        check(after["captures"] == stats0["captures"]
+              and after["chunk_captures"] == stats0["chunk_captures"],
+              f"sweep {family}: a graph was captured after the warm-up")
+    finally:
+        eng.stop()
+    check(all(len(r["tokens"]) == 16 and max(r["tokens"]) < hp.n_vocab for r in outs),
+          f"sweep {family}: wrong tokens")
+    sup = hp.extra.get("logit_suppress")
+    if sup is not None:     # chameleon: decode steps never pick an image token
+        check(not any(sup[0] <= t < sup[1] for r in outs for t in r["tokens"][1:]),
+              f"sweep {family}: a decode step picked a suppressed image token")
+    if hp.alibi:
+        check(counts["fa"] + counts["fa_tc"] + counts["fd"] + prefill["fa"]
+              + prefill["fa_tc"] == 0,
+              f"sweep {family}: ALiBi launched fa or fd: {counts}")
+    else:
+        check(prefill["fa_tc"] > 0 and counts["fd"] > 0,
+              f"sweep {family}: the flash prefill or the decode kernel never launched")
+    check(counts["qmv"] > 0 and prefill["qmm"] > 0, f"sweep {family}: qmv / qmm never launched")
+    info = {"family": family, "arch": hp.arch, "n_layer": hp.n_layer, "head_dim": hp.head_dim,
+            "first_token_nmse": err, "nmse_bound": ARCH_NMSE,
+            "argmax_agree": bool(first["cuda"].argmax() == first["cpu"].argmax()),
+            "warmup_keys": len(warm["keys"]), "wave_blocks": replayed,
+            "launches_prefill": {k: prefill[k] for k in ("qmm", "fa", "fa_tc")},
+            "launches_wave": {k: counts[k] for k in ("qmv", "qmm", "fa", "fa_tc", "fd")},
+            "seconds": time.perf_counter() - t0}
+    os.remove(path)
+    del models, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_archs(torch, smi_line: str) -> dict:
+    """4k. The dense architecture registry on the card: Command-R7B at full
+    width, then the sweep of the feature families."""
+    import shutil
+    import tempfile
+
+    t_all = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="archs_", dir=build)
+    try:
+        info = {"phase": "archs", "card": smi_line, "command_r7b": cmdr7b(torch, d, smi_line)}
+        info["sweep"] = [sweep_family(torch, d, fam) for fam in SWEEP_FAMILIES]
     finally:
         shutil.rmtree(d, ignore_errors=True)
     info["seconds"] = time.perf_counter() - t_all
@@ -5371,10 +5881,10 @@ def main() -> int:
     if "--graphs" in sys.argv[1:]:
         # the decode blocks' graphs alone: graph against eager blocks on
         # each cache, DecodeLoop, and the bf16 serving waves
-        model = build_model(torch)
-        phase_graph_vs_eager(torch, build_model(torch, n_layer=CUT_LAYERS))
-        phase_decode_loop(torch, model)
-        phase_serving(torch, model)
+        cut = build_model(torch, n_layer=CUT_LAYERS)
+        phase_graph_vs_eager(torch, cut)
+        phase_decode_loop(torch, cut)
+        phase_serving(torch, build_model(torch))
         return 0
     if "--checks" in sys.argv[1:]:
         # the kernels against their plain versions alone
@@ -5425,17 +5935,21 @@ def main() -> int:
         # the model-file toolchain alone (phase 4j)
         phase_toolchain(torch, info["nvidia_smi"])
         return 0
+    if "--archs" in sys.argv[1:]:
+        # the dense architecture registry alone (phase 4k)
+        phase_archs(torch, info["nvidia_smi"])
+        return 0
     if "--state" in sys.argv[1:]:
         # the engine's state between requests alone (phase 4e)
-        phase_state(torch, build_model(torch), info["nvidia_smi"])
+        phase_state(torch, build_model(torch, n_layer=CUT_LAYERS), info["nvidia_smi"])
         return 0
     if "--grammar" in sys.argv[1:]:
         # structured output alone (phase 4f)
-        phase_grammar(torch, build_model(torch), info["nvidia_smi"])
+        phase_grammar(torch, build_model(torch, n_layer=CUT_LAYERS), info["nvidia_smi"])
         return 0
     if "--spec" in sys.argv[1:]:
         # the decode variants alone (phase 4g)
-        phase_spec(torch, build_model(torch), info["nvidia_smi"])
+        phase_spec(torch, build_model(torch, n_layer=CUT_LAYERS), info["nvidia_smi"])
         return 0
     if "--server" in sys.argv[1:]:
         # the server's front door alone (phase 4h)
@@ -5449,24 +5963,28 @@ def main() -> int:
     paged_counts = phase_serving_paged(torch, model)
     counts["paged"], counts["paged_tc"] = paged_counts["paged"], paged_counts["paged_tc"]
     counts["fa"] = phase_serving_f32(torch, model)["fa"]
-    # graph against eager and the profiles at a cut depth (their checks do
-    # not depend on it; eager runs take most of their time)
-    phase_graph_vs_eager(torch, build_model(torch, n_layer=CUT_LAYERS))
-    phase_decode_loop(torch, model)
-    phase_warmup(torch, model)
-    phase_state(torch, model, info["nvidia_smi"])
-    phase_grammar(torch, model, info["nvidia_smi"])
-    phase_spec(torch, model, info["nvidia_smi"])
+    # graph against eager, DecodeLoop, the warm-up, the engine's state,
+    # grammars, the decode variants and the profiles at a cut depth (their
+    # checks do not depend on it; eager runs, warm-ups and host steps take
+    # most of their time)
+    cut = build_model(torch, n_layer=CUT_LAYERS)
+    phase_graph_vs_eager(torch, cut)
+    phase_decode_loop(torch, cut)
+    phase_warmup(torch, cut)
+    phase_state(torch, cut, info["nvidia_smi"])
+    phase_grammar(torch, cut, info["nvidia_smi"])
+    phase_spec(torch, cut, info["nvidia_smi"])
     phase_front_door(torch, model, info["nvidia_smi"])
     # the new formats' kernels launch on the serving mixes' path
     counts.update(phase_mixes(torch, info["nvidia_smi"]))
     phase_gguf_file(torch, info["nvidia_smi"])
     phase_toolchain(torch, info["nvidia_smi"])
+    phase_archs(torch, info["nvidia_smi"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)
     times = phase_times(torch, model, info["nvidia_smi"])
-    phase_profile(torch, build_model(torch, n_layer=CUT_LAYERS))
+    phase_profile(torch, cut)
     # the probe kernels' launches come from the tools' path
     tool_counts = phase_tools(torch, model)
     counts.update({name: n for name, n in tool_counts.items() if name.startswith("qmv_probe")})

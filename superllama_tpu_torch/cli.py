@@ -11,12 +11,14 @@ package's CLI:
   quantize       re-quantize a GGUF (llama-quantize), optionally with an imatrix
   imatrix        collect an importance matrix over a calibration text
   perplexity     perplexity, or hellaswag / winogrande / multiple-choice scores
+  cvector-generator  a control vector from positive and negative prompts
 
 Usage:  python -m superllama_tpu_torch <command> [options]
 
 ``run`` and ``serve`` take the option table of ``args.py`` (the JAX
 package's, each option with its LLAMA_ARG_* environment mirror: flag > env
-> default). A flag of a feature the port does not have yet (``UNPORTED``)
+> default); ``--control-vector FILE[:SCALE]`` (repeatable) adds each
+vector, scaled, to the residual stream after every layer. A flag of a feature the port does not have yet (``UNPORTED``)
 makes them (and ``perplexity``) exit with code 2; flags the JAX CLI
 accepts and ignores are accepted and ignored. All run on the GPU unless
 ``--device cpu`` is given (``quantize`` runs on the host).
@@ -31,8 +33,7 @@ import time
 
 _KV_DTYPES = ("bfloat16", "float32", "q8_0", "q4_0")
 # dest -> flag of the options whose feature is not ported yet
-UNPORTED = {"lora": "--lora", "control_vector": "--control-vector",
-            "embed_model": "--embed-model", "mmproj": "--mmproj",
+UNPORTED = {"lora": "--lora", "embed_model": "--embed-model", "mmproj": "--mmproj",
             "hf_repo": "-hf/--hf-repo", "model_url": "-mu/--model-url"}
 
 
@@ -51,7 +52,18 @@ def _add_adapter_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--lora", action="append", metavar="FILE[:SCALE]",
                    help="apply a LoRA adapter (repeatable; not ported yet)")
     p.add_argument("--control-vector", action="append", metavar="FILE[:SCALE]",
-                   help="apply a control vector (repeatable; not ported yet)")
+                   help="apply a control vector (repeatable; run and serve)")
+
+
+def _file_scale(spec: str) -> tuple[str, float]:
+    """``FILE[:SCALE]`` → (file, scale), scale 1.0 when none parses."""
+    if ":" in spec and not spec.rsplit(":", 1)[0].endswith(("/", "\\")):
+        path, s = spec.rsplit(":", 1)
+        try:
+            return path, float(s)
+        except ValueError:
+            pass
+    return spec, 1.0
 
 
 def _unported(args) -> bool:
@@ -84,6 +96,15 @@ def _load(args):
     t0 = time.perf_counter()
     model = load_model(args.model, keep_quantized=args.keep_quantized,
                        device=args.device)
+    for spec in getattr(args, "control_vector", None) or []:
+        from .models.cvector import load_control_vector
+
+        path, scale = _file_scale(spec)
+        cv = load_control_vector(path, model.hparams.n_layer, model.hparams.n_embd, scale,
+                                 device=args.device)
+        prev = model.params.get("cvec")
+        model.params["cvec"] = cv if prev is None else prev + cv
+        print(f"applied control vector {path} x{scale}", file=sys.stderr)
     print(f"loaded {args.model} [{model.hparams.arch}] on {args.device} "
           f"in {time.perf_counter() - t0:.1f}s", file=sys.stderr)
     kvd = args.kv_dtype
@@ -324,6 +345,24 @@ def cmd_perplexity(args) -> int:
     return 0
 
 
+def cmd_cvector_generator(args) -> int:
+    """PCA steering directions from positive and negative prompt files, one
+    prompt a line (tools/cvector-generator counterpart)."""
+    from .models import load_model
+    from .models.cvector import generate_control_vector, save_control_vector
+
+    model = load_model(args.model, device=args.device)
+    with open(args.positive_file) as f:
+        pos = [line for line in f.read().splitlines() if line.strip()]
+    with open(args.negative_file) as f:
+        neg = [line for line in f.read().splitlines() if line.strip()]
+    n = min(len(pos), len(neg))
+    dirs = generate_control_vector(model, pos[:n], neg[:n])
+    save_control_vector(args.output, dirs)
+    print(f"wrote {args.output} ({dirs.shape[0]} layers)", file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     from .args import add_options
 
@@ -393,6 +432,15 @@ def main(argv=None) -> int:
     p.add_argument("--chunks", type=int, default=32)
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.set_defaults(fn=cmd_imatrix)
+
+    p = sub.add_parser("cvector-generator",
+                       help="generate a control vector from +/- prompts")
+    p.add_argument("-m", "--model", required=True)
+    p.add_argument("--positive-file", required=True)
+    p.add_argument("--negative-file", required=True)
+    p.add_argument("-o", "--output", default="control_vector.gguf")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.set_defaults(fn=cmd_cvector_generator)
 
     p = sub.add_parser("perplexity", help="perplexity over a text file")
     _add_model_args(p)

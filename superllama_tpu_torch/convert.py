@@ -41,7 +41,9 @@ def _qtensor(q, device) -> QTensor:
 def params_from_jax(params_np, hp: HParams, device=None):
     """Nested dict/list of numpy arrays, QTensor leaves as objects with
     numpy planes (``jax.tree_util.tree_map(np.asarray, params)`` gives
-    that) → the port's params on ``device`` (default CUDA)."""
+    that) → the port's params on ``device`` (default CUDA). A layer's
+    ``xielu`` array becomes the tuple of Python floats the port's forward
+    takes; every other array (``cvec``, 2-D q/k norms…) a tensor."""
     dev = resolve_device(device)
     if len(params_np.get("layers", [])) != hp.n_layer:
         raise ValueError(f"expected {hp.n_layer} layers, got "
@@ -53,7 +55,8 @@ def params_from_jax(params_np, hp: HParams, device=None):
         if hasattr(v, "codes") and hasattr(v, "ggml_type"):   # a QTensor
             return _qtensor(v, dev)
         if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items()}
+            return {k: tuple(float(a) for a in np.asarray(x)) if k == "xielu" else conv(x)
+                    for k, x in v.items()}
         if isinstance(v, (list, tuple)):
             return [conv(x) for x in v]
         return _tensor(v, dev)

@@ -1,28 +1,44 @@
-"""Llama-family forward pass (llama / llama2 / llama3 / mistral / qwen2 /
-qwen3 dense models).
+"""Llama-family forward pass: every dense architecture the JAX package sends
+to ``llama_forward``.
 
-Counterpart of the JAX package's ``models/llama.py::llama_forward`` for the
-dense path: RMSNorm, RoPE, grouped-query attention over the KV cache,
-SwiGLU FFN, output head. Weights are plain tensors (in, out) or QTensors;
+Counterpart of the JAX package's ``models/llama.py::llama_forward`` without
+its MoE branches: RMSNorm or LayerNorm (with biases, or non-parametric),
+RoPE (NORM / NEOX, YaRN, per-dim factors, NoPE layers by step, by
+``rope_swa_only`` or ``no_rope_mod_zero``), M-RoPE / IMROPE, ALiBi, learned
+positions and an embedding LayerNorm, fused or split q/k/v with biases and
+clamps, q/k norms (per head, full width, per-head LayerNorm, after rope),
+grouped-query attention over the KV cache with sinks, softcaps and sliding
+windows, per-layer head counts (attention-free, "linear attention" and
+FFN-free layers; phantom kv heads padded into the cache and stripped),
+``attn_gate`` and the bitnet sub-norms, gated or gate-less FFNs (xIELU),
+post-norms, chameleon's swin norms, parallel residual, control vectors and
+the per-layer taps, then the output head with its bias, scale, softcap and
+logit suppression. Weights are plain tensors (in, out) or QTensors;
 matmuls dispatch through ``qmatmul``. Attention follows the JAX routing:
 
  - paged cache (``PagedKVCache``): every step, prefill chunk or decode, runs
-   the paged flash-attention kernel over the page tables;
+   the paged flash-attention kernel over the page tables; an ALiBi model
+   refuses the paged cache, as in JAX;
  - prefill-sized steps on the GPU (T ≥ 32) run the flash-attention kernel,
    fed Q8_0 codes and scales straight from a Q8_0 cache (a Q4_0 cache is
    dequantized first);
  - decode-sized steps (T·G ≤ 32) on the GPU, or with ``hp.extra
    ["flash_decode"]``, run the split-KV decode kernel on a Q8_0 cache, and
    on a float or Q4_0 cache when ``hp.extra["flash_decode_float"]`` is set;
-   ``hp.extra["flash_decode_off"]`` turns it off;
- - a step with ``attn_mask`` (lookahead's tree mask) turns flash and the
-   decode kernel off and takes the plain path with that mask, as in JAX;
+   ``hp.extra["flash_decode_off"]`` turns it off, and a layer with fewer kv
+   heads than the cache takes the plain path;
+ - ALiBi, or a step with ``attn_mask`` (lookahead's tree mask), turns flash
+   and the decode kernel off and takes the plain path with the additive
+   mask (ALiBi's per-head bias added to it);
  - everything else takes the plain grouped-query path over the
    (dequantized) cache.
-The KV cache is updated in place.
+The KV cache is updated in place. Every constant the step needs (ALiBi
+slopes, M-RoPE tables, rope frequencies) is computed on the device, so a
+step captured as a CUDA graph copies nothing from the host.
 
-Not ported yet (they raise NotImplementedError): MoE, ALiBi, LayerNorm
-models, llama4 / chameleon / deci extras, M-RoPE.
+Not ported yet (ROADMAP §1 item 3; they raise NotImplementedError): MoE
+(``n_expert > 0``, ``ffn_gate_exps``, arctic's ``ffn_norm_exps``),
+``llama4`` and grok's ``moe_dense_parallel_scale``.
 """
 
 from __future__ import annotations
@@ -38,6 +54,7 @@ from ..runtime.kv_cache import (KVCache, causal_mask, kv_advance, kv_layer,
                                 kv_update_layer, kv_write_slots)
 from ..runtime.paged_kv import PagedKVCache, paged_advance, paged_update_layer
 from .hparams import ROPE_SCALING_YARN, HParams
+from .qwen2vl import mrope_apply
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:
@@ -50,13 +67,23 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def _norm(x: torch.Tensor, obj: dict, key: str, hp: HParams) -> torch.Tensor:
-    """RMSNorm by the weight under ``key`` (no weight: no norm)."""
+    """Norm by ``hp.norm_type``: LayerNorm with the weight and bias under
+    ``key`` (non-parametric without them), or RMSNorm (no weight: no norm;
+    a bias is added after it, as phimoe's)."""
     w = obj.get(key)
+    if hp.norm_type == "ln":
+        return ops.layer_norm(x, w, obj.get(key + "_b"), hp.norm_eps)
     if w is None:
         return x
     out = ops.rms_norm(x, w, hp.rms_eps)
     b = obj.get(key + "_b")
     return out if b is None else out + b
+
+
+def _glu(gate: torch.Tensor, up: torch.Tensor, hp: HParams) -> torch.Tensor:
+    if hp.act == "swiglu_oai":
+        return ops.swiglu_oai(gate, up, hp.swiglu_alpha, hp.swiglu_limit)
+    return ops.GLU_FNS[hp.act](gate, up)
 
 
 def _im(imx: dict | None, key: str, x: torch.Tensor) -> None:
@@ -73,16 +100,23 @@ def _im(imx: dict | None, key: str, x: torch.Tensor) -> None:
 
 def dense_ffn(x: torch.Tensor, layer: dict, hp: HParams, imx: dict | None = None,
               pfx: str = "") -> torch.Tensor:
-    if "ffn_gate" not in layer:
-        raise NotImplementedError("gate-less FFNs are not ported yet")
+    """Gated FFN (``hp.act``'s GLU), or gate-less by ``ops.ACT_FNS`` or the
+    layer's xIELU; bitnet's ``ffn_sub_norm`` before the down-projection."""
     _im(imx, pfx + "ffn_up.weight", x)
-    gate = mm(x, layer["ffn_gate"])
+    gate = mm(x, layer["ffn_gate"]) if "ffn_gate" in layer else None
     up = mm(x, layer["ffn_up"])
     if "ffn_up_b" in layer:
         up = up + layer["ffn_up_b"]
-    if "ffn_gate_b" in layer:
-        gate = gate + layer["ffn_gate_b"]
-    act = ops.GLU_FNS[hp.act](gate, up)
+    if gate is not None:
+        if "ffn_gate_b" in layer:
+            gate = gate + layer["ffn_gate_b"]
+        act = _glu(gate, up, hp)
+    elif "xielu" in layer:       # apertus: (alpha_n, alpha_p, beta, eps) floats
+        act = ops.xielu(up, *layer["xielu"])
+    else:
+        act = ops.ACT_FNS[hp.act](up)
+    if "ffn_sub_norm" in layer:
+        act = ops.rms_norm(act, layer["ffn_sub_norm"], hp.rms_eps)
     _im(imx, pfx + "ffn_down.weight", act)
     out = mm(act, layer["ffn_down"])
     if "ffn_down_b" in layer:
@@ -114,22 +148,52 @@ def rope_setup(params: dict, hp: HParams, device):
     return inv_freq, mscale, inv_freq_swa, mscale_swa
 
 
-_UNPORTED_EXTRA = ("llama4", "mrope_sections", "imrope", "swin_norm",
-                   "logit_suppress", "rope_swa_only", "no_rope_mod_zero",
-                   "qk_norm_post_rope", "moe_dense_parallel_scale")
-
-
 def _check_supported(params: dict, hp: HParams) -> None:
+    """Refuse what waits for ROADMAP §1 item 3: experts, llama4 and grok's
+    dense-plus-MoE FFN."""
+    experts = hp.n_expert > 0 or any(
+        "ffn_gate_exps" in layer or "ffn_norm_exps" in layer for layer in params["layers"])
     unported = [name for name, on in (
-        ("alibi", hp.alibi), ("LayerNorm", hp.norm_type == "ln"),
-        ("parallel residual", hp.parallel_residual),
-        ("per-layer head counts", hp.n_head_arr is not None),
-        ("MoE", hp.n_expert > 0),
-        ("learned positions", params.get("position_embd") is not None),
-        *((f"hparams extra {k!r}", k in hp.extra) for k in _UNPORTED_EXTRA))
-        if on]
+        ("MoE", experts), ("llama4", "llama4" in hp.extra),
+        ("moe_dense_parallel_scale", "moe_dense_parallel_scale" in hp.extra)) if on]
     if unported:
-        raise NotImplementedError(f"{hp.arch}: {', '.join(unported)} not ported yet")
+        raise NotImplementedError(
+            f"{hp.arch}: {', '.join(unported)} not ported yet (ROADMAP §1 item 3)")
+
+
+def alibi_slopes(n_head: int, max_bias: float, device) -> torch.Tensor:
+    """(H,) f32 ALiBi slopes, ggml's schedule: m0^(i+1) for the first n2 heads
+    (n2 the largest power of two ≤ H), m1^(2(i−n2)+1) after. Computed on the
+    device in f64, then rounded to f32 as the JAX package's Python floats."""
+    n2 = 1 << (n_head.bit_length() - 1)
+    m0 = 2.0 ** (-max_bias / n2)
+    m1 = 2.0 ** (-max_bias / (2 * n2))
+    i = torch.arange(n_head, dtype=torch.float64, device=device)
+    return torch.where(i < n2, torch.pow(m0, i + 1),
+                       torch.pow(m1, 2 * (i - n2) + 1)).to(torch.float32)
+
+
+def _nope_layer(hp: HParams, il: int) -> bool:
+    """True where layer il skips rope: the full-attention layers of a
+    ``rope_swa_only`` model, il % step == 0 with ``no_rope_mod_zero``, else
+    (il + 1) % step == 0 (smollm3)."""
+    if hp.extra.get("rope_swa_only") and hp.swa_window > 0:
+        return not hp.is_swa_layer(il)
+    step = hp.n_no_rope_layer_step
+    if hp.extra.get("no_rope_mod_zero"):
+        return step > 0 and il % step == 0
+    return step > 0 and (il + 1) % step == 0
+
+
+def _layer_out(x: torch.Tensor, params: dict, il: int, sink: list | None) -> torch.Tensor:
+    """The control vector's add (llama_adapter_cvec::apply_to) and the
+    per-layer tap ``cvector-generator`` reads."""
+    cv = params.get("cvec")
+    if cv is not None:
+        x = x + cv[il]
+    if sink is not None:
+        sink.append(x)
+    return x
 
 
 def llama_forward(
@@ -142,6 +206,10 @@ def llama_forward(
     s_window: int | None = None,
     attn_mask: torch.Tensor | None = None,
     imatrix: dict | None = None,
+    embeds: torch.Tensor | None = None,
+    hidden_sink: list | None = None,
+    mrope_pos3: torch.Tensor | None = None,
+    deepstack_add: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """One forward step (prefill or decode). Returns (logits (B, T, V), cache);
     the cache is updated in place.
@@ -158,33 +226,51 @@ def llama_forward(
     row count in, keyed by GGUF weight name (``tools/imatrix.py``); None
     (the default) adds no operation.
 
+    ``embeds``: (B, T, E) input embeddings in place of the token lookup
+    (``tokens`` then gives only the shape). ``hidden_sink``: a list that
+    receives each layer's output hidden state (``cvector-generator``).
+    ``mrope_pos3``: (3, B, T) M-RoPE position streams. ``deepstack_add``:
+    (n, B, T, E) added to the first n layers' outputs (Qwen3-VL DeepStack).
+    ``params["cvec"]`` (n_layer, E), when present, is added after each layer.
+
     ``flash=None`` selects the flash-attention kernel for prefill-sized
     steps on the GPU (T ≥ 32); see the module docstring for the rest."""
     _check_supported(params, hp)
     B, T = tokens.shape
-    on_gpu = tokens.device.type == "cuda"
+    dev = tokens.device
+    on_gpu = dev.type == "cuda"
     if flash is None:
         flash = on_gpu and T >= 32
-    if attn_mask is not None:
-        if isinstance(cache, PagedKVCache):
-            raise ValueError("attn_mask needs a dense KV cache")
-        flash = False       # a custom mask rides the additive-mask path
+    paged = isinstance(cache, PagedKVCache)
+    if attn_mask is not None and paged:
+        raise ValueError("attn_mask needs a dense KV cache")
+    if hp.alibi and paged:
+        raise NotImplementedError("alibi models need the regular KV cache")
+    if hp.alibi or attn_mask is not None:
+        flash = False       # an additive bias or custom mask rides the plain path
     H, Hkv, D, Dv = hp.n_head, hp.n_head_kv, hp.head_dim, hp.head_dim_v
     pos = pos.to(torch.int32)
-    paged = isinstance(cache, PagedKVCache)
     # split-KV decode kernel: decode-sized steps on a Q8_0 cache, and on any
     # other dense cache when flash_decode_float asks for it
-    fdec = (not flash and not paged and attn_mask is None
+    fdec = (not flash and not paged and attn_mask is None and not hp.alibi
             and not hp.extra.get("flash_decode_off")
             and (on_gpu or bool(hp.extra.get("flash_decode")))
-            and T * (H // Hkv) <= 32
+            and Hkv > 0 and T * (H // max(Hkv, 1)) <= 32
             and ((cache.quantized and not cache.q4)
                  or bool(hp.extra.get("flash_decode_float"))))
 
-    inv_freq, mscale, inv_freq_swa, mscale_swa = rope_setup(params, hp, tokens.device)
+    inv_freq, mscale, inv_freq_swa, mscale_swa = rope_setup(params, hp, dev)
     kq_scale = hp.f_attn_scale if hp.f_attn_scale > 0.0 else 1.0 / (D ** 0.5)
     safe_pos = torch.clamp(pos, min=0)
-    x = params["token_embd"][tokens.to(torch.int64)] * hp.f_embedding_scale
+    if embeds is not None:
+        x = embeds.to(params["token_embd"].dtype) * hp.f_embedding_scale
+    else:
+        x = params["token_embd"][tokens.to(torch.int64)] * hp.f_embedding_scale
+    if params.get("position_embd") is not None:       # learned positions (gpt2)
+        x = x + params["position_embd"][safe_pos.to(torch.int64)]
+    if params.get("token_embd_norm") is not None:     # bloom's embedding LayerNorm
+        x = ops.layer_norm(x, params["token_embd_norm"], params.get("token_embd_norm_b"),
+                           hp.norm_eps)
 
     if paged:
         pslots, poffs = paged_advance(cache, pos)
@@ -196,15 +282,40 @@ def llama_forward(
             s_window = None
         Sw = s_window or S
         wpos = cache.positions(Sw)
+        # a layer with fewer kv heads than the cache leaves the decode kernel
+        fdec_all = fdec and all(hp.n_head_kv_il(il) in (0, Hkv) for il in range(hp.n_layer))
         if attn_mask is not None:
             mask_full = mask_swa = attn_mask.to(torch.float32)
-        elif not flash and not fdec:
+        elif not flash and not fdec_all:
             mask_full = causal_mask(wpos, pos)
             mask_swa = causal_mask(wpos, pos, hp.swa_window) if hp.swa_window else mask_full
+        if hp.alibi:
+            # ALiBi as a per-head additive bias slope·k_pos (the shift-invariant
+            # form of −slope·(q_pos − k_pos))
+            kp = torch.clamp(wpos, min=0).to(torch.float32)
+            mask_full = mask_full + (alibi_slopes(H, hp.max_alibi_bias, dev)[None, :, None, None]
+                                     * kp[:, None, None, :])
+            mask_swa = mask_full
 
+    swin = bool(hp.extra.get("swin_norm"))     # chameleon: norms after the blocks
     for il, layer in enumerate(params["layers"]):
         pfx = f"blk.{il}."
-        h = _norm(x, layer, "attn_norm", hp)
+        # per-layer head and FFN widths (deci / openelm: GGUF array KVs)
+        H_l, Hkv_l = hp.n_head_il(il), hp.n_head_kv_il(il)
+        if hp.n_head_arr is not None and hp.n_ff_il(il) == 0 and H_l > 0:
+            # deci FFN-free layer: the reference computes attention and drops
+            # it before the residual add (deci.cpp:96-99), a no-op
+            continue
+        h = x if swin else _norm(x, layer, "attn_norm", hp)
+        if hp.n_head_arr is not None and (H_l == 0 or Hkv_l == 0):
+            # deci attention-free layer (FFN on the raw input), or "linear
+            # attention" (wo over the attn-norm output, normal residual)
+            ffn_inp = x if H_l == 0 else x + mm(h, layer["wo"])
+            h2 = _norm(ffn_inp, layer, "ffn_norm", hp)
+            x = _layer_out(ffn_inp + dense_ffn(h2, layer, hp, imatrix, pfx), params, il,
+                           hidden_sink)
+            continue
+
         _im(imatrix, pfx + "attn_q.weight", h)
         q = mm(h, layer["wq"])
         k = mm(h, layer["wk"])
@@ -219,26 +330,44 @@ def llama_forward(
             c = hp.f_clamp_kqv
             q, k, v = (torch.clamp(t, -c, c) for t in (q, k, v))
         qn = layer.get("attn_q_norm")
-        if qn is not None and qn.ndim != 1:
-            raise NotImplementedError("per-head LayerNorm q/k norms are not ported yet")
-        full_width_qk_norm = qn is not None and qn.shape[-1] == H * D
-        if full_width_qk_norm:           # olmo2-style, before the head split
+        per_head_qk_norm = cham_qk_norm = False
+        if qn is not None and qn.ndim == 2:
+            cham_qk_norm = True          # chameleon: per-head LayerNorm (H, D)
+        elif qn is not None and qn.shape[-1] == H * D:   # olmo2: before the split
             q = ops.rms_norm(q, layer["attn_q_norm"], hp.rms_eps)
             k = ops.rms_norm(k, layer["attn_k_norm"], hp.rms_eps)
-        q = q.reshape(B, T, H, D)
-        k = k.reshape(B, T, Hkv, D)
-        v = v.reshape(B, T, Hkv, Dv)
-        if qn is not None and not full_width_qk_norm:   # qwen3 per-head norms
+        else:
+            per_head_qk_norm = qn is not None
+        q = q.reshape(B, T, H_l, D)
+        k = k.reshape(B, T, Hkv_l, D)
+        v = v.reshape(B, T, Hkv_l, Dv)
+        if Hkv_l < Hkv:       # phantom kv heads up to the cache width
+            k = torch.nn.functional.pad(k, (0, 0, 0, Hkv - Hkv_l))
+            v = torch.nn.functional.pad(v, (0, 0, 0, Hkv - Hkv_l))
+        qk_post_rope = hp.extra.get("qk_norm_post_rope")    # maincoder
+        if per_head_qk_norm and not qk_post_rope:           # qwen3-style
             q = ops.rms_norm(q, layer["attn_q_norm"], hp.rms_eps)
             k = ops.rms_norm(k, layer["attn_k_norm"], hp.rms_eps)
+        elif cham_qk_norm:
+            q = ops.layer_norm(q, layer["attn_q_norm"], layer.get("attn_q_norm_b"), hp.norm_eps)
+            k = ops.layer_norm(k, layer["attn_k_norm"], layer.get("attn_k_norm_b"), hp.norm_eps)
 
         swa = hp.swa_window if hp.is_swa_layer(il) else 0
         f, ms = (inv_freq_swa, mscale_swa) if swa else (inv_freq, mscale)
-        nope = (hp.n_no_rope_layer_step > 0
-                and (il + 1) % hp.n_no_rope_layer_step == 0)
-        if hp.rope_type >= 0 and hp.n_rot > 0 and not nope:
+        nope = _nope_layer(hp, il)
+        if mrope_pos3 is not None or (hp.extra.get("imrope") and not nope):
+            # M-RoPE; IMROPE text positions replicate into t/h/w
+            sec = tuple(hp.extra["mrope_sections"])
+            inter = bool(hp.extra.get("imrope"))
+            p3 = mrope_pos3 if mrope_pos3 is not None else safe_pos[None].expand(3, B, T)
+            q = mrope_apply(q, p3, f, sec, interleaved=inter)
+            k = mrope_apply(k, p3, f, sec, interleaved=inter)
+        elif hp.rope_type >= 0 and hp.n_rot > 0 and not nope:
             q = ops.apply_rope(q, safe_pos, f, hp.rope_type, ms)
             k = ops.apply_rope(k, safe_pos, f, hp.rope_type, ms)
+        if per_head_qk_norm and qk_post_rope:
+            q = ops.rms_norm(q, layer["attn_q_norm"], hp.rms_eps)
+            k = ops.rms_norm(k, layer["attn_k_norm"], hp.rms_eps)
 
         sinks = layer.get("attn_sinks")
         akw = dict(scale=kq_scale, swa_window=swa, logit_softcap=hp.attn_logit_softcap,
@@ -249,11 +378,16 @@ def llama_forward(
                                          cache.page_pos, cache.table, **akw)
         else:
             kv_update_layer(cache, il, slots, k, v)
-            if fdec or (flash and cache.quantized and not cache.q4):
+            fdec_l = fdec and Hkv_l == Hkv
+            if fdec_l or (flash and cache.quantized and not cache.q4):
                 ck, cv, ks, vs = cache.layer(il, Sw)   # codes and scales as stored
             else:
                 (ck, cv), ks, vs = kv_layer(cache, il, k.dtype, Sw), None, None
-            if fdec:
+            if Hkv_l < Hkv:   # strip the phantom kv heads
+                ck, cv = ck[:, :Hkv_l], cv[:, :Hkv_l]
+                if ks is not None:
+                    ks, vs = ks[:, :Hkv_l], vs[:, :Hkv_l]
+            if fdec_l:
                 attn = flash_decode_attention(q, ck, cv, pos, wpos, k_scale=ks,
                                               v_scale=vs, **akw)
             elif flash:
@@ -266,16 +400,40 @@ def llama_forward(
                            else ops.attention_ref)
                 attn = attn_fn(q, ck, cv, mask_swa if swa else mask_full, scale=kq_scale,
                                logit_softcap=hp.attn_logit_softcap, sinks=sinks)
-        attn = attn.reshape(B, T, H * Dv)
+        attn = attn.reshape(B, T, H_l * Dv)
+        if "attn_gate" in layer:      # σ-gated attention output before wo
+            attn = attn * torch.sigmoid(mm(h, layer["attn_gate"]))
+        if "attn_sub_norm" in layer:  # bitnet: RMS before the out-projection
+            attn = ops.rms_norm(attn, layer["attn_sub_norm"], hp.rms_eps)
         _im(imatrix, pfx + "attn_output.weight", attn)
         attn = mm(attn, layer["wo"])
         if "bo" in layer:
             attn = attn + layer["bo"]
-        attn = _norm(attn, layer, "attn_post_norm", hp)
-        x = x + attn * hp.f_residual_scale
-        ffn = dense_ffn(_norm(x, layer, "ffn_norm", hp), layer, hp, imatrix, pfx)
-        ffn = _norm(ffn, layer, "ffn_post_norm", hp)
-        x = x + ffn * hp.f_residual_scale
+        if "attn_post_norm" in layer:
+            attn = _norm(attn, layer, "attn_post_norm", hp)
+        if swin:
+            attn = _norm(attn, layer, "attn_norm", hp)
+
+        # parallel residual (gptneox / falcon / phi2 / command-r): the FFN
+        # reads its own norm of x when the model ships one, else the shared
+        # attn-norm output; one residual add
+        if hp.parallel_residual:
+            h2 = _norm(x, layer, "ffn_norm", hp) if "ffn_norm" in layer else h
+        else:
+            x = x + attn * hp.f_residual_scale
+            h2 = x if swin else _norm(x, layer, "ffn_norm", hp)
+        ffn = dense_ffn(h2, layer, hp, imatrix, pfx)
+        if "ffn_post_norm" in layer:
+            ffn = _norm(ffn, layer, "ffn_post_norm", hp)
+        if swin:
+            ffn = _norm(ffn, layer, "ffn_norm", hp)
+        if hp.parallel_residual:
+            x = x + attn + ffn
+        else:
+            x = x + ffn * hp.f_residual_scale
+        x = _layer_out(x, params, il, hidden_sink)
+        if deepstack_add is not None and il < deepstack_add.shape[0]:
+            x = x + deepstack_add[il].to(x.dtype)
 
     x = _norm(x, params, "output_norm", hp)
     w_out = params.get("output")
@@ -287,4 +445,9 @@ def llama_forward(
     if hp.final_logit_softcap > 0.0:
         logits = hp.final_logit_softcap * torch.tanh(
             logits.to(torch.float32) / hp.final_logit_softcap).to(logits.dtype)
+    sup = hp.extra.get("logit_suppress")
+    if sup is not None and T == 1:
+        # chameleon: image-token ids to -FLT_MAX; the reference reaches only
+        # the first logits row (chameleon.cpp:147-156), so decode steps only
+        logits[..., sup[0]:sup[1]] = torch.finfo(torch.float32).min
     return logits, cache

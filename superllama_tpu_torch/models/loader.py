@@ -1,10 +1,17 @@
 """GGUF → device params loader for the llama family.
 
-Counterpart of the JAX package's ``models/loader.py::load_model`` (llama
-branch): reads tensors by name, keeps repackable 2-D matmul weights packed as
-QTensors when asked (or dequantizes them), transposes matmul weights to
-(in, out) so the forward uses ``x @ w``, and places every tensor on the
-device once.
+Counterpart of the JAX package's ``models/loader.py::load_model`` (its
+llama-family branch, without the MoE, MLA, SSM, RWKV, encoder, gemma3n,
+LFM2 and grovemoe tensors): reads tensors by name, keeps repackable 2-D
+matmul weights packed as QTensors when asked (or dequantizes them),
+transposes matmul weights to (in, out) so the forward uses ``x @ w``, and
+places every tensor on the device once. Norm biases, post-norms under their
+ecosystem, legacy and unsuffixed names, the embedding norm, learned
+positions, ``attn_gate`` and the sub-norms load beside the llama tensors.
+A fused ``attn_qkv`` is read dequantized, as JAX reads it, and split into q
+/ k / v; a fused gate ∥ up ``ffn_up`` is split by its GGUF rows before the
+repack, so a packed one serves as two QTensors (the JAX loader leaves a
+packed one fused, and its forward then fails on the widths).
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ import torch
 
 from ..device import resolve_device
 from ..gguf import GGUFReader
-from ..ops.qtensor import REPACKABLE, repack
+from ..gguf.quants import dequantize
+from ..ops.qtensor import REPACKABLE, QTensor, repack
 from ..server.security import decrypted
 from .hparams import HParams, hparams_from_gguf
 from .registry import get_forward
@@ -51,17 +59,71 @@ def load_threads() -> tuple[int, int]:
 
 
 def _get(reader: GGUFReader, name: str, dtype: torch.dtype, device,
-         transpose: bool = True, keep_quantized: bool = False, threads: int = 0):
+         transpose: bool = True, keep_quantized: bool = False, threads: int = 0,
+         rows: tuple[int, int] | None = None):
+    """The tensor ``name`` on ``device`` (None when the file lacks it); with
+    ``rows`` only GGUF rows (output features) [rows[0], rows[1]) of a 2-D
+    weight, cut from the packed bytes before any repack."""
     ti = reader.tensors.get(name)
     if ti is None:
         return None
+    raw, shape = ti.raw(), ti.shape
+    if rows is not None:
+        row_bytes = ti.n_bytes // shape[0]
+        raw = raw[rows[0] * row_bytes:rows[1] * row_bytes]
+        shape = (rows[1] - rows[0], shape[1])
     if (keep_quantized and transpose and len(ti.ne) == 2
             and ti.ggml_type in REPACKABLE):
-        return repack(ti.raw(), ti.ggml_type, ti.shape, device=device, threads=threads)
-    arr = ti.astype_f32()
+        return repack(raw, ti.ggml_type, shape, device=device, threads=threads)
+    arr = dequantize(raw, ti.ggml_type, shape)
     if transpose and arr.ndim == 2:
         arr = arr.T                       # (out, in) → (in, out)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
+
+
+def _first(*vals):
+    for v in vals:
+        if v is not None:
+            return v
+    return None
+
+
+_BITNET_SCALED = (("wq", "attn_q"), ("wk", "attn_k"), ("wv", "attn_v"),
+                  ("wo", "attn_output"), ("ffn_gate", "ffn_gate"),
+                  ("ffn_up", "ffn_up"), ("ffn_down", "ffn_down"))
+
+
+def _finish_layer(reader: GGUFReader, hp: HParams, il: int, layer: dict,
+                  dtype: torch.dtype, dev) -> dict:
+    """The loaded layer without its absent tensors, the fused qkv split into
+    q / k / v (with its bias), bitnet's per-tensor scales folded into the
+    weights and apertus' xIELU parameters attached."""
+    p = f"blk.{il}."
+    qkv, bqkv = layer.pop("qkv", None), layer.pop("bqkv", None)
+    layer = {k: v for k, v in layer.items() if v is not None}
+    if qkv is not None:                               # (E_in, (H + 2·Hkv)·D)
+        nq = hp.n_head_il(il) * hp.head_dim
+        nk = hp.n_head_kv_il(il) * hp.head_dim
+        layer["wq"], layer["wk"], layer["wv"] = (
+            qkv[:, :nq].contiguous(), qkv[:, nq:nq + nk].contiguous(),
+            qkv[:, nq + nk:].contiguous())
+        if bqkv is not None:
+            layer["bq"], layer["bk"], layer["bv"] = (
+                bqkv[:nq].contiguous(), bqkv[nq:nq + nk].contiguous(),
+                bqkv[nq + nk:].contiguous())
+    if hp.arch == "bitnet":
+        # the optional per-tensor ternary scales ("blk.N.*.scale")
+        for key, gname in _BITNET_SCALED:
+            sc = _get(reader, p + gname + ".scale", dtype, dev, False)
+            if sc is not None and key in layer:
+                if isinstance(layer[key], QTensor):
+                    raise NotImplementedError(
+                        "bitnet scale folding needs dense weights; load with "
+                        "keep_quantized=False")
+                layer[key] = layer[key] * sc.reshape(())
+    if hp.extra.get("xielu"):       # apertus: per-layer raw xIELU parameters
+        layer["xielu"] = tuple(float(v[il]) for v in hp.extra["xielu"])
+    return layer
 
 
 def load_model(path: str, dtype: torch.dtype = torch.float32,
@@ -106,23 +168,30 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
 
             tok = Tokenizer(vocab_from_gguf(reader))
 
-        def g(name, t=True):       # a future of the tensor (or of None)
-            return pool.submit(_get, reader, name, dtype, dev, t, keep_quantized, threads)
+        def g(name, t=True, kq=keep_quantized):
+            """A future of the tensor, or None when the file lacks it."""
+            if name not in reader.tensors:
+                return None
+            return pool.submit(_get, reader, name, dtype, dev, t, kq, threads)
 
         params: dict[str, Any] = {
             "token_embd": g("token_embd.weight", t=False),    # (V, E) lookup
             "output_norm": g("output_norm.weight", t=False),
+            "output_norm_b": g("output_norm.bias", t=False),
             "output": g("output.weight"),                      # None → tied
-            "output_b": g("output.bias", t=False),
+            "output_b": g("output.bias", t=False),             # phi2 head bias
             "rope_freqs": g("rope_freqs.weight", t=False),     # llama3 factors
+            "token_embd_norm": g("token_embd_norm.weight", t=False),   # bloom
+            "token_embd_norm_b": g("token_embd_norm.bias", t=False),
+            "position_embd": g("position_embd.weight", t=False),       # gpt2
             "layers": [],
         }
+        grok = hp.arch == "grok"
         for il in range(hp.n_layer):
             p = f"blk.{il}."
-            if p + "attn_qkv.weight" in reader.tensors:
-                raise NotImplementedError("fused qkv tensors are not ported yet")
             layer = {
                 "attn_norm": g(p + "attn_norm.weight", t=False),
+                "attn_norm_b": g(p + "attn_norm.bias", t=False),
                 "wq": g(p + "attn_q.weight"),
                 "wk": g(p + "attn_k.weight"),
                 "wv": g(p + "attn_v.weight"),
@@ -133,7 +202,10 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                 "bo": g(p + "attn_output.bias", t=False),
                 "attn_q_norm": g(p + "attn_q_norm.weight", t=False),
                 "attn_k_norm": g(p + "attn_k_norm.weight", t=False),
+                "attn_q_norm_b": g(p + "attn_q_norm.bias", t=False),   # chameleon
+                "attn_k_norm_b": g(p + "attn_k_norm.bias", t=False),
                 "ffn_norm": g(p + "ffn_norm.weight", t=False),
+                "ffn_norm_b": g(p + "ffn_norm.bias", t=False),
                 "ffn_gate": g(p + "ffn_gate.weight"),
                 "ffn_up": g(p + "ffn_up.weight"),
                 "ffn_down": g(p + "ffn_down.weight"),
@@ -141,12 +213,43 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                 "ffn_up_b": g(p + "ffn_up.bias", t=False),
                 "ffn_down_b": g(p + "ffn_down.bias", t=False),
                 "attn_sinks": g(p + "attn_sinks.weight", t=False),
+                # post-norms (gemma2/3, olmo2, glm4): the ecosystem names, the
+                # legacy ones, plamo3's unsuffixed ones and grok's
+                "attn_post_norm": _first(
+                    g(p + "post_attention_norm.weight", t=False),
+                    g(p + "attn_post_norm.weight", t=False),
+                    g(p + "post_attention_norm", t=False),
+                    g(p + "attn_output_norm.weight", t=False) if grok else None),
+                "ffn_post_norm": _first(
+                    g(p + "post_ffw_norm.weight", t=False),
+                    g(p + "ffn_post_norm.weight", t=False),
+                    g(p + "post_ffw_norm", t=False),
+                    g(p + "layer_output_norm.weight", t=False) if grok else None),
+                "attn_gate": g(p + "attn_gate.weight"),      # σ-gated attention
+                "attn_sub_norm": g(p + "attn_sub_norm.weight", t=False),   # bitnet
+                "ffn_sub_norm": g(p + "ffn_sub_norm.weight", t=False),
             }
+            if layer["wq"] is None:
+                # a fused qkv (phi3, bloom, falcon…), read dequantized as JAX
+                # reads it, split into q / k / v after the load
+                layer["qkv"] = g(p + "attn_qkv.weight", kq=False)
+                layer["bqkv"] = g(p + "attn_qkv.bias", t=False)
+            up = reader.tensors.get(p + "ffn_up.weight")
+            if (layer["ffn_gate"] is None and up is not None and hp.n_ff
+                    and up.shape[0] == 2 * hp.n_ff):
+                # a fused gate ∥ up (phi3, chatglm, glm4, plamo3): split by
+                # GGUF rows, so a packed one becomes two QTensors
+                layer["ffn_gate"], layer["ffn_up"] = (
+                    pool.submit(_get, reader, up.name, dtype, dev, True, keep_quantized,
+                                threads, rows=rows)
+                    for rows in ((0, hp.n_ff), (hp.n_ff, 2 * hp.n_ff)))
             params["layers"].append(layer)
-        params = {k: [{n: f.result() for n, f in layer.items()} for layer in v]
-                  if k == "layers" else v.result() for k, v in params.items()}
-        params["layers"] = [{k: v for k, v in layer.items() if v is not None}
-                            for layer in params["layers"]]
+        params = {k: [{n: f.result() if f is not None else None for n, f in layer.items()}
+                      for layer in v]
+                  if k == "layers" else (v.result() if v is not None else None)
+                  for k, v in params.items()}
+        params["layers"] = [_finish_layer(reader, hp, il, layer, dtype, dev)
+                            for il, layer in enumerate(params["layers"])]
         md = dict(reader.metadata)
     finally:
         pool.shutdown(cancel_futures=True)   # no thread reads a file past here

@@ -1,7 +1,8 @@
 """Architecture registry: GGUF ``general.architecture`` → forward function.
 
-Counterpart of the JAX package's ``models/registry.py``, holding the dense
-llama-family architectures that the port's ``llama_forward`` serves."""
+Counterpart of the JAX package's ``models/registry.py``, holding every
+architecture the JAX package sends to ``llama_forward`` that has no experts.
+The names the port refuses say which ROADMAP §1 item they wait for."""
 
 from __future__ import annotations
 
@@ -11,14 +12,48 @@ from .llama import llama_forward
 
 ForwardFn = Callable  # (params, hp, tokens, pos, cache, **kw) -> (logits, cache)
 
-_REGISTRY: dict[str, ForwardFn] = {
-    arch: llama_forward for arch in ("llama", "mistral", "qwen2", "qwen3")}
+# dense llama-family architectures: the shared forward, told apart by hparams
+# and optional tensors (LayerNorm, ALiBi, parallel residual, learned
+# positions, fused qkv / gate-up, per-layer heads, NoPE and M-RoPE variants)
+LLAMA_ARCHS = (
+    "llama", "llama2", "mistral", "tinyllama", "qwen2", "qwen3",
+    "stablelm", "olmo", "olmo2", "exaone", "granite", "internlm2", "smollm3",
+    "gemma", "gemma2", "gemma3", "phi3",
+    "gpt2", "gptneox", "falcon", "starcoder", "starcoder2", "phi2",
+    "command-r", "cohere2", "nemotron", "minicpm", "refact", "jais",
+    "bloom", "mpt", "glm4", "chatglm",
+    "seed_oss", "hunyuan-dense", "ernie4_5", "exaone4", "qwen2vl",
+    "arcee", "apertus", "baichuan", "xverse", "orion", "qwen", "codeshell",
+    "chameleon", "mistral3", "maincoder", "pangu-embedded", "bitnet",
+    "deci", "openelm", "plamo", "plamo3", "qwen3vl",
+)
+
+# what the JAX registry holds that the port does not serve yet, by the
+# ROADMAP §1 item it waits for
+WAITING = {
+    **dict.fromkeys((
+        "mixtral", "qwen2moe", "qwen3moe", "olmoe", "dbrx", "gpt-oss", "gptoss",
+        "granitemoe", "glm4moe", "dots1", "ernie4_5-moe", "hunyuan-moe", "deepseek",
+        "arctic", "grok", "bailingmoe", "bailingmoe2", "smallthinker", "minimax-m2",
+        "exaone-moe", "grovemoe", "afmoe", "mimo2", "phimoe", "qwen3vlmoe", "llama4",
+        "deepseek2", "minicpm3", "plm"), "3 (MoE, MLA and the iSWA cache)"),
+    **dict.fromkeys((
+        "mamba", "mamba2", "jamba", "granitehybrid", "nemotron_h", "nemotron_h_moe",
+        "falcon-h1", "rwkv6", "rwkv7", "arwkv7", "rwkv6qwen2", "lfm2", "lfm2moe",
+        "plamo2", "gemma3n", "qwen3next"), "4 (recurrent and hybrid models)"),
+    **dict.fromkeys((
+        "llama-embed", "cogvlm", "llada", "llada-moe", "dream", "rnd1"),
+        "5 (encoders, multimodal and diffusion)"),
+}
+
+_REGISTRY: dict[str, ForwardFn] = {arch: llama_forward for arch in LLAMA_ARCHS}
 
 
 def get_forward(arch: str) -> ForwardFn:
     fn = _REGISTRY.get(arch)
     if fn is None:
-        raise NotImplementedError(
-            f"architecture {arch!r} not ported yet; known: {sorted(_REGISTRY)}")
+        item = WAITING.get(arch)
+        why = (f"it waits for ROADMAP §1 item {item}" if item is not None
+               else "it is not in the JAX package's registry either")
+        raise NotImplementedError(f"architecture {arch!r} not ported yet: {why}")
     return fn
-

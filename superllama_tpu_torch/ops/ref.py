@@ -4,7 +4,7 @@ The numerical semantics of the port, counterpart of the JAX package's
 ``ops/jnp_ref.py``: the models call these directly, and the kernels are held
 against them. Reductions run in f32.
 
- - rms_norm: ggml_rms_norm
+ - rms_norm: ggml_rms_norm; layer_norm: ggml_norm (+ weight, bias)
  - rope: ggml_rope_ext NORM/NEOX modes incl. YaRN
  - attention: ggml_flash_attn_ext semantics with an f32 softmax
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # ----------------------------------------------------------------- norms
@@ -26,6 +27,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor | None,
     out = xf * torch.rsqrt(var + eps)
     if weight is not None:
         out = out * weight.to(torch.float32)
+    return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
+               bias: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm; weight=None → non-parametric (olmo), bias=None → none."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    if weight is not None:
+        out = out * weight.to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
     return out.to(x.dtype)
 
 
@@ -139,7 +154,7 @@ def attention_ref(
     logits = torch.einsum("bhtd,bhsd->bhts", qf, kf) * scale
     if logit_softcap > 0.0:
         logits = logit_softcap * torch.tanh(logits / logit_softcap)
-    logits = logits + mask.to(torch.float32)
+    logits = logits + mask.to(torch.float32)      # (B, 1 or H, T, S)
     if sinks is not None:
         sink = sinks.to(torch.float32).reshape(1, H, 1, 1)
         m = torch.maximum(torch.amax(logits, dim=-1, keepdim=True), sink)
@@ -155,7 +170,7 @@ def attention_gqa(
     q: torch.Tensor,        # (B, T, H, D)
     k: torch.Tensor,        # (B, H_kv, S, D)
     v: torch.Tensor,        # (B, H_kv, S, Dv)
-    mask: torch.Tensor,     # (B, 1, T, S) additive
+    mask: torch.Tensor,     # (B, 1 or H, T, S) additive
     scale: float | None = None,
     logit_softcap: float = 0.0,
     sinks: torch.Tensor | None = None,
@@ -176,8 +191,11 @@ def attention_gqa(
                           k.to(torch.float32).transpose(2, 3)) * scale
     if logit_softcap > 0.0:
         logits = logit_softcap * torch.tanh(logits / logit_softcap)
-    mrow = torch.broadcast_to(mask.to(torch.float32),
-                              (B, G, T, S)).reshape(B, 1, G * T, S)
+    if mask.shape[1] == 1:
+        mrow = torch.broadcast_to(mask.to(torch.float32),
+                                  (B, G, T, S)).reshape(B, 1, G * T, S)
+    else:   # a per-head mask (ALiBi): rows grouped by kv head
+        mrow = mask.to(torch.float32).reshape(B, H_kv, G * T, S)
     logits = logits + mrow
     if sinks is not None:
         sink = torch.broadcast_to(
@@ -220,12 +238,44 @@ def relu_sq(x):
     return r * r
 
 
+def xielu(x, alpha_n_raw: float, alpha_p_raw: float, beta: float, eps: float):
+    """xIELU (apertus; ggml_xielu) over the raw GGUF parameters, which are
+    log-space: alpha_p = softplus(raw), alpha_n = beta + softplus(raw).
+    Positive branch alpha_p·x² + beta·x, negative (expm1(min(x, eps)) − x)
+    ·alpha_n + beta·x. The parameters are Python floats, so a captured step
+    copies nothing to the device."""
+    xf = x.to(torch.float32)
+    a_p = _softplus_f32(alpha_p_raw)
+    a_n = float(np.float32(beta) + np.float32(_softplus_f32(alpha_n_raw)))
+    pos = a_p * xf * xf + beta * xf
+    neg = (torch.expm1(torch.clamp(xf, max=eps)) - xf) * a_n + beta * xf
+    return torch.where(xf > 0, pos, neg).to(x.dtype)
+
+
+def _softplus_f32(v: float) -> float:
+    """softplus in f32, as the JAX package computes it on a traced f32."""
+    return float(np.logaddexp(np.float32(v), np.float32(0.0)))
+
+
+def quick_gelu(x):
+    xf = x.to(torch.float32)
+    return (xf * torch.sigmoid(1.702 * xf)).to(x.dtype)
+
+
 def swiglu(gate, up):
     return silu(gate) * up
 
 
 def geglu(gate, up):
     return gelu(gate) * up
+
+
+def swiglu_oai(gate, up, alpha: float = 1.702, limit: float = 7.0):
+    """gpt-oss clamped swiglu: (up + 1)·gate·σ(α·gate), gate ≤ limit,
+    |up| ≤ limit."""
+    g = torch.clamp(gate.to(torch.float32), max=limit)
+    u = torch.clamp(up.to(torch.float32), -limit, limit)
+    return ((u + 1.0) * g * torch.sigmoid(alpha * g)).to(gate.dtype)
 
 
 # gated (gate, up) -> act; "gelu"/"gelu_tanh" name the tanh approximation
@@ -237,6 +287,9 @@ GLU_FNS = {
     "relu": lambda g, u: relu(g) * u,
     "relu2": lambda g, u: relu_sq(g) * u,
 }
+# gate-less FFN activations (gpt2, falcon, bloom, starcoder, nemotron…)
+ACT_FNS = {"silu": silu, "gelu": gelu, "gelu_tanh": gelu, "gelu_erf": gelu_erf,
+           "relu": relu, "relu2": relu_sq}
 
 
 # ----------------------------------------------------------------- softmax
@@ -249,3 +302,9 @@ def softmax_ext(x: torch.Tensor, mask: torch.Tensor | None = None,
     if mask is not None:
         xf = xf + mask.to(torch.float32)
     return torch.softmax(xf, dim=-1).to(x.dtype)
+
+
+def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """All but the top-k logits masked to -inf (ties at the k-th value kept)."""
+    thresh = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits < thresh, torch.full_like(logits, -math.inf), logits)

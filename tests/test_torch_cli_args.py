@@ -197,7 +197,7 @@ def test_serve_passes_the_front_door(monkeypatch, tmp_path):
     assert cli.api_keys_from(["sk-bare"]) == {"sk-bare": "default"}
 
 
-UNPORTED = [("--lora", "a.gguf"), ("--control-vector", "cv.gguf"), ("--mmproj", "p.gguf"),
+UNPORTED = [("--lora", "a.gguf"), ("--mmproj", "p.gguf"),
             ("-hf", "user/model"), ("-mu", "http://host/m.gguf"),
             ("--embed-model", "e.gguf")]
 

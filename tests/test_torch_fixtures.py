@@ -176,3 +176,331 @@ def torch_one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# ------------------------------------------------------------ architectures
+# Tiny GGUFs of every dense architecture the port registers, for the
+# parity tests of tests/test_torch_archs*.py. Where tests/ref_arch_specs.py
+# has a spec, its tensor set is reused (without its build_gguf, which reads
+# a vocab file this repo does not ship); the others are written here from
+# the JAX loader's tensor names. Seeded numpy weights, no tokenizer.
+
+ARCH_V = 512            # the vocabulary of the specs written here
+ARCH_WINDOW = 5         # the sliding window of the SWA specs (12-token prompts)
+
+
+class _W:
+    """Seeded random tensors by GGUF name (numpy order (out, in))."""
+
+    def __init__(self, name: str):
+        self.rng = np.random.default_rng(int.from_bytes(name.encode()[:8].ljust(8, b"\0"),
+                                                        "little"))
+        self.t: dict[str, np.ndarray] = {}
+
+    def w(self, name, *shape, scale=None):
+        scale = 0.7 * shape[-1] ** -0.5 if scale is None else scale
+        self.t[name] = (self.rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def norm(self, name, *shape):
+        self.t[name] = (1.0 + 0.1 * self.rng.standard_normal(shape)).astype(np.float32)
+
+    def bias(self, name, *shape, scale=0.05):
+        self.t[name] = (self.rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def dense_spec(arch: str, *, E=64, H=4, HKV=2, F=128, L=2, D=16, V=ARCH_V, ln=False,
+               norm_bias=False, qkv="split", qkv_bias=False, o_bias=False, gate=True,
+               fused_up=False, ffn_bias=False, pre_norm=True, ffn_norm=True,
+               post_norms=False, qk_norm=None, tied=False, pos_embd=0, embd_norm=False,
+               out_bias=False, sub_norms=False, scales=False, attn_gate=False, n_rot=None,
+               md=None) -> tuple[str, dict, dict]:
+    """(arch, metadata without the arch prefix, tensors) of a tiny model of
+    the llama family: LayerNorm or RMS (with biases), split or fused qkv,
+    gated, gate-less or fused gate ∥ up FFN, pre- or post-norms, q/k norms
+    ("head", "full", "head_ln": chameleon-style (H, D) LayerNorm weights),
+    learned positions (``pos_embd`` rows), bloom's embedding norm, bitnet's
+    sub-norms and per-tensor weight scales, an attention gate; ``md`` adds
+    metadata."""
+    p = _W(arch)
+    nq, nk = H * D, HKV * D
+
+    def norm(name, dim):
+        p.norm(name + ".weight", dim)
+        if norm_bias:
+            p.bias(name + ".bias", dim)
+
+    p.w("token_embd.weight", V, E, scale=0.5)
+    if pos_embd:
+        p.w("position_embd.weight", pos_embd, E, scale=0.5)
+    if embd_norm:
+        norm("token_embd_norm", E)
+    norm("output_norm", E)
+    if not tied:
+        p.w("output.weight", V, E)
+    if out_bias:
+        p.bias("output.bias", V)
+    for i in range(L):
+        b = f"blk.{i}."
+        if pre_norm:
+            norm(b + "attn_norm", E)
+        if qkv == "fused":
+            p.w(b + "attn_qkv.weight", nq + 2 * nk, E)
+            if qkv_bias:
+                p.bias(b + "attn_qkv.bias", nq + 2 * nk)
+        else:
+            for n, w in (("q", nq), ("k", nk), ("v", nk)):
+                p.w(b + f"attn_{n}.weight", w, E)
+                if qkv_bias:
+                    p.bias(b + f"attn_{n}.bias", w)
+        if qk_norm == "head":
+            p.norm(b + "attn_q_norm.weight", D)
+            p.norm(b + "attn_k_norm.weight", D)
+        elif qk_norm == "full":
+            p.norm(b + "attn_q_norm.weight", nq)
+            p.norm(b + "attn_k_norm.weight", nk)
+        elif qk_norm == "head_ln":
+            p.norm(b + "attn_q_norm.weight", H, D)
+            p.norm(b + "attn_k_norm.weight", HKV, D)
+        if attn_gate:
+            p.w(b + "attn_gate.weight", nq, E)
+        if sub_norms:
+            p.norm(b + "attn_sub_norm.weight", nq)
+            p.norm(b + "ffn_sub_norm.weight", F)
+        p.w(b + "attn_output.weight", E, nq)
+        if o_bias:
+            p.bias(b + "attn_output.bias", E)
+        if pre_norm and ffn_norm:
+            norm(b + "ffn_norm", E)
+        if post_norms:
+            p.norm(b + "post_attention_norm.weight", E)
+            p.norm(b + "post_ffw_norm.weight", E)
+        if fused_up:
+            p.w(b + "ffn_up.weight", 2 * F, E)
+        else:
+            if gate:
+                p.w(b + "ffn_gate.weight", F, E)
+                if ffn_bias:
+                    p.bias(b + "ffn_gate.bias", F)
+            p.w(b + "ffn_up.weight", F, E)
+            if ffn_bias:
+                p.bias(b + "ffn_up.bias", F)
+        p.w(b + "ffn_down.weight", E, F)
+        if ffn_bias:
+            p.bias(b + "ffn_down.bias", E)
+        if scales:
+            for n in ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
+                      "ffn_down"):
+                p.t[b + n + ".scale"] = np.asarray([0.75 + 0.5 * p.rng.random()], np.float32)
+    meta = {"context_length": 64, "embedding_length": E, "block_count": L,
+            "feed_forward_length": F, "attention.head_count": H,
+            "attention.head_count_kv": HKV, "attention.key_length": D,
+            "attention.value_length": D, "rope.dimension_count": n_rot or D,
+            "rope.freq_base": 10000.0, "vocab_size": V,
+            ("attention.layer_norm_epsilon" if ln else
+             "attention.layer_norm_rms_epsilon"): 1e-5}
+    meta.update(md or {})
+    return arch, meta, p.t
+
+
+_LN = dict(ln=True, norm_bias=True)
+_SWA = {"attention.sliding_window": ARCH_WINDOW}
+
+# the specs written here, by architecture
+DENSE_SPECS = {
+    "llama": dict(),
+    "llama2": dict(HKV=4),
+    "tinyllama": dict(),
+    "mistral": dict(md=_SWA),
+    "stablelm": dict(**_LN, qkv_bias=True, n_rot=4),
+    "olmo2": dict(pre_norm=False, post_norms=True, qk_norm="full"),
+    "granite": dict(md={"residual_scale": 0.5, "embedding_scale": 2.0, "logit_scale": 4.0,
+                        "attention.scale": 0.1}),
+    "smollm3": dict(L=4),
+    "gemma": dict(tied=True, D=32),
+    "gemma2": dict(tied=True, D=32, post_norms=True,
+                   md={**_SWA, "attn_logit_softcapping": 5.0,
+                       "final_logit_softcapping": 3.0, "attention.scale": 0.2}),
+    "gemma3": dict(tied=True, D=32, post_norms=True, qk_norm="head",
+                   md={**_SWA, "rope.freq_base": 1e6, "rope.freq_base_swa": 1e4}),
+    "phi3": dict(qkv="fused", fused_up=True, md=_SWA),
+    "gpt2": dict(**_LN, qkv="fused", qkv_bias=True, o_bias=True, gate=False,
+                 ffn_bias=True, pos_embd=64),
+    "gptneox": dict(**_LN, qkv="fused", qkv_bias=True, o_bias=True, gate=False,
+                    ffn_bias=True, n_rot=4, md={"use_parallel_residual": True}),
+    "falcon": dict(**_LN, qkv="fused", HKV=1, gate=False, ffn_norm=False),
+    "starcoder": dict(**_LN, qkv="fused", qkv_bias=True, HKV=1, o_bias=True, gate=False,
+                      ffn_bias=True, pos_embd=64),
+    "starcoder2": dict(**_LN, qkv_bias=True, o_bias=True, gate=False, ffn_bias=True),
+    "phi2": dict(**_LN, qkv_bias=True, o_bias=True, gate=False, ffn_bias=True,
+                 ffn_norm=False, n_rot=8, out_bias=True, HKV=4),
+    "command-r": dict(ln=True, ffn_norm=False, tied=True, qk_norm="head_ln",
+                      md={"logit_scale": 0.0625}),
+    "nemotron": dict(**_LN, gate=False, n_rot=8),
+    "refact": dict(ln=True),
+    "bloom": dict(**_LN, embd_norm=True, qkv="fused", qkv_bias=True, o_bias=True,
+                  gate=False, ffn_bias=True, tied=True, HKV=4),
+    "mpt": dict(ln=True, qkv="fused", gate=False, tied=True, HKV=4,
+                md={"attention.clamp_kqv": 0.5, "attention.max_alibi_bias": 4.0}),
+    "glm4": dict(qkv="fused", qkv_bias=True, fused_up=True, post_norms=True, n_rot=8),
+    "seed_oss": dict(qkv_bias=True),
+    "hunyuan-dense": dict(qk_norm="head"),
+    "ernie4_5": dict(),
+    "exaone4": dict(L=4, pre_norm=False, post_norms=True, qk_norm="head",
+                    md={**_SWA, "attention.sliding_window_pattern": [True, True, True, False]}),
+    "qwen2vl": dict(qkv_bias=True, md={"rope.dimension_sections": [2, 3, 3, 0]}),
+    "arcee": dict(gate=False),
+    "apertus": dict(gate=False, qk_norm="head",
+                    md={f"xielu.{k}": v for k, v in (
+                        ("alpha_n", [0.8, -0.4]), ("alpha_p", [0.5, 1.2]),
+                        ("beta", [0.5, 0.5]), ("eps", [-1e-6, -1e-6]))}),
+    "bitnet": dict(sub_norms=True, scales=True),
+}
+# the reused ref_arch_specs specs, their metadata overrides (a window the
+# 12-token prompts pass) and the depth they are cut to
+REF_SPECS = {"qwen2": {}, "qwen3": {}, "olmo": {}, "exaone": {}, "internlm2": {},
+             "cohere2": _SWA, "minicpm": {}, "jais": {}, "chatglm": {}, "baichuan": {},
+             "xverse": {}, "orion": {}, "qwen": {}, "codeshell": {}, "chameleon": {},
+             "mistral3": {}, "maincoder": {}, "pangu-embedded": {}, "deci": {},
+             "openelm": {}, "plamo": {}, "plamo3": {}, "qwen3vl": {}}
+REF_DEPTH = 2
+
+
+def arch_spec(arch: str) -> tuple[str, dict, dict]:
+    """The tiny spec of a registered architecture: (arch, metadata, tensors)."""
+    if arch in DENSE_SPECS:
+        return dense_spec(arch, **DENSE_SPECS[arch])
+    import ref_arch_specs
+
+    fn = ref_arch_specs.SPECS[arch]
+    name, md, tensors = fn()
+    md = {**md, **REF_SPECS[arch]}
+    L = int(md["block_count"])
+    if arch == "baichuan" and L > REF_DEPTH:    # 7B-shaped: cut its depth
+        md["block_count"] = REF_DEPTH
+        tensors = {k: v for k, v in tensors.items()
+                   if not k.startswith("blk.") or int(k.split(".")[1]) < REF_DEPTH}
+    return name, md, tensors
+
+
+def write_arch_gguf(path, arch: str, md: dict, tensors: dict, ggml_type=GGMLType.F32,
+                    vocab_fields=None) -> str:
+    """A GGUF of (arch, md, tensors) through the JAX package's writer: 2-D
+    weights in ``ggml_type`` where their rows fit its blocks (else F32), the
+    embeddings, norms and biases in F32; no tokenizer unless given."""
+    from superllama_tpu.gguf import GGUFWriter
+    from superllama_tpu.gguf.constants import GGML_TYPE_TRAITS
+
+    w = GGUFWriter(str(path), arch=arch)
+    w.add("general.name", f"tiny-{arch}")
+    for k, v in md.items():
+        w.add(k if k.startswith(("general.", "tokenizer.")) else f"{arch}.{k}", v)
+    for k, v in (vocab_fields or {}).items():
+        w.add(k, v)
+    block = GGML_TYPE_TRAITS[ggml_type].block_size
+    for name, arr in tensors.items():
+        quant = (arr.ndim == 2 and arr.shape[-1] % block == 0
+                 and not name.startswith(("token_embd", "position_embd")))
+        w.add_tensor(name, arr, ggml_type if quant else GGMLType.F32)
+    w.write()
+    return str(path)
+
+
+REGISTERED = tuple(sorted(DENSE_SPECS) + sorted(REF_SPECS))
+# JAX refuses the paged cache for ALiBi, and its paged path fails on a layer
+# with fewer kv heads than the cache (openelm): no paged case for those
+ALIBI_ARCHS = ("bloom", "jais", "mpt")
+NO_PAGED = ALIBI_ARCHS + ("openelm",)
+ARCH_TOL = dict(rtol=1e-4, atol=1e-4)   # f32 weights: test_torch_model.py's TOL
+ARCH_N_CTX = 32
+ARCH_PAGE = 16
+
+
+def arch_models(directory, arch: str, ggml_type=GGMLType.F32, keep_quantized=False):
+    """(JAX model, port model on the CPU) of ``arch``'s tiny spec, both
+    loaded from one GGUF written in ``ggml_type``."""
+    from superllama_tpu.models import load_model as jax_load
+    from superllama_tpu_torch.models import load_model
+
+    name, md, tensors = arch_spec(arch)
+    path = write_arch_gguf(directory / f"{arch}_{ggml_type.name}.gguf", name, md, tensors,
+                           ggml_type)
+    return (jax_load(path, keep_quantized=keep_quantized),
+            load_model(path, keep_quantized=keep_quantized, device="cpu"))
+
+
+def arch_steps(n_vocab: int, seed: int = 0) -> list[np.ndarray]:
+    """A 12-token prefill and two decode steps, (1, T) token ids each."""
+    ids = np.random.default_rng(seed).integers(0, min(n_vocab, 500), 14)
+    return [ids[None, :12], ids[None, 12:13], ids[None, 13:14]]
+
+
+def dense_logits(jm, tm) -> tuple[list, list]:
+    """Each step's logits through the JAX Context (iswa off: the flat dense
+    cache) and the port's, on one dense cache each."""
+    from superllama_tpu.runtime import Context as JaxContext
+    from superllama_tpu_torch.runtime.context import Context
+
+    jc = JaxContext(jm, n_batch=1, n_ctx=ARCH_N_CTX, iswa=False)
+    tc = Context(tm, n_batch=1, n_ctx=ARCH_N_CTX, device="cpu")
+    steps = arch_steps(tm.hparams.n_vocab)
+    ref = [np.asarray(jc.forward(s.astype(np.int32))) for s in steps]
+    got = [tc.forward(s).numpy() for s in steps]
+    return got, ref
+
+
+def paged_logits(jm, tm) -> tuple[list, list]:
+    """Each step's logits through both packages' llama_forward on a paged
+    cache of one sequence (its pages out of order in the pool), the JAX
+    paged-attention kernel in interpret mode."""
+    import jax
+    import jax.numpy as jnp
+
+    from superllama_tpu.models.llama import llama_forward as jax_forward
+    from superllama_tpu.runtime import paged_kv as JP
+    from superllama_tpu_torch.models.llama import llama_forward
+    from superllama_tpu_torch.runtime import paged_kv as TP
+
+    hp = tm.hparams
+    shape = (hp.n_layer, 4, ARCH_PAGE, 1, 2, hp.n_head_kv, hp.head_dim, hp.head_dim_v)
+    jc = JP.paged_cache_init(*shape, dtype=jnp.float32)
+    jc = jc._replace(table=jnp.asarray([[2, 1]], jnp.int32))
+    tc = TP.paged_cache_init(*shape, dtype=torch.float32)
+    tc.table[:] = torch.tensor([[2, 1]], dtype=torch.int32)
+    step = jax.jit(lambda p, t, s, c: jax_forward(p, jm.hparams, t, s, c))
+    got, ref, n = [], [], 0
+    for s in arch_steps(hp.n_vocab):
+        pos = np.arange(n, n + s.shape[1], dtype=np.int32)[None]
+        n += s.shape[1]
+        r, jc = step(jm.params, jnp.asarray(s, jnp.int32), jnp.asarray(pos), jc)
+        ref.append(np.asarray(r))
+        with torch.no_grad():
+            g, _ = llama_forward(tm.params, hp, torch.from_numpy(s), torch.from_numpy(pos), tc)
+        got.append(g.numpy())
+    return got, ref
+
+
+def arch_parity_tests(archs):
+    """The two parity tests of a slice of the registered architectures (one
+    module each, so no module runs long): the dense cache's and the paged
+    cache's 12-token prefill and two decode steps against the JAX package,
+    f32 weights, to ARCH_TOL."""
+    @pytest.fixture(scope="module")
+    def models(tmp_path_factory):
+        d = tmp_path_factory.mktemp("archs")
+        return {arch: arch_models(d, arch) for arch in archs}
+
+    @pytest.mark.parametrize("arch", archs)
+    def test_dense_cache_matches_jax(models, arch, torch_one_thread):
+        got, ref = dense_logits(*models[arch])
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g, r, **ARCH_TOL)
+
+    paged = [a for a in archs if a not in NO_PAGED]
+
+    @pytest.mark.parametrize("arch", paged)
+    def test_paged_cache_matches_jax(models, arch, torch_one_thread):
+        got, ref = paged_logits(*models[arch])
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g, r, **ARCH_TOL)
+
+    return models, test_dense_cache_matches_jax, test_paged_cache_matches_jax
