@@ -23,6 +23,7 @@ PyTorch version.
     python3 chip_smoke.py --formats       # device, build, phase 4i
     python3 chip_smoke.py --toolchain     # device, build, phase 4j
     python3 chip_smoke.py --archs         # device, build, phase 4k
+    python3 chip_smoke.py --moe           # device, build, phase 4l
     python3 chip_smoke.py --format-times  # device, build, every format's qmv and
                                           # qmm readings (phase 6's format rows), and
                                           # qmm of a format of each layout at every
@@ -82,7 +83,7 @@ Phases, each printing one JSON line:
     ample pool, then a pool of about half the wave's pages that must spill
     to host), and a short wave on an f32 cache (fa's CUDA-core kernel);
  4b. graph against eager decode blocks and prompt chunks (the 8B widths
-    at a depth of 8 layers, as phases 4c-4g; 4g's draft too) on the bf16, Q8_0
+    at GRAPH_LAYERS = 4; phases 4c-4h and 4g's draft at 8) on the bf16, Q8_0
     and paged caches, greedy and sampled waves, and lone 100- and
     1000-token prompts: equal tokens, bit-equal written cache rows, equal
     launch counts, every block and chunk of the graph engine a replay;
@@ -123,12 +124,13 @@ Phases, each printing one JSON line:
     engines (n_ctx 512, 600 tokens, the first shift held against the plain
     op on a CPU copy); lookahead against Context greedy; self-extend's
     positions and re-roped K; tok/s of each beside the plain engines';
- 4h. the server's front door on warmed-up servers of the 8B model with a
-    128,256-piece tokenizer carrying FIM pieces: API keys (401 without a
-    key and with a bad one; Bearer and x-api-key), a client past its rate
-    (429), the audit log, /health "healthy", one JSONL metrics line per
-    request; /v1/messages greedy (64 tokens) equal to /v1/completions of
-    the rendered prompt on bf16, Q8_0 and paged caches, streamed (the
+ 4h. the server's front door on warmed-up servers of the 8B widths (8
+    layers deep) with a 128,256-piece tokenizer carrying FIM pieces: API
+    keys (401 without a key and with a bad one; Bearer and x-api-key), a
+    client past its rate (429), the audit log, /health "healthy", one
+    JSONL metrics line per request; /v1/messages greedy (64 tokens)
+    equal to /v1/completions of the rendered prompt on bf16, Q8_0 and
+    paged caches, streamed (the
     Messages API's events in order), with tools (tool_choice any: a
     tool_use block within the schema), count_tokens; /v1/responses and
     /api/chat equal to the chat route, /api/tags, /api/show, /infill equal
@@ -165,9 +167,10 @@ Phases, each printing one JSON line:
     one (PPL_TOL); about 200 KB of the repo's text through the native and
     the Python tokenizer, equal ids, both timed;
  4k. the dense architecture registry: a Command-R7B-width GGUF (cohere2:
-    4096 wide, 32 layers, 32/8 heads of 128, FFN 14,336, a 256,000-piece
-    vocab, a 4,096 window on three layers of four and NoPE on the fourth,
-    LayerNorm, a parallel residual, tied embeddings; a Q4_K_M-style mix of
+    4096 wide, ARCH_LAYERS = 16 of 32 layers, 32/8 heads of 128, FFN
+    14,336, a 256,000-piece vocab, a 4,096 window on three layers of four
+    and NoPE on the fourth, LayerNorm, a parallel residual, tied
+    embeddings; a Q4_K_M-style mix of
     rand_raw bytes, every layer layer 0's) written, loaded packed and its
     hparams checked; a 4,600-token prompt (the M > 32 path, fa_tc) whose
     last 32-token chunk through the kernels (qmm, fa_tc) and through the
@@ -182,6 +185,21 @@ Phases, each printing one JSON line:
     layers (deci 4), 1,024 wide: first-token logits on the card against
     the port's CPU plain forward of the same file, and 4 greedy requests
     on a warmed Q8_0 Engine (ALiBi: no fa, no fd launch);
+ 4l. sparse mixtures of experts: gmm (the grouped GEMM in place of
+    ragged_dot) against its plain version at Qwen3-30B-A3B's decode (64
+    rows) and 256-token chunk (2,048 rows) shapes and Mixtral-8x7B's, bf16
+    and f32, an empty group, one group of many tiles and an unaligned
+    shape (the plain-load path), two calls bit-equal, and its times beside
+    torch._grouped_mm; a Qwen3-30B-A3B-width Q4_K_M-style file (128
+    experts of 768, top 8, at MOE_LAYERS of 48 layers; F32 routers) written,
+    loaded (banks as bf16) and served: 16 greedy tokens on bf16, Q8_0 and
+    paged caches held to the eager plain route by greedy_rule, a wave whose
+    graph-replayed blocks and chunks equal an eager engine's bit for bit,
+    a served wave of 8 after the warm-up (every block and chunk a replay),
+    B 1 / B 8 decode and the warm TTFT; then seven MoE families (mixtral,
+    gpt-oss with MXFP4 banks, grovemoe, arctic, grok, qwen2moe, glm4moe) at
+    2 layers, 1,024 wide: first-token logits on the card against the
+    port's CPU plain forward;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -228,7 +246,10 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 SEED = 0
 T_START = time.perf_counter()
-CUT_LAYERS = 8   # the depth of phases 4b and 7's 8B-width model
+CUT_LAYERS = 8   # the depth of phases 4c-4h and 7's 8B-width model
+# the depth of phase 4b's graph-against-eager engines: their eager runs,
+# host-bound, take most of its time
+GRAPH_LAYERS = 4
 
 
 def emit(obj) -> None:
@@ -887,6 +908,7 @@ def counters() -> dict:
     count their tensor-core kernels in ``launches_tc``, the others in
     ``launches``."""
     from superllama_tpu_torch.ops import flash_attention as fa_mod
+    from superllama_tpu_torch.ops import grouped_matmul as gm_mod
     from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
 
@@ -897,7 +919,8 @@ def counters() -> dict:
             "fa": (fa, "launches"), "fa_tc": (fa, "launches_tc"),
             "fd": (fa_mod.flash_decode_attention, "launches"),
             "paged": (pa_mod.paged_flash_attention, "launches"),
-            "paged_tc": (pa_mod.paged_flash_attention, "launches_tc")}
+            "paged_tc": (pa_mod.paged_flash_attention, "launches_tc"),
+            "gmm": (gm_mod.grouped_matmul, "launches")}
 
 
 def reset_counts() -> None:
@@ -1300,7 +1323,8 @@ GRAPH_CASES = (("bf16", {}, [32, 100] * 4), ("q8_0", {"kv_dtype": "q8_0"}, [32, 
                ("paged", {"paged": True, "page_size": 256}, PAGED_LENS))
 
 
-def phase_graph_vs_eager(torch, model) -> list:
+def phase_graph_vs_eager(torch, model, cases=GRAPH_CASES,
+                         modes=("greedy", "sampled", "lone"), n_ctx: int = 2048) -> list:
     """Decode blocks and prompt chunks replayed from CUDA graphs against the
     same blocks and chunks run eagerly, on each cache, greedy and sampled:
     two engines (graphs on and off) serve the same two waves of 8 requests
@@ -1311,21 +1335,21 @@ def phase_graph_vs_eager(torch, model) -> list:
     both through the M > 32 path's cuBLAS product). Tokens, the written
     cache rows and the measured run's launch counts must be equal; every
     block and every prompt chunk of the graph engine's measured run a
-    replay, none captured."""
+    replay, none captured. ``cases`` and ``modes`` narrow it (phase 4l)."""
     import gc
 
     from superllama_tpu_torch.runtime.engine import Engine
 
     recs = []
     lone = token_prompts(model.hparams.n_vocab, [100, 1000], SEED + 10)
-    for label, kw, lens in GRAPH_CASES:
+    for label, kw, lens in cases:
         prompts = token_prompts(model.hparams.n_vocab, lens, SEED + 9)
-        engines = {g: Engine(model, n_slots=8, n_ctx=2048, device="cuda", graphs=g,
+        engines = {g: Engine(model, n_slots=8, n_ctx=n_ctx, device="cuda", graphs=g,
                              **{"kv_dtype": torch.bfloat16, **kw}) for g in (True, False)}
         for eng in engines.values():
             eng.start()
         try:
-            for mode in ("greedy", "sampled", "lone"):
+            for mode in modes:
                 samplings = (sampled_configs(len(prompts)) if mode == "sampled" else None)
 
                 def serve(eng):
@@ -2107,8 +2131,10 @@ class PlainKernels:
         from superllama_tpu_torch.ops import flash_attention as fa_mod
         from superllama_tpu_torch.ops import paged_attention as pa_mod
         from superllama_tpu_torch.ops import qmatmul as qm_mod
+        from superllama_tpu_torch.ops import ref as ref_mod
 
         self.saved = [(qm_mod, "qmv", qm_mod.qmv_plain), (qm_mod, "qmm", qm_mod.qmm_plain),
+                      (llama_mod, "grouped_matmul", ref_mod.grouped_matmul_plain),
                       (llama_mod, "flash_attention", fa_mod.flash_attention_plain),
                       (llama_mod, "flash_decode_attention", fa_mod.flash_decode_plain),
                       (llama_mod, "paged_flash_attention", pa_mod.paged_flash_attention_plain)]
@@ -2896,8 +2922,9 @@ def phase_tools(torch, model) -> dict:
     for name, n in counts.items():
         # fa's CUDA-core kernel serves f32 q or K/V, and paged's tensor-core
         # kernel a paged prefill chunk, neither of which a tool sends; the
-        # tools run the Q4_K model, so no format family's kernel either
-        check(n > 0 or name in ("fa", "paged_tc") or name in families,
+        # tools run the Q4_K model, so no format family's kernel either,
+        # and the model has no experts, so no gmm
+        check(n > 0 or name in ("fa", "paged_tc", "gmm") or name in families,
               f"the tools' path never launched the {name} kernel")
     return counts
 
@@ -4293,19 +4320,26 @@ FILE_TYPES = {"attn_q": "Q4_0", "attn_k": "Q4_0", "attn_v": "Q5_K", "attn_output
               "output": "Q6_K", "token_embd": "Q4_0"}
 
 
-def weight_shapes(hp, tied: bool = False) -> dict:
+def weight_shapes(hp, tied: bool = False, experts: tuple[int, int] | None = None) -> dict:
     """{GGUF tensor name: (role, N, K)} of a llama of hp's widths (without
-    output.weight when ``tied``)."""
+    output.weight when ``tied``); with ``experts`` (n, width) the FFN is
+    the three expert banks, (role, n·out, in, n) each: n experts' rows in
+    one block of bytes."""
     E, F, V = hp.n_embd, hp.n_ff, hp.n_vocab
     qd, kvd = hp.n_head * hp.head_dim, hp.n_head_kv * hp.head_dim
     shapes = {"token_embd.weight": ("token_embd", V, E)}
     if not tied:
         shapes["output.weight"] = ("output", V, E)
+    if experts is None:
+        ffn = (("ffn_gate", F, E), ("ffn_up", F, E), ("ffn_down", E, F))
+    else:
+        n, f = experts
+        ffn = (("ffn_gate_exps", n * f, E, n), ("ffn_up_exps", n * f, E, n),
+               ("ffn_down_exps", n * E, f, n))
     for il in range(hp.n_layer):
-        for role, N, K in (("attn_q", qd, E), ("attn_k", kvd, E), ("attn_v", kvd, E),
-                           ("attn_output", E, qd), ("ffn_gate", F, E), ("ffn_up", F, E),
-                           ("ffn_down", E, F)):
-            shapes[f"blk.{il}.{role}.weight"] = (role, N, K)
+        for role, *dims in (("attn_q", qd, E), ("attn_k", kvd, E), ("attn_v", kvd, E),
+                            ("attn_output", E, qd), *ffn):
+            shapes[f"blk.{il}.{role}.weight"] = (role, *dims)
     return shapes
 
 
@@ -4350,21 +4384,25 @@ def model_writer(path: str, hp, tok, name: str, arch: str = "llama", keys=None,
 
 def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b-mixed",
                      shared_layers: bool = False, arch: str = "llama", keys=None,
-                     ffn_norm: bool = True, tied: bool = False) -> dict:
+                     ffn_norm: bool = True, tied: bool = False, experts=None,
+                     f32_tensors=None) -> dict:
     """A GGUF of hp's widths under ``arch`` (``model_writer``'s ``keys`` and
     ``ffn_norm``; no output.weight when ``tied``), ``types``' formats by
     role (default FILE_TYPES) of rand_raw bytes (norms F32 ones), and tok's
     vocab, written by the port's GGUFWriter; with ``shared_layers`` every
     layer holds the bytes of layer 0 (rand_raw makes about 0.2 GB/s on one
-    core). Returns {tensor name: (type, raw bytes, (N, K))} of the quantized
-    ones."""
+    core). ``experts`` (n, width): the FFN is three (n, out, in) expert
+    banks (``weight_shapes``), each of rand_raw bytes of its n·out rows in
+    the ``*_exps`` roles' types (MXFP4 included); ``f32_tensors`` {name:
+    array} are added as they are (routers, q/k norms, biases). Returns
+    {tensor name: (type, raw bytes, (N, K))} of the quantized ones."""
     from concurrent.futures import ThreadPoolExecutor
 
     from superllama_tpu_torch.gguf import GGMLType
     from superllama_tpu_torch.models.synthetic import rand_raw
 
     types = types or FILE_TYPES
-    shapes = weight_shapes(hp, tied)
+    shapes = weight_shapes(hp, tied, experts)
     key = (lambda n: n.split(".", 2)[-1]) if shared_layers else (lambda n: n)
     first = {}                      # each set of bytes -> the first tensor holding it
     for n in shapes:
@@ -4372,7 +4410,7 @@ def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b
 
     def make(item):
         i, (k, n) = item
-        role, N, K = shapes[n]
+        role, N, K = shapes[n][:3]
         t = GGMLType[types[role]]
         return k, (t, rand_raw(t, N, K, SEED + 50 + i), (N, K))
 
@@ -4381,7 +4419,10 @@ def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b
     raws = {n: made[key(n)] for n in shapes}
     w = model_writer(path, hp, tok, name, arch, keys, ffn_norm)
     for n, (t, raw, (N, K)) in raws.items():
-        w.add_tensor(n, raw, t, raw_ne=(K, N))
+        n_exp = shapes[n][3] if len(shapes[n]) > 3 else 0
+        w.add_tensor(n, raw, t, raw_ne=(K, N // n_exp, n_exp) if n_exp else (K, N))
+    for n, a in (f32_tensors or {}).items():
+        w.add_tensor(n, a)
     w.write()
     return raws
 
@@ -4847,12 +4888,16 @@ def phase_toolchain(torch, smi_line: str) -> dict:
 
 # ------------------------------------------------------------ 4k. the dense architecture registry
 
+# the depth of Command-R7B's file (of its 32 layers): writing, loading and
+# the eager plain routes of greedy_rule are per layer
+ARCH_LAYERS = 16
 # Command-R7B (CohereForAI/c4ai-command-r7b-12-2024 config.json): cohere2 at
-# its published widths; a 4,096-token window on three layers of four, NoPE
-# on the fourth, LayerNorm without bias, a parallel residual off one shared
-# norm, logit scale 0.25, tied embeddings
-CMDR7B = dict(arch="cohere2", n_embd=4096, n_layer=32, n_head=32, n_head_kv=8, head_dim=128,
-              head_dim_v=128, n_rot=128, n_ff=14336, n_vocab=256000, rope_freq_base=50000.0)
+# its published widths, ARCH_LAYERS deep; a 4,096-token window on three
+# layers of four, NoPE on the fourth, LayerNorm without bias, a parallel
+# residual off one shared norm, logit scale 0.25, tied embeddings
+CMDR7B = dict(arch="cohere2", n_embd=4096, n_layer=ARCH_LAYERS, n_head=32, n_head_kv=8,
+              head_dim=128, head_dim_v=128, n_rot=128, n_ff=14336, n_vocab=256000,
+              rope_freq_base=50000.0)
 CMDR7B_KEYS = {"attention.layer_norm_epsilon": 1e-5, "attention.sliding_window": 4096,
                "logit_scale": 0.25, "attention.key_length": 128, "attention.value_length": 128}
 # llama.cpp's Q4_K_M rules; a tied embedding is the head, so it takes the
@@ -4936,17 +4981,18 @@ def route_paths(torch, model, prompt, kv_dtype=None, paged=False):
     return paths
 
 
-def cmdr7b_decode(torch, model) -> dict:
+def arch_decode(torch, model, label: str = "Command-R7B", need=()) -> dict:
     """ARCH_DECODE greedy tokens of a 32-token prompt on a bf16, a Q8_0
     (fd) and a paged (paged) cache through the Engine (its decode blocks
     replayed from CUDA graphs), each held to the eager plain route by
-    greedy_rule."""
+    greedy_rule; the kernels in ``need`` launched on every cache too."""
     from superllama_tpu_torch.runtime.engine import Engine
 
     hp = model.hparams
     prompt = token_prompts(hp.n_vocab, [32], SEED + 81)[0]
     out = {}
-    for label, kw, kernel in (("bf16", {}, "qmv"), ("q8_0", {"kv_dtype": "q8_0"}, "fd"),
+    keys = ("qmv", "qmm", "fa_tc", "fd", "paged", *need)
+    for cache, kw, kernel in (("bf16", {}, "qmv"), ("q8_0", {"kv_dtype": "q8_0"}, "fd"),
                               ("paged", {"paged": True, "page_size": 256}, "paged")):
         eng = Engine(model, n_slots=1, n_ctx=512, device="cuda",
                      **{"kv_dtype": torch.bfloat16, **kw})
@@ -4956,25 +5002,26 @@ def cmdr7b_decode(torch, model) -> dict:
         counts = read_counts()
         stats = block_stats(eng)
         check(stats["blocks"] > 0 and stats["replays"] == stats["blocks"],
-              f"Command-R7B {label}: decode blocks {stats}")
-        check(counts[kernel] > 0, f"Command-R7B {label} decode never launched {kernel}")
+              f"{label} {cache}: decode blocks {stats}")
+        for name in (kernel, *need):
+            check(counts[name] > 0, f"{label} {cache} decode never launched {name}")
         del eng
         cache_kw = {"kv_dtype": kw.get("kv_dtype"), "paged": bool(kw.get("paged"))}
         ref = plain_greedy(torch, model, prompt, ARCH_DECODE, **cache_kw)
-        rule = greedy_rule(torch, model, f"Command-R7B {label}", prompt, ref, got, 1, 1,
+        rule = greedy_rule(torch, model, f"{label} {cache}", prompt, ref, got, 1, 1,
                            paths=route_paths(torch, model, prompt, **cache_kw), **cache_kw)
-        out[label] = {"greedy_rule": rule, "launches": {k: counts[k] for k in
-                                                        ("qmv", "qmm", "fa_tc", "fd", "paged")},
+        out[cache] = {"greedy_rule": rule, "launches": {k: counts[k] for k in keys},
                       "blocks": stats["blocks"], "replays": stats["replays"]}
     return out
 
 
-def cmdr7b_serving(torch, model) -> dict:
+def arch_serving(torch, model, label: str = "Command-R7B", need=()) -> dict:
     """A wave of 8 requests of 32-token prompts, 32 tokens each, over HTTP
     to a warmed-up ServerApp (bf16 cache): the served tokens equal the
     engine's own wave, every decode block and prompt chunk a replay and no
     capture after the warm-up; then B 1 and B 8 decode tok/s and the warm
-    TTFT of a 32-token prompt."""
+    TTFT of a 32-token prompt; the kernels in ``need`` launched in the wave
+    too."""
     import gc
 
     from superllama_tpu_torch.server.http import Server, ServerApp
@@ -5003,12 +5050,12 @@ def cmdr7b_serving(torch, model) -> dict:
         served = []
         for i, (st, data) in enumerate(results):
             ch = json.loads(data)["choices"][0]
-            check(st == 200 and len(ch["tokens"]) == 32, f"Command-R7B request {i}: HTTP {st}")
+            check(st == 200 and len(ch["tokens"]) == 32, f"{label} request {i}: HTTP {st}")
             served.append(ch["tokens"])
         fresh(eng)
         direct = [r["tokens"] for r in engine_wave(eng, prompts, 32)]
-        check(direct == served, "Command-R7B: served tokens differ from the engine's wave")
-        replayed = check_replayed("Command-R7B wave", stats0, block_stats(eng))
+        check(direct == served, f"{label}: served tokens differ from the engine's wave")
+        replayed = check_replayed(f"{label} wave", stats0, block_stats(eng))
         p32 = prompts[0]
         gen = lambda n: (fresh(eng), eng.generate(  # noqa: E731
             p32, max_tokens=n, sampling={"greedy": True}, stop_eog=False))[1]
@@ -5019,13 +5066,13 @@ def cmdr7b_serving(torch, model) -> dict:
         after = block_stats(eng)
         check(after["captures"] == stats0["captures"]
               and after["chunk_captures"] == stats0["chunk_captures"],
-              f"Command-R7B: a graph was captured after the warm-up: {after}")
+              f"{label}: a graph was captured after the warm-up: {after}")
         b8 = (sum(r["n_generated"] - 1 for r in rs)
               / (max(r["total_s"] for r in rs) - max(r["ttft_s"] for r in rs)))
         info = {"warmup_keys": len(warm["keys"]), "warmup_s": warm["seconds"],
                 "graph_pool_bytes": warm["pool_bytes"], "served_equal_engine": True,
-                "wave_blocks": replayed, "launches": {k: counts[k] for k in
-                                                      ("qmv", "qmm", "fa_tc", "fd", "paged")},
+                "wave_blocks": replayed,
+                "launches": {k: counts[k] for k in ("qmv", "qmm", "fa_tc", "fd", "paged", *need)},
                 "decode_tok_s_b1": (r1["n_generated"] - 1) / (r1["total_s"] - r1["ttft_s"]),
                 "decode_tok_s_b8": b8, "ttft_ms_prompt32": ttft}
     finally:
@@ -5035,8 +5082,8 @@ def cmdr7b_serving(torch, model) -> dict:
         torch.cuda.empty_cache()
     # (the wave prefills as one 8-row chunk of 256 rows: the M > 32 path,
     # no qmm; the long prompt's last chunk holds qmm)
-    for name in ("qmv", "fa_tc"):
-        check(info["launches"][name] > 0, f"Command-R7B serving never launched {name}")
+    for name in ("qmv", "fa_tc", *need):
+        check(info["launches"][name] > 0, f"{label} serving never launched {name}")
     return info
 
 
@@ -5064,7 +5111,7 @@ def cmdr7b(torch, d: str, smi_line: str) -> dict:
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     got = model.hparams
-    want = {"arch": "cohere2", "n_embd": 4096, "n_layer": 32, "n_head": 32, "n_head_kv": 8,
+    want = {"arch": "cohere2", "n_embd": 4096, "n_layer": ARCH_LAYERS, "n_head": 32, "n_head_kv": 8,
             "head_dim": 128, "n_ff": 14336, "n_vocab": 256000, "swa_window": 4096,
             "swa_pattern": 4, "rope_freq_base": 50000.0, "norm_type": "ln",
             "parallel_residual": True, "logit_scale": 0.25}
@@ -5081,10 +5128,10 @@ def cmdr7b(torch, d: str, smi_line: str) -> dict:
     info["long_prompt"] = cmdr7b_long_prompt(torch, model)
     info["long_prompt"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    info["decode"] = cmdr7b_decode(torch, model)
+    info["decode"] = arch_decode(torch, model)
     info["decode_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    info["serving"] = cmdr7b_serving(torch, model)
+    info["serving"] = arch_serving(torch, model)
     info["serving"]["seconds"] = time.perf_counter() - t0
     info["card"] = smi_line
     del model
@@ -5295,6 +5342,402 @@ def phase_archs(torch, smi_line: str) -> dict:
     return info
 
 
+# ------------------------------------------------------------ 4l. sparse mixture of experts
+
+GMM_NMSE = 1e-9      # the kernel's f32 sums of exact products against the plain version's
+# (label, experts, top-k, tokens, K, N): Qwen3-30B-A3B's gate/up and down at
+# a decode step of 8 rows and a 256-token chunk, Mixtral-8x7B's at decode
+# and a 256-token chunk; group G // 2 gets no row
+GMM_CELLS = [("qwen3 decode gate/up", 128, 8, 8, 2048, 768),
+             ("qwen3 decode down", 128, 8, 8, 768, 2048),
+             ("qwen3 chunk gate/up", 128, 8, 256, 2048, 768),
+             ("qwen3 chunk down", 128, 8, 256, 768, 2048),
+             ("mixtral decode gate/up", 8, 2, 8, 4096, 14336),
+             ("mixtral decode down", 8, 2, 8, 14336, 4096),
+             ("mixtral chunk gate/up", 8, 2, 256, 4096, 14336)]
+# (label, experts, top-k, tokens, K, N, the one group every row takes):
+# many tiles of one group, and the plain-load path (no 16-byte alignment)
+GMM_EDGE = [("one group of 300 rows", 16, 1, 300, 2048, 768, 7),
+            ("unaligned K 100, N 50", 5, 2, 20, 100, 50, None)]
+# the timed cells: (record key, label, experts, top-k, tokens, K, N)
+GMM_TIMED = [("gmm", "qwen3 decode gate/up", 128, 8, 8, 2048, 768),
+             ("gmm qwen3 chunk", "qwen3 chunk gate/up", 128, 8, 256, 2048, 768),
+             ("gmm mixtral decode", "mixtral decode gate/up", 8, 2, 8, 4096, 14336)]
+
+
+def gmm_offsets(torch, G: int, k: int, tokens: int, seed: int, only=None):
+    """Group offsets (G + 1,) int32 on the card of tokens × k distinct
+    random experts each, none of them group G // 2 (or every row in group
+    ``only``), and how many groups hold a row."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, G, k, tokens])
+    if only is not None:
+        ids = np.full(tokens * k, only)
+    else:
+        pool = np.array([g for g in range(G) if g != G // 2])
+        ids = np.concatenate([rng.choice(pool, k, replace=False) for _ in range(tokens)])
+    counts = np.bincount(ids, minlength=G)
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return torch.tensor(off, device="cuda"), int((counts > 0).sum())
+
+
+def gmm_operands(torch, G: int, K: int, N: int, R: int, dtype, seed: int):
+    """xs (R, K) and a bank (G, K, N) of dtype, random on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    xs = torch.randn((R, K), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((G, K, N), generator=gen, device="cuda") * K ** -0.5).to(dtype)
+    return xs, w
+
+
+def check_gmm(torch) -> list:
+    """4l (a): gmm against its plain version at each GMM_CELLS and GMM_EDGE
+    cell, bf16 and f32: NMSE < GMM_NMSE, finite, two calls bit-equal."""
+    from superllama_tpu_torch.ops.grouped_matmul import grouped_matmul
+    from superllama_tpu_torch.ops.ref import grouped_matmul_plain
+
+    recs = []
+    for label, G, k, tokens, K, N, only in [(*c, None) for c in GMM_CELLS] + GMM_EDGE:
+        off, touched = gmm_offsets(torch, G, k, tokens, SEED + 120, only)
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            xs, w = gmm_operands(torch, G, K, N, tokens * k, dtype, SEED + 121)
+            got = grouped_matmul(xs, w, off)
+            again = grouped_matmul(xs, w, off)
+            ref = grouped_matmul_plain(xs, w, off)
+            torch.cuda.synchronize()
+            rec = {"kernel": "gmm", "shape": f"{label} {dt}", "rows": tokens * k,
+                   "groups": G, "groups_with_rows": touched, "nmse": nmse(got, ref),
+                   "max_abs_err": float((got - ref).abs().max()),
+                   "bit_equal_twice": bool(torch.equal(got, again))}
+            recs.append(rec)
+            check(bool(torch.isfinite(got).all()), f"gmm {label} {dt}: non-finite output")
+            check(rec["nmse"] < GMM_NMSE, f"gmm {label} {dt}: nmse {rec['nmse']:g} against "
+                  f"the plain version (limit {GMM_NMSE:g})")
+            check(rec["bit_equal_twice"], f"gmm {label} {dt}: two calls differ")
+            del xs, w, got, again, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_kernel_checks", "checks": recs})
+    return recs
+
+
+def gmm_library(torch, xs, w, offs):
+    """One PyTorch call of the same product at each routing: (fn(i), its
+    name). torch._grouped_mm with the same offsets (bf16 out) where this
+    torch runs it on the card; else an eager per-expert torch.matmul loop
+    over the host's bounds."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is not None:
+        try:
+            fn(xs, w, offs=offs[0][1:])
+            torch.cuda.synchronize()
+            return (lambda i: fn(xs, w, offs=offs[i % len(offs)][1:])), "torch._grouped_mm"
+        except (RuntimeError, TypeError, ValueError) as e:
+            emit({"phase": "moe_library", "torch._grouped_mm": str(e)[:300]})
+    bounds = [o.tolist() for o in offs]
+
+    def loop(i):
+        o = bounds[i % len(bounds)]
+        return [torch.matmul(xs[o[g]:o[g + 1]], w[g]) for g in range(w.shape[0])
+                if o[g + 1] > o[g]]
+    return loop, "per-expert torch.matmul loop"
+
+
+def time_gmm(torch) -> dict:
+    """4l (a): gmm's readings at GMM_TIMED, bf16, rotating over four
+    routings of one bank (each call reads its experts from device memory:
+    the experts a call touches exceed the L2). The bound counts the
+    touched experts' bytes, xs and the f32 output once."""
+    from superllama_tpu_torch.ops.grouped_matmul import grouped_matmul
+    from superllama_tpu_torch.ops.ref import grouped_matmul_plain
+
+    out = {}
+    for key, label, G, k, tokens, K, N in GMM_TIMED:
+        R = tokens * k
+        xs, w = gmm_operands(torch, G, K, N, R, torch.bfloat16, SEED + 122)
+        routes = [gmm_offsets(torch, G, k, tokens, SEED + 130 + j) for j in range(4)]
+        offs = [o for o, _ in routes]
+        touched = sum(t for _, t in routes) / len(routes)
+        lib, lib_name = gmm_library(torch, xs, w, offs)
+        row = kernel_reading(
+            torch, f"gmm {label} R={R} bf16", lambda i: grouped_matmul(xs, w, offs[i % 4]),
+            lambda i: grouped_matmul_plain(xs, w, offs[i % 4]), lib, 8,
+            touched * K * N * 2 + R * K * 2 + R * N * 4, 2.0 * R * K * N, "bf16")
+        row.update(library=lib_name, experts_touched=touched)
+        out[key] = row
+        del xs, w
+    torch.cuda.empty_cache()
+    return out
+
+
+# Qwen3-30B-A3B's published widths (Qwen/Qwen3-30B-A3B config.json) at
+# MOE_LAYERS of its 48 layers: 128 experts of 768, top 8, renormalised
+MOE_LAYERS = 4
+QWEN3_MOE = dict(arch="qwen3moe", n_embd=2048, n_layer=MOE_LAYERS, n_head=32, n_head_kv=4,
+                 head_dim=128, head_dim_v=128, n_rot=128, n_ff=6144, n_vocab=151936,
+                 rope_freq_base=1e6, rms_eps=1e-6)
+QWEN3_MOE_EXPERTS = (128, 768)
+QWEN3_MOE_KEYS = {"expert_count": 128, "expert_used_count": 8,
+                  "expert_feed_forward_length": 768, "attention.key_length": 128,
+                  "attention.value_length": 128}
+# llama.cpp's Q4_K_M rules (ffn_down and its banks Q6_K); the router stays F32
+QWEN3_MOE_TYPES = {**Q4_K_M_TYPES, "ffn_gate_exps": "Q4_K", "ffn_up_exps": "Q4_K",
+                   "ffn_down_exps": "Q6_K"}
+
+
+def router_weight(n: int, E: int, seed: int):
+    """A router (n, E) f32 of logits' std about 2 over normed inputs."""
+    import numpy as np
+
+    return (np.random.default_rng([seed, n, E]).standard_normal((n, E))
+            * (2.0 / math.sqrt(E))).astype(np.float32)
+
+
+def qwen3_moe(torch, d: str, smi_line: str) -> dict:
+    """4l (b): Qwen3-30B-A3B at full width, MOE_LAYERS deep, as a
+    Q4_K_M-style file of rand_raw bytes (expert banks Q4_K / Q6_K, every
+    layer layer 0's; the routers F32, seeded): written, loaded onto the
+    card (banks as bf16) and its hparams checked; 16 greedy tokens on bf16,
+    Q8_0 and paged caches held to the eager plain route by greedy_rule; a
+    wave replayed against eager; the served wave of 8, B 1 / B 8 decode
+    and the warm TTFT."""
+    import gc
+
+    import numpy as np
+
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+
+    hp = llama3_8b_hparams(**QWEN3_MOE)
+    tok = grammar_tokenizer(hp.n_vocab)
+    n, _ = QWEN3_MOE_EXPERTS
+    f32 = {}
+    for il in range(hp.n_layer):
+        f32[f"blk.{il}.ffn_gate_inp.weight"] = router_weight(n, hp.n_embd, SEED + 140 + il)
+        for qk in ("q", "k"):
+            f32[f"blk.{il}.attn_{qk}_norm.weight"] = np.ones(hp.head_dim, np.float32)
+    path = os.path.join(d, "synthetic-qwen3-30b-a3b-q4_k_m.gguf")
+    t0 = time.perf_counter()
+    write_file_model(path, hp, tok, QWEN3_MOE_TYPES, "synthetic-qwen3-30b-a3b-q4_k_m",
+                     shared_layers=True, arch="qwen3moe", keys=QWEN3_MOE_KEYS,
+                     experts=QWEN3_MOE_EXPERTS, f32_tensors=f32)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = load_model(path, dtype=torch.bfloat16, keep_quantized=True, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = model.hparams
+    want = {"arch": "qwen3moe", "n_embd": 2048, "n_layer": MOE_LAYERS, "n_head": 32,
+            "n_head_kv": 4, "head_dim": 128, "n_vocab": 151936, "n_expert": 128,
+            "n_expert_used": 8, "n_ff_exp": 768, "expert_weights_norm": True,
+            "expert_gating_softmax": True, "rope_freq_base": 1e6,
+            "rms_eps": float(np.float32(1e-6))}     # the file's f32
+    have = {k: getattr(got, k) for k in want}
+    bank = model.params["layers"][0]["ffn_up_exps"]
+    check(have == want and tuple(bank.shape) == (128, 2048, 768)
+          and bank.dtype == torch.bfloat16,
+          f"Qwen3-30B-A3B from the file: {have} (want {want}), bank {tuple(bank.shape)}")
+    info = {"file_bytes": os.path.getsize(path), "write_s": write_s, "load_s": load_s,
+            "depth": MOE_LAYERS, "hparams": have,
+            "bank_bytes": sum(t.numel() * t.element_size() for layer in model.params["layers"]
+                              for k, t in layer.items() if k.endswith("_exps"))}
+    os.remove(path)
+    label = "Qwen3-30B-A3B"
+    t0 = time.perf_counter()
+    info["decode"] = arch_decode(torch, model, label, need=("gmm",))
+    info["decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (rec,) = phase_graph_vs_eager(torch, model, GRAPH_CASES[:1], ("greedy",), n_ctx=512)
+    check(rec["launches"]["gmm"] > 0, f"{label}: the graph wave never launched gmm")
+    info["graph_vs_eager"] = {k: rec[k] for k in ("tokens_equal", "rows_equal", "graph_blocks")}
+    info["graph_vs_eager_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info["serving"] = arch_serving(torch, model, label, need=("gmm",))
+    info["serving"]["seconds"] = time.perf_counter() - t0
+    info["card"] = smi_line
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+# the sweep: 2 layers, 1,024 wide, 8 heads of 128 over 2 kv heads, 8 experts
+# of 1,024 (top 2), a 32,000-piece vocab; Q4_K matmul weights and banks of
+# rand_raw bytes (gpt-oss: MXFP4 banks), F32 routers, norms and biases
+MOE_SWEEP = dict(E=1024, H=8, HKV=2, D=128, F=2816, L=2, V=32000, n=8, k=2, f=1024)
+MOE_SWEEP_FAMILIES = ("mixtral", "gpt-oss", "grovemoe", "arctic", "grok", "qwen2moe",
+                      "glm4moe")
+
+
+def moe_sweep_file(path: str, family: str) -> str:
+    """A 2-layer GGUF of one MoE family at MOE_SWEEP's widths: the family's
+    own tensors and metadata (gpt-oss: MXFP4 banks, q/k/v/o, router and
+    expert biases, sinks, a 128 window; grovemoe: two chunk experts of 256
+    over groups of 4; arctic: a dense FFN and ffn_norm_exps; grok: a dense
+    FFN beside the MoE; qwen2moe: a shared expert with a 1-D gate, qkv
+    biases; glm4moe: a dense first layer, sigmoid routing over 2 groups
+    with the selection bias, a shared expert, routed scale 2.5)."""
+    import numpy as np
+
+    from superllama_tpu_torch.gguf import GGMLType, GGUFWriter
+    from superllama_tpu_torch.models.synthetic import rand_raw
+
+    E, H, HKV, D, F, L, V, n, k, f = (MOE_SWEEP[x] for x in
+                                      ("E", "H", "HKV", "D", "F", "L", "V", "n", "k", "f"))
+    rng = np.random.default_rng([SEED + 150, *family.encode()])
+    seed = iter(range(SEED + 200, SEED + 10_000))
+    w = GGUFWriter(path, arch=family)
+    meta = {"context_length": 2048, "embedding_length": E, "block_count": L,
+            "feed_forward_length": F, "attention.head_count": H,
+            "attention.head_count_kv": HKV, "attention.key_length": D,
+            "attention.value_length": D, "rope.dimension_count": D, "vocab_size": V,
+            "rope.freq_base": 10000.0, "attention.layer_norm_rms_epsilon": 1e-5,
+            "expert_count": n, "expert_used_count": k, "expert_feed_forward_length": f}
+    meta.update({"gpt-oss": {"attention.sliding_window": 128},
+                 "grovemoe": {"experts_per_group": 4, "expert_group_scale": 0.05,
+                              "expert_chunk_feed_forward_length": 256},
+                 "qwen2moe": {"expert_shared_feed_forward_length": f},
+                 "glm4moe": {"expert_shared_feed_forward_length": f, "expert_gating_func": 2,
+                             "expert_group_count": 2, "expert_group_used_count": 1,
+                             "expert_weights_scale": 2.5, "expert_weights_norm": True,
+                             "leading_dense_block_count": 1, "rope.dimension_count": 64}
+                 }.get(family, {}))
+    w.add("general.name", f"moe-sweep-{family}")
+    for key, v in meta.items():
+        w.add(f"{family}.{key}", v)
+
+    def q(name, N, K, t=GGMLType.Q4_K, n_exp=0):
+        raw = rand_raw(t, N * max(n_exp, 1), K, next(seed))
+        w.add_tensor(name, raw, t, raw_ne=(K, N, n_exp) if n_exp else (K, N))
+
+    def f32(name, *shape, scale=0.05, one=False):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        w.add_tensor(name, a + 1.0 if one else a)
+
+    q("token_embd.weight", V, E)
+    f32("output_norm.weight", E, one=True)
+    q("output.weight", V, E)
+    bank_t = GGMLType.MXFP4 if family == "gpt-oss" else GGMLType.Q4_K
+    for il in range(L):
+        b = f"blk.{il}."
+        f32(b + "attn_norm.weight", E, one=True)
+        f32(b + "ffn_norm.weight", E, one=True)
+        q(b + "attn_q.weight", H * D, E)
+        q(b + "attn_k.weight", HKV * D, E)
+        q(b + "attn_v.weight", HKV * D, E)
+        q(b + "attn_output.weight", E, H * D)
+        if family in ("gpt-oss", "qwen2moe", "glm4moe"):
+            for x, width in (("q", H * D), ("k", HKV * D), ("v", HKV * D)):
+                f32(b + f"attn_{x}.bias", width)
+        if family == "gpt-oss":
+            f32(b + "attn_output.bias", E)
+            f32(b + "attn_sinks.weight", H, scale=1.0)
+        if family == "grovemoe":
+            f32(b + "attn_q_norm.weight", D, one=True)
+            f32(b + "attn_k_norm.weight", D, one=True)
+        if family == "grok":
+            f32(b + "attn_output_norm.weight", E, one=True)
+            f32(b + "layer_output_norm.weight", E, one=True)
+        if family in ("arctic", "grok") or (family == "glm4moe" and il == 0):
+            q(b + "ffn_gate.weight", F, E)
+            q(b + "ffn_up.weight", F, E)
+            q(b + "ffn_down.weight", E, F)
+        if family == "glm4moe" and il == 0:
+            continue                               # the dense lead layer
+        if family == "arctic":
+            f32(b + "ffn_norm_exps.weight", E, one=True)
+        w.add_tensor(b + "ffn_gate_inp.weight", router_weight(n, E, next(seed)))
+        q(b + "ffn_gate_exps.weight", f, E, bank_t, n)
+        q(b + "ffn_up_exps.weight", f, E, bank_t, n)
+        q(b + "ffn_down_exps.weight", E, f, bank_t, n)
+        if family == "gpt-oss":
+            f32(b + "ffn_gate_inp.bias", n, scale=0.5)
+            for part, width in (("gate", f), ("up", f), ("down", E)):
+                f32(b + f"ffn_{part}_exps.bias", n, width)
+        if family == "grovemoe":
+            q(b + "ffn_gate_chexps.weight", 256, E, n_exp=n // 4)
+            q(b + "ffn_up_chexps.weight", 256, E, n_exp=n // 4)
+            q(b + "ffn_down_chexps.weight", E, 256, n_exp=n // 4)
+        if family in ("qwen2moe", "glm4moe"):
+            q(b + "ffn_gate_shexp.weight", f, E)
+            q(b + "ffn_up_shexp.weight", f, E)
+            q(b + "ffn_down_shexp.weight", E, f)
+        if family == "qwen2moe":
+            f32(b + "ffn_gate_inp_shexp.weight", E, scale=E ** -0.5)
+        if family == "glm4moe":
+            f32(b + "exp_probs_b.bias", n, scale=0.1)
+    w.write()
+    return path
+
+
+def moe_sweep_family(torch, d: str, family: str) -> dict:
+    """One family's file loaded onto the card and onto the host: a 32-token
+    prompt's first-token logits through the card's kernels (gmm launched)
+    against the port's CPU plain forward of the same file (ARCH_NMSE)."""
+    import gc
+
+    from superllama_tpu_torch.models.llama import llama_forward
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
+
+    t0 = time.perf_counter()
+    path = moe_sweep_file(os.path.join(d, f"moe-sweep-{family}.gguf"), family)
+    models = {dev: load_model(path, dtype=torch.bfloat16, keep_quantized=True, device=dev)
+              for dev in ("cuda", "cpu")}
+    hp = models["cuda"].hparams
+    prompt = token_prompts(hp.n_vocab, [32], SEED + 86)[0]
+    first = {}
+    reset_counts()
+    for dev, m in models.items():
+        cache = kv_cache_init(hp.n_layer, 1, 64, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
+                              dtype=torch.bfloat16, device=dev)
+        with torch.no_grad():
+            lg, _ = llama_forward(m.params, hp, torch.tensor([prompt], device=dev),
+                                  torch.arange(32, dtype=torch.int32, device=dev)[None], cache)
+        first[dev] = lg[0, -1].float().cpu()
+    counts = read_counts()
+    err = nmse(first["cuda"], first["cpu"])
+    check(bool(torch.isfinite(first["cuda"]).all()), f"MoE sweep {family}: non-finite logits")
+    check(err < ARCH_NMSE, f"MoE sweep {family}: card against CPU plain forward nmse {err:g}")
+    check(counts["gmm"] > 0, f"MoE sweep {family}: gmm never launched")
+    info = {"family": family, "arch": hp.arch, "n_expert": hp.n_expert,
+            "first_token_nmse": err, "nmse_bound": ARCH_NMSE,
+            "argmax_agree": bool(first["cuda"].argmax() == first["cpu"].argmax()),
+            "launches": {k: counts[k] for k in ("gmm", "qmm", "fa_tc")},
+            "seconds": time.perf_counter() - t0}
+    os.remove(path)
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_moe(torch, smi_line: str) -> dict:
+    """4l. Sparse mixture of experts on the card: gmm against its plain
+    version and its times (a), the Qwen3-30B-A3B-width model served (b),
+    the sweep of MoE families against the CPU (c). ``launches`` is gmm's
+    count in (b)'s serving wave."""
+    import shutil
+    import tempfile
+
+    t_all = time.perf_counter()
+    checks = check_gmm(torch)
+    times = time_gmm(torch)
+    emit({"phase": "moe_kernel_times", "card": smi_line, "kernels": times})
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="moe_", dir=build)
+    try:
+        info = {"phase": "moe", "card": smi_line, "qwen3_30b_a3b": qwen3_moe(torch, d, smi_line)}
+        info["sweep"] = [moe_sweep_family(torch, d, fam) for fam in MOE_SWEEP_FAMILIES]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    info["seconds"] = time.perf_counter() - t_all
+    emit(info)
+    return {"checks": checks, "times": times,
+            "launches": info["qwen3_30b_a3b"]["serving"]["launches"]["gmm"]}
+
+
 # ------------------------------------------------------------ main
 
 # (name, source, the TPU kernel it replaces, the timing entry of its record)
@@ -5314,7 +5757,9 @@ KERNELS = [
        f"{k}_{fam}") for k, line in (("qmv", 235), ("qmm", 94)) for fam in ("i8", "nib", "q5k")
 ] + [(f"qmv_probe_{v}", "superllama_tpu_torch/csrc/qmv_probe.cu",
       f"superllama_tpu/tools/qmv_probe.py:{line}", f"qmv_probe_{v} N=14336")
-     for v, line in (("v1", 53), ("v2", 64), ("v3", 91), ("v4", 78))]
+     for v, line in (("v1", 53), ("v2", 64), ("v3", 91), ("v4", 78))] + [
+    # not a Pallas kernel: ragged_dot's grouped GEMM in _experts_apply
+    ("gmm", "superllama_tpu_torch/csrc/gmm.cu", "superllama_tpu/models/llama.py:194", "gmm")]
 
 
 # ------------------------------------------------------------ 4h. the front door
@@ -5881,9 +6326,8 @@ def main() -> int:
     if "--graphs" in sys.argv[1:]:
         # the decode blocks' graphs alone: graph against eager blocks on
         # each cache, DecodeLoop, and the bf16 serving waves
-        cut = build_model(torch, n_layer=CUT_LAYERS)
-        phase_graph_vs_eager(torch, cut)
-        phase_decode_loop(torch, cut)
+        phase_graph_vs_eager(torch, build_model(torch, n_layer=GRAPH_LAYERS))
+        phase_decode_loop(torch, build_model(torch, n_layer=CUT_LAYERS))
         phase_serving(torch, build_model(torch))
         return 0
     if "--checks" in sys.argv[1:]:
@@ -5939,6 +6383,10 @@ def main() -> int:
         # the dense architecture registry alone (phase 4k)
         phase_archs(torch, info["nvidia_smi"])
         return 0
+    if "--moe" in sys.argv[1:]:
+        # the sparse mixtures of experts alone (phase 4l)
+        phase_moe(torch, info["nvidia_smi"])
+        return 0
     if "--state" in sys.argv[1:]:
         # the engine's state between requests alone (phase 4e)
         phase_state(torch, build_model(torch, n_layer=CUT_LAYERS), info["nvidia_smi"])
@@ -5953,7 +6401,7 @@ def main() -> int:
         return 0
     if "--server" in sys.argv[1:]:
         # the server's front door alone (phase 4h)
-        phase_front_door(torch, build_model(torch), info["nvidia_smi"])
+        phase_front_door(torch, build_model(torch, n_layer=CUT_LAYERS), info["nvidia_smi"])
         return 0
     checks = phase_kernels(torch)
     model = build_model(torch)
@@ -5967,19 +6415,23 @@ def main() -> int:
     # grammars, the decode variants and the profiles at a cut depth (their
     # checks do not depend on it; eager runs, warm-ups and host steps take
     # most of their time)
+    phase_graph_vs_eager(torch, build_model(torch, n_layer=GRAPH_LAYERS))
     cut = build_model(torch, n_layer=CUT_LAYERS)
-    phase_graph_vs_eager(torch, cut)
     phase_decode_loop(torch, cut)
     phase_warmup(torch, cut)
     phase_state(torch, cut, info["nvidia_smi"])
     phase_grammar(torch, cut, info["nvidia_smi"])
     phase_spec(torch, cut, info["nvidia_smi"])
-    phase_front_door(torch, model, info["nvidia_smi"])
+    phase_front_door(torch, cut, info["nvidia_smi"])
     # the new formats' kernels launch on the serving mixes' path
     counts.update(phase_mixes(torch, info["nvidia_smi"]))
     phase_gguf_file(torch, info["nvidia_smi"])
     phase_toolchain(torch, info["nvidia_smi"])
     phase_archs(torch, info["nvidia_smi"])
+    # gmm's checks, times and launches come from the MoE phase
+    moe = phase_moe(torch, info["nvidia_smi"])
+    checks += moe["checks"]
+    counts["gmm"] = moe["launches"]
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)
@@ -5990,6 +6442,7 @@ def main() -> int:
     counts.update({name: n for name, n in tool_counts.items() if name.startswith("qmv_probe")})
     times.update(time_probe(torch, info["nvidia_smi"]))
     times.update(time_formats(torch, tuple(FAMILY_FORMAT.values()), m1=False))
+    times.update(moe["times"])
     record = []
     for name, source, replaces, timing in KERNELS:
         t = times[timing]

@@ -1,8 +1,8 @@
-"""Llama-family forward pass: every dense architecture the JAX package sends
-to ``llama_forward``.
+"""Llama-family forward pass: every architecture the JAX package sends to
+``llama_forward`` but llama4.
 
-Counterpart of the JAX package's ``models/llama.py::llama_forward`` without
-its MoE branches: RMSNorm or LayerNorm (with biases, or non-parametric),
+Counterpart of the JAX package's ``models/llama.py::llama_forward`` and its
+MoE functions: RMSNorm or LayerNorm (with biases, or non-parametric),
 RoPE (NORM / NEOX, YaRN, per-dim factors, NoPE layers by step, by
 ``rope_swa_only`` or ``no_rope_mod_zero``), M-RoPE / IMROPE, ALiBi, learned
 positions and an embedding LayerNorm, fused or split q/k/v with biases and
@@ -36,9 +36,19 @@ The KV cache is updated in place. Every constant the step needs (ALiBi
 slopes, M-RoPE tables, rope frequencies) is computed on the device, so a
 step captured as a CUDA graph copies nothing from the host.
 
-Not ported yet (ROADMAP §1 item 3; they raise NotImplementedError): MoE
-(``n_expert > 0``, ``ffn_gate_exps``, arctic's ``ffn_norm_exps``),
-``llama4`` and grok's ``moe_dense_parallel_scale``.
+Sparse mixture-of-experts FFNs (``moe_ffn``): the router (softmax or
+sigmoid gating, DeepSeek-V3's selection bias, grouped selection, top-k on
+raw logits), the routed experts as three grouped matmuls (the hand-written
+kernel of ``ops/grouped_matmul.py`` in place of ``ragged_dot``), the shared
+expert with its gate, grovemoe's chunk experts, arctic's parallel MoE
+branch, the router's pre-norm input (smallthinker) and grok's dense plus
+MoE FFN. Top-k picks the lower index first among equal values, as ``jax.lax.top_k``. No routed
+step reads a count on the host, so a MoE step is captured in a CUDA graph
+like any other.
+
+Not ported yet (they raise NotImplementedError): ``llama4`` (chunked
+attention, with the iSWA cache, ROADMAP §1 item 3) and the expert-parallel
+MoE of ``hp.extra["moe_mesh"]`` (item 9).
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import torch
 
 from ..ops import ref as ops
 from ..ops.flash_attention import flash_attention, flash_decode_attention
+from ..ops.grouped_matmul import grouped_matmul
 from ..ops.paged_attention import paged_flash_attention
 from ..ops.qmatmul import qmatmul
 from ..ops.qtensor import QTensor
@@ -148,17 +159,168 @@ def rope_setup(params: dict, hp: HParams, device):
     return inv_freq, mscale, inv_freq_swa, mscale_swa
 
 
-def _check_supported(params: dict, hp: HParams) -> None:
-    """Refuse what waits for ROADMAP §1 item 3: experts, llama4 and grok's
-    dense-plus-MoE FFN."""
-    experts = hp.n_expert > 0 or any(
-        "ffn_gate_exps" in layer or "ffn_norm_exps" in layer for layer in params["layers"])
-    unported = [name for name, on in (
-        ("MoE", experts), ("llama4", "llama4" in hp.extra),
-        ("moe_dense_parallel_scale", "moe_dense_parallel_scale" in hp.extra)) if on]
-    if unported:
+def _check_supported(hp: HParams) -> None:
+    """Refuse llama4 (chunked attention, with the iSWA cache: ROADMAP §1
+    item 3) and the expert-parallel MoE of a mesh (item 9)."""
+    if "llama4" in hp.extra:
+        raise NotImplementedError(f"{hp.arch}: llama4 not ported yet (ROADMAP §1 item 3)")
+    if hp.extra.get("moe_mesh") is not None:
         raise NotImplementedError(
-            f"{hp.arch}: {', '.join(unported)} not ported yet (ROADMAP §1 item 3)")
+            f"{hp.arch}: the expert-parallel MoE of moe_mesh not ported yet (ROADMAP §1 item 9)")
+
+
+def _topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, the lower
+    index first among equal values (``jax.lax.top_k``'s order, which
+    ``torch.topk`` does not promise): a stable descending sort."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _moe_route(x: torch.Tensor, layer: dict, hp: HParams,
+               router_x: torch.Tensor | None = None):
+    """Router: (probs, top-k combine weights, top-k expert ids), f32 weights.
+    Softmax or sigmoid gating; DeepSeek-V3's ``exp_probs_b`` added for the
+    selection only; grouped selection (each group scored by its top-2 sum,
+    the groups not among the top ``n_group_used`` masked); llama4's top-k on
+    raw logits with the sigmoid after; renormalisation and
+    ``expert_weights_scale``."""
+    logits = mm(x if router_x is None else router_x, layer["ffn_gate_inp"])   # (B, T, E)
+    if "ffn_gate_inp_b" in layer:
+        logits = logits + layer["ffn_gate_inp_b"]
+    lf = logits.to(torch.float32)
+    if hp.extra.get("moe_topk_raw"):
+        probs = torch.sigmoid(lf)
+        top_l, top_i = _topk(lf, hp.n_expert_used)
+        top_w = torch.sigmoid(top_l)
+    else:
+        probs = torch.softmax(lf, dim=-1) if hp.expert_gating_softmax else torch.sigmoid(lf)
+        sel = probs
+        if "exp_probs_b" in layer:
+            sel = sel + layer["exp_probs_b"].to(torch.float32)
+        if hp.n_expert_groups > 1:
+            B, T, E = sel.shape
+            G = hp.n_expert_groups
+            gsel = sel.reshape(B, T, G, E // G)
+            gscore = _topk(gsel, min(2, E // G))[0].sum(-1)              # (B, T, G)
+            gi = _topk(gscore, hp.n_group_used)[1]
+            keep = torch.zeros((B, T, G), dtype=torch.bool, device=sel.device).scatter_(
+                -1, gi, True)
+            sel = torch.where(keep[..., None], gsel,
+                              torch.full_like(gsel, -torch.inf)).reshape(B, T, E)
+        top_i = _topk(sel, hp.n_expert_used)[1]
+        top_w = torch.gather(probs, -1, top_i)
+    if hp.expert_weights_norm:
+        top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    if hp.expert_weights_scale != 1.0:
+        top_w = top_w * hp.expert_weights_scale
+    return probs, top_w, top_i
+
+
+def _moe_shared_expert(x: torch.Tensor, layer: dict, hp: HParams,
+                       out: torch.Tensor) -> torch.Tensor:
+    """out plus the always-on shared expert, if the layer has one, times
+    the sigmoid of its gate (a 1-D gate: one scalar a row)."""
+    if "ffn_up_shexp" not in layer:
+        return out
+    shexp = {k: layer[f"{k}_shexp"] for k in ("ffn_gate", "ffn_up", "ffn_down")
+             if f"{k}_shexp" in layer}
+    sh = dense_ffn(x, shexp, hp)
+    if "ffn_gate_inp_shexp" in layer:
+        gsig = torch.sigmoid(mm(x, layer["ffn_gate_inp_shexp"]))
+        if gsig.ndim == sh.ndim - 1:
+            gsig = gsig[..., None]
+        sh = sh * gsig
+    return out + sh
+
+
+def _experts_apply(x: torch.Tensor, top_w: torch.Tensor, top_i: torch.Tensor, layer: dict,
+                   hp: HParams, bank: str = "exps", n_expert: int | None = None) -> torch.Tensor:
+    """The routed experts of ``layer[f"ffn_*_{bank}"]`` over x for the
+    selection (top_w, top_i): the S·K (token, expert) rows sorted by expert
+    (a stable sort: token order within an expert), the group bounds found
+    on the device (``searchsorted``, no count on the host), up / gate / down
+    as grouped matmuls in f32 (up and gate cast to x's type before the GLU),
+    per-expert biases, the router weights (on the expert input with
+    ``expert_weights_before_ffn``, llama4). The combine undoes the sort and
+    adds each token's K rows in top-k order: the JAX package's scatter-add
+    in another order, with no atomics, so a replayed graph equals the eager
+    step bit for bit. Duplicate ids of a token (grovemoe's chunk ids) add up."""
+    B, T, Dm = x.shape
+    E = n_expert or hp.n_expert
+    K = top_i.shape[-1]
+    S = B * T
+    xf = x.reshape(S, Dm)
+    ei = top_i.reshape(S * K)
+    order = torch.argsort(ei, stable=True)
+    tok = order // K                             # source token of each sorted row
+    ei_s = ei[order]
+    xs = xf[tok]
+    w_s = top_w.reshape(S * K)[order]
+    before = bool(hp.extra.get("expert_weights_before_ffn"))
+    if before:
+        xs = xs * w_s[:, None].to(xs.dtype)
+    offsets = torch.searchsorted(
+        ei_s, torch.arange(E + 1, dtype=ei_s.dtype, device=ei_s.device)).to(torch.int32)
+    up = grouped_matmul(xs, layer[f"ffn_up_{bank}"], offsets)
+    if f"ffn_up_{bank}_b" in layer:
+        up = up + layer[f"ffn_up_{bank}_b"][ei_s]
+    if f"ffn_gate_{bank}" in layer:
+        gate = grouped_matmul(xs, layer[f"ffn_gate_{bank}"], offsets)
+        if f"ffn_gate_{bank}_b" in layer:
+            gate = gate + layer[f"ffn_gate_{bank}_b"][ei_s]
+        act = _glu(gate.to(x.dtype), up.to(x.dtype), hp)
+    else:        # gate-less experts
+        act = ops.ACT_FNS[hp.act](up.to(x.dtype))
+    down = grouped_matmul(act, layer[f"ffn_down_{bank}"], offsets)
+    if f"ffn_down_{bank}_b" in layer:
+        down = down + layer[f"ffn_down_{bank}_b"][ei_s]
+    contrib = down if before else down * w_s[:, None]
+    rows = torch.empty_like(contrib).index_copy_(0, order, contrib)   # back to (token, k)
+    y = rows.reshape(S, K, -1).sum(dim=1)
+    return y.to(x.dtype).reshape(B, T, -1)
+
+
+def moe_ffn_sparse(x: torch.Tensor, layer: dict, hp: HParams,
+                   router_x: torch.Tensor | None = None) -> torch.Tensor:
+    """Only the K routed experts a token: S·K·D·F products, not S·E·D·F."""
+    _, top_w, top_i = _moe_route(x, layer, hp, router_x)
+    out = _experts_apply(x, top_w, top_i, layer, hp)
+    return _moe_shared_expert(x, layer, hp, out)
+
+
+def grove_moe(x: torch.Tensor, layer: dict, hp: HParams,
+              router_x: torch.Tensor | None = None) -> torch.Tensor:
+    """GroveMoE: selection on sigmoid(logits), weights from softmax(logits)
+    renormalised; then the chunk ("adjugate") bank on the first pass's
+    output, routed by big-expert id // n_group_experts with the softmax
+    weights at the chunk ids, renormalised, added times expert_group_scale."""
+    g = hp.extra["grove"]
+    ng, scale = g["n_group_experts"], g["scale"]
+    E, K = hp.n_expert, hp.n_expert_used
+    n_chunk = E // ng
+    logits = mm(x if router_x is None else router_x,
+                layer["ffn_gate_inp"]).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    sel = torch.sigmoid(logits)
+    ti = _topk(sel, K)[1]
+    w = torch.gather(probs, -1, ti)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    first = _experts_apply(x, w, ti, layer, hp)
+    ci = _topk(sel, min(K, n_chunk))[1] // ng     # chunk expert of each selection
+    w2 = torch.gather(probs, -1, ci)
+    w2 = w2 / torch.sum(w2, dim=-1, keepdim=True)
+    second = _experts_apply(first, w2, ci, layer, hp, bank="chexps", n_expert=n_chunk)
+    return first + scale * second
+
+
+def moe_ffn(x: torch.Tensor, layer: dict, hp: HParams,
+            router_x: torch.Tensor | None = None) -> torch.Tensor:
+    """Mixture-of-experts FFN: grovemoe's two passes where the layer has a
+    chunk bank, else the sparse form."""
+    if "ffn_up_chexps" in layer:
+        return grove_moe(x, layer, hp, router_x)
+    return moe_ffn_sparse(x, layer, hp, router_x)
 
 
 def alibi_slopes(n_head: int, max_bias: float, device) -> torch.Tensor:
@@ -235,7 +397,7 @@ def llama_forward(
 
     ``flash=None`` selects the flash-attention kernel for prefill-sized
     steps on the GPU (T ≥ 32); see the module docstring for the rest."""
-    _check_supported(params, hp)
+    _check_supported(hp)
     B, T = tokens.shape
     dev = tokens.device
     on_gpu = dev.type == "cuda"
@@ -300,6 +462,7 @@ def llama_forward(
     swin = bool(hp.extra.get("swin_norm"))     # chameleon: norms after the blocks
     for il, layer in enumerate(params["layers"]):
         pfx = f"blk.{il}."
+        x_in = x                 # the pre-attention residual (arctic, the router's pre-norm)
         # per-layer head and FFN widths (deci / openelm: GGUF array KVs)
         H_l, Hkv_l = hp.n_head_il(il), hp.n_head_kv_il(il)
         if hp.n_head_arr is not None and hp.n_ff_il(il) == 0 and H_l > 0:
@@ -414,6 +577,16 @@ def llama_forward(
         if swin:
             attn = _norm(attn, layer, "attn_norm", hp)
 
+        if "ffn_norm_exps" in layer:
+            # arctic: a dense FFN on the attention residual plus a parallel
+            # MoE branch normed from the pre-attention input
+            ffn_inp = x_in + attn
+            dense = dense_ffn(_norm(ffn_inp, layer, "ffn_norm", hp), layer, hp, imatrix, pfx)
+            moe_in = ops.rms_norm(x_in, layer["ffn_norm_exps"], hp.rms_eps)
+            x = _layer_out((ffn_inp + dense) + moe_ffn(moe_in, layer, hp), params, il,
+                           hidden_sink)
+            continue
+
         # parallel residual (gptneox / falcon / phi2 / command-r): the FFN
         # reads its own norm of x when the model ships one, else the shared
         # attn-norm output; one residual add
@@ -422,7 +595,16 @@ def llama_forward(
         else:
             x = x + attn * hp.f_residual_scale
             h2 = x if swin else _norm(x, layer, "ffn_norm", hp)
-        ffn = dense_ffn(h2, layer, hp, imatrix, pfx)
+        if "ffn_gate_exps" in layer:
+            _im(imatrix, pfx + "ffn_up_exps.weight", h2)
+            ffn = moe_ffn(h2, layer, hp,
+                          router_x=x_in if hp.extra.get("moe_router_prenorm") else None)
+            mdp = hp.extra.get("moe_dense_parallel_scale")
+            if mdp and "ffn_up" in layer:
+                # grok: a dense FFN and the MoE on one input, summed, scaled by sqrt(2)/2
+                ffn = (ffn + dense_ffn(h2, layer, hp)) * mdp
+        else:
+            ffn = dense_ffn(h2, layer, hp, imatrix, pfx)
         if "ffn_post_norm" in layer:
             ffn = _norm(ffn, layer, "ffn_post_norm", hp)
         if swin:

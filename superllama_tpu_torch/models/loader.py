@@ -1,13 +1,22 @@
 """GGUF → device params loader for the llama family.
 
 Counterpart of the JAX package's ``models/loader.py::load_model`` (its
-llama-family branch, without the MoE, MLA, SSM, RWKV, encoder, gemma3n,
-LFM2 and grovemoe tensors): reads tensors by name, keeps repackable 2-D
+llama-family branch with its MoE tensors, without the MLA, SSM, RWKV,
+encoder, gemma3n and LFM2 ones): reads tensors by name, keeps repackable 2-D
 matmul weights packed as QTensors when asked (or dequantizes them),
 transposes matmul weights to (in, out) so the forward uses ``x @ w``, and
 places every tensor on the device once. Norm biases, post-norms under their
 ecosystem, legacy and unsuffixed names, the embedding norm, learned
 positions, ``attn_gate`` and the sub-norms load beside the llama tensors.
+The MoE tensors: the router (``ffn_gate_inp`` with its bias, packed like
+any 2-D weight), the selection bias ``exp_probs_b``, the expert banks
+``ffn_{gate,up,down}_exps`` with their biases, grovemoe's chunk banks
+``ffn_*_chexps``, the shared expert ``ffn_*_shexp`` with its gate and
+arctic's ``ffn_norm_exps``. A bank (E, out, in) loads as a float (E, in,
+out) tensor of the model's type, never packed, as the JAX loader packs only
+2-D weights; it is decoded one expert at a time, so the host holds one
+expert's f32 copy a worker, not the bank's (805 MB in f32 for one of
+Qwen3-30B-A3B's).
 A fused ``attn_qkv`` is read dequantized, as JAX reads it, and split into q
 / k / v; a fused gate ∥ up ``ffn_up`` is split by its GGUF rows before the
 repack, so a packed one serves as two QTensors (the JAX loader leaves a
@@ -79,6 +88,22 @@ def _get(reader: GGUFReader, name: str, dtype: torch.dtype, device,
     if transpose and arr.ndim == 2:
         arr = arr.T                       # (out, in) → (in, out)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
+
+
+def _get_bank(reader: GGUFReader, name: str, dtype: torch.dtype, device):
+    """The expert bank ``name`` (E, out, in) on ``device`` as (E, in, out)
+    of ``dtype`` (None when the file lacks it), decoded one expert at a
+    time."""
+    ti = reader.tensors.get(name)
+    if ti is None:
+        return None
+    E, n_out, n_in = ti.shape
+    raw, per = ti.raw(), ti.n_bytes // E
+    bank = torch.empty((E, n_in, n_out), dtype=dtype, device=device)
+    for e in range(E):
+        arr = dequantize(raw[e * per:(e + 1) * per], ti.ggml_type, (n_out, n_in))
+        bank[e].copy_(torch.from_numpy(arr).T)
+    return bank
 
 
 def _first(*vals):
@@ -174,6 +199,12 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                 return None
             return pool.submit(_get, reader, name, dtype, dev, t, kq, threads)
 
+        def bank(name):
+            """A future of the expert bank, or None when the file lacks it."""
+            if name not in reader.tensors:
+                return None
+            return pool.submit(_get_bank, reader, name, dtype, dev)
+
         params: dict[str, Any] = {
             "token_embd": g("token_embd.weight", t=False),    # (V, E) lookup
             "output_norm": g("output_norm.weight", t=False),
@@ -228,7 +259,22 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                 "attn_gate": g(p + "attn_gate.weight"),      # σ-gated attention
                 "attn_sub_norm": g(p + "attn_sub_norm.weight", t=False),   # bitnet
                 "ffn_sub_norm": g(p + "ffn_sub_norm.weight", t=False),
+                # MoE: the router, DeepSeek-V3's selection bias, the shared
+                # expert and its gate, arctic's parallel-branch norm
+                "ffn_gate_inp": g(p + "ffn_gate_inp.weight"),
+                "ffn_gate_inp_b": g(p + "ffn_gate_inp.bias", t=False),
+                "exp_probs_b": g(p + "exp_probs_b.bias", t=False),
+                "ffn_gate_shexp": g(p + "ffn_gate_shexp.weight"),
+                "ffn_up_shexp": g(p + "ffn_up_shexp.weight"),
+                "ffn_down_shexp": g(p + "ffn_down_shexp.weight"),
+                "ffn_gate_inp_shexp": g(p + "ffn_gate_inp_shexp.weight"),
+                "ffn_norm_exps": g(p + "ffn_norm_exps.weight", t=False),
             }
+            for part in ("gate", "up", "down"):
+                # the expert banks with their biases, grovemoe's chunk banks
+                layer[f"ffn_{part}_exps"] = bank(p + f"ffn_{part}_exps.weight")
+                layer[f"ffn_{part}_exps_b"] = g(p + f"ffn_{part}_exps.bias", t=False)
+                layer[f"ffn_{part}_chexps"] = bank(p + f"ffn_{part}_chexps.weight")
             if layer["wq"] is None:
                 # a fused qkv (phi3, bloom, falcon…), read dequantized as JAX
                 # reads it, split into q / k / v after the load

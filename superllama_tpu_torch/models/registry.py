@@ -1,8 +1,9 @@
 """Architecture registry: GGUF ``general.architecture`` → forward function.
 
 Counterpart of the JAX package's ``models/registry.py``, holding every
-architecture the JAX package sends to ``llama_forward`` that has no experts.
-The names the port refuses say which ROADMAP §1 item they wait for."""
+architecture the JAX package sends to ``llama_forward`` but llama4: the dense
+ones and those with sparse mixtures of experts. The names the port refuses
+say which ROADMAP §1 item they wait for."""
 
 from __future__ import annotations
 
@@ -28,15 +29,21 @@ LLAMA_ARCHS = (
     "deci", "openelm", "plamo", "plamo3", "qwen3vl",
 )
 
+# sparse mixture-of-experts architectures on the same forward: the router,
+# shared and chunk experts, arctic's parallel branch and grok's dense plus
+# MoE FFN, told apart by hparams and optional tensors
+MOE_ARCHS = (
+    "mixtral", "qwen2moe", "qwen3moe", "olmoe", "dbrx", "gpt-oss", "gptoss",
+    "granitemoe", "glm4moe", "dots1", "ernie4_5-moe", "hunyuan-moe", "deepseek",
+    "arctic", "grok", "bailingmoe", "bailingmoe2", "smallthinker", "minimax-m2",
+    "exaone-moe", "grovemoe", "afmoe", "mimo2", "phimoe", "qwen3vlmoe",
+)
+
 # what the JAX registry holds that the port does not serve yet, by the
 # ROADMAP §1 item it waits for
 WAITING = {
-    **dict.fromkeys((
-        "mixtral", "qwen2moe", "qwen3moe", "olmoe", "dbrx", "gpt-oss", "gptoss",
-        "granitemoe", "glm4moe", "dots1", "ernie4_5-moe", "hunyuan-moe", "deepseek",
-        "arctic", "grok", "bailingmoe", "bailingmoe2", "smallthinker", "minimax-m2",
-        "exaone-moe", "grovemoe", "afmoe", "mimo2", "phimoe", "qwen3vlmoe", "llama4",
-        "deepseek2", "minicpm3", "plm"), "3 (MoE, MLA and the iSWA cache)"),
+    **dict.fromkeys(("llama4", "deepseek2", "minicpm3", "plm"),
+                    "3 (MLA and the iSWA cache)"),
     **dict.fromkeys((
         "mamba", "mamba2", "jamba", "granitehybrid", "nemotron_h", "nemotron_h_moe",
         "falcon-h1", "rwkv6", "rwkv7", "arwkv7", "rwkv6qwen2", "lfm2", "lfm2moe",
@@ -46,7 +53,7 @@ WAITING = {
         "5 (encoders, multimodal and diffusion)"),
 }
 
-_REGISTRY: dict[str, ForwardFn] = {arch: llama_forward for arch in LLAMA_ARCHS}
+_REGISTRY: dict[str, ForwardFn] = {arch: llama_forward for arch in LLAMA_ARCHS + MOE_ARCHS}
 
 
 def get_forward(arch: str) -> ForwardFn:

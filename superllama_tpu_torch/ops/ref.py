@@ -308,3 +308,22 @@ def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
     """All but the top-k logits masked to -inf (ties at the k-th value kept)."""
     thresh = torch.topk(logits, k, dim=-1).values[..., -1:]
     return torch.where(logits < thresh, torch.full_like(logits, -math.inf), logits)
+
+
+# ----------------------------------------------------------------- grouped matmul
+
+
+def grouped_matmul_plain(xs: torch.Tensor, w: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``ops/grouped_matmul.py``'s kernel, the counterpart
+    of ``jax.lax.ragged_dot(xs, w, group_sizes, preferred_element_type=f32)``:
+    rows offsets[g]:offsets[g + 1] of xs (R, K) times w[g] (G, K, N), in f32
+    (bf16 products are exact there), a loop over the groups with their
+    bounds read on the host. Returns (R, N) f32."""
+    out = torch.zeros((xs.shape[0], w.shape[2]), dtype=torch.float32, device=xs.device)
+    off = offsets.tolist()
+    for g in range(w.shape[0]):
+        lo, hi = off[g], off[g + 1]
+        if hi > lo:
+            out[lo:hi] = xs[lo:hi].to(torch.float32) @ w[g].to(torch.float32)
+    return out

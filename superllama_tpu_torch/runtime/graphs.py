@@ -25,6 +25,7 @@ def launch_counters() -> list[tuple[object, str]]:
     """(wrapper, attribute) of every kernel launch counter a decode block
     or a prompt chunk can reach."""
     from ..ops import flash_attention as fa_mod
+    from ..ops import grouped_matmul as gm_mod
     from ..ops import paged_attention as pa_mod
     from ..ops import qmatmul as qm_mod
 
@@ -34,7 +35,7 @@ def launch_counters() -> list[tuple[object, str]]:
     return [(qm_mod.qmv, "launches"), (qm_mod.qmm, "launches"), *fams,
             (fa, "launches"), (fa, "launches_tc"),
             (fa_mod.flash_decode_attention, "launches"),
-            (pa, "launches"), (pa, "launches_tc")]
+            (pa, "launches"), (pa, "launches_tc"), (gm_mod.grouped_matmul, "launches")]
 
 
 def _read_counts() -> list[int]:

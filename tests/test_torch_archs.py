@@ -6,12 +6,12 @@ tests/test_torch_archs_routes.py):
    xIELU, quick GELU, gpt-oss's clamped swiglu, every gate-less activation,
    ``top_k_mask``), M-RoPE / IMROPE, ALiBi's slopes and the per-head mask
    of the grouped-query path, each against the JAX function;
- - the registry: every name the JAX package sends to ``llama_forward``
-   without experts is served, each with a parity case of its own
-   (tests/test_torch_archs_1..11.py); every other name of the JAX registry
-   raises NotImplementedError naming the ROADMAP item it waits for, and
-   ``_check_supported`` refuses only experts, llama4 and grok's
-   dense-plus-MoE FFN.
+ - the registry: every name the JAX package sends to ``llama_forward`` but
+   llama4 is served, each with a parity case of its own (the dense ones in
+   tests/test_torch_archs_1..11.py, the MoE ones in
+   tests/test_torch_archs_moe_1..3.py); every other name of the JAX
+   registry raises NotImplementedError naming the ROADMAP item it waits
+   for, and ``_check_supported`` refuses only llama4 among them.
 
 Tolerances: ops to rtol = atol = 1e-6 (f32, the same formulas; M-RoPE and
 attention 1e-5), ALiBi's slopes and ``top_k_mask`` bit-equal.
@@ -33,7 +33,7 @@ from superllama_tpu_torch.models import qwen2vl as tqwen2vl
 from superllama_tpu_torch.models import registry as tregistry
 from superllama_tpu_torch.ops import ref as tops
 from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
-from test_torch_fixtures import REGISTERED, arch_models
+from test_torch_fixtures import MOE_REGISTERED, REGISTERED, arch_models
 
 OPS_TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -133,22 +133,32 @@ def _jax_llama_names() -> set:
 
 def test_every_registered_arch_has_a_parity_case():
     assert set(tregistry.LLAMA_ARCHS) == set(REGISTERED)
-    for arch in REGISTERED:
+    assert set(tregistry.MOE_ARCHS) == set(MOE_REGISTERED)
+    for arch in REGISTERED + MOE_REGISTERED:
         assert tregistry.get_forward(arch) is tllama.llama_forward
-    assert set(REGISTERED) <= _jax_llama_names()
+    assert set(REGISTERED) | set(MOE_REGISTERED) <= _jax_llama_names()
 
 
-@pytest.mark.parametrize("arch", sorted(set(jregistry.supported_archs()) - set(REGISTERED)))
+SERVED = set(REGISTERED) | set(MOE_REGISTERED)
+
+
+@pytest.mark.parametrize("arch", sorted(set(jregistry.supported_archs()) - SERVED))
 def test_unregistered_arch_names_its_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item [345]"):
         tregistry.get_forward(arch)
 
 
 def test_waiting_list_covers_the_rest_of_the_jax_registry():
-    rest = set(jregistry.supported_archs()) - set(REGISTERED)
+    rest = set(jregistry.supported_archs()) - SERVED
     assert rest == set(tregistry.WAITING)
     assert {a for a in rest if "3 (" in tregistry.WAITING[a]} >= (
-        _jax_llama_names() - set(REGISTERED) - {"llama-embed", "cogvlm"})
+        _jax_llama_names() - SERVED - {"llama-embed", "cogvlm"})
+
+
+@pytest.mark.parametrize("arch", ["llama4", "deepseek2", "minicpm3", "plm"])
+def test_mla_and_iswa_names_wait_for_item_3(arch):
+    with pytest.raises(NotImplementedError, match=r"item 3 \(MLA and the iSWA cache\)"):
+        tregistry.get_forward(arch)
 
 
 @pytest.fixture(scope="module")
@@ -161,19 +171,11 @@ def llama(d):
     return arch_models(d, "llama")
 
 
-@pytest.mark.parametrize("what", ["n_expert", "ffn_gate_exps", "ffn_norm_exps", "llama4",
-                                  "moe_dense_parallel_scale"])
+@pytest.mark.parametrize("what", ["llama4"])
 def test_check_supported_refuses_only_item_3(llama, what):
     _, tm = llama
-    hp, params = tm.hparams, tm.params
-    if what == "n_expert":
-        hp = type(hp)(**{**hp.__dict__, "n_expert": 4})
-    elif what.startswith("ffn_"):
-        params = {**params, "layers": [{**params["layers"][0], what: params["layers"][0]["wq"]},
-                                       *params["layers"][1:]]}
-    else:
-        hp = type(hp)(**{**hp.__dict__, "extra": {what: {}}})
+    hp = type(tm.hparams)(**{**tm.hparams.__dict__, "extra": {what: {}}})
     cache = kv_cache_init(hp.n_layer, 1, 8, hp.n_head_kv, hp.head_dim, dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="item 3"):
-        tllama.llama_forward(params, hp, torch.zeros((1, 1), dtype=torch.int64),
+        tllama.llama_forward(tm.params, hp, torch.zeros((1, 1), dtype=torch.int64),
                              torch.zeros((1, 1), dtype=torch.int32), cache)

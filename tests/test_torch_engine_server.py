@@ -245,6 +245,7 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.tools.quantize, superllama_tpu_torch.tools.imatrix\n"
         "import superllama_tpu_torch.tools.perplexity\n"
         "import superllama_tpu_torch.models.qwen2vl, superllama_tpu_torch.models.cvector\n"
+        "import superllama_tpu_torch.ops.grouped_matmul\n"
         "from superllama_tpu_torch import native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "bad += [f'built at import: {n}' for n in native._libs]\n"

@@ -144,6 +144,7 @@ def failing_build(monkeypatch) -> type:
     returns the exception type a wrapper must then raise."""
     from superllama_tpu_torch.ops import _build
     from superllama_tpu_torch.ops import flash_attention as fa_mod
+    from superllama_tpu_torch.ops import grouped_matmul as gm_mod
     from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
     from superllama_tpu_torch.tools import qmv_probe as probe_mod
@@ -162,7 +163,7 @@ def failing_build(monkeypatch) -> type:
                       (fa_mod, "flash_attention_plain"), (fa_mod, "flash_decode_plain"),
                       (pa_mod, "paged_flash_attention_plain"),
                       (pa_mod, "flash_attention_plain"),
-                      (probe_mod, "qmv_variant_plain")):
+                      (probe_mod, "qmv_variant_plain"), (gm_mod, "grouped_matmul_plain")):
         monkeypatch.setattr(mod, name, plain)
     return BuildFailed
 
@@ -208,19 +209,54 @@ class _W:
         self.t[name] = (self.rng.standard_normal(shape) * scale).astype(np.float32)
 
 
+def _experts(p: "_W", b: str, E: int, n=4, k=2, f=48, shared=0, shexp_gate=None,
+             bias=False, router_bias=False, probs_b=False, groups=None, md=None) -> None:
+    """A MoE layer's tensors: the router (``router_bias``: its bias), n
+    experts of width f (``bias``: their biases), DeepSeek-V3's selection
+    bias (``probs_b``) and a shared expert of width ``shared`` with a
+    "1d" or "2d" sigmoid gate."""
+    p.w(b + "ffn_gate_inp.weight", n, E, scale=1.0)
+    if router_bias:
+        p.bias(b + "ffn_gate_inp.bias", n, scale=0.5)
+    if probs_b:
+        p.bias(b + "exp_probs_b.bias", n, scale=0.2)
+    for part, shape in (("gate", (n, f, E)), ("up", (n, f, E)), ("down", (n, E, f))):
+        p.w(b + f"ffn_{part}_exps.weight", *shape)
+        if bias:
+            p.bias(b + f"ffn_{part}_exps.bias", n, shape[1])
+    if shared:
+        p.w(b + "ffn_gate_shexp.weight", shared, E)
+        p.w(b + "ffn_up_shexp.weight", shared, E)
+        p.w(b + "ffn_down_shexp.weight", E, shared)
+        if shexp_gate == "1d":
+            p.w(b + "ffn_gate_inp_shexp.weight", E)
+        elif shexp_gate == "2d":
+            p.w(b + "ffn_gate_inp_shexp.weight", 1, E)
+
+
+def _experts_md(n=4, k=2, f=48, shared=0, groups=None, md=None, **_) -> dict:
+    out = {"expert_count": n, "expert_used_count": k, "expert_feed_forward_length": f}
+    if shared:
+        out["expert_shared_feed_forward_length"] = shared
+    if groups:
+        out["expert_group_count"], out["expert_group_used_count"] = groups
+    return {**out, **(md or {})}
+
+
 def dense_spec(arch: str, *, E=64, H=4, HKV=2, F=128, L=2, D=16, V=ARCH_V, ln=False,
                norm_bias=False, qkv="split", qkv_bias=False, o_bias=False, gate=True,
                fused_up=False, ffn_bias=False, pre_norm=True, ffn_norm=True,
                post_norms=False, qk_norm=None, tied=False, pos_embd=0, embd_norm=False,
                out_bias=False, sub_norms=False, scales=False, attn_gate=False, n_rot=None,
-               md=None) -> tuple[str, dict, dict]:
+               sinks=False, experts=None, dense_lead=0, md=None) -> tuple[str, dict, dict]:
     """(arch, metadata without the arch prefix, tensors) of a tiny model of
     the llama family: LayerNorm or RMS (with biases), split or fused qkv,
     gated, gate-less or fused gate ∥ up FFN, pre- or post-norms, q/k norms
     ("head", "full", "head_ln": chameleon-style (H, D) LayerNorm weights),
     learned positions (``pos_embd`` rows), bloom's embedding norm, bitnet's
-    sub-norms and per-tensor weight scales, an attention gate; ``md`` adds
-    metadata."""
+    sub-norms and per-tensor weight scales, an attention gate, attention
+    sinks; ``experts`` (``_experts``' options) makes every layer from
+    ``dense_lead`` on a MoE layer; ``md`` adds metadata."""
     p = _W(arch)
     nq, nk = H * D, HKV * D
 
@@ -274,7 +310,11 @@ def dense_spec(arch: str, *, E=64, H=4, HKV=2, F=128, L=2, D=16, V=ARCH_V, ln=Fa
         if post_norms:
             p.norm(b + "post_attention_norm.weight", E)
             p.norm(b + "post_ffw_norm.weight", E)
-        if fused_up:
+        if sinks:
+            p.bias(b + "attn_sinks.weight", H, scale=1.0)
+        if experts is not None and i >= dense_lead:
+            _experts(p, b, E, **experts)
+        elif fused_up:
             p.w(b + "ffn_up.weight", 2 * F, E)
         else:
             if gate:
@@ -284,9 +324,10 @@ def dense_spec(arch: str, *, E=64, H=4, HKV=2, F=128, L=2, D=16, V=ARCH_V, ln=Fa
             p.w(b + "ffn_up.weight", F, E)
             if ffn_bias:
                 p.bias(b + "ffn_up.bias", F)
-        p.w(b + "ffn_down.weight", E, F)
-        if ffn_bias:
-            p.bias(b + "ffn_down.bias", E)
+        if experts is None or i < dense_lead:
+            p.w(b + "ffn_down.weight", E, F)
+            if ffn_bias:
+                p.bias(b + "ffn_down.bias", E)
         if scales:
             for n in ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up",
                       "ffn_down"):
@@ -298,6 +339,8 @@ def dense_spec(arch: str, *, E=64, H=4, HKV=2, F=128, L=2, D=16, V=ARCH_V, ln=Fa
             "rope.freq_base": 10000.0, "vocab_size": V,
             ("attention.layer_norm_epsilon" if ln else
              "attention.layer_norm_rms_epsilon"): 1e-5}
+    if experts is not None:
+        meta.update(_experts_md(**experts))
     meta.update(md or {})
     return arch, meta, p.t
 
@@ -355,6 +398,44 @@ DENSE_SPECS = {
                         ("beta", [0.5, 0.5]), ("eps", [-1e-6, -1e-6]))}),
     "bitnet": dict(sub_norms=True, scales=True),
 }
+# the MoE specs written here: every expert form the 25 MoE names of the
+# JAX registry reach that ref_arch_specs has no spec of
+_SHARED = dict(shared=48)
+MOE_SPECS = {
+    "mixtral": dict(experts=dict()),
+    "qwen2moe": dict(qkv_bias=True, experts=dict(**_SHARED, shexp_gate="1d")),
+    "qwen3moe": dict(qk_norm="head", experts=dict(n=8, k=3)),
+    "olmoe": dict(qk_norm="full", experts=dict(n=8, md={"expert_weights_norm": False})),
+    "dbrx": dict(ln=True, qkv="fused", experts=dict(), md={"attention.clamp_kqv": 0.5}),
+    # MXFP4 banks (their inner width a multiple of 32), sinks, biases, SWA
+    "gpt-oss": dict(qkv_bias=True, o_bias=True, sinks=True,
+                    experts=dict(f=64, bias=True, router_bias=True), md=_SWA),
+    "gptoss": dict(qkv_bias=True, o_bias=True, sinks=True,
+                   experts=dict(bias=True, router_bias=True), md=_SWA),
+    "granitemoe": dict(experts=dict(**_SHARED),
+                       md={"residual_scale": 0.5, "embedding_scale": 2.0, "logit_scale": 4.0,
+                           "attention.scale": 0.1}),
+    # sigmoid gating, groups, the selection bias, a routed scale
+    "glm4moe": dict(qkv_bias=True, n_rot=8, dense_lead=1,
+                    experts=dict(n=8, **_SHARED, probs_b=True, groups=(2, 1),
+                                 md={"expert_gating_func": 2, "expert_weights_scale": 2.5,
+                                     "expert_weights_norm": True})),
+    "dots1": dict(qk_norm="head",
+                  experts=dict(n=8, **_SHARED, probs_b=True, groups=(4, 2),
+                               md={"expert_gating_func": 2, "expert_weights_norm": True})),
+    "ernie4_5-moe": dict(dense_lead=1, experts=dict(n=8, **_SHARED, probs_b=True)),
+    "hunyuan-moe": dict(qk_norm="head", experts=dict(n=8, **_SHARED, shexp_gate="2d")),
+}
+MOE_BANK_TYPE = {"gpt-oss": GGMLType.MXFP4}
+# the reused ref_arch_specs MoE specs (a dense FFN beside grok's MoE, so its
+# dense-plus-MoE path runs)
+REF_MOE_SPECS = {"deepseek": {}, "arctic": {}, "grok": {}, "bailingmoe": {},
+                 "smallthinker": {}, "minimax-m2": {}, "bailingmoe2": {}, "exaone-moe": {},
+                 "grovemoe": {}, "afmoe": {}, "mimo2": {}, "phimoe": {}, "qwen3vlmoe": {}}
+# the three that run the paged cache first, so each slice of three holds one
+MOE_REGISTERED = ("mixtral", "gpt-oss", "qwen3moe") + tuple(sorted(
+    set(MOE_SPECS) - {"mixtral", "gpt-oss", "qwen3moe"}) + sorted(REF_MOE_SPECS))
+
 # the reused ref_arch_specs specs, their metadata overrides (a window the
 # 12-token prompts pass) and the depth they are cut to
 REF_SPECS = {"qwen2": {}, "qwen3": {}, "olmo": {}, "exaone": {}, "internlm2": {},
@@ -367,13 +448,21 @@ REF_DEPTH = 2
 
 def arch_spec(arch: str) -> tuple[str, dict, dict]:
     """The tiny spec of a registered architecture: (arch, metadata, tensors)."""
-    if arch in DENSE_SPECS:
-        return dense_spec(arch, **DENSE_SPECS[arch])
+    if arch in DENSE_SPECS or arch in MOE_SPECS:
+        return dense_spec(arch, **{**DENSE_SPECS, **MOE_SPECS}[arch])
     import ref_arch_specs
 
     fn = ref_arch_specs.SPECS[arch]
     name, md, tensors = fn()
-    md = {**md, **REF_SPECS[arch]}
+    md = {**md, **{**REF_SPECS, **REF_MOE_SPECS}[arch]}
+    if arch == "grok":              # a dense FFN beside the MoE
+        p = _W("grok-dense")
+        E, F = md["embedding_length"], md["feed_forward_length"]
+        for i in range(int(md["block_count"])):
+            p.w(f"blk.{i}.ffn_gate.weight", F, E)
+            p.w(f"blk.{i}.ffn_up.weight", F, E)
+            p.w(f"blk.{i}.ffn_down.weight", E, F)
+        tensors = {**tensors, **p.t}
     L = int(md["block_count"])
     if arch == "baichuan" and L > REF_DEPTH:    # 7B-shaped: cut its depth
         md["block_count"] = REF_DEPTH
@@ -383,10 +472,11 @@ def arch_spec(arch: str) -> tuple[str, dict, dict]:
 
 
 def write_arch_gguf(path, arch: str, md: dict, tensors: dict, ggml_type=GGMLType.F32,
-                    vocab_fields=None) -> str:
+                    vocab_fields=None, bank_type=GGMLType.F32) -> str:
     """A GGUF of (arch, md, tensors) through the JAX package's writer: 2-D
-    weights in ``ggml_type`` where their rows fit its blocks (else F32), the
-    embeddings, norms and biases in F32; no tokenizer unless given."""
+    weights in ``ggml_type`` where their rows fit its blocks (else F32),
+    expert banks (3-D) in ``bank_type`` where theirs do, the embeddings,
+    norms and biases in F32; no tokenizer unless given."""
     from superllama_tpu.gguf import GGUFWriter
     from superllama_tpu.gguf.constants import GGML_TYPE_TRAITS
 
@@ -397,19 +487,26 @@ def write_arch_gguf(path, arch: str, md: dict, tensors: dict, ggml_type=GGMLType
     for k, v in (vocab_fields or {}).items():
         w.add(k, v)
     block = GGML_TYPE_TRAITS[ggml_type].block_size
+    bank_block = GGML_TYPE_TRAITS[bank_type].block_size
     for name, arr in tensors.items():
         quant = (arr.ndim == 2 and arr.shape[-1] % block == 0
                  and not name.startswith(("token_embd", "position_embd")))
-        w.add_tensor(name, arr, ggml_type if quant else GGMLType.F32)
+        if arr.ndim == 3 and arr.shape[-1] % bank_block == 0:
+            w.add_tensor(name, arr, bank_type)
+        else:
+            w.add_tensor(name, arr, ggml_type if quant else GGMLType.F32)
     w.write()
     return str(path)
 
 
 REGISTERED = tuple(sorted(DENSE_SPECS) + sorted(REF_SPECS))
 # JAX refuses the paged cache for ALiBi, and its paged path fails on a layer
-# with fewer kv heads than the cache (openelm): no paged case for those
+# with fewer kv heads than the cache (openelm): no paged case for those. Of
+# the MoE names only mixtral, gpt-oss and qwen3moe run the paged cache (the
+# JAX paged kernel in interpret mode is most of a parity file's time).
 ALIBI_ARCHS = ("bloom", "jais", "mpt")
-NO_PAGED = ALIBI_ARCHS + ("openelm",)
+NO_PAGED = ALIBI_ARCHS + ("openelm",) + tuple(
+    a for a in MOE_REGISTERED if a not in ("mixtral", "gpt-oss", "qwen3moe"))
 ARCH_TOL = dict(rtol=1e-4, atol=1e-4)   # f32 weights: test_torch_model.py's TOL
 ARCH_N_CTX = 32
 ARCH_PAGE = 16
@@ -423,7 +520,7 @@ def arch_models(directory, arch: str, ggml_type=GGMLType.F32, keep_quantized=Fal
 
     name, md, tensors = arch_spec(arch)
     path = write_arch_gguf(directory / f"{arch}_{ggml_type.name}.gguf", name, md, tensors,
-                           ggml_type)
+                           ggml_type, bank_type=MOE_BANK_TYPE.get(arch, GGMLType.F32))
     return (jax_load(path, keep_quantized=keep_quantized),
             load_model(path, keep_quantized=keep_quantized, device="cpu"))
 
