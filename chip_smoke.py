@@ -167,7 +167,7 @@ Phases, each printing one JSON line:
     one (PPL_TOL); about 200 KB of the repo's text through the native and
     the Python tokenizer, equal ids, both timed;
  4k. the dense architecture registry: a Command-R7B-width GGUF (cohere2:
-    4096 wide, ARCH_LAYERS = 16 of 32 layers, 32/8 heads of 128, FFN
+    4096 wide, ARCH_LAYERS = 8 of 32 layers, 32/8 heads of 128, FFN
     14,336, a 256,000-piece vocab, a 4,096 window on three layers of four
     and NoPE on the fourth, LayerNorm, a parallel residual, tied
     embeddings; a Q4_K_M-style mix of
@@ -176,9 +176,15 @@ Phases, each printing one JSON line:
     last 32-token chunk through the kernels (qmm, fa_tc) and through the
     plain versions over the same cache agree within ARCH_NMSE; 16 greedy
     tokens on a bf16, a Q8_0 (fd) and a paged (paged) cache through the
-    Engine held to the eager plain route by greedy_rule; a wave of 8 over
-    HTTP after the warm-up (every block and chunk a replay), B 1 / B 8
-    decode tok/s and the warm TTFT of 32 tokens. Then eight feature
+    Engine held to the eager plain route by greedy_rule; the 4,600-token
+    prompt again on one-slot iSWA Engines (ISWA_BUCKETS, a 4,352-slot
+    ring that the prompt wraps) with graphs and without (tokens, both
+    tiers' rows and launches equal, every chunk and block a replay), held
+    to a flat-cache Engine by greedy_rule, with both caches' KV bytes and
+    TTFTs; an 8-slot wave on the iSWA cache against an eager engine; a
+    wave of 8 over HTTP after the warm-up (the iSWA cache; every block and
+    chunk a replay), B 1 / B 8 decode tok/s and the warm TTFT of 32
+    tokens. Then eight feature
     families (bloom: ALiBi; phi3: fused qkv and a packed fused gate-up;
     gpt2: learned positions; falcon: parallel residual; deci: per-layer
     heads; chameleon; gemma2: D 256 with softcaps; qwen3vl: IMROPE) at 2
@@ -200,6 +206,19 @@ Phases, each printing one JSON line:
     gpt-oss with MXFP4 banks, grovemoe, arctic, grok, qwen2moe, glm4moe) at
     2 layers, 1,024 wide: first-token logits on the card against the
     port's CPU plain forward;
+ 4m. the remaining attention forms: a DeepSeek-V2-Lite-width (MLA: 16
+    heads of 128 + 64 over a 512-wide latent, 64 experts of 1,408, top 6,
+    2 shared, layer 0 dense) and a Llama-4-Scout-width (5,120 wide, 40/8
+    heads, 16 experts of 8,192, top 1, a shared expert, chunked attention
+    of 8,192, layer 3 NoPE) Q4_K_M-style file at MLA_LAYERS layers,
+    written, loaded and checked against the published configs; DeepSeek2's
+    16 greedy tokens on a bf16 cache held to the plain route by
+    greedy_rule and its Q8_0 refusal; Scout's 8,400-token prompt (past
+    its chunk) and 16 greedy tokens held to the plain route by greedy_rule
+    (a parting beyond the paths' limit explained by a router near tie,
+    router_tie); for each a wave whose replayed blocks and chunks equal an
+    eager engine's, a served wave of 8, B 1 / B 8 and the warm TTFT; then
+    the held attention routes' times (held_route_times);
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -359,12 +378,15 @@ FA_EDGE_CELLS = ([(T, S, G, 0, 0.0, False, False)
 
 
 def fa_inputs(torch, B=1, T=32, S=2048, n_past=500, H=32, Hkv=8, D=128,
-              dtype="bf16", q8=False, sinks=False, lens=None, scramble=False, seed=0):
+              dtype="bf16", q8=False, sinks=False, lens=None, scramble=False, seed=0,
+              ring_end=None):
     """Cache layout inputs: slots [0, n_past + len) occupied in order, the
     rest empty (-1); query rows at positions n_past..n_past+len-1, padding
     rows (beyond each row's len) at -1. ``scramble``: each row's positions
     are scattered over all S slots in no order and one in eight of them is
-    dropped (-1), as after seq_rm or a slot copy."""
+    dropped (-1), as after seq_rm or a slot copy. ``ring_end`` (one a row):
+    an iSWA ring after a wrap, slot p % S holding position p for every p in
+    [ring_end - S, ring_end), the query rows its last len positions."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -376,6 +398,12 @@ def fa_inputs(torch, B=1, T=32, S=2048, n_past=500, H=32, Hkv=8, D=128,
     q_pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
     kv_pos = torch.full((B, S), -1, dtype=torch.int32, device=dev)
     for b, n in enumerate(lens):
+        if ring_end is not None:
+            end = ring_end[b]
+            q_pos[b, :n] = torch.arange(end - n, end, device=dev)
+            p = torch.arange(max(end - S, 0), end, device=dev)
+            kv_pos[b, p % S] = p.to(torch.int32)
+            continue
         q_pos[b, :n] = torch.arange(n_past, n_past + n, device=dev)
         kv_pos[b, :n_past + n] = torch.arange(n_past + n, device=dev)
     if scramble:
@@ -849,6 +877,14 @@ def phase_kernels(torch) -> list:
                  ("D=256 T=256 S=1024 bf16", dict(T=256, S=1024, n_past=300, D=256)),
                  ("D=256 T=256 S=1024 q8_0 kv", dict(T=256, S=1024, n_past=300, D=256,
                                                       q8=True))]
+    # the iSWA ring of Command-R7B's SWA tier (4,352 slots: its 4,096-token
+    # window and a 256-token ubatch; its heads, D 128) after a wrap, slot p %
+    # S holding position p: the prompt's last chunks past 4,352 and a second
+    # row wrapped twice. bf16 only: the iSWA cache refuses a quantized one
+    # (make_cache), so no Q8_0 K/V reaches fa over a ring
+    fa_cases += [(f"iSWA ring S=4352 T={T} swa=4096 wrapped at {ends}",
+                  dict(B=len(ends), T=T, S=4352, ring_end=ends, swa=4096))
+                 for T, ends in ((32, [4600]), (256, [4600]), (256, [4568, 9000]))]
     # the 1B draft's prompt start (head size 64, G 4): a 100-token prompt's
     # one-row chunk on a bf16 and on a Q8_0 draft cache
     fa_cases += [(f"D=64 T=128 prompt 100 {name} (the 1B draft's prompt chunk)",
@@ -1309,7 +1345,13 @@ def _cache_rows(eng) -> dict:
         m = c.page_pos >= 0
         return {"page_pos": c.page_pos.clone(), "table": c.table.clone(),
                 "k": c.k_pages.permute(1, 3, 0, 2, 4)[m], "v": c.v_pages.permute(1, 3, 0, 2, 4)[m]}
-    c = eng.cache
+    if getattr(eng, "iswa", False):    # each tier's rows, keyed by tier
+        return {f"{tier}_{k}": v for tier in ("full", "swa")
+                for k, v in _kv_rows(getattr(eng.cache, tier)).items()}
+    return _kv_rows(eng.cache)
+
+
+def _kv_rows(c) -> dict:
     m = c.pos >= 0
     rows = {"pos": c.pos.clone(), "cursor": c.cursor.clone(),
             "k": c.k.permute(1, 3, 0, 2, 4)[m], "v": c.v.permute(1, 3, 0, 2, 4)[m]}
@@ -1377,6 +1419,7 @@ def phase_graph_vs_eager(torch, model, cases=GRAPH_CASES,
                 rows_g, rows_e = cache_rows(engines[True]), cache_rows(engines[False])
                 rows_equal = {k: bool(torch.equal(rows_g[k], rows_e[k])) for k in rows_g}
                 rec = {"phase": "graph_vs_eager", "kv": label, "mode": mode,
+                       "iswa": engines[True].iswa,
                        "graph_wall_s": g_run["wall_s"], "eager_wall_s": e_run["wall_s"],
                        "graph_blocks": g_run["blocks"], "eager_blocks": e_run["blocks"],
                        "tokens_equal": g_run["tokens"] == e_run["tokens"],
@@ -2148,18 +2191,81 @@ class PlainKernels:
             setattr(mod, name, fn)
 
 
+class RouterTap:
+    """Within the block, records each MoE router call of the forward (layer
+    order): for the last position of row 0, the router's input, its
+    selection scores (the raw logits where ``moe_topk_raw`` picks on them,
+    else the gate's probabilities plus any selection bias) and the experts
+    it picked."""
+
+    def __enter__(self):
+        from superllama_tpu_torch.models import llama as llama_mod
+
+        self.mod, self.real, self.calls = llama_mod, llama_mod._moe_route, []
+
+        def tap(x, layer, hp, router_x=None):
+            probs, top_w, top_i = self.real(x, layer, hp, router_x)
+            xr = (x if router_x is None else router_x)[0, -1]
+            sel = llama_mod.mm(xr[None], layer["ffn_gate_inp"])[0].float()
+            if "ffn_gate_inp_b" in layer:
+                sel = sel + layer["ffn_gate_inp_b"].float()
+            if not hp.extra.get("moe_topk_raw"):
+                sel = probs[0, -1].float()
+                if "exp_probs_b" in layer:
+                    sel = sel + layer["exp_probs_b"].float()
+            self.calls.append({"x": xr.float().cpu(), "sel": sel.cpu(),
+                               "top": sorted(top_i[0, -1].tolist())})
+            return probs, top_w, top_i
+
+        llama_mod._moe_route = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._moe_route = self.real
+
+
+def router_tie(taps: dict) -> dict:
+    """Where two paths' logits part by more than PATH_NMSE on a model with
+    top-k routing: the first layer whose router picked other experts on the
+    two paths, its inputs within PATH_NMSE of each other there and at every
+    layer before, and the gap between the plain path's (a) scores of the
+    experts only it picked and of those only the kernel path (b) picked no
+    larger than the two paths' largest score difference: a near tie of the
+    router, which the rest of the forward then amplifies (top-1 routing is
+    discontinuous, like an int8 activation code)."""
+    ra, rb = taps["a"], taps["b"]
+    check(len(ra) == len(rb) > 0, f"router taps: {len(ra)} and {len(rb)} calls")
+    layer = next((i for i, (a, b) in enumerate(zip(ra, rb)) if a["top"] != b["top"]), None)
+    check(layer is not None, "the paths part beyond their limit, but every router picked "
+                             "the same experts on both")
+    ins = [nmse(rb[i]["x"], ra[i]["x"]) for i in range(layer + 1)]
+    check(max(ins) <= PATH_NMSE, f"router inputs part before layer {layer}: NMSE {ins}")
+    a, b = ra[layer], rb[layer]
+    only_a = [e for e in a["top"] if e not in b["top"]]
+    only_b = [e for e in b["top"] if e not in a["top"]]
+    gap = float(min(a["sel"][e] for e in only_a) - max(a["sel"][e] for e in only_b))
+    diff = float((a["sel"] - b["sel"]).abs().max())
+    check(0 <= gap <= diff, f"router of MoE layer {layer}: experts {only_a} against {only_b}, "
+                            f"scores {gap} apart, the paths' scores only {diff} apart")
+    return {"moe_layer": layer, "experts_plain": only_a, "experts_kernels": only_b,
+            "score_gap": gap, "score_path_diff": diff, "input_nmse": ins}
+
+
 def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None,
-                greedy: int = 0):
+                greedy: int = 0, n_ctx: int = 2048):
     """Prefill tokens_seq[0] then decode the rest one by one on a fresh
-    cache (dense of kv_dtype, default bf16, or paged bf16 with 256-token
-    pages), then ``greedy`` more decode steps, each of the last step's
-    argmax, with ``extra`` set in hparams.extra meanwhile; returns the
-    logits of every step (f32)."""
-    from superllama_tpu_torch.models.llama import llama_forward
+    cache (dense of kv_dtype, default bf16, n_ctx slots, or paged bf16 with
+    256-token pages), then ``greedy`` more decode steps, each of the last
+    step's argmax, with ``extra`` set in hparams.extra meanwhile, through
+    the registry's forward of the model's architecture; returns the logits
+    of every step (f32; of a prompt longer than PROMPT_CHUNK, which goes in
+    chunks of that many, its last chunk's)."""
+    from superllama_tpu_torch.models.registry import get_forward
     from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
     from superllama_tpu_torch.runtime.paged_kv import PagedKVManager, paged_cache_init
 
     hp = model.hparams
+    fwd = get_forward(hp.arch)
     mgr = None
     if paged:
         mgr = PagedKVManager(paged_cache_init(hp.n_layer, 9, 256, 1, 8, hp.n_head_kv,
@@ -2167,7 +2273,7 @@ def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None
                                               device="cuda"))
         cache = mgr.cache
     else:
-        cache = kv_cache_init(hp.n_layer, 1, 2048, hp.n_head_kv, hp.head_dim,
+        cache = kv_cache_init(hp.n_layer, 1, n_ctx, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
                               dtype=kv_dtype or torch.bfloat16, device="cuda")
     hp.extra.update(extra or {})
     out, p0 = [], 0
@@ -2176,20 +2282,28 @@ def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None
             for i in range(len(tokens_seq) + greedy):
                 toks = (tokens_seq[i] if i < len(tokens_seq)
                         else [int(out[-1][0, -1].argmax())])
-                t = torch.tensor([toks], device="cuda")
-                pos = torch.arange(p0, p0 + len(toks), device="cuda", dtype=torch.int32)[None]
-                if mgr is not None:
-                    mgr.plan_step({0: len(toks)})
-                logits, _ = llama_forward(model.params, hp, t, pos, cache)
-                if mgr is not None:
-                    mgr.finish_step()
+                for c in range(0, len(toks), PROMPT_CHUNK):
+                    part = toks[c:c + PROMPT_CHUNK]
+                    t = torch.tensor([part], device="cuda")
+                    pos = torch.arange(p0, p0 + len(part), device="cuda",
+                                       dtype=torch.int32)[None]
+                    if mgr is not None:
+                        mgr.plan_step({0: len(part)})
+                    logits, _ = fwd(model.params, hp, t, pos, cache)
+                    if mgr is not None:
+                        mgr.finish_step()
+                    p0 += len(part)
                 out.append(logits.float())
-                p0 += len(toks)
     finally:
         for key in extra or {}:
             hp.extra.pop(key, None)
     torch.cuda.synchronize()
     return out
+
+
+# the longest prompt chunk the plain-route helpers feed at once: a prompt of
+# 8,400 tokens in one step would hold 40 x 8,400^2 f32 logits a layer
+PROMPT_CHUNK = 2048
 
 
 def phase_parity(torch, model, label: str = "Q4_K") -> None:
@@ -3212,16 +3326,18 @@ def path_logits(torch, model, ids, rows: int, width: int, kv_dtype=None, paged=F
     return a, b
 
 
-def forced_gaps(torch, model, prompt, got, kv_dtype=None, paged=False):
+def forced_gaps(torch, model, prompt, got, kv_dtype=None, paged=False, n_ctx: int = 2048):
     """The plain prefill teacher-forced over the variant's own tokens:
-    prompt + got[:-1] in one chunk at one row of a fresh cache. Returns
-    (gaps, logits): gaps[j] = the largest logit at got[j]'s position less
-    got[j]'s own, and the (len(got), V) logits there, f32 on the host."""
-    from superllama_tpu_torch.models.llama import llama_forward
+    prompt + got[:-1] at one row of a fresh cache of n_ctx slots, in one
+    chunk (chunks of PROMPT_CHUNK past that). Returns (gaps, logits):
+    gaps[j] = the largest logit at got[j]'s position less got[j]'s own, and
+    the (len(got), V) logits there, f32 on the host."""
+    from superllama_tpu_torch.models.registry import get_forward
     from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
     from superllama_tpu_torch.runtime.paged_kv import PagedKVManager, paged_cache_init
 
     hp = model.hparams
+    fwd = get_forward(hp.arch)
     kv_dtype = kv_dtype or torch.bfloat16
     ids = list(prompt) + list(got[:-1])
     T = len(ids)
@@ -3233,14 +3349,19 @@ def forced_gaps(torch, model, prompt, got, kv_dtype=None, paged=False):
         cache = mgr.cache
         mgr.plan_step({0: T})
     else:
-        cache = kv_cache_init(hp.n_layer, 1, 2048, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
+        cache = kv_cache_init(hp.n_layer, 1, n_ctx, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
                               dtype=kv_dtype, device="cuda")
-    tok = torch.tensor([ids], dtype=torch.int64, device="cuda")
-    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
-    lg, _ = llama_forward(model.params, hp, tok, pos, cache)
+    first = len(prompt) - 1
+    parts = []
+    for c in range(0, T, PROMPT_CHUNK if not paged else T):
+        tok = torch.tensor([ids[c:c + PROMPT_CHUNK]], dtype=torch.int64, device="cuda")
+        pos = torch.arange(c, c + tok.shape[1], dtype=torch.int32, device="cuda")[None]
+        lg, _ = fwd(model.params, hp, tok, pos, cache)
+        if c + tok.shape[1] > first:
+            parts.append(lg[0, max(first - c, 0):].float())
     if mgr is not None:
         mgr.finish_step()
-    lg = lg[0, len(prompt) - 1:].float()
+    lg = torch.cat(parts)
     want = torch.tensor(got, dtype=torch.int64, device="cuda")
     gaps = lg.max(-1).values - lg.gather(1, want[:, None])[:, 0]
     return gaps.cpu(), lg.cpu()
@@ -3250,7 +3371,7 @@ PATH_NMSE = 1e-3     # logits of two paths of one position: phase 5's limit
 
 
 def greedy_rule(torch, model, label: str, prompt, ref, got, rows: int, width: int,
-                paths=None, **path_kw) -> dict:
+                paths=None, n_ctx: int = 2048, taps: dict | None = None, **path_kw) -> dict:
     """``got`` (a variant's greedy tokens) against ``ref`` (the plain path's,
     as many): equal, or parted at a first position i where the two
     candidates' logits (the plain decode path's) differ by no more than the
@@ -3261,7 +3382,10 @@ def greedy_rule(torch, model, label: str, prompt, ref, got, rows: int, width: in
     the largest difference among the three paths at i: a token the
     variant's path ranks first lies at most 2 D below the first wherever
     the two paths differ by at most D. ``paths(ids)`` gives the two paths'
-    logits (default: path_logits' plain decode step and variant step)."""
+    logits (default: path_logits' plain decode step and variant step).
+    With ``taps`` (route_paths' router records of the paths), two paths
+    that part beyond PATH_NMSE pass where router_tie finds a router near
+    tie that explains it."""
     ref = ref[:len(got)]
     i = first_divergence(ref, got)
     if i is None and len(ref) == len(got):
@@ -3277,9 +3401,12 @@ def greedy_rule(torch, model, label: str, prompt, ref, got, rows: int, width: in
           f"{label}: tokens part at {i} ({x} against {y}), their logits {gap} apart, but the "
           f"two paths' logits only {path_diff} apart there")
     gaps, forced = forced_gaps(torch, model, prompt, got, path_kw.get("kv_dtype"),
-                               path_kw.get("paged", False))
+                               path_kw.get("paged", False), n_ctx)
     p = forced[i]
     errs = {"decode_vs_variant": nmse(b, a), "decode_vs_prefill": nmse(p, a)}
+    if taps is not None and max(errs.values()) > PATH_NMSE:
+        return {"equal": False, "parted_at": i, "logit_gap": gap, "path_diff": path_diff,
+                "path_nmse": errs, "router_tie": router_tie(taps)}
     check(max(errs.values()) <= PATH_NMSE,
           f"{label}: at {i} the paths' logits differ by NMSE {errs} (limit {PATH_NMSE})")
     D = max(path_diff, float((a - p).abs().max()), float((b - p).abs().max()))
@@ -4385,7 +4512,7 @@ def model_writer(path: str, hp, tok, name: str, arch: str = "llama", keys=None,
 def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b-mixed",
                      shared_layers: bool = False, arch: str = "llama", keys=None,
                      ffn_norm: bool = True, tied: bool = False, experts=None,
-                     f32_tensors=None) -> dict:
+                     f32_tensors=None, shapes=None) -> dict:
     """A GGUF of hp's widths under ``arch`` (``model_writer``'s ``keys`` and
     ``ffn_norm``; no output.weight when ``tied``), ``types``' formats by
     role (default FILE_TYPES) of rand_raw bytes (norms F32 ones), and tok's
@@ -4394,15 +4521,17 @@ def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b
     core). ``experts`` (n, width): the FFN is three (n, out, in) expert
     banks (``weight_shapes``), each of rand_raw bytes of its n·out rows in
     the ``*_exps`` roles' types (MXFP4 included); ``f32_tensors`` {name:
-    array} are added as they are (routers, q/k norms, biases). Returns
-    {tensor name: (type, raw bytes, (N, K))} of the quantized ones."""
+    array} are added as they are (routers, q/k norms, biases). ``shapes``
+    ({name: (role, N, K[, n])}, as ``weight_shapes`` gives them) replaces
+    the llama's tensor set (MLA, shared experts). Returns {tensor name:
+    (type, raw bytes, (N, K))} of the quantized ones."""
     from concurrent.futures import ThreadPoolExecutor
 
     from superllama_tpu_torch.gguf import GGMLType
     from superllama_tpu_torch.models.synthetic import rand_raw
 
     types = types or FILE_TYPES
-    shapes = weight_shapes(hp, tied, experts)
+    shapes = shapes or weight_shapes(hp, tied, experts)
     key = (lambda n: n.split(".", 2)[-1]) if shared_layers else (lambda n: n)
     first = {}                      # each set of bytes -> the first tensor holding it
     for n in shapes:
@@ -4888,9 +5017,9 @@ def phase_toolchain(torch, smi_line: str) -> dict:
 
 # ------------------------------------------------------------ 4k. the dense architecture registry
 
-# the depth of Command-R7B's file (of its 32 layers): writing, loading and
-# the eager plain routes of greedy_rule are per layer
-ARCH_LAYERS = 16
+# the depth of Command-R7B's file (of its 32 layers): writing, loading, the iSWA
+# engines' eager runs and the eager plain routes of greedy_rule are per layer
+ARCH_LAYERS = 8
 # Command-R7B (CohereForAI/c4ai-command-r7b-12-2024 config.json): cohere2 at
 # its published widths, ARCH_LAYERS deep; a 4,096-token window on three
 # layers of four, NoPE on the fourth, LayerNorm without bias, a parallel
@@ -4958,42 +5087,193 @@ def cmdr7b_long_prompt(torch, model) -> dict:
             "launches": {k: counts[k] for k in ("qmm", "fa_tc", "fa", "qmv")}}
 
 
-def plain_greedy(torch, model, prompt, n: int, kv_dtype=None, paged=False) -> list:
+# the iSWA engine's prefill buckets: a largest ubatch of 256 makes
+# Command-R7B's ring iswa_swa_seq(4096, 256, n_ctx) = 4,352 slots, which the
+# 4,600-token prompt wraps
+ISWA_BUCKETS = (32, 128, 256)
+ISWA_RING = 4352
+ISWA_N_CTX = 4864     # the long prompt, ARCH_DECODE tokens and headroom
+
+
+def kv_bytes(cache) -> int:
+    """Device bytes of a KVCache's tensors (an iSWA cache: of one tier's)."""
+    ts = [cache.k, cache.v, cache.pos, cache.cursor, cache.k_scale, cache.v_scale]
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def ring_paths(torch, model, prompt):
+    """greedy_rule's paths for the iSWA engine against the flat one: the
+    logits of ids[-1] through the kernels over a flat cache (a) and over an
+    iSWA cache of the engine's ring (b), the prompt prefilled in chunks of
+    the largest bucket, then one decode step a token."""
+    from superllama_tpu_torch.models.llama import llama_forward
+    from superllama_tpu_torch.runtime.kv_cache import iswa_cache_init, kv_cache_init
+
+    hp = model.hparams
+    P = ISWA_BUCKETS[-1]
+
+    def run(cache, ids):
+        seq = [prompt[c:c + P] for c in range(0, len(prompt), P)]
+        seq += [[t] for t in ids[len(prompt):]]
+        p0 = 0
+        with torch.no_grad():
+            for toks in seq:
+                pos = torch.arange(p0, p0 + len(toks), dtype=torch.int32, device="cuda")[None]
+                lg, _ = llama_forward(model.params, hp, torch.tensor([toks], device="cuda"),
+                                      pos, cache)
+                p0 += len(toks)
+        return lg[0, -1].float().cpu()
+
+    def paths(ids):
+        flat = kv_cache_init(hp.n_layer, 1, ISWA_N_CTX, hp.n_head_kv, hp.head_dim,
+                             hp.head_dim_v, dtype=torch.bfloat16, device="cuda")
+        ring = iswa_cache_init(hp, 1, ISWA_N_CTX, n_ubatch=P, dtype=torch.bfloat16,
+                               device="cuda")
+        return run(flat, ids), run(ring, ids)
+    return paths
+
+
+def cmdr7b_iswa(torch, model) -> dict:
+    """The 4,600-token prompt and ARCH_DECODE greedy tokens on one-slot
+    Engines: a flat-cache one (``iswa=False``, the default buckets), then
+    two iSWA ones (ISWA_BUCKETS: a 4,352-slot ring the prompt wraps) with
+    graphs and without. The graph engine's measured run (after a warm one)
+    equals the eager engine's bit for bit: tokens, cache rows of both
+    tiers, launches, every chunk and block a replay. Its tokens are held to
+    the flat engine's by greedy_rule (ring_paths); fa_tc launched over the
+    tiers; each cache's KV bytes and each engine's TTFT."""
+    import gc
+
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    hp = model.hparams
+    prompt = token_prompts(hp.n_vocab, [sum(LONG_CHUNKS)], SEED + 83)[0]
+    label = "Command-R7B iSWA"
+
+    def gen(eng):
+        fresh(eng)
+        return eng.generate(prompt, max_tokens=ARCH_DECODE, sampling={"greedy": True},
+                            stop_eog=False)
+
+    flat = Engine(model, n_slots=1, n_ctx=ISWA_N_CTX, device="cuda",
+                  kv_dtype=torch.bfloat16, iswa=False)
+    check(not flat.iswa, f"{label}: iswa=False built {type(flat.cache).__name__}")
+    gen(flat)                       # captures its chunks and blocks
+    r = gen(flat)
+    ref, out = r["tokens"], {"flat_ttft_ms": r["ttft_s"] * 1e3,
+                             "flat_kv_bytes": kv_bytes(flat.cache)}
+    del flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    engines = {g: Engine(model, n_slots=1, n_ctx=ISWA_N_CTX, device="cuda",
+                         kv_dtype=torch.bfloat16, prefill_buckets=ISWA_BUCKETS, graphs=g)
+               for g in (True, False)}
+    try:
+        for g, eng in engines.items():
+            check(eng.iswa and eng.cache.swa.max_seq == ISWA_RING
+                  and eng.cache.full.max_seq == ISWA_N_CTX,
+                  f"{label}: the engine's cache is {type(eng.cache).__name__}")
+            if g:
+                gen(eng)            # the warm run: captures
+            with eng._step_lock:
+                stats0 = block_stats(eng)
+                reset_counts()
+            r = gen(eng)
+            with eng._step_lock:
+                torch.cuda.synchronize()
+                runs[g] = {"tokens": r["tokens"], "ttft_ms": r["ttft_s"] * 1e3,
+                           "launches": read_counts(), "rows": cache_rows(eng),
+                           "blocks": {k: v - stats0[k] for k, v in block_stats(eng).items()},
+                           "ring_top": int(eng.cache.swa.cursor[0])}
+        ring = engines[True].cache
+        out["kv_bytes"] = {"full": kv_bytes(ring.full), "swa": kv_bytes(ring.swa)}
+    finally:
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    g_run, e_run = runs[True], runs[False]
+    rows_equal = {k: bool(torch.equal(g_run["rows"][k], e_run["rows"][k]))
+                  for k in g_run["rows"]}
+    check(g_run["tokens"] == e_run["tokens"], f"{label}: the graph engine's tokens differ")
+    check(all(rows_equal.values()), f"{label}: cache rows differ: {rows_equal}")
+    check(g_run["launches"] == e_run["launches"], f"{label}: launch counts differ")
+    gb = g_run["blocks"]
+    check(gb["replays"] == gb["blocks"] > 0 and gb["chunk_replays"] == gb["chunks"] > 0
+          and gb["captures"] == gb["chunk_captures"] == 0, f"{label}: graph engine {gb}")
+    check(g_run["ring_top"] > ISWA_RING, f"{label}: the prompt did not wrap the ring")
+    check(g_run["launches"]["fa_tc"] > 0, f"{label}: the prompt never launched fa_tc")
+    rule = greedy_rule(torch, model, label, prompt, ref, g_run["tokens"], 1, 1,
+                       paths=ring_paths(torch, model, prompt), n_ctx=ISWA_N_CTX)
+    full, swa = out["kv_bytes"]["full"], out["kv_bytes"]["swa"]
+    out.update({"tokens": len(prompt), "ring_slots": ISWA_RING, "n_ctx": ISWA_N_CTX,
+                "buckets": list(ISWA_BUCKETS), "greedy_rule_vs_flat": rule,
+                "replayed_equals_eager": True, "rows_equal": rows_equal,
+                "graph_blocks": gb, "iswa_ttft_ms": g_run["ttft_ms"],
+                "iswa_ttft_ms_eager": e_run["ttft_ms"], "ring_high_water": g_run["ring_top"],
+                "kv_bytes_iswa_over_flat": (full + swa) / out["flat_kv_bytes"],
+                "launches": {k: g_run["launches"][k] for k in ("qmv", "qmm", "fa_tc", "fa",
+                                                              "fd")}})
+    return out
+
+
+def plain_greedy(torch, model, prompt, n: int, kv_dtype=None, paged=False,
+                 n_ctx: int = 2048) -> list:
     """n greedy tokens through the eager plain route: the prompt's prefill,
     then one decode step a token, every kernel replaced by its plain
     version."""
     with PlainKernels():
-        steps = forward_run(torch, model, [list(prompt)], kv_dtype, paged, greedy=n - 1)
+        steps = forward_run(torch, model, [list(prompt)], kv_dtype, paged, greedy=n - 1,
+                            n_ctx=n_ctx)
     return [int(lg[0, -1].argmax()) for lg in steps]
 
 
-def route_paths(torch, model, prompt, kv_dtype=None, paged=False):
+def route_paths(torch, model, prompt, kv_dtype=None, paged=False, n_ctx: int = 2048,
+                taps: dict | None = None):
     """greedy_rule's paths for a served decode against the eager plain
     route: the logits of ids[-1] at its position through the plain route
     (a) and through the kernels (b), the prompt prefilled, then one decode
-    step a token, on a fresh cache of the kind each time."""
-    def paths(ids):
+    step a token, on a fresh cache of the kind each time. With ``taps``, a
+    dict, each path's last step's router calls (RouterTap) go into
+    taps["a"] and taps["b"]."""
+    def run(ids):
         seq = [list(prompt)] + [[t] for t in ids[len(prompt):]]
+        if taps is None:
+            return forward_run(torch, model, seq, kv_dtype, paged, n_ctx=n_ctx)[-1][0, -1].cpu()
+        n_moe = sum("ffn_gate_inp" in layer for layer in model.params["layers"])
+        with RouterTap() as tap:
+            out = forward_run(torch, model, seq, kv_dtype, paged, n_ctx=n_ctx)[-1][0, -1].cpu()
+        return out, tap.calls[-n_moe:]
+
+    def paths(ids):
         with PlainKernels():
-            a = forward_run(torch, model, seq, kv_dtype, paged)[-1][0, -1].cpu()
-        b = forward_run(torch, model, seq, kv_dtype, paged)[-1][0, -1].cpu()
+            a = run(ids)
+        b = run(ids)
+        if taps is None:
+            return a, b
+        (a, taps["a"]), (b, taps["b"]) = a, b
         return a, b
     return paths
 
 
-def arch_decode(torch, model, label: str = "Command-R7B", need=()) -> dict:
+DECODE_CACHES = (("bf16", {}, "qmv"), ("q8_0", {"kv_dtype": "q8_0"}, "fd"),
+                 ("paged", {"paged": True, "page_size": 256}, "paged"))
+
+
+def arch_decode(torch, model, label: str = "Command-R7B", need=(),
+                caches=DECODE_CACHES) -> dict:
     """ARCH_DECODE greedy tokens of a 32-token prompt on a bf16, a Q8_0
-    (fd) and a paged (paged) cache through the Engine (its decode blocks
-    replayed from CUDA graphs), each held to the eager plain route by
-    greedy_rule; the kernels in ``need`` launched on every cache too."""
+    (fd) and a paged (paged) cache (``caches`` narrows them) through the
+    Engine (its decode blocks replayed from CUDA graphs), each held to the
+    eager plain route by greedy_rule; the kernels in ``need`` launched on
+    every cache too."""
     from superllama_tpu_torch.runtime.engine import Engine
 
     hp = model.hparams
     prompt = token_prompts(hp.n_vocab, [32], SEED + 81)[0]
     out = {}
     keys = ("qmv", "qmm", "fa_tc", "fd", "paged", *need)
-    for cache, kw, kernel in (("bf16", {}, "qmv"), ("q8_0", {"kv_dtype": "q8_0"}, "fd"),
-                              ("paged", {"paged": True, "page_size": 256}, "paged")):
+    for cache, kw, kernel in caches:
         eng = Engine(model, n_slots=1, n_ctx=512, device="cuda",
                      **{"kv_dtype": torch.bfloat16, **kw})
         reset_counts()
@@ -5005,23 +5285,25 @@ def arch_decode(torch, model, label: str = "Command-R7B", need=()) -> dict:
               f"{label} {cache}: decode blocks {stats}")
         for name in (kernel, *need):
             check(counts[name] > 0, f"{label} {cache} decode never launched {name}")
+        iswa = eng.iswa
         del eng
         cache_kw = {"kv_dtype": kw.get("kv_dtype"), "paged": bool(kw.get("paged"))}
         ref = plain_greedy(torch, model, prompt, ARCH_DECODE, **cache_kw)
         rule = greedy_rule(torch, model, f"{label} {cache}", prompt, ref, got, 1, 1,
                            paths=route_paths(torch, model, prompt, **cache_kw), **cache_kw)
         out[cache] = {"greedy_rule": rule, "launches": {k: counts[k] for k in keys},
-                      "blocks": stats["blocks"], "replays": stats["replays"]}
+                      "blocks": stats["blocks"], "replays": stats["replays"],
+                      "iswa": iswa}
     return out
 
 
-def arch_serving(torch, model, label: str = "Command-R7B", need=()) -> dict:
+def arch_serving(torch, model, label: str = "Command-R7B", need=(), attn=("fa_tc",)) -> dict:
     """A wave of 8 requests of 32-token prompts, 32 tokens each, over HTTP
     to a warmed-up ServerApp (bf16 cache): the served tokens equal the
     engine's own wave, every decode block and prompt chunk a replay and no
     capture after the warm-up; then B 1 and B 8 decode tok/s and the warm
     TTFT of a 32-token prompt; the kernels in ``need`` launched in the wave
-    too."""
+    too, and ``attn``'s (fa_tc; none for MLA, whose attention is plain)."""
     import gc
 
     from superllama_tpu_torch.server.http import Server, ServerApp
@@ -5069,7 +5351,7 @@ def arch_serving(torch, model, label: str = "Command-R7B", need=()) -> dict:
               f"{label}: a graph was captured after the warm-up: {after}")
         b8 = (sum(r["n_generated"] - 1 for r in rs)
               / (max(r["total_s"] for r in rs) - max(r["ttft_s"] for r in rs)))
-        info = {"warmup_keys": len(warm["keys"]), "warmup_s": warm["seconds"],
+        info = {"iswa": eng.iswa, "warmup_keys": len(warm["keys"]), "warmup_s": warm["seconds"],
                 "graph_pool_bytes": warm["pool_bytes"], "served_equal_engine": True,
                 "wave_blocks": replayed,
                 "launches": {k: counts[k] for k in ("qmv", "qmm", "fa_tc", "fd", "paged", *need)},
@@ -5082,7 +5364,7 @@ def arch_serving(torch, model, label: str = "Command-R7B", need=()) -> dict:
         torch.cuda.empty_cache()
     # (the wave prefills as one 8-row chunk of 256 rows: the M > 32 path,
     # no qmm; the long prompt's last chunk holds qmm)
-    for name in ("qmv", "fa_tc", *need):
+    for name in ("qmv", *attn, *need):
         check(info["launches"][name] > 0, f"{label} serving never launched {name}")
     return info
 
@@ -5128,10 +5410,21 @@ def cmdr7b(torch, d: str, smi_line: str) -> dict:
     info["long_prompt"] = cmdr7b_long_prompt(torch, model)
     info["long_prompt"]["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    info["iswa"] = cmdr7b_iswa(torch, model)
+    info["iswa"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     info["decode"] = arch_decode(torch, model)
     info["decode_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    (rec,) = phase_graph_vs_eager(torch, model, (("iswa bf16", {}, [32, 100] * 4),),
+                                  ("greedy",), n_ctx=512)
+    check(rec["iswa"], "Command-R7B: the graph-against-eager engines are not iSWA")
+    info["iswa_graph_vs_eager"] = {k: rec[k] for k in ("tokens_equal", "rows_equal",
+                                                       "graph_blocks")}
+    info["iswa_graph_vs_eager_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     info["serving"] = arch_serving(torch, model)
+    check(info["serving"]["iswa"], "Command-R7B: the server's engine is not iSWA")
     info["serving"]["seconds"] = time.perf_counter() - t0
     info["card"] = smi_line
     del model
@@ -5736,6 +6029,340 @@ def phase_moe(torch, smi_line: str) -> dict:
     emit(info)
     return {"checks": checks, "times": times,
             "launches": info["qwen3_30b_a3b"]["serving"]["launches"]["gmm"]}
+
+
+# ------------------------------------------------------------ 4m. MLA and llama4
+
+MLA_LAYERS = 4
+# DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite config.json): 2,048 wide, 16
+# heads of qk_nope 128 + qk_rope 64 over a 512-wide KV latent, v 128, no q
+# LoRA; layer 0 dense (10,944), then 64 routed experts of 1,408 (top 6,
+# softmax, not renormalised) and 2 shared; a 102,400-piece vocab; its YaRN
+# keys (the forward keeps the JAX package's linear rope, ROADMAP §3).
+# MLA_LAYERS of its 27 layers: 1 dense, 3 MoE
+DSV2_LITE = dict(arch="deepseek2", n_embd=2048, n_layer=MLA_LAYERS, n_head=16, n_head_kv=16,
+                 head_dim=192, head_dim_v=128, n_rot=64, n_ff=10944, n_vocab=102400,
+                 rope_freq_base=10000.0, rms_eps=1e-6)
+DSV2_LITE_EXPERTS = (64, 1408)
+DSV2_LITE_KEYS = {"attention.key_length": 192, "attention.value_length": 128,
+                  "attention.kv_lora_rank": 512, "expert_count": 64, "expert_used_count": 6,
+                  "expert_shared_count": 2, "expert_feed_forward_length": 1408,
+                  "leading_dense_block_count": 1, "expert_weights_scale": 1.0,
+                  "rope.scaling.type": "yarn", "rope.scaling.factor": 40.0,
+                  "rope.scaling.original_context_length": 4096}
+# llama.cpp's Q4_K_M rules by role (attn_kv_b, whose V half is attn_v's
+# role, Q6_K); a K that is no multiple of 256 (the dense ffn_down's 10,944,
+# the experts' 1,408) takes Q6_K's fallback, Q8_0
+DSV2_LITE_TYPES = {**Q4_K_M_TYPES, "attn_kv_a_mqa": "Q4_K", "attn_kv_b": "Q6_K",
+                   "ffn_down": "Q8_0", "ffn_gate_exps": "Q4_K", "ffn_up_exps": "Q4_K",
+                   "ffn_down_exps": "Q8_0", "ffn_gate_shexp": "Q4_K", "ffn_up_shexp": "Q4_K",
+                   "ffn_down_shexp": "Q6_K"}
+# Llama-4-Scout-17B-16E (meta-llama/Llama-4-Scout-17B-16E config.json, its
+# text_config): 5,120 wide, 40 heads over 8 kv heads of 128, 16 experts of
+# 8,192 (top 1 on raw logits, the sigmoid after, weights before the
+# experts) and a shared expert of 8,192, a 202,048-piece vocab, chunked
+# attention of 8,192 on the rope layers, NoPE every 4th layer with
+# temperature tuning (floor 8,192, scale 0.1), the L2 q/k norm; rope theta
+# 500,000 without its llama3 per-dim factors. MLA_LAYERS of its 48 layers:
+# layer 3 NoPE
+SCOUT = dict(arch="llama4", n_embd=5120, n_layer=MLA_LAYERS, n_head=40, n_head_kv=8,
+             head_dim=128, head_dim_v=128, n_rot=128, n_ff=16384, n_vocab=202048,
+             rope_freq_base=500000.0, rms_eps=1e-5)
+SCOUT_EXPERTS = (16, 8192)
+SCOUT_KEYS = {"expert_count": 16, "expert_used_count": 1, "expert_feed_forward_length": 8192,
+              "attention.chunk_size": 8192, "attention.temperature_tuning": True,
+              "attention.floor_scale": 8192.0, "no_rope_layer_step": 4,
+              "attention.key_length": 128, "attention.value_length": 128}
+SCOUT_TYPES = {**Q4_K_M_TYPES, "ffn_gate_exps": "Q4_K", "ffn_up_exps": "Q4_K",
+               "ffn_down_exps": "Q6_K", "ffn_gate_shexp": "Q4_K", "ffn_up_shexp": "Q4_K",
+               "ffn_down_shexp": "Q6_K"}
+# a prompt past Scout's 8,192-token chunk: its last 208 positions attend
+# within the second chunk, and from position 8,191 on the NoPE layer's
+# temperature term is above 1
+SCOUT_PROMPT = 8400
+SCOUT_N_CTX = 8704
+MLA_KEYS = ("qmv", "qmm", "gmm", "fa_tc", "fa", "fd", "paged")
+
+
+def shexp_shapes(b: str, E: int, F: int) -> dict:
+    return {b + "ffn_gate_shexp.weight": ("ffn_gate_shexp", F, E),
+            b + "ffn_up_shexp.weight": ("ffn_up_shexp", F, E),
+            b + "ffn_down_shexp.weight": ("ffn_down_shexp", E, F)}
+
+
+def mla_file_model(torch, d: str, which: str):
+    """DeepSeek-V2-Lite or Llama-4-Scout at its published widths,
+    MLA_LAYERS deep, as a Q4_K_M-style file of rand_raw bytes (every layer
+    of a kind layer 0's or 1's; routers F32, seeded): written, loaded
+    packed onto the card (banks as bf16), its hparams checked against the
+    published config. Returns (model, info)."""
+    import numpy as np
+
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+
+    ds = which == "deepseek2"
+    hp = llama3_8b_hparams(**(DSV2_LITE if ds else SCOUT))
+    E, V = hp.n_embd, hp.n_vocab
+    n, f = DSV2_LITE_EXPERTS if ds else SCOUT_EXPERTS
+    f32 = {}
+    if ds:
+        H, dn, dr, dv, rkv = 16, 128, 64, 128, 512
+        shapes = {"token_embd.weight": ("token_embd", V, E), "output.weight": ("output", V, E)}
+        for il in range(hp.n_layer):
+            b = f"blk.{il}."
+            shapes.update({b + "attn_q.weight": ("attn_q", H * (dn + dr), E),
+                           b + "attn_kv_a_mqa.weight": ("attn_kv_a_mqa", rkv + dr, E),
+                           b + "attn_kv_b.weight": ("attn_kv_b", H * (dn + dv), rkv),
+                           b + "attn_output.weight": ("attn_output", E, H * dv)})
+            f32[b + "attn_kv_a_norm.weight"] = np.ones(rkv, np.float32)
+            if il == 0:
+                shapes.update({b + "ffn_gate.weight": ("ffn_gate", hp.n_ff, E),
+                               b + "ffn_up.weight": ("ffn_up", hp.n_ff, E),
+                               b + "ffn_down.weight": ("ffn_down", E, hp.n_ff)})
+                continue
+            shapes.update({b + "ffn_gate_exps.weight": ("ffn_gate_exps", n * f, E, n),
+                           b + "ffn_up_exps.weight": ("ffn_up_exps", n * f, E, n),
+                           b + "ffn_down_exps.weight": ("ffn_down_exps", n * E, f, n),
+                           **shexp_shapes(b, E, 2 * f)})
+            f32[b + "ffn_gate_inp.weight"] = router_weight(n, E, SEED + 160 + il)
+        types, keys, name = DSV2_LITE_TYPES, DSV2_LITE_KEYS, "synthetic-deepseek-v2-lite"
+    else:
+        shapes = weight_shapes(hp, experts=(n, f))
+        for il in range(hp.n_layer):
+            shapes.update(shexp_shapes(f"blk.{il}.", E, f))
+            f32[f"blk.{il}.ffn_gate_inp.weight"] = router_weight(n, E, SEED + 170 + il)
+        types, keys, name = SCOUT_TYPES, SCOUT_KEYS, "synthetic-llama4-scout"
+    tok = grammar_tokenizer(V)
+    path = os.path.join(d, f"{name}-q4_k_m.gguf")
+    t0 = time.perf_counter()
+    write_file_model(path, hp, tok, types, f"{name}-q4_k_m", shared_layers=True, arch=hp.arch,
+                     keys=keys, f32_tensors=f32, shapes=shapes)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = load_model(path, dtype=torch.bfloat16, keep_quantized=True, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = model.hparams
+    if ds:
+        want = {"arch": "deepseek2", "n_embd": 2048, "n_layer": MLA_LAYERS, "n_head": 16,
+                "n_head_kv": 16, "head_dim": 192, "head_dim_v": 128, "n_rot": 64,
+                "q_lora_rank": 0, "kv_lora_rank": 512, "n_expert": 64, "n_expert_used": 6,
+                "n_ff_exp": 1408, "n_expert_shared": 2, "n_layer_dense_lead": 1,
+                "expert_weights_norm": False, "expert_gating_softmax": True, "n_vocab": 102400}
+    else:
+        want = {"arch": "llama4", "n_embd": 5120, "n_layer": MLA_LAYERS, "n_head": 40,
+                "n_head_kv": 8, "head_dim": 128, "n_expert": 16, "n_expert_used": 1,
+                "n_ff_exp": 8192, "n_vocab": 202048, "swa_window": 0,
+                "n_no_rope_layer_step": 4, "rope_freq_base": 500000.0}
+    have = {k: getattr(got, k) for k in want}
+    ok = have == want
+    if not ds:
+        ok &= got.extra.get("llama4") == {"temp_tuning": True, "floor_scale": 8192.0,
+                                          "attn_scale": 0.1, "chunk": 8192}
+    bank = model.params["layers"][1]["ffn_up_exps"]
+    check(ok and tuple(bank.shape) == (n, E, f) and bank.dtype == torch.bfloat16,
+          f"{which} from the file: {have} (want {want}), extra {got.extra}, "
+          f"bank {tuple(bank.shape)}")
+    info = {"file_bytes": os.path.getsize(path), "write_s": write_s, "load_s": load_s,
+            "depth": MLA_LAYERS, "hparams": have,
+            "bank_bytes": sum(t.numel() * t.element_size() for layer in model.params["layers"]
+                              for k, t in layer.items() if k.endswith("_exps"))}
+    os.remove(path)
+    return model, info
+
+
+def scout_long_prompt(torch, model) -> dict:
+    """The SCOUT_PROMPT-token prompt and ARCH_DECODE greedy tokens on a
+    one-slot Engine (its measured run after a warm one: every chunk and
+    block a replay), held to the eager plain route by greedy_rule; gmm and
+    fa_tc (the NoPE layer's chunks) launched; the TTFT."""
+    import gc
+
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    hp = model.hparams
+    prompt = token_prompts(hp.n_vocab, [SCOUT_PROMPT], SEED + 84)[0]
+    eng = Engine(model, n_slots=1, n_ctx=SCOUT_N_CTX, device="cuda", kv_dtype=torch.bfloat16)
+
+    def gen():
+        fresh(eng)
+        return eng.generate(prompt, max_tokens=ARCH_DECODE, sampling={"greedy": True},
+                            stop_eog=False)
+
+    try:
+        gen()                           # captures its chunks and blocks
+        with eng._step_lock:
+            stats0 = block_stats(eng)
+            reset_counts()
+        r = gen()
+        with eng._step_lock:
+            torch.cuda.synchronize()
+            counts = read_counts()
+            replayed = check_replayed("Llama-4-Scout long prompt", stats0, block_stats(eng))
+    finally:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("qmv", "gmm", "fa_tc"):
+        check(counts[name] > 0, f"Llama-4-Scout long prompt never launched {name}")
+    ref = plain_greedy(torch, model, prompt, ARCH_DECODE, n_ctx=SCOUT_N_CTX)
+    # top-1 routing: where the paths part beyond their limit, a router near
+    # tie must explain it (router_tie)
+    taps: dict = {}
+    rule = greedy_rule(torch, model, "Llama-4-Scout long prompt", prompt, ref, r["tokens"], 1, 1,
+                       paths=route_paths(torch, model, prompt, n_ctx=SCOUT_N_CTX, taps=taps),
+                       n_ctx=SCOUT_N_CTX, taps=taps)
+    return {"tokens": len(prompt), "greedy_rule": rule, "ttft_ms": r["ttft_s"] * 1e3,
+            "blocks": replayed, "launches": {k: counts[k] for k in MLA_KEYS}}
+
+
+def mla_refuses_q8_0(torch, model) -> bool:
+    """A DeepSeek2 request on a Q8_0 cache fails with the forward's
+    ValueError rather than serve (eager engine: the refusal comes before
+    any step)."""
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(model, n_slots=1, n_ctx=64, device="cuda", kv_dtype="q8_0", graphs=False)
+    try:
+        eng.generate(token_prompts(model.hparams.n_vocab, [8], SEED + 85)[0], max_tokens=2,
+                     stop_eog=False)
+    except ValueError as e:
+        return "float KV cache" in str(e)
+    finally:
+        del eng
+    return False
+
+
+def mla_model_phase(torch, d: str, which: str, smi_line: str) -> dict:
+    """One model of 4m: written and loaded (mla_file_model); DeepSeek2's
+    greedy tokens on a bf16 cache held to the plain route (arch_decode) and
+    its Q8_0 refusal, or Scout's long prompt (scout_long_prompt); a wave
+    replayed against eager; the served wave, B 1 / B 8 and the warm TTFT."""
+    import gc
+
+    label = "DeepSeek-V2-Lite" if which == "deepseek2" else "Llama-4-Scout"
+    t_all = time.perf_counter()
+    model, info = mla_file_model(torch, d, which)
+    t0 = time.perf_counter()
+    if which == "deepseek2":
+        info["decode"] = arch_decode(torch, model, label, need=("gmm",),
+                                     caches=DECODE_CACHES[:1])
+        info["refuses_q8_0_cache"] = mla_refuses_q8_0(torch, model)
+        check(info["refuses_q8_0_cache"], f"{label}: a Q8_0 cache was not refused")
+    else:
+        info["long_prompt"] = scout_long_prompt(torch, model)
+    info["decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (rec,) = phase_graph_vs_eager(torch, model, GRAPH_CASES[:1], ("greedy",), n_ctx=512)
+    check(rec["launches"]["gmm"] > 0, f"{label}: the graph wave never launched gmm")
+    info["graph_vs_eager"] = {k: rec[k] for k in ("tokens_equal", "rows_equal", "graph_blocks",
+                                                  "launches")}
+    info["graph_vs_eager_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info["serving"] = arch_serving(torch, model, label, need=("gmm",),
+                                   attn=() if which == "deepseek2" else ("fa_tc",))
+    info["serving"]["seconds"] = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = {"phase": f"mla_{which}", "model": label, "card": smi_line, **info,
+            "seconds": time.perf_counter() - t_all}
+    emit(info)
+    return info
+
+
+def held_route_times(torch) -> dict:
+    """The attention routes that ROADMAP §2 holds (items 17-19), timed by
+    CUDA events at served shapes (bf16, random inputs), beside the kernel
+    each could take: MLA's plain attention (DeepSeek-V2-Lite's 16 heads, D
+    192, Dv 128; ``attention_ref``, as ``deepseek2_forward`` calls it) at a
+    decode step of 8 rows over 512 slots and at a 512-token chunk, the
+    chunk also through fa_tc; llama4's chunked rope layer on the plain
+    path (a 2,048-token chunk at positions 6,352-8,399 over 8,704 slots,
+    40/8 heads of 128; ``attention_gqa`` with the chunk mask) against
+    fa_tc without the chunk bound; an iSWA decode step's plain attention
+    over Command-R7B's wrapped 4,352-slot ring (8 rows, 32/8 heads,
+    window 4,096) against fd over it."""
+    from superllama_tpu_torch.models.llama import _chunk_mask
+    from superllama_tpu_torch.ops import ref as ops
+    from superllama_tpu_torch.ops.flash_attention import (flash_attention,
+                                                          flash_decode_attention)
+    from superllama_tpu_torch.runtime.kv_cache import causal_mask
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 90)
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    out = {}
+    # MLA: a decode step, then a chunk
+    S = 512
+    kv_pos = torch.arange(S, **i32)[None].expand(8, S).contiguous()
+    k, v = rnd(8, 16, S, 192), rnd(8, 16, S, 128)
+    q = rnd(8, 1, 16, 192)
+    q_pos = torch.full((8, 1), S - 1, **i32)
+    mask = causal_mask(kv_pos, q_pos)
+    out["mla_decode_b8_s512_plain_ms"] = cuda_ms(
+        torch, lambda i: ops.attention_ref(q, k, v, mask, scale=192 ** -0.5), 20)
+    q, k, v = rnd(1, S, 16, 192), k[:1].contiguous(), v[:1].contiguous()
+    q_pos = torch.arange(S, **i32)[None]
+    mask = causal_mask(kv_pos[:1], q_pos)
+    out["mla_chunk512_plain_ms"] = cuda_ms(
+        torch, lambda i: ops.attention_ref(q, k, v, mask, scale=192 ** -0.5), 10)
+    out["mla_chunk512_fa_tc_ms"] = cuda_ms(
+        torch, lambda i: flash_attention(q, k, v, q_pos, kv_pos[:1], scale=192 ** -0.5), 20)
+    # llama4: a rope layer's 2,048-token chunk past the 8,192 chunk bound
+    S, T, end = 8704, 2048, SCOUT_PROMPT
+    kv_pos = torch.where(torch.arange(S, **i32) < end, torch.arange(S, **i32), -1)[None]
+    k, v, q = rnd(1, 8, S, 128), rnd(1, 8, S, 128), rnd(1, T, 40, 128)
+    q_pos = torch.arange(end - T, end, **i32)[None]
+    mask = _chunk_mask(causal_mask(kv_pos, q_pos), kv_pos, q_pos, 8192)
+    out["llama4_chunk2048_plain_ms"] = cuda_ms(
+        torch, lambda i: ops.attention_gqa(q, k, v, mask, scale=128 ** -0.5), 5)
+    out["llama4_chunk2048_fa_tc_no_bound_ms"] = cuda_ms(
+        torch, lambda i: flash_attention(q, k, v, q_pos, kv_pos, scale=128 ** -0.5), 20)
+    del mask
+    # iSWA: a decode step of 8 rows over the wrapped ring
+    S = ISWA_RING
+    p = torch.arange(4600 - S, 4600, **i32)
+    kv_pos = torch.empty(S, **i32)
+    kv_pos[p % S] = p
+    kv_pos = kv_pos[None].expand(8, S).contiguous()
+    k, v, q = rnd(8, 8, S, 128), rnd(8, 8, S, 128), rnd(8, 1, 32, 128)
+    q_pos = torch.full((8, 1), 4599, **i32)
+    mask = causal_mask(kv_pos, q_pos, 4096)
+    out["iswa_decode_b8_ring4352_plain_ms"] = cuda_ms(
+        torch, lambda i: ops.attention_gqa(q, k, v, mask, scale=128 ** -0.5), 20)
+    out["iswa_decode_b8_ring4352_fd_ms"] = cuda_ms(
+        torch, lambda i: flash_decode_attention(q, k, v, q_pos, kv_pos, scale=128 ** -0.5,
+                                                swa_window=4096), 20)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mla(torch, smi_line: str) -> dict:
+    """4m. The remaining attention forms at full width: DeepSeek-V2-Lite's
+    multi-head latent attention and Llama-4-Scout's chunked attention, each
+    MLA_LAYERS deep from a rand_raw file."""
+    import shutil
+    import tempfile
+
+    t_all = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="mla_", dir=build)
+    try:
+        out = {which: mla_model_phase(torch, d, which, smi_line)
+               for which in ("deepseek2", "llama4")}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["held_routes"] = held_route_times(torch)
+    emit({"phase": "mla_held_routes", "card": smi_line, **out["held_routes"]})
+    emit({"phase": "mla", "card": smi_line, "seconds": time.perf_counter() - t_all})
+    return out
 
 
 # ------------------------------------------------------------ main
@@ -6387,6 +7014,11 @@ def main() -> int:
         # the sparse mixtures of experts alone (phase 4l)
         phase_moe(torch, info["nvidia_smi"])
         return 0
+    if "--mla" in sys.argv[1:]:
+        # DeepSeek-V2-Lite's MLA and Llama-4-Scout's chunked attention alone
+        # (phase 4m)
+        phase_mla(torch, info["nvidia_smi"])
+        return 0
     if "--state" in sys.argv[1:]:
         # the engine's state between requests alone (phase 4e)
         phase_state(torch, build_model(torch, n_layer=CUT_LAYERS), info["nvidia_smi"])
@@ -6432,6 +7064,7 @@ def main() -> int:
     moe = phase_moe(torch, info["nvidia_smi"])
     checks += moe["checks"]
     counts["gmm"] = moe["launches"]
+    phase_mla(torch, info["nvidia_smi"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)

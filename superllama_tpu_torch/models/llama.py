@@ -1,5 +1,5 @@
 """Llama-family forward pass: every architecture the JAX package sends to
-``llama_forward`` but llama4.
+``llama_forward``.
 
 Counterpart of the JAX package's ``models/llama.py::llama_forward`` and its
 MoE functions: RMSNorm or LayerNorm (with biases, or non-parametric),
@@ -12,13 +12,22 @@ windows, per-layer head counts (attention-free, "linear attention" and
 FFN-free layers; phantom kv heads padded into the cache and stripped),
 ``attn_gate`` and the bitnet sub-norms, gated or gate-less FFNs (xIELU),
 post-norms, chameleon's swin norms, parallel residual, control vectors and
-the per-layer taps, then the output head with its bias, scale, softcap and
-logit suppression. Weights are plain tensors (in, out) or QTensors;
-matmuls dispatch through ``qmatmul``. Attention follows the JAX routing:
+the per-layer taps, llama4's L2 q/k norm on rope layers, temperature tuning
+on NoPE layers and chunked attention, then the output head with its bias,
+scale, softcap and logit suppression. Weights are plain tensors (in, out) or
+QTensors; matmuls dispatch through ``qmatmul``. Attention follows the JAX
+routing:
 
  - paged cache (``PagedKVCache``): every step, prefill chunk or decode, runs
    the paged flash-attention kernel over the page tables; an ALiBi model
-   refuses the paged cache, as in JAX;
+   refuses the paged cache, as in JAX, and so does llama4's chunked
+   attention (the kernel has no chunk bound);
+ - iSWA cache (``ISWACache``): full-attention layers append to the full
+   tier, sliding-window layers write ring slots pos % S_swa of the SWA tier;
+   prefill-sized steps on the GPU run the flash-attention kernel over the
+   layer's tier (its positions as kv_pos, the ring read whole, in any slot
+   order), everything else the plain path over the tier with its mask; the
+   decode kernel and the ``s_window`` read cap stay off, as in JAX;
  - prefill-sized steps on the GPU (T ≥ 32) run the flash-attention kernel,
    fed Q8_0 codes and scales straight from a Q8_0 cache (a Q4_0 cache is
    dequantized first);
@@ -30,6 +39,10 @@ matmuls dispatch through ``qmatmul``. Attention follows the JAX routing:
  - ALiBi, or a step with ``attn_mask`` (lookahead's tree mask), turns flash
    and the decode kernel off and takes the plain path with the additive
    mask (ALiBi's per-head bias added to it);
+ - llama4 with ``hp.extra["llama4"]["chunk"]`` > 0: the rope layers take
+   the plain path with the chunk mask at every T (the JAX TPU path runs
+   them on flash without it, ROADMAP §3), the NoPE layers the normal
+   routes; the decode kernel stays off, as in JAX;
  - everything else takes the plain grouped-query path over the
    (dequantized) cache.
 The KV cache is updated in place. Every constant the step needs (ALiBi
@@ -46,9 +59,8 @@ MoE FFN. Top-k picks the lower index first among equal values, as ``jax.lax.top_
 step reads a count on the host, so a MoE step is captured in a CUDA graph
 like any other.
 
-Not ported yet (they raise NotImplementedError): ``llama4`` (chunked
-attention, with the iSWA cache, ROADMAP §1 item 3) and the expert-parallel
-MoE of ``hp.extra["moe_mesh"]`` (item 9).
+Not ported yet (it raises NotImplementedError): the expert-parallel MoE of
+``hp.extra["moe_mesh"]`` (ROADMAP §1 item 9).
 """
 
 from __future__ import annotations
@@ -61,7 +73,8 @@ from ..ops.grouped_matmul import grouped_matmul
 from ..ops.paged_attention import paged_flash_attention
 from ..ops.qmatmul import qmatmul
 from ..ops.qtensor import QTensor
-from ..runtime.kv_cache import (KVCache, causal_mask, kv_advance, kv_layer,
+from ..runtime.kv_cache import (ISWACache, KVCache, causal_mask, iswa_layer_split,
+                                kv_advance, kv_layer, kv_ring_advance, kv_ring_slots,
                                 kv_update_layer, kv_write_slots)
 from ..runtime.paged_kv import PagedKVCache, paged_advance, paged_update_layer
 from .hparams import ROPE_SCALING_YARN, HParams
@@ -160,10 +173,7 @@ def rope_setup(params: dict, hp: HParams, device):
 
 
 def _check_supported(hp: HParams) -> None:
-    """Refuse llama4 (chunked attention, with the iSWA cache: ROADMAP §1
-    item 3) and the expert-parallel MoE of a mesh (item 9)."""
-    if "llama4" in hp.extra:
-        raise NotImplementedError(f"{hp.arch}: llama4 not ported yet (ROADMAP §1 item 3)")
+    """Refuse the expert-parallel MoE of a mesh (ROADMAP §1 item 9)."""
     if hp.extra.get("moe_mesh") is not None:
         raise NotImplementedError(
             f"{hp.arch}: the expert-parallel MoE of moe_mesh not ported yet (ROADMAP §1 item 9)")
@@ -347,6 +357,34 @@ def _nope_layer(hp: HParams, il: int) -> bool:
     return step > 0 and (il + 1) % step == 0
 
 
+def _llama4_qk(q: torch.Tensor, k: torch.Tensor, safe_pos: torch.Tensor, hp: HParams,
+               nope: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """llama4's extras after rope: the L2 q/k norm (Llama4TextL2Norm) on rope
+    layers; on NoPE layers, temperature tuning of q by log1p(floor((pos + 1)
+    / floor_scale)) · attn_scale + 1."""
+    l4 = hp.extra["llama4"]
+    if not nope:
+        def l2(t):
+            return t * torch.rsqrt(torch.mean(t.to(torch.float32) ** 2, -1, keepdim=True)
+                                   + 1e-6).to(t.dtype)
+        return l2(q), l2(k)
+    if l4.get("temp_tuning"):
+        ts = (torch.log1p(torch.floor((safe_pos.to(torch.float32) + 1.0) / l4["floor_scale"]))
+              * l4["attn_scale"] + 1.0)
+        q = (q * ts[:, :, None, None]).to(q.dtype)
+    return q, k
+
+
+def _chunk_mask(mask: torch.Tensor, kv_pos: torch.Tensor, pos: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+    """llama4's chunked attention: ``mask`` plus -inf where the key's and the
+    query's positions lie in different chunks of ``chunk``."""
+    kc = torch.div(torch.clamp(kv_pos, min=0), chunk, rounding_mode="floor")[:, None, None, :]
+    qc = torch.div(torch.clamp(pos, min=0), chunk, rounding_mode="floor")[:, None, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=pos.device)
+    return mask + torch.where(kc == qc, zero, torch.full_like(zero, float("-inf")))
+
+
 def _layer_out(x: torch.Tensor, params: dict, il: int, sink: list | None) -> torch.Tensor:
     """The control vector's add (llama_adapter_cvec::apply_to) and the
     per-layer tap ``cvector-generator`` reads."""
@@ -363,7 +401,7 @@ def llama_forward(
     hp: HParams,
     tokens: torch.Tensor,     # (B, T) int
     pos: torch.Tensor,        # (B, T) int32; -1 marks padding
-    cache: KVCache | PagedKVCache,
+    cache: KVCache | ISWACache | PagedKVCache,
     flash: bool | None = None,
     s_window: int | None = None,
     attn_mask: torch.Tensor | None = None,
@@ -372,17 +410,17 @@ def llama_forward(
     hidden_sink: list | None = None,
     mrope_pos3: torch.Tensor | None = None,
     deepstack_add: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
+) -> tuple[torch.Tensor, KVCache | ISWACache | PagedKVCache]:
     """One forward step (prefill or decode). Returns (logits (B, T, V), cache);
     the cache is updated in place.
 
     ``s_window``: cap on how many cache slots attention reads (the engine's
-    decode-length bucketing); every valid slot index must be below it. Dense
-    caches only.
+    decode-length bucketing); every valid slot index must be below it. Flat
+    dense caches only (ignored on an iSWA cache, as in JAX).
 
     ``attn_mask``: an additive (B, 1, T, S) mask that replaces the causal
-    mask (tree attention); it turns flash and the decode kernel off. Dense
-    caches only.
+    mask (tree attention); it turns flash and the decode kernel off. Flat
+    dense caches only.
 
     ``imatrix``: a dict to accumulate each matmul weight's input Σx² and
     row count in, keyed by GGUF weight name (``tools/imatrix.py``); None
@@ -404,18 +442,23 @@ def llama_forward(
     if flash is None:
         flash = on_gpu and T >= 32
     paged = isinstance(cache, PagedKVCache)
-    if attn_mask is not None and paged:
-        raise ValueError("attn_mask needs a dense KV cache")
-    if hp.alibi and paged:
+    iswa = isinstance(cache, ISWACache)
+    if attn_mask is not None and (paged or iswa):
+        raise ValueError("attn_mask needs a flat dense KV cache")
+    if hp.alibi and (paged or iswa):
         raise NotImplementedError("alibi models need the regular KV cache")
+    l4c = (hp.extra.get("llama4") or {}).get("chunk", 0)
+    if l4c and paged:
+        raise NotImplementedError("llama4's chunked attention needs a dense KV cache: the "
+                                  "paged kernel has no chunk bound")
     if hp.alibi or attn_mask is not None:
         flash = False       # an additive bias or custom mask rides the plain path
     H, Hkv, D, Dv = hp.n_head, hp.n_head_kv, hp.head_dim, hp.head_dim_v
     pos = pos.to(torch.int32)
     # split-KV decode kernel: decode-sized steps on a Q8_0 cache, and on any
     # other dense cache when flash_decode_float asks for it
-    fdec = (not flash and not paged and attn_mask is None and not hp.alibi
-            and not hp.extra.get("flash_decode_off")
+    fdec = (not flash and not paged and not iswa and not l4c and attn_mask is None
+            and not hp.alibi and not hp.extra.get("flash_decode_off")
             and (on_gpu or bool(hp.extra.get("flash_decode")))
             and Hkv > 0 and T * (H // max(Hkv, 1)) <= 32
             and ((cache.quantized and not cache.q4)
@@ -434,8 +477,22 @@ def llama_forward(
         x = ops.layer_norm(x, params["token_embd_norm"], params.get("token_embd_norm_b"),
                            hp.norm_eps)
 
+    mask_chunk = None
     if paged:
         pslots, poffs = paged_advance(cache, pos)
+    elif iswa:
+        # full layers append; SWA layers write their ring slots pos % S_swa
+        full_layers, swa_layers = iswa_layer_split(hp)
+        tier_of = {**{il: (cache.full, i) for i, il in enumerate(full_layers)},
+                   **{il: (cache.swa, i) for i, il in enumerate(swa_layers)}}
+        slots_full = kv_write_slots(cache.full, T)
+        slots_swa = kv_ring_slots(pos, cache.swa.max_seq)
+        kv_advance(cache.full, slots_full, pos)
+        kv_ring_advance(cache.swa, slots_swa, pos)
+        wpos = cache.full.positions()
+        if not flash or l4c:
+            mask_full = causal_mask(wpos, pos)
+            mask_swa = causal_mask(cache.swa.positions(), pos, hp.swa_window)
     else:
         slots = kv_write_slots(cache, T)
         kv_advance(cache, slots, pos)
@@ -448,7 +505,7 @@ def llama_forward(
         fdec_all = fdec and all(hp.n_head_kv_il(il) in (0, Hkv) for il in range(hp.n_layer))
         if attn_mask is not None:
             mask_full = mask_swa = attn_mask.to(torch.float32)
-        elif not flash and not fdec_all:
+        elif (not flash and not fdec_all) or l4c:
             mask_full = causal_mask(wpos, pos)
             mask_swa = causal_mask(wpos, pos, hp.swa_window) if hp.swa_window else mask_full
         if hp.alibi:
@@ -458,6 +515,9 @@ def llama_forward(
             mask_full = mask_full + (alibi_slopes(H, hp.max_alibi_bias, dev)[None, :, None, None]
                                      * kp[:, None, None, :])
             mask_swa = mask_full
+    if l4c:
+        # llama4: rope layers see only their own chunk of positions
+        mask_chunk = _chunk_mask(mask_full, wpos, pos, l4c)
 
     swin = bool(hp.extra.get("swin_norm"))     # chameleon: norms after the blocks
     for il, layer in enumerate(params["layers"]):
@@ -528,6 +588,8 @@ def llama_forward(
         elif hp.rope_type >= 0 and hp.n_rot > 0 and not nope:
             q = ops.apply_rope(q, safe_pos, f, hp.rope_type, ms)
             k = ops.apply_rope(k, safe_pos, f, hp.rope_type, ms)
+        if "llama4" in hp.extra:
+            q, k = _llama4_qk(q, k, safe_pos, hp, nope)
         if per_head_qk_norm and qk_post_rope:
             q = ops.rms_norm(q, layer["attn_q_norm"], hp.rms_eps)
             k = ops.rms_norm(k, layer["attn_k_norm"], hp.rms_eps)
@@ -540,28 +602,39 @@ def llama_forward(
             attn = paged_flash_attention(q, cache.k_pages[il], cache.v_pages[il], pos,
                                          cache.page_pos, cache.table, **akw)
         else:
-            kv_update_layer(cache, il, slots, k, v)
-            fdec_l = fdec and Hkv_l == Hkv
-            if fdec_l or (flash and cache.quantized and not cache.q4):
-                ck, cv, ks, vs = cache.layer(il, Sw)   # codes and scales as stored
+            if iswa:          # the layer's tier, read whole (the ring in any slot order)
+                tier, li = tier_of[il]
+                wslots = slots_swa if swa else slots_full
+                n_read, lpos = None, tier.positions()
             else:
-                (ck, cv), ks, vs = kv_layer(cache, il, k.dtype, Sw), None, None
+                tier, li, wslots, n_read, lpos = cache, il, slots, Sw, wpos
+            kv_update_layer(tier, li, wslots, k, v)
+            fdec_l = fdec and Hkv_l == Hkv
+            # llama4's chunked rope layers take the plain path at every T
+            flash_l = flash and not (mask_chunk is not None and not nope)
+            if fdec_l or (flash_l and tier.quantized and not tier.q4):
+                ck, cv, ks, vs = tier.layer(li, n_read)   # codes and scales as stored
+            else:
+                (ck, cv), ks, vs = kv_layer(tier, li, k.dtype, n_read), None, None
             if Hkv_l < Hkv:   # strip the phantom kv heads
                 ck, cv = ck[:, :Hkv_l], cv[:, :Hkv_l]
                 if ks is not None:
                     ks, vs = ks[:, :Hkv_l], vs[:, :Hkv_l]
             if fdec_l:
-                attn = flash_decode_attention(q, ck, cv, pos, wpos, k_scale=ks,
+                attn = flash_decode_attention(q, ck, cv, pos, lpos, k_scale=ks,
                                               v_scale=vs, **akw)
-            elif flash:
-                attn = flash_attention(q, ck, cv, pos, wpos, k_scale=ks, v_scale=vs,
+            elif flash_l:
+                attn = flash_attention(q, ck, cv, pos, lpos, k_scale=ks, v_scale=vs,
                                        **akw)
             else:
                 # grouped-query path when K/V traffic dominates (long context
                 # or multi-row batches), the repeat-KV reference otherwise
                 attn_fn = (ops.attention_gqa if (ck.shape[2] >= 1024 or B >= 2)
                            else ops.attention_ref)
-                attn = attn_fn(q, ck, cv, mask_swa if swa else mask_full, scale=kq_scale,
+                use_mask = mask_swa if swa else mask_full
+                if mask_chunk is not None and not nope:
+                    use_mask = mask_chunk
+                attn = attn_fn(q, ck, cv, use_mask, scale=kq_scale,
                                logit_softcap=hp.attn_logit_softcap, sinks=sinks)
         attn = attn.reshape(B, T, H_l * Dv)
         if "attn_gate" in layer:      # σ-gated attention output before wo

@@ -1,13 +1,15 @@
 """GGUF → device params loader for the llama family.
 
 Counterpart of the JAX package's ``models/loader.py::load_model`` (its
-llama-family branch with its MoE tensors, without the MLA, SSM, RWKV,
+llama-family branch with its MoE and MLA tensors, without the SSM, RWKV,
 encoder, gemma3n and LFM2 ones): reads tensors by name, keeps repackable 2-D
 matmul weights packed as QTensors when asked (or dequantizes them),
 transposes matmul weights to (in, out) so the forward uses ``x @ w``, and
 places every tensor on the device once. Norm biases, post-norms under their
 ecosystem, legacy and unsuffixed names, the embedding norm, learned
-positions, ``attn_gate`` and the sub-norms load beside the llama tensors.
+positions, ``attn_gate``, the sub-norms and MLA's ``wq_a`` / ``wq_b`` /
+``attn_q_a_norm`` / ``wkv_a`` / ``wkv_b`` / ``attn_kv_a_norm`` load beside
+the llama tensors.
 The MoE tensors: the router (``ffn_gate_inp`` with its bias, packed like
 any 2-D weight), the selection bias ``exp_probs_b``, the expert banks
 ``ffn_{gate,up,down}_exps`` with their biases, grovemoe's chunk banks
@@ -244,6 +246,14 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                 "ffn_up_b": g(p + "ffn_up.bias", t=False),
                 "ffn_down_b": g(p + "ffn_down.bias", t=False),
                 "attn_sinks": g(p + "attn_sinks.weight", t=False),
+                # MLA (deepseek2, minicpm3, plm): the q LoRA, the KV latent
+                # with k_pe, its norm and up-projection
+                "wq_a": g(p + "attn_q_a.weight"),
+                "wq_b": g(p + "attn_q_b.weight"),
+                "attn_q_a_norm": g(p + "attn_q_a_norm.weight", t=False),
+                "wkv_a": g(p + "attn_kv_a_mqa.weight"),
+                "wkv_b": g(p + "attn_kv_b.weight"),
+                "attn_kv_a_norm": g(p + "attn_kv_a_norm.weight", t=False),
                 # post-norms (gemma2/3, olmo2, glm4): the ecosystem names, the
                 # legacy ones, plamo3's unsuffixed ones and grok's
                 "attn_post_norm": _first(

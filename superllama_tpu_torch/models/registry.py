@@ -1,14 +1,16 @@
 """Architecture registry: GGUF ``general.architecture`` → forward function.
 
 Counterpart of the JAX package's ``models/registry.py``, holding every
-architecture the JAX package sends to ``llama_forward`` but llama4: the dense
-ones and those with sparse mixtures of experts. The names the port refuses
-say which ROADMAP §1 item they wait for."""
+architecture the JAX package sends to ``llama_forward`` (the dense ones,
+those with sparse mixtures of experts and llama4) or to
+``deepseek2_forward`` (multi-head latent attention). The names the port
+refuses say which ROADMAP §1 item they wait for."""
 
 from __future__ import annotations
 
 from typing import Callable
 
+from .deepseek2 import deepseek2_forward
 from .llama import llama_forward
 
 ForwardFn = Callable  # (params, hp, tokens, pos, cache, **kw) -> (logits, cache)
@@ -39,11 +41,17 @@ MOE_ARCHS = (
     "exaone-moe", "grovemoe", "afmoe", "mimo2", "phimoe", "qwen3vlmoe",
 )
 
+# llama4 on the same forward: top-1 sigmoid routing with a shared expert, the
+# L2 q/k norm, NoPE layers with temperature tuning, chunked attention
+LLAMA4_ARCHS = ("llama4",)
+
+# multi-head latent attention: the q LoRA (or a direct q), the compressed KV
+# latent up-projected into the flat cache, leading dense layers, then MoE
+MLA_ARCHS = ("deepseek2", "minicpm3", "plm")
+
 # what the JAX registry holds that the port does not serve yet, by the
 # ROADMAP §1 item it waits for
 WAITING = {
-    **dict.fromkeys(("llama4", "deepseek2", "minicpm3", "plm"),
-                    "3 (MLA and the iSWA cache)"),
     **dict.fromkeys((
         "mamba", "mamba2", "jamba", "granitehybrid", "nemotron_h", "nemotron_h_moe",
         "falcon-h1", "rwkv6", "rwkv7", "arwkv7", "rwkv6qwen2", "lfm2", "lfm2moe",
@@ -53,7 +61,10 @@ WAITING = {
         "5 (encoders, multimodal and diffusion)"),
 }
 
-_REGISTRY: dict[str, ForwardFn] = {arch: llama_forward for arch in LLAMA_ARCHS + MOE_ARCHS}
+_REGISTRY: dict[str, ForwardFn] = {
+    **{arch: llama_forward for arch in LLAMA_ARCHS + MOE_ARCHS + LLAMA4_ARCHS},
+    **{arch: deepseek2_forward for arch in MLA_ARCHS},
+}
 
 
 def get_forward(arch: str) -> ForwardFn:

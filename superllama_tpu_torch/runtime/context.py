@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``runtime/context.py::Context``. The JAX
 context jit-compiles its step and donates the functional cache; here the
-forward runs eagerly and updates the cache in place.
+forward runs eagerly and updates the cache in place. The cache comes from
+``cache_policy.make_cache``: the iSWA two-tier cache by default for a model
+with sliding-window layers (``iswa=None``), else the flat one.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ import torch
 from ..device import resolve_device
 from ..models.loader import LoadedModel
 from ..models.registry import get_forward
-from .kv_cache import kv_cache_init
+from .cache_policy import cache_kind, make_cache
+from .kv_cache import ISWACache, iswa_layer_split
 
 
 def model_device(model: LoadedModel) -> torch.device:
@@ -29,22 +32,27 @@ def check_model_device(model: LoadedModel, device: torch.device) -> None:
 
 class Context:
     def __init__(self, model: LoadedModel, n_batch: int = 1, n_ctx: int = 2048,
-                 kv_dtype: torch.dtype | None = None, device=None):
+                 kv_dtype: torch.dtype | str | None = None, device=None,
+                 iswa: bool | None = None):
         self.device = resolve_device(device)
         check_model_device(model, self.device)
         self.model = model
-        self.hp = model.hparams
+        hp = self.hp = model.hparams
         self.n_batch = n_batch
         self.n_ctx = n_ctx
+        # the iSWA two-tier cache (llama_kv_cache_iswa): on for models with
+        # sliding-window layers, whose layers then take an O(window) ring
+        if iswa is None:
+            iswa = (cache_kind(hp) == "dense" and hp.swa_window > 0
+                    and len(iswa_layer_split(hp)[1]) > 0)
+        self.iswa = bool(iswa)
         self.kv_dtype = kv_dtype or model.params["token_embd"].dtype
-        self._fwd = get_forward(self.hp.arch)
+        self._fwd = get_forward(hp.arch)
         self.cache = self.new_cache()
 
     def new_cache(self):
-        hp = self.hp
-        return kv_cache_init(hp.n_layer, self.n_batch, self.n_ctx, hp.n_head_kv,
-                             hp.head_dim, hp.head_dim_v, dtype=self.kv_dtype,
-                             device=self.device)
+        return make_cache(self.hp, self.n_batch, self.n_ctx, self.kv_dtype, iswa=self.iswa,
+                          device=self.device)
 
     def reset(self) -> None:
         """Start over on an empty cache."""
@@ -58,11 +66,19 @@ class Context:
         if tokens.ndim == 1:
             tokens = tokens[None, :]
         B, T = tokens.shape
-        max_cursor = int(self.cache.cursor.max())
+        if isinstance(self.cache, ISWACache):
+            s_swa = self.cache.swa.max_seq
+            if s_swa < self.n_ctx and T > s_swa - self.hp.swa_window:
+                raise ValueError(f"ubatch of {T} exceeds SWA ring headroom ({s_swa} slots - "
+                                 f"window {self.hp.swa_window}); split it")
+            cursor = torch.maximum(self.cache.full.cursor, self.cache.swa.cursor)
+        else:
+            cursor = self.cache.cursor
+        max_cursor = int(cursor.max())
         if max_cursor + T > self.n_ctx:
             raise ValueError(f"KV cache overflow: {max_cursor}+{T} > n_ctx={self.n_ctx}")
         if pos is None:
-            pos = self.cache.cursor[:B, None] + torch.arange(
+            pos = cursor[:B, None] + torch.arange(
                 T, dtype=torch.int32, device=self.device)[None, :]
         else:
             pos = torch.as_tensor(np.asarray(pos), dtype=torch.int32,

@@ -38,6 +38,16 @@ reference server's update_slots semantics):
    it before serving; the engine never warms up by itself;
  - the dense cache is f32/bf16, or Q8_0 / Q4_0 (``kv_dtype="q8_0"`` /
    ``"q4_0"``);
+ - iSWA (``iswa``, on by default for a model with sliding-window layers
+   unless a paged, speculative, lookup, context-shift or quantized cache is
+   asked for, as in JAX): the two-tier ``ISWACache`` from ``make_cache``,
+   its ring sized for the largest prefill bucket past the window. Every
+   prompt prefills in place (its row truncated to 0 first, padding sent to
+   the spare slot), with no scratch; rollbacks, slot state and erasure go
+   through ``cache_policy``'s ``truncate_rows`` / ``get_row`` / ``set_row``;
+   the slot window is always the whole cache; a prefix is reused only while
+   the ring still holds its window (the old request and the blocks it may
+   have rolled back wrote at most ring - window positions past it);
  - paged mode (``paged=True``): a page pool with host spill
    (``PagedKVManager``). Admission frees the slot's pages; prompts prefill
    one chunk of at most ``page_size`` tokens per step, one slot at a time,
@@ -120,8 +130,9 @@ from ..utils import profiler
 from .context import check_model_device
 from ..ops import _build
 from .graphs import GraphCache
-from .kv_cache import (KVCache, kv_cache_init, kv_context_shift, kv_insert_row,
-                       kv_truncate_rows)
+from .cache_policy import cache_kind, get_row, make_cache, set_row, truncate_rows
+from .kv_cache import (ISWACache, KVCache, iswa_layer_split, kv_cache_init, kv_context_shift,
+                       kv_insert_row)
 from .ngram import NgramCache
 from .paged_kv import PagedKVManager, paged_cache_init, paged_row_view
 from .sampling import GrammarSampler, SamplerChain, make_chain
@@ -200,7 +211,8 @@ class Engine:
     CPU's only way. ``pipeline_depth`` is the number of dense-cache blocks
     in flight. ``draft_model`` / ``n_draft``, ``lookup_ngrams`` and
     ``ctx_shift`` are the JAX engine's decode variants (module docstring),
-    with its checks."""
+    with its checks. ``iswa`` (None: on for a model with SWA layers when no
+    incompatible mode is asked for) serves the two-tier cache."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
                  kv_dtype: torch.dtype | str = torch.bfloat16,
@@ -209,7 +221,8 @@ class Engine:
                  n_pages: int | None = None, max_pages_per_seq: int | None = None,
                  pipeline_depth: int = 2, graphs: bool | None = None,
                  draft_model: LoadedModel | None = None, n_draft: int = 8,
-                 ctx_shift: bool = False, lookup_ngrams: int = 0):
+                 ctx_shift: bool = False, lookup_ngrams: int = 0,
+                 iswa: bool | None = None):
         self.device = resolve_device(device)
         check_model_device(model, self.device)
         if paged:
@@ -231,6 +244,19 @@ class Engine:
         self.kv_dtype = kv_dtype
         self.block_size = max(1, int(block_size))
         self.paged = bool(paged)
+        # the iSWA two-tier cache (llama_kv_cache_iswa, src/llama-kv-cache-iswa.h):
+        # on for SWA models unless an incompatible mode is asked for
+        incompat = (self.paged or draft_model is not None or bool(lookup_ngrams)
+                    or ctx_shift or isinstance(kv_dtype, str)
+                    or cache_kind(self.hp) != "dense")
+        if iswa is None:
+            iswa = (not incompat and self.hp.swa_window > 0
+                    and len(iswa_layer_split(self.hp)[1]) > 0)
+        elif iswa and incompat:
+            raise ValueError("iswa cache: incompatible with paged/speculative/lookup/"
+                             "ctx-shift/quantized-KV modes and non-dense memory")
+        self.iswa = bool(iswa)
+        self.pipeline_depth = max(1, int(pipeline_depth))
         if self.paged:
             hp = self.hp
             self.page_size = int(page_size)
@@ -250,10 +276,12 @@ class Engine:
             self._pview_idle = paged_row_view(self.pkv.cache)
             self._scratch = None
         else:
-            self.cache = self._new_cache(n_slots)
+            self.cache = make_cache(self.hp, n_slots, n_ctx, kv_dtype, iswa=self.iswa,
+                                    n_ubatch=self.buckets[-1], device=self.device)
             # the lone prompt's one-row scratch: engine-owned, since a
-            # captured chunk needs fixed addresses
-            self._scratch = self._new_cache(1)
+            # captured chunk needs fixed addresses (an iSWA engine prefills
+            # every prompt in place)
+            self._scratch = None if self.iswa else self._new_cache(1)
         self._scratch_owner: _Slot | None = None
         self._pieces: tuple[list[bytes], set[int]] | None = None   # _vocab_pieces
         self._chunk_bufs: dict = {}    # (rows, P) -> (static io, the warm runs' io)
@@ -267,7 +295,6 @@ class Engine:
                                        self.device)
         self._sp_key = None
         self._pending_q: list[dict] = []
-        self.pipeline_depth = max(1, int(pipeline_depth))
         if graphs is None:
             graphs = self.device.type == "cuda"
         self._graphs = GraphCache(self.device) if graphs else None
@@ -347,7 +374,9 @@ class Engine:
                              device=self.device)
 
     def _cache_label(self) -> str:
-        return "paged" if self.paged else str(self.kv_dtype)
+        if self.paged:
+            return "paged"
+        return f"iswa {self.kv_dtype}" if self.iswa else str(self.kv_dtype)
 
     # ----------------------------------------------------------- public API
 
@@ -443,6 +472,8 @@ class Engine:
             Ps = sorted({min(b, self.page_size) for b in self.buckets})
         else:
             Ps = list(self.buckets)
+        if self.iswa:     # every prompt in place: (n_slots, P) on the big cache
+            return out + [self._chunk_graph(self.n_slots, P, main=True) for P in Ps]
         one_row = self.paged or self.n_slots < 2 or self.draft_model is not None
         rows = (1,) if one_row else (1, self.n_slots)
         out += [self._chunk_graph(r, P) for r in rows for P in Ps]
@@ -452,7 +483,10 @@ class Engine:
 
     def _windows(self) -> list:
         """Every slot window ``_s_bucket`` can return: the powers of 2 from
-        256 below n_ctx, then None (the full cache)."""
+        256 below n_ctx, then None (the full cache); None alone on an iSWA
+        cache, whose tiers are read whole."""
+        if self.iswa:
+            return [None]
         wins, w = [], 256
         while w < self.n_ctx:
             wins.append(w)
@@ -474,12 +508,20 @@ class Engine:
         and on a Q8_0 / Q4_0 cache ``k_scale`` and ``v_scale`` too (the JAX
         snapshot omits them). A float cache's K/V are saved as f32 (numpy
         has no bfloat16; the values are exact), so either package loads the
-        file. A paged cache raises ``NotImplementedError``, as in JAX."""
+        file. On an iSWA cache the row's state is ``cache_policy.get_row``'s,
+        flattened to ``full_k``, ``swa_pos``, ... (``np.savez`` takes no
+        nested dict), beside ``n_past`` and ``cache_tokens``. A paged cache
+        raises ``NotImplementedError``, as in JAX."""
         with self._step_lock:
             s = self._idle_slot(idx)
             if self.paged:
                 raise NotImplementedError("slot save/restore needs a non-paged cache")
             self._flush_pending()
+            if self.iswa:
+                out = {f"{tier}_{name}": a for tier, blob in get_row(self.cache, idx).items()
+                       for name, a in blob.items()}
+                return {**out, "n_past": s.n_past,
+                        "cache_tokens": np.asarray(s.cache_tokens, np.int32)}
             c, S = self.cache, self.cache.max_seq
 
             def host(t: torch.Tensor) -> np.ndarray:
@@ -506,6 +548,10 @@ class Engine:
             s = self._idle_slot(idx)
             if self.paged:
                 raise NotImplementedError("slot save/restore needs a non-paged cache")
+            if self.iswa:
+                return self._iswa_restore(s, data)
+            if "swa_pos" in data or "state" in data:
+                raise ValueError("an iSWA snapshot restores only into an iSWA engine")
             c, S = self.cache, self.cache.max_seq
             parts = [("k", c.k), ("v", c.v)]
             if c.quantized:
@@ -536,9 +582,27 @@ class Engine:
             s.cache_tokens = [int(t) for t in np.asarray(data["cache_tokens"])]
             return len(s.cache_tokens)
 
+    def _iswa_restore(self, s: _Slot, data: dict) -> int:
+        """``slot_restore`` on an iSWA cache: a flattened ``slot_save``
+        snapshot, or the JAX engine's ({"state": get_row's blob}), loaded
+        through ``cache_policy.set_row``."""
+        if "state" in data:
+            blob = data["state"]
+        else:
+            blob = {tier: {k[len(tier) + 1:]: v for k, v in data.items()
+                           if k.startswith(tier + "_")} for tier in ("full", "swa")}
+        if not blob.get("swa") or "pos" not in blob["swa"]:
+            raise ValueError("an iSWA engine restores only an iSWA snapshot")
+        self._flush_pending()
+        set_row(self.cache, s.idx, blob)
+        s.n_past = int(data["n_past"])
+        s.cache_tokens = [int(t) for t in np.asarray(data["cache_tokens"])]
+        return len(s.cache_tokens)
+
     def slot_erase(self, idx: int) -> None:
-        """Empty an idle slot: a fresh slot record, an empty cache row (no
-        pages on a paged cache), written in place."""
+        """Empty an idle slot: a fresh slot record, an empty cache row (both
+        tiers' on an iSWA cache; no pages on a paged cache), written in
+        place."""
         with self._step_lock:
             self._idle_slot(idx)
             self.slots[idx] = _Slot(idx)
@@ -546,8 +610,9 @@ class Engine:
                 self.pkv.free_seq(idx)
                 return
             self._flush_pending()
-            self.cache.pos[idx].fill_(-1)
-            self.cache.cursor[idx].fill_(0)
+            for tier in ((self.cache.full, self.cache.swa) if self.iswa else (self.cache,)):
+                tier.pos[idx].fill_(-1)
+                tier.cursor[idx].fill_(0)
 
     # ----------------------------------------------------------- engine loop
 
@@ -648,8 +713,18 @@ class Engine:
     def _reusable(self, slot: _Slot, ids: list[int]) -> int:
         """Prompt tokens the slot's cache row already holds: the common
         prefix with its ``cache_tokens``, at most the prompt less one (the
-        last token's logits are needed), 0 below 16."""
+        last token's logits are needed), 0 below 16. On an iSWA cache, 0
+        where the ring may no longer hold the prefix's window: positions p
+        past the prefix overwrote ring slot p - S_swa, and the old request
+        wrote up to n_past less one, its blocks up to block_size x
+        pipeline_depth more before they rolled back (the JAX guard counts
+        n_past only)."""
         n = min(self._common_prefix(slot.cache_tokens, ids), len(ids) - 1)
+        if n and self.iswa:
+            s_swa = self.cache.swa.max_seq
+            ahead = self.block_size * self.pipeline_depth
+            if slot.n_past + ahead - n > s_swa - self.hp.swa_window:
+                n = 0
         return n if n >= 16 else 0
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
@@ -757,10 +832,11 @@ class Engine:
             if not (n_cached and self.pkv.trim_to_position(slot.idx, n_cached)):
                 n_cached = 0
                 self.pkv.free_seq(slot.idx)
-        elif n_cached:
-            # cut the row to the prefix: fa attends every cell whose position
-            # lies at or below the query's, so the older request's cells past
-            # it must go before the rest loads in place
+        elif n_cached or self.iswa:
+            # cut the row to the prefix (an iSWA row to 0 without one): fa
+            # attends every cell whose position lies at or below the query's,
+            # so the older request's cells past it must go before the rest
+            # loads in place
             keep = self._keep_vector()
             keep[slot.idx] = n_cached
             self._truncate(keep)
@@ -771,7 +847,7 @@ class Engine:
         slot.generated = []
         slot.text = ""
         slot.t_start = t0
-        slot.in_place = self.paged or bool(n_cached)
+        slot.in_place = self.paged or self.iswa or bool(n_cached)
         slot.pending = ids[n_cached:]
         slot.prefill_off = n_cached
         slot.prefill_P = self._bucket(len(slot.pending))
@@ -1446,13 +1522,13 @@ class Engine:
         self.stats["chained"] += 1
         return self._run_block(pend["ids"], pend["win"], pend["greedy"])
 
-    def _truncate(self, keep: np.ndarray, cache: KVCache | None = None) -> None:
+    def _truncate(self, keep: np.ndarray, cache: KVCache | ISWACache | None = None) -> None:
         """Cut each row of the cache (default: the target's) to its keep
-        count, in place."""
+        count, in place (``truncate_rows``: an iSWA cache by position)."""
         keep_t = torch.from_numpy(np.asarray(keep, np.int32))
         if self.device.type == "cuda":
             keep_t = keep_t.pin_memory().to(self.device, non_blocking=True)
-        kv_truncate_rows(self.cache if cache is None else cache, keep_t)
+        truncate_rows(self.cache if cache is None else cache, keep_t)
 
     def _consume_block(self, pend: dict, inflight_extra: int = 0) -> None:
         """Read a landed block's tokens, emit them per slot, roll the cache

@@ -224,6 +224,86 @@ def kv_insert_row(big: KVCache, small: KVCache, row: int, n_valid: int) -> KVCac
     return big
 
 
+# --- iSWA two-tier cache -------------------------------------------------------
+#
+# Counterpart of the JAX package's ISWACache (llama_kv_cache_iswa,
+# src/llama-kv-cache-iswa.h): full-attention layers keep the append-ordered
+# cache; sliding-window layers share a ring of O(window) slots indexed by
+# pos % S_swa. A write overwrites the entry S_swa positions older, which the
+# window mask hides anyway. Padding tokens (pos < 0) go to slot S_swa, the
+# spare slot, where the JAX ring drops them. Slots and positions are computed
+# on the device, so a step on the ring is captured like any other.
+
+
+@dataclass
+class ISWACache:
+    full: KVCache   # (n_full_layer, B, H_kv, S_full + 1, D), append-ordered
+    swa: KVCache    # (n_swa_layer,  B, H_kv, S_swa + 1,  D), ring by pos % S_swa
+
+    @property
+    def max_seq(self) -> int:
+        return self.full.max_seq
+
+
+def iswa_layer_split(hp) -> tuple[list[int], list[int]]:
+    """(full layers, SWA layers): the static routing of each layer."""
+    full = [il for il in range(hp.n_layer) if not hp.is_swa_layer(il)]
+    swa = [il for il in range(hp.n_layer) if hp.is_swa_layer(il)]
+    return full, swa
+
+
+def iswa_swa_seq(window: int, n_ubatch: int, max_seq: int) -> int:
+    """Ring size: the window plus one ubatch of headroom, rounded up to a
+    multiple of 128, at most max_seq (the reference's size_swa = window +
+    n_ubatch, src/llama-kv-cache-iswa.cpp)."""
+    s = -(-(window + n_ubatch) // 128) * 128
+    return min(s, max_seq)
+
+
+def iswa_cache_init(hp, batch: int, max_seq: int, n_ubatch: int = 512,
+                    dtype=torch.bfloat16, device="cpu") -> ISWACache:
+    full, swa = iswa_layer_split(hp)
+    s_swa = iswa_swa_seq(hp.swa_window, n_ubatch, max_seq)
+    return ISWACache(
+        full=kv_cache_init(len(full), batch, max_seq, hp.n_head_kv, hp.head_dim,
+                           hp.head_dim_v, dtype, device),
+        swa=kv_cache_init(len(swa), batch, s_swa, hp.n_head_kv, hp.head_dim,
+                          hp.head_dim_v, dtype, device))
+
+
+def kv_ring_slots(pos: torch.Tensor, max_seq: int) -> torch.Tensor:
+    """Ring slot of each token: pos % S; padding (pos < 0) → S, the spare
+    slot."""
+    return torch.where(pos >= 0, torch.remainder(pos, max_seq), max_seq).to(torch.int32)
+
+
+def kv_ring_advance(cache: KVCache, slots: torch.Tensor, pos_new: torch.Tensor) -> KVCache:
+    """Record positions at ring slots, in place (padding lands in the spare
+    slot); the cursor becomes max(cursor, the highest position + 1), a
+    high-water mark for bookkeeping only."""
+    idx = _in_cache(cache, slots)
+    b_idx = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    cache.pos[b_idx, idx] = pos_new.to(torch.int32)
+    top = (pos_new.amax(dim=1) + 1).to(torch.int32)
+    torch.maximum(cache.cursor, top, out=cache.cursor)
+    return cache
+
+
+def iswa_truncate_pos(cache: ISWACache, keep_pos: torch.Tensor) -> ISWACache:
+    """Empty every entry at a position >= keep_pos[b] in both tiers, in
+    place (a rollback by position). The full tier's cursor becomes its count
+    of surviving entries (it stays append-ordered), the ring's
+    min(cursor, keep_pos)."""
+    keep_pos = keep_pos.to(device=cache.full.pos.device, dtype=torch.int32)
+    cut = keep_pos[:, None]
+    for tier in (cache.full, cache.swa):
+        tier.pos.masked_fill_(tier.pos >= cut, -1)
+    S = cache.full.max_seq
+    cache.full.cursor.copy_((cache.full.pos[:, :S] >= 0).sum(dim=1, dtype=torch.int32))
+    torch.minimum(cache.swa.cursor, keep_pos, out=cache.swa.cursor)
+    return cache
+
+
 # --- sequence ops -------------------------------------------------------------
 #
 # The JAX package's seq_* ops and context shift (llama_memory_seq_* of

@@ -6,12 +6,14 @@ tests/test_torch_archs_routes.py):
    xIELU, quick GELU, gpt-oss's clamped swiglu, every gate-less activation,
    ``top_k_mask``), M-RoPE / IMROPE, ALiBi's slopes and the per-head mask
    of the grouped-query path, each against the JAX function;
- - the registry: every name the JAX package sends to ``llama_forward`` but
-   llama4 is served, each with a parity case of its own (the dense ones in
-   tests/test_torch_archs_1..11.py, the MoE ones in
-   tests/test_torch_archs_moe_1..3.py); every other name of the JAX
+ - the registry: every name the JAX package sends to ``llama_forward`` or
+   ``deepseek2_forward`` is served, each with a parity case of its own (the
+   dense ones in tests/test_torch_archs_1..11.py, the MoE ones in
+   tests/test_torch_archs_moe_1..3.py, llama4 in tests/test_torch_llama4.py,
+   the MLA ones in tests/test_torch_mla.py); every other name of the JAX
    registry raises NotImplementedError naming the ROADMAP item it waits
-   for, and ``_check_supported`` refuses only llama4 among them.
+   for, and ``_check_supported`` refuses only the expert-parallel MoE of
+   ``moe_mesh`` (item 9).
 
 Tolerances: ops to rtol = atol = 1e-6 (f32, the same formulas; M-RoPE and
 attention 1e-5), ALiBi's slopes and ``top_k_mask`` bit-equal.
@@ -139,7 +141,8 @@ def test_every_registered_arch_has_a_parity_case():
     assert set(REGISTERED) | set(MOE_REGISTERED) <= _jax_llama_names()
 
 
-SERVED = set(REGISTERED) | set(MOE_REGISTERED)
+# llama4 and the MLA names: tests/test_torch_llama4.py, tests/test_torch_mla.py
+SERVED = set(REGISTERED) | set(MOE_REGISTERED) | {"llama4", "deepseek2", "minicpm3", "plm"}
 
 
 @pytest.mark.parametrize("arch", sorted(set(jregistry.supported_archs()) - SERVED))
@@ -151,14 +154,10 @@ def test_unregistered_arch_names_its_roadmap_item(arch):
 def test_waiting_list_covers_the_rest_of_the_jax_registry():
     rest = set(jregistry.supported_archs()) - SERVED
     assert rest == set(tregistry.WAITING)
-    assert {a for a in rest if "3 (" in tregistry.WAITING[a]} >= (
-        _jax_llama_names() - SERVED - {"llama-embed", "cogvlm"})
-
-
-@pytest.mark.parametrize("arch", ["llama4", "deepseek2", "minicpm3", "plm"])
-def test_mla_and_iswa_names_wait_for_item_3(arch):
-    with pytest.raises(NotImplementedError, match=r"item 3 \(MLA and the iSWA cache\)"):
-        tregistry.get_forward(arch)
+    assert not any("3 (" in why for why in tregistry.WAITING.values())
+    assert _jax_llama_names() - SERVED <= {"llama-embed", "cogvlm"}
+    assert len(SERVED) == 84 and len(tregistry.WAITING) == 22
+    assert SERVED <= set(tregistry._REGISTRY)
 
 
 @pytest.fixture(scope="module")
@@ -171,11 +170,11 @@ def llama(d):
     return arch_models(d, "llama")
 
 
-@pytest.mark.parametrize("what", ["llama4"])
+@pytest.mark.parametrize("what", ["moe_mesh"])
 def test_check_supported_refuses_only_item_3(llama, what):
     _, tm = llama
     hp = type(tm.hparams)(**{**tm.hparams.__dict__, "extra": {what: {}}})
     cache = kv_cache_init(hp.n_layer, 1, 8, hp.n_head_kv, hp.head_dim, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         tllama.llama_forward(tm.params, hp, torch.zeros((1, 1), dtype=torch.int64),
                              torch.zeros((1, 1), dtype=torch.int32), cache)

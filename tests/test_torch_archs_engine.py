@@ -77,7 +77,7 @@ def test_engine_greedy_matches_jax(paths, arch, case, torch_one_thread):
     kw = dict(n_slots=3, n_ctx=64)
     je = JaxEngine(jax_load(paths[arch]), kv_dtype=jnp.float32, iswa=False, **kw)
     te = Engine(load_model(paths[arch], device="cpu"), kv_dtype=torch.float32,
-                device="cpu", **kw)
+                device="cpu", iswa=False, **kw)
     assert _gen(te, PROMPTS[case], 10, GenRequest) == _gen(je, PROMPTS[case], 10, JaxRequest)
 
 
@@ -86,7 +86,7 @@ def test_engine_after_warmup_matches_jax(paths, arch, torch_one_thread):
     kw = dict(n_slots=2, n_ctx=64)
     je = JaxEngine(jax_load(paths[arch]), kv_dtype=jnp.float32, iswa=False, **kw)
     te = Engine(load_model(paths[arch], device="cpu"), kv_dtype=torch.float32,
-                device="cpu", **kw)
+                device="cpu", iswa=False, **kw)
     te.warmup()
     p = PROMPTS["wave"][:2]
     assert _gen(te, p, 8, GenRequest) == _gen(je, p, 8, JaxRequest)

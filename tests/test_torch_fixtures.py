@@ -538,7 +538,7 @@ def dense_logits(jm, tm) -> tuple[list, list]:
     from superllama_tpu_torch.runtime.context import Context
 
     jc = JaxContext(jm, n_batch=1, n_ctx=ARCH_N_CTX, iswa=False)
-    tc = Context(tm, n_batch=1, n_ctx=ARCH_N_CTX, device="cpu")
+    tc = Context(tm, n_batch=1, n_ctx=ARCH_N_CTX, device="cpu", iswa=False)
     steps = arch_steps(tm.hparams.n_vocab)
     ref = [np.asarray(jc.forward(s.astype(np.int32))) for s in steps]
     got = [tc.forward(s).numpy() for s in steps]

@@ -156,9 +156,9 @@ def test_hparams_and_tokenizer_match_jax(models):
 
 def test_unported_features_raise(models):
     _, tm = models[GGMLType.F32]
-    hp = type(tm.hparams)(**{**tm.hparams.__dict__, "extra": {"llama4": {}}})
+    hp = type(tm.hparams)(**{**tm.hparams.__dict__, "extra": {"moe_mesh": {}}})
     cache = kv_cache_init(hp.n_layer, 1, 8, hp.n_head_kv, hp.head_dim,
                           dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 9"):
         llama_forward(tm.params, hp, torch.zeros((1, 1), dtype=torch.int64),
                       torch.zeros((1, 1), dtype=torch.int32), cache)

@@ -459,7 +459,7 @@ def test_mixtral_engine_and_server_match_jax(mixtral_path, torch_one_thread):
                    n_ctx=64)
     ref = _gen(je, WAVE, 10, JaxRequest)
     model = load_model(mixtral_path, device="cpu")
-    te = Engine(model, kv_dtype=torch.float32, device="cpu", n_slots=3, n_ctx=64)
+    te = Engine(model, kv_dtype=torch.float32, device="cpu", n_slots=3, n_ctx=64, iswa=False)
     assert _gen(te, WAVE, 10, GenRequest) == ref
     app = ServerApp(model, n_slots=2, n_ctx=64, kv_dtype=torch.float32, device="cpu",
                     warmup=False)
