@@ -24,6 +24,8 @@ PyTorch version.
     python3 chip_smoke.py --toolchain     # device, build, phase 4j
     python3 chip_smoke.py --archs         # device, build, phase 4k
     python3 chip_smoke.py --moe           # device, build, phase 4l
+    python3 chip_smoke.py --mla           # device, build, phase 4m
+    python3 chip_smoke.py --ssm           # device, build, phase 4n
     python3 chip_smoke.py --format-times  # device, build, every format's qmv and
                                           # qmm readings (phase 6's format rows), and
                                           # qmm of a format of each layout at every
@@ -83,7 +85,7 @@ Phases, each printing one JSON line:
     ample pool, then a pool of about half the wave's pages that must spill
     to host), and a short wave on an f32 cache (fa's CUDA-core kernel);
  4b. graph against eager decode blocks and prompt chunks (the 8B widths
-    at GRAPH_LAYERS = 4; phases 4c-4h and 4g's draft at 8) on the bf16, Q8_0
+    at GRAPH_LAYERS = 4; phases 4c-4i and 4g's draft at 8) on the bf16, Q8_0
     and paged caches, greedy and sampled waves, and lone 100- and
     1000-token prompts: equal tokens, bit-equal written cache rows, equal
     launch counts, every block and chunk of the graph engine a replay;
@@ -141,7 +143,8 @@ Phases, each printing one JSON line:
     its device memory to within 64 MB; no capture after any warm-up; the
     launches of qmv, qmm, fa, fd and paged; each front-door step's host
     cost over 1,000 calls and each part's seconds;
- 4i. the weight formats on the serving path: the 8B-width model in the
+ 4i. the weight formats on the serving path: the 8B-width model (8
+    layers) in the
     Q4_0, Q5_K_M and IQ4_XS mixes (weights made on the card in repack's
     layout) over HTTP on a bf16 cache, greedy and sampled
     waves equal to the engine's, a full-width forward against the plain
@@ -219,6 +222,22 @@ Phases, each printing one JSON line:
     router_tie); for each a wave whose replayed blocks and chunks equal an
     eager engine's, a served wave of 8, B 1 / B 8 and the warm TTFT; then
     the held attention routes' times (held_route_times);
+ 4n. state-space models: ssm_scan (the selective scan in place of the
+    mixers' lax.scan) against its plain loop at falcon-mamba-7B's Mamba-1
+    and Bamba-9B's Mamba-2 widths (B 8 T 1, B 1 T 256; G 1 and 8), f32 and
+    bf16 state, with idle rows, two calls bit-equal, and its times; a
+    Bamba-9B-width granitehybrid (SSM_LAYERS of 32 layers, attention at
+    layer 9) and a falcon-mamba-7B-width mamba (MAMBA_LAYERS of 64) as
+    Q4_K_M-style rand_raw files, written, loaded and checked; greedy tokens
+    held to the plain route (the scan's plain loop) by greedy_rule; Bamba:
+    a wave replayed against eager (tokens and every state row bit-equal),
+    the warm-up's keys, the TTFT of a 32- and a 1,000-token prompt (pow2
+    chunks), a slot save / restore round trip, the refusals of paged, Q8_0,
+    speculative, lookup and context shift; both served over HTTP (B 1 / B 8,
+    every block and chunk a replay, fa and fd never launched); the held
+    routes' times (the hybrid attention's plain path against fa_tc / fd,
+    the plain conv); six more SSM names at the tests' widths against the
+    port's CPU forward;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -265,7 +284,7 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 SEED = 0
 T_START = time.perf_counter()
-CUT_LAYERS = 8   # the depth of phases 4c-4h and 7's 8B-width model
+CUT_LAYERS = 8   # the depth of phases 4c-4i and 7's 8B-width model
 # the depth of phase 4b's graph-against-eager engines: their eager runs,
 # host-bound, take most of its time
 GRAPH_LAYERS = 4
@@ -948,6 +967,11 @@ def counters() -> dict:
     from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
 
+    try:                    # (an unpacked parent tree may predate the scan)
+        from superllama_tpu_torch.ops.ssm_scan import ssm_scan
+        scan = {"ssm_scan": (ssm_scan, "launches")}
+    except ImportError:
+        scan = {}
     fa = fa_mod.flash_attention
     fams = {f"{k}_{f}": (getattr(qm_mod, k), f"launches_{f}") for k in ("qmv", "qmm")
             for f in qm_mod._FAMILY.values()}
@@ -956,7 +980,7 @@ def counters() -> dict:
             "fd": (fa_mod.flash_decode_attention, "launches"),
             "paged": (pa_mod.paged_flash_attention, "launches"),
             "paged_tc": (pa_mod.paged_flash_attention, "launches_tc"),
-            "gmm": (gm_mod.grouped_matmul, "launches")}
+            "gmm": (gm_mod.grouped_matmul, "launches"), **scan}
 
 
 def reset_counts() -> None:
@@ -1348,6 +1372,13 @@ def _cache_rows(eng) -> dict:
     if getattr(eng, "iswa", False):    # each tier's rows, keyed by tier
         return {f"{tier}_{k}": v for tier in ("full", "swa")
                 for k, v in _kv_rows(getattr(eng.cache, tier)).items()}
+    kind = getattr(eng, "kind", "dense")
+    if kind != "dense":                 # every row's whole state (and KV rows)
+        rec = eng.cache.rec if kind == "hybrid" else eng.cache
+        rows = {"conv": rec.conv.clone(), "ssm": rec.ssm.clone()}
+        if kind == "hybrid":
+            rows.update({f"attn_{k}": v for k, v in _kv_rows(eng.cache.attn).items()})
+        return rows
     return _kv_rows(eng.cache)
 
 
@@ -1441,7 +1472,8 @@ def phase_graph_vs_eager(torch, model, cases=GRAPH_CASES,
                       and gb["chunk_captures"] == 0, f"{label} {mode}: graph engine chunks {gb}")
                 check(e_run["blocks"]["replays"] == 0 and e_run["blocks"]["chunk_replays"] == 0,
                       f"{label} {mode}: eager engine replayed")
-                if not engines[True].paged and mode != "lone":
+                if (not engines[True].paged and mode != "lone"
+                        and getattr(engines[True], "kind", "dense") == "dense"):
                     check(gb["chained"] > 0, f"{label} {mode}: no block was chained")
         finally:
             for eng in engines.values():
@@ -2171,6 +2203,7 @@ class PlainKernels:
 
     def __enter__(self):
         from superllama_tpu_torch.models import llama as llama_mod
+        from superllama_tpu_torch.models import mamba as mamba_mod
         from superllama_tpu_torch.ops import flash_attention as fa_mod
         from superllama_tpu_torch.ops import paged_attention as pa_mod
         from superllama_tpu_torch.ops import qmatmul as qm_mod
@@ -2178,6 +2211,7 @@ class PlainKernels:
 
         self.saved = [(qm_mod, "qmv", qm_mod.qmv_plain), (qm_mod, "qmm", qm_mod.qmm_plain),
                       (llama_mod, "grouped_matmul", ref_mod.grouped_matmul_plain),
+                      (mamba_mod, "ssm_scan", ref_mod.ssm_scan_plain),
                       (llama_mod, "flash_attention", fa_mod.flash_attention_plain),
                       (llama_mod, "flash_decode_attention", fa_mod.flash_decode_plain),
                       (llama_mod, "paged_flash_attention", pa_mod.paged_flash_attention_plain)]
@@ -2261,7 +2295,6 @@ def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None
     of every step (f32; of a prompt longer than PROMPT_CHUNK, which goes in
     chunks of that many, its last chunk's)."""
     from superllama_tpu_torch.models.registry import get_forward
-    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
     from superllama_tpu_torch.runtime.paged_kv import PagedKVManager, paged_cache_init
 
     hp = model.hparams
@@ -2273,8 +2306,7 @@ def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None
                                               device="cuda"))
         cache = mgr.cache
     else:
-        cache = kv_cache_init(hp.n_layer, 1, n_ctx, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
-                              dtype=kv_dtype or torch.bfloat16, device="cuda")
+        cache = plain_cache(torch, hp, n_ctx, kv_dtype or torch.bfloat16)
     hp.extra.update(extra or {})
     out, p0 = [], 0
     try:
@@ -2304,6 +2336,18 @@ def forward_run(torch, model, tokens_seq, kv_dtype=None, paged=False, extra=None
 # the longest prompt chunk the plain-route helpers feed at once: a prompt of
 # 8,400 tokens in one step would hold 40 x 8,400^2 f32 logits a layer
 PROMPT_CHUNK = 2048
+
+
+def plain_cache(torch, hp, n_ctx: int, kv_dtype):
+    """One row of the model's memory for the plain-route helpers: the flat
+    KV cache of a dense model, the recurrent or hybrid store of an SSM one."""
+    from superllama_tpu_torch.runtime.cache_policy import cache_kind, make_cache
+    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
+
+    if cache_kind(hp) != "dense":
+        return make_cache(hp, 1, n_ctx, kv_dtype, device="cuda")
+    return kv_cache_init(hp.n_layer, 1, n_ctx, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
+                         dtype=kv_dtype, device="cuda")
 
 
 def phase_parity(torch, model, label: str = "Q4_K") -> None:
@@ -3037,8 +3081,9 @@ def phase_tools(torch, model) -> dict:
         # fa's CUDA-core kernel serves f32 q or K/V, and paged's tensor-core
         # kernel a paged prefill chunk, neither of which a tool sends; the
         # tools run the Q4_K model, so no format family's kernel either,
-        # and the model has no experts, so no gmm
-        check(n > 0 or name in ("fa", "paged_tc", "gmm") or name in families,
+        # and the model has no experts, so no gmm, and no SSM layer, so no
+        # ssm_scan
+        check(n > 0 or name in ("fa", "paged_tc", "gmm", "ssm_scan") or name in families,
               f"the tools' path never launched the {name} kernel")
     return counts
 
@@ -3333,7 +3378,6 @@ def forced_gaps(torch, model, prompt, got, kv_dtype=None, paged=False, n_ctx: in
     gaps[j] = the largest logit at got[j]'s position less got[j]'s own, and
     the (len(got), V) logits there, f32 on the host."""
     from superllama_tpu_torch.models.registry import get_forward
-    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
     from superllama_tpu_torch.runtime.paged_kv import PagedKVManager, paged_cache_init
 
     hp = model.hparams
@@ -3349,8 +3393,7 @@ def forced_gaps(torch, model, prompt, got, kv_dtype=None, paged=False, n_ctx: in
         cache = mgr.cache
         mgr.plan_step({0: T})
     else:
-        cache = kv_cache_init(hp.n_layer, 1, n_ctx, hp.n_head_kv, hp.head_dim, hp.head_dim_v,
-                              dtype=kv_dtype, device="cuda")
+        cache = plain_cache(torch, hp, n_ctx, kv_dtype)
     first = len(prompt) - 1
     parts = []
     for c in range(0, T, PROMPT_CHUNK if not paged else T):
@@ -3371,7 +3414,8 @@ PATH_NMSE = 1e-3     # logits of two paths of one position: phase 5's limit
 
 
 def greedy_rule(torch, model, label: str, prompt, ref, got, rows: int, width: int,
-                paths=None, n_ctx: int = 2048, taps: dict | None = None, **path_kw) -> dict:
+                paths=None, n_ctx: int = 2048, taps: dict | None = None,
+                path_nmse: float = PATH_NMSE, **path_kw) -> dict:
     """``got`` (a variant's greedy tokens) against ``ref`` (the plain path's,
     as many): equal, or parted at a first position i where the two
     candidates' logits (the plain decode path's) differ by no more than the
@@ -3385,7 +3429,8 @@ def greedy_rule(torch, model, label: str, prompt, ref, got, rows: int, width: in
     logits (default: path_logits' plain decode step and variant step).
     With ``taps`` (route_paths' router records of the paths), two paths
     that part beyond PATH_NMSE pass where router_tie finds a router near
-    tie that explains it."""
+    tie that explains it. ``path_nmse`` replaces PATH_NMSE for a model
+    family whose paths part further by construction (SSM_PATH_NMSE)."""
     ref = ref[:len(got)]
     i = first_divergence(ref, got)
     if i is None and len(ref) == len(got):
@@ -3404,11 +3449,11 @@ def greedy_rule(torch, model, label: str, prompt, ref, got, rows: int, width: in
                                path_kw.get("paged", False), n_ctx)
     p = forced[i]
     errs = {"decode_vs_variant": nmse(b, a), "decode_vs_prefill": nmse(p, a)}
-    if taps is not None and max(errs.values()) > PATH_NMSE:
+    if taps is not None and max(errs.values()) > path_nmse:
         return {"equal": False, "parted_at": i, "logit_gap": gap, "path_diff": path_diff,
                 "path_nmse": errs, "router_tie": router_tie(taps)}
-    check(max(errs.values()) <= PATH_NMSE,
-          f"{label}: at {i} the paths' logits differ by NMSE {errs} (limit {PATH_NMSE})")
+    check(max(errs.values()) <= path_nmse,
+          f"{label}: at {i} the paths' logits differ by NMSE {errs} (limit {path_nmse})")
     D = max(path_diff, float((a - p).abs().max()), float((b - p).abs().max()))
     worst = int(gaps[i:].argmax()) + i
     check(float(gaps[worst]) <= 2 * D,
@@ -4406,8 +4451,8 @@ def time_base_formats(torch) -> dict:
 
 def phase_mixes(torch, smi_line: str) -> dict:
     """The 8B-width model in the Q4_0, Q5_K_M and IQ4_XS mixes (weights made
-    on the card in repack's layout, ``MIXES``), each on a bf16 dense cache of
-    8 slots: greedy and sampled waves over HTTP equal to the engine's
+    on the card in repack's layout, ``MIXES``) at CUT_LAYERS, each on a
+    bf16 dense cache of 8 slots: greedy and sampled waves over HTTP equal to the engine's
     (serve_wave, no warm-up: the graphs are captured as the waves reach
     their keys), its family's qmv and qmm launched, a full-width forward
     within NMSE 1e-3 of the plain versions, then decode tok/s at B 1 and
@@ -4417,7 +4462,7 @@ def phase_mixes(torch, smi_line: str) -> dict:
     launches = {}
     for mix, fam in MIX_FAMILY.items():
         t0 = time.perf_counter()
-        model = build_model(torch, mix)
+        model = build_model(torch, mix, n_layer=CUT_LAYERS)
         build_s = time.perf_counter() - t0
         params = model.params
         weight_bytes = (sum(w.nbytes for layer in params["layers"] for w in layer.values()
@@ -6365,6 +6410,708 @@ def phase_mla(torch, smi_line: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ 4n. state-space models
+
+SCAN_NMSE = 1e-9     # the kernel's y (its sum over the states in another order) and state
+# (label, rows, T, heads, head dim, d_state, groups, A a state): falcon-mamba-7B's
+# Mamba-1 (d_inner 8,192 channels of one, d_state 16) and Bamba-9B's Mamba-2
+# (128 heads of 64, d_state 128, one group; and 8 groups) at a decode step of 8
+# rows and a 256-token chunk
+SCAN_CASES = [("falcon-mamba-7B decode", 8, 1, 8192, 1, 16, 1, True),
+              ("falcon-mamba-7B chunk", 1, 256, 8192, 1, 16, 1, True),
+              ("Bamba-9B decode", 8, 1, 128, 64, 128, 1, False),
+              ("Bamba-9B chunk", 1, 256, 128, 64, 128, 1, False),
+              ("Bamba-9B G8 chunk", 1, 256, 128, 64, 128, 8, False)]
+SCAN_RECORD = "Bamba-9B decode"      # the kernel record's reading: a served decode step
+
+
+def scan_operands(torch, Bt, T, nh, hd, ds, G, a2, seed: int, state_dtype):
+    """[state, x, dt, A, B, C] of one scan call, random on the card: dt
+    softplus'd, A = -exp(.), the state of state_dtype."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return [(0.5 * rnd(Bt, nh, hd, ds)).to(state_dtype), rnd(Bt, T, nh, hd),
+            torch.nn.functional.softplus(rnd(Bt, T, nh)),
+            -torch.exp(0.5 * (rnd(nh, ds) if a2 else rnd(nh))), rnd(Bt, T, G, ds),
+            rnd(Bt, T, G, ds)]
+
+
+def scan_work(Bt, T, nh, hd, ds, G, a2, state_bytes: int) -> tuple[float, float]:
+    """(bytes, f32 operations) of one scan call: the state read and written,
+    x, dt, A, B, C read and y written once; five operations a state element
+    a step (two products, the decay, the add, the read-out's product and
+    sum), the exp of a decay (a state element's with mamba1's A, a head's
+    with a scalar one) and dt·x."""
+    n = Bt * nh * hd * ds
+    nbytes = (2 * n * state_bytes + 2 * Bt * T * nh * hd * 4 + Bt * T * nh * 4
+              + 2 * Bt * T * G * ds * 4 + (nh * ds if a2 else nh) * 4)
+    ops = T * (5 * n + (n if a2 else Bt * nh) + Bt * nh * hd)
+    return nbytes, ops
+
+
+# the (K, N) the SSM models add to qmv's and qmm's served shapes: Bamba-9B's
+# ssm_in (N = 2 d_inner + 2 G d_state + heads) and ssm_out, falcon-mamba-7B's
+# ssm_in, ssm_x (N = dt rank + 2 d_state) and ssm_dt (K = the dt rank, one
+# super-block)
+SSM_KN = {"Bamba-9B ssm_in": (4096, 16768), "Bamba-9B ssm_out": (8192, 4096),
+          "falcon-mamba-7B ssm_in": (4096, 16384), "falcon-mamba-7B ssm_x": (8192, 288),
+          "falcon-mamba-7B ssm_dt": (256, 8192)}
+
+
+def time_ssm_matmuls(torch) -> dict:
+    """4n (a): qmv (M 8, a decode step's rows) and qmm (M 32, a chunk's at
+    most) at each SSM_KN shape, Q4_K, beside torch.matmul on the
+    dequantized weight (matmul_reading)."""
+    from superllama_tpu_torch.ops.qmatmul import qmm, qmm_plain, qmv, qmv_plain
+
+    out = {}
+    for label, (K, N) in SSM_KN.items():
+        out[f"qmv {label}"] = matmul_reading(torch, qmv, qmv_plain, "Q4_K", 8, K, N, "int8")
+        out[f"qmm {label}"] = matmul_reading(torch, qmm, qmm_plain, "Q4_K", 32, K, N, "bf16")
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ssm_scan(torch) -> tuple[list, dict]:
+    """4n (a): ssm_scan against its plain loop at each SCAN_CASES shape, with
+    f32 and bf16 state, all rows and every other row idle: y and the state
+    within SCAN_NMSE, finite, the idle rows' state untouched, two calls
+    bit-equal. Then each shape's reading (bf16 state, the served type), over
+    copies of the inputs past the L2, from a CUDA graph; no PyTorch call
+    computes a scan, so the row has no library time."""
+    from superllama_tpu_torch.ops.ref import ssm_scan_plain
+    from superllama_tpu_torch.ops.ssm_scan import ssm_scan
+
+    recs = []
+    for label, Bt, T, nh, hd, ds, G, a2 in SCAN_CASES:
+        for sd, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            st, *ins = scan_operands(torch, Bt, T, nh, hd, ds, G, a2, SEED + 200, dtype)
+            idle = torch.arange(Bt, device="cuda") % 2 == 0
+            for act in [None] + ([idle] if Bt > 1 else []):
+                s1, s2, s3 = st.clone(), st.clone(), st.clone()
+                got = ssm_scan(s1, *ins, act)
+                again = ssm_scan(s3, *ins, act)
+                ref = ssm_scan_plain(s2, *ins, act)
+                torch.cuda.synchronize()
+                rec = {"kernel": "ssm_scan", "shape": f"{label} B{Bt} T{T} {sd} state"
+                       + (" idle rows" if act is not None else ""),
+                       "nmse": nmse(got, ref), "state_nmse": nmse(s1.float(), s2.float()),
+                       "max_abs_err": float((got - ref).abs().max()),
+                       "state_equal": bool(torch.equal(s1, s2)),
+                       "bit_equal_twice": bool(torch.equal(got, again) and torch.equal(s1, s3))}
+                recs.append(rec)
+                check(bool(torch.isfinite(got).all() and torch.isfinite(s1.float()).all()),
+                      f"ssm_scan {rec['shape']}: non-finite output")
+                check(rec["nmse"] < SCAN_NMSE and rec["state_nmse"] < SCAN_NMSE,
+                      f"ssm_scan {rec['shape']}: nmse {rec['nmse']:g}, state "
+                      f"{rec['state_nmse']:g} against the plain loop (limit {SCAN_NMSE:g})")
+                check(rec["bit_equal_twice"], f"ssm_scan {rec['shape']}: two calls differ")
+                if act is not None:
+                    check(bool(torch.equal(s1[1::2], st[1::2])),
+                          f"ssm_scan {rec['shape']}: an idle row's state changed")
+            del st, ins
+    emit({"phase": "ssm_kernel_checks", "checks": recs})
+    times = {}
+    for label, Bt, T, nh, hd, ds, G, a2 in SCAN_CASES:
+        nbytes, ops = scan_work(Bt, T, nh, hd, ds, G, a2, 2)
+        n = n_copies(nbytes)
+        sets = [scan_operands(torch, Bt, T, nh, hd, ds, G, a2, SEED + 210 + j, torch.bfloat16)
+                for j in range(n)]
+        call = lambda i: ssm_scan(*sets[i % n])              # noqa: E731
+        plain = lambda i: ssm_scan_plain(*sets[i % n])       # noqa: E731
+        ms = graph_ms(torch, call, n)
+        b, by = bound(nbytes, ops, "f32")
+        row = {"shape": f"{label} B{Bt} T{T} bf16 state", "ms": ms,
+               "ms_eager": cuda_ms(torch, call, 2 * n), "plain_ms": cuda_ms(torch, plain, 3, 1),
+               "library_ms": None, "bound_ms": b, "bound_by": by, "bytes": nbytes, "ops": ops,
+               "gbps": nbytes / ms / 1e6, "share_of_bound": b / ms, "rotated_copies": n}
+        check(row["share_of_bound"] <= 1.0,
+              f"ssm_scan {label}: {ms:g} ms is below the {b:g} ms bound: a mis-measurement")
+        times[label] = row
+        del sets
+    torch.cuda.empty_cache()
+    return recs, times
+
+
+# Bamba-9B (ibm-ai-platform/Bamba-9B config.json, GGUF arch granitehybrid):
+# 4,096 wide, 32 layers, attention (32 heads over 8 kv heads of 128, rope) at
+# layers 9, 18 and 27, the others Mamba-2 (128 heads of 64, d_state 128, one
+# group, d_conv 4, d_inner 8,192), an FFN of 14,336 after every layer, a
+# 128,256-piece vocab, multipliers 1. SSM_LAYERS of its layers: the first
+# ten keep attention layer 9
+SSM_LAYERS = 10
+BAMBA = dict(arch="granitehybrid", n_embd=4096, n_layer=SSM_LAYERS, n_head=32, n_head_kv=8,
+             head_dim=128, head_dim_v=128, n_rot=128, n_ff=14336, n_vocab=128256,
+             rope_freq_base=10000.0, rms_eps=1e-5)
+BAMBA_ATTN = (9, 18, 27)
+BAMBA_SSM = dict(d_inner=8192, d_state=128, n_head=128, groups=1)
+# falcon-mamba-7B (tiiuae/falcon-mamba-7b config.json, GGUF arch mamba): 4,096
+# wide, 64 Mamba-1 layers (d_inner 8,192, d_state 16, dt rank 256, d_conv 4,
+# the non-parametric dt / B / C norms), no FFN, a 65,024-piece vocab.
+# MAMBA_LAYERS of them
+MAMBA_LAYERS = 8
+FALCON_MAMBA = dict(arch="mamba", n_embd=4096, n_layer=MAMBA_LAYERS, n_head=0, n_head_kv=0,
+                    head_dim=0, head_dim_v=0, n_rot=0, n_ff=0, n_vocab=65024, rms_eps=1e-5)
+SSM_TYPES = {**Q4_K_M_TYPES, "ssm_in": "Q4_K", "ssm_x": "Q4_K", "ssm_dt": "Q4_K",
+             "ssm_out": "Q4_K"}
+SSM_KEYS = ("qmv", "qmm", "ssm_scan", "fa", "fa_tc", "fd", "paged")
+SSM_BUCKETS = (32, 128, 256)     # the TTFT engine's: pow2 chunks of at most 256 tokens
+# greedy_rule's path limit on the SSM models. Their paths part further than
+# a dense model's whatever the kernels do: the decode projections quantize
+# their activations to int8 (qmv, as the JAX package's) and the prefill's
+# do not, and in bf16 (the activations, the conv's sums, the residual, as
+# in JAX) an ulp anywhere moves roundings the recurrence carries on.
+# Measured on the card (Bamba-9B's widths, 10 layers): a 1e-7 relative
+# change of one layer's scan output moves the bf16 prefill logits by NMSE
+# 3e-4 to 5e-4 (3e-11 with f32 activations); the kernels against the plain
+# route 4.7e-4 in bf16 and 1.2e-10 in f32; the decode against the prefill
+# path up to 1.4e-3, in bf16 and in f32 alike
+SSM_PATH_NMSE = 5e-3
+
+
+def ssm_f32(il: int, conv_dim: int, di: int, ds: int, nh: int, mamba2: bool) -> dict:
+    """A mamba layer's F32 tensors, seeded: the conv kernel (conv_dim, 4)
+    and bias, dt's bias, A = -exp(.) and D, Mamba-2's group norm."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED + 220, il])
+    b = f"blk.{il}."
+    f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)  # noqa: E731
+    out = {b + "ssm_conv1d.weight": f(conv_dim, 4, scale=0.3),
+           b + "ssm_conv1d.bias": f(conv_dim, scale=0.05),
+           b + "ssm_dt.bias": f(nh if mamba2 else di, scale=0.3),
+           b + "ssm_a": -np.exp(f(*((nh, 1) if mamba2 else (di, ds)), scale=0.5)),
+           b + "ssm_d": f(*((nh, 1) if mamba2 else (di,)), scale=0.5)}
+    if mamba2:
+        out[b + "ssm_norm.weight"] = np.ones((1, di), np.float32)
+    return out
+
+
+def ssm_file_model(torch, d: str, which: str):
+    """Bamba-9B or falcon-mamba-7B at published widths, cut in depth, as a
+    Q4_K_M-style file of rand_raw bytes (every layer of a kind layer 0's;
+    the conv, A, D, biases and norms F32, seeded): written, loaded packed
+    onto the card (bf16) and its hparams checked. Returns (model, info,
+    the file's path): the caller loads it again in f32 (ssm_decode), then
+    removes it."""
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+
+    bamba = which == "granitehybrid"
+    hp = llama3_8b_hparams(**(BAMBA if bamba else FALCON_MAMBA))
+    E, V, L = hp.n_embd, hp.n_vocab, hp.n_layer
+    shapes = {"token_embd.weight": ("token_embd", V, E), "output.weight": ("output", V, E)}
+    f32 = {}
+    if bamba:
+        di, ds, nh = BAMBA_SSM["d_inner"], BAMBA_SSM["d_state"], BAMBA_SSM["n_head"]
+        G = BAMBA_SSM["groups"]
+        conv_dim = di + 2 * G * ds
+        qd, kvd = hp.n_head * hp.head_dim, hp.n_head_kv * hp.head_dim
+        for il in range(L):
+            b = f"blk.{il}."
+            if il in BAMBA_ATTN:
+                for role, N, K in (("attn_q", qd, E), ("attn_k", kvd, E), ("attn_v", kvd, E),
+                                   ("attn_output", E, qd)):
+                    shapes[b + role + ".weight"] = (role, N, K)
+            else:
+                shapes[b + "ssm_in.weight"] = ("ssm_in", 2 * di + 2 * G * ds + nh, E)
+                shapes[b + "ssm_out.weight"] = ("ssm_out", E, di)
+                f32.update(ssm_f32(il, conv_dim, di, ds, nh, True))
+            for role, N, K in (("ffn_gate", hp.n_ff, E), ("ffn_up", hp.n_ff, E),
+                               ("ffn_down", E, hp.n_ff)):
+                shapes[b + role + ".weight"] = (role, N, K)
+        keys = {"attention.head_count_kv": [hp.n_head_kv if il in BAMBA_ATTN else 0
+                                            for il in range(L)],
+                "attention.key_length": 128, "attention.value_length": 128,
+                "rope.scaling.finetuned": True, "ssm.conv_kernel": 4, "ssm.inner_size": di,
+                "ssm.state_size": ds, "ssm.time_step_rank": nh, "ssm.group_count": G}
+        name = "synthetic-bamba-9b"
+    else:
+        di, ds, rank = 8192, 16, 256
+        for il in range(L):
+            b = f"blk.{il}."
+            shapes.update({b + "ssm_in.weight": ("ssm_in", 2 * di, E),
+                           b + "ssm_x.weight": ("ssm_x", rank + 2 * ds, di),
+                           b + "ssm_dt.weight": ("ssm_dt", di, rank),
+                           b + "ssm_out.weight": ("ssm_out", E, di)})
+            f32.update(ssm_f32(il, di, di, ds, 0, False))
+        keys = {"attention.head_count": 0, "attention.head_count_kv": 0,
+                "feed_forward_length": 0, "ssm.conv_kernel": 4, "ssm.inner_size": di,
+                "ssm.state_size": ds, "ssm.time_step_rank": rank, "ssm.dt_b_c_rms": True}
+        name = "synthetic-falcon-mamba-7b"
+    tok = grammar_tokenizer(V)
+    path = os.path.join(d, f"{name}-q4_k_m.gguf")
+    t0 = time.perf_counter()
+    write_file_model(path, hp, tok, SSM_TYPES, f"{name}-q4_k_m", shared_layers=True,
+                     arch=hp.arch, keys=keys, ffn_norm=bamba, f32_tensors=f32, shapes=shapes)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = load_model(path, dtype=torch.bfloat16, keep_quantized=True, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = model.hparams
+    want = {"arch": which, "n_embd": 4096, "n_layer": L, "n_vocab": V, "ssm_d_inner": 8192,
+            "ssm_d_state": ds, "ssm_d_conv": 4,
+            "ssm_dt_rank": nh if bamba else rank, "ssm_n_group": 1 if bamba else 0,
+            "is_hybrid": bamba, "is_recurrent": not bamba}
+    if bamba:
+        want.update(n_head=32, n_head_kv=8, head_dim=128, n_ff=14336, rope_finetuned=True)
+    have = {k: getattr(got, k) for k in want}
+    ok = have == want and (bamba or got.extra.get("ssm_dt_b_c_rms") is True)
+    if bamba:
+        ok &= [il for il in range(L) if got.n_head_kv_il(il)] == [
+            il for il in BAMBA_ATTN if il < L]
+    check(ok, f"{which} from the file: {have} (want {want}), extra {got.extra}")
+    info = {"file_bytes": os.path.getsize(path), "write_s": write_s, "load_s": load_s,
+            "depth": L, "hparams": have}
+    return model, info, path
+
+
+def ssm_path_nmse(torch, model, prompt) -> float:
+    """The prompt's prefill logits through the kernels against the plain
+    route (PlainKernels), on the model's own activation and state type."""
+    kv = model.params["layers"][0]["attn_norm"].dtype
+    a = forward_run(torch, model, [prompt], kv_dtype=kv, n_ctx=512)[0]
+    with PlainKernels():
+        b = forward_run(torch, model, [prompt], kv_dtype=kv, n_ctx=512)[0]
+    return nmse(a, b)
+
+
+def ssm_decode(torch, model, label: str, n_prompts: int = 3) -> dict:
+    """ARCH_DECODE greedy tokens of n_prompts 32-token prompts, each on a
+    one-slot bf16 Engine (warmed up, so every block and chunk is a replay),
+    held to the eager plain route (the plain scan loop called explicitly
+    through PlainKernels) by greedy_rule at SSM_PATH_NMSE; ssm_scan
+    launched, fa, fa_tc and fd not."""
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    prompts = token_prompts(model.hparams.n_vocab, [32] * n_prompts, SEED + 230)
+    eng = Engine(model, n_slots=1, n_ctx=512, device="cuda", kv_dtype=torch.bfloat16)
+    warm = eng.warmup()
+    rules, stats0 = [], block_stats(eng)
+    reset_counts()
+    outs = []
+    for p in prompts:
+        fresh(eng)
+        outs.append(eng.generate(p, max_tokens=ARCH_DECODE, sampling={"greedy": True},
+                                 stop_eog=False)["tokens"])
+    counts = read_counts()
+    replayed = check_replayed(f"{label} decode", stats0, block_stats(eng))
+    del eng
+    for p, got in zip(prompts, outs):
+        ref = plain_greedy(torch, model, p, ARCH_DECODE, n_ctx=512)
+        rules.append(greedy_rule(torch, model, f"{label} decode", p, ref, got, 1, 1,
+                                 paths=route_paths(torch, model, p, n_ctx=512), n_ctx=512,
+                                 path_nmse=SSM_PATH_NMSE))
+    check(counts["ssm_scan"] > 0 and counts["qmv"] > 0,
+          f"{label} decode: ssm_scan or qmv never launched: {counts}")
+    check(counts["fa"] + counts["fa_tc"] + counts["fd"] == 0,
+          f"{label} decode: the plain attention path launched fa or fd: {counts}")
+    return {"greedy_rule": rules, "warmup_keys": len(warm["keys"]),
+            "warmup_s": warm["seconds"], "blocks": replayed,
+            "launches": {k: counts[k] for k in SSM_KEYS}}
+
+
+def ssm_ttft_and_state(torch, model, label: str) -> dict:
+    """On a warmed 8-slot Engine of SSM_BUCKETS (pow2 chunks of at most 256
+    tokens, in place as (8, P) rows): the warm-up's keys and seconds; the
+    TTFT of a 32- and a 1,000-token prompt (medians of three, every chunk
+    and block a replay, no capture after the warm-up); a slot save / erase /
+    restore round trip bit-equal."""
+    from superllama_tpu_torch.runtime.cache_policy import get_row
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(model, n_slots=8, n_ctx=1280, device="cuda", kv_dtype=torch.bfloat16,
+                 prefill_buckets=SSM_BUCKETS)
+    warm = eng.warmup()
+    p32, p1000 = token_prompts(model.hparams.n_vocab, [32, 1000], SEED + 231)
+    stats0 = block_stats(eng)
+    reset_counts()
+    ttft = {}
+    for n, p in ((32, p32), (1000, p1000)):
+        runs = []
+        for _ in range(3):
+            fresh(eng)
+            runs.append(eng.generate(p, max_tokens=2, sampling={"greedy": True},
+                                     stop_eog=False)["ttft_s"] * 1e3)
+        ttft[f"ttft_ms_prompt{n}"] = sorted(runs)[1]
+    counts = read_counts()
+    after = block_stats(eng)
+    replayed = check_replayed(f"{label} TTFT", stats0, after)
+    check(after["captures"] == stats0["captures"]
+          and after["chunk_captures"] == stats0["chunk_captures"],
+          f"{label}: a graph was captured after the warm-up: {after}")
+    # slot state: the 1,000-token request's row saved, trashed, restored
+    (s,) = [s for s in eng.slots if s.cache_tokens]
+    snap = eng.slot_save(s.idx)
+    before = get_row(eng.cache, s.idx)
+    eng.generate(p32, max_tokens=4, sampling={"greedy": True}, stop_eog=False)
+    eng.slot_erase(s.idx)
+    eng.slot_restore(s.idx, snap)
+    again = get_row(eng.cache, s.idx)
+    flat = lambda b: {f"{k}.{j}": v for k, x in b.items()  # noqa: E731
+                      for j, v in (x.items() if isinstance(x, dict) else [("", x)])}
+    fb, fa = flat(before), flat(again)
+    equal = fb.keys() == fa.keys() and all(
+        (fb[k] == fa[k]).all() if hasattr(fb[k], "shape") else fb[k] == fa[k] for k in fb)
+    check(bool(equal), f"{label}: the restored slot state differs from the saved one")
+    keys = [list(k) for k in warm["keys"]]
+    del eng
+    torch.cuda.empty_cache()
+    return {**ttft, "warmup_keys": keys, "warmup_capture_s": warm["capture_s"],
+            "warmup_s": warm["seconds"], "graph_pool_bytes": warm["pool_bytes"],
+            "blocks": replayed, "launches": {k: counts[k] for k in SSM_KEYS},
+            "slot_state_restored_equal": True, "slot_state_n_past": snap["n_past"]}
+
+
+def ssm_refusals(torch, model) -> dict:
+    """A recurrent or hybrid Engine refuses the modes whose state would have
+    to rewind, with ValueError before it allocates a cache."""
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    out = {}
+    for mode, kw in (("paged", {"paged": True}), ("q8_0", {"kv_dtype": "q8_0"}),
+                     ("speculative", {"draft_model": model}), ("lookup", {"lookup_ngrams": 3}),
+                     ("ctx_shift", {"ctx_shift": True})):
+        try:
+            Engine(model, n_slots=1, n_ctx=64, device="cuda", **kw)
+            out[mode] = False
+        except ValueError:
+            out[mode] = True
+    check(all(out.values()), f"an SSM engine accepted a mode it must refuse: {out}")
+    return out
+
+
+def ssm_held_routes(torch) -> dict:
+    """The routes ROADMAP §2 holds for the hybrids, by CUDA events at
+    Bamba-9B's widths (bf16): its attention layer on the plain path
+    (``attention_ref`` over the whole flat cache, as the hybrid forwards
+    call it) against fa_tc for a 1,000-token prompt (one chunk of 1,024
+    slots) and against fd for a decode step of 8 rows over 1,024 slots; and
+    the plain depthwise conv of a Mamba-2 layer (8,448 channels, d_conv 4)
+    at a decode step of 8 rows and a 256-token chunk."""
+    from superllama_tpu_torch.models.mamba import _conv
+    from superllama_tpu_torch.ops import ref as ops
+    from superllama_tpu_torch.ops.flash_attention import (flash_attention,
+                                                          flash_decode_attention)
+    from superllama_tpu_torch.runtime.kv_cache import causal_mask
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 232)
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    out, S, T = {}, 1024, 1000
+    kv_pos = torch.where(torch.arange(S, **i32) < T, torch.arange(S, **i32), -1)[None]
+    k, v, q = rnd(1, 8, S, 128), rnd(1, 8, S, 128), rnd(1, T, 32, 128)
+    q_pos = torch.arange(T, **i32)[None]
+    mask = causal_mask(kv_pos, q_pos)
+    out["bamba_attn_prompt1000_plain_ms"] = cuda_ms(
+        torch, lambda i: ops.attention_ref(q, k, v, mask, scale=128 ** -0.5), 10)
+    out["bamba_attn_prompt1000_fa_tc_ms"] = cuda_ms(
+        torch, lambda i: flash_attention(q, k, v, q_pos, kv_pos, scale=128 ** -0.5), 20)
+    kv_pos = torch.arange(S, **i32)[None].expand(8, S).contiguous()
+    k, v, q = rnd(8, 8, S, 128), rnd(8, 8, S, 128), rnd(8, 1, 32, 128)
+    q_pos = torch.full((8, 1), S - 1, **i32)
+    mask = causal_mask(kv_pos, q_pos)
+    out["bamba_attn_decode_b8_s1024_plain_ms"] = cuda_ms(
+        torch, lambda i: ops.attention_ref(q, k, v, mask, scale=128 ** -0.5), 20)
+    out["bamba_attn_decode_b8_s1024_fd_ms"] = cuda_ms(
+        torch, lambda i: flash_decode_attention(q, k, v, q_pos, kv_pos, scale=128 ** -0.5), 20)
+    C = 8192 + 2 * 128
+    layer = {"ssm_conv1d": rnd(4, C), "ssm_conv1d_b": rnd(C)}
+    for B, Tc in ((8, 1), (1, 256)):
+        xs, state = rnd(B, Tc, C), rnd(B, 3, C)
+        out[f"bamba_conv1d_b{B}_t{Tc}_plain_ms"] = cuda_ms(
+            torch, lambda i: _conv(layer, xs, state, None), 20)
+    torch.cuda.empty_cache()
+    return out
+
+
+SSM_SWEEP_FAMILIES = ("mamba2", "jamba", "nemotron_h", "nemotron_h_moe", "falcon-h1", "plamo2")
+
+
+def ssm_sweep_file(path: str, family: str) -> str:
+    """One SSM family at the CPU tests' tiny widths (64 wide, a 512-piece
+    vocab), 4 layers, seeded F32 weights, written by the port's GGUFWriter:
+    mamba2 (G 2, the group norm), jamba (Mamba-1 with its dt / B / C norms
+    beside rope-less attention, MoE FFNs on the attention layers),
+    nemotron_h (Mamba-2, attention, relu² FFN, Mamba-2), nemotron_h_moe (its
+    FFN layer gate-less relu² experts and a shared expert), falcon-h1
+    (attention and Mamba-2 in every layer) and plamo2 (its mixer, fused-qkv
+    attention with per-head norms, post-norms, a fused gate ∥ up)."""
+    import numpy as np
+
+    from superllama_tpu_torch.gguf import GGUFWriter
+
+    rng = np.random.default_rng([SEED + 240, len(family)])
+    E, V, H, HKV, D, F, L = 64, 512, 4, 2, 16, 128, 4
+    t = {}
+
+    def w(name, *shape, scale=None):
+        t[name] = (rng.standard_normal(shape) * (scale or 0.7 * shape[-1] ** -0.5)).astype(
+            np.float32)
+
+    def norm(name, *shape):
+        t[name] = (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    def mamba(b, di=128, ds=16, nh=8, G=1, rank=0, norms=False, plamo=False):
+        if plamo:
+            w(b + "ssm_in.weight", 2 * di, E)
+            w(b + "ssm_conv1d.weight", di, 4, scale=0.3)
+            w(b + "ssm_x.weight", 64 + 2 * ds, di)
+            w(b + "ssm_dt.weight", nh, 64, scale=0.1)
+            for n, k in (("ssm_dt_norm", 64), ("ssm_b_norm", ds), ("ssm_c_norm", ds)):
+                norm(b + n, k)
+        elif rank:
+            w(b + "ssm_in.weight", 2 * di, E)
+            w(b + "ssm_conv1d.weight", di, 4, scale=0.3)
+            w(b + "ssm_conv1d.bias", di, scale=0.05)
+            w(b + "ssm_x.weight", rank + 2 * ds, di)
+            w(b + "ssm_dt.weight", di, rank, scale=0.3)
+            if norms:
+                for n, k in (("ssm_dt_norm", rank), ("ssm_b_norm", ds), ("ssm_c_norm", ds)):
+                    norm(b + n + ".weight", k)
+        else:
+            cd = di + 2 * G * ds
+            w(b + "ssm_in.weight", 2 * di + 2 * G * ds + nh, E)
+            w(b + "ssm_conv1d.weight", cd, 4, scale=0.3)
+            w(b + "ssm_conv1d.bias", cd, scale=0.05)
+            norm(b + "ssm_norm.weight", G, di // G)
+        n_a = di if rank else nh
+        w(b + "ssm_dt.bias", n_a, scale=0.3)
+        t[b + "ssm_a"] = -np.exp(rng.standard_normal((di, ds) if rank else (nh, 1)) * 0.5
+                                 ).astype(np.float32)
+        w(b + "ssm_d", *((di,) if rank else (nh, 1)), scale=0.5)
+        w(b + "ssm_out.weight", E, di)
+        return {"ssm.conv_kernel": 4, "ssm.inner_size": di, "ssm.state_size": ds,
+                "ssm.time_step_rank": rank or nh, "ssm.group_count": 0 if rank or plamo else G}
+
+    def attn(b, hkv=HKV, fused=False):
+        if fused:
+            w(b + "attn_qkv.weight", (H + 2 * hkv) * D, E)
+            norm(b + "attn_q_norm.weight", H, D)
+            norm(b + "attn_k_norm.weight", hkv, D)
+        else:
+            w(b + "attn_q.weight", H * D, E)
+            w(b + "attn_k.weight", hkv * D, E)
+            w(b + "attn_v.weight", hkv * D, E)
+        w(b + "attn_output.weight", E, H * D)
+
+    def ffn(b, f=F, gate=True, fused=False):
+        if fused:
+            w(b + "ffn_up.weight", 2 * f, E)
+        else:
+            if gate:
+                w(b + "ffn_gate.weight", f, E)
+            w(b + "ffn_up.weight", f, E)
+        w(b + "ffn_down.weight", E, f)
+
+    def experts(b, gate=True, shared=0):
+        w(b + "ffn_gate_inp.weight", 4, E, scale=1.0)
+        for part, shape in (("gate", (4, 48, E)), ("up", (4, 48, E)), ("down", (4, E, 48))):
+            if part != "gate" or gate:
+                w(b + f"ffn_{part}_exps.weight", *shape)
+        if shared:
+            w(b + "ffn_up_shexp.weight", shared, E)
+            w(b + "ffn_down_shexp.weight", E, shared)
+        return {"expert_count": 4, "expert_used_count": 2, "expert_feed_forward_length": 48}
+
+    w("token_embd.weight", V, E, scale=0.5)
+    norm("output_norm.weight", E)
+    w("output.weight", V, E)
+    md = {"context_length": 256, "embedding_length": E, "block_count": L, "vocab_size": V,
+          "attention.head_count": H, "attention.head_count_kv": HKV,
+          "attention.key_length": D, "attention.value_length": D,
+          "rope.dimension_count": D, "rope.freq_base": 10000.0,
+          "attention.layer_norm_rms_epsilon": 1e-5, "feed_forward_length": F}
+    for il in range(L):
+        b = f"blk.{il}."
+        norm(b + "attn_norm.weight", E)
+        if family == "mamba2":
+            md.update(mamba(b, G=2))
+        elif family == "jamba":
+            norm(b + "ffn_norm.weight", E)
+            if il % 2 == 0:
+                md.update(mamba(b, ds=8, rank=8, norms=True))
+                ffn(b)
+            else:
+                attn(b)
+                md.update(experts(b))
+        elif family in ("nemotron_h", "nemotron_h_moe"):
+            kind = "M*-M"[il]
+            if kind == "M":
+                md.update(mamba(b))
+            elif kind == "*":
+                attn(b)
+            elif family == "nemotron_h":
+                ffn(b, f=96, gate=False)
+            else:
+                w(b + "exp_probs_b.bias", 4, scale=0.5)
+                md.update(experts(b, gate=False, shared=64))
+            md["attention.head_count_kv"] = [HKV if k == "*" else 0 for k in "M*-M"]
+            md["feed_forward_length"] = [96 if k == "-" else 0 for k in "M*-M"]
+        elif family == "falcon-h1":
+            norm(b + "ffn_norm.weight", E)
+            attn(b)
+            md.update(mamba(b))
+            ffn(b)
+        elif family == "plamo2":
+            if il % 2 == 0:
+                md.update(mamba(b, di=64, ds=8, nh=4, plamo=True))
+            else:
+                attn(b, fused=True)
+            norm(b + "post_attention_norm", E)
+            norm(b + "ffn_norm.weight", E)
+            norm(b + "post_ffw_norm", E)
+            ffn(b, f=64, fused=True)
+            md["attention.head_count_kv"] = [0, HKV, 0, HKV]
+            md["feed_forward_length"] = 64
+    if family == "mamba2":
+        md.update({"attention.head_count": 0, "attention.head_count_kv": 0,
+                   "feed_forward_length": 0})
+    if family == "jamba":
+        md["attention.head_count_kv"] = [0, HKV, 0, HKV]
+    if family == "nemotron_h_moe":
+        md.update({"expert_shared_feed_forward_length": 64, "expert_shared_count": 1,
+                   "expert_weights_norm": True, "expert_weights_scale": 1.0})
+    wr = GGUFWriter(path, arch=family)
+    wr.add("general.name", f"sweep-{family}")
+    for k, v in md.items():
+        wr.add(f"{family}.{k}", v)
+    for name, a in t.items():
+        wr.add_tensor(name, a)
+    wr.write()
+    return path
+
+
+def ssm_sweep_family(torch, d: str, family: str) -> dict:
+    """One family's file loaded onto the card and onto the host (f32): a
+    12-token prompt's first-token logits through the card (ssm_scan, gmm on
+    the MoE ones) against the port's CPU plain forward of the same file
+    (ARCH_NMSE), and the launches by route."""
+    import gc
+
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.runtime.context import Context
+
+    t0 = time.perf_counter()
+    path = ssm_sweep_file(os.path.join(d, f"ssm-sweep-{family}.gguf"), family)
+    prompt = token_prompts(512, [12], SEED + 241)[0]
+    first = {}
+    reset_counts()
+    for dev in ("cuda", "cpu"):
+        m = load_model(path, dtype=torch.float32, device=dev)
+        ctx = Context(m, n_batch=1, n_ctx=64, kv_dtype=torch.float32, device=dev)
+        first[dev] = ctx.forward(prompt)[0, -1].float().cpu()
+        if dev == "cuda":
+            counts = read_counts()
+    hp = m.hparams
+    err = nmse(first["cuda"], first["cpu"])
+    check(bool(torch.isfinite(first["cuda"]).all()), f"SSM sweep {family}: non-finite logits")
+    check(err < ARCH_NMSE, f"SSM sweep {family}: card against CPU plain forward nmse {err:g}")
+    check(counts["ssm_scan"] > 0, f"SSM sweep {family}: ssm_scan never launched")
+    if family in ("jamba", "nemotron_h_moe"):
+        check(counts["gmm"] > 0, f"SSM sweep {family}: gmm never launched")
+    info = {"family": family, "arch": hp.arch, "hybrid": hp.is_hybrid,
+            "first_token_nmse": err, "nmse_bound": ARCH_NMSE,
+            "argmax_agree": bool(first["cuda"].argmax() == first["cpu"].argmax()),
+            "launches": {k: counts[k] for k in ("ssm_scan", "gmm", "qmv", "fa_tc", "fd")},
+            "seconds": time.perf_counter() - t0}
+    os.remove(path)
+    del m, ctx
+    gc.collect()
+    return info
+
+
+def ssm_model_phase(torch, d: str, which: str, smi_line: str) -> dict:
+    """One model of 4n written and loaded (ssm_file_model); its greedy
+    tokens held to the plain route (ssm_decode); the prefill logits through
+    the kernels against the plain route of the bf16 load and of an f32 load
+    of the same file (f32 within 1e-6: the kernels' own error); Bamba: a wave replayed
+    against eager, the served wave with B 1 / B 8 (arch_serving), the TTFTs,
+    warm-up and slot state (ssm_ttft_and_state) and the refusals;
+    falcon-mamba: B 1 / B 8 from the served wave."""
+    import gc
+
+    from superllama_tpu_torch.models.loader import load_model
+
+    label = "Bamba-9B" if which == "granitehybrid" else "falcon-mamba-7B"
+    t_all = time.perf_counter()
+    model, info, path = ssm_file_model(torch, d, which)
+    t0 = time.perf_counter()
+    m32 = load_model(path, dtype=torch.float32, keep_quantized=True, device="cuda")
+    os.remove(path)
+    info["decode"] = ssm_decode(torch, model, label, 3 if which == "granitehybrid" else 1)
+    p = token_prompts(model.hparams.n_vocab, [32], SEED + 230)[0]
+    info["prefill_path_nmse"] = {"f32": ssm_path_nmse(torch, m32, p),
+                                 "bf16": ssm_path_nmse(torch, model, p)}
+    check(info["prefill_path_nmse"]["f32"] < 1e-6,
+          f"{label}: the f32 model's kernels against the plain route, NMSE "
+          f"{info['prefill_path_nmse']['f32']:g}")
+    del m32
+    info["decode_s"] = time.perf_counter() - t0
+    if which == "granitehybrid":
+        t0 = time.perf_counter()
+        (rec,) = phase_graph_vs_eager(torch, model, GRAPH_CASES[:1], ("greedy",), n_ctx=512)
+        check(rec["launches"]["ssm_scan"] > 0, f"{label}: the graph wave never launched ssm_scan")
+        info["graph_vs_eager"] = {k: rec[k] for k in ("tokens_equal", "rows_equal",
+                                                      "graph_blocks", "launches")}
+        info["graph_vs_eager_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info["ttft_state"] = ssm_ttft_and_state(torch, model, label)
+        info["ttft_state_s"] = time.perf_counter() - t0
+        info["refusals"] = ssm_refusals(torch, model)
+    t0 = time.perf_counter()
+    info["serving"] = arch_serving(torch, model, label, need=("ssm_scan",), attn=())
+    info["serving"]["seconds"] = time.perf_counter() - t0
+    check(info["serving"]["launches"]["fa_tc"] + info["serving"]["launches"]["fd"] == 0,
+          f"{label}: the served wave launched fa_tc or fd")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = {"phase": f"ssm_{which}", "model": label, "card": smi_line, **info,
+            "seconds": time.perf_counter() - t_all}
+    emit(info)
+    return info
+
+
+def phase_ssm(torch, smi_line: str) -> dict:
+    """4n. State-space models: ssm_scan against its plain loop and its
+    times, qmv's and qmm's at the new shapes (a); Bamba-9B (granitehybrid) and falcon-mamba-7B (mamba) at full
+    width from rand_raw files, served (b); the held routes' times (c); the
+    other six SSM names at the tests' widths against the CPU (d).
+    ``launches`` is ssm_scan's count in Bamba's served wave."""
+    import shutil
+    import tempfile
+
+    t_all = time.perf_counter()
+    checks, times = check_ssm_scan(torch)
+    emit({"phase": "ssm_kernel_times", "card": smi_line, "kernels": times})
+    emit({"phase": "ssm_matmul_times", "card": smi_line, "kernels": time_ssm_matmuls(torch)})
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="ssm_", dir=build)
+    try:
+        out = {which: ssm_model_phase(torch, d, which, smi_line)
+               for which in ("granitehybrid", "mamba")}
+        held = ssm_held_routes(torch)
+        emit({"phase": "ssm_held_routes", "card": smi_line, **held})
+        sweep = [ssm_sweep_family(torch, d, fam) for fam in SSM_SWEEP_FAMILIES]
+        emit({"phase": "ssm_sweep", "card": smi_line, "families": sweep})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "ssm", "card": smi_line, "seconds": time.perf_counter() - t_all})
+    return {"checks": checks, "times": {"ssm_scan": times[SCAN_RECORD], **{
+        f"ssm_scan {k}": v for k, v in times.items()}},
+        "launches": out["granitehybrid"]["serving"]["launches"]["ssm_scan"]}
+
+
 # ------------------------------------------------------------ main
 
 # (name, source, the TPU kernel it replaces, the timing entry of its record)
@@ -6386,7 +7133,10 @@ KERNELS = [
       f"superllama_tpu/tools/qmv_probe.py:{line}", f"qmv_probe_{v} N=14336")
      for v, line in (("v1", 53), ("v2", 64), ("v3", 91), ("v4", 78))] + [
     # not a Pallas kernel: ragged_dot's grouped GEMM in _experts_apply
-    ("gmm", "superllama_tpu_torch/csrc/gmm.cu", "superllama_tpu/models/llama.py:194", "gmm")]
+    ("gmm", "superllama_tpu_torch/csrc/gmm.cu", "superllama_tpu/models/llama.py:194", "gmm"),
+    # not a Pallas kernel: the jax.lax.scan of the mixers' selective scan
+    ("ssm_scan", "superllama_tpu_torch/csrc/ssm_scan.cu", "superllama_tpu/models/mamba.py:134",
+     "ssm_scan")]
 
 
 # ------------------------------------------------------------ 4h. the front door
@@ -7019,6 +7769,10 @@ def main() -> int:
         # (phase 4m)
         phase_mla(torch, info["nvidia_smi"])
         return 0
+    if "--ssm" in sys.argv[1:]:
+        # the state-space models alone (phase 4n)
+        phase_ssm(torch, info["nvidia_smi"])
+        return 0
     if "--state" in sys.argv[1:]:
         # the engine's state between requests alone (phase 4e)
         phase_state(torch, build_model(torch, n_layer=CUT_LAYERS), info["nvidia_smi"])
@@ -7065,6 +7819,10 @@ def main() -> int:
     checks += moe["checks"]
     counts["gmm"] = moe["launches"]
     phase_mla(torch, info["nvidia_smi"])
+    # ssm_scan's checks, times and launches come from the SSM phase
+    ssm = phase_ssm(torch, info["nvidia_smi"])
+    checks += ssm["checks"]
+    counts["ssm_scan"] = ssm["launches"]
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)
@@ -7076,6 +7834,7 @@ def main() -> int:
     times.update(time_probe(torch, info["nvidia_smi"]))
     times.update(time_formats(torch, tuple(FAMILY_FORMAT.values()), m1=False))
     times.update(moe["times"])
+    times.update(ssm["times"])
     record = []
     for name, source, replaces, timing in KERNELS:
         t = times[timing]

@@ -126,12 +126,15 @@ def _grammar(args) -> str | None:
 
 
 def cmd_run(args) -> int:
-    """Greedy, not streamed and without a grammar: ``DecodeLoop`` (prefill
-    + captured decode steps), as the JAX CLI routes it; otherwise the
-    engine, which applies the grammar and the sampler chain of the
+    """Greedy, not streamed and without a grammar, on a dense model:
+    ``DecodeLoop`` (prefill + captured decode steps), as the JAX CLI routes
+    it; otherwise the engine (always for a recurrent or hybrid model: the
+    JAX ``DecodeLoop`` builds a flat KV cache whatever the model, and its
+    padded prefill would advance a recurrent state), which applies the grammar and the sampler chain of the
     sampling flags (``--preset`` merged under them). ``--profile-dir``
     writes a torch.profiler trace of the run there."""
     from .args import sampling_from_args
+    from .runtime.cache_policy import cache_kind
     from .runtime.decode_loop import DecodeLoop
     from .runtime.engine import Engine, GenRequest
 
@@ -158,7 +161,8 @@ def cmd_run(args) -> int:
         print("error: the model has no tokenizer", file=sys.stderr)
         return 2
     ids = tok.encode(args.prompt, add_special=True, parse_special=True)
-    if args.temp <= 0 and not args.stream and grammar is None:
+    if (args.temp <= 0 and not args.stream and grammar is None
+            and cache_kind(model.hparams) == "dense"):
         loop = DecodeLoop(model, n_ctx=args.ctx_size, kv_dtype=kvd, temp=0.0,
                           device=args.device)
         t0 = time.perf_counter()

@@ -2,8 +2,9 @@
 
 ``params_from_jax`` turns the JAX package's parameter tree, with its arrays
 given as numpy arrays, into the port's: the same function computed by both
-packages, which the parity tests rely on. ``kv_cache_from_jax`` and
-``paged_cache_from_jax`` carry a cache across the same way, so both packages
+packages, which the parity tests rely on. ``kv_cache_from_jax``,
+``paged_cache_from_jax``, ``recurrent_cache_from_jax`` and
+``hybrid_cache_from_jax`` carry a cache across the same way, so both packages
 can start from one mid-generation state. This module reads plain attributes
 and numpy arrays only; it imports nothing of JAX.
 """
@@ -19,6 +20,7 @@ from .models.hparams import HParams
 from .ops.qtensor import QTensor
 from .runtime.kv_cache import KVCache
 from .runtime.paged_kv import PagedKVCache
+from .runtime.recurrent import HybridCache, RecurrentCache
 
 _QT_META = ("group", "offset", "nibble", "K", "N", "hi_bits", "sb")
 
@@ -91,3 +93,16 @@ def paged_cache_from_jax(cache_np, device=None) -> PagedKVCache:
     return PagedKVCache(**{name: _tensor(getattr(cache_np, name), dev)
                            for name in ("k_pages", "v_pages", "page_pos", "table",
                                         "cur_page", "cur_off")})
+
+
+def recurrent_cache_from_jax(cache_np, device=None) -> RecurrentCache:
+    """A JAX ``RecurrentCache`` (conv and ssm as numpy arrays) → the port's."""
+    dev = resolve_device(device)
+    return RecurrentCache(conv=_tensor(cache_np.conv, dev), ssm=_tensor(cache_np.ssm, dev))
+
+
+def hybrid_cache_from_jax(cache_np, device=None) -> HybridCache:
+    """A JAX ``HybridCache`` (fields as numpy arrays) → the port's: its KV
+    half through ``kv_cache_from_jax``, its recurrent half as it is."""
+    return HybridCache(attn=kv_cache_from_jax(cache_np.attn, device),
+                       rec=recurrent_cache_from_jax(cache_np.rec, device))

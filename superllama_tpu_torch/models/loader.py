@@ -1,7 +1,7 @@
 """GGUF → device params loader for the llama family.
 
 Counterpart of the JAX package's ``models/loader.py::load_model`` (its
-llama-family branch with its MoE and MLA tensors, without the SSM, RWKV,
+llama-family branch with its MoE, MLA and SSM tensors, without the RWKV,
 encoder, gemma3n and LFM2 ones): reads tensors by name, keeps repackable 2-D
 matmul weights packed as QTensors when asked (or dequantizes them),
 transposes matmul weights to (in, out) so the forward uses ``x @ w``, and
@@ -9,7 +9,11 @@ places every tensor on the device once. Norm biases, post-norms under their
 ecosystem, legacy and unsuffixed names, the embedding norm, learned
 positions, ``attn_gate``, the sub-norms and MLA's ``wq_a`` / ``wq_b`` /
 ``attn_q_a_norm`` / ``wkv_a`` / ``wkv_b`` / ``attn_kv_a_norm`` load beside
-the llama tensors.
+the llama tensors, and so do the SSM ones (``ssm_in``, ``ssm_conv1d`` with
+its bias, ``ssm_x``, ``ssm_dt`` with its bias, ``ssm_a``, ``ssm_d``,
+``ssm_out``, ``ssm_norm`` and the dt / B / C norms): the projections packed
+like any 2-D weight where their rows fit the format's blocks, the rest
+dense.
 The MoE tensors: the router (``ffn_gate_inp`` with its bias, packed like
 any 2-D weight), the selection bias ``exp_probs_b``, the expert banks
 ``ffn_{gate,up,down}_exps`` with their biases, grovemoe's chunk banks
@@ -279,6 +283,26 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                 "ffn_down_shexp": g(p + "ffn_down_shexp.weight"),
                 "ffn_gate_inp_shexp": g(p + "ffn_gate_inp_shexp.weight"),
                 "ffn_norm_exps": g(p + "ffn_norm_exps.weight", t=False),
+                # SSM (mamba, mamba2, plamo2 and the hybrids): the conv kernel
+                # as (d_conv, channels); A and D with or without ".weight"
+                # (the ecosystem's names carry none); the dt / B / C norms
+                # under both names (plamo2's are suffix-less)
+                "ssm_in": g(p + "ssm_in.weight"),
+                "ssm_conv1d": g(p + "ssm_conv1d.weight"),
+                "ssm_conv1d_b": g(p + "ssm_conv1d.bias", t=False),
+                "ssm_x": g(p + "ssm_x.weight"),
+                "ssm_dt": g(p + "ssm_dt.weight"),
+                "ssm_dt_b": g(p + "ssm_dt.bias", t=False),
+                "ssm_a": _first(g(p + "ssm_a", t=False), g(p + "ssm_a.weight", t=False)),
+                "ssm_d": _first(g(p + "ssm_d", t=False), g(p + "ssm_d.weight", t=False)),
+                "ssm_out": g(p + "ssm_out.weight"),
+                "ssm_norm": g(p + "ssm_norm.weight", t=False),
+                "ssm_dt_norm": _first(g(p + "ssm_dt_norm.weight", t=False),
+                                      g(p + "ssm_dt_norm", t=False)),
+                "ssm_b_norm": _first(g(p + "ssm_b_norm.weight", t=False),
+                                     g(p + "ssm_b_norm", t=False)),
+                "ssm_c_norm": _first(g(p + "ssm_c_norm.weight", t=False),
+                                     g(p + "ssm_c_norm", t=False)),
             }
             for part in ("gate", "up", "down"):
                 # the expert banks with their biases, grovemoe's chunk banks

@@ -3,15 +3,21 @@
 Counterpart of the JAX package's ``models/registry.py``, holding every
 architecture the JAX package sends to ``llama_forward`` (the dense ones,
 those with sparse mixtures of experts and llama4) or to
-``deepseek2_forward`` (multi-head latent attention). The names the port
-refuses say which ROADMAP §1 item they wait for."""
+``deepseek2_forward`` (multi-head latent attention), and the state-space
+models to ``mamba_forward``, ``jamba_forward``, ``hybrid_forward`` and
+``plamo2_forward``. The names the port refuses say which ROADMAP §1 item
+they wait for."""
 
 from __future__ import annotations
 
 from typing import Callable
 
 from .deepseek2 import deepseek2_forward
+from .hybrid import hybrid_forward
+from .jamba import jamba_forward
 from .llama import llama_forward
+from .mamba import mamba_forward
+from .plamo2 import plamo2_forward
 
 ForwardFn = Callable  # (params, hp, tokens, pos, cache, **kw) -> (logits, cache)
 
@@ -49,13 +55,21 @@ LLAMA4_ARCHS = ("llama4",)
 # latent up-projected into the flat cache, leading dense layers, then MoE
 MLA_ARCHS = ("deepseek2", "minicpm3", "plm")
 
+# state-space models on the selective scan: pure mamba / mamba2 on a
+# recurrent store, the hybrids on a KV cache beside it
+SSM_ARCHS = {
+    "mamba": mamba_forward, "mamba2": mamba_forward, "jamba": jamba_forward,
+    "granitehybrid": hybrid_forward, "nemotron_h": hybrid_forward,
+    "nemotron_h_moe": hybrid_forward, "falcon-h1": hybrid_forward,
+    "plamo2": plamo2_forward,
+}
+
 # what the JAX registry holds that the port does not serve yet, by the
 # ROADMAP §1 item it waits for
 WAITING = {
     **dict.fromkeys((
-        "mamba", "mamba2", "jamba", "granitehybrid", "nemotron_h", "nemotron_h_moe",
-        "falcon-h1", "rwkv6", "rwkv7", "arwkv7", "rwkv6qwen2", "lfm2", "lfm2moe",
-        "plamo2", "gemma3n", "qwen3next"), "4 (recurrent and hybrid models)"),
+        "rwkv6", "rwkv7", "arwkv7", "rwkv6qwen2", "lfm2", "lfm2moe", "gemma3n",
+        "qwen3next"), "4b (rwkv, lfm2, qwen3next, gemma3n)"),
     **dict.fromkeys((
         "llama-embed", "cogvlm", "llada", "llada-moe", "dream", "rnd1"),
         "5 (encoders, multimodal and diffusion)"),
@@ -64,6 +78,7 @@ WAITING = {
 _REGISTRY: dict[str, ForwardFn] = {
     **{arch: llama_forward for arch in LLAMA_ARCHS + MOE_ARCHS + LLAMA4_ARCHS},
     **{arch: deepseek2_forward for arch in MLA_ARCHS},
+    **SSM_ARCHS,
 }
 
 

@@ -327,3 +327,42 @@ def grouped_matmul_plain(xs: torch.Tensor, w: torch.Tensor,
         if hi > lo:
             out[lo:hi] = xs[lo:hi].to(torch.float32) @ w[g].to(torch.float32)
     return out
+
+
+# ----------------------------------------------------------------- selective scan
+
+
+def ssm_scan_plain(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor,
+                   active: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``ops/ssm_scan.py``'s kernel: a loop over T of the
+    JAX mixers' ``step`` functions (``superllama_tpu/models/mamba.py``
+    :64-70 mamba1, :123-131 mamba2, :186-194 plamo2), in f32.
+
+    state (B, nh, hd, ds) in its cache type, updated in place; x (B, T, nh,
+    hd), dt (B, T, nh), A (nh, ds) (mamba1, whose nh is d_inner and hd 1) or
+    (nh,) (a scalar decay a head), Bm / Cm (B, T, G, ds), head h reading
+    group h // (nh / G); all f32. ``active`` (B,) bool: a row that is False
+    keeps its state and gets y 0. Returns y (B, T, nh, hd) f32."""
+    Bt, T, nh, hd = x.shape
+    rep = nh // Bm.shape[2]
+    b_h = torch.repeat_interleave(Bm, rep, dim=2)          # (B, T, nh, ds)
+    c_h = torch.repeat_interleave(Cm, rep, dim=2)
+    st = state.to(torch.float32)
+    ys = []
+    for t in range(T):
+        dt_t = dt[:, t]                                     # (B, nh)
+        if A.ndim == 2:
+            dA = torch.exp(dt_t[..., None] * A)[:, :, None, :]
+        else:
+            dA = torch.exp(dt_t * A)[..., None, None]
+        dBx = (dt_t[..., None] * x[:, t])[..., None] * b_h[:, t][:, :, None, :]
+        st = st * dA + dBx
+        ys.append(torch.einsum("bhps,bhs->bhp", st, c_h[:, t]))
+    y = torch.stack(ys, dim=1)
+    if active is None:
+        state.copy_(st.to(state.dtype))
+        return y
+    keep = active.reshape(-1, 1, 1, 1)
+    state.copy_(torch.where(keep, st.to(state.dtype), state))
+    return torch.where(keep, y, torch.zeros_like(y))

@@ -1,18 +1,30 @@
-"""Memory-type policy for the serving Engine and Context: the dense and iSWA
-parts of the JAX package's ``runtime/cache_policy.py``.
+"""Memory-type policy for the serving Engine and Context: the counterpart of
+the JAX package's ``runtime/cache_policy.py``.
 
  - ``cache_kind``    : "dense" | "recurrent" | "hybrid", how the Engine must
                        treat a model's rows;
  - ``make_cache``    : the model's memory (create_memory's counterpart): the
-                       flat KV cache, or the iSWA two-tier one;
+                       flat KV cache, the iSWA two-tier one, the recurrent
+                       store (mamba's conv + SSM state, or rwkv's) or the
+                       hybrid one (a KV cache beside a recurrent store);
+ - ``mask_rows``     : after a batched step, rows that were idle get their
+                       old recurrent state back (a recurrent state has no
+                       position to mask a junk update on read);
  - ``truncate_rows`` : per-row rollback, in place (a flat cache by slot
-                       count, an iSWA cache by position);
+                       count, an iSWA cache by position; a recurrent row
+                       resets where keep is 0 and stays as it is otherwise,
+                       since its state cannot rewind; a hybrid cache both);
  - ``get_row`` / ``set_row`` : a slot's state as host arrays and back, in
                        place (llama_state_seq_get_data / set_data), with a
-                       quantized cache's scales.
+                       quantized cache's scales;
+ - ``pow2_chunk``    : recurrent prompts load in fully valid power-of-two
+                       chunks, never a padded bucket (a pad token would
+                       advance the state).
 
-The recurrent and hybrid memories (and ``mask_rows`` / ``pow2_chunk``, which
-only they need) wait for ROADMAP §1 item 4.
+The port's recurrent forwards keep an idle row's state themselves (rows with
+pos[:, 0] < 0, inside the step: the cache is written in place), so the
+Engine needs no snapshot for ``mask_rows``; the function serves callers that
+hold one.
 """
 
 from __future__ import annotations
@@ -22,8 +34,11 @@ import torch
 
 from .kv_cache import (ISWACache, KVCache, iswa_cache_init, iswa_truncate_pos,
                        kv_cache_init, kv_truncate_rows)
+from .recurrent import (HybridCache, RecurrentCache, RWKVCache, recurrent_cache_init,
+                        rwkv_cache_init)
 
-_ITEM_4 = "recurrent and hybrid memories are not ported yet (ROADMAP §1 item 4)"
+_QUANT_KV = ("q8_0 KV cache is supported for standard attention caches only (not "
+             "iswa/recurrent/hybrid)")
 
 
 def cache_kind(hp) -> str:
@@ -37,47 +52,118 @@ def cache_kind(hp) -> str:
 
 def make_cache(hp, batch: int, n_ctx: int, kv_dtype, iswa: bool = False,
                n_ubatch: int = 512, device="cpu"):
-    """The model's memory: an ``ISWACache`` (its ring sized for one ubatch of
-    n_ubatch tokens past the window) when ``iswa``, else the flat KV cache.
-    A quantized cache with iSWA raises ``ValueError``, as the JAX Context
-    does."""
-    if cache_kind(hp) != "dense":
-        raise NotImplementedError(f"{hp.arch}: {_ITEM_4}")
+    """The model's memory: a ``HybridCache`` for a hybrid model, an
+    ``RWKVCache`` (f32) or a ``RecurrentCache`` (states in kv_dtype, as in
+    JAX) for a recurrent one, an ``ISWACache`` (its ring sized for one
+    ubatch of n_ubatch tokens past the window) when ``iswa``, else the flat
+    KV cache. A quantized cache for any but the flat one raises
+    ``ValueError``, as the JAX Context does."""
+    kind = cache_kind(hp)
+    if isinstance(kv_dtype, str) and (iswa or kind != "dense"):
+        raise ValueError(_QUANT_KV)
+    if kind == "hybrid":
+        from ..models.jamba import hybrid_cache_init
+
+        return hybrid_cache_init(hp, batch, n_ctx, dtype=kv_dtype, device=device)
+    if hp.recurrent_kind == "rwkv":
+        return rwkv_cache_init(hp.n_layer, batch, hp.n_embd, hp.n_embd // hp.wkv_head_size,
+                               hp.wkv_head_size, dtype=torch.float32, device=device)
+    if kind == "recurrent":
+        return recurrent_cache_init(hp.n_layer, batch, hp.ssm_d_conv, hp.ssm_d_inner,
+                                    hp.ssm_d_state, dtype=kv_dtype,
+                                    conv_dim=hp.ssm_conv_dim, device=device)
     if iswa:
-        if isinstance(kv_dtype, str):
-            raise ValueError("q8_0 KV cache is supported for standard attention caches "
-                             "only (not iswa/recurrent/hybrid)")
         return iswa_cache_init(hp, batch, n_ctx, n_ubatch=n_ubatch, dtype=kv_dtype,
                                device=device)
     return kv_cache_init(hp.n_layer, batch, n_ctx, hp.n_head_kv, hp.head_dim,
                          hp.head_dim_v, dtype=kv_dtype, device=device)
 
 
+def _rec_fields(cache) -> list[torch.Tensor]:
+    return [getattr(cache, f) for f in cache.FIELDS]
+
+
+def _row_view(active: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A (B,) row vector shaped to select along t's batch axis (axis 1)."""
+    return active.to(device=t.device).reshape(1, -1, *(1,) * (t.ndim - 2))
+
+
+def mask_rows(cache, old, active: torch.Tensor):
+    """After a batched step: rows with active False get the state of ``old``
+    (a snapshot taken before the step) back, in place. A dense cache is left
+    as it is (its junk writes are masked by position on read); a hybrid one
+    masks its recurrent half."""
+    if isinstance(cache, HybridCache):
+        mask_rows(cache.rec, old.rec, active)
+    elif isinstance(cache, (RecurrentCache, RWKVCache)):
+        for new_t, old_t in zip(_rec_fields(cache), _rec_fields(old)):
+            new_t.copy_(torch.where(_row_view(active, new_t), new_t, old_t))
+    return cache
+
+
+def _rec_reset(cache, zero: torch.Tensor) -> None:
+    for t in _rec_fields(cache):
+        t.masked_fill_(_row_view(zero, t), 0)
+
+
 def truncate_rows(cache, keep: torch.Tensor):
     """Flat cache: each row cut to its first keep[b] slots. iSWA: every
-    entry at a position >= keep[b] emptied in both tiers. In place."""
+    entry at a position >= keep[b] emptied in both tiers. Recurrent: rows
+    with keep 0 reset to zero, the rest kept as they are (the state cannot
+    rewind; the engines that would need it refuse such a model). Hybrid:
+    both. In place."""
     if isinstance(cache, KVCache):
         return kv_truncate_rows(cache, keep)
     if isinstance(cache, ISWACache):
         return iswa_truncate_pos(cache, keep)
+    if isinstance(cache, (RecurrentCache, RWKVCache)):
+        _rec_reset(cache, keep == 0)
+        return cache
+    if isinstance(cache, HybridCache):
+        kv_truncate_rows(cache.attn, keep)
+        _rec_reset(cache.rec, keep == 0)
+        return cache
     raise TypeError(f"truncate_rows: unsupported cache {type(cache)}")
 
 
 def get_row(cache, idx: int) -> dict:
-    """An iSWA slot's state as host arrays: per tier, its K / V (and
-    scales) over [0, max_seq), positions and cursor. (A flat cache's
-    snapshot is the Engine's own ``slot_save``.)"""
+    """A slot's state as host arrays: an iSWA cache's per tier (its K / V
+    and scales over [0, max_seq), positions and cursor); a recurrent one's
+    per field over every layer; a hybrid one's {"attn": its KV row, "rec":
+    its recurrent row}. (A flat cache's snapshot is the Engine's own
+    ``slot_save``.)"""
     if isinstance(cache, ISWACache):
         return {"full": _kv_get_row(cache.full, idx), "swa": _kv_get_row(cache.swa, idx)}
+    if isinstance(cache, HybridCache):
+        return {"attn": _kv_get_row(cache.attn, idx), "rec": get_row(cache.rec, idx)}
+    if isinstance(cache, (RecurrentCache, RWKVCache)):
+        return {f: _host(getattr(cache, f)[:, idx]) for f in cache.FIELDS}
     raise TypeError(type(cache))
 
 
 def set_row(cache, idx: int, blob: dict):
-    """Load a ``get_row`` blob into row idx, in place; each tier's spare
+    """Load a ``get_row`` blob into row idx, in place; a KV tier's spare
     slot comes back empty."""
     if isinstance(cache, ISWACache):
         _kv_set_row(cache.full, idx, blob["full"])
         _kv_set_row(cache.swa, idx, blob["swa"])
+        return cache
+    if isinstance(cache, HybridCache):
+        if "attn" not in blob or "rec" not in blob:
+            raise ValueError("a hybrid cache restores only a hybrid state (attn and rec)")
+        _kv_set_row(cache.attn, idx, blob["attn"])
+        set_row(cache.rec, idx, blob["rec"])
+        return cache
+    if isinstance(cache, (RecurrentCache, RWKVCache)):
+        rows = []
+        for f in cache.FIELDS:
+            t = getattr(cache, f)[:, idx]
+            if f not in blob or tuple(np.shape(blob[f])) != tuple(t.shape):
+                got = tuple(np.shape(blob[f])) if f in blob else None
+                raise ValueError(f"state {f} has shape {got}, the cache row {tuple(t.shape)}")
+            rows.append((t, blob[f]))
+        for t, a in rows:
+            t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)).to(t.dtype))
         return cache
     raise TypeError(type(cache))
 
@@ -124,3 +210,10 @@ def _kv_set_row(kv: KVCache, idx: int, blob: dict) -> KVCache:
     kv.pos[idx, S:].fill_(-1)
     kv.cursor[idx].fill_(int(blob["cursor"]))
     return kv
+
+
+def pow2_chunk(remaining: int, cap: int) -> int:
+    """The largest power of two ≤ min(remaining, cap): recurrent prompts load
+    in fully valid chunks (no padding) from a log-bounded set of shapes."""
+    n = min(remaining, cap)
+    return 1 << (n.bit_length() - 1)

@@ -3,8 +3,12 @@
 Counterpart of the JAX package's ``runtime/context.py::Context``. The JAX
 context jit-compiles its step and donates the functional cache; here the
 forward runs eagerly and updates the cache in place. The cache comes from
-``cache_policy.make_cache``: the iSWA two-tier cache by default for a model
-with sliding-window layers (``iswa=None``), else the flat one.
+``cache_policy.make_cache``: the recurrent store of a mamba model, the
+hybrid one of a model with SSM and attention layers, the iSWA two-tier cache
+by default for a model with sliding-window layers (``iswa=None``), else the
+flat one. A recurrent model's positions come from a counter of the tokens
+fed (its state has none); a quantized cache for any but the flat or paged
+one raises ``ValueError``, as in JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from ..models.loader import LoadedModel
 from ..models.registry import get_forward
 from .cache_policy import cache_kind, make_cache
 from .kv_cache import ISWACache, iswa_layer_split
+from .recurrent import HybridCache
 
 
 def model_device(model: LoadedModel) -> torch.device:
@@ -49,6 +54,7 @@ class Context:
         self.kv_dtype = kv_dtype or model.params["token_embd"].dtype
         self._fwd = get_forward(hp.arch)
         self.cache = self.new_cache()
+        self._n_past = 0        # a recurrent model's position counter
 
     def new_cache(self):
         return make_cache(self.hp, self.n_batch, self.n_ctx, self.kv_dtype, iswa=self.iswa,
@@ -57,6 +63,7 @@ class Context:
     def reset(self) -> None:
         """Start over on an empty cache."""
         self.cache = self.new_cache()
+        self._n_past = 0
 
     @torch.no_grad()
     def forward(self, tokens, pos=None) -> torch.Tensor:
@@ -66,12 +73,25 @@ class Context:
         if tokens.ndim == 1:
             tokens = tokens[None, :]
         B, T = tokens.shape
+        if self.hp.is_recurrent:
+            if pos is None:
+                pos = self._n_past + torch.arange(T, dtype=torch.int32,
+                                                  device=self.device)[None, :].expand(B, T)
+            else:
+                pos = torch.as_tensor(np.asarray(pos), dtype=torch.int32,
+                                      device=self.device).reshape(-1, T).expand(B, T)
+            self._n_past += T
+            logits, self.cache = self._fwd(self.model.params, self.hp, tokens, pos,
+                                           self.cache)
+            return logits
         if isinstance(self.cache, ISWACache):
             s_swa = self.cache.swa.max_seq
             if s_swa < self.n_ctx and T > s_swa - self.hp.swa_window:
                 raise ValueError(f"ubatch of {T} exceeds SWA ring headroom ({s_swa} slots - "
                                  f"window {self.hp.swa_window}); split it")
             cursor = torch.maximum(self.cache.full.cursor, self.cache.swa.cursor)
+        elif isinstance(self.cache, HybridCache):
+            cursor = self.cache.attn.cursor
         else:
             cursor = self.cache.cursor
         max_cursor = int(cursor.max())

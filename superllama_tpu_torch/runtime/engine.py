@@ -97,6 +97,22 @@ reference server's update_slots semantics):
    chain goes through a dense row and back);
  - speculative, lookup and shift steps run eagerly; blocks in flight are
    landed before any other kind of step;
+ - recurrent and hybrid memories (mamba, mamba2, the jamba / Mamba-2
+   hybrids, plamo2; ``cache_policy.cache_kind``): as in JAX, a paged,
+   speculative, lookup, context-shift or quantized cache is refused
+   (``ValueError``: the state cannot rewind), and the engine decodes one
+   token a step (``block_size`` 1, no pipeline). The forward keeps each
+   idle row's state (pos[:, 0] < 0; the JAX engine's ``mask_rows`` after
+   the step), inside the captured block and chunk graphs. A prompt never
+   reuses a prefix: its row is reset (``truncate_rows`` with keep 0), then
+   it loads in place in fully valid power-of-two chunks (``pow2_chunk``,
+   never a padded bucket: a pad token would advance the state) as
+   (n_slots, P) with the other rows idle, one slot a step (no wave).
+   Greedy decode steps run as one-step blocks (argmax on the device,
+   captured); a step with a sampled slot runs the host-sampled step, as
+   the JAX non-dense engine samples every step on the host, so a seeded
+   request gives its tokens. Slot state goes through ``get_row`` /
+   ``set_row``;
  - ``metrics`` is the JAX engine's counter dict (requests, tokens,
    prefill and decode seconds, decode steps, prompt tokens reused, tokens
    drafted and accepted, context shifts), beside the port's own ``stats``.
@@ -130,7 +146,7 @@ from ..utils import profiler
 from .context import check_model_device
 from ..ops import _build
 from .graphs import GraphCache
-from .cache_policy import cache_kind, get_row, make_cache, set_row, truncate_rows
+from .cache_policy import cache_kind, get_row, make_cache, pow2_chunk, set_row, truncate_rows
 from .kv_cache import (ISWACache, KVCache, iswa_layer_split, kv_cache_init, kv_context_shift,
                        kv_insert_row)
 from .ngram import NgramCache
@@ -140,6 +156,7 @@ from .speculative import VocabTranslator, are_compatible
 
 PREFILL_BUCKETS = (32, 128, 512, 1024, 2048)
 KERNEL_SOURCES = ("qmv", "qmm", "fa", "fd", "paged")   # the kernels a step reaches
+SSM_SOURCES = ("gmm", "ssm_scan")     # and those of a recurrent or hybrid model
 
 
 class SlotState(Enum):
@@ -212,7 +229,9 @@ class Engine:
     in flight. ``draft_model`` / ``n_draft``, ``lookup_ngrams`` and
     ``ctx_shift`` are the JAX engine's decode variants (module docstring),
     with its checks. ``iswa`` (None: on for a model with SWA layers when no
-    incompatible mode is asked for) serves the two-tier cache."""
+    incompatible mode is asked for) serves the two-tier cache. A recurrent
+    or hybrid model refuses the paged, speculative, lookup, context-shift
+    and quantized modes (``ValueError``) and decodes one token a step."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
                  kv_dtype: torch.dtype | str = torch.bfloat16,
@@ -225,6 +244,19 @@ class Engine:
                  iswa: bool | None = None):
         self.device = resolve_device(device)
         check_model_device(model, self.device)
+        self.kind = cache_kind(model.hparams)
+        if self.kind != "dense":
+            off = [nm for nm, on in (("paged", paged), ("speculative", draft_model is not None),
+                                     ("lookup", lookup_ngrams), ("ctx-shift", ctx_shift)) if on]
+            if off:
+                raise ValueError(f"{self.kind} memory: {'/'.join(off)} not supported "
+                                 f"(recurrent state cannot rewind — same restriction as "
+                                 f"llama_memory_recurrent::seq_rm p0>0)")
+            if isinstance(kv_dtype, str):
+                raise ValueError("quantized KV requires a dense cache")
+            # a multi-token block would overshoot a stop and roll back, and
+            # recurrent state cannot rewind: one token a step, no pipeline
+            block_size, pipeline_depth = 1, 1
         if paged:
             if lookup_ngrams and lookup_ngrams + 1 > page_size:
                 raise ValueError("lookup window must fit one page")
@@ -281,7 +313,8 @@ class Engine:
             # the lone prompt's one-row scratch: engine-owned, since a
             # captured chunk needs fixed addresses (an iSWA engine prefills
             # every prompt in place)
-            self._scratch = None if self.iswa else self._new_cache(1)
+            self._scratch = (None if self.iswa or self.kind != "dense"
+                             else self._new_cache(1))
         self._scratch_owner: _Slot | None = None
         self._pieces: tuple[list[bytes], set[int]] | None = None   # _vocab_pieces
         self._chunk_bufs: dict = {}    # (rows, P) -> (static io, the warm runs' io)
@@ -376,6 +409,8 @@ class Engine:
     def _cache_label(self) -> str:
         if self.paged:
             return "paged"
+        if self.kind != "dense":
+            return f"{self.kind} {self.kv_dtype}"
         return f"iswa {self.kv_dtype}" if self.iswa else str(self.kv_dtype)
 
     # ----------------------------------------------------------- public API
@@ -436,8 +471,9 @@ class Engine:
         keys: list = []
         with self._step_lock:
             if self._graphs is not None:
-                if self.device.type == "cuda":
-                    _build.build_all(KERNEL_SOURCES)   # one nvcc a source, all at once
+                if self.device.type == "cuda":    # one nvcc a source, all at once
+                    _build.build_all(KERNEL_SOURCES
+                                     + (SSM_SOURCES if self.kind != "dense" else ()))
                 for key, fn, warm, kind in self._graph_targets():
                     if key not in self._graphs.graphs:
                         self._graphs.capture(key, fn, warm, kind)
@@ -464,6 +500,9 @@ class Engine:
         dense speculative or lookup engine takes no block, and a speculative
         one starts its prompts at one row only."""
         out = []
+        if self.kind != "dense":   # greedy one-step blocks; pow2 chunks in place
+            return [self._block_graph(1, None, True)] + [
+                self._chunk_graph(self.n_slots, P, main=True) for P in self._pow2_chunks()]
         if self.block_size > 1 and (self.paged or not self._variant):
             wins = [None] if self.paged else self._windows()
             out += [self._block_graph(self.block_size, win, greedy)
@@ -481,11 +520,21 @@ class Engine:
             out += [self._chunk_graph(1, P, main=True) for P in Ps]
         return out
 
+    def _pow2_chunks(self) -> list[int]:
+        """Every chunk width ``pow2_chunk`` can return: the powers of 2 up to
+        the largest bucket."""
+        out, p = [], 1
+        while p <= self.buckets[-1]:
+            out.append(p)
+            p *= 2
+        return out
+
     def _windows(self) -> list:
         """Every slot window ``_s_bucket`` can return: the powers of 2 from
         256 below n_ctx, then None (the full cache); None alone on an iSWA
-        cache, whose tiers are read whole."""
-        if self.iswa:
+        cache, whose tiers are read whole, and on a recurrent or hybrid one,
+        whose forwards read the whole cache."""
+        if self.iswa or self.kind != "dense":
             return [None]
         wins, w = [], 256
         while w < self.n_ctx:
@@ -508,18 +557,23 @@ class Engine:
         and on a Q8_0 / Q4_0 cache ``k_scale`` and ``v_scale`` too (the JAX
         snapshot omits them). A float cache's K/V are saved as f32 (numpy
         has no bfloat16; the values are exact), so either package loads the
-        file. On an iSWA cache the row's state is ``cache_policy.get_row``'s,
-        flattened to ``full_k``, ``swa_pos``, ... (``np.savez`` takes no
-        nested dict), beside ``n_past`` and ``cache_tokens``. A paged cache
-        raises ``NotImplementedError``, as in JAX."""
+        file. On an iSWA, recurrent or hybrid cache the row's state is
+        ``cache_policy.get_row``'s, flattened to ``full_k``, ``swa_pos``,
+        ``conv``, ``attn_k``, ``rec_ssm``, ... (``np.savez`` takes no nested
+        dict), beside ``n_past`` and ``cache_tokens``. A paged cache raises
+        ``NotImplementedError``, as in JAX."""
         with self._step_lock:
             s = self._idle_slot(idx)
             if self.paged:
                 raise NotImplementedError("slot save/restore needs a non-paged cache")
             self._flush_pending()
-            if self.iswa:
-                out = {f"{tier}_{name}": a for tier, blob in get_row(self.cache, idx).items()
-                       for name, a in blob.items()}
+            if self.iswa or self.kind != "dense":
+                out = {}
+                for part, v in get_row(self.cache, idx).items():
+                    if isinstance(v, dict):
+                        out.update({f"{part}_{name}": a for name, a in v.items()})
+                    else:
+                        out[part] = v
                 return {**out, "n_past": s.n_past,
                         "cache_tokens": np.asarray(s.cache_tokens, np.int32)}
             c, S = self.cache, self.cache.max_seq
@@ -548,10 +602,11 @@ class Engine:
             s = self._idle_slot(idx)
             if self.paged:
                 raise NotImplementedError("slot save/restore needs a non-paged cache")
-            if self.iswa:
-                return self._iswa_restore(s, data)
-            if "swa_pos" in data or "state" in data:
-                raise ValueError("an iSWA snapshot restores only into an iSWA engine")
+            if self.iswa or self.kind != "dense":
+                return self._state_restore(s, data)
+            if any(k in data for k in ("swa_pos", "state", "conv", "rec_ssm")):
+                raise ValueError("an iSWA, recurrent or hybrid snapshot restores only into "
+                                 "an engine of its kind")
             c, S = self.cache, self.cache.max_seq
             parts = [("k", c.k), ("v", c.v)]
             if c.quantized:
@@ -582,16 +637,20 @@ class Engine:
             s.cache_tokens = [int(t) for t in np.asarray(data["cache_tokens"])]
             return len(s.cache_tokens)
 
-    def _iswa_restore(self, s: _Slot, data: dict) -> int:
-        """``slot_restore`` on an iSWA cache: a flattened ``slot_save``
-        snapshot, or the JAX engine's ({"state": get_row's blob}), loaded
-        through ``cache_policy.set_row``."""
+    def _state_restore(self, s: _Slot, data: dict) -> int:
+        """``slot_restore`` on an iSWA, recurrent or hybrid cache: a
+        flattened ``slot_save`` snapshot, or the JAX engine's ({"state":
+        get_row's blob}), loaded through ``cache_policy.set_row`` (which
+        refuses a state of another shape or kind)."""
+        parts = {"hybrid": ("attn", "rec")}.get(self.kind, ("full", "swa"))
         if "state" in data:
             blob = data["state"]
+        elif self.kind == "recurrent":
+            blob = {k: v for k, v in data.items() if k not in ("n_past", "cache_tokens")}
         else:
-            blob = {tier: {k[len(tier) + 1:]: v for k, v in data.items()
-                           if k.startswith(tier + "_")} for tier in ("full", "swa")}
-        if not blob.get("swa") or "pos" not in blob["swa"]:
+            blob = {part: {k[len(part) + 1:]: v for k, v in data.items()
+                           if k.startswith(part + "_")} for part in parts}
+        if self.iswa and (not blob.get("swa") or "pos" not in blob["swa"]):
             raise ValueError("an iSWA engine restores only an iSWA snapshot")
         self._flush_pending()
         set_row(self.cache, s.idx, blob)
@@ -610,6 +669,11 @@ class Engine:
                 self.pkv.free_seq(idx)
                 return
             self._flush_pending()
+            if self.kind != "dense":     # the recurrent row reset, the KV row emptied
+                keep = self._keep_vector()
+                keep[idx] = 0
+                self._truncate(keep)
+                return
             for tier in ((self.cache.full, self.cache.swa) if self.iswa else (self.cache,)):
                 tier.pos[idx].fill_(-1)
                 tier.cursor[idx].fill_(0)
@@ -718,7 +782,9 @@ class Engine:
         past the prefix overwrote ring slot p - S_swa, and the old request
         wrote up to n_past less one, its blocks up to block_size x
         pipeline_depth more before they rolled back (the JAX guard counts
-        n_past only)."""
+        n_past only). A recurrent or hybrid row reuses nothing."""
+        if self.kind != "dense":     # a recurrent state cannot rewind to a prefix
+            return 0
         n = min(self._common_prefix(slot.cache_tokens, ids), len(ids) - 1)
         if n and self.iswa:
             s_swa = self.cache.swa.max_seq
@@ -738,6 +804,13 @@ class Engine:
         logits, _ = self._fwd(self.model.params, self.hp, self._dev(tokens), self._dev(pos),
                               cache, s_window=s_window)
         return logits
+
+    def _chunk_width(self, n: int) -> int:
+        """The next chunk's width for n pending tokens: a recurrent or hybrid
+        row takes a fully valid power of two, anything else its bucket."""
+        if self.kind != "dense":
+            return pow2_chunk(n, self.buckets[-1])
+        return self._bucket(n)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -832,11 +905,11 @@ class Engine:
             if not (n_cached and self.pkv.trim_to_position(slot.idx, n_cached)):
                 n_cached = 0
                 self.pkv.free_seq(slot.idx)
-        elif n_cached or self.iswa:
-            # cut the row to the prefix (an iSWA row to 0 without one): fa
-            # attends every cell whose position lies at or below the query's,
-            # so the older request's cells past it must go before the rest
-            # loads in place
+        elif n_cached or self.iswa or self.kind != "dense":
+            # cut the row to the prefix (an iSWA row to 0 without one, a
+            # recurrent row reset): fa attends every cell whose position lies
+            # at or below the query's, so the older request's cells past it
+            # must go before the rest loads in place
             keep = self._keep_vector()
             keep[slot.idx] = n_cached
             self._truncate(keep)
@@ -847,10 +920,10 @@ class Engine:
         slot.generated = []
         slot.text = ""
         slot.t_start = t0
-        slot.in_place = self.paged or self.iswa or bool(n_cached)
+        slot.in_place = self.paged or self.iswa or self.kind != "dense" or bool(n_cached)
         slot.pending = ids[n_cached:]
         slot.prefill_off = n_cached
-        slot.prefill_P = self._bucket(len(slot.pending))
+        slot.prefill_P = self._chunk_width(len(slot.pending))
         if self.paged:
             slot.prefill_P = min(slot.prefill_P, self.page_size)
         slot.cache_tokens = list(ids)
@@ -953,8 +1026,10 @@ class Engine:
                     self.pkv.free_seq(slot.idx)
             loading = []
         # the scratch's owner must stay on the scratch path: its chunks live
-        # only there
-        batch = [s for s in loading if s.in_place or s.prefill_off == 0]
+        # only there; a recurrent row never joins a wave (each loads its own
+        # fully valid chunks)
+        batch = ([] if self.kind != "dense" else
+                 [s for s in loading if s.in_place or s.prefill_off == 0])
         if len(batch) >= 2:
             # one (n_slots, P) wave carries every loading prompt's next chunk
             P = max(s.prefill_P for s in batch)
@@ -985,6 +1060,8 @@ class Engine:
                                  {row: (chunk, slot.prefill_off)}, main=slot.in_place)
             slot.pending = slot.pending[len(chunk):]
             slot.prefill_off += len(chunk)
+            if slot.pending and self.kind != "dense":
+                slot.prefill_P = self._chunk_width(len(slot.pending))
             if not slot.pending:
                 finals.append((slot, io["logits"][row].clone()))
                 if not slot.in_place:
@@ -1103,7 +1180,10 @@ class Engine:
             self._maybe_context_shift()
         active = generating()
         nb = self.block_size
-        fast = lambda: nb > 1 and all(s.fast for s in active)
+        if self.kind != "dense":     # one-step blocks for greedy slots only
+            fast = lambda: all(self._greedy_fast(s.req) for s in active)
+        else:
+            fast = lambda: nb > 1 and all(s.fast for s in active)
         fits = lambda k: all(s.n_past + k + 1 <= self.n_ctx for s in active)
         block = not self.paged and not self._variant and fast() and fits(2 * nb)
         if self._pending_q and not block:

@@ -28,6 +28,7 @@ def launch_counters() -> list[tuple[object, str]]:
     from ..ops import grouped_matmul as gm_mod
     from ..ops import paged_attention as pa_mod
     from ..ops import qmatmul as qm_mod
+    from ..ops import ssm_scan as ss_mod
 
     fa, pa = fa_mod.flash_attention, pa_mod.paged_flash_attention
     fams = [(fn, f"launches_{f}") for fn in (qm_mod.qmv, qm_mod.qmm)
@@ -35,7 +36,8 @@ def launch_counters() -> list[tuple[object, str]]:
     return [(qm_mod.qmv, "launches"), (qm_mod.qmm, "launches"), *fams,
             (fa, "launches"), (fa, "launches_tc"),
             (fa_mod.flash_decode_attention, "launches"),
-            (pa, "launches"), (pa, "launches_tc"), (gm_mod.grouped_matmul, "launches")]
+            (pa, "launches"), (pa, "launches_tc"), (gm_mod.grouped_matmul, "launches"),
+            (ss_mod.ssm_scan, "launches")]
 
 
 def _read_counts() -> list[int]:

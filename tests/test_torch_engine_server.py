@@ -247,6 +247,9 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.models.qwen2vl, superllama_tpu_torch.models.cvector\n"
         "import superllama_tpu_torch.ops.grouped_matmul\n"
         "import superllama_tpu_torch.models.deepseek2, superllama_tpu_torch.runtime.cache_policy\n"
+        "import superllama_tpu_torch.runtime.recurrent, superllama_tpu_torch.ops.ssm_scan\n"
+        "import superllama_tpu_torch.models.mamba, superllama_tpu_torch.models.jamba\n"
+        "import superllama_tpu_torch.models.hybrid, superllama_tpu_torch.models.plamo2\n"
         "from superllama_tpu_torch import native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "bad += [f'built at import: {n}' for n in native._libs]\n"

@@ -147,6 +147,7 @@ def failing_build(monkeypatch) -> type:
     from superllama_tpu_torch.ops import grouped_matmul as gm_mod
     from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
+    from superllama_tpu_torch.ops import ssm_scan as ss_mod
     from superllama_tpu_torch.tools import qmv_probe as probe_mod
 
     class BuildFailed(RuntimeError):
@@ -163,7 +164,8 @@ def failing_build(monkeypatch) -> type:
                       (fa_mod, "flash_attention_plain"), (fa_mod, "flash_decode_plain"),
                       (pa_mod, "paged_flash_attention_plain"),
                       (pa_mod, "flash_attention_plain"),
-                      (probe_mod, "qmv_variant_plain"), (gm_mod, "grouped_matmul_plain")):
+                      (probe_mod, "qmv_variant_plain"), (gm_mod, "grouped_matmul_plain"),
+                      (ss_mod, "ssm_scan_plain")):
         monkeypatch.setattr(mod, name, plain)
     return BuildFailed
 
@@ -450,11 +452,13 @@ def arch_spec(arch: str) -> tuple[str, dict, dict]:
     """The tiny spec of a registered architecture: (arch, metadata, tensors)."""
     if arch in DENSE_SPECS or arch in MOE_SPECS:
         return dense_spec(arch, **{**DENSE_SPECS, **MOE_SPECS}[arch])
+    if arch in SSM_SPECS:
+        return ssm_spec(arch, **SSM_SPECS[arch])
     import ref_arch_specs
 
     fn = ref_arch_specs.SPECS[arch]
     name, md, tensors = fn()
-    md = {**md, **{**REF_SPECS, **REF_MOE_SPECS}[arch]}
+    md = {**md, **{**REF_SPECS, **REF_MOE_SPECS, **REF_SSM_SPECS}[arch]}
     if arch == "grok":              # a dense FFN beside the MoE
         p = _W("grok-dense")
         E, F = md["embedding_length"], md["feed_forward_length"]
@@ -497,6 +501,165 @@ def write_arch_gguf(path, arch: str, md: dict, tensors: dict, ggml_type=GGMLType
             w.add_tensor(name, arr, ggml_type if quant else GGMLType.F32)
     w.write()
     return str(path)
+
+
+def _ssm(p: "_W", b: str, E: int, di: int, ds: int, dc: int = 4, rank: int = 0, nh: int = 0,
+         G: int = 0, norms: bool = False, ssm_norm: bool = False, suffix: bool = False) -> None:
+    """A mamba layer's tensors: Mamba-1 (``rank``: the dt rank; ``norms``:
+    jamba's dt / B / C norms) or Mamba-2 (``nh`` heads, ``G`` B / C groups,
+    ``ssm_norm``: the grouped output norm); A as -exp(.), as the ecosystem
+    stores it; ``suffix``: A, D and the norm under ".weight" names, 1-D."""
+    if nh == 0:
+        p.w(b + "ssm_in.weight", 2 * di, E)
+        p.w(b + "ssm_conv1d.weight", di, dc, scale=0.3)
+        p.bias(b + "ssm_conv1d.bias", di)
+        p.w(b + "ssm_x.weight", rank + 2 * ds, di)
+        p.w(b + "ssm_dt.weight", di, rank, scale=0.3)
+        p.bias(b + "ssm_dt.bias", di, scale=0.3)
+        p.t[b + "ssm_a"] = -np.exp(0.5 * p.rng.standard_normal((di, ds))).astype(np.float32)
+        p.bias(b + "ssm_d", di, scale=0.5)
+        if norms:
+            p.norm(b + "ssm_dt_norm.weight", rank)
+            p.norm(b + "ssm_b_norm.weight", ds)
+            p.norm(b + "ssm_c_norm.weight", ds)
+    else:
+        conv_dim = di + 2 * G * ds
+        p.w(b + "ssm_in.weight", 2 * di + 2 * G * ds + nh, E)
+        p.w(b + "ssm_conv1d.weight", conv_dim, dc, scale=0.3)
+        p.bias(b + "ssm_conv1d.bias", conv_dim)
+        p.bias(b + "ssm_dt.bias", nh, scale=0.3)
+        sfx = ".weight" if suffix else ""
+        p.t[b + "ssm_a" + sfx] = -np.exp(0.5 * p.rng.standard_normal(
+            nh if suffix else (nh, 1))).astype(np.float32)
+        p.bias(b + "ssm_d" + sfx, *((nh,) if suffix else (nh, 1)), scale=0.5)
+        if ssm_norm:
+            p.norm(b + "ssm_norm.weight", *((di,) if suffix else (G, di // G)))
+    p.w(b + "ssm_out.weight", E, di)
+
+
+def _attn(p: "_W", b: str, E: int, H: int, HKV: int, D: int) -> None:
+    p.w(b + "attn_q.weight", H * D, E)
+    p.w(b + "attn_k.weight", HKV * D, E)
+    p.w(b + "attn_v.weight", HKV * D, E)
+    p.w(b + "attn_output.weight", E, H * D)
+
+
+def _ffn(p: "_W", b: str, E: int, F: int, gate: bool = True) -> None:
+    if gate:
+        p.w(b + "ffn_gate.weight", F, E)
+    p.w(b + "ffn_up.weight", F, E)
+    p.w(b + "ffn_down.weight", E, F)
+
+
+def ssm_spec(arch: str, E: int = 64, V: int = ARCH_V) -> tuple[str, dict, dict]:
+    """(arch, metadata, tensors) of a tiny state-space model, one of the six
+    SSM names ref_arch_specs has no spec of: mamba (falcon-mamba's
+    non-parametric dt / B / C norms; E 256 and d_inner 512 so Q4_K packs its
+    projections), mamba2 (G 2, the grouped norm), jamba (Mamba-1 with its
+    norms beside rope-less attention, MoE FFNs on the attention layers),
+    granitehybrid (Mamba-2 G 2 and roped attention, Granite's multipliers, a
+    MoE FFN with a shared expert on the last layer), nemotron_h (one of
+    Mamba-2 / attention / relu² FFN a layer, ".weight" names) and falcon-h1
+    (attention and Mamba-2 in every layer)."""
+    p = _W(arch)
+    H, HKV, D, F = 4, 2, 16, 128
+    p.w("token_embd.weight", V, E, scale=0.5)
+    p.norm("output_norm.weight", E)
+    p.w("output.weight", V, E)
+    md = {"context_length": 64, "embedding_length": E, "vocab_size": V,
+          "attention.layer_norm_rms_epsilon": 1e-5, "ssm.conv_kernel": 4}
+    attn_md = {"attention.head_count": H, "attention.key_length": D,
+               "attention.value_length": D, "rope.dimension_count": D,
+               "rope.freq_base": 10000.0}
+    if arch in ("mamba", "mamba2"):
+        L = 2
+        di, ds, rank, nh, G = (512, 16, 16, 0, 0) if arch == "mamba" else (128, 16, 0, 8, 2)
+        for i in range(L):
+            p.norm(f"blk.{i}.attn_norm.weight", E)
+            _ssm(p, f"blk.{i}.", E, di, ds, rank=rank, nh=nh, G=G, ssm_norm=True)
+        md.update({"block_count": L, "ssm.inner_size": di, "ssm.state_size": ds,
+                   "ssm.time_step_rank": rank or nh, "ssm.group_count": G,
+                   "attention.head_count": 0, "attention.head_count_kv": 0,
+                   "feed_forward_length": 0})
+        if arch == "mamba":
+            md["ssm.dt_b_c_rms"] = True
+        return arch, md, p.t
+    md.update(attn_md)
+    if arch == "jamba":
+        pattern, di, ds, rank = "MAMA", 128, 8, 8
+        for i, k in enumerate(pattern):
+            b = f"blk.{i}."
+            p.norm(b + "attn_norm.weight", E)
+            p.norm(b + "ffn_norm.weight", E)
+            if k == "M":
+                _ssm(p, b, E, di, ds, rank=rank, norms=True)
+                _ffn(p, b, E, F)
+            else:
+                _attn(p, b, E, H, HKV, D)
+                _experts(p, b, E)
+        md.update({"block_count": 4, "feed_forward_length": F,
+                   "attention.head_count_kv": [0, HKV, 0, HKV],
+                   "ssm.inner_size": di, "ssm.state_size": ds, "ssm.time_step_rank": rank,
+                   **_experts_md()})
+    elif arch == "granitehybrid":
+        pattern, di, ds, nh, G = "MAM", 128, 16, 8, 2
+        for i, k in enumerate(pattern):
+            b = f"blk.{i}."
+            p.norm(b + "attn_norm.weight", E)
+            p.norm(b + "ffn_norm.weight", E)
+            if k == "M":
+                _ssm(p, b, E, di, ds, nh=nh, G=G, ssm_norm=True)
+            else:
+                _attn(p, b, E, H, HKV, D)
+            if i == len(pattern) - 1:
+                _experts(p, b, E, shared=48)
+            else:
+                _ffn(p, b, E, F)
+        md.update({"block_count": 3, "feed_forward_length": F,
+                   "attention.head_count_kv": [0, HKV, 0],
+                   "ssm.inner_size": di, "ssm.state_size": ds, "ssm.time_step_rank": nh,
+                   "ssm.group_count": G, "rope.scaling.finetuned": True,
+                   "residual_scale": 0.5, "embedding_scale": 2.0, "logit_scale": 4.0,
+                   "attention.scale": 0.1, **_experts_md(shared=48)})
+    elif arch == "nemotron_h":
+        pattern, di, ds, nh, ff = "M*-M", 128, 16, 8, 96
+        for i, k in enumerate(pattern):
+            b = f"blk.{i}."
+            p.norm(b + "attn_norm.weight", E)
+            if k == "M":
+                _ssm(p, b, E, di, ds, nh=nh, G=1, ssm_norm=True, suffix=True)
+            elif k == "*":
+                _attn(p, b, E, H, HKV, D)
+            else:
+                _ffn(p, b, E, ff, gate=False)
+        md.update({"block_count": 4, "feed_forward_length": [ff if k == "-" else 0
+                                                             for k in pattern],
+                   "attention.head_count_kv": [HKV if k == "*" else 0 for k in pattern],
+                   "ssm.inner_size": di, "ssm.state_size": ds, "ssm.time_step_rank": nh,
+                   "ssm.group_count": 1})
+    elif arch == "falcon-h1":
+        di, ds, nh = 128, 16, 8
+        for i in range(2):
+            b = f"blk.{i}."
+            p.norm(b + "attn_norm.weight", E)
+            p.norm(b + "ffn_norm.weight", E)
+            _attn(p, b, E, H, HKV, D)
+            _ssm(p, b, E, di, ds, nh=nh, G=1, ssm_norm=True)
+            _ffn(p, b, E, F)
+        md.update({"block_count": 2, "feed_forward_length": F,
+                   "attention.head_count_kv": HKV, "ssm.inner_size": di,
+                   "ssm.state_size": ds, "ssm.time_step_rank": nh, "ssm.group_count": 1})
+    else:
+        raise KeyError(arch)
+    return arch, md, p.t
+
+
+# the SSM specs written here (E 256 for mamba: its Q4_K case packs the
+# projections) and the two reused from ref_arch_specs
+SSM_SPECS = {"mamba": dict(E=256), "mamba2": {}, "jamba": {}, "granitehybrid": {},
+             "nemotron_h": {}, "falcon-h1": {}}
+REF_SSM_SPECS = {"nemotron_h_moe": {}, "plamo2": {}}
+SSM_REGISTERED = tuple(sorted(SSM_SPECS) + sorted(REF_SSM_SPECS))
 
 
 REGISTERED = tuple(sorted(DENSE_SPECS) + sorted(REF_SPECS))

@@ -52,7 +52,11 @@ K, N = 1024, 128                                 # the launch cells' weight
 # then holds at most 16 k-tiles, the fastest split of each on the H100
 PLANS = {(4096, 4096): (4, 8), (4096, 1024): (16, 2), (4096, 14336): (2, 16),
          (14336, 4096): (8, 14), (2048, 2048): (8, 2), (2048, 512): (16, 1),
-         (2048, 8192): (2, 8), (8192, 2048): (8, 8)}
+         (2048, 8192): (2, 8), (8192, 2048): (8, 8),
+         # the state-space models' (K, N): falcon-mamba-7B's ssm_in, ssm_x,
+         # ssm_dt, ssm_out; Bamba-9B's ssm_in
+         (4096, 16384): (2, 16), (8192, 288): (32, 2), (256, 8192): (2, 1),
+         (8192, 4096): (4, 16), (4096, 16768): (2, 16)}
 
 
 def _weight(ttype, n=N, k=K):

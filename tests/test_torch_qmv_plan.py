@@ -51,7 +51,13 @@ KN_1B = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048), (2048, 128256)]
 # the (K, N) of tests/test_torch_qmatmul.py's SHAPES, and a ragged N
 EDGE_KN = [(512, 64), (512, 128), (1024, 96), (768, 64), (768, 128), (544, 128),
            (512, 640), (1024, 1000)]
-PLAN_CASES = [(f, K, N) for f in FMTS for K, N in KN_8B + EDGE_KN + KN_1B if K % UNIT[f] == 0]
+# the (K, N) the state-space models add: falcon-mamba-7B's ssm_in, ssm_x
+# (N = dt rank + 2 d_state), ssm_dt (K = the dt rank, one super-block),
+# ssm_out and head; Bamba-9B's ssm_in (N = 2 d_inner + 2 G d_state + heads)
+KN_SSM = [(4096, 16384), (8192, 288), (256, 8192), (8192, 4096), (4096, 65024),
+          (4096, 16768)]
+PLAN_CASES = [(f, K, N) for f in FMTS for K, N in KN_8B + EDGE_KN + KN_1B + KN_SSM
+              if K % UNIT[f] == 0]
 PLAN_IDS = [f"fmt{f}-{K}x{N}" for f, K, N in PLAN_CASES]
 
 
@@ -86,6 +92,17 @@ def test_plan_fills_the_card(fmt, K, N):
     assert p.blocks >= min(132, most)
     if (K, N) in KN_8B:
         assert p.blocks >= 132
+    assert 2 * (p.smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("fmt,K,N", [(f, K, N) for f in FMTS for K, N in KN_SSM
+                                     if K % UNIT[f] == 0])
+def test_plan_fills_the_card_at_the_ssm_shapes(fmt, K, N):
+    """At the SSM models' shapes the grid gives the 132 SMs a block where
+    the columns and 8 ranks can (ssm_x's 288 columns make 72 at most)."""
+    p = qm.qmv_plan(fmt, K, N)
+    most = max(-(-N // bn) * min(8, K // UNIT[fmt]) for bn in (128, 64, 32))
+    assert p.blocks >= min(132, most)
     assert 2 * (p.smem + 1024) <= 228 * 1024
 
 
