@@ -26,6 +26,7 @@ PyTorch version.
     python3 chip_smoke.py --moe           # device, build, phase 4l
     python3 chip_smoke.py --mla           # device, build, phase 4m
     python3 chip_smoke.py --ssm           # device, build, phase 4n
+    python3 chip_smoke.py --linear        # device, build, phase 4o
     python3 chip_smoke.py --format-times  # device, build, every format's qmv and
                                           # qmm readings (phase 6's format rows), and
                                           # qmm of a format of each layout at every
@@ -103,7 +104,8 @@ Phases, each printing one JSON line:
     /tokenize, /detokenize and /slots/:id over HTTP;
  4f. structured output on warmed-up bf16, Q8_0 and paged servers of the
     model with a 128,256-piece tokenizer: a bounded JSON schema greedy
-    (bf16) and seeded sampled (Q8_0, paged; repeated on an erased slot)
+    (bf16) and seeded sampled (Q8_0, paged; Q8_0's repeated on an erased
+    slot)
     ends by EOS with schema-valid text through the host-sampled step (qmv;
     fd on Q8_0, paged on paged; no decode block while it generates); a
     wave of 7 plain requests beside one grammar request; over HTTP
@@ -159,18 +161,18 @@ Phases, each printing one JSON line:
     and thread counts; layer 0's planes bit-equal to the numpy route's,
     both routes timed on the same bytes) and served greedy on a bf16 cache
     (a lone prompt through qmm and fa, a wave through qmv); at
-    Llama-3.2-1B's widths, 16 layers, an F16 GGUF of seeded weights through
-    the CLI's quantize to Q4_K_M (a few rows of four tensors equal to the
-    numpy encoders' bytes; the files WORKFLOW_LAYERS deep), imatrix on
-    the card over the repo's own text,
-    quantize --imatrix at a cut depth (IMATRIX_LAYERS; its weighted tensors
-    differ from the plain file's, the others equal), perplexity of the F16
-    and the Q4_K_M file on the same text, the KL divergence of Q4_K_M
+    Llama-3.2-1B's widths, 16 layers and its tied head, an F16 GGUF of
+    seeded weights through the CLI's quantize to Q4_K_M (a few rows of
+    three tensors equal to the numpy encoders' bytes; the files
+    WORKFLOW_LAYERS deep), imatrix on the card over the repo's own text,
+    quantize --imatrix at a cut depth (IMATRIX_LAYERS, IMATRIX_ROLES; its
+    weighted tensors differ from the plain file's, the others equal),
+    perplexity of the F16 and the Q4_K_M file on the same text, the KL divergence of Q4_K_M
     against F16, and the packed load's perplexity against the dequantized
     one (PPL_TOL); about 200 KB of the repo's text through the native and
     the Python tokenizer, equal ids, both timed;
  4k. the dense architecture registry: a Command-R7B-width GGUF (cohere2:
-    4096 wide, ARCH_LAYERS = 8 of 32 layers, 32/8 heads of 128, FFN
+    4096 wide, ARCH_LAYERS = 4 of 32 layers, 32/8 heads of 128, FFN
     14,336, a 256,000-piece vocab, a 4,096 window on three layers of four
     and NoPE on the fourth, LayerNorm, a parallel residual, tied
     embeddings; a Q4_K_M-style mix of
@@ -238,6 +240,21 @@ Phases, each printing one JSON line:
     routes' times (the hybrid attention's plain path against fa_tc / fd,
     the plain conv); six more SSM names at the tests' widths against the
     port's CPU forward;
+ 4o. linear attention and short convs: wkv (the wkv6, gla, wkv7 and delta
+    net recurrences in place of the models' lax.scan) against its plain
+    loops at RWKV-6-7B's, rwkv6qwen2's (head sizes 64 and 128), RWKV-7-2.9B's
+    and Qwen3-Next's widths (B 8 T 1 with an idle row, B 1 T 256; the delta
+    net with an f32 and a bf16 state), two calls bit-equal, and their times;
+    an RWKV-6-7B and an RWKV-7-2.9B (LINEAR_LAYERS of 32) and a
+    Qwen3-Next-80B-A3B (QWEN3NEXT_LAYERS: three delta-net layers and the
+    gated attention layer, 512 experts) as Q4_K_M-style rand_raw files,
+    written, loaded packed and checked; greedy tokens held to the plain
+    route by greedy_rule; a wave replayed against eager (tokens, every state
+    and KV row, launches); the TTFT of a 32- and a 1,000-token prompt and
+    B 1 / B 8 on a warmed engine (RWKV-6: a slot save / restore round trip;
+    Qwen3-Next: gmm); arwkv7, rwkv6qwen2, lfm2, lfm2moe and gemma3n at 1,024
+    wide against the port's CPU forward, and 4 greedy requests each on a
+    warmed engine;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -972,6 +989,12 @@ def counters() -> dict:
         scan = {"ssm_scan": (ssm_scan, "launches")}
     except ImportError:
         scan = {}
+    try:                    # (or the wkv recurrences)
+        from superllama_tpu_torch.ops import wkv
+        scan.update({rule: (getattr(wkv, rule), "launches")
+                     for rule in ("wkv6", "gla", "wkv7", "delta_net")})
+    except ImportError:
+        pass
     fa = fa_mod.flash_attention
     fams = {f"{k}_{f}": (getattr(qm_mod, k), f"launches_{f}") for k in ("qmv", "qmm")
             for f in qm_mod._FAMILY.values()}
@@ -1375,7 +1398,7 @@ def _cache_rows(eng) -> dict:
     kind = getattr(eng, "kind", "dense")
     if kind != "dense":                 # every row's whole state (and KV rows)
         rec = eng.cache.rec if kind == "hybrid" else eng.cache
-        rows = {"conv": rec.conv.clone(), "ssm": rec.ssm.clone()}
+        rows = {f: getattr(rec, f).clone() for f in rec.FIELDS}
         if kind == "hybrid":
             rows.update({f"attn_{k}": v for k, v in _kv_rows(eng.cache.attn).items()})
         return rows
@@ -1397,7 +1420,8 @@ GRAPH_CASES = (("bf16", {}, [32, 100] * 4), ("q8_0", {"kv_dtype": "q8_0"}, [32, 
 
 
 def phase_graph_vs_eager(torch, model, cases=GRAPH_CASES,
-                         modes=("greedy", "sampled", "lone"), n_ctx: int = 2048) -> list:
+                         modes=("greedy", "sampled", "lone"), n_ctx: int = 2048,
+                         max_tokens: int = 40) -> list:
     """Decode blocks and prompt chunks replayed from CUDA graphs against the
     same blocks and chunks run eagerly, on each cache, greedy and sampled:
     two engines (graphs on and off) serve the same two waves of 8 requests
@@ -1408,7 +1432,8 @@ def phase_graph_vs_eager(torch, model, cases=GRAPH_CASES,
     both through the M > 32 path's cuBLAS product). Tokens, the written
     cache rows and the measured run's launch counts must be equal; every
     block and every prompt chunk of the graph engine's measured run a
-    replay, none captured. ``cases`` and ``modes`` narrow it (phase 4l)."""
+    replay, none captured. ``cases``, ``modes`` and ``max_tokens`` (the
+    waves' tokens a request) narrow it (phases 4l-4o)."""
     import gc
 
     from superllama_tpu_torch.runtime.engine import Engine
@@ -1430,7 +1455,8 @@ def phase_graph_vs_eager(torch, model, cases=GRAPH_CASES,
                     if mode == "lone":
                         return [eng.generate(p, max_tokens=8, sampling={"greedy": True},
                                              stop_eog=False)["tokens"] for p in lone]
-                    return [r["tokens"] for r in engine_wave(eng, prompts, 40, samplings)]
+                    return [r["tokens"] for r in engine_wave(eng, prompts, max_tokens,
+                                                             samplings)]
 
                 runs = {}
                 for g, eng in engines.items():
@@ -2131,19 +2157,27 @@ def grammar_http(port: int, eng) -> dict:
 GRAMMAR_CACHES = (("bf16", {}, "greedy", ("qmv",)),
                   ("q8_0", {"kv_dtype": "q8_0"}, "sampled", ("qmv", "fd")),
                   ("paged", {"paged": True, "page_size": 256}, "sampled", ("qmv", "paged")))
+# the grammar servers' context: every request of the phase fits 256 positions,
+# and the warm-up captures a key for each window bucket up to it (18 keys at
+# 2,048 on a dense cache)
+GRAMMAR_N_CTX = 512
+# the cache whose sampled grammar request is repeated on an erased slot (each
+# such request holds the Python mask about 0.3 s a token)
+GRAMMAR_REPEAT = "q8_0"
 
 
 def phase_grammar(torch, model, smi_line: str) -> list:
     """Structured output on warmed-up bf16, Q8_0 and paged servers (8 slots,
-    n_ctx 2048) of the synthetic model with a 128,256-piece tokenizer
-    (``grammar_tokenizer``):
+    GRAMMAR_N_CTX positions) of the synthetic model with a 128,256-piece
+    tokenizer (``grammar_tokenizer``):
 
      - a bounded JSON schema (a boolean, an integer in 0-99, an enum of three
        strings), greedy on bf16 and seeded temperature 0.8 on Q8_0 and
        paged: the request ends by EOS with schema-valid text that a fresh
        GrammarState accepts; no decode block runs while it generates; qmv
        launches (fd on Q8_0, paged on the paged cache); the sampled request
-       repeated on an erased slot gives the same tokens;
+       repeated on an erased slot of GRAMMAR_REPEAT's server gives the same
+       tokens;
      - bf16: a wave of 7 plain greedy requests and one grammar request
        against a wave of 8 plain ones (tok/s of each kind), and the HTTP
        routes (``grammar_http``);
@@ -2161,7 +2195,8 @@ def phase_grammar(torch, model, smi_line: str) -> list:
                         add_special=True, parse_special=True)
     recs = []
     for label, kw, mode, expect in GRAMMAR_CACHES:
-        app = ServerApp(gmodel, n_slots=8, n_ctx=2048, model_name=model.name, device="cuda",
+        app = ServerApp(gmodel, n_slots=8, n_ctx=GRAMMAR_N_CTX, model_name=model.name,
+                        device="cuda",
                         **{"kv_dtype": torch.bfloat16, **kw})
         srv = Server(app, host="127.0.0.1", port=0)
         srv.start()
@@ -2173,7 +2208,7 @@ def phase_grammar(torch, model, smi_line: str) -> list:
                   else {**GRAMMAR_SAMPLED, "seed": 21})
             rec = {"phase": "grammar", "kv": label, "mode": mode,
                    **grammar_request(torch, eng, clock, label, prompt, sm, expect)}
-            if mode == "sampled":
+            if label == GRAMMAR_REPEAT:
                 again = grammar_request(torch, eng, clock, label, prompt, sm, expect)
                 check(again["tokens"] == rec["tokens"],
                       f"{label}: the sampled grammar request on an erased slot gave other tokens")
@@ -2204,6 +2239,8 @@ class PlainKernels:
     def __enter__(self):
         from superllama_tpu_torch.models import llama as llama_mod
         from superllama_tpu_torch.models import mamba as mamba_mod
+        from superllama_tpu_torch.models import qwen3next as q3n_mod
+        from superllama_tpu_torch.models import rwkv as rwkv_mod
         from superllama_tpu_torch.ops import flash_attention as fa_mod
         from superllama_tpu_torch.ops import paged_attention as pa_mod
         from superllama_tpu_torch.ops import qmatmul as qm_mod
@@ -2212,6 +2249,9 @@ class PlainKernels:
         self.saved = [(qm_mod, "qmv", qm_mod.qmv_plain), (qm_mod, "qmm", qm_mod.qmm_plain),
                       (llama_mod, "grouped_matmul", ref_mod.grouped_matmul_plain),
                       (mamba_mod, "ssm_scan", ref_mod.ssm_scan_plain),
+                      (rwkv_mod, "wkv6", ref_mod.wkv6_plain), (rwkv_mod, "gla", ref_mod.gla_plain),
+                      (rwkv_mod, "wkv7", ref_mod.wkv7_plain),
+                      (q3n_mod, "delta_net", ref_mod.delta_net_plain),
                       (llama_mod, "flash_attention", fa_mod.flash_attention_plain),
                       (llama_mod, "flash_decode_attention", fa_mod.flash_decode_plain),
                       (llama_mod, "paged_flash_attention", pa_mod.paged_flash_attention_plain)]
@@ -3081,9 +3121,10 @@ def phase_tools(torch, model) -> dict:
         # fa's CUDA-core kernel serves f32 q or K/V, and paged's tensor-core
         # kernel a paged prefill chunk, neither of which a tool sends; the
         # tools run the Q4_K model, so no format family's kernel either,
-        # and the model has no experts, so no gmm, and no SSM layer, so no
-        # ssm_scan
-        check(n > 0 or name in ("fa", "paged_tc", "gmm", "ssm_scan") or name in families,
+        # and the model has no experts, so no gmm, and no SSM or linear-
+        # attention layer, so no ssm_scan or wkv rule
+        idle = ("fa", "paged_tc", "gmm", "ssm_scan", "wkv6", "gla", "wkv7", "delta_net")
+        check(n > 0 or name in idle or name in families,
               f"the tools' path never launched the {name} kernel")
     return counts
 
@@ -4738,9 +4779,11 @@ Q4_K_M_TYPES = {"attn_q": "Q4_K", "attn_k": "Q4_K", "attn_v": "Q6_K", "attn_outp
                 "output": "Q6_K", "token_embd": "Q4_K"}
 # the depth of the imatrix-weighted quantize: its K-quant searches run in
 # numpy, as in the JAX package, and one 1B-width layer (61M weights) takes
-# most of a minute
+# most of a minute; of that layer the imatrix given to quantize holds only
+# IMATRIX_ROLES' tensors (10.5M weights; its FFN's 50M took about 30 s)
 IMATRIX_LAYERS = 1
-PPL_CTX, PPL_CHUNKS, IMATRIX_CHUNKS = 512, 4, 8
+IMATRIX_ROLES = ("attn_q", "attn_k", "attn_v", "attn_output")
+PPL_CTX, PPL_CHUNKS, IMATRIX_CHUNKS = 512, 2, 4
 PPL_TOL = 1e-3       # relative: the packed load against the same file dequantized
 # the depth of the 1B-width workflow's files (Llama-3.2-1B has 16 layers):
 # every step of it is per layer
@@ -4859,18 +4902,19 @@ def write_f16_model(path: str, hp, tok, weights: dict) -> None:
     from superllama_tpu_torch.gguf import GGMLType
 
     w = model_writer(path, hp, tok, "synthetic-llama3.2-1b-f16")
-    for n in weight_shapes(hp):
+    for n in weight_shapes(hp, tied=True):
         w.add_tensor(n, weights[n], GGMLType.F16)
     w.write()
 
 
 def f16_weights(torch, hp) -> dict:
     """Seeded normal weights of hp's widths (std 1/sqrt(K)), made on the
-    card, as F16 host arrays."""
+    card, as F16 host arrays; the head tied to the embedding, as
+    Llama-3.2-1B's is (tie_word_embeddings)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 72)
     out = {}
-    for n, (_, N, K) in weight_shapes(hp).items():
+    for n, (_, N, K) in weight_shapes(hp, tied=True).items():
         x = torch.randn((N, K), generator=g, device="cuda", dtype=torch.float32)
         out[n] = (x * (1.0 / math.sqrt(K))).to(torch.float16).cpu().numpy()
     return out
@@ -4891,7 +4935,8 @@ def cli_run(argv) -> str:
 
 def toolchain_1b(torch, d: str, tok, text: str) -> dict:
     """llama.cpp's quantization workflow at Llama-3.2-1B's widths (at
-    WORKFLOW_LAYERS deep): an F16 file, quantize to Q4_K_M, imatrix on the
+    WORKFLOW_LAYERS deep, its head tied to the embedding as Llama-3.2-1B's
+    is): an F16 file, quantize to Q4_K_M, imatrix on the
     card, quantize --imatrix (at IMATRIX_LAYERS), perplexity of both files
     and their KL divergence, the packed load against the dequantized
     one."""
@@ -4903,7 +4948,7 @@ def toolchain_1b(torch, d: str, tok, text: str) -> dict:
     from superllama_tpu_torch.gguf.quants import QUANTIZERS
     from superllama_tpu_torch.models.loader import load_model
     from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
-    from superllama_tpu_torch.tools.imatrix import load_imatrix
+    from superllama_tpu_torch.tools.imatrix import load_imatrix, save_imatrix
     from superllama_tpu_torch.tools.perplexity import compute_kl_divergence, compute_perplexity
 
     out = {}
@@ -4924,11 +4969,10 @@ def toolchain_1b(torch, d: str, tok, text: str) -> dict:
     out["quantize_stats"] = json.loads(cli_run(["quantize", f16, q, "Q4_K_M"]))
     took("quantize_s")
     out["q4_k_m_bytes"] = os.path.getsize(q)
-    # a few rows of four tensors: the file's bytes are the numpy encoders'
+    # a few rows of three tensors: the file's bytes are the numpy encoders'
     r = GGUFReader(q)
     try:
-        for n in ("blk.0.attn_q.weight", "blk.1.ffn_down.weight", "token_embd.weight",
-                  "output.weight"):
+        for n in ("blk.0.attn_q.weight", "blk.1.ffn_down.weight", "token_embd.weight"):
             ti = r.tensors[n]
             rows = weights[n][:8].astype(np.float32)
             per_row = ti.raw().size // ti.shape[0]
@@ -4948,19 +4992,24 @@ def toolchain_1b(torch, d: str, tok, text: str) -> dict:
                                              for v in imx.values()),
           f"imatrix: {len(imx)} tensors, or not finite and positive")
     took("imatrix_s")
-    # quantize --imatrix on the first IMATRIX_LAYERS layers of the same weights
+    # quantize --imatrix on the first IMATRIX_LAYERS layers of the same
+    # weights, the imatrix cut to IMATRIX_ROLES' tensors
     cut = llama3_8b_hparams(**{**DRAFT_1B, "n_layer": IMATRIX_LAYERS})
     f16_cut, q_cut = os.path.join(d, "f16_cut.gguf"), os.path.join(d, "q_cut_imatrix.gguf")
     write_f16_model(f16_cut, cut, tok, weights)
+    imx_cut = os.path.join(d, "imatrix_cut.gguf")
+    weighted_names = {f"blk.{il}.{role}.weight" for il in range(IMATRIX_LAYERS)
+                      for role in IMATRIX_ROLES}
+    save_imatrix(imx_cut, {n: v for n, v in imx.items() if n in weighted_names})
     t0 = time.perf_counter()
     out["imatrix_quantize_stats"] = json.loads(cli_run(
-        ["quantize", f16_cut, q_cut, "Q4_K_M", "--imatrix", imx_path]))
+        ["quantize", f16_cut, q_cut, "Q4_K_M", "--imatrix", imx_cut]))
     out["imatrix_quantize_s"] = time.perf_counter() - t0
     r, rq = GGUFReader(q_cut), GGUFReader(q)
     try:
         for n, ti in r.tensors.items():
             same = bytes(ti.raw()) == bytes(rq.tensors[n].raw())
-            weighted = n.startswith("blk.") and len(ti.ne) == 2
+            weighted = n in weighted_names
             check(same != weighted, f"{n}: imatrix-weighted bytes {'equal' if same else 'differ'}")
     finally:
         r.close()
@@ -5001,7 +5050,8 @@ def toolchain_1b(torch, d: str, tok, text: str) -> dict:
           f"packed perplexity {packed} against dequantized {out['ppl_q4_k_m']}")
     check(counts["fa"] > 0, "the f32 perplexity run never launched fa")
     out.update({"layers": hp.n_layer, "imatrix_layers": IMATRIX_LAYERS,
-                "imatrix_chunks": IMATRIX_CHUNKS, "ppl_ctx": PPL_CTX, "ppl_chunks": PPL_CHUNKS,
+                "imatrix_roles": list(IMATRIX_ROLES), "imatrix_chunks": IMATRIX_CHUNKS,
+                "ppl_ctx": PPL_CTX, "ppl_chunks": PPL_CHUNKS,
                 "packed_launches": {k: counts[k] for k in ("fa", "qmm", "qmv")}})
     return out
 
@@ -5063,8 +5113,9 @@ def phase_toolchain(torch, smi_line: str) -> dict:
 # ------------------------------------------------------------ 4k. the dense architecture registry
 
 # the depth of Command-R7B's file (of its 32 layers): writing, loading, the iSWA
-# engines' eager runs and the eager plain routes of greedy_rule are per layer
-ARCH_LAYERS = 8
+# engines' eager runs and the eager plain routes of greedy_rule are per layer;
+# 4 is one interval of its pattern (three window layers, then a NoPE one)
+ARCH_LAYERS = 4
 # Command-R7B (CohereForAI/c4ai-command-r7b-12-2024 config.json): cohere2 at
 # its published widths, ARCH_LAYERS deep; a 4,096-token window on three
 # layers of four, NoPE on the fourth, LayerNorm without bias, a parallel
@@ -6680,12 +6731,12 @@ def ssm_path_nmse(torch, model, prompt) -> float:
     return nmse(a, b)
 
 
-def ssm_decode(torch, model, label: str, n_prompts: int = 3) -> dict:
+def ssm_decode(torch, model, label: str, n_prompts: int = 3, need=("ssm_scan",)) -> dict:
     """ARCH_DECODE greedy tokens of n_prompts 32-token prompts, each on a
     one-slot bf16 Engine (warmed up, so every block and chunk is a replay),
-    held to the eager plain route (the plain scan loop called explicitly
-    through PlainKernels) by greedy_rule at SSM_PATH_NMSE; ssm_scan
-    launched, fa, fa_tc and fd not."""
+    held to the eager plain route (the plain recurrence loops called
+    explicitly through PlainKernels) by greedy_rule at SSM_PATH_NMSE; the
+    kernels in ``need`` (ssm_scan) and qmv launched, fa, fa_tc and fd not."""
     from superllama_tpu_torch.runtime.engine import Engine
 
     prompts = token_prompts(model.hparams.n_vocab, [32] * n_prompts, SEED + 230)
@@ -6706,13 +6757,13 @@ def ssm_decode(torch, model, label: str, n_prompts: int = 3) -> dict:
         rules.append(greedy_rule(torch, model, f"{label} decode", p, ref, got, 1, 1,
                                  paths=route_paths(torch, model, p, n_ctx=512), n_ctx=512,
                                  path_nmse=SSM_PATH_NMSE))
-    check(counts["ssm_scan"] > 0 and counts["qmv"] > 0,
-          f"{label} decode: ssm_scan or qmv never launched: {counts}")
+    check(all(counts[k] > 0 for k in ("qmv", *need)),
+          f"{label} decode: {'/'.join(need)} or qmv never launched: {counts}")
     check(counts["fa"] + counts["fa_tc"] + counts["fd"] == 0,
           f"{label} decode: the plain attention path launched fa or fd: {counts}")
     return {"greedy_rule": rules, "warmup_keys": len(warm["keys"]),
             "warmup_s": warm["seconds"], "blocks": replayed,
-            "launches": {k: counts[k] for k in SSM_KEYS}}
+            "launches": {k: counts[k] for k in SSM_KEYS + tuple(need)}}
 
 
 def ssm_ttft_and_state(torch, model, label: str) -> dict:
@@ -7112,6 +7163,675 @@ def phase_ssm(torch, smi_line: str) -> dict:
         "launches": out["granitehybrid"]["serving"]["launches"]["ssm_scan"]}
 
 
+# ------------------------------------------------------------ 4o. linear attention and short convs
+
+WKV_NMSE = 1e-10     # the kernel's y and f32 state against the plain loop's (sums in another order)
+# (label, rule, rows, T, heads, head size): RWKV-6-7B's wkv6 (64 heads of 64),
+# rwkv6qwen2's gla at head sizes 64 and 128, RWKV-7-2.9B's wkv7 (40 heads of
+# 64) and Qwen3-Next's delta net (32 v-heads of 128), at a decode step of 8
+# rows and a 256-token chunk
+WKV_CASES = [(f"{name} {kind}", rule, B, T, H, D)
+             for name, rule, H, D in (("RWKV-6-7B", "wkv6", 64, 64),
+                                      ("rwkv6qwen2 D64", "gla", 64, 64),
+                                      ("rwkv6qwen2 D128", "gla", 32, 128),
+                                      ("RWKV-7-2.9B", "wkv7", 40, 64),
+                                      ("Qwen3-Next", "delta_net", 32, 128))
+             for kind, B, T in (("decode", 8, 1), ("chunk", 1, 256))]
+# f32 operations a state element a step: wkv6 k·v, u·kv, + S, · r, the sum,
+# S·w, + kv; gla k·v, S·w, +, · r·scale, the sum; wkv7 a·S and its sum, S·w,
+# v·k, sa·b, two adds, · r and its sum; the delta net e^g·S, k·S and its
+# sum, k·δ and its add, q·S and its sum
+WKV_OPS = {"wkv6": 7, "gla": 5, "wkv7": 9, "delta_net": 7}
+WKV_VECS = {"wkv6": 4, "gla": 4, "wkv7": 6, "delta_net": 3}
+WKV_STATE = {"wkv6": 5, "gla": 4, "wkv7": 6, "delta_net": 5}   # the state's argument
+# each rule's kernel record: a served decode step (Qwen3-Next's bf16 state)
+WKV_RECORD = {"wkv6": "RWKV-6-7B decode f32 state",
+              "gla": "rwkv6qwen2 D64 decode f32 state",
+              "wkv7": "RWKV-7-2.9B decode f32 state",
+              "delta_net": "Qwen3-Next decode bf16 state"}
+
+
+def wkv_operands(torch, rule: str, B: int, T: int, H: int, D: int, seed: int, state_dtype):
+    """The arguments of one call of ``rule``, random on the card in the
+    ranges the models give them: decays in (0, 1), wkv7's a = −kk and b =
+    kk·a' (kk l2-normed), the delta net's log-decay below 0."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    v = lambda s=1.0: rnd(B, T, H, D, s=s)        # noqa: E731
+    state = (0.3 * rnd(B, H, D, D)).to(state_dtype)
+    if rule in ("wkv6", "gla"):
+        r, k, val, w = v(), v(0.5), v(), torch.exp(-torch.exp(v(0.5)))
+        return [r, k, val, rnd(H, D), w, state] if rule == "wkv6" else [r, k, val, w, state,
+                                                                        D ** -0.5]
+    if rule == "wkv7":
+        kk = torch.nn.functional.normalize(v(), dim=-1)
+        return [v(), torch.exp(-0.606531 * torch.sigmoid(v())), v(0.5), v(), -kk,
+                kk * torch.sigmoid(v()), state]
+    return [v(), v(), v(), -torch.nn.functional.softplus(rnd(B, T, H)), rnd(B, T, H), state,
+            1e-6]
+
+
+def wkv_work(rule: str, B: int, T: int, H: int, D: int, state_bytes: int):
+    """(bytes, f32 operations) of one call: the state read and written once,
+    the step vectors (and u, g, β) read and y written once; WKV_OPS a state
+    element a step."""
+    n = B * H * D * D
+    extra = H * D * 4 if rule == "wkv6" else 2 * B * T * H * 4 if rule == "delta_net" else 0
+    nbytes = 2 * n * state_bytes + (WKV_VECS[rule] + 1) * B * T * H * D * 4 + extra
+    return nbytes, T * n * WKV_OPS[rule]
+
+
+def check_wkv(torch) -> tuple[list, dict]:
+    """4o (a): each rule of csrc/wkv.cu against its plain loop at every
+    WKV_CASES shape (the delta net with an f32 and a bf16 state), all rows
+    and with row 3 idle: y and the f32 state within WKV_NMSE, the bf16 state
+    one rounding of the plain loop's f32 state (within half a bf16 ulp, the
+    f32 sums' order aside), finite, the idle row's state untouched and its y 0,
+    two calls bit-equal. Then each shape's reading in its served state type
+    (f32; bf16 for the delta net, and f32 at its decode), over copies of the
+    inputs past the L2, from a CUDA graph; the delta net's call includes its
+    wrapper's l2 norms (plain torch). No PyTorch call computes these
+    recurrences, so no row has a library time."""
+    from superllama_tpu_torch.ops import ref, wkv
+
+    recs = []
+    for label, rule, B, T, H, D in WKV_CASES:
+        kernel, plain, si = getattr(wkv, rule), getattr(ref, f"{rule}_plain"), WKV_STATE[rule]
+        dtypes = (("f32", torch.float32),) + ((("bf16", torch.bfloat16),)
+                                              if rule == "delta_net" else ())
+        for sd, dtype in dtypes:
+            args = wkv_operands(torch, rule, B, T, H, D, SEED + 250, dtype)
+            st = args[si]
+            idle = torch.arange(B, device="cuda") != 3
+            for act in [None] + ([idle] if B > 3 else []):
+                def call(fn, s):
+                    return fn(*args[:si], s, *args[si + 1:], active=act)
+                s1, s2, s3, s4 = st.clone(), st.clone(), st.clone(), st.float()
+                got, again, want = call(kernel, s1), call(kernel, s3), call(plain, s2)
+                call(plain, s4)             # the plain loop's state before its last rounding
+                torch.cuda.synchronize()
+                # one rounding to nearest of the f32 state: within half a bf16 ulp (2^-8 of
+                # the value at most), beside the f32 sums' order (1e-6 of the largest)
+                one = ((s1.float() - s4).abs()
+                       <= 2.0 ** -8 * s4.abs() + 1e-6 * s4.abs().max()).all()
+                rec = {"kernel": rule, "shape": f"{label} B{B} T{T} {sd} state"
+                       + (" idle row" if act is not None else ""),
+                       "nmse": nmse(got, want), "state_nmse": nmse(s1.float(), s2.float()),
+                       "max_abs_err": float((got - want).abs().max()),
+                       "state_equal": bool(torch.equal(s1, s2)),
+                       "state_one_rounding": bool(one),
+                       "finite": bool(torch.isfinite(got).all()
+                                      and torch.isfinite(s1.float()).all()),
+                       "bit_equal_twice": bool(torch.equal(got, again) and torch.equal(s1, s3))}
+                if act is not None:
+                    rec["idle_row_kept"] = bool(torch.equal(s1[3], st[3])
+                                                and not bool(got[3].any()))
+                rec["state_ok"] = (rec["state_nmse"] < WKV_NMSE if dtype == torch.float32
+                                   else rec["state_one_rounding"])
+                recs.append(rec)
+            del args, st
+    emit({"phase": "wkv_kernel_checks", "checks": recs})
+    for rec in recs:
+        what = f"{rec['kernel']} {rec['shape']}"
+        check(rec["finite"], f"{what}: non-finite output")
+        check(rec["nmse"] < WKV_NMSE and rec["state_ok"],
+              f"{what}: nmse {rec['nmse']:g}, state {rec['state_nmse']:g} against the plain "
+              f"loop (limit {WKV_NMSE:g})")
+        check(rec["bit_equal_twice"], f"{what}: two calls differ")
+        check(rec.get("idle_row_kept", True), f"{what}: the idle row's state or y changed")
+    times = {}
+    for label, rule, B, T, H, D in WKV_CASES:
+        kernel, plain, si = getattr(wkv, rule), getattr(ref, f"{rule}_plain"), WKV_STATE[rule]
+        served = torch.bfloat16 if rule == "delta_net" else torch.float32
+        for dtype in (served,) + ((torch.float32,) if served != torch.float32
+                                  and label.endswith("decode") else ()):
+            sb = 2 if dtype == torch.bfloat16 else 4
+            nbytes, ops = wkv_work(rule, B, T, H, D, sb)
+            n = n_copies(nbytes)
+            sets = [wkv_operands(torch, rule, B, T, H, D, SEED + 260 + j, dtype)
+                    for j in range(n)]
+            call = lambda i: kernel(*sets[i % n])               # noqa: E731
+            slow = lambda i: plain(*sets[i % n])                # noqa: E731
+            ms = graph_ms(torch, call, n)
+            b, by = bound(nbytes, ops, "f32")
+            key = f"{label} {'bf16' if sb == 2 else 'f32'} state"
+            row = {"shape": f"{key} B{B} T{T}", "ms": ms, "ms_eager": cuda_ms(torch, call, 2 * n),
+                   "plain_ms": cuda_ms(torch, slow, 3, 1), "library_ms": None, "bound_ms": b,
+                   "bound_by": by, "bytes": nbytes, "ops": ops, "gbps": nbytes / ms / 1e6,
+                   "share_of_bound": b / ms, "rotated_copies": n}
+            check(row["share_of_bound"] <= 1.0,
+                  f"{rule} {key}: {ms:g} ms is below the {b:g} ms bound: a mis-measurement")
+            times[key] = row
+            del sets
+    torch.cuda.empty_cache()
+    return recs, times
+
+
+# RWKV-6 Finch 7B (RWKV/v6-Finch-7B-HF config.json): 4,096 wide, 32 layers,
+# head size 64, an FFN of 14,336, a 65,536-piece vocab, rescale every 6
+# layers, the converter's time-mix / decay extra dims 64 / 128. RWKV-7 Goose
+# 2.9B (fla-hub/rwkv7-2.9B-world config.json): 2,560 wide, 32 layers, head
+# size 64, an FFN of 10,240, low-rank w / a 96, v 64, g 320. Each at
+# LINEAR_LAYERS of its layers. Qwen3-Next-80B-A3B
+# (Qwen/Qwen3-Next-80B-A3B-Instruct config.json): 2,048 wide, 16 q / 2 kv
+# heads of 256 (a quarter of each roped, θ 1e7), 16 k- / 32 v-heads of 128
+# in the delta net (conv 4), 512 experts of 512 (top 10) and a shared expert
+# of 512, a 151,936-piece vocab; QWEN3NEXT_LAYERS (three delta-net layers,
+# then the gated attention layer: one full interval)
+LINEAR_LAYERS = CUT_LAYERS
+QWEN3NEXT_LAYERS = 4
+RWKV6_7B = dict(E=4096, F=14336, V=65536, ed=64, dd=128)
+RWKV7_3B = dict(E=2560, F=10240, V=65536, rw=96, ra=96, rv=64, rg=320)
+QWEN3NEXT = dict(E=2048, H=16, HKV=2, D=256, Hk=16, Hv=32, Dk=128, n=512, k=10, f=512,
+                 V=151936)
+LINEAR_TYPES = {**Q4_K_M_TYPES, "tm": "Q4_K", "lr_in": "Q4_K", "lr_out": "Q8_0", "cm": "Q4_K",
+                "ssm_in": "Q4_K", "ssm_ba": "Q4_K", "ssm_out": "Q4_K", "shexp": "Q4_K",
+                "ffn_gate_exps": "Q4_K", "ffn_up_exps": "Q4_K", "ffn_down_exps": "Q6_K"}
+LINEAR_KEYS = ("qmv", "qmm", "wkv6", "gla", "wkv7", "delta_net", "gmm", "fa", "fa_tc", "fd")
+LINEAR_LABEL = {"rwkv6": "RWKV-6-7B", "rwkv7": "RWKV-7-2.9B", "qwen3next": "Qwen3-Next"}
+LINEAR_KERNEL = {"rwkv6": "wkv6", "rwkv7": "wkv7", "qwen3next": "delta_net"}
+
+
+def linear_tensors(which: str, L: int):
+    """(shapes {name: (role, N, K[, n])}, F32 tensors, metadata keys) of one
+    of the three models at published widths, L layers (rand_raw bytes for
+    the shapes; the F32 lerps, decays, bonuses, norms, convs and routers
+    seeded)."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED + 270, len(which)])
+    f = lambda *s, scale=1.0, loc=0.0: (loc + rng.standard_normal(s) * scale  # noqa: E731
+                                        ).astype(np.float32)
+    ones = lambda *s: np.ones(s, np.float32)                   # noqa: E731
+    shapes, f32 = {}, {}
+    if which in ("rwkv6", "rwkv7"):
+        c = RWKV6_7B if which == "rwkv6" else RWKV7_3B
+        E, F, V = c["E"], c["F"], c["V"]
+        shapes.update({"token_embd.weight": ("token_embd", V, E),
+                       "output.weight": ("output", V, E)})
+        f32.update({"token_embd_norm.weight": ones(E), "token_embd_norm.bias": f(E, scale=0.0)})
+        for il in range(L):
+            b = f"blk.{il}."
+            for n in ("key", "value", "receptance", "output"):
+                shapes[f"{b}time_mix_{n}.weight"] = ("tm", E, E)
+            shapes.update({f"{b}channel_mix_key.weight": ("cm", F, E),
+                           f"{b}channel_mix_value.weight": ("cm", E, F)})
+            f32.update({b + "attn_norm_2.weight": ones(E), b + "time_mix_ln.weight": ones(E),
+                        b + "time_mix_ln.bias": f(E, scale=0.0),
+                        b + "channel_mix_lerp_k.weight": f(E, scale=0.1, loc=0.5)})
+            if which == "rwkv6":
+                ed, dd, H = c["ed"], c["dd"], E // 64
+                shapes.update({f"{b}time_mix_gate.weight": ("tm", E, E),
+                               f"{b}channel_mix_receptance.weight": ("cm", E, E),
+                               f"{b}time_mix_w1.weight": ("lr_in", 5 * ed, E),
+                               f"{b}time_mix_decay_w1.weight": ("lr_in", dd, E),
+                               f"{b}time_mix_decay_w2.weight": ("lr_out", E, dd)})
+                f32.update({b + "time_mix_lerp_x.weight": f(E, scale=0.1, loc=0.5),
+                            b + "time_mix_lerp_fused.weight": f(5, 1, 1, E, scale=0.1, loc=0.5),
+                            b + "time_mix_w2.weight": f(5, E, ed, scale=0.01),
+                            b + "time_mix_first.weight": f(H, 64, scale=0.5),
+                            b + "time_mix_decay.weight": f(E, scale=1.0, loc=-3.0),
+                            b + "channel_mix_lerp_r.weight": f(E, scale=0.1, loc=0.5)})
+            else:
+                for n, r in (("w", c["rw"]), ("a", c["ra"]), ("v", c["rv"]), ("g", c["rg"])):
+                    shapes.update({f"{b}time_mix_{n}1.weight": ("lr_in", r, E),
+                                   f"{b}time_mix_{n}2.weight": ("lr_out", E, r)})
+                f32.update({b + "time_mix_lerp_fused.weight": f(6, 1, 1, E, scale=0.1, loc=0.5),
+                            b + "time_mix_w0.weight": f(E, scale=0.3),
+                            b + "time_mix_a0.weight": f(E, scale=0.3),
+                            b + "time_mix_v0.weight": f(E, scale=0.3),
+                            b + "time_mix_k_k.weight": f(E, scale=0.3, loc=1.0),
+                            b + "time_mix_k_a.weight": f(E, scale=0.3),
+                            b + "time_mix_r_k.weight": f(E, scale=0.3)})
+        keys = {"attention.head_count": 0, "attention.head_count_kv": 0, "wkv.head_size": 64,
+                "attention.layer_norm_epsilon": 1e-5, "feed_forward_length": F}
+        if which == "rwkv6":
+            keys.update({"rescale_every_n_layers": 6, "time_mix_extra_dim": c["ed"],
+                         "time_decay_extra_dim": c["dd"]})
+        else:
+            keys.update({"attention.decay_lora_rank": c["rw"], "attention.iclr_lora_rank": c["ra"],
+                         "attention.value_residual_mix_lora_rank": c["rv"],
+                         "attention.gate_lora_rank": c["rg"]})
+        return shapes, f32, keys
+    c = QWEN3NEXT
+    E, H, HKV, D, Hk, Hv, Dk, n = (c[k] for k in ("E", "H", "HKV", "D", "Hk", "Hv", "Dk", "n"))
+    C = 2 * Hk * Dk + Hv * Dk
+    shapes.update({"token_embd.weight": ("token_embd", c["V"], E),
+                   "output.weight": ("output", c["V"], E)})
+    for il in range(L):
+        b = f"blk.{il}."
+        f32[b + "post_attention_norm.weight"] = ones(E)
+        if (il + 1) % 4 == 0:
+            shapes.update({b + "attn_q.weight": ("attn_q", 2 * H * D, E),
+                           b + "attn_k.weight": ("attn_k", HKV * D, E),
+                           b + "attn_v.weight": ("attn_v", HKV * D, E),
+                           b + "attn_output.weight": ("attn_output", E, H * D)})
+            f32.update({b + "attn_q_norm.weight": ones(D), b + "attn_k_norm.weight": ones(D)})
+        else:
+            shapes.update({b + "ssm_in.weight": ("ssm_in", Hk * (2 * Dk + 2 * (Hv // Hk) * Dk), E),
+                           b + "ssm_ba.weight": ("ssm_ba", 2 * Hv, E),
+                           b + "ssm_out.weight": ("ssm_out", E, Hv * Dk)})
+            f32.update({b + "ssm_conv1d.weight": f(C, 4, scale=0.3),
+                        b + "ssm_a": -np.exp(f(Hv, scale=0.5)),
+                        b + "ssm_dt.bias": f(Hv, scale=0.3), b + "ssm_norm.weight": ones(Dk)})
+        shapes.update({b + "ffn_gate_exps.weight": ("ffn_gate_exps", n * c["f"], E, n),
+                       b + "ffn_up_exps.weight": ("ffn_up_exps", n * c["f"], E, n),
+                       b + "ffn_down_exps.weight": ("ffn_down_exps", n * E, c["f"], n),
+                       b + "ffn_gate_shexp.weight": ("shexp", c["f"], E),
+                       b + "ffn_up_shexp.weight": ("shexp", c["f"], E),
+                       b + "ffn_down_shexp.weight": ("shexp", E, c["f"])})
+        f32.update({b + "ffn_gate_inp.weight": router_weight(n, E, SEED + 280 + il),
+                    b + "ffn_gate_inp_shexp.weight": f(E, scale=E ** -0.5)})
+    keys = {"attention.key_length": D, "attention.value_length": D,
+            "attention.layer_norm_rms_epsilon": 1e-6, "ssm.conv_kernel": 4,
+            "ssm.state_size": Dk, "ssm.group_count": Hk, "ssm.time_step_rank": Hv,
+            "ssm.inner_size": Hv * Dk, "expert_count": n, "expert_used_count": c["k"],
+            "expert_feed_forward_length": c["f"], "expert_shared_feed_forward_length": c["f"]}
+    return shapes, f32, keys
+
+
+def linear_file_model(torch, d: str, which: str):
+    """One of the three models at published widths, cut in depth, as a
+    Q4_K_M-style file of rand_raw bytes (every layer of a kind layer 0's):
+    written, loaded packed onto the card (bf16; Qwen3-Next's banks as bf16)
+    and its hparams checked. Returns (model, info)."""
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+
+    q3n = which == "qwen3next"
+    L = QWEN3NEXT_LAYERS if q3n else LINEAR_LAYERS
+    if q3n:
+        c = QWEN3NEXT
+        hp = llama3_8b_hparams(arch=which, n_embd=c["E"], n_layer=L, n_head=c["H"],
+                               n_head_kv=c["HKV"], head_dim=c["D"], head_dim_v=c["D"],
+                               n_rot=c["D"] // 4, n_ff=5120, n_vocab=c["V"],
+                               rope_freq_base=1e7, rms_eps=1e-6)
+    else:
+        c = RWKV6_7B if which == "rwkv6" else RWKV7_3B
+        hp = llama3_8b_hparams(arch=which, n_embd=c["E"], n_layer=L, n_head=0, n_head_kv=0,
+                               head_dim=0, head_dim_v=0, n_rot=0, n_ff=c["F"], n_vocab=c["V"])
+    shapes, f32, keys = linear_tensors(which, L)
+    tok = grammar_tokenizer(hp.n_vocab)
+    name = {"rwkv6": "synthetic-rwkv6-finch-7b", "rwkv7": "synthetic-rwkv7-goose-2.9b",
+            "qwen3next": "synthetic-qwen3-next-80b-a3b"}[which]
+    path = os.path.join(d, f"{name}-q4_k_m.gguf")
+    t0 = time.perf_counter()
+    write_file_model(path, hp, tok, LINEAR_TYPES, f"{name}-q4_k_m", shared_layers=True,
+                     arch=which, keys=keys, ffn_norm=False, f32_tensors=f32, shapes=shapes)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = load_model(path, dtype=torch.bfloat16, keep_quantized=True, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got = model.hparams
+    want = {"arch": which, "n_embd": c["E"], "n_layer": L, "n_vocab": hp.n_vocab}
+    if q3n:
+        want.update(n_head=16, n_head_kv=2, head_dim=256, n_rot=64, ssm_d_state=128,
+                    ssm_n_group=16, ssm_dt_rank=32, ssm_d_inner=4096, n_expert=512,
+                    n_expert_used=10, n_ff_exp=512, is_hybrid=True)
+    else:
+        want.update(wkv_head_size=64, is_recurrent=True, n_ff=c["F"])
+    have = {k: getattr(got, k) for k in want}
+    ok = have == want
+    if q3n:
+        ok &= [got.is_recurrent_layer(il) for il in range(L)] == [True, True, True, False]
+        bank = model.params["layers"][0]["ffn_up_exps"]
+        ok &= tuple(bank.shape) == (512, 2048, 512) and bank.dtype == torch.bfloat16
+    check(ok, f"{which} from the file: {have} (want {want})")
+    info = {"file_bytes": os.path.getsize(path), "write_s": write_s, "load_s": load_s,
+            "depth": L, "hparams": have}
+    os.remove(path)
+    return model, info
+
+
+def linear_engine_run(torch, model, label: str, kernel: str, state: bool) -> dict:
+    """On a warmed 8-slot Engine of SSM_BUCKETS (pow2 chunks of at most 256
+    tokens, in place): the warm TTFT of a 32- and a 1,000-token prompt
+    (medians of three), B 1 and B 8 decode tok/s (64 greedy tokens a
+    request), every chunk and block a replay and no capture after the
+    warm-up, ``kernel`` (and Qwen3-Next's gmm) launched; with ``state`` a
+    slot save / erase / restore round trip bit-equal."""
+    from superllama_tpu_torch.runtime.cache_policy import get_row
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    eng = Engine(model, n_slots=8, n_ctx=1280, device="cuda", kv_dtype=torch.bfloat16,
+                 prefill_buckets=SSM_BUCKETS)
+    warm = eng.warmup()
+    eng.start()
+    try:
+        p32, p1000 = token_prompts(model.hparams.n_vocab, [32, 1000], SEED + 231)
+        wave = token_prompts(model.hparams.n_vocab, [32] * 8, SEED + 82)
+        stats0 = block_stats(eng)
+        reset_counts()
+        ttft = {}
+        for n, p in ((32, p32), (1000, p1000)):
+            runs = []
+            for _ in range(3):
+                fresh(eng)
+                runs.append(eng.generate(p, max_tokens=2, sampling={"greedy": True},
+                                         stop_eog=False)["ttft_s"] * 1e3)
+            ttft[f"ttft_ms_prompt{n}"] = sorted(runs)[1]
+        fresh(eng)
+        r1 = eng.generate(p32, max_tokens=64, sampling={"greedy": True}, stop_eog=False)
+        fresh(eng)
+        rs = engine_wave(eng, wave, 64)
+        counts = read_counts()
+        after = block_stats(eng)
+        replayed = check_replayed(f"{label} engine", stats0, after)
+        check(after["captures"] == stats0["captures"]
+              and after["chunk_captures"] == stats0["chunk_captures"],
+              f"{label}: a graph was captured after the warm-up: {after}")
+        for name in (kernel, "qmv") + (("gmm",) if kernel == "delta_net" else ()):
+            check(counts[name] > 0, f"{label} engine never launched {name}: {counts}")
+        V = model.hparams.n_vocab
+        check(all(len(r["tokens"]) == 64 and max(r["tokens"]) < V for r in rs),
+              f"{label}: the wave gave the wrong tokens")
+        b8_s = max(r["total_s"] for r in rs) - max(r["ttft_s"] for r in rs)
+        out = {**ttft, "decode_tok_s_b1": (r1["n_generated"] - 1) / (r1["total_s"] - r1["ttft_s"]),
+               "decode_tok_s_b8": sum(r["n_generated"] - 1 for r in rs) / b8_s,
+               "warmup_keys": len(warm["keys"]), "warmup_s": warm["seconds"],
+               "graph_pool_bytes": warm["pool_bytes"], "blocks": replayed,
+               "launches": {k: counts[k] for k in LINEAR_KEYS}}
+        if state:               # the 64-token wave's row 0 saved, trashed, restored
+            (s,) = [s for s in eng.slots if list(s.cache_tokens[:32]) == list(wave[0])]
+            snap = eng.slot_save(s.idx)
+            before = get_row(eng.cache, s.idx)
+            eng.generate(p32, max_tokens=4, sampling={"greedy": True}, stop_eog=False)
+            eng.slot_erase(s.idx)
+            eng.slot_restore(s.idx, snap)
+            again = get_row(eng.cache, s.idx)
+            check(before.keys() == again.keys()
+                  and all((before[k] == again[k]).all() for k in before),
+                  f"{label}: the restored slot state differs from the saved one")
+            out["slot_state_restored_equal"] = True
+        return out
+    finally:
+        eng.stop()
+        del eng
+        torch.cuda.empty_cache()
+
+
+def linear_model_phase(torch, d: str, which: str, smi_line: str) -> dict:
+    """One model of 4o (b): written and loaded (linear_file_model); 16
+    greedy tokens held to the eager plain route (ssm_decode: the plain
+    loops called through PlainKernels) by greedy_rule at SSM_PATH_NMSE; a
+    wave of 4 requests replayed against eager (tokens, every state and KV
+    row, launches); the TTFTs and B 1 / B 8 on a warmed engine
+    (linear_engine_run; RWKV-6's slot state); fa, fa_tc and fd never
+    launched (the hybrid's attention is plain, as in JAX)."""
+    import gc
+
+    label, kernel = LINEAR_LABEL[which], LINEAR_KERNEL[which]
+    t_all = time.perf_counter()
+    model, info = linear_file_model(torch, d, which)
+    t0 = time.perf_counter()
+    info["decode"] = ssm_decode(torch, model, label, 1, need=(kernel,))
+    info["decode_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (rec,) = phase_graph_vs_eager(torch, model, (("bf16", {}, [32, 100] * 2),), ("greedy",),
+                                  n_ctx=512, max_tokens=16)
+    check(rec["launches"][kernel] > 0, f"{label}: the graph wave never launched {kernel}")
+    info["graph_vs_eager"] = {k: rec[k] for k in ("tokens_equal", "rows_equal",
+                                                  "graph_blocks", "launches_equal")}
+    info["graph_vs_eager_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info["engine"] = linear_engine_run(torch, model, label, kernel, state=which == "rwkv6")
+    info["engine_s"] = time.perf_counter() - t0
+    launches = info["engine"]["launches"]
+    check(launches["fa"] + launches["fa_tc"] + launches["fd"] == 0,
+          f"{label}: the engine launched fa, fa_tc or fd")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = {"phase": f"linear_{which}", "model": label, "card": smi_line, **info,
+            "seconds": time.perf_counter() - t_all}
+    emit(info)
+    return info
+
+
+LINEAR_SWEEP_FAMILIES = ("arwkv7", "rwkv6qwen2", "lfm2", "lfm2moe", "gemma3n")
+LINEAR_SWEEP_V = 8192        # the sweep files' vocabulary
+
+
+def linear_sweep_file(path: str, family: str) -> str:
+    """One family at 1,024 wide, seeded F32 weights, a LINEAR_SWEEP_V-piece
+    vocab, written by the port's GGUFWriter: arwkv7 and rwkv6qwen2 (2 layers, 16
+    heads of 64; rwkv6qwen2's k / v over 4 kv heads with biases), lfm2
+    (a short-conv layer, then 8 heads of 128 over 2 kv heads), lfm2moe (the
+    same, its attention layer's FFN 8 experts of 1,024, top 2) and gemma3n
+    (7 layers: an iSWA full layer at 4, a shared-KV tail at 5-6; AltUp 4
+    streams of 256 per-layer inputs, LAUREL rank 64)."""
+    import numpy as np
+
+    from superllama_tpu_torch.gguf import GGUFWriter
+
+    rng = np.random.default_rng([SEED + 290, len(family)])
+    E, V, F = 1024, LINEAR_SWEEP_V, 2816
+    t = {}
+
+    def w(name, *shape, scale=None):
+        t[name] = (rng.standard_normal(shape) * (scale or 0.7 * shape[-1] ** -0.5)).astype(
+            np.float32)
+
+    def norm(name, *shape, loc=1.0):
+        t[name] = (loc + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    w("token_embd.weight", V, E, scale=0.5 if family != "gemma3n" else 0.02)
+    w("output.weight", V, E)
+    md = {"context_length": 256, "embedding_length": E, "vocab_size": V,
+          "feed_forward_length": F, "attention.layer_norm_rms_epsilon": 1e-5}
+    if family in ("arwkv7", "rwkv6qwen2"):
+        L, D = 2, 64
+        norm("output_norm.weight", E)
+        md.update({"block_count": L, "attention.head_count": E // D, "wkv.head_size": D,
+                   "token_shift_count": 1})
+        for il in range(L):
+            b = f"blk.{il}."
+            norm(b + "attn_norm.weight", E)
+            norm(b + "ffn_norm.weight", E)
+            for n in ("gate", "up"):
+                w(b + f"ffn_{n}.weight", F, E)
+            w(b + "ffn_down.weight", E, F)
+            w(b + "time_mix_receptance.weight", E, E)
+            w(b + "time_mix_output.weight", E, E)
+            if family == "arwkv7":
+                w(b + "time_mix_key.weight", E, E)
+                w(b + "time_mix_value.weight", E, E)
+                for n, r in (("w", 32), ("a", 32), ("v", 32)):
+                    w(b + f"time_mix_{n}1.weight", r, E, scale=0.1)
+                    w(b + f"time_mix_{n}2.weight", E, r, scale=0.1)
+                    w(b + f"time_mix_{n}0.weight", E, scale=0.3)
+                norm(b + "time_mix_lerp_fused.weight", 5, 1, 1, E, loc=0.5)
+                for n in ("k_k", "k_a", "r_k"):
+                    w(b + f"time_mix_{n}.weight", E, scale=0.3)
+                md.update({"attention.decay_lora_rank": 32, "attention.iclr_lora_rank": 32,
+                           "attention.value_residual_mix_lora_rank": 32,
+                           "attention.head_count_kv": E // D})
+            else:
+                kv = 4 * D
+                w(b + "time_mix_key.weight", kv, E)
+                w(b + "time_mix_value.weight", kv, E)
+                for n, dim in (("key", kv), ("value", kv), ("receptance", E)):
+                    w(b + f"time_mix_{n}.bias", dim, scale=0.1)
+                w(b + "time_mix_gate.weight", E, E)
+                w(b + "time_mix_w1.weight", 5 * 32, E, scale=0.1)
+                w(b + "time_mix_w2.weight", 5, E, 32, scale=0.1)
+                norm(b + "time_mix_lerp_x.weight", E, loc=0.5)
+                norm(b + "time_mix_lerp_fused.weight", 5, 1, 1, E, loc=0.5)
+                w(b + "time_mix_decay.weight", E, scale=0.3)
+                w(b + "time_mix_decay_w1.weight", 64, E, scale=0.1)
+                w(b + "time_mix_decay_w2.weight", E, 64, scale=0.1)
+                md.update({"attention.head_count_kv": 4, "time_mix_extra_dim": 32,
+                           "time_decay_extra_dim": 64})
+    elif family in ("lfm2", "lfm2moe"):
+        H, HKV, D = 8, 2, 128
+        norm("token_embd_norm.weight", E)        # lfm2's final norm
+        for il, kind in enumerate(("conv", "attn")):
+            b = f"blk.{il}."
+            norm(b + "attn_norm.weight", E)
+            norm(b + "ffn_norm.weight", E)
+            if kind == "conv":
+                w(b + "shortconv.conv.weight", E, 3, scale=0.5)
+                w(b + "shortconv.in_proj.weight", 3 * E, E)
+                w(b + "shortconv.out_proj.weight", E, E)
+            else:
+                w(b + "attn_q.weight", H * D, E)
+                w(b + "attn_k.weight", HKV * D, E)
+                w(b + "attn_v.weight", HKV * D, E)
+                w(b + "attn_output.weight", E, H * D)
+                norm(b + "attn_q_norm.weight", D)
+                norm(b + "attn_k_norm.weight", D)
+            if family == "lfm2moe" and kind == "attn":
+                w(b + "ffn_gate_inp.weight", 8, E, scale=1.0)
+                w(b + "exp_probs_b.bias", 8, scale=0.5)
+                for part, shape in (("gate", (8, 1024, E)), ("up", (8, 1024, E)),
+                                    ("down", (8, E, 1024))):
+                    w(b + f"ffn_{part}_exps.weight", *shape)
+            else:
+                for n in ("gate", "up"):
+                    w(b + f"ffn_{n}.weight", F, E)
+                w(b + "ffn_down.weight", E, F)
+        md.update({"block_count": 2, "attention.head_count": H,
+                   "attention.head_count_kv": [0, HKV], "attention.key_length": D,
+                   "attention.value_length": D, "rope.dimension_count": D,
+                   "rope.freq_base": 1e6, "shortconv.l_cache": 3})
+        if family == "lfm2moe":
+            md.update({"expert_count": 8, "expert_used_count": 2,
+                       "expert_feed_forward_length": 1024, "leading_dense_block_count": 1,
+                       "expert_gating_func": 2})
+    else:                                        # gemma3n
+        H, HKV, D, L, A, EA, R = 8, 2, 128, 7, 4, 256, 64
+        norm("output_norm.weight", E)
+        w("per_layer_token_embd.weight", V, EA * L, scale=0.05)
+        w("per_layer_model_proj.weight", EA * L, E)
+        norm("per_layer_proj_norm.weight", EA)
+        w("altup_proj.weight", A - 1, E, E)
+        w("altup_unembd_proj.weight", A - 1, E, E)
+        for il in range(L):
+            b = f"blk.{il}."
+            for n in ("attn_norm", "post_attention_norm", "ffn_norm", "post_ffw_norm",
+                      "post_norm", "altup_router_norm", "laurel_post_norm"):
+                norm(b + n + ".weight", E)
+            w(b + "attn_q.weight", H * D, E)
+            w(b + "attn_k.weight", HKV * D, E)
+            w(b + "attn_v.weight", HKV * D, E)
+            w(b + "attn_output.weight", E, H * D)
+            norm(b + "attn_q_norm.weight", D)
+            norm(b + "attn_k_norm.weight", D)
+            for n in ("gate", "up"):
+                w(b + f"ffn_{n}.weight", F, E)
+            w(b + "ffn_down.weight", E, F)
+            w(b + "inp_gate.weight", EA, E)
+            w(b + "proj.weight", E, EA)
+            w(b + "altup_correct_coef.weight", A, A, scale=0.2)
+            w(b + "altup_correct_scale.weight", E, scale=0.5)
+            w(b + "altup_predict_coef.weight", A * A, A, scale=0.1)
+            w(b + "altup_router.weight", A, E)
+            w(b + "laurel_l.weight", R, E)
+            w(b + "laurel_r.weight", E, R)
+        md.update({"block_count": L, "attention.head_count": H, "attention.head_count_kv": HKV,
+                   "attention.key_length": D, "attention.value_length": D,
+                   "rope.dimension_count": D, "rope.freq_base": 1e6,
+                   "attention.sliding_window": 32, "rope.freq_base_swa": 10000.0,
+                   "final_logit_softcapping": 30.0, "attention.shared_kv_layers": 2})
+    wr = GGUFWriter(path, arch=family)
+    wr.add("general.name", f"sweep-{family}")
+    for k, v in md.items():
+        wr.add(f"{family}.{k}", v)
+    for name, a in t.items():
+        wr.add_tensor(name, a)
+    wr.write()
+    return path
+
+
+def linear_sweep_family(torch, d: str, family: str) -> dict:
+    """One family's file loaded onto the card and onto the host (f32): a
+    12-token prompt's first-token logits through the card against the port's
+    CPU plain forward of the same file (ARCH_NMSE); then 4 greedy requests
+    (the same prompt first) on a warmed Engine on the card, its first token
+    the card's argmax; the launches by route."""
+    import gc
+
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.runtime.context import Context
+    from superllama_tpu_torch.runtime.engine import Engine
+
+    t0 = time.perf_counter()
+    path = linear_sweep_file(os.path.join(d, f"linear-sweep-{family}.gguf"), family)
+    prompts = token_prompts(LINEAR_SWEEP_V, [12, 20, 7, 33], SEED + 291)
+    first = {}
+    for dev in ("cpu", "cuda"):
+        m = load_model(path, dtype=torch.float32, device=dev)
+        ctx = Context(m, n_batch=1, n_ctx=64, kv_dtype=torch.float32, device=dev)
+        first[dev] = ctx.forward(prompts[0])[0, -1].float().cpu()
+        del ctx
+    hp = m.hparams
+    err = nmse(first["cuda"], first["cpu"])
+    check(bool(torch.isfinite(first["cuda"]).all()), f"linear sweep {family}: non-finite logits")
+    check(err < ARCH_NMSE, f"linear sweep {family}: card against CPU plain forward nmse {err:g}")
+    eng = Engine(m, n_slots=4, n_ctx=128, device="cuda", kv_dtype=torch.float32,
+                 prefill_buckets=(16,))
+    eng.warmup()
+    eng.start()
+    try:
+        reset_counts()
+        outs = [r["tokens"] for r in engine_wave(eng, prompts, 8)]
+        counts = read_counts()
+    finally:
+        eng.stop()
+    check(outs[0][0] == int(first["cuda"].argmax()) and all(len(t) == 8 for t in outs),
+          f"linear sweep {family}: the engine's first token {outs[0][0]} is not the argmax "
+          f"{int(first['cuda'].argmax())}")
+    need = {"arwkv7": "wkv7", "rwkv6qwen2": "gla", "lfm2moe": "gmm"}.get(family)
+    if need:
+        check(counts[need] > 0, f"linear sweep {family}: {need} never launched")
+    info = {"family": family, "arch": hp.arch, "hybrid": hp.is_hybrid, "iswa": eng.iswa,
+            "first_token_nmse": err, "nmse_bound": ARCH_NMSE,
+            "argmax_agree": bool(first["cuda"].argmax() == first["cpu"].argmax()),
+            "engine_tokens": outs, "launches": {k: counts[k] for k in LINEAR_KEYS},
+            "seconds": time.perf_counter() - t0}
+    os.remove(path)
+    del m, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_linear(torch, smi_line: str) -> dict:
+    """4o. Linear attention and short convs: the four rules of wkv against
+    their plain loops and their times (a); RWKV-6-7B, RWKV-7-2.9B and
+    Qwen3-Next-80B-A3B at full width from rand_raw files, served (b); the
+    other five names of the slice at 1,024 wide against the CPU (c).
+    ``launches``: each rule's count in its served model's engine run
+    (gla's in rwkv6qwen2's engine run)."""
+    import shutil
+    import tempfile
+
+    t_all = time.perf_counter()
+    checks, times = check_wkv(torch)
+    emit({"phase": "wkv_kernel_times", "card": smi_line, "kernels": times})
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="linear_", dir=build)
+    try:
+        out = {which: linear_model_phase(torch, d, which, smi_line)
+               for which in ("rwkv6", "rwkv7", "qwen3next")}
+        sweep = {fam: linear_sweep_family(torch, d, fam) for fam in LINEAR_SWEEP_FAMILIES}
+        emit({"phase": "linear_sweep", "card": smi_line, "families": list(sweep.values())})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "linear", "card": smi_line, "seconds": time.perf_counter() - t_all})
+    launches = {rule: out[which]["engine"]["launches"][rule] for which, rule in
+                LINEAR_KERNEL.items()}
+    launches["gla"] = sweep["rwkv6qwen2"]["launches"]["gla"]
+    return {"checks": checks, "launches": launches,
+            "times": {**times, **{rule: times[key] for rule, key in WKV_RECORD.items()}}}
+
+
 # ------------------------------------------------------------ main
 
 # (name, source, the TPU kernel it replaces, the timing entry of its record)
@@ -7136,7 +7856,13 @@ KERNELS = [
     ("gmm", "superllama_tpu_torch/csrc/gmm.cu", "superllama_tpu/models/llama.py:194", "gmm"),
     # not a Pallas kernel: the jax.lax.scan of the mixers' selective scan
     ("ssm_scan", "superllama_tpu_torch/csrc/ssm_scan.cu", "superllama_tpu/models/mamba.py:134",
-     "ssm_scan")]
+     "ssm_scan")] + [
+    # not Pallas kernels: the jax.lax.scan recurrences of the linear-attention models
+    (rule, "superllama_tpu_torch/csrc/wkv.cu", replaces, rule)
+    for rule, replaces in (("wkv6", "superllama_tpu/models/rwkv.py:53"),
+                           ("gla", "superllama_tpu/models/rwkv.py:89"),
+                           ("wkv7", "superllama_tpu/models/rwkv.py:73"),
+                           ("delta_net", "superllama_tpu/models/qwen3next.py:60"))]
 
 
 # ------------------------------------------------------------ 4h. the front door
@@ -7773,6 +8499,10 @@ def main() -> int:
         # the state-space models alone (phase 4n)
         phase_ssm(torch, info["nvidia_smi"])
         return 0
+    if "--linear" in sys.argv[1:]:
+        # linear attention and short convs alone (phase 4o)
+        phase_linear(torch, info["nvidia_smi"])
+        return 0
     if "--state" in sys.argv[1:]:
         # the engine's state between requests alone (phase 4e)
         phase_state(torch, build_model(torch, n_layer=CUT_LAYERS), info["nvidia_smi"])
@@ -7823,6 +8553,10 @@ def main() -> int:
     ssm = phase_ssm(torch, info["nvidia_smi"])
     checks += ssm["checks"]
     counts["ssm_scan"] = ssm["launches"]
+    # wkv's checks, times and launches come from the linear-attention phase
+    lin = phase_linear(torch, info["nvidia_smi"])
+    checks += lin["checks"]
+    counts.update(lin["launches"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)
@@ -7835,6 +8569,7 @@ def main() -> int:
     times.update(time_formats(torch, tuple(FAMILY_FORMAT.values()), m1=False))
     times.update(moe["times"])
     times.update(ssm["times"])
+    times.update(lin["times"])
     record = []
     for name, source, replaces, timing in KERNELS:
         t = times[timing]

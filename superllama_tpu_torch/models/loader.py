@@ -1,19 +1,21 @@
-"""GGUF → device params loader for the llama family.
+"""GGUF → device params loader for the decoder architectures.
 
 Counterpart of the JAX package's ``models/loader.py::load_model`` (its
-llama-family branch with its MoE, MLA and SSM tensors, without the RWKV,
-encoder, gemma3n and LFM2 ones): reads tensors by name, keeps repackable 2-D
-matmul weights packed as QTensors when asked (or dequantizes them),
-transposes matmul weights to (in, out) so the forward uses ``x @ w``, and
-places every tensor on the device once. Norm biases, post-norms under their
-ecosystem, legacy and unsuffixed names, the embedding norm, learned
-positions, ``attn_gate``, the sub-norms and MLA's ``wq_a`` / ``wq_b`` /
+decoder branch, without the encoder ones): reads tensors by name, keeps
+repackable 2-D matmul weights packed as QTensors when asked (or
+dequantizes them), transposes matmul weights to (in, out) so the forward
+uses ``x @ w`` (a 3-D one slice by slice, as JAX does), and places every
+tensor on the device once. Norm biases, post-norms under their ecosystem,
+legacy and unsuffixed names, the embedding norm, learned positions,
+``attn_gate``, the sub-norms and MLA's ``wq_a`` / ``wq_b`` /
 ``attn_q_a_norm`` / ``wkv_a`` / ``wkv_b`` / ``attn_kv_a_norm`` load beside
 the llama tensors, and so do the SSM ones (``ssm_in``, ``ssm_conv1d`` with
 its bias, ``ssm_x``, ``ssm_dt`` with its bias, ``ssm_a``, ``ssm_d``,
-``ssm_out``, ``ssm_norm`` and the dt / B / C norms): the projections packed
-like any 2-D weight where their rows fit the format's blocks, the rest
-dense.
+``ssm_out``, ``ssm_norm``, the dt / B / C norms, qwen3next's ``ssm_ba``),
+the RWKV block (``_RWKV_TENSORS``), lfm2's short conv (its final norm,
+shipped as ``token_embd_norm``, moved to ``output_norm``) and gemma3n's
+AltUp, LAUREL and per-layer-input tensors: the projections packed like any
+2-D weight where their rows fit the format's blocks, the rest dense.
 The MoE tensors: the router (``ffn_gate_inp`` with its bias, packed like
 any 2-D weight), the selection bias ``exp_probs_b``, the expert banks
 ``ffn_{gate,up,down}_exps`` with their biases, grovemoe's chunk banks
@@ -93,6 +95,8 @@ def _get(reader: GGUFReader, name: str, dtype: torch.dtype, device,
     arr = dequantize(raw, ti.ggml_type, shape)
     if transpose and arr.ndim == 2:
         arr = arr.T                       # (out, in) → (in, out)
+    elif transpose and arr.ndim == 3:
+        arr = arr.transpose(0, 2, 1)      # (n, out, in) → (n, in, out)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
 
 
@@ -157,9 +161,37 @@ def _finish_layer(reader: GGUFReader, hp: HParams, il: int, layer: dict,
     return layer
 
 
+# the RWKV block (rwkv6, rwkv7, arwkv7, rwkv6qwen2): (key, GGUF name, transposed)
+_RWKV_TENSORS = (
+    ("attn_norm_2", "attn_norm_2.weight", False), ("attn_norm_2_b", "attn_norm_2.bias", False),
+    # the time mix (rwkv6's names; rwkv7 reuses key / value / receptance /
+    # output / ln and adds the w / a / v / g low-rank stacks)
+    *((f"time_mix_{n}", f"time_mix_{n}.weight", True) for n in (
+        "w1", "w2", "decay_w1", "decay_w2", "key", "value", "receptance", "gate", "output",
+        "a1", "a2", "v1", "v2", "g1", "g2")),
+    *((f"time_mix_{n}", f"time_mix_{n}.weight", False) for n in (
+        "lerp_x", "lerp_w", "lerp_k", "lerp_v", "lerp_r", "lerp_g", "lerp_fused", "first",
+        "decay", "ln", "w0", "a0", "v0", "k_k", "k_a", "r_k")),
+    # qrwkv's (rwkv6qwen2) optional r / k / v biases
+    *((f"time_mix_{n}_b", f"time_mix_{n}.bias", False) for n in ("key", "value", "receptance")),
+    ("time_mix_ln_b", "time_mix_ln.bias", False),
+    # the channel mix
+    ("channel_mix_lerp_k", "channel_mix_lerp_k.weight", False),
+    ("channel_mix_lerp_r", "channel_mix_lerp_r.weight", False),
+    *((f"channel_mix_{n}", f"channel_mix_{n}.weight", True) for n in (
+        "key", "value", "receptance")),
+)
+
+
+def _rwkv_layer(g, p: str) -> dict:
+    """The RWKV block's tensors of layer prefix p, as the JAX loader reads
+    them (its 3-D ``time_mix_w2`` transposed to (5, extra, n_embd))."""
+    return {key: g(p + name, t=t) for key, name, t in _RWKV_TENSORS}
+
+
 def load_model(path: str, dtype: torch.dtype = torch.float32,
                keep_quantized: bool = False, device=None) -> LoadedModel:
-    """Load a llama-family GGUF: hparams + tokenizer + params on ``device``
+    """Load a decoder's GGUF: hparams + tokenizer + params on ``device``
     (default CUDA).
 
     keep_quantized=True keeps the matmul weights of every ``REPACKABLE``
@@ -221,6 +253,12 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
             "token_embd_norm": g("token_embd_norm.weight", t=False),   # bloom
             "token_embd_norm_b": g("token_embd_norm.bias", t=False),
             "position_embd": g("position_embd.weight", t=False),       # gpt2
+            # gemma3n's AltUp globals
+            "per_layer_token_embd": g("per_layer_token_embd.weight", t=False),
+            "per_layer_model_proj": g("per_layer_model_proj.weight"),
+            "per_layer_proj_norm": g("per_layer_proj_norm.weight", t=False),
+            "altup_proj": g("altup_proj.weight"),
+            "altup_unembd_proj": g("altup_unembd_proj.weight"),
             "layers": [],
         }
         grok = hp.arch == "grok"
@@ -303,13 +341,38 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                                      g(p + "ssm_b_norm", t=False)),
                 "ssm_c_norm": _first(g(p + "ssm_c_norm.weight", t=False),
                                      g(p + "ssm_c_norm", t=False)),
+                # qwen3next's gated delta net: the fused [beta | alpha] projection
+                "ssm_beta_alpha": g(p + "ssm_ba.weight"),
+                # gemma3n: the AltUp, LAUREL and per-layer-input tensors
+                "altup_router": g(p + "altup_router.weight"),
+                "altup_router_norm": g(p + "altup_router_norm.weight", t=False),
+                "altup_predict_coef": g(p + "altup_predict_coef.weight"),
+                "altup_correct_coef": g(p + "altup_correct_coef.weight"),
+                "altup_correct_scale": g(p + "altup_correct_scale.weight", t=False),
+                "per_layer_inp_gate": g(p + "inp_gate.weight"),
+                "per_layer_proj": g(p + "proj.weight"),
+                "per_layer_post_norm": g(p + "post_norm.weight", t=False),
+                "laurel_l": g(p + "laurel_l.weight"),
+                "laurel_r": g(p + "laurel_r.weight"),
+                "laurel_post_norm": g(p + "laurel_post_norm.weight", t=False),
+                # lfm2's short conv (the kernel as (L_cache, n_embd))
+                "shortconv_conv": g(p + "shortconv.conv.weight"),
+                "shortconv_in": g(p + "shortconv.in_proj.weight"),
+                "shortconv_out": g(p + "shortconv.out_proj.weight"),
             }
+            if hp.arch.startswith("rwkv") or hp.arch == "arwkv7":
+                layer.update(_rwkv_layer(g, p))
             for part in ("gate", "up", "down"):
                 # the expert banks with their biases, grovemoe's chunk banks
                 layer[f"ffn_{part}_exps"] = bank(p + f"ffn_{part}_exps.weight")
                 layer[f"ffn_{part}_exps_b"] = g(p + f"ffn_{part}_exps.bias", t=False)
                 layer[f"ffn_{part}_chexps"] = bank(p + f"ffn_{part}_chexps.weight")
-            if layer["wq"] is None:
+            if layer["wq"] is None and hp.arch == "qwen3next" and hp.is_recurrent_layer(il):
+                # qwen3next's delta-net attn_qkv: the fused [q | k | v]
+                # linear-attention projection, read dequantized as JAX reads
+                # it and never head-split
+                layer["ssm_qkv"] = g(p + "attn_qkv.weight", kq=False)
+            elif layer["wq"] is None:
                 # a fused qkv (phi3, bloom, falcon…), read dequantized as JAX
                 # reads it, split into q / k / v after the load
                 layer["qkv"] = g(p + "attn_qkv.weight", kq=False)
@@ -330,6 +393,10 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                   for k, v in params.items()}
         params["layers"] = [_finish_layer(reader, hp, il, layer, dtype, dev)
                             for il, layer in enumerate(params["layers"])]
+        if hp.arch in ("lfm2", "lfm2moe") and params["output_norm"] is None:
+            # lfm2 ships its final norm as "token_embd_norm"
+            # (llama-arch.cpp LLM_TENSOR_OUTPUT_NORM_LFM2)
+            params["output_norm"], params["token_embd_norm"] = params["token_embd_norm"], None
         md = dict(reader.metadata)
     finally:
         pool.shutdown(cancel_futures=True)   # no thread reads a file past here

@@ -3,9 +3,11 @@
 Counterpart of the JAX package's ``models/registry.py``, holding every
 architecture the JAX package sends to ``llama_forward`` (the dense ones,
 those with sparse mixtures of experts and llama4) or to
-``deepseek2_forward`` (multi-head latent attention), and the state-space
+``deepseek2_forward`` (multi-head latent attention), the state-space
 models to ``mamba_forward``, ``jamba_forward``, ``hybrid_forward`` and
-``plamo2_forward``. The names the port refuses say which ROADMAP §1 item
+``plamo2_forward``, and the linear-attention and short-conv models to the
+RWKV forwards, ``lfm2_forward``, ``qwen3next_forward`` and
+``gemma3n_forward``. The names the port refuses say which ROADMAP §1 item
 they wait for."""
 
 from __future__ import annotations
@@ -13,11 +15,15 @@ from __future__ import annotations
 from typing import Callable
 
 from .deepseek2 import deepseek2_forward
+from .gemma3n import gemma3n_forward
 from .hybrid import hybrid_forward
 from .jamba import jamba_forward
+from .lfm2 import lfm2_forward
 from .llama import llama_forward
 from .mamba import mamba_forward
 from .plamo2 import plamo2_forward
+from .qwen3next import qwen3next_forward
+from .rwkv import arwkv7_forward, rwkv6_forward, rwkv6qwen2_forward, rwkv7_forward
 
 ForwardFn = Callable  # (params, hp, tokens, pos, cache, **kw) -> (logits, cache)
 
@@ -64,21 +70,25 @@ SSM_ARCHS = {
     "plamo2": plamo2_forward,
 }
 
+# linear attention and short convs: the RWKV recurrences on an RWKVCache,
+# lfm2's short conv and qwen3next's gated delta net beside attention on a
+# hybrid memory, gemma3n's AltUp stack on the iSWA cache
+LINEAR_ARCHS = {
+    "rwkv6": rwkv6_forward, "rwkv7": rwkv7_forward, "arwkv7": arwkv7_forward,
+    "rwkv6qwen2": rwkv6qwen2_forward, "lfm2": lfm2_forward, "lfm2moe": lfm2_forward,
+    "qwen3next": qwen3next_forward, "gemma3n": gemma3n_forward,
+}
+
 # what the JAX registry holds that the port does not serve yet, by the
 # ROADMAP §1 item it waits for
-WAITING = {
-    **dict.fromkeys((
-        "rwkv6", "rwkv7", "arwkv7", "rwkv6qwen2", "lfm2", "lfm2moe", "gemma3n",
-        "qwen3next"), "4b (rwkv, lfm2, qwen3next, gemma3n)"),
-    **dict.fromkeys((
-        "llama-embed", "cogvlm", "llada", "llada-moe", "dream", "rnd1"),
-        "5 (encoders, multimodal and diffusion)"),
-}
+WAITING = dict.fromkeys(("llama-embed", "cogvlm", "llada", "llada-moe", "dream", "rnd1"),
+                        "5 (encoders, multimodal and diffusion)")
 
 _REGISTRY: dict[str, ForwardFn] = {
     **{arch: llama_forward for arch in LLAMA_ARCHS + MOE_ARCHS + LLAMA4_ARCHS},
     **{arch: deepseek2_forward for arch in MLA_ARCHS},
     **SSM_ARCHS,
+    **LINEAR_ARCHS,
 }
 
 

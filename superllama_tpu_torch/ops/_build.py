@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "superllama_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("qmv", "qmm", "fa", "fd", "paged", "qmv_probe", "gmm", "ssm_scan")
+SOURCES = ("qmv", "qmm", "fa", "fd", "paged", "qmv_probe", "gmm", "ssm_scan", "wkv")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -366,3 +366,108 @@ def ssm_scan_plain(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, A: to
     keep = active.reshape(-1, 1, 1, 1)
     state.copy_(torch.where(keep, st.to(state.dtype), state))
     return torch.where(keep, y, torch.zeros_like(y))
+
+
+def _rec_done(state: torch.Tensor, st: torch.Tensor, y: torch.Tensor,
+              active: torch.Tensor | None) -> torch.Tensor:
+    """Write a recurrence's final f32 state back into ``state`` (its cache
+    type) and return y; rows whose ``active`` flag is False keep their state
+    and get y 0."""
+    if active is None:
+        state.copy_(st.to(state.dtype))
+        return y
+    keep = active.reshape(-1, 1, 1, 1)
+    state.copy_(torch.where(keep, st.to(state.dtype), state))
+    return torch.where(keep, y, torch.zeros_like(y))
+
+
+def _steps(*xs: torch.Tensor) -> list[torch.Tensor]:
+    return [x.to(torch.float32) for x in xs]
+
+
+def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
+               w: torch.Tensor, state: torch.Tensor,
+               active: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``ops/wkv.py::wkv6``: the JAX ``wkv6`` step
+    (``superllama_tpu/models/rwkv.py:39``) looped over T in f32.
+
+    r / k / v / w (B, T, H, D), u (H, D); state (B, H, D, D) [i=key, j=val]
+    in its cache type, updated in place. ``active`` (B,) bool: a False row
+    keeps its state and gets y 0. Returns y (B, T, H, D) f32."""
+    r, k, v, w, u = _steps(r, k, v, w, u)
+    S = state.to(torch.float32)
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]          # key_i ⊗ val_j
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], S + u[None, :, :, None] * kv))
+        S = S * w[:, t, :, :, None] + kv
+    return _rec_done(state, S, torch.stack(ys, dim=1), active)
+
+
+def gla_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+              state: torch.Tensor, scale: float,
+              active: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``ops/wkv.py::gla``: the JAX ``gla`` step
+    (``superllama_tpu/models/rwkv.py:78``), the state updated before the
+    read-out y = scale·r·S, no bonus; layouts as ``wkv6_plain``."""
+    r, k, v, w = _steps(r, k, v, w)
+    S = state.to(torch.float32)
+    ys = []
+    for t in range(r.shape[1]):
+        S = S * w[:, t, :, :, None] + k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t] * scale, S))
+    return _rec_done(state, S, torch.stack(ys, dim=1), active)
+
+
+def wkv7_plain(r: torch.Tensor, w: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               a: torch.Tensor, b: torch.Tensor, state: torch.Tensor,
+               active: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``ops/wkv.py::wkv7``: the JAX ``wkv7`` step
+    (``superllama_tpu/models/rwkv.py:58``) looped over T in f32. All of r /
+    w / k / v / a / b (B, T, H, D); state (B, H, D, D) [i=val, j=key]."""
+    r, w, k, v, a, b = _steps(r, w, k, v, a, b)
+    S = state.to(torch.float32)
+    ys = []
+    for t in range(r.shape[1]):
+        sa = torch.einsum("bhj,bhij->bhi", a[:, t], S)
+        S = (S * w[:, t, :, None, :] + v[:, t, :, :, None] * k[:, t, :, None, :]
+             + sa[..., None] * b[:, t, :, None, :])
+        ys.append(torch.einsum("bhij,bhj->bhi", S, r[:, t]))
+    return _rec_done(state, S, torch.stack(ys, dim=1), active)
+
+
+def l2norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """x / max(‖x‖, eps) over the last axis (qwen3next.py's ``_l2norm``)."""
+    n = torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    return x / torch.clamp(n, min=eps)
+
+
+def delta_inputs(q: torch.Tensor, k: torch.Tensor, beta: torch.Tensor,
+                 eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gated delta rule's step inputs as the JAX ``delta_net`` makes them
+    (``superllama_tpu/models/qwen3next.py:46-48``): q and k l2-normalised in
+    f32, q scaled by 1/√D, σ(β)."""
+    D = q.shape[-1]
+    return (l2norm(q.to(torch.float32), eps) / (D ** 0.5), l2norm(k.to(torch.float32), eps),
+            torch.sigmoid(beta.to(torch.float32)))
+
+
+def delta_net_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                    beta: torch.Tensor, state: torch.Tensor, eps: float,
+                    active: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of ``ops/wkv.py::delta_net``: the JAX ``delta_net``
+    (``superllama_tpu/models/qwen3next.py:41``) looped over T in f32. q / k
+    / v (B, T, H, D), g (log-decay) and beta (pre-sigmoid) (B, T, H); state
+    (B, H, D, D) [i=key, j=val] in its cache type (f32 or bf16), updated in
+    place."""
+    q, k, b = delta_inputs(q, k, beta, eps)
+    v, g = _steps(v, g)
+    S = state.to(torch.float32)
+    ys = []
+    for t in range(q.shape[1]):
+        S = S * torch.exp(g[:, t])[..., None, None]
+        kv = torch.einsum("bhi,bhij->bhj", k[:, t], S)
+        delta = (v[:, t] - kv) * b[:, t][..., None]
+        S = S + k[:, t, :, :, None] * delta[:, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", q[:, t], S))
+    return _rec_done(state, S, torch.stack(ys, dim=1), active)

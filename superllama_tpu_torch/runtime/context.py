@@ -3,10 +3,10 @@
 Counterpart of the JAX package's ``runtime/context.py::Context``. The JAX
 context jit-compiles its step and donates the functional cache; here the
 forward runs eagerly and updates the cache in place. The cache comes from
-``cache_policy.make_cache``: the recurrent store of a mamba model, the
-hybrid one of a model with SSM and attention layers, the iSWA two-tier cache
-by default for a model with sliding-window layers (``iswa=None``), else the
-flat one. A recurrent model's positions come from a counter of the tokens
+``cache_policy.make_cache``: the recurrent store of a mamba or RWKV model,
+the hybrid one of a model with SSM (or short-conv, or delta-net) and
+attention layers, the iSWA two-tier cache by default for a model with
+sliding-window layers (``iswa=None``), else the flat one. A recurrent model's positions come from a counter of the tokens
 fed (its state has none); a quantized cache for any but the flat or paged
 one raises ``ValueError``, as in JAX.
 """

@@ -98,7 +98,8 @@ reference server's update_slots semantics):
  - speculative, lookup and shift steps run eagerly; blocks in flight are
    landed before any other kind of step;
  - recurrent and hybrid memories (mamba, mamba2, the jamba / Mamba-2
-   hybrids, plamo2; ``cache_policy.cache_kind``): as in JAX, a paged,
+   hybrids, plamo2, the RWKV models, lfm2, qwen3next;
+   ``cache_policy.cache_kind``): as in JAX, a paged,
    speculative, lookup, context-shift or quantized cache is refused
    (``ValueError``: the state cannot rewind), and the engine decodes one
    token a step (``block_size`` 1, no pipeline). The forward keeps each
@@ -156,7 +157,7 @@ from .speculative import VocabTranslator, are_compatible
 
 PREFILL_BUCKETS = (32, 128, 512, 1024, 2048)
 KERNEL_SOURCES = ("qmv", "qmm", "fa", "fd", "paged")   # the kernels a step reaches
-SSM_SOURCES = ("gmm", "ssm_scan")     # and those of a recurrent or hybrid model
+SSM_SOURCES = ("gmm", "ssm_scan", "wkv")     # and those of a recurrent or hybrid model
 
 
 class SlotState(Enum):

@@ -29,6 +29,7 @@ def launch_counters() -> list[tuple[object, str]]:
     from ..ops import paged_attention as pa_mod
     from ..ops import qmatmul as qm_mod
     from ..ops import ssm_scan as ss_mod
+    from ..ops import wkv as wkv_mod
 
     fa, pa = fa_mod.flash_attention, pa_mod.paged_flash_attention
     fams = [(fn, f"launches_{f}") for fn in (qm_mod.qmv, qm_mod.qmm)
@@ -37,7 +38,9 @@ def launch_counters() -> list[tuple[object, str]]:
             (fa, "launches"), (fa, "launches_tc"),
             (fa_mod.flash_decode_attention, "launches"),
             (pa, "launches"), (pa, "launches_tc"), (gm_mod.grouped_matmul, "launches"),
-            (ss_mod.ssm_scan, "launches")]
+            (ss_mod.ssm_scan, "launches"),
+            *((getattr(wkv_mod, rule), "launches") for rule in ("wkv6", "gla", "wkv7",
+                                                                 "delta_net"))]
 
 
 def _read_counts() -> list[int]:

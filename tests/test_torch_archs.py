@@ -35,7 +35,8 @@ from superllama_tpu_torch.models import qwen2vl as tqwen2vl
 from superllama_tpu_torch.models import registry as tregistry
 from superllama_tpu_torch.ops import ref as tops
 from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
-from test_torch_fixtures import MOE_REGISTERED, REGISTERED, SSM_REGISTERED, arch_models
+from test_torch_fixtures import (LINEAR_REGISTERED, MOE_REGISTERED, REGISTERED, SSM_REGISTERED,
+                                 arch_models)
 
 OPS_TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -140,16 +141,18 @@ def test_every_registered_arch_has_a_parity_case():
         assert tregistry.get_forward(arch) is tllama.llama_forward
     assert set(REGISTERED) | set(MOE_REGISTERED) <= _jax_llama_names()
     assert set(tregistry.SSM_ARCHS) == set(SSM_REGISTERED)
-    for arch in SSM_REGISTERED:      # the forward of the JAX registry's module, by name
+    assert set(tregistry.LINEAR_ARCHS) == set(LINEAR_REGISTERED)
+    for arch in SSM_REGISTERED + LINEAR_REGISTERED:   # the JAX module's forward, by name
         jfn, tfn = jregistry.get_forward(arch), tregistry.get_forward(arch)
         assert (tfn.__name__, tfn.__module__.split(".")[-1]) == (
             jfn.__name__, jfn.__module__.split(".")[-1])
 
 
 # llama4 and the MLA names: tests/test_torch_llama4.py, tests/test_torch_mla.py;
-# the SSM names: tests/test_torch_archs_ssm.py
+# the SSM names: tests/test_torch_archs_ssm.py; the linear-attention and
+# short-conv names: tests/test_torch_archs_linear.py
 SERVED = (set(REGISTERED) | set(MOE_REGISTERED) | {"llama4", "deepseek2", "minicpm3", "plm"}
-          | set(SSM_REGISTERED))
+          | set(SSM_REGISTERED) | set(LINEAR_REGISTERED))
 
 
 @pytest.mark.parametrize("arch", sorted(set(jregistry.supported_archs()) - SERVED))
@@ -163,7 +166,7 @@ def test_waiting_list_covers_the_rest_of_the_jax_registry():
     assert rest == set(tregistry.WAITING)
     assert not any("3 (" in why for why in tregistry.WAITING.values())
     assert _jax_llama_names() - SERVED <= {"llama-embed", "cogvlm"}
-    assert len(SERVED) == 92 and len(tregistry.WAITING) == 14
+    assert len(SERVED) == 100 and len(tregistry.WAITING) == 6
     assert SERVED <= set(tregistry._REGISTRY)
 
 

@@ -28,21 +28,24 @@ from torch.utils._python_dispatch import TorchDispatchMode
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from superllama_tpu.gguf import GGMLType
 from superllama_tpu.models import load_model as jax_load
 from superllama_tpu.runtime.decode_loop import DecodeLoop as JaxDecodeLoop
 from superllama_tpu.runtime.engine import Engine as JaxEngine
 from superllama_tpu_torch.models import load_model
 from superllama_tpu_torch.runtime.decode_loop import DecodeLoop
 from superllama_tpu_torch.runtime.engine import Engine, GenRequest, SlotState
-from test_torch_fixtures import EOS, prompt, write_tiny_llama
+from test_torch_fixtures import EOS, prompt, torch_one_thread, write_tiny_llama_np  # noqa: F401
+
+# torch on one thread: engine runs of several test workers oversubscribe the
+# cores
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SAMPLED = {"temp": 0.8, "top_k": 40, "top_p": 0.95, "min_p": 0.05, "seed": 7}
 
 
 @pytest.fixture(scope="module")
 def path(tmp_path_factory):
-    return write_tiny_llama(tmp_path_factory.mktemp("blk"), (GGMLType.F32,))[GGMLType.F32]
+    return write_tiny_llama_np(tmp_path_factory.mktemp("blk"))
 
 
 @pytest.fixture(scope="module")

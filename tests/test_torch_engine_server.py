@@ -250,6 +250,9 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.runtime.recurrent, superllama_tpu_torch.ops.ssm_scan\n"
         "import superllama_tpu_torch.models.mamba, superllama_tpu_torch.models.jamba\n"
         "import superllama_tpu_torch.models.hybrid, superllama_tpu_torch.models.plamo2\n"
+        "import superllama_tpu_torch.ops.wkv, superllama_tpu_torch.models.rwkv\n"
+        "import superllama_tpu_torch.models.lfm2, superllama_tpu_torch.models.qwen3next\n"
+        "import superllama_tpu_torch.models.gemma3n\n"
         "from superllama_tpu_torch import native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "bad += [f'built at import: {n}' for n in native._libs]\n"

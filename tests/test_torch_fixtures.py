@@ -148,6 +148,7 @@ def failing_build(monkeypatch) -> type:
     from superllama_tpu_torch.ops import paged_attention as pa_mod
     from superllama_tpu_torch.ops import qmatmul as qm_mod
     from superllama_tpu_torch.ops import ssm_scan as ss_mod
+    from superllama_tpu_torch.ops import wkv as wkv_mod
     from superllama_tpu_torch.tools import qmv_probe as probe_mod
 
     class BuildFailed(RuntimeError):
@@ -165,7 +166,9 @@ def failing_build(monkeypatch) -> type:
                       (pa_mod, "paged_flash_attention_plain"),
                       (pa_mod, "flash_attention_plain"),
                       (probe_mod, "qmv_variant_plain"), (gm_mod, "grouped_matmul_plain"),
-                      (ss_mod, "ssm_scan_plain")):
+                      (ss_mod, "ssm_scan_plain"), (wkv_mod, "wkv6_plain"),
+                      (wkv_mod, "gla_plain"), (wkv_mod, "wkv7_plain"),
+                      (wkv_mod, "delta_net_plain")):
         monkeypatch.setattr(mod, name, plain)
     return BuildFailed
 
@@ -454,6 +457,8 @@ def arch_spec(arch: str) -> tuple[str, dict, dict]:
         return dense_spec(arch, **{**DENSE_SPECS, **MOE_SPECS}[arch])
     if arch in SSM_SPECS:
         return ssm_spec(arch, **SSM_SPECS[arch])
+    if arch in LINEAR_REGISTERED:
+        return _linear_spec(arch)
     import ref_arch_specs
 
     fn = ref_arch_specs.SPECS[arch]
@@ -660,6 +665,88 @@ SSM_SPECS = {"mamba": dict(E=256), "mamba2": {}, "jamba": {}, "granitehybrid": {
              "nemotron_h": {}, "falcon-h1": {}}
 REF_SSM_SPECS = {"nemotron_h_moe": {}, "plamo2": {}}
 SSM_REGISTERED = tuple(sorted(SSM_SPECS) + sorted(REF_SSM_SPECS))
+
+
+def qwen3next_spec(E: int = 64, V: int = ARCH_V, fused: bool = False) -> tuple[str, dict, dict]:
+    """(arch, metadata, tensors) of a tiny Qwen3-Next, which ref_arch_specs
+    has no spec of, under the names the JAX converter writes
+    (``superllama_tpu/tools/convert_hf.py::_convert_qwen3next``): three
+    gated-delta-net layers (2 k-heads and 4 v-heads of 16, conv 4; the
+    ecosystem's head-contiguous ``attn_qkv`` with ``attn_gate``, or with
+    ``fused`` one ``ssm_in`` of a k-head's interleaved [q | k | v | z]),
+    then a gated attention layer (4 heads over 2 of 16, a partial rope of
+    4 dims), a MoE of 4 experts (top 2) with a sigmoid-gated shared expert
+    after every layer."""
+    p = _W("qwen3next" + ("-fused" if fused else ""))
+    H, HKV, D, Dk, Hk, Hv, dc = 4, 2, 16, 16, 2, 4, 4
+    R = Hv // Hk
+    p.w("token_embd.weight", V, E, scale=0.5)
+    p.norm("output_norm.weight", E)
+    p.w("output.weight", V, E)
+    for il in range(4):
+        b = f"blk.{il}."
+        p.norm(b + "attn_norm.weight", E)
+        p.norm(b + "post_attention_norm.weight", E)
+        if (il + 1) % 4 == 0:
+            p.w(b + "attn_q.weight", 2 * H * D, E)
+            p.w(b + "attn_k.weight", HKV * D, E)
+            p.w(b + "attn_v.weight", HKV * D, E)
+            p.w(b + "attn_output.weight", E, H * D)
+            p.norm(b + "attn_q_norm.weight", D)
+            p.norm(b + "attn_k_norm.weight", D)
+        else:
+            if fused:
+                p.w(b + "ssm_in.weight", Hk * (2 * Dk + 2 * R * Dk), E)
+            else:
+                p.w(b + "attn_qkv.weight", 2 * Hk * Dk + Hv * Dk, E)
+                p.w(b + "attn_gate.weight", Hv * Dk, E)
+            p.w(b + "ssm_ba.weight", 2 * Hv, E)
+            p.w(b + "ssm_conv1d.weight", 2 * Hk * Dk + Hv * Dk, dc, scale=0.3)
+            p.t[b + "ssm_a"] = -np.exp(0.5 * p.rng.standard_normal(Hv)).astype(np.float32)
+            p.bias(b + "ssm_dt.bias", Hv, scale=0.3)
+            p.norm(b + "ssm_norm.weight", Dk)
+            p.w(b + "ssm_out.weight", E, Hv * Dk)
+        _experts(p, b, E, shared=48, shexp_gate="1d")
+    md = {"context_length": 64, "embedding_length": E, "block_count": 4, "vocab_size": V,
+          "feed_forward_length": 128, "attention.head_count": H,
+          "attention.head_count_kv": HKV, "attention.key_length": D,
+          "attention.value_length": D, "rope.dimension_count": D // 4,
+          "rope.freq_base": 10000.0, "attention.layer_norm_rms_epsilon": 1e-6,
+          "ssm.conv_kernel": dc, "ssm.state_size": Dk, "ssm.group_count": Hk,
+          "ssm.time_step_rank": Hv, "ssm.inner_size": Hv * Dk, **_experts_md(shared=48)}
+    return "qwen3next", md, p.t
+
+
+# the linear-attention and short-conv names: ref_arch_specs' tensor sets,
+# their vocabulary cut to ARCH_V (the rows of the embeddings and the head);
+# gemma3n grown to 7 layers with a shared-KV tail of 2 (layers 5-6, SWA, read
+# layer 3's cache; layer 4 is its full layer); qwen3next from qwen3next_spec
+REF_LINEAR_SPECS = ("arwkv7", "gemma3n", "lfm2", "lfm2moe", "rwkv6", "rwkv6qwen2", "rwkv7")
+LINEAR_REGISTERED = tuple(sorted(REF_LINEAR_SPECS + ("qwen3next",)))
+_VOCAB_ROWS = ("token_embd.weight", "output.weight", "per_layer_token_embd.weight")
+
+
+def _linear_spec(arch: str) -> tuple[str, dict, dict]:
+    if arch == "qwen3next":
+        return qwen3next_spec()
+    import ref_arch_specs
+
+    name, md, tensors = ref_arch_specs.SPECS[arch]()
+    tensors = {k: v[:ARCH_V] if k in _VOCAB_ROWS else v for k, v in tensors.items()}
+    md = {**md, "vocab_size": ARCH_V}
+    if arch == "gemma3n":
+        L, E, EA = 7, md["embedding_length"], 256
+        p = _W("gemma3n-tail")
+        for k, v in list(tensors.items()):
+            if k.startswith("blk.4."):
+                for il in (5, 6):
+                    tensors[k.replace("blk.4.", f"blk.{il}.")] = (
+                        v + 0.1 * p.rng.standard_normal(v.shape).astype(np.float32))
+        p.w("per_layer_token_embd.weight", ARCH_V, EA * L, scale=0.05)
+        p.w("per_layer_model_proj.weight", EA * L, E)
+        tensors.update(p.t)
+        md.update({"block_count": L, "attention.shared_kv_layers": 2})
+    return name, md, tensors
 
 
 REGISTERED = tuple(sorted(DENSE_SPECS) + sorted(REF_SPECS))

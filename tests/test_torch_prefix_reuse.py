@@ -29,7 +29,6 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from superllama_tpu.gguf import GGMLType
 from superllama_tpu.models import load_model as jax_load
 from superllama_tpu.runtime.engine import Engine as JaxEngine
 from superllama_tpu.runtime.engine import GenRequest as JaxRequest
@@ -37,7 +36,11 @@ from superllama_tpu_torch.models import load_model
 from superllama_tpu_torch.runtime import graphs as graphs_mod
 from superllama_tpu_torch.runtime.engine import Engine, GenRequest
 from test_torch_decode_block import _FakeGraph, _FakeStream
-from test_torch_fixtures import prompt, write_tiny_llama
+from test_torch_fixtures import prompt, torch_one_thread, write_tiny_llama_np  # noqa: F401
+
+# torch on one thread: engine runs of several test workers oversubscribe the
+# cores
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 GREEDY = {"greedy": True}
 SIZE = dict(n_ctx=128, prefill_buckets=(32,))   # one bucket: few JAX compiles
@@ -50,7 +53,7 @@ CACHES = {"f32": dict(kv_dtype=(torch.float32, jnp.float32)),
 
 @pytest.fixture(scope="module")
 def path(tmp_path_factory):
-    return write_tiny_llama(tmp_path_factory.mktemp("reuse"), (GGMLType.F32,))[GGMLType.F32]
+    return write_tiny_llama_np(tmp_path_factory.mktemp("reuse"))
 
 
 @pytest.fixture(scope="module")

@@ -24,13 +24,16 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-from superllama_tpu.gguf import GGMLType
 from superllama_tpu.models import load_model as jax_load
 from superllama_tpu.runtime.engine import Engine as JaxEngine
 from superllama_tpu.runtime.engine import GenRequest as JaxRequest
 from superllama_tpu_torch.models import load_model
 from superllama_tpu_torch.runtime.engine import Engine, GenRequest
-from test_torch_fixtures import prompt, write_tiny_llama
+from test_torch_fixtures import prompt, torch_one_thread, write_tiny_llama_np  # noqa: F401
+
+# torch on one thread: engine runs of several test workers oversubscribe the
+# cores
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 GREEDY = {"greedy": True}
 KV = {"f32": torch.float32, "bf16": torch.bfloat16, "q8_0": "q8_0", "q4_0": "q4_0"}
@@ -38,7 +41,7 @@ KV = {"f32": torch.float32, "bf16": torch.bfloat16, "q8_0": "q8_0", "q4_0": "q4_
 
 @pytest.fixture(scope="module")
 def path(tmp_path_factory):
-    return write_tiny_llama(tmp_path_factory.mktemp("slots"), (GGMLType.F32,))[GGMLType.F32]
+    return write_tiny_llama_np(tmp_path_factory.mktemp("slots"))
 
 
 @pytest.fixture(scope="module")
