@@ -27,6 +27,7 @@ PyTorch version.
     python3 chip_smoke.py --mla           # device, build, phase 4m
     python3 chip_smoke.py --ssm           # device, build, phase 4n
     python3 chip_smoke.py --linear        # device, build, phase 4o
+    python3 chip_smoke.py --encoders      # device, build, phase 4p
     python3 chip_smoke.py --format-times  # device, build, every format's qmv and
                                           # qmm readings (phase 6's format rows), and
                                           # qmm of a format of each layout at every
@@ -255,6 +256,31 @@ Phases, each printing one JSON line:
     Qwen3-Next: gmm); arwkv7, rwkv6qwen2, lfm2, lfm2moe and gemma3n at 1,024
     wide against the port's CPU forward, and 4 greedy requests each on a
     warmed engine;
+ 4p. encoders, T5, diffusion LMs and TTS, each at published widths from a
+    file of seeded bytes, each part's launches counted in its own run:
+    nomic-embed-text-v1.5 (nomic-bert, 12 layers) packed through the
+    Embedder at 16 rows (qmv) and 32 rows (qmm) against the plain route
+    (cosine ≥ EMBED_COS); EmbeddingGemma-300M (24 layers, a symmetric
+    window of 512) dense at B 8 × T 512 and its texts a second;
+    nomic-embed-text-v2-moe (8 experts, top 2, every second layer) at
+    B 8 × T 512 through gmm (the JAX gather form would hold about 150 GB)
+    against the plain route; a bge-reranker-v2-m3-width bert reranker (24
+    layers, a classification head) behind a ``serve --embed-model`` process
+    of the CLI: /v1/embeddings and /rerank over HTTP, the scores equal to
+    the in-process Embedder's; the ``diffusion`` CLI (--keep-quantized, the
+    vocab's mask token) on LLaDA-8B, Dream-v0-7B and RND1 (Qwen3-30B-A3B
+    widths, gmm) at DIFFUSION_LAYERS, each generation recorded and run
+    again through the plain route on the same params (tokens equal or
+    parted at a near tie, diffusion_rule), a step's ms split into the
+    forward and the host; flan-t5-large at full depth packed: the bucket
+    table on the card equal to the CPU's, ``T5Model.generate`` against the
+    plain route, the encoder's ms (qmm) and ms a token (qmv); the ``tts``
+    CLI with an OuteTTS-0.2-500M-width voice LM (its head biased toward the
+    audio codes; a prompt of ≥ 32 tokens on an f32 cache: fa's CUDA-core
+    kernel) and a WavTokenizer-large-width decoder, a WAV of non-zero
+    samples, the pipeline's seconds a second of audio, the decoder's frames
+    against its CPU run; the plain attention of EmbeddingGemma and
+    LLaDA-8B beside fa_tc's causal time at the same shapes;
  5. full-width parity: one 8B forward with the kernels and again with the
     plain versions; decode through fd against the materialized path on Q8_0
     and Q4_0 caches; the paged cache against the dense one; a one-row paged
@@ -4559,7 +4585,8 @@ def weight_shapes(hp, tied: bool = False, experts: tuple[int, int] | None = None
 def model_writer(path: str, hp, tok, name: str, arch: str = "llama", keys=None,
                  ffn_norm: bool = True):
     """A GGUFWriter holding a model's metadata (hp's widths under ``arch``,
-    ``keys`` added or overriding, tok's vocab) and its F32 norms (ones;
+    ``keys`` added or overriding (a "tokenizer." key as it is), tok's
+    vocab) and its F32 norms (ones;
     without ffn_norm when ``ffn_norm`` is False); the caller adds the matmul
     weights and writes."""
     import numpy as np
@@ -4575,9 +4602,21 @@ def model_writer(path: str, hp, tok, name: str, arch: str = "llama", keys=None,
             "rope.freq_base": hp.rope_freq_base, "rope.dimension_count": hp.n_rot,
             "vocab_size": hp.n_vocab, **(keys or {})}
     for key, v in meta.items():
-        w.add(f"{arch}.{key}", v)
-    v = tok.vocab
+        w.add(key if key.startswith("tokenizer.") else f"{arch}.{key}", v)
     w.add("general.name", name)
+    add_vocab(w, tok)
+    ones = np.ones(E, np.float32)
+    w.add_tensor("output_norm.weight", ones)
+    for il in range(hp.n_layer):
+        w.add_tensor(f"blk.{il}.attn_norm.weight", ones)
+        if ffn_norm:
+            w.add_tensor(f"blk.{il}.ffn_norm.weight", ones)
+    return w
+
+
+def add_vocab(w, tok) -> None:
+    """tok's byte-level vocab (no merges) into the GGUFWriter w."""
+    v = tok.vocab
     w.add("tokenizer.ggml.model", v.model)
     w.add("tokenizer.ggml.pre", v.pre)
     w.add("tokenizer.ggml.tokens", list(v.tokens))
@@ -4586,13 +4625,44 @@ def model_writer(path: str, hp, tok, name: str, arch: str = "llama", keys=None,
     w.add("tokenizer.ggml.bos_token_id", v.bos_id)
     w.add("tokenizer.ggml.eos_token_id", v.eos_id)
     w.add("tokenizer.ggml.add_bos_token", True)
-    ones = np.ones(E, np.float32)
-    w.add_tensor("output_norm.weight", ones)
-    for il in range(hp.n_layer):
-        w.add_tensor(f"blk.{il}.attn_norm.weight", ones)
-        if ffn_norm:
-            w.add_tensor(f"blk.{il}.ffn_norm.weight", ones)
-    return w
+
+
+def rand_raws(shapes: dict, types: dict, shared_layers: bool) -> dict:
+    """{tensor name: (type, rand_raw bytes, (N, K))} of ``shapes`` ({name:
+    (role, N, K[, n])}) in ``types``' formats by role, made on a pool of
+    threads; with ``shared_layers`` every layer's tensor of a name holds the
+    bytes of layer 0's (rand_raw makes about 0.2 GB/s on one core): the
+    names that differ only in a "blk.<n>." part (T5's "enc.blk.<n>." too);
+    every other tensor has bytes of its own."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    from superllama_tpu_torch.gguf import GGMLType
+    from superllama_tpu_torch.models.synthetic import rand_raw
+
+    key = ((lambda n: re.sub(r"(^|\.)blk\.\d+\.", r"\1blk.", n)) if shared_layers
+           else (lambda n: n))
+    first = {}                      # each set of bytes -> the first tensor holding it
+    for n in shapes:
+        first.setdefault(key(n), n)
+
+    def make(item):
+        i, (k, n) = item
+        role, N, K = shapes[n][:3]
+        t = GGMLType[types[role]]
+        return k, (t, rand_raw(t, N, K, SEED + 50 + i), (N, K))
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        made = dict(ex.map(make, enumerate(first.items())))
+    return {n: made[key(n)] for n in shapes}
+
+
+def add_raws(w, shapes: dict, raws: dict) -> None:
+    """``rand_raws``' tensors into the GGUFWriter w (an expert bank's n
+    experts as one (K, N / n, n) tensor)."""
+    for n, (t, raw, (N, K)) in raws.items():
+        n_exp = shapes[n][3] if len(shapes[n]) > 3 else 0
+        w.add_tensor(n, raw, t, raw_ne=(K, N // n_exp, n_exp) if n_exp else (K, N))
 
 
 def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b-mixed",
@@ -4611,31 +4681,10 @@ def write_file_model(path: str, hp, tok, types=None, name="synthetic-llama3.2-1b
     ({name: (role, N, K[, n])}, as ``weight_shapes`` gives them) replaces
     the llama's tensor set (MLA, shared experts). Returns {tensor name:
     (type, raw bytes, (N, K))} of the quantized ones."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from superllama_tpu_torch.gguf import GGMLType
-    from superllama_tpu_torch.models.synthetic import rand_raw
-
-    types = types or FILE_TYPES
     shapes = shapes or weight_shapes(hp, tied, experts)
-    key = (lambda n: n.split(".", 2)[-1]) if shared_layers else (lambda n: n)
-    first = {}                      # each set of bytes -> the first tensor holding it
-    for n in shapes:
-        first.setdefault(key(n), n)
-
-    def make(item):
-        i, (k, n) = item
-        role, N, K = shapes[n][:3]
-        t = GGMLType[types[role]]
-        return k, (t, rand_raw(t, N, K, SEED + 50 + i), (N, K))
-
-    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
-        made = dict(ex.map(make, enumerate(first.items())))
-    raws = {n: made[key(n)] for n in shapes}
+    raws = rand_raws(shapes, types or FILE_TYPES, shared_layers)
     w = model_writer(path, hp, tok, name, arch, keys, ffn_norm)
-    for n, (t, raw, (N, K)) in raws.items():
-        n_exp = shapes[n][3] if len(shapes[n]) > 3 else 0
-        w.add_tensor(n, raw, t, raw_ne=(K, N // n_exp, n_exp) if n_exp else (K, N))
+    add_raws(w, shapes, raws)
     for n, a in (f32_tensors or {}).items():
         w.add_tensor(n, a)
     w.write()
@@ -7832,6 +7881,949 @@ def phase_linear(torch, smi_line: str) -> dict:
             "times": {**times, **{rule: times[key] for rule, key in WKV_RECORD.items()}}}
 
 
+# ------------------------------------------------------------ 4p. encoders, T5, diffusion, TTS
+
+ITEM5_KEYS = ("qmv", "qmm", "fa", "fa_tc", "fd", "gmm")
+EMBED_COS = 0.999    # an embedding through the kernels against the plain route's
+# nomic-embed-text-v1.5 (nomic-bert), EmbeddingGemma-300M, a bge-reranker-v2-m3-width
+# bert and nomic-embed-text-v2-moe (nomic-bert-moe): their published widths
+NOMIC_V15 = dict(E=768, L=12, H=12, F=3072, V=30528)
+EGEMMA = dict(E=768, L=24, H=3, HKV=1, D=256, F=1152, V=262144, window=512)
+BGE_M3 = dict(E=1024, L=24, H=16, F=4096, V=250002, P=8194)
+NOMIC_V2_MOE = dict(E=768, L=12, H=12, F=3072, V=250048, n=8, k=2, every=2)
+ENC_TYPES = {"qkv": "Q4_K", "attn": "Q4_K", "ffn": "Q4_K", "ffn_down": "Q6_K",
+             "token_embd": "Q4_K", "q8": "Q8_0", "bank": "Q4_K", "bank_down": "Q6_K"}
+# the diffusion LMs at published widths, cut in depth (DIFFUSION_LAYERS)
+DIFFUSION_LAYERS = 4
+LLADA_8B = dict(arch="llada", n_embd=4096, n_head=32, n_head_kv=32, head_dim=128, n_ff=12288,
+                n_vocab=126464, rope_freq_base=500000.0, mask=126336, max_length=16)
+DREAM_7B = dict(arch="dream", n_embd=3584, n_head=28, n_head_kv=4, head_dim=128, n_ff=18944,
+                n_vocab=152064, rope_freq_base=1e6, rms_eps=1e-6, mask=151666, max_length=32)
+RND1 = dict(arch="rnd1", n_embd=2048, n_head=32, n_head_kv=4, head_dim=128, n_ff=6144,
+            n_vocab=151936, rope_freq_base=1e6, rms_eps=1e-6, mask=151669, max_length=16)
+DIFFUSION_STEPS = 8
+# flan-t5-large, full depth; OuteTTS-0.2-500M's voice LM (Qwen2.5-0.5B widths, the
+# 157,696-piece vocab) and WavTokenizer-large's decoder
+FLAN_T5_LARGE = dict(E=1024, L=24, H=16, D=64, F=2816, V=32128, buckets=32)
+T5_SRC, T5_GEN = 32, 16
+OUTETTS = dict(E=896, L=24, H=14, HKV=2, D=64, F=4864, V=157696)
+WAVTOK = dict(feat=512, pe=768, ce=768, F=2304, V=4096, n_out=1282, convnext=12)
+TTS_CONTROL = ("<|im_start|>", "<|im_end|>", "<|text_start|>", "<|text_sep|>", "<|text_end|>",
+               "<|audio_start|>", "<|audio_end|>")
+TTS_TEXT = "the quick brown fox jumps over the lazy dog"
+TTS_CODES = 32
+
+
+def item5_file(path: str, arch: str, md: dict, tok, shapes: dict, f32: dict,
+               types=ENC_TYPES, shared_layers: bool = True) -> None:
+    """A GGUF of ``arch``: metadata ``md`` (under the arch's prefix, or
+    as given for general./tokenizer. keys), tok's vocab (None: none), the
+    ``shapes``' weights of rand_raw bytes in ``types`` by role (every
+    layer's of a name layer 0's with ``shared_layers``) and the F32 tensors
+    ``f32``, written by the port's GGUFWriter."""
+    from superllama_tpu_torch.gguf import GGUFWriter
+
+    w = GGUFWriter(path, arch=arch)
+    w.add("general.name", f"synthetic-{arch}")
+    for k, v in md.items():
+        w.add(k if k.startswith(("general.", "tokenizer.")) else f"{arch}.{k}", v)
+    if tok is not None:
+        add_vocab(w, tok)
+    add_raws(w, shapes, rand_raws(shapes, types, shared_layers))
+    for n, a in f32.items():
+        w.add_tensor(n, a)
+    w.write()
+
+
+def seeded(seed: int):
+    """(f(*shape, scale, loc), ones(*shape)) of one seeded numpy stream."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED + 300, seed])
+    return ((lambda *s, scale=1.0, loc=0.0: (loc + rng.standard_normal(s) * scale).astype(
+        np.float32)), (lambda *s: np.ones(s, np.float32)))
+
+
+def bert_file(path: str, which: str, tok) -> None:
+    """nomic-embed-text-v1.5 ("nomic-v1.5"), the bge-reranker-v2-m3-width bert
+    ("bge") or nomic-embed-text-v2-moe ("nomic-v2-moe") at published widths,
+    full depth: LayerNorm post-norms with biases, token types; nomic's
+    fused qkv and NEOX rope (base 1,000), v1.5's SiLU-gated FFN, v2's GELU
+    FFN with biases and 8 experts of 3,072 (top 2) on every second layer;
+    bge's learned positions, q/k/v/o and FFN biases and classification
+    head."""
+    c = {"nomic-v1.5": NOMIC_V15, "bge": BGE_M3, "nomic-v2-moe": NOMIC_V2_MOE}[which]
+    E, L, F = c["E"], c["L"], c["F"]
+    f, ones = seeded(len(which))
+    shapes = {"token_embd.weight": ("q8" if which == "bge" else "token_embd", c["V"], E)}
+    f32 = {"token_types.weight": f(1 if which == "bge" else 2, E, scale=0.02),
+           "token_embd_norm.weight": ones(E), "token_embd_norm.bias": f(E, scale=0.02)}
+    md = {"context_length": 2048, "embedding_length": E, "block_count": L,
+          "feed_forward_length": F, "attention.head_count": c["H"],
+          "attention.layer_norm_epsilon": 1e-12, "attention.causal": False,
+          "pooling_type": 1, "vocab_size": c["V"]}
+    if which == "bge":
+        shapes["position_embd.weight"] = ("q8", c["P"], E)
+        shapes.update({"cls.weight": ("q8", E, E), "cls.output.weight": ("q8", 1, E)})
+        f32.update({"cls.bias": f(E, scale=0.02), "cls.output.bias": f(1, scale=0.02)})
+        md.update({"context_length": c["P"], "attention.layer_norm_epsilon": 1e-5,
+                   "pooling_type": 4})
+    else:
+        md["rope.freq_base"] = 1000.0
+    if which == "nomic-v2-moe":
+        md.update({"expert_count": c["n"], "expert_used_count": c["k"],
+                   "moe_every_n_layers": c["every"]})
+    for il in range(L):
+        b = f"blk.{il}."
+        for n in ("attn_output_norm", "layer_output_norm"):
+            f32[b + n + ".weight"] = ones(E)
+            f32[b + n + ".bias"] = f(E, scale=0.02)
+        if which == "bge":
+            for n in ("q", "k", "v"):
+                shapes[f"{b}attn_{n}.weight"] = ("q8", E, E)
+                f32[f"{b}attn_{n}.bias"] = f(E, scale=0.02)
+            f32[b + "attn_output.bias"] = f(E, scale=0.02)
+        else:
+            shapes[b + "attn_qkv.weight"] = ("qkv", 3 * E, E)
+        shapes[b + "attn_output.weight"] = ("q8" if which == "bge" else "attn", E, E)
+        if which == "nomic-v2-moe" and il % c["every"] == 1:
+            n = c["n"]
+            shapes.update({b + "ffn_up_exps.weight": ("bank", n * F, E, n),
+                           b + "ffn_down_exps.weight": ("bank_down", n * E, F, n)})
+            f32[b + "ffn_gate_inp.weight"] = router_weight(n, E, SEED + 310 + il)
+            continue
+        shapes.update({b + "ffn_up.weight": ("q8" if which == "bge" else "ffn", F, E),
+                       b + "ffn_down.weight": ("q8" if which == "bge" else "ffn_down", E, F)})
+        if which == "nomic-v1.5":
+            shapes[b + "ffn_gate.weight"] = ("ffn", F, E)
+        else:
+            f32.update({b + "ffn_up.bias": f(F, scale=0.02), b + "ffn_down.bias": f(E, scale=0.02)})
+    arch = {"nomic-v1.5": "nomic-bert", "bge": "bert", "nomic-v2-moe": "nomic-bert-moe"}[which]
+    item5_file(path, arch, md, tok, shapes, f32)
+
+
+def gemma_embedding_file(path: str, tok) -> None:
+    """EmbeddingGemma-300M at published widths (24 layers; 3 heads over 1
+    kv head of 256; FFN 1,152; a symmetric window of 512 on five layers of
+    six; the 262,144-piece vocab), Q8_0 (its FFN width is no multiple of a
+    K-quant's 256)."""
+    c = EGEMMA
+    E, L, D = c["E"], c["L"], c["D"]
+    _, ones = seeded(7)
+    shapes = {"token_embd.weight": ("q8", c["V"], E)}
+    f32 = {"output_norm.weight": ones(E)}
+    for il in range(L):
+        b = f"blk.{il}."
+        shapes.update({b + "attn_q.weight": ("q8", c["H"] * D, E),
+                       b + "attn_k.weight": ("q8", c["HKV"] * D, E),
+                       b + "attn_v.weight": ("q8", c["HKV"] * D, E),
+                       b + "attn_output.weight": ("q8", E, c["H"] * D),
+                       b + "ffn_gate.weight": ("q8", c["F"], E),
+                       b + "ffn_up.weight": ("q8", c["F"], E),
+                       b + "ffn_down.weight": ("q8", E, c["F"])})
+        for n in ("attn_norm", "post_attention_norm", "ffn_norm", "post_ffw_norm"):
+            f32[b + n + ".weight"] = ones(E)
+        f32.update({b + "attn_q_norm.weight": ones(D), b + "attn_k_norm.weight": ones(D)})
+    md = {"context_length": 2048, "embedding_length": E, "block_count": L,
+          "feed_forward_length": c["F"], "attention.head_count": c["H"],
+          "attention.head_count_kv": c["HKV"], "attention.key_length": D,
+          "attention.value_length": D, "attention.layer_norm_rms_epsilon": 1e-6,
+          "attention.sliding_window": c["window"], "rope.freq_base": 1e6,
+          "rope.freq_base_swa": 10000.0, "pooling_type": 1, "vocab_size": c["V"]}
+    item5_file(path, "gemma-embedding", md, tok, shapes, f32)
+
+
+def texts_of(n: int, chars: int, seed: int) -> list[str]:
+    """n seeded lowercase texts of ``chars`` characters (byte tokens)."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED + 320, seed])
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    return ["".join(rng.choice(letters, chars)) for _ in range(n)]
+
+
+def embed_vs_plain(torch, emb, texts) -> dict:
+    """The Embedder's embeddings of ``texts`` through the kernels (its
+    launches counted) against the plain route's: each row's cosine (≥
+    EMBED_COS) and the NMSE."""
+    reset_counts()
+    got, n_tok = emb.embed(texts)
+    counts = read_counts()
+    with PlainKernels():
+        ref, _ = emb.embed(texts)
+    got_t, ref_t = torch.from_numpy(got), torch.from_numpy(ref)
+    cos = torch.nn.functional.cosine_similarity(got_t.double(), ref_t.double(), dim=-1)
+    check(bool(torch.isfinite(got_t).all()) and float(cos.min()) >= EMBED_COS,
+          f"embeddings through the kernels against the plain route: cosine {cos.tolist()}")
+    return {"rows": len(texts), "tokens": n_tok, "min_cosine": float(cos.min()),
+            "nmse": nmse(got_t, ref_t), "launches": {k: counts[k] for k in ITEM5_KEYS}}
+
+
+def texts_per_s(torch, emb, texts, reps: int = 3) -> float:
+    emb.embed(texts)
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb.embed(texts)
+        runs.append(time.perf_counter() - t0)
+    return len(texts) / sorted(runs)[len(runs) // 2]
+
+
+def encoders_part(torch, d: str) -> dict:
+    """4p (a): nomic-embed-text-v1.5 packed (Q4_K / Q6_K, bf16) through the
+    Embedder at 16 rows (qmv) and 32 rows (qmm) against the plain route;
+    EmbeddingGemma-300M dense f32 (as ``serve --embed-model`` loads it) at
+    B 8 × T 512, its texts a second; nomic-embed-text-v2-moe dense f32 at
+    B 8 × T 512, its experts through gmm (the gather form would hold
+    about 150 GB), against the plain route."""
+    import gc
+
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.runtime.embedder import Embedder
+
+    out = {}
+    # nomic-embed-text-v1.5, packed
+    t0 = time.perf_counter()
+    path = os.path.join(d, "nomic-embed-text-v1.5.gguf")
+    bert_file(path, "nomic-v1.5", grammar_tokenizer(NOMIC_V15["V"]))
+    m = load_model(path, dtype=torch.bfloat16, keep_quantized=True, device="cuda")
+    os.remove(path)
+    emb = Embedder(m)
+    part = {"file_s": time.perf_counter() - t0}
+    part["rows16"] = embed_vs_plain(torch, emb, texts_of(1, 15, 1))
+    part["rows32"] = embed_vs_plain(torch, emb, texts_of(2, 15, 2))
+    check(part["rows16"]["launches"]["qmv"] > 0 and part["rows32"]["launches"]["qmm"] > 0,
+          f"nomic-embed-text-v1.5: qmv / qmm not launched: {part}")
+    part["texts_per_s_b8_t64"] = texts_per_s(torch, emb, texts_of(8, 60, 3))
+    out["nomic-embed-text-v1.5"] = part
+    del m, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    # EmbeddingGemma-300M, dense f32
+    t0 = time.perf_counter()
+    path = os.path.join(d, "embeddinggemma-300m.gguf")
+    gemma_embedding_file(path, grammar_tokenizer(EGEMMA["V"]))
+    m = load_model(path, device="cuda")
+    os.remove(path)
+    hp = m.hparams
+    check((hp.arch, hp.n_layer, hp.n_head, hp.n_head_kv, hp.head_dim, hp.swa_window)
+          == ("gemma-embedding", 24, 3, 1, 256, 512)
+          and [hp.is_swa_layer(il) for il in range(6)] == [True] * 5 + [False],
+          f"EmbeddingGemma from the file: {hp}")
+    emb = Embedder(m)
+    texts = texts_of(8, 500, 4)
+    got, n_tok = emb.embed(texts)
+    norms = torch.from_numpy(got).norm(dim=-1)
+    check(got.shape == (8, 768) and bool(torch.isfinite(norms).all())
+          and float((norms - 1).abs().max()) < 1e-4, f"EmbeddingGemma embeddings: {norms}")
+    out["EmbeddingGemma-300M"] = {"file_s": time.perf_counter() - t0, "batch": [8, 512],
+                                  "tokens": n_tok,
+                                  "texts_per_s_b8_t512": texts_per_s(torch, emb, texts)}
+    del m, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    # nomic-embed-text-v2-moe, dense f32, gmm
+    t0 = time.perf_counter()
+    path = os.path.join(d, "nomic-embed-text-v2-moe.gguf")
+    bert_file(path, "nomic-v2-moe", grammar_tokenizer(NOMIC_V2_MOE["V"]))
+    m = load_model(path, device="cuda")
+    os.remove(path)
+    check(m.hparams.extra.get("moe_every_n_layers") == 2
+          and tuple(m.params["layers"][1]["ffn_up_exps"].shape) == (8, 768, 3072),
+          "nomic-embed-text-v2-moe from the file: no expert banks on layer 1")
+    emb = Embedder(m)
+    texts = texts_of(8, 500, 5)
+    gather_bytes = 8 * 512 * 2 * 2 * 768 * 3072 * 4       # (B, T, K, E, F) f32, up and down
+    part = embed_vs_plain(torch, emb, texts)
+    check(part["launches"]["gmm"] > 0, f"nomic-embed-text-v2-moe: gmm not launched: {part}")
+    part.update({"file_s": time.perf_counter() - t0, "gather_form_bytes": gather_bytes,
+                 "texts_per_s_b8_t512": texts_per_s(torch, emb, texts)})
+    out["nomic-embed-text-v2-moe"] = part
+    del m, emb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def chat_file(path: str, tok) -> None:
+    """A one-layer 256-wide llama (Q4_K) over tok's vocab: the chat model a
+    ``serve`` beside an embedding model needs."""
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+
+    hp = llama3_8b_hparams(n_embd=256, n_layer=1, n_head=4, n_head_kv=2, head_dim=64,
+                           n_rot=64, n_ff=512, n_vocab=len(tok.vocab.tokens))
+    write_file_model(path, hp, tok, {**Q4_K_M_TYPES, "token_embd": "Q8_0", "output": "Q8_0"},
+                     "synthetic-chat-tiny")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def reranker_part(torch, d: str) -> dict:
+    """4p (b): the bge-reranker-v2-m3-width bert behind ``serve
+    --embed-model`` (a server process of the CLI beside a tiny chat model):
+    /v1/embeddings (normalized, 1,024 wide) and /rerank (the scores sorted,
+    equal to the in-process Embedder's on the same file within 1e-4) over
+    HTTP; the server's start and each request's seconds."""
+    import gc
+
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.runtime.embedder import Embedder
+
+    t0 = time.perf_counter()
+    tok = grammar_tokenizer(BGE_M3["V"])
+    enc = os.path.join(d, "bge-reranker-v2-m3.gguf")
+    chat = os.path.join(d, "chat-tiny.gguf")
+    bert_file(enc, "bge", tok)
+    chat_file(chat, grammar_tokenizer(512))
+    write_s = time.perf_counter() - t0
+    port = free_port()
+    log = open(os.path.join(OUT_DIR, "serve_embed_model.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "superllama_tpu_torch", "serve", "-m", chat,
+                             "--embed-model", enc, "--port", str(port), "--no-warmup",
+                             "-np", "1", "-c", "128"], stdout=log, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    query = "where does the eiffel tower stand"
+    docs = ["the eiffel tower stands in paris", "bananas are yellow", "paris is in france",
+            "a tower of blocks"]
+    try:
+        import urllib.error
+        import urllib.request
+
+        while True:
+            check(proc.poll() is None, "serve --embed-model exited; see serve_embed_model.log")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=5):
+                    break
+            except (urllib.error.URLError, OSError):
+                check(time.perf_counter() - t0 < 300, "serve --embed-model did not start")
+                time.sleep(0.5)
+        start_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        st, body = http(port, "/v1/embeddings", {"input": docs})
+        emb_s = time.perf_counter() - t1
+        data = json.loads(body)["data"]
+        vecs = torch.tensor([r["embedding"] for r in data])
+        check(st == 200 and vecs.shape == (4, 1024) and bool(torch.isfinite(vecs).all())
+              and float((vecs.norm(dim=-1) - 1).abs().max()) < 1e-4,
+              f"/v1/embeddings: {st} {tuple(vecs.shape)}")
+        t1 = time.perf_counter()
+        st, body = http(port, "/rerank", {"query": query, "documents": docs,
+                                          "return_documents": True})
+        rerank_s = time.perf_counter() - t1
+        results = json.loads(body)["results"]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+    scores = [r["relevance_score"] for r in results]
+    check(st == 200 and sorted(r["index"] for r in results) == [0, 1, 2, 3]
+          and scores == sorted(scores, reverse=True)
+          and all(r["document"]["text"] == docs[r["index"]] for r in results),
+          f"/rerank: {st} {results}")
+    m = load_model(enc, device="cuda")
+    own, _ = Embedder(m).rerank(query, docs)
+    diff = max(abs(r["relevance_score"] - own[r["index"]]) for r in results)
+    check(diff <= 1e-4 * max(1.0, max(abs(s) for s in own)),
+          f"/rerank scores against the in-process Embedder's: {scores} vs {own}")
+    hp = m.hparams
+    check((hp.arch, hp.n_layer, hp.n_embd, m.params["position_embd"].shape[0])
+          == ("bert", 24, 1024, 8194) and m.params["cls_out"] is not None,
+          f"the reranker from the file: {hp}")
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    for p in (enc, chat):
+        os.remove(p)
+    return {"write_s": write_s, "server_start_s": start_s, "embeddings_s": emb_s,
+            "rerank_s": rerank_s, "rerank_scores": scores, "score_diff_in_process": diff}
+
+
+class DiffusionTap:
+    """Within the block, ``runtime.diffusion.diffusion_generate`` (as the
+    CLI calls it) records its model, prompt, params and tokens, each forward
+    call's window, f32 logits and device ms (synchronized around it), and
+    each step's start; ``plain()`` then runs the same generation through
+    the plain route (PlainKernels) with the same records."""
+
+    def __enter__(self):
+        from superllama_tpu_torch.runtime import diffusion as mod
+
+        self.mod, self.real, self.runs = mod, mod.diffusion_generate, []
+        mod.diffusion_generate = self.generate
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.diffusion_generate = self.real
+
+    def generate(self, forward_fn, params, hp, ids, dp, step_callback=None):
+        import torch
+
+        rec = {"forward": forward_fn, "params": params, "hp": hp, "ids": list(ids), "dp": dp,
+               "calls": [], "steps": []}
+
+        def fwd(p, h, t, pos, cache):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, c = forward_fn(p, h, t, pos, cache)
+            torch.cuda.synchronize()
+            rec["calls"].append((t[0].tolist(), logits[0].float().cpu(),
+                                 (time.perf_counter() - t0) * 1e3))
+            return logits, c
+
+        def on_step(s, n, toks):
+            rec["steps"].append(time.perf_counter())
+            if step_callback:
+                step_callback(s, n, toks)
+
+        t0 = time.perf_counter()
+        rec["tokens"] = self.real(fwd, params, hp, ids, dp, on_step)
+        rec["end"], rec["start"] = time.perf_counter(), t0
+        self.runs.append(rec)
+        return rec["tokens"]
+
+    def plain(self, run: dict) -> dict:
+        with PlainKernels():
+            self.generate(run["forward"], run["params"], run["hp"], run["ids"], run["dp"])
+        return self.runs.pop()
+
+
+def step_split(run: dict) -> dict:
+    """A generation's ms a step, its forward's ms and the host's rest."""
+    steps = run["steps"] + [run["end"]]
+    wall = [(b - a) * 1e3 for a, b in zip(steps, steps[1:])]
+    fwd = [c[2] for c in run["calls"]]
+    n = len(wall)
+    return {"steps": n, "ms_a_step": sum(wall) / n, "forward_ms": sum(fwd) / n,
+            "host_ms": (sum(wall) - sum(fwd)) / n}
+
+
+def diffusion_rule(got: dict, ref: dict) -> dict:
+    """The kernel route's tokens (got) against the plain route's (ref):
+    equal, or parted at a step whose input window both routes shared, where
+    their logits agree within PATH_NMSE and every decision that differs is
+    a near tie: a position sampled to another token has the two
+    candidates' plain logits within 2 D (D the routes' largest logit
+    difference over the window); where no position's token differs (the
+    transfer sets parted), two positions' plain confidences lie within 2 ×
+    the routes' largest confidence difference."""
+    if got["tokens"] == ref["tokens"]:
+        return {"equal": True}
+    calls = list(zip(got["calls"], ref["calls"]))
+    j = next((i for i, (a, b) in enumerate(calls) if a[0] != b[0]), len(calls))
+    check(j > 0, "the routes' first windows differ")
+    (win, lg, _), (_, lr, _) = calls[j - 1]
+    D = float((lg - lr).abs().max())
+    err = nmse(lg, lr)
+    check(err <= PATH_NMSE, f"diffusion: the routes' logits at step {j - 1} NMSE {err}")
+    mask = got["dp"].mask_token_id
+    shift = got["dp"].shift_logits
+    worst = 0.0
+    for i, t in enumerate(win):
+        if t != mask:
+            continue
+        row_g, row_r = (lg[max(i - 1, 0)], lr[max(i - 1, 0)]) if shift else (lg[i], lr[i])
+        x, y = int(row_r.argmax()), int(row_g.argmax())
+        if x != y:
+            gap = float(row_r[x] - row_r[y])
+            worst = max(worst, gap)
+            check(gap <= 2 * D, f"diffusion step {j - 1}, position {i}: tokens {x} / {y} "
+                                f"{gap} apart, the routes only {D}")
+    if worst == 0.0:            # the same tokens: the transfer sets parted
+        rows = [max(i - 1, 0) if shift else i for i, t in enumerate(win) if t == mask]
+        cg = lg[rows].double().softmax(-1).amax(-1)
+        cr = lr[rows].double().softmax(-1).amax(-1)
+        cdiff = float((cg - cr).abs().max())
+        srt = cr.sort().values
+        tie = float((srt[1:] - srt[:-1]).min()) if len(rows) > 1 else float("inf")
+        check(tie <= 2 * cdiff, f"diffusion step {j - 1}: the transfer sets part, but the "
+                                f"nearest confidences lie {tie} apart, the routes {cdiff}")
+        worst = tie
+    return {"equal": False, "parted_at_step": j - 1, "logit_nmse": err, "spread": D,
+            "worst_gap": worst}
+
+
+def diffusion_file(path: str, cfg: dict, tok) -> None:
+    """A diffusion LM at published widths, DIFFUSION_LAYERS deep, Q4_K_M-style
+    (rand_raw bytes; every layer layer 0's), with the vocab's mask token:
+    LLaDA-8B's llama block, Dream-v0-7B's qwen2 block (q/k/v biases), or
+    RND1's qwen3-moe block (per-head q/k norms, 128 experts of 768, top
+    8)."""
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+
+    arch = cfg["arch"]
+    hp = llama3_8b_hparams(**{k: v for k, v in cfg.items() if k not in ("mask", "max_length")},
+                           n_layer=DIFFUSION_LAYERS, head_dim_v=cfg["head_dim"],
+                           n_rot=cfg["head_dim"])
+    f, ones = seeded(len(arch))
+    f32, experts, keys, types = {}, None, {}, Q4_K_M_TYPES
+    for il in range(hp.n_layer):
+        b = f"blk.{il}."
+        if arch == "dream":
+            for n, w in (("q", hp.n_head), ("k", hp.n_head_kv), ("v", hp.n_head_kv)):
+                f32[f"{b}attn_{n}.bias"] = f(w * hp.head_dim, scale=0.02)
+        if arch == "rnd1":
+            f32[b + "ffn_gate_inp.weight"] = router_weight(QWEN3_MOE_EXPERTS[0], hp.n_embd,
+                                                           SEED + 330 + il)
+            f32.update({b + "attn_q_norm.weight": ones(hp.head_dim),
+                        b + "attn_k_norm.weight": ones(hp.head_dim)})
+    if arch == "rnd1":
+        experts, keys, types = QWEN3_MOE_EXPERTS, dict(QWEN3_MOE_KEYS), QWEN3_MOE_TYPES
+    keys.update({"attention.key_length": hp.head_dim, "attention.value_length": hp.head_dim,
+                 "tokenizer.ggml.mask_token_id": cfg["mask"]})
+    write_file_model(path, hp, tok, types, f"synthetic-{arch}", shared_layers=True, arch=arch,
+                     keys=keys, experts=experts, f32_tensors=f32)
+
+
+def diffusion_part(torch, d: str, cfg: dict, label: str, need=()) -> dict:
+    """4p (c): one diffusion LM written, then the ``diffusion`` CLI on it
+    (--keep-quantized; the mask token the vocab's; Dream's shifted logits),
+    its generation recorded (DiffusionTap) and run again through the plain
+    route on the same params: tokens equal or parted at a near tie
+    (diffusion_rule); the launches of ``need`` (and qmv at a window of ≤ 16
+    tokens, qmm at 17-32), a step's ms split into the forward and the
+    host."""
+    import contextlib
+    import gc
+    import io
+
+    from superllama_tpu_torch import cli
+
+    tok = grammar_tokenizer(cfg["n_vocab"])
+    path = os.path.join(d, f"{cfg['arch']}.gguf")
+    t0 = time.perf_counter()
+    diffusion_file(path, cfg, tok)
+    write_s = time.perf_counter() - t0
+    argv = ["diffusion", "-m", path, "-p", "Hi", "--steps", str(DIFFUSION_STEPS),
+            "--max-length", str(cfg["max_length"]), "--keep-quantized"]
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with DiffusionTap() as tap, contextlib.redirect_stdout(out):
+        check(cli.main(argv) == 0, f"{label}: the diffusion CLI failed")
+        counts = read_counts()
+        cli_s = time.perf_counter() - t0
+        (run,) = tap.runs
+        tap.runs = []
+        ref = tap.plain(run)
+    os.remove(path)
+    kind = "qmv" if cfg["max_length"] <= 16 else "qmm"
+    for k in (kind,) + tuple(need):
+        check(counts[k] > 0, f"{label}: the diffusion run never launched {k}: {counts}")
+    toks = run["tokens"]
+    n_in = len(run["ids"])
+    check(len(toks) == cfg["max_length"] and cfg["mask"] not in toks[n_in:]
+          and out.getvalue().strip() != "", f"{label}: the CLI's window {toks}")
+    info = {"write_s": write_s, "cli_s": cli_s, "max_length": cfg["max_length"],
+            "prompt_tokens": n_in, "steps": DIFFUSION_STEPS, **step_split(run),
+            "plain": step_split(ref), "rule": diffusion_rule(run, ref),
+            "launches": {k: counts[k] for k in ITEM5_KEYS},
+            "hparams": {"arch": run["hp"].arch, "n_embd": run["hp"].n_embd,
+                        "n_layer": run["hp"].n_layer, "n_vocab": run["hp"].n_vocab}}
+    del run, ref, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def t5_file(path: str, tok) -> None:
+    """flan-t5-large at published widths, full depth (24 + 24 layers, 16
+    heads of 64, a GELU-gated FFN of 2,816, 32 relative buckets on layer 0
+    of each stack), Q4_K_M-style rand_raw bytes (every layer layer 0's)."""
+    c = FLAN_T5_LARGE
+    E, L, HD, F = c["E"], c["L"], c["H"] * c["D"], c["F"]
+    f, ones = seeded(5)
+    shapes = {"token_embd.weight": ("token_embd", c["V"], E), "output.weight": ("output", c["V"], E)}
+    f32 = {"enc.output_norm.weight": ones(E), "dec.output_norm.weight": ones(E)}
+    for side in ("enc", "dec"):
+        for il in range(L):
+            b = f"{side}.blk.{il}."
+            names = [("attn", "attn_q"), ("attn", "attn_k"), ("attn_v", "attn_v")]
+            if side == "dec":
+                names += [("attn", "cross_attn_q"), ("attn", "cross_attn_k"),
+                          ("attn_v", "cross_attn_v")]
+                shapes[b + "cross_attn_o.weight"] = ("attn_output", E, HD)
+                f32[b + "cross_attn_norm.weight"] = ones(E)
+            for role, n in names:
+                shapes[f"{b}{n}.weight"] = ({"attn": "attn_q", "attn_v": "attn_v"}[role], HD, E)
+            shapes.update({b + "attn_o.weight": ("attn_output", E, HD),
+                           b + "ffn_gate.weight": ("ffn_gate", F, E),
+                           b + "ffn_up.weight": ("ffn_up", F, E),
+                           b + "ffn_down.weight": ("ffn_down", E, F)})
+            f32.update({b + "attn_norm.weight": ones(E), b + "ffn_norm.weight": ones(E)})
+            if il == 0:
+                f32[b + "attn_rel_b.weight"] = f(c["buckets"], c["H"], scale=0.5)
+    md = {"context_length": 512, "embedding_length": E, "block_count": L,
+          "decoder_block_count": L, "feed_forward_length": F, "attention.head_count": c["H"],
+          "attention.head_count_kv": c["H"], "attention.key_length": c["D"],
+          "attention.value_length": c["D"], "attention.layer_norm_rms_epsilon": 1e-6,
+          "attention.relative_buckets_count": c["buckets"], "decoder_start_token_id": 0,
+          "vocab_size": c["V"]}
+    item5_file(path, "t5", md, tok, shapes, f32, Q4_K_M_TYPES)
+
+
+def t5_part(torch, d: str) -> dict:
+    """4p (d): flan-t5-large packed (bf16), full depth: the bucket table on
+    the card equal to the CPU's (|rel| ≤ 512, 32 buckets, both
+    directions); ``T5Model.generate`` (a 32-token source through qmm, each
+    decode step through qmv) against the plain route, tokens equal or
+    parted where the two candidates' logits lie within the routes'
+    difference (teacher-forced over the plain tokens, NMSE ≤ PATH_NMSE);
+    the encoder's ms and the decoder's ms a token."""
+    import gc
+
+    import numpy as np
+
+    from superllama_tpu_torch.models import t5 as t5mod
+    from superllama_tpu_torch.models.loader import load_model
+    from superllama_tpu_torch.runtime.kv_cache import kv_cache_init
+
+    c = FLAN_T5_LARGE
+    path = os.path.join(d, "flan-t5-large.gguf")
+    t0 = time.perf_counter()
+    t5_file(path, grammar_tokenizer(c["V"]))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m = load_model(path, dtype=torch.bfloat16, keep_quantized=True, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    hp = m.hparams
+    check((hp.arch, hp.n_layer, hp.dec_n_layer, hp.n_rel_attn_bkts) == ("t5", 24, 24, 32)
+          and len(m.params["dec_layers"]) == 24, f"flan-t5-large from the file: {hp}")
+    rel = torch.arange(-512, 513, dtype=torch.int32)[None]
+    for bi in (True, False):
+        on = t5mod.relative_position_bucket(rel.cuda(), 32, bi).cpu()
+        check(torch.equal(on, t5mod.relative_position_bucket(rel, 32, bi)),
+              f"the bucket table on the card differs from the CPU's (bidirectional {bi})")
+    src = token_prompts(c["V"], [T5_SRC], SEED + 340)[0]
+    model = t5mod.T5Model(m, n_ctx=64)
+    reset_counts()
+    with torch.no_grad():
+        enc = t5mod.t5_encode(m.params, hp, torch.tensor([src], device="cuda"))
+    enc_counts = read_counts()
+    reset_counts()
+    got = model.generate(src, T5_GEN)
+    counts = read_counts()
+    check(enc_counts["qmm"] > 0 and counts["qmv"] > 0,
+          f"flan-t5-large: qmm {enc_counts['qmm']} in the encoder, qmv {counts['qmv']}")
+    with PlainKernels():
+        ref = model.generate(src, T5_GEN)
+
+    def last_logits(prefix):
+        with torch.no_grad():
+            e = t5mod.t5_encode(m.params, hp, torch.tensor([src], device="cuda"))
+            ckv = t5mod.t5_cross_kv(m.params, hp, e)
+            cache = kv_cache_init(hp.dec_n_layer, 1, 64, hp.n_head, hp.head_dim, hp.head_dim,
+                                  dtype=torch.float32, device="cuda")
+            ids = [hp.dec_start_token_id] + list(prefix)
+            pos = torch.arange(len(ids), dtype=torch.int32, device="cuda")[None]
+            lg, _ = t5mod.t5_decode(m.params, hp, torch.tensor([ids], device="cuda"), pos,
+                                    cache, ckv)
+            return lg[0, -1].float().cpu()
+
+    rule = {"equal": got == ref}
+    if got != ref:
+        i = first_divergence(ref, got)
+        check(i is not None, f"flan-t5-large: {len(got)} tokens against {len(ref)}")
+        b = last_logits(ref[:i])
+        with PlainKernels():
+            a = last_logits(ref[:i])
+        gap, D = abs(float(a[ref[i]] - a[got[i]])), float((a - b).abs().max())
+        check(gap <= D and nmse(b, a) <= PATH_NMSE,
+              f"flan-t5-large: tokens part at {i}, {gap} apart, routes {D} apart")
+        rule.update({"parted_at": i, "logit_gap": gap, "path_diff": D, "nmse": nmse(b, a)})
+    enc_ms = cuda_ms(torch, lambda i: t5mod.t5_encode(m.params, hp,
+                                                      torch.tensor([src], device="cuda")), 3, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = len(model.generate(src, T5_GEN))
+    gen_s = time.perf_counter() - t0
+    info = {"write_s": write_s, "load_s": load_s, "src_tokens": T5_SRC, "tokens": n,
+            "rule": rule, "encoder_ms": enc_ms, "ms_a_token": (gen_s * 1e3 - enc_ms) / n,
+            "launches_encoder": {k: enc_counts[k] for k in ITEM5_KEYS},
+            "launches_generate": {k: counts[k] for k in ITEM5_KEYS},
+            "enc_finite": bool(torch.isfinite(enc.float()).all())}
+    check(info["enc_finite"] and np.all(np.asarray(got) < c["V"]), "flan-t5-large outputs")
+    del m, model, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def voice_file(path: str, tok) -> None:
+    """OuteTTS-0.2-500M's voice LM (Qwen2.5-0.5B widths: 24 layers, 14 heads
+    over 2 kv heads of 64, FFN 4,864, q/k/v biases, a tied head; the
+    157,696-piece vocab), Q8_0 rand_raw bytes (every layer layer 0's), its
+    head's bias lifting the audio-code rows (151,672-155,767) so that greedy
+    decoding of random weights emits codes."""
+    import numpy as np
+
+    from superllama_tpu_torch.models.synthetic import llama3_8b_hparams
+    from superllama_tpu_torch.tools.tts import CODE_OFFSET
+
+    c = OUTETTS
+    hp = llama3_8b_hparams(arch="qwen2", n_embd=c["E"], n_layer=c["L"], n_head=c["H"],
+                           n_head_kv=c["HKV"], head_dim=c["D"], head_dim_v=c["D"],
+                           n_rot=c["D"], n_ff=c["F"], n_vocab=c["V"], rope_freq_base=1e6,
+                           rms_eps=1e-6)
+    f, _ = seeded(11)
+    bias = np.zeros(c["V"], np.float32)
+    bias[CODE_OFFSET:CODE_OFFSET + WAVTOK["V"]] = 8.0
+    f32 = {"output.bias": bias}
+    for il in range(hp.n_layer):
+        for n, w in (("q", c["H"]), ("k", c["HKV"]), ("v", c["HKV"])):
+            f32[f"blk.{il}.attn_{n}.bias"] = f(w * c["D"], scale=0.02)
+    q8 = {role: "Q8_0" for role in Q4_K_M_TYPES}
+    write_file_model(path, hp, tok, q8, "synthetic-outetts-0.2-500m", shared_layers=True,
+                     arch="qwen2", tied=True, f32_tensors=f32)
+
+
+def wavtokenizer_file(path: str) -> None:
+    """WavTokenizer-large's decoder at published widths (512 features, a
+    768-wide posnet of 6 blocks and 12 ConvNeXt blocks of 768 / 2,304, 4,096
+    codes, a 1,282-wide head for n_fft 1,280), seeded F32 weights."""
+    from superllama_tpu_torch.gguf import GGUFWriter
+
+    c = WAVTOK
+    f, ones = seeded(13)
+    t = {"token_embd.weight": f(c["V"], c["feat"], scale=1.0),
+         "conv1d.weight": f(c["pe"], c["feat"], 7, scale=(c["feat"] * 7) ** -0.5),
+         "conv1d.bias": f(c["pe"], 1, scale=0.02)}
+    for il, kind in enumerate(("res", "res", "attn", "res", "res", "norm")):
+        b = f"posnet.{il}."
+        if kind == "res":
+            for n in ("norm1", "norm2"):
+                t[b + n + ".weight"], t[b + n + ".bias"] = ones(c["pe"], 1), f(c["pe"], 1, scale=0.02)
+            for n in ("conv1", "conv2"):
+                t[b + n + ".weight"] = f(c["pe"], c["pe"], 3, scale=0.5 * (c["pe"] * 3) ** -0.5)
+                t[b + n + ".bias"] = f(c["pe"], 1, scale=0.02)
+        elif kind == "attn":
+            t[b + "attn_norm.weight"], t[b + "attn_norm.bias"] = ones(c["pe"], 1), f(c["pe"], 1,
+                                                                                    scale=0.02)
+            for n in ("attn_q", "attn_k", "attn_v", "attn_output"):
+                t[b + n + ".weight"] = f(c["pe"], c["pe"], 1, scale=c["pe"] ** -0.5)
+                t[b + n + ".bias"] = f(c["pe"], 1, scale=0.02)
+        else:
+            t[b + "norm.weight"], t[b + "norm.bias"] = ones(c["pe"], 1), f(c["pe"], 1, scale=0.02)
+    t["token_embd_norm.weight"], t["token_embd_norm.bias"] = ones(c["pe"]), f(c["pe"], scale=0.02)
+    for il in range(c["convnext"]):
+        b = f"convnext.{il}."
+        t.update({b + "dw.weight": f(c["ce"], 1, 7, scale=7 ** -0.5),
+                  b + "dw.bias": f(c["ce"], 1, scale=0.02), b + "norm.weight": ones(c["ce"]),
+                  b + "norm.bias": f(c["ce"], scale=0.02),
+                  b + "pw1.weight": f(c["F"], c["ce"], scale=c["ce"] ** -0.5),
+                  b + "pw1.bias": f(c["F"], scale=0.02),
+                  b + "pw2.weight": f(c["ce"], c["F"], scale=c["F"] ** -0.5),
+                  b + "pw2.bias": f(c["ce"], scale=0.02),
+                  b + "gamma.weight": f(c["ce"], scale=0.1)})
+    t["output_norm.weight"], t["output_norm.bias"] = ones(c["ce"]), f(c["ce"], scale=0.02)
+    t["output.weight"] = f(c["n_out"], c["ce"], scale=0.3 * c["ce"] ** -0.5)
+    t["output.bias"] = f(c["n_out"], scale=0.1)
+    md = {"embedding_length": c["ce"], "features_length": c["feat"],
+          "posnet.embedding_length": c["pe"], "posnet.block_count": 6,
+          "convnext.embedding_length": c["ce"], "convnext.block_count": c["convnext"],
+          "attention.group_norm_groups": 32, "attention.group_norm_epsilon": 1e-6,
+          "feed_forward_length": c["F"], "vocab_size": c["V"],
+          "attention.layer_norm_epsilon": 1e-6}
+    w = GGUFWriter(path, arch="wavtokenizer-dec")
+    w.add("general.name", "synthetic-wavtokenizer-large")
+    for k, v in md.items():
+        w.add(f"wavtokenizer-dec.{k}", v)
+    for n, a in t.items():
+        w.add_tensor(n, a)
+    w.write()
+
+
+class TTSTap:
+    """Within the block, ``tools.tts.tts_generate`` (as the CLI calls it)
+    records its two models, its seconds and its audio."""
+
+    def __enter__(self):
+        from superllama_tpu_torch.tools import tts as mod
+
+        self.mod, self.real, self.rec = mod, mod.tts_generate, {}
+        mod.tts_generate = self.generate
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.tts_generate = self.real
+
+    def generate(self, ttc, cts, text, n_predict=1024):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio = self.real(ttc, cts, text, n_predict)
+        self.rec.update(ttc=ttc, cts=cts, seconds=time.perf_counter() - t0, audio=audio)
+        return audio
+
+
+def tts_part(torch, d: str) -> dict:
+    """4p (e): the ``tts`` CLI with the OuteTTS-width voice LM and the
+    WavTokenizer-large-width decoder (both dense f32, as the CLI loads
+    them): a prompt of ≥ 32 tokens (its prefill through fa's CUDA-core
+    kernel: an f32 cache), TTS_CODES greedy codes, a WAV of non-zero
+    samples; the pipeline's seconds a second of audio; the decoder's frames
+    on fixed codes against its CPU run on the same weights (NMSE ≤
+    ARCH_NMSE: cuDNN's convolutions may take TF32)."""
+    import gc
+    import wave
+
+    import numpy as np
+
+    from superllama_tpu_torch import cli
+    from superllama_tpu_torch.models.wavtokenizer import wavtokenizer_decode
+    from superllama_tpu_torch.tools.tts import SAMPLE_RATE, tts_prompt
+
+    tok = grammar_tokenizer(OUTETTS["V"], control=TTS_CONTROL)
+    voice, vocoder = os.path.join(d, "outetts.gguf"), os.path.join(d, "wavtokenizer.gguf")
+    wav_out = os.path.join(d, "out.wav")
+    t0 = time.perf_counter()
+    voice_file(voice, tok)
+    wavtokenizer_file(vocoder)
+    write_s = time.perf_counter() - t0
+    n_prompt = len(tok.encode(tts_prompt(TTS_TEXT), add_special=True, parse_special=True))
+    check(n_prompt >= 32, f"the TTS prompt is {n_prompt} tokens")
+    reset_counts()
+    t0 = time.perf_counter()
+    with TTSTap() as tap:
+        check(cli.main(["tts", "-m", voice, "-mv", vocoder, "-p", TTS_TEXT, "-o", wav_out,
+                        "-n", str(TTS_CODES)]) == 0, "the tts CLI failed")
+    cli_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["fa"] > 0, f"the TTS prompt never launched fa: {counts}")
+    with wave.open(wav_out) as w:
+        check(w.getframerate() == SAMPLE_RATE and w.getnchannels() == 1, "the WAV's format")
+        pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+    audio = tap.rec["audio"]
+    check(pcm.size == audio.size == (TTS_CODES - 1) * 320 + 1280 - 960
+          and int(np.abs(pcm).max()) > 0, f"the WAV: {pcm.size} samples, max {np.abs(pcm).max()}")
+    cts = tap.rec["cts"]
+    codes = torch.arange(64, device="cuda")[None] * 61 % WAVTOK["V"]
+    with torch.no_grad():
+        got = wavtokenizer_decode(cts.params, cts.hparams, codes).float().cpu()
+        cpu = {k: ([{n: t.cpu() for n, t in layer.items()} for layer in v]
+                   if isinstance(v, list) else (v.cpu() if v is not None else None))
+               for k, v in cts.params.items()}
+        ref = wavtokenizer_decode(cpu, cts.hparams, codes.cpu())
+    err = nmse(got, ref)
+    check(err <= ARCH_NMSE, f"the WavTokenizer frames on the card against the CPU: NMSE {err}")
+    with torch.no_grad():
+        decoder_ms = cuda_ms(torch, lambda i: wavtokenizer_decode(
+            cts.params, cts.hparams, codes[:, :TTS_CODES]), 5, 1)
+    info = {"write_s": write_s, "cli_s": cli_s, "prompt_tokens": n_prompt, "codes": TTS_CODES,
+            "samples": int(pcm.size), "audio_s": pcm.size / SAMPLE_RATE,
+            "pipeline_s": tap.rec["seconds"],
+            "s_per_audio_s": tap.rec["seconds"] / (pcm.size / SAMPLE_RATE),
+            "decoder_ms": decoder_ms, "decoder_frames_nmse_vs_cpu": err,
+            "launches": {k: counts[k] for k in ITEM5_KEYS}}
+    for p in (voice, vocoder, wav_out):
+        os.remove(p)
+    del tap, cts, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
+def item5_attention_times(torch) -> dict:
+    """The plain attention the encoders and the diffusion LMs run (ROADMAP §2
+    holds its kernel form), timed by CUDA events, beside fa_tc's causal
+    time at the same shape (bf16): EmbeddingGemma's B 8 × T 512 (3 heads
+    over 1 kv head of 256; ``attention_ref`` with the key-padding mask, f32
+    as served, and bf16) and LLaDA-8B's window of 128 (the CLI's default
+    max_length; 32 heads of 128; ``llada.bidirectional_attention``, bf16)."""
+    from superllama_tpu_torch.models.llada import bidirectional_attention
+    from superllama_tpu_torch.ops import ref as ops
+    from superllama_tpu_torch.ops.flash_attention import flash_attention
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 350)
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    out = {}
+    B, T, H, D = 8, 512, 3, 256
+    pos = torch.arange(T, **i32)[None].expand(B, T).contiguous()
+    mask = torch.zeros((B, 1, 1, T), device="cuda")
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = rnd(B, T, H, D, dtype=dt), rnd(B, 1, T, D, dtype=dt), rnd(B, 1, T, D, dtype=dt)
+        out[f"egemma_b8_t512_plain_{name}_ms"] = cuda_ms(
+            torch, lambda i: ops.attention_ref(q, k, v, mask, scale=D ** -0.5), 10)
+    q, k, v = rnd(B, T, H, D), rnd(B, 1, T, D), rnd(B, 1, T, D)
+    out["egemma_b8_t512_fa_tc_causal_ms"] = cuda_ms(
+        torch, lambda i: flash_attention(q, k, v, pos, pos, scale=D ** -0.5), 20)
+    T, H, D = 128, 32, 128
+    pos = torch.arange(T, **i32)[None]
+    q, k, v = rnd(1, T, H, D), rnd(1, T, H, D), rnd(1, T, H, D)
+    out["llada8b_t128_plain_bf16_ms"] = cuda_ms(
+        torch, lambda i: bidirectional_attention(q, k, v, D ** -0.5), 20)
+    kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    out["llada8b_t128_fa_tc_causal_ms"] = cuda_ms(
+        torch, lambda i: flash_attention(q, kc, vc, pos, pos, scale=D ** -0.5), 20)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_item5(torch, smi_line: str) -> dict:
+    """4p. Encoders, T5, diffusion LMs and TTS: each part's line with its
+    seconds so far (``at_s``), the card's name and power limit, and the
+    launches of its own run (counts set to 0 just before it)."""
+    import shutil
+    import tempfile
+
+    t_all = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="item5_", dir=build)
+    out = {}
+    try:
+        parts = [("encoders", lambda: encoders_part(torch, d)),
+                 ("reranker_server", lambda: reranker_part(torch, d)),
+                 ("diffusion_llada_8b", lambda: diffusion_part(torch, d, LLADA_8B, "LLaDA-8B")),
+                 ("diffusion_dream_7b", lambda: diffusion_part(torch, d, DREAM_7B, "Dream-v0-7B")),
+                 ("diffusion_rnd1", lambda: diffusion_part(torch, d, RND1, "RND1", ("gmm",))),
+                 ("t5_flan_large", lambda: t5_part(torch, d)),
+                 ("tts_outetts", lambda: tts_part(torch, d)),
+                 ("attention_times", lambda: item5_attention_times(torch))]
+        for name, run in parts:
+            t0 = time.perf_counter()
+            out[name] = run()
+            emit({"phase": f"item5_{name}", "card": smi_line, **out[name],
+                  "seconds": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    launches = {}
+
+    def add(obj):
+        for key, v in obj.items():
+            if key.startswith("launches"):
+                for k, n in v.items():
+                    launches[k] = launches.get(k, 0) + n
+            elif isinstance(v, dict):
+                add(v)
+
+    add(out)
+    for k in ("qmv", "qmm", "fa", "gmm"):
+        check(launches.get(k, 0) > 0, f"phase 4p never launched {k}: {launches}")
+    emit({"phase": "item5", "card": smi_line, "launches": launches,
+          "seconds": time.perf_counter() - t_all})
+    return {"launches": launches}
+
+
 # ------------------------------------------------------------ main
 
 # (name, source, the TPU kernel it replaces, the timing entry of its record)
@@ -8503,6 +9495,10 @@ def main() -> int:
         # linear attention and short convs alone (phase 4o)
         phase_linear(torch, info["nvidia_smi"])
         return 0
+    if "--encoders" in sys.argv[1:]:
+        # encoders, T5, diffusion LMs and TTS alone (phase 4p)
+        phase_item5(torch, info["nvidia_smi"])
+        return 0
     if "--state" in sys.argv[1:]:
         # the engine's state between requests alone (phase 4e)
         phase_state(torch, build_model(torch, n_layer=CUT_LAYERS), info["nvidia_smi"])
@@ -8557,6 +9553,9 @@ def main() -> int:
     lin = phase_linear(torch, info["nvidia_smi"])
     checks += lin["checks"]
     counts.update(lin["launches"])
+    # encoders, T5, diffusion LMs and TTS: their paths' qmv, qmm, fa and gmm
+    # launches are read in the phase's own lines
+    phase_item5(torch, info["nvidia_smi"])
     phase_parity(torch, model)
     phase_cache_parity(torch, model)
     phase_chunk_parity(torch, model)

@@ -12,14 +12,19 @@ package's CLI:
   imatrix        collect an importance matrix over a calibration text
   perplexity     perplexity, or hellaswag / winogrande / multiple-choice scores
   cvector-generator  a control vector from positive and negative prompts
+  diffusion      diffusion-LM generation by iterative demasking (LLaDA, Dream, RND1)
+  tts            text to speech: an OuteTTS voice LM and a WavTokenizer decoder
 
 Usage:  python -m superllama_tpu_torch <command> [options]
 
 ``run`` and ``serve`` take the option table of ``args.py`` (the JAX
 package's, each option with its LLAMA_ARG_* environment mirror: flag > env
 > default); ``--control-vector FILE[:SCALE]`` (repeatable) adds each
-vector, scaled, to the residual stream after every layer. A flag of a feature the port does not have yet (``UNPORTED``)
-makes them (and ``perplexity``) exit with code 2; flags the JAX CLI
+vector, scaled, to the residual stream after every layer; ``serve
+--embed-model FILE`` loads an encoder (dense, as the JAX CLI loads it) for
+``/embeddings`` and ``/rerank``. A flag of a feature the port does not have
+yet (``UNPORTED``) makes them (and ``perplexity`` and ``diffusion``) exit
+with code 2; flags the JAX CLI
 accepts and ignores are accepted and ignored. All run on the GPU unless
 ``--device cpu`` is given (``quantize`` runs on the host).
 """
@@ -33,7 +38,7 @@ import time
 
 _KV_DTYPES = ("bfloat16", "float32", "q8_0", "q4_0")
 # dest -> flag of the options whose feature is not ported yet
-UNPORTED = {"lora": "--lora", "embed_model": "--embed-model", "mmproj": "--mmproj",
+UNPORTED = {"lora": "--lora", "mmproj": "--mmproj",
             "hf_repo": "-hf/--hf-repo", "model_url": "-mu/--model-url"}
 
 
@@ -197,20 +202,22 @@ def cmd_serve(args) -> int:
 
     if _unported(args):
         return 2
+    from .models import load_model
+
     model, kvd = _load(args)
     draft = None
     if args.draft_model:
-        from .models import load_model
-
         draft = load_model(args.draft_model, keep_quantized=args.keep_quantized,
                            device=args.device)
+    embed = load_model(args.embed_model, device=args.device) if args.embed_model else None
     # -np/--slots/--parallel: the table names it by its longest flag
     app = ServerApp(model, n_slots=args.parallel, n_ctx=args.ctx_size, kv_dtype=kvd,
                     device=args.device, paged=args.paged_kv,
                     page_size=args.kv_page_size, n_pages=args.kv_pages,
                     warmup=not args.no_warmup, draft_model=draft, n_draft=args.draft_n,
                     api_keys=api_keys_from(args.api_key) or None,
-                    rate_limit_rpm=args.rate_limit, metrics_path=args.metrics_file)
+                    rate_limit_rpm=args.rate_limit, metrics_path=args.metrics_file,
+                    embed_model=embed)
     tls = ({"tls_cert": args.ssl_cert_file, "tls_key": args.ssl_key_file}
            if args.ssl_cert_file else {})
     srv = Server(app, host=args.host, port=args.port, **tls)
@@ -367,6 +374,56 @@ def cmd_cvector_generator(args) -> int:
     return 0
 
 
+def cmd_diffusion(args) -> int:
+    """Diffusion-LM demasking generation (examples/diffusion counterpart):
+    the mask token from ``--mask-token-id`` or the vocab's, Dream's shifted
+    logits."""
+    from .models.registry import get_forward
+    from .runtime.diffusion import DiffusionParams, diffusion_generate
+
+    if _unported(args):
+        return 2
+    model, _ = _load(args)
+    tok = model.tokenizer
+    ids = tok.encode(args.prompt, add_special=True, parse_special=True)
+    mask_id = args.mask_token_id
+    if mask_id < 0:
+        mask_id = int(model.metadata.get("tokenizer.ggml.mask_token_id", -1))
+    if mask_id < 0:
+        print("error: no mask token (set --mask-token-id)", file=sys.stderr)
+        return 1
+    dp = DiffusionParams(
+        steps=args.steps, max_length=args.max_length, mask_token_id=mask_id,
+        algorithm=args.algorithm, schedule=args.schedule, temperature=args.temp,
+        top_k=args.top_k, top_p=args.top_p, block_length=args.block_length,
+        cfg_scale=args.cfg_scale, shift_logits=(model.hparams.arch == "dream"), seed=args.seed)
+    out = diffusion_generate(get_forward(model.hparams.arch), model.params, model.hparams, ids,
+                             dp, step_callback=(lambda s, n, t: print(
+                                 f"\rstep {s}/{n}", end="", file=sys.stderr))
+                             if args.progress else None)
+    if args.progress:
+        print(file=sys.stderr)
+    print(tok.decode(out[len(ids):]))
+    return 0
+
+
+def cmd_tts(args) -> int:
+    """OuteTTS text to speech (tools/tts counterpart): both models dense."""
+    from .models import load_model
+    from .tools.tts import SAMPLE_RATE, save_wav, tts_generate
+
+    ttc = load_model(args.model, device=args.device)
+    cts = load_model(args.model_vocoder, device=args.device)
+    audio = tts_generate(ttc, cts, args.prompt, n_predict=args.n_predict)
+    if audio.size == 0:
+        print("error: no audio codes generated", file=sys.stderr)
+        return 1
+    save_wav(args.output, audio)
+    print(f"wrote {args.output} ({audio.size} samples, {audio.size / SAMPLE_RATE:.2f}s)",
+          file=sys.stderr)
+    return 0
+
+
 def main(argv=None) -> int:
     from .args import add_options
 
@@ -381,6 +438,25 @@ def main(argv=None) -> int:
     p.add_argument("--profile-dir", help="write a torch.profiler trace of the run "
                    "(trace.json, Chrome trace format) into this directory")
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("diffusion", help="diffusion-LM generation (LLaDA/Dream)")
+    _add_model_args(p)
+    _add_adapter_args(p)
+    p.add_argument("-p", "--prompt", required=True)
+    p.add_argument("--steps", type=int, default=64)
+    p.add_argument("--max-length", type=int, default=128)
+    p.add_argument("--mask-token-id", type=int, default=-1)
+    p.add_argument("--algorithm", default="confidence",
+                   choices=["confidence", "entropy", "margin", "random", "origin"])
+    p.add_argument("--schedule", default="timestep", choices=["timestep", "block"])
+    p.add_argument("--block-length", type=int, default=32)
+    p.add_argument("--cfg-scale", type=float, default=0.0)
+    p.add_argument("--temp", type=float, default=0.0)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--progress", action="store_true")
+    p.set_defaults(fn=cmd_diffusion)
 
     p = sub.add_parser("serve", help="HTTP server")
     add_options(p, "serve")
@@ -459,6 +535,15 @@ def main(argv=None) -> int:
                    help="score JSONL multiple-choice tasks (MMLU-style)")
     p.add_argument("--tasks", type=int, default=0, help="max tasks to score")
     p.set_defaults(fn=cmd_perplexity)
+
+    p = sub.add_parser("tts", help="text-to-speech (OuteTTS + WavTokenizer)")
+    p.add_argument("-m", "--model", required=True, help="voice LM GGUF")
+    p.add_argument("-mv", "--model-vocoder", required=True, help="WavTokenizer decoder GGUF")
+    p.add_argument("-p", "--prompt", required=True)
+    p.add_argument("-o", "--output", default="output.wav")
+    p.add_argument("-n", "--n-predict", type=int, default=1024)
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.set_defaults(fn=cmd_tts)
 
     args = ap.parse_args(argv)
     return args.fn(args)

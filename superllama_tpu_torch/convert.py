@@ -45,11 +45,18 @@ def params_from_jax(params_np, hp: HParams, device=None):
     numpy planes (``jax.tree_util.tree_map(np.asarray, params)`` gives
     that) → the port's params on ``device`` (default CUDA). A layer's
     ``xielu`` array becomes the tuple of Python floats the port's forward
-    takes; every other array (``cvec``, 2-D q/k norms…) a tensor."""
+    takes; every other array (``cvec``, 2-D q/k norms…) a tensor. The
+    layer lists are checked against hp: ``layers`` (n_layer), T5's
+    ``enc_layers`` / ``dec_layers`` (n_layer / dec_n_layer), the
+    WavTokenizer decoder's ``posnet`` / ``convnext``."""
     dev = resolve_device(device)
-    if len(params_np.get("layers", [])) != hp.n_layer:
-        raise ValueError(f"expected {hp.n_layer} layers, got "
-                         f"{len(params_np.get('layers', []))}")
+    want = ({"enc_layers": hp.n_layer, "dec_layers": hp.dec_n_layer or hp.n_layer}
+            if "enc_layers" in params_np else
+            {"posnet": hp.posnet_n_layer, "convnext": hp.convnext_n_layer}
+            if "posnet" in params_np else {"layers": hp.n_layer})
+    for key, n in want.items():
+        if len(params_np.get(key, [])) != n:
+            raise ValueError(f"expected {n} {key}, got {len(params_np.get(key, []))}")
 
     def conv(v):
         if v is None:

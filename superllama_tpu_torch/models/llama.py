@@ -245,7 +245,8 @@ def _moe_shared_expert(x: torch.Tensor, layer: dict, hp: HParams,
 
 
 def _experts_apply(x: torch.Tensor, top_w: torch.Tensor, top_i: torch.Tensor, layer: dict,
-                   hp: HParams, bank: str = "exps", n_expert: int | None = None) -> torch.Tensor:
+                   hp: HParams, bank: str = "exps", n_expert: int | None = None,
+                   activation: str | None = None) -> torch.Tensor:
     """The routed experts of ``layer[f"ffn_*_{bank}"]`` over x for the
     selection (top_w, top_i): the S·K (token, expert) rows sorted by expert
     (a stable sort: token order within an expert), the group bounds found
@@ -281,7 +282,7 @@ def _experts_apply(x: torch.Tensor, top_w: torch.Tensor, top_i: torch.Tensor, la
             gate = gate + layer[f"ffn_gate_{bank}_b"][ei_s]
         act = _glu(gate.to(x.dtype), up.to(x.dtype), hp)
     else:        # gate-less experts
-        act = ops.ACT_FNS[hp.act](up.to(x.dtype))
+        act = ops.ACT_FNS[activation or hp.act](up.to(x.dtype))
     down = grouped_matmul(act, layer[f"ffn_down_{bank}"], offsets)
     if f"ffn_down_{bank}_b" in layer:
         down = down + layer[f"ffn_down_{bank}_b"][ei_s]

@@ -1,11 +1,10 @@
-"""GGUF → device params loader for the decoder architectures.
+"""GGUF → device params loader.
 
-Counterpart of the JAX package's ``models/loader.py::load_model`` (its
-decoder branch, without the encoder ones): reads tensors by name, keeps
-repackable 2-D matmul weights packed as QTensors when asked (or
-dequantizes them), transposes matmul weights to (in, out) so the forward
-uses ``x @ w`` (a 3-D one slice by slice, as JAX does), and places every
-tensor on the device once. Norm biases, post-norms under their ecosystem,
+Counterpart of the JAX package's ``models/loader.py::load_model``: reads
+tensors by name, keeps repackable 2-D matmul weights packed as QTensors
+when asked (or dequantizes them), transposes matmul weights to (in, out)
+so the forward uses ``x @ w`` (a 3-D one slice by slice, as JAX does), and
+places every tensor on the device once. Norm biases, post-norms under their ecosystem,
 legacy and unsuffixed names, the embedding norm, learned positions,
 ``attn_gate``, the sub-norms and MLA's ``wq_a`` / ``wq_b`` /
 ``attn_q_a_norm`` / ``wkv_a`` / ``wkv_b`` / ``attn_kv_a_norm`` load beside
@@ -29,6 +28,16 @@ A fused ``attn_qkv`` is read dequantized, as JAX reads it, and split into q
 / k / v; a fused gate ∥ up ``ffn_up`` is split by its GGUF rows before the
 repack, so a packed one serves as two QTensors (the JAX loader leaves a
 packed one fused, and its forward then fails on the widths).
+The encoders (``bert.py::ENCODER_ARCHS``) load through the same branch with
+their extras: token types, the classification head (``cls``, ``cls_out``
+and their biases), the bert family's post-norms under their encoder names
+(``attn_output_norm``, ``layer_output_norm``) with biases, jina-bert-v2's
+``attn_norm_2`` and neo-bert's ``enc.output_norm``; nomic-bert-moe's expert
+banks load as any bank. T5 (``t5``, ``t5encoder``) loads its ``enc.*`` and
+``dec.*`` namespaces into ``enc_layers`` / ``dec_layers``, and the
+WavTokenizer decoder (``wavtokenizer-dec``) its conv1d, posnet and convnext
+tensors, always dense: its forward multiplies with ``@``, as the JAX one
+does, and no packed weight could serve it.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ from ..gguf.quants import dequantize
 from ..ops.qtensor import REPACKABLE, QTensor, repack
 from ..server.security import decrypted
 from .hparams import HParams, hparams_from_gguf
-from .registry import get_forward
+from .registry import check_loadable
 
 
 @dataclass
@@ -189,10 +198,101 @@ def _rwkv_layer(g, p: str) -> dict:
     return {key: g(p + name, t=t) for key, name, t in _RWKV_TENSORS}
 
 
+def _resolve(obj):
+    """``obj`` with every future replaced by its result."""
+    if isinstance(obj, dict):
+        return {k: _resolve(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_resolve(v) for v in obj]
+    return obj.result() if obj is not None else None
+
+
+def _present(layer: dict) -> dict:
+    return {k: v for k, v in layer.items() if v is not None}
+
+
+# the bert family's extras (key, GGUF name): the post-norm LayerNorms under
+# their encoder names with biases, jina-bert-v2's second attention norm
+_BERT_TENSORS = (("attn_post_norm", "attn_output_norm.weight"),
+                 ("attn_post_norm_b", "attn_output_norm.bias"),
+                 ("ffn_post_norm", "layer_output_norm.weight"),
+                 ("ffn_post_norm_b", "layer_output_norm.bias"),
+                 ("attn_norm_2", "attn_norm_2.weight"), ("attn_norm_2_b", "attn_norm_2.bias"))
+_BERT_ARCHS = ("bert", "nomic-bert", "nomic-bert-moe", "jina-bert-v2", "jina-bert-v3")
+
+# the WavTokenizer decoder's tensors (key, GGUF name, transposed)
+_WAV_GLOBALS = (("token_embd", "token_embd.weight", False), ("conv1d", "conv1d.weight", False),
+                ("conv1d_b", "conv1d.bias", False),
+                ("token_embd_norm", "token_embd_norm.weight", False),
+                ("token_embd_norm_b", "token_embd_norm.bias", False),
+                ("output_norm", "output_norm.weight", False),
+                ("output_norm_b", "output_norm.bias", False),
+                ("output", "output.weight", True), ("output_b", "output.bias", False))
+_WAV_POSNET = (("norm1_w", "norm1.weight"), ("norm1_b", "norm1.bias"),
+               ("conv1", "conv1.weight"), ("conv1_b", "conv1.bias"),
+               ("norm2_w", "norm2.weight"), ("norm2_b", "norm2.bias"),
+               ("conv2", "conv2.weight"), ("conv2_b", "conv2.bias"),
+               ("attn_norm_w", "attn_norm.weight"), ("attn_norm_b", "attn_norm.bias"),
+               ("attn_q", "attn_q.weight"), ("attn_q_b", "attn_q.bias"),
+               ("attn_k", "attn_k.weight"), ("attn_k_b", "attn_k.bias"),
+               ("attn_v", "attn_v.weight"), ("attn_v_b", "attn_v.bias"),
+               ("attn_o", "attn_output.weight"), ("attn_o_b", "attn_output.bias"),
+               ("norm_w", "norm.weight"), ("norm_b", "norm.bias"))
+_WAV_CONVNEXT = (("dw", "dw.weight", False), ("dw_b", "dw.bias", False),
+                 ("norm", "norm.weight", False), ("norm_b", "norm.bias", False),
+                 ("pw1", "pw1.weight", True), ("pw1_b", "pw1.bias", False),
+                 ("pw2", "pw2.weight", True), ("pw2_b", "pw2.bias", False),
+                 ("gamma", "gamma.weight", False))
+
+
+def _wavtokenizer_params(g, hp: HParams) -> dict:
+    """The WavTokenizer decoder's params (futures), as the JAX loader names
+    them (llama-model.cpp's tensor list)."""
+    params = {key: g(name, t=t, kq=False) for key, name, t in _WAV_GLOBALS}
+    params["posnet"] = [_present({key: g(f"posnet.{il}.{name}", t=False, kq=False)
+                                  for key, name in _WAV_POSNET})
+                        for il in range(hp.posnet_n_layer)]
+    params["convnext"] = [_present({key: g(f"convnext.{il}.{name}", t=t, kq=False)
+                                    for key, name, t in _WAV_CONVNEXT})
+                          for il in range(hp.convnext_n_layer)]
+    return params
+
+
+# T5's layer tensors (key, GGUF name after the layer prefix, transposed)
+_T5_ENC = (("attn_norm_enc", "attn_norm.weight", False), ("wq_enc", "attn_q.weight", True),
+           ("wk_enc", "attn_k.weight", True), ("wv_enc", "attn_v.weight", True),
+           ("wo_enc", "attn_o.weight", True), ("attn_rel_b_enc", "attn_rel_b.weight", False),
+           ("ffn_norm_enc", "ffn_norm.weight", False), ("ffn_gate_enc", "ffn_gate.weight", True),
+           ("ffn_up_enc", "ffn_up.weight", True), ("ffn_down_enc", "ffn_down.weight", True))
+_T5_DEC = (("attn_norm", "attn_norm.weight", False), ("wq", "attn_q.weight", True),
+           ("wk", "attn_k.weight", True), ("wv", "attn_v.weight", True),
+           ("wo", "attn_o.weight", True), ("attn_rel_b", "attn_rel_b.weight", False),
+           ("attn_norm_cross", "cross_attn_norm.weight", False),
+           ("wq_cross", "cross_attn_q.weight", True), ("wk_cross", "cross_attn_k.weight", True),
+           ("wv_cross", "cross_attn_v.weight", True), ("wo_cross", "cross_attn_o.weight", True),
+           ("ffn_norm", "ffn_norm.weight", False), ("ffn_gate", "ffn_gate.weight", True),
+           ("ffn_up", "ffn_up.weight", True), ("ffn_down", "ffn_down.weight", True))
+
+
+def _t5_params(g, hp: HParams) -> dict:
+    """T5's params (futures): the ``enc.*`` and ``dec.*`` namespaces
+    (llama-arch.cpp), as the JAX loader names them."""
+    params = {"token_embd": g("token_embd.weight", t=False), "output": g("output.weight"),
+              "output_norm_enc": g("enc.output_norm.weight", t=False),
+              "output_norm": g("dec.output_norm.weight", t=False)}
+    params["enc_layers"] = [_present({key: g(f"enc.blk.{il}.{name}", t=t)
+                                      for key, name, t in _T5_ENC})
+                            for il in range(hp.n_layer)]
+    params["dec_layers"] = [_present({key: g(f"dec.blk.{il}.{name}", t=t)
+                                      for key, name, t in _T5_DEC})
+                            for il in range(hp.dec_n_layer or hp.n_layer)]
+    return params
+
+
 def load_model(path: str, dtype: torch.dtype = torch.float32,
                keep_quantized: bool = False, device=None) -> LoadedModel:
-    """Load a decoder's GGUF: hparams + tokenizer + params on ``device``
-    (default CUDA).
+    """Load a GGUF: hparams + tokenizer + params on ``device`` (default
+    CUDA).
 
     keep_quantized=True keeps the matmul weights of every ``REPACKABLE``
     type packed as QTensors for the quantized kernels; other tensors are
@@ -224,7 +324,7 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                     extra.append(GGUFReader(p))
                     reader.tensors.update(extra[-1].tensors)
         hp = hparams_from_gguf(reader)
-        get_forward(hp.arch)              # raises for unported architectures
+        check_loadable(hp.arch)           # raises for a name no path runs
         tok = None
         if "tokenizer.ggml.tokens" in reader.metadata:
             from ..tokenizer import Tokenizer, vocab_from_gguf
@@ -243,6 +343,15 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                 return None
             return pool.submit(_get_bank, reader, name, dtype, dev)
 
+        if hp.arch in ("wavtokenizer-dec", "t5", "t5encoder"):
+            make = _wavtokenizer_params if hp.arch == "wavtokenizer-dec" else _t5_params
+            params = _resolve(make(g, hp))
+            if hp.arch == "wavtokenizer-dec":
+                tok = None                # the JAX loader gives the codec none
+            md = dict(reader.metadata)
+            return LoadedModel(hparams=hp, params=params, tokenizer=tok, metadata=md,
+                               name=md.get("general.name", ""))
+
         params: dict[str, Any] = {
             "token_embd": g("token_embd.weight", t=False),    # (V, E) lookup
             "output_norm": g("output_norm.weight", t=False),
@@ -252,7 +361,13 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
             "rope_freqs": g("rope_freqs.weight", t=False),     # llama3 factors
             "token_embd_norm": g("token_embd_norm.weight", t=False),   # bloom
             "token_embd_norm_b": g("token_embd_norm.bias", t=False),
-            "position_embd": g("position_embd.weight", t=False),       # gpt2
+            "position_embd": g("position_embd.weight", t=False),       # gpt2, bert
+            # the encoders' token types and classification head
+            "token_types": g("token_types.weight", t=False),
+            "cls": g("cls.weight"),
+            "cls_b": g("cls.bias", t=False),
+            "cls_out": g("cls.output.weight"),
+            "cls_out_b": g("cls.output.bias", t=False),
             # gemma3n's AltUp globals
             "per_layer_token_embd": g("per_layer_token_embd.weight", t=False),
             "per_layer_model_proj": g("per_layer_model_proj.weight"),
@@ -362,6 +477,8 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
             }
             if hp.arch.startswith("rwkv") or hp.arch == "arwkv7":
                 layer.update(_rwkv_layer(g, p))
+            if hp.arch in _BERT_ARCHS:
+                layer.update({key: g(p + name, t=False) for key, name in _BERT_TENSORS})
             for part in ("gate", "up", "down"):
                 # the expert banks with their biases, grovemoe's chunk banks
                 layer[f"ffn_{part}_exps"] = bank(p + f"ffn_{part}_exps.weight")
@@ -387,10 +504,10 @@ def _load(path: str, dtype: torch.dtype, keep_quantized: bool, dev) -> LoadedMod
                                 threads, rows=rows)
                     for rows in ((0, hp.n_ff), (hp.n_ff, 2 * hp.n_ff)))
             params["layers"].append(layer)
-        params = {k: [{n: f.result() if f is not None else None for n, f in layer.items()}
-                      for layer in v]
-                  if k == "layers" else (v.result() if v is not None else None)
-                  for k, v in params.items()}
+        if hp.arch == "neo-bert" and params["output_norm"] is None:
+            # neo-bert ships its final RMS norm as enc.output_norm
+            params["output_norm"] = g("enc.output_norm.weight", t=False)
+        params = _resolve(params)
         params["layers"] = [_finish_layer(reader, hp, il, layer, dtype, dev)
                             for il, layer in enumerate(params["layers"])]
         if hp.arch in ("lfm2", "lfm2moe") and params["output_norm"] is None:

@@ -7,18 +7,24 @@ those with sparse mixtures of experts and llama4) or to
 models to ``mamba_forward``, ``jamba_forward``, ``hybrid_forward`` and
 ``plamo2_forward``, and the linear-attention and short-conv models to the
 RWKV forwards, ``lfm2_forward``, ``qwen3next_forward`` and
-``gemma3n_forward``. The names the port refuses say which ROADMAP §1 item
-they wait for."""
+``gemma3n_forward``, and the diffusion LMs to ``llada_forward``: all 106
+names of the JAX registry. The encoders, T5 and the WavTokenizer decoder
+have no forward of the registry, as in JAX: they run through entry points
+of their own (``runtime/embedder.py``, ``models/t5.py``,
+``models/wavtokenizer.py``), and ``check_loadable`` lets the loader take
+them."""
 
 from __future__ import annotations
 
 from typing import Callable
 
+from .bert import ENCODER_ARCHS
 from .deepseek2 import deepseek2_forward
 from .gemma3n import gemma3n_forward
 from .hybrid import hybrid_forward
 from .jamba import jamba_forward
 from .lfm2 import lfm2_forward
+from .llada import llada_forward
 from .llama import llama_forward
 from .mamba import mamba_forward
 from .plamo2 import plamo2_forward
@@ -79,24 +85,45 @@ LINEAR_ARCHS = {
     "qwen3next": qwen3next_forward, "gemma3n": gemma3n_forward,
 }
 
-# what the JAX registry holds that the port does not serve yet, by the
-# ROADMAP §1 item it waits for
-WAITING = dict.fromkeys(("llama-embed", "cogvlm", "llada", "llada-moe", "dream", "rnd1"),
-                        "5 (encoders, multimodal and diffusion)")
+# the llama graph's text path, as the JAX registry sends them: llama-embed
+# (pooling is the host's), cogvlm (its fused qkv split at load; no path of
+# either package reads its vis_* bank)
+TEXT_PATH_ARCHS = ("llama-embed", "cogvlm")
+
+# the diffusion LMs: the llama / qwen2 / qwen3-moe blocks bidirectional and
+# without a cache (llada-moe and rnd1 on moe_ffn)
+DIFFUSION_ARCHS = ("llada", "llada-moe", "dream", "rnd1")
+
+# served through entry points of their own, not a registry forward
+OWN_PATHS = {**dict.fromkeys(sorted(ENCODER_ARCHS), "runtime/embedder.py"),
+             "t5": "models/t5.py", "t5encoder": "models/t5.py",
+             "wavtokenizer-dec": "models/wavtokenizer.py"}
 
 _REGISTRY: dict[str, ForwardFn] = {
-    **{arch: llama_forward for arch in LLAMA_ARCHS + MOE_ARCHS + LLAMA4_ARCHS},
+    **{arch: llama_forward
+       for arch in LLAMA_ARCHS + MOE_ARCHS + LLAMA4_ARCHS + TEXT_PATH_ARCHS},
     **{arch: deepseek2_forward for arch in MLA_ARCHS},
     **SSM_ARCHS,
     **LINEAR_ARCHS,
+    **{arch: llada_forward for arch in DIFFUSION_ARCHS},
 }
 
 
 def get_forward(arch: str) -> ForwardFn:
     fn = _REGISTRY.get(arch)
     if fn is None:
-        item = WAITING.get(arch)
-        why = (f"it waits for ROADMAP §1 item {item}" if item is not None
-               else "it is not in the JAX package's registry either")
-        raise NotImplementedError(f"architecture {arch!r} not ported yet: {why}")
+        where = OWN_PATHS.get(arch)
+        why = (f"it runs through {where}, not a forward of the registry" if where
+               else "the JAX package's registry has no such name either")
+        raise NotImplementedError(f"architecture {arch!r} has no registry forward: {why}")
     return fn
+
+
+def check_loadable(arch: str) -> None:
+    """Raise for a name that no path runs, in the port or in the JAX
+    package: neither a forward of the registry nor an entry point of
+    ``OWN_PATHS``."""
+    if arch not in _REGISTRY and arch not in OWN_PATHS:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not supported: no forward of the registry and no "
+            f"encoder, T5 or WavTokenizer path runs it, here or in the JAX package")

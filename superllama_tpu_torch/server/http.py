@@ -22,8 +22,11 @@ Counterpart of the JAX package's ``server/http.py`` (``ServerApp`` +
    ``/tokenize``, ``/detokenize``, ``/apply-template``,
    ``/slots/:id?action=save|restore|erase`` (files in a temporary
    directory of the server's own), ``/lora-adapters`` (no adapter is
-   loaded until LoRA is ported: any id gives 400), ``/embeddings`` and
-   ``/rerank`` (501: no embedding model until the encoders are ported) and
+   loaded until LoRA is ported: any id gives 400), ``/embeddings``
+   (``/embedding``, ``/v1/embeddings``; OpenAI's list of embeddings) and
+   ``/rerank`` (``/v1/rerank``, ``/reranking``, ``/v1/reranking``;
+   Jina / Cohere-style results) through the ``embed_model``'s ``Embedder``
+   (501 without one), and
    ``/profile/start`` / ``/profile/stop`` (a torch.profiler trace of live
    traffic, written as a Chrome trace; 409 for a second start or a stop
    without a trace).
@@ -125,7 +128,8 @@ class ServerApp:
     every graph key is captured before the first request, which then pays
     no capture. ``warmup_info`` keeps what it returned. ``draft_model`` /
     ``n_draft`` serve with speculative decoding (the draft on the target's
-    device)."""
+    device). ``embed_model`` (an encoder, on the target's device) serves
+    ``/embeddings`` and ``/rerank``."""
 
     def __init__(self, model: LoadedModel, n_slots: int = 4, n_ctx: int = 2048,
                  kv_dtype: torch.dtype | str | None = None, model_name: str | None = None,
@@ -133,13 +137,18 @@ class ServerApp:
                  n_pages: int | None = None, warmup: bool = True,
                  draft_model: LoadedModel | None = None, n_draft: int = 8,
                  api_keys: dict[str, str] | None = None, rate_limit_rpm: int = 0,
-                 metrics_path: str | None = None):
+                 metrics_path: str | None = None, embed_model: LoadedModel | None = None):
         self.model = model
         self.model_name = model_name or model.name or "model"
         self.engine = Engine(model, n_slots=n_slots, n_ctx=n_ctx,
                              kv_dtype=kv_dtype or torch.bfloat16, device=device,
                              paged=paged, page_size=page_size, n_pages=n_pages,
                              draft_model=draft_model, n_draft=n_draft)
+        self.embedder = None
+        if embed_model is not None:
+            from ..runtime.embedder import Embedder
+
+            self.embedder = Embedder(embed_model)
         self.chat_template = template_for_model(model)
         self.warmup = bool(warmup)
         self.warmup_info: dict | None = None
@@ -503,11 +512,36 @@ class ServerApp:
         return self.handle_completion(inner, client, stream_cb)
 
     def handle_embeddings(self, body: dict, client: str = "anonymous") -> dict:
-        """/embeddings: 501 until the encoders are ported (the JAX server
-        without ``--embed-model``)."""
-        raise NotImplementedError("no embedding model loaded")
+        """OpenAI /v1/embeddings and the native /embeddings: ``input`` (or
+        ``content``), a text or a list of them."""
+        if self.embedder is None:
+            raise NotImplementedError("no embedding model loaded")
+        inputs = body.get("input", body.get("content", ""))
+        texts = [inputs] if isinstance(inputs, str) else [str(x) for x in inputs]
+        embs, n_tok = self.embedder.embed(texts)
+        self.cost.record(client, self.model_name, n_tok, 0)
+        return {"object": "list", "model": body.get("model", self.model_name),
+                "data": [{"object": "embedding", "index": i, "embedding": e.tolist()}
+                         for i, e in enumerate(embs)],
+                "usage": {"prompt_tokens": n_tok, "total_tokens": n_tok}}
 
-    handle_rerank = handle_embeddings
+    def handle_rerank(self, body: dict, client: str = "anonymous") -> dict:
+        """Jina / Cohere-style /rerank: the documents by score, ``top_n``
+        of them, with their text under ``return_documents``."""
+        if self.embedder is None:
+            raise NotImplementedError("no embedding model loaded")
+        docs = body.get("documents", [])
+        texts = [d.get("text", "") if isinstance(d, dict) else str(d) for d in docs]
+        scores, n_tok = self.embedder.rerank(body["query"], texts)
+        order = sorted(range(len(scores)), key=lambda i: -scores[i])
+        top_n = int(body.get("top_n", len(order)))
+        results = [{"index": i, "relevance_score": scores[i]} for i in order[:top_n]]
+        if body.get("return_documents"):
+            for r in results:
+                r["document"] = {"text": texts[r["index"]]}
+        self.cost.record(client, self.model_name, n_tok, 0)
+        return {"model": body.get("model", self.model_name), "results": results,
+                "usage": {"prompt_tokens": n_tok, "total_tokens": n_tok}}
 
     def lora_list(self) -> list[dict]:
         return [{"id": i, "path": a["path"], "scale": a["scale"]}

@@ -10,9 +10,11 @@ tests/test_torch_archs_routes.py):
    ``deepseek2_forward`` is served, each with a parity case of its own (the
    dense ones in tests/test_torch_archs_1..11.py, the MoE ones in
    tests/test_torch_archs_moe_1..3.py, llama4 in tests/test_torch_llama4.py,
-   the MLA ones in tests/test_torch_mla.py); every other name of the JAX
-   registry raises NotImplementedError naming the ROADMAP item it waits
-   for, and ``_check_supported`` refuses only the expert-parallel MoE of
+   the MLA ones in tests/test_torch_mla.py); all 106 names of the JAX
+   registry resolve to the counterpart of their JAX forward (the diffusion
+   names' parity cases in tests/test_torch_diffusion.py), the encoders,
+   T5 and the WavTokenizer decoder name the entry point that runs them,
+   and ``_check_supported`` refuses only the expert-parallel MoE of
    ``moe_mesh`` (item 9).
 
 Tolerances: ops to rtol = atol = 1e-6 (f32, the same formulas; M-RoPE and
@@ -150,24 +152,31 @@ def test_every_registered_arch_has_a_parity_case():
 
 # llama4 and the MLA names: tests/test_torch_llama4.py, tests/test_torch_mla.py;
 # the SSM names: tests/test_torch_archs_ssm.py; the linear-attention and
-# short-conv names: tests/test_torch_archs_linear.py
+# short-conv names: tests/test_torch_archs_linear.py; the diffusion names:
+# tests/test_torch_diffusion.py
 SERVED = (set(REGISTERED) | set(MOE_REGISTERED) | {"llama4", "deepseek2", "minicpm3", "plm"}
           | set(SSM_REGISTERED) | set(LINEAR_REGISTERED))
 
 
-@pytest.mark.parametrize("arch", sorted(set(jregistry.supported_archs()) - SERVED))
-def test_unregistered_arch_names_its_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item [345]"):
-        tregistry.get_forward(arch)
-
-
-def test_waiting_list_covers_the_rest_of_the_jax_registry():
-    rest = set(jregistry.supported_archs()) - SERVED
-    assert rest == set(tregistry.WAITING)
-    assert not any("3 (" in why for why in tregistry.WAITING.values())
-    assert _jax_llama_names() - SERVED <= {"llama-embed", "cogvlm"}
-    assert len(SERVED) == 100 and len(tregistry.WAITING) == 6
-    assert SERVED <= set(tregistry._REGISTRY)
+def test_every_jax_registry_name_resolves_to_its_counterpart():
+    """All 106 names of the JAX registry resolve in the port's to the
+    forward of the same name in the module of the same name; the names no
+    registry holds (the encoders, T5, the WavTokenizer decoder) name the
+    entry point that runs them."""
+    names = set(jregistry.supported_archs())
+    assert len(names) == 106 and set(tregistry._REGISTRY) == names
+    assert SERVED | set(tregistry.TEXT_PATH_ARCHS) | set(tregistry.DIFFUSION_ARCHS) == names
+    assert not hasattr(tregistry, "WAITING")
+    for arch in sorted(names):
+        jfn, tfn = jregistry.get_forward(arch), tregistry.get_forward(arch)
+        assert (tfn.__name__, tfn.__module__.split(".")[-1]) == (
+            jfn.__name__, jfn.__module__.split(".")[-1]), arch
+    for arch, where in tregistry.OWN_PATHS.items():
+        with pytest.raises(NotImplementedError, match=f"runs through {where}"):
+            tregistry.get_forward(arch)
+        tregistry.check_loadable(arch)
+    with pytest.raises(NotImplementedError, match="registry has no such name"):
+        tregistry.get_forward("no-such-arch")
 
 
 @pytest.fixture(scope="module")

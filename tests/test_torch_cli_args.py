@@ -198,13 +198,10 @@ def test_serve_passes_the_front_door(monkeypatch, tmp_path):
 
 
 UNPORTED = [("--lora", "a.gguf"), ("--mmproj", "p.gguf"),
-            ("-hf", "user/model"), ("-mu", "http://host/m.gguf"),
-            ("--embed-model", "e.gguf")]
+            ("-hf", "user/model"), ("-mu", "http://host/m.gguf")]
 
 
-# --embed-model is a serve option only (as in the JAX table)
-REFUSALS = [(cmd, flag, val) for cmd in TOOLS for flag, val in UNPORTED
-            if not (cmd == "run" and flag == "--embed-model")]
+REFUSALS = [(cmd, flag, val) for cmd in TOOLS for flag, val in UNPORTED]
 
 
 @pytest.mark.parametrize("cmd,flag,val", REFUSALS, ids=[f"{c}{f}" for c, f, _ in REFUSALS])

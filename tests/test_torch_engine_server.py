@@ -253,6 +253,10 @@ def test_import_loads_no_jax():
         "import superllama_tpu_torch.ops.wkv, superllama_tpu_torch.models.rwkv\n"
         "import superllama_tpu_torch.models.lfm2, superllama_tpu_torch.models.qwen3next\n"
         "import superllama_tpu_torch.models.gemma3n\n"
+        "import superllama_tpu_torch.models.bert, superllama_tpu_torch.models.t5\n"
+        "import superllama_tpu_torch.models.llada, superllama_tpu_torch.models.wavtokenizer\n"
+        "import superllama_tpu_torch.runtime.embedder, superllama_tpu_torch.runtime.diffusion\n"
+        "import superllama_tpu_torch.tools.tts\n"
         "from superllama_tpu_torch import native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'superllama_tpu')]\n"
         "bad += [f'built at import: {n}' for n in native._libs]\n"

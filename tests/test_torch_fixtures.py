@@ -851,3 +851,39 @@ def arch_parity_tests(archs):
             np.testing.assert_allclose(g, r, **ARCH_TOL)
 
     return models, test_dense_cache_matches_jax, test_paged_cache_matches_jax
+
+
+# ------------------------------------------------------------ encoders
+# ref_arch_specs' encoder specs (its ENC_SPECS, never their build_gguf),
+# the vocabulary cut to V rows; with ``cls`` a classification head (cls with
+# its bias, a one-score cls.output with its bias), as a reranker ships.
+
+ENCODERS = ("bert", "gemma-embedding", "jina-bert-v2", "jina-bert-v3", "modern-bert",
+            "neo-bert", "nomic-bert", "nomic-bert-moe")
+
+
+def enc_spec(arch: str, V: int = ARCH_V, cls: bool = False) -> tuple[str, dict, dict]:
+    import ref_arch_specs
+
+    name, md, tensors = ref_arch_specs.ENC_SPECS[arch]()
+    tensors = {k: v[:V] if k == "token_embd.weight" else v for k, v in tensors.items()}
+    md = {**md, "vocab_size": V}
+    if cls:
+        p = _W(f"{arch}-cls")
+        E = md["embedding_length"]
+        p.w("cls.weight", E, E)
+        p.bias("cls.bias", E)
+        p.w("cls.output.weight", 1, E)
+        p.bias("cls.output.bias", 1)
+        tensors = {**tensors, **p.t}
+    return name, md, tensors
+
+
+def write_encoder(directory, arch: str, ggml_type=GGMLType.F32, vocab_fields=None,
+                  cls: bool = False) -> str:
+    """An encoder spec's GGUF (over ``vocab_fields``' pieces when given)."""
+    V = len(vocab_fields["tokenizer.ggml.tokens"]) if vocab_fields else ARCH_V
+    name, md, tensors = enc_spec(arch, V, cls)
+    tag = f"{arch}_{ggml_type.name}{'_cls' if cls else ''}{'_vocab' if vocab_fields else ''}"
+    return write_arch_gguf(directory / f"{tag}.gguf", name, md, tensors, ggml_type,
+                           vocab_fields=vocab_fields)
